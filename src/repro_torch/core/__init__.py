@@ -1,0 +1,2 @@
+"""Core math of the paper: the DCT basis, dynamic column selection,
+quantized error feedback, the projector and the fused step layer."""

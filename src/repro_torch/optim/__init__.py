@@ -1,0 +1,25 @@
+"""Low-rank adaptive optimizers built from composable gradient transforms.
+Ported so far: the paper's DCT-AdamW."""
+from .api import OPTIMIZERS, TRANSFORMS, get_optimizer, get_transform
+from .common import Optimizer, apply_updates
+from .projected_adam import dct_adamw, dct_adamw_transform
+from .transform import (
+    ChainState,
+    GradientTransform,
+    add_decayed_weights,
+    as_optimizer,
+    chain,
+    lowrank_project,
+    matrix_optimizer,
+    partition,
+    scale_by_adam,
+    scale_by_learning_rate,
+)
+
+__all__ = [
+    "OPTIMIZERS", "TRANSFORMS", "get_optimizer", "get_transform",
+    "Optimizer", "apply_updates", "dct_adamw", "dct_adamw_transform",
+    "GradientTransform", "ChainState", "chain", "partition", "as_optimizer",
+    "matrix_optimizer", "lowrank_project", "scale_by_adam",
+    "scale_by_learning_rate", "add_decayed_weights",
+]

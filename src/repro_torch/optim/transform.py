@@ -1,0 +1,271 @@
+"""Composable gradient-transform optimizer API (DESIGN.md §4).
+
+A ``GradientTransform`` is an ``(init, update)`` pair with the signature
+
+    init(params)                        -> state
+    update(updates, state, params, ctx) -> (updates, state)
+
+where the trees are flat ``{leaf path: tensor}`` dicts and ``ctx`` is the
+:class:`~repro_torch.optim.common.Context` threaded by the chain runtime.
+
+Combinators: ``chain`` (sequential composition) and ``partition`` (route
+leaves to transforms by label). Primitives: ``scale_by_adam`` (full-rank
+Adam), ``scale_by_learning_rate``, ``add_decayed_weights`` and
+``lowrank_project(rule)``, which lifts a per-matrix-leaf
+:class:`~repro_torch.optim.common.MatrixRule` to a whole-tree transform.
+``as_optimizer`` closes a transform into ``Optimizer(init, update)``: it
+owns the step counter and the shared-basis store.
+
+Not yet ported from ``repro.optim.transform``: ``inject_hyperparams``,
+``lr_scale_transform``, ``clip_global_norm``, ``scale_by_schedule``,
+per-leaf rule ``overrides``, ZeRO-1 and the telemetry collector.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch.core.transforms import (
+    basis_store_key,
+    normalize_basis_request,
+    shared_basis,
+)
+
+from .common import (
+    AdamMoments,
+    Context,
+    FullAdamLeaf,
+    MatrixRule,
+    Optimizer,
+    Schedule,
+    adam_update,
+    default_label_fn,
+    labelled_tree,
+    sched_value,
+)
+
+
+class GradientTransform(NamedTuple):
+    """Composable optimizer building block. ``basis_sizes(params)`` declares
+    which shared predefined bases the transform needs — ``(kind, n)`` pairs
+    or bare orders ``n`` (DCT); ``as_optimizer`` stores one of each."""
+
+    init: Callable[[dict], Any]
+    update: Callable[[dict, Any, dict, Context], tuple[dict, Any]]
+    basis_sizes: Callable[[dict], set] = lambda params: set()
+
+
+class EmptyState(NamedTuple):
+    """State of a stateless transform."""
+
+
+def chain(*transforms: GradientTransform) -> GradientTransform:
+    """Apply ``transforms`` in sequence; state is the tuple of member states."""
+
+    def init(params):
+        return tuple(t.init(params) for t in transforms)
+
+    def update(updates, state, params, ctx):
+        new_state = []
+        for t, s in zip(transforms, state):
+            updates, s = t.update(updates, s, params, ctx)
+            new_state.append(s)
+        return updates, tuple(new_state)
+
+    def basis_sizes(params):
+        sizes = set()
+        for t in transforms:
+            sizes |= t.basis_sizes(params)
+        return sizes
+
+    return GradientTransform(init, update, basis_sizes)
+
+
+def _mask(labels: dict, tree: dict, label: str) -> dict:
+    """The leaves of ``tree`` whose label is ``label``."""
+    return {k: v for k, v in tree.items() if labels[k] == label}
+
+
+def partition(transforms: dict[str, GradientTransform],
+              label_fn=default_label_fn) -> GradientTransform:
+    """Route each parameter leaf to the transform of its label. An unknown
+    label raises at ``init``. The state is ``{label: sub-state}``."""
+
+    def _labels(params):
+        labels = labelled_tree(params, label_fn)
+        unknown = set(labels.values()) - set(transforms)
+        if unknown:
+            raise ValueError(f"label_fn produced labels {sorted(unknown)} "
+                             f"with no transform; have {sorted(transforms)}")
+        return labels
+
+    def init(params):
+        labels = _labels(params)
+        return {lbl: t.init(_mask(labels, params, lbl))
+                for lbl, t in transforms.items()}
+
+    def update(updates, state, params, ctx):
+        labels = _labels(params)
+        outs, new_state = {}, {}
+        for lbl, t in transforms.items():
+            outs[lbl], new_state[lbl] = t.update(
+                _mask(labels, updates, lbl), state[lbl],
+                _mask(labels, params, lbl), ctx)
+        return {k: outs[labels[k]][k] for k in updates}, new_state
+
+    def basis_sizes(params):
+        labels = _labels(params)
+        sizes = set()
+        for lbl, t in transforms.items():
+            sizes |= t.basis_sizes(_mask(labels, params, lbl))
+        return sizes
+
+    return GradientTransform(init, update, basis_sizes)
+
+
+def stateless(update_fn) -> GradientTransform:
+    """Lift ``update_fn(updates, params, ctx) -> updates`` to a transform."""
+    return GradientTransform(
+        init=lambda params: EmptyState(),
+        update=lambda u, s, p, ctx: (update_fn(u, p, ctx), s),
+    )
+
+
+def scale_by_learning_rate(lr: Schedule) -> GradientTransform:
+    """Descent scaling ``u -> -lr_t * u`` (fp32)."""
+
+    def upd(updates, params, ctx):
+        lr_t = sched_value(lr, ctx.step)
+        return {k: -lr_t * u.float() for k, u in updates.items()}
+
+    return stateless(upd)
+
+
+def add_decayed_weights(weight_decay: float, *,
+                        schedule: Schedule | None = None) -> GradientTransform:
+    """Decoupled weight decay. Without ``schedule``: ``u + wd * p`` (before
+    the lr scaling). With ``schedule``: ``u - lr_t * wd * p`` (after
+    ``scale_by_learning_rate``)."""
+
+    def upd(updates, params, ctx):
+        if schedule is None:
+            return {k: u + weight_decay * params[k].float()
+                    for k, u in updates.items()}
+        lr_t = sched_value(schedule, ctx.step)
+        return {k: u - lr_t * weight_decay * params[k].float()
+                for k, u in updates.items()}
+
+    return stateless(upd)
+
+
+def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
+                  eps: float = 1e-8) -> GradientTransform:
+    """Full-rank Adam direction ``mhat / (sqrt(vhat) + eps)`` per leaf,
+    bias-corrected by the global step."""
+
+    def init(params):
+        return {k: FullAdamLeaf(AdamMoments(
+                    torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                    torch.zeros(p.shape, dtype=torch.float32, device=p.device)))
+                for k, p in params.items()}
+
+    def update(updates, state, params, ctx):
+        d, new_state = {}, {}
+        for k, g in updates.items():
+            d[k], mom = adam_update(g, state[k].mom, ctx.step, b1, b2, eps)
+            new_state[k] = FullAdamLeaf(mom)
+        return d, new_state
+
+    return GradientTransform(init, update)
+
+
+def lowrank_project(rule: MatrixRule) -> GradientTransform:
+    """Lift a per-matrix-leaf :class:`MatrixRule` to a whole-tree transform.
+    Emits the rule's raw descent direction ``D``; compose with
+    ``scale_by_learning_rate`` / ``add_decayed_weights``."""
+
+    def init(params):
+        return {k: rule.init(p.shape, p.dtype, p.device)
+                for k, p in params.items()}
+
+    def update(updates, state, params, ctx):
+        d, new_state = {}, {}
+        for k, g in updates.items():
+            d[k], new_state[k] = rule.update(g, state[k], params[k], ctx)
+        return d, new_state
+
+    def basis_sizes(params):
+        sizes = set()
+        if rule.needs_shared_basis:
+            for p in params.values():
+                sizes.update(rule.basis_sizes(p.shape))
+        return sizes
+
+    return GradientTransform(init, update, basis_sizes)
+
+
+class ChainState(NamedTuple):
+    """Top-level optimizer state emitted by ``as_optimizer``: the global step,
+    the shared bases (and their contiguous transposes) and the wrapped
+    transform's state. The JAX ``ChainState`` also carries a PRNG key; no
+    ported rule draws random numbers."""
+
+    step: int
+    bases: dict
+    bases_t: dict
+    leaves: Any
+
+
+def as_optimizer(transform: GradientTransform, *,
+                 basis_mode: str = "stored") -> Optimizer:
+    """Close a transform into the ``Optimizer(init, update)`` interface.
+
+    ``basis_mode="stored"`` materializes one ``(n, n)`` basis per distinct
+    ``(kind, n)`` the stack requests (the paper's whole-model shared basis,
+    from the process-wide BasisCache, on the parameters' device) and one
+    contiguous transpose of each; ``"onthefly"`` stores nothing and lets
+    ``Context.basis`` rebuild it inside the step.
+    """
+    if basis_mode not in ("stored", "onthefly"):
+        raise ValueError(f"unknown basis_mode {basis_mode!r}; expected "
+                         f"'stored' or 'onthefly'")
+
+    def init(params):
+        sizes = transform.basis_sizes(params) if basis_mode == "stored" else ()
+        reqs = sorted({normalize_basis_request(s) for s in sizes})
+        device = next(iter(params.values())).device if params else None
+        bases = {basis_store_key(k, n): shared_basis(k, n, torch.float32, device)
+                 for k, n in reqs}
+        return ChainState(step=0, bases=bases, bases_t=transposed(bases),
+                          leaves=transform.init(params))
+
+    def update(grads, state: ChainState, params):
+        step = state.step + 1
+        ctx = Context(step=step, bases=state.bases, bases_t=state.bases_t)
+        updates, leaves = transform.update(grads, state.leaves, params, ctx)
+        return updates, state._replace(step=step, leaves=leaves)
+
+    return Optimizer(init=init, update=update)
+
+
+def transposed(bases: dict) -> dict:
+    """Contiguous ``Q^T`` of every stored basis, same keys."""
+    return {k: q.T.contiguous() for k, q in bases.items()}
+
+
+def matrix_optimizer(rule: MatrixRule, lr: Schedule, *,
+                     weight_decay: float = 0.0, b1: float = 0.9,
+                     b2: float = 0.999, eps: float = 1e-8,
+                     label_fn=default_label_fn,
+                     basis_mode: str = "stored") -> Optimizer:
+    """The matrix-optimizer preset as a chain: matrix leaves to ``rule``,
+    everything else to full-rank Adam, then lr scaling and decoupled weight
+    decay on every leaf — the same chain, and state layout, as the JAX
+    preset. (Its ``fullrank_weight_decay=False`` variant is not ported.)"""
+    routes = {"lowrank": lowrank_project(rule),
+              "full": scale_by_adam(b1, b2, eps)}
+    t = chain(partition(routes, label_fn),
+              scale_by_learning_rate(lr),
+              add_decayed_weights(weight_decay, schedule=lr))
+    return as_optimizer(t, basis_mode=basis_mode)
