@@ -23,7 +23,23 @@ device or without the port beside it. Any failure raises. Phases:
    and read just after: each kernel must have run 7 times per step.
 4. Where a step of that configuration goes: its parts timed alone, then one
    step under ``torch.profiler`` (device time by kernel, idle share).
-5. The ``kernels`` line, the card's line, and last:
+5. The ``flash_decode`` kernel of serving against its plain version on the
+   card: (a) llama-350m's shapes (8 slots, 16 heads of 64, block 16, bf16
+   pools, lengths 1-2048, 1, 2 and 4 splits), (b) a GQA shape (32 / 8
+   heads of 128), (c) edge cases (group 8/1, odd head dim 17, a sliding
+   window, a length-0 row that must be exactly zero, pool blocks outside
+   every table poisoned with NaN without changing the output). Times are
+   per decode step of the serving path (24 launches at shape (a), 2
+   splits).
+6. The serving path: ``PagedServeEngine`` with llama-350m at full width and
+   depth, bf16, random weights: 8 slots, block 16, 128 blocks per
+   sequence, 16 requests of prompts 64-1024 and 64 new tokens admitted as
+   slots free, prefill chunk 128, 2 splits. The launch counters are zeroed
+   just before it and read just after: ``flash_decode`` must have run 24
+   times per decode step. A greedy and a sampled request are then rerun
+   alone on the same engine and must give the same tokens. Then five
+   decode steps under ``torch.profiler``.
+7. The ``kernels`` line, the card's line, and last:
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -49,6 +65,16 @@ LAUNCHES_PER_STEP = sum(k for _, k in MAIN_SHAPES)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 TIMED_ITERS = 10
+
+# serving: llama-350m's attention and the engine's settings
+HEADS, HEAD_DIM, BLOCK = 16, 64, 16
+SLOTS, MAX_BLOCKS, NUM_SPLITS = 8, 128, 2
+SERVE_REQUESTS, NEW_TOKENS, PREFILL_CHUNK = 16, 64, 128
+PROMPT_LENS = (64, 1024)
+# a flash_decode output in fp32 within this share of max |out| of the plain
+# version (sums over up to 2048 keys in another order); in bf16 within that
+# plus one bf16 ulp of each element (the fp32 values may round apart)
+FD_RTOL_F32 = 2e-6
 
 
 def _device_line() -> str:
@@ -262,11 +288,11 @@ def run_main_path(torch):
     trainer = train_cli.run(args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
     hist = trainer.metrics_history
     assert len(hist) == STEPS, hist
     losses = [h["loss"] for h in hist]
     assert all(math.isfinite(x) for x in losses), losses
+    counts = ops.launch_counts(ops.TRAINING)
     for name, n in counts.items():
         assert n == LAUNCHES_PER_STEP * STEPS, \
             f"{name}: {n} launches in {STEPS} steps, expected " \
@@ -346,6 +372,289 @@ def time_breakdown(torch, dev) -> None:
     }), flush=True)
 
 
+def _fd_case(torch, dev, seed, *, b, hq, hkv, hd, bs, maxb, lengths,
+             kv_dtype, spare=0):
+    """One flash_decode input: each slot gets distinct pool blocks for its
+    length, unused table entries are 0, and ``spare`` more pool blocks lie
+    outside every table. Returns (q in fp32, k, v, table, lengths)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    need = [-(-n // bs) for n in lengths]
+    nb = sum(need) + spare
+    free = list(rng.permutation(nb))
+    table = np.zeros((b, maxb), np.int32)
+    for i, n in enumerate(need):
+        table[i, :n] = [free.pop() for _ in range(n)]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, hq, hd), generator=gen, device=dev)
+    k = torch.randn((nb, bs, hkv, hd), generator=gen, device=dev).to(kv_dtype)
+    v = torch.randn((nb, bs, hkv, hd), generator=gen, device=dev).to(kv_dtype)
+    return (q, k, v, torch.from_numpy(table).to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+def _bf16_excess(a, b, slack) -> float:
+    """max over elements of (|a - b| - slack) in bf16 ulps of the larger
+    magnitude: <= 1 when a and b are within ``slack`` before their last
+    rounding to bf16."""
+    import torch
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs())
+    _, e = torch.frexp(mag)
+    ulp = torch.ldexp(torch.ones_like(mag), e - 8)
+    d = torch.clamp_min((a - b).abs() - slack, 0.0)
+    return torch.where(mag > 0, d / ulp, d).max().item()
+
+
+def _fd_compare(torch, fd, args, q_dtype, splits, window=None) -> float:
+    """The kernel against its plain version on the same inputs: fp32 within
+    FD_RTOL_F32 of max |out|; bf16 within that plus one bf16 ulp of each
+    element (the last rounding). Returns max |dout|."""
+    q, *rest = args
+    q = q.to(q_dtype)
+    got = fd.flash_decode(q, *rest, window=window, num_splits=splits)
+    want = fd.flash_decode_plain(q, *rest, window=window, num_splits=splits)
+    torch.cuda.synchronize()
+    assert got.dtype == q_dtype and torch.isfinite(got).all(), "flash_decode"
+    err = (got.float() - want.float()).abs().max().item()
+    ref = want.float().abs().max().item()
+    if q_dtype == torch.float32:
+        assert err <= FD_RTOL_F32 * ref, \
+            f"flash_decode fp32: max |dout| {err} vs max |out| {ref}"
+    else:
+        ulps = _bf16_excess(got, want, FD_RTOL_F32 * ref)
+        assert ulps <= 1.0, f"flash_decode bf16: {ulps} ulps past the fp32 " \
+            f"tolerance"
+    return err
+
+
+def check_flash_decode(torch, dev) -> dict:
+    """Phase 5. Returns the kernels-line row of ``flash_decode`` (its
+    ``launches`` come from the serving run)."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_decode as fd
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs, report = [], []
+
+    def case(name, args, splits, window=None, q_dtypes=(f32, bf16)):
+        for qd in q_dtypes:
+            for sp in splits:
+                errs.append(_fd_compare(torch, fd, args, qd, sp, window))
+        report.append(name)
+
+    maxb = MAX_BLOCKS
+    lens_a = np.linspace(1, maxb * BLOCK, SLOTS).astype(int).tolist()
+    args_a = _fd_case(torch, dev, 0, b=SLOTS, hq=HEADS, hkv=HEADS,
+                      hd=HEAD_DIM, bs=BLOCK, maxb=maxb, lengths=lens_a,
+                      kv_dtype=bf16)
+    case("a: llama-350m", args_a, (1, NUM_SPLITS, 4))
+    case("b: gqa 32/8 hd 128",
+         _fd_case(torch, dev, 1, b=4, hq=32, hkv=8, hd=128, bs=16, maxb=64,
+                  lengths=[1000, 17, 512, 1024], kv_dtype=bf16), (1, 3))
+    case("c: group 8/1",
+         _fd_case(torch, dev, 2, b=3, hq=8, hkv=1, hd=64, bs=8, maxb=16,
+                  lengths=[100, 1, 64], kv_dtype=f32), (1, 2), q_dtypes=(f32,))
+    for hd in (17, 31):
+        case(f"c: hd {hd}",
+             _fd_case(torch, dev, 3, b=2, hq=4, hkv=2, hd=hd, bs=8, maxb=3,
+                      lengths=[11, 24], kv_dtype=f32), (1, 2, 3),
+             q_dtypes=(f32,))
+    case("c: window 100",
+         _fd_case(torch, dev, 4, b=3, hq=HEADS, hkv=HEADS, hd=HEAD_DIM,
+                  bs=BLOCK, maxb=32, lengths=[500, 6, 300], kv_dtype=bf16),
+         (1, 4), window=100)
+
+    # a length-0 row is exactly zero; NaN in every pool position no slot
+    # reaches (blocks outside the tables, the tails of last blocks, and
+    # the unused table entries pointed at a poisoned block) changes nothing
+    lens = [200, 0, 37]
+    q, k, v, table, ln = _fd_case(torch, dev, 5, b=3, hq=HEADS, hkv=4,
+                                  hd=HEAD_DIM, bs=BLOCK, maxb=16,
+                                  lengths=lens, kv_dtype=bf16, spare=3)
+    clean = fd.flash_decode(q, k, v, table, ln, num_splits=NUM_SPLITS)
+    assert torch.count_nonzero(clean[1]).item() == 0, "length-0 row"
+    used = set()
+    for i, n in enumerate(lens):
+        nblk = -(-n // BLOCK)
+        used.update(table[i, :nblk].tolist())
+        if n % BLOCK:
+            blk = table[i, nblk - 1].item()
+            k[blk, n % BLOCK:] = float("nan")
+            v[blk, n % BLOCK:] = float("nan")
+    poison = sorted(set(range(k.shape[0])) - used)
+    k[poison] = float("nan")
+    v[poison] = float("nan")
+    for i, n in enumerate(lens):
+        table[i, -(-n // BLOCK):] = poison[0]
+    dirty = fd.flash_decode(q, k, v, table, ln, num_splits=NUM_SPLITS)
+    torch.cuda.synchronize()
+    assert torch.equal(clean, dirty), "flash_decode read a poisoned block"
+    errs.append(_fd_compare(torch, fd, (q, k, v, table, ln), f32,
+                            NUM_SPLITS))
+    report.append("c: zero row, NaN-poisoned pool")
+
+    # times per decode step of the serving path: 24 launches at shape (a)
+    # with its q in bf16 and 2 splits
+    q, k, v, table, ln = args_a
+    q = q.to(bf16)
+    ms = _time_ms(lambda: fd.flash_decode(q, k, v, table, ln,
+                                          num_splits=NUM_SPLITS))
+    plain_ms = _time_ms(lambda: fd.flash_decode_plain(
+        q, k, v, table, ln, num_splits=NUM_SPLITS))
+    # each CTA walks its split's blocks in order: the time per call with
+    # 1-16 splits shows how far the serial walk, not the bytes, sets it
+    split_ms = {sp: _time_ms(lambda: fd.flash_decode(q, k, v, table, ln,
+                                                     num_splits=sp))
+                for sp in (1, 2, 4, 8, 16)}
+    # library: SDPA on K/V already densified through the table (the
+    # gather is not counted), keys past each length masked
+    kd = k[table.long()].reshape(SLOTS, -1, HEADS, HEAD_DIM).transpose(1, 2)
+    vd = v[table.long()].reshape(SLOTS, -1, HEADS, HEAD_DIM).transpose(1, 2)
+    kd, vd = kd.contiguous(), vd.contiguous()
+    mask = (torch.arange(kd.shape[2], device=dev)[None, :]
+            < ln[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = _time_ms(lambda: sdpa(q4, kd, vd, attn_mask=mask))
+    # bytes this call must move: the valid K/V rows, q, the table entries
+    # of the run blocks, the lengths and the output
+    tokens = int(ln.sum())
+    run_blocks = sum(-(-n // BLOCK) for n in lens_a)
+    nbytes = (tokens * HEADS * HEAD_DIM * 2 * 2 + 2 * q.numel() * 2
+              + run_blocks * 4 + SLOTS * 4)
+    flops = 4.0 * tokens * HEADS * HEAD_DIM
+    out = {"kernel": "flash_decode", "cases": report,
+           "max_abs_err": max(errs), "tolerance": f"fp32 {FD_RTOL_F32} of max "
+           f"|out|; bf16 that + 1 ulp", "per_call_ms": ms, "plain_per_call_ms":
+           plain_ms, "sdpa_per_call_ms_gather_not_counted": library_ms,
+           "per_call_ms_by_splits": split_ms, "lengths": lens_a}
+    print(json.dumps(out), flush=True)
+    return {"ms": LAYERS * ms, "plain_ms": LAYERS * plain_ms,
+            "library_ms": LAYERS * library_ms, "bytes": LAYERS * nbytes,
+            "flops": LAYERS * flops, "max_abs_err": max(errs)}
+
+
+def run_serving(torch, dev) -> int:
+    """Phase 6: the paged serving path at full width, counters zeroed just
+    before it. Returns the flash_decode launch count of that run."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import PagedServeEngine, SamplingParams, Session
+
+    cfg = get_config("llama-350m")
+    eng = PagedServeEngine(
+        cfg, T.init_params(cfg, seed=0, device=dev), block_size=BLOCK,
+        num_blocks=SLOTS * MAX_BLOCKS, max_blocks_per_seq=MAX_BLOCKS,
+        num_slots=SLOTS, max_prefill_len=PROMPT_LENS[1],
+        prefill_chunk=PREFILL_CHUNK, num_splits=NUM_SPLITS)
+    rng = np.random.default_rng(0)
+    lens = rng.permutation(np.linspace(*PROMPT_LENS, SERVE_REQUESTS)
+                           .astype(int))
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    sampled = SamplingParams(temperature=0.8, top_k=50, top_p=0.95, seed=7)
+    sess = Session(eng, "smoke")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    obs.enable()
+    obs.reset()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    handles = [sess.submit(p, max_new_tokens=NEW_TOKENS,
+                           sampling=sampled if i % 4 == 3 else None)
+               for i, p in enumerate(prompts)]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts(ops.SERVING)
+    steps = eng.steps
+    spans = obs.tracer().records()
+    obs.disable()
+    assert counts["flash_decode"] == LAYERS * steps, \
+        f"flash_decode: {counts['flash_decode']} launches in {steps} steps"
+    for h in handles:
+        assert h.finish_reason == "length" \
+            and len(h.tokens) == NEW_TOKENS, h.request.request_id
+    decode_ms = [r["dur"] / 1e6 for r in spans
+                 if r["name"] == "serve/decode_step"]
+    admit_ms = [r["dur"] / 1e6 for r in spans if r["name"] == "serve/admit"]
+    assert len(decode_ms) == steps and len(admit_ms) == SERVE_REQUESTS
+    tokens = sum(len(h.tokens) for h in handles)
+    stats = eng.stats()
+    peak = torch.cuda.max_memory_allocated()
+
+    # the same greedy and sampled requests alone on the same engine
+    solo = {}
+    for i in (5, 7):
+        h = sess.submit(prompts[i], max_new_tokens=NEW_TOKENS,
+                        sampling=handles[i].request.sampling)
+        eng.run()
+        assert h.tokens == handles[i].tokens, \
+            f"request {i}: churned stream differs from its solo run"
+        solo[handles[i].request.request_id] = \
+            handles[i].request.sampling.temperature
+    print(json.dumps({
+        "serving_path": "llama-350m bf16 PagedServeEngine, flash_decode",
+        "slots": SLOTS, "block_size": BLOCK, "max_blocks_per_seq": MAX_BLOCKS,
+        "requests": SERVE_REQUESTS, "prompt_lens": lens.tolist(),
+        "new_tokens": NEW_TOKENS, "prefill_chunk": PREFILL_CHUNK,
+        "num_splits": NUM_SPLITS, "decode_steps": steps,
+        "flash_decode_launches": counts["flash_decode"],
+        "flash_decode_launches_per_step": counts["flash_decode"] / steps,
+        "decode_ms_per_step_mean": sum(decode_ms) / steps,
+        "decode_ms_per_step_median": sorted(decode_ms)[steps // 2],
+        "admit_prefill_ms_mean": sum(admit_ms) / len(admit_ms),
+        "wall_s": wall, "output_tokens": tokens,
+        "output_tokens_per_s": tokens / wall,
+        "ttft_s_mean": sum(h.ttft for h in handles) / len(handles),
+        "max_memory_allocated_bytes": peak,
+        "pool_bytes": stats["cache_bytes"],
+        "dense_bytes_equivalent": stats["dense_bytes_equivalent"],
+        "solo_equals_churn": solo}), flush=True)
+
+    # five decode steps of eight running slots under the profiler
+    for p in prompts[:SLOTS]:
+        sess.submit(p[:256], max_new_tokens=16)
+    eng.step()                       # admits all eight, one decode step
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    eng.run()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and dev_us(e) > 0]
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    fd_ms = sum(dev_us(e) for e in kernels if "flash_decode" in e.key) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    print(json.dumps({
+        "decode_profile_steps": 5, "slots_running": SLOTS,
+        "profiled_wall_ms_per_step": wall_ms / 5,
+        "device_busy_ms_per_step": busy_ms / 5,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "flash_decode_device_ms_per_step": fd_ms / 5,
+        "kernel_launches_per_step": sum(e.count for e in kernels) / 5,
+        "top_device_kernels": [{"name": e.key[:90], "ms": dev_us(e) / 1e3,
+                                "count": e.count} for e in top],
+    }), flush=True)
+    return counts["flash_decode"]
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -371,12 +680,17 @@ def main() -> int:
     check_fused_update(torch, dev)
     counts = run_main_path(torch)
     time_breakdown(torch, dev)
+    torch.cuda.empty_cache()
+    rows["flash_decode"] = check_flash_decode(torch, dev)
+    counts["flash_decode"] = run_serving(torch, dev)
 
     sources = {"dequant_add_ef": ("quant_ef.cu", "src/repro/kernels/quant_ef.py:44"),
                "dct_project": ("dct_project.cu", "src/repro/kernels/dct_project.py:63"),
                "colgather_matmul_dual": ("colgather_matmul.cu",
                                          "src/repro/kernels/colgather_matmul.py:80"),
-               "quantize_ef": ("quant_ef.cu", "src/repro/kernels/quant_ef.py:32")}
+               "quantize_ef": ("quant_ef.cu", "src/repro/kernels/quant_ef.py:32"),
+               "flash_decode": ("flash_decode.cu",
+                                "src/repro/kernels/flash_decode.py:46")}
     kernels = []
     for name, row in rows.items():
         bound, by = _bound_ms(row["bytes"], row["flops"])
@@ -388,8 +702,12 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": bound, "bound_by": by,
             "library_ms": row["library_ms"],
-            "launches_per_step": counts[name] / STEPS,
-            "times_are": "per training step at the main path's shapes",
+            **({"times_are": "per decode step: 24 launches at llama-350m's "
+                             "shapes (a), 2 splits; library = SDPA on K/V "
+                             "already densified, gather not counted"}
+               if name == "flash_decode" else
+               {"launches_per_step": counts[name] / STEPS,
+                "times_are": "per training step at the main path's shapes"}),
         })
     device_line = _device_line()
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,6 +6,9 @@ or ``repro``: the JAX state's containers are recognised by their fields.
 
 * ``params_from_jax`` flattens a nested parameter tree (dicts and lists) into
   the port's ``{leaf path: tensor}`` dict, with the same paths and layouts.
+* ``pools_from_jax`` does the same for a serving cache (the paged pools, the
+  prefill scratch or the dense decode cache: a list of segments), under
+  ``segments/{i}/p{j}/k`` and ``/v``.
 * ``opt_state_from_jax`` turns the ``ChainState`` of ``repro``'s
   ``dct_adamw`` — ``(partition{"lowrank", "full"}, EmptyState, EmptyState)``
   under ``leaves`` — into the port's ``ChainState``: the step, the stored
@@ -44,6 +47,12 @@ def _walk(node, path: str):
 def params_from_jax(tree, device=None) -> dict[str, torch.Tensor]:
     """Nested JAX parameter tree of numpy arrays -> ``{path: tensor}``."""
     return {path: _tensor(leaf, device) for path, leaf in _walk(tree, "")}
+
+
+def pools_from_jax(tree, device=None) -> dict[str, torch.Tensor]:
+    """JAX cache tree ``[{'p{j}': {'k', 'v'}}, ...]`` of numpy arrays ->
+    ``{'segments/{i}/p{j}/k': tensor, ...}``."""
+    return params_from_jax({"segments": tree}, device)
 
 
 def _fields(node) -> tuple[str, ...]:

@@ -8,7 +8,8 @@ flags, so an edited source rebuilds and an unchanged one loads at once. The
 sources compile in parallel, one ``nvcc`` each.
 
 No ``--use_fast_math``: the quantizer's IEEE division and its handling of
-subnormal rows depend on it being off.
+subnormal rows depend on it being off, and flash decode's ``expf`` stays
+the accurate one.
 
 Nothing here runs at import time: the CPU tests import this module and
 never build or launch a kernel.
@@ -31,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry point -> argument types; every pointer and the stream are c_void_p
 SIGNATURES = {
     "repro_quantize_ef": (_P, _P, _P, _L, _I, _P),
@@ -39,6 +40,8 @@ SIGNATURES = {
     "repro_dct_project": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "repro_dct_project_block_rows": (),
     "repro_colgather_matmul_dual": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_flash_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _F, _I, _I, _P),
 }
 
 

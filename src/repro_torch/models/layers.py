@@ -1,4 +1,5 @@
-"""Model primitives: init helpers, RMS norm, RoPE, blockwise attention, SwiGLU.
+"""Model primitives: init helpers, RMS norm, RoPE, blockwise, decode and
+chunk attention, SwiGLU.
 
 Plain functions on tensors, mirroring ``repro/models/layers.py``. Weights are
 ``(d_in, d_out)`` matrices applied as ``x @ w`` (the JAX layout, not
@@ -53,6 +54,26 @@ def apply_rope(x, cos, sin):
     c = cos[..., :, None, :]
     s = sin[..., :, None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def rope_at(pos, head_dim: int, theta: float = 1e4):
+    """Per-position rope tables for decode. pos: (B,) int -> (B, 1, half)."""
+    half = head_dim // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=pos.device) / half)
+    ang = pos.float()[:, None] * freqs[None, :]
+    return torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]
+
+
+def rope_tables_at(positions, head_dim: int, theta: float = 1e4,
+                   dtype=torch.float32):
+    """``rope_table`` for a position vector (a prefill chunk at any start).
+    positions: (S,) int -> ((S, half), (S, half)) for ``apply_rope``."""
+    half = head_dim // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    ang = positions.float()[:, None] * freqs[None, :]
+    return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
 
 
 NEG_INF = -1e30
@@ -125,6 +146,57 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int | None = None,
         outs.append(out.reshape(b, hq, q_chunk, vd))
     out = torch.cat(outs, dim=2)                          # (B, Hq, Sq, vd)
     return out.transpose(1, 2).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, *, length=None, window=None,
+                     mask=None, scale=None):
+    """Single-token attention against a (B, S, Hkv, hd) cache.
+
+    q: (B, Hq, hd). ``length``: (B,) valid cache length (entries >= length
+    masked). ``mask``: explicit (B, S) bool validity, overriding
+    length/window. Products of the cache's dtype accumulate in fp32 (as the
+    JAX package's ``preferred_element_type``): q and the softmax weights are
+    rounded to the cache dtype, the products run in fp32. Returns
+    (B, Hq, vd) in q's dtype."""
+    b, hq, hd = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    group = hq // hkv
+    qg = q.reshape(b, hkv, group, hd).to(k_cache.dtype).float()
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    scores = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float()) * scale
+    if mask is None:
+        pos = torch.arange(s, device=q.device)[None, :]
+        mask = torch.ones((b, s), dtype=torch.bool, device=q.device)
+        if length is not None:
+            mask &= pos < length[:, None]
+        if window is not None and length is not None:
+            mask &= pos >= (length[:, None] - window)
+    scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1).to(v_cache.dtype).float()
+    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    return out.reshape(b, hq, -1).to(q.dtype)
+
+
+def chunk_attention(q, k_cache, v_cache, mask, *, scale=None):
+    """Multi-token attention against a cache (chunked paged prefill).
+
+    q: (B, C, Hq, hd), the prompt chunk's queries; k/v_cache: (B, S, Hkv,
+    hd), every position written so far (this chunk's included); mask:
+    (C, S) or (B, C, S) bool validity (causal with offset, sliding window).
+    Same dtype discipline as ``decode_attention``. Returns (B, C, Hq, hd)
+    in q's dtype."""
+    b, c, hq, hd = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    group = hq // hkv
+    qg = q.reshape(b, c, hkv, group, hd).to(k_cache.dtype).float()
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    scores = torch.einsum("bckgd,bskd->bkcgs", qg, k_cache.float()) * scale
+    if mask.dim() == 2:
+        mask = mask[None]
+    scores = torch.where(mask[:, None, :, None, :], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1).to(v_cache.dtype).float()
+    out = torch.einsum("bkcgs,bskd->bckgd", p, v_cache.float())
+    return out.reshape(b, c, hq, hd).to(q.dtype)
 
 
 def swiglu(x, wg, wu, wd):

@@ -13,6 +13,7 @@ import torch
 from repro_torch.core.dct import dct2_matrix
 from repro_torch.kernels import colgather_matmul as cg
 from repro_torch.kernels import dct_project as dp
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_ef as qe
 
@@ -49,7 +50,7 @@ def test_cuda_kernels_match_plain(cuda, name):
     *batch, m, n = shape
     g = torch.from_numpy(_rand(shape, 7)).to(cuda)
     q = dct2_matrix(n, device=cuda)
-    before = ops.launch_counts()
+    before = ops.launch_counts(ops.TRAINING)
     s, norms = dp.dct_project(g, q)
     s_p, norms_p = dp.dct_project_plain(g, q)
     # fp32 sums over n terms in another order than cuBLAS
@@ -73,7 +74,7 @@ def test_cuda_kernels_match_plain(cuda, name):
     assert (qk.int() - qp.int()).abs().max().item() <= 1
     assert torch.equal(qe.dequant_add_ef(g, qk, sk),
                        qe.dequant_add_ef_plain(g, qk, sk))
-    after = ops.launch_counts()
+    after = ops.launch_counts(ops.TRAINING)
     assert all(after[k] == before[k] + 1 for k in after)
 
 
@@ -86,3 +87,99 @@ def test_cuda_wrappers_reject_views_and_dtypes(cuda):
         qe.quantize_ef(torch.zeros(4, 4, dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError):
         dp.dct_project(torch.zeros(4, 16, device=cuda), q.cpu())
+
+
+def _fd_inputs(cuda, *, b, hq, hkv, hd, bs, maxb, lengths, dtype, seed=0):
+    """Distinct pool blocks per slot, unused table entries 0."""
+    rng = np.random.default_rng(seed)
+    need = [-(-n // bs) for n in lengths]
+    nb = sum(need) + 2
+    free = list(rng.permutation(nb))
+    table = np.zeros((b, maxb), np.int32)
+    for i, n in enumerate(need):
+        table[i, :n] = [free.pop() for _ in range(n)]
+    q = torch.from_numpy(_rand((b, hq, hd), seed)).to(cuda)
+    k = torch.from_numpy(_rand((nb, bs, hkv, hd), seed + 1)).to(cuda, dtype)
+    v = torch.from_numpy(_rand((nb, bs, hkv, hd), seed + 2)).to(cuda, dtype)
+    return (q, k, v, torch.from_numpy(table).to(cuda),
+            torch.tensor(lengths, dtype=torch.int32, device=cuda))
+
+
+# (Hq, Hkv, hd, bs, MAXB, lengths, pool dtype): MHA at llama-350m's head
+# shape, GQA, 8q/1kv, odd head dims, a length-0 row, blocks of 1 and 40
+FD_CASES = {
+    "mha": (16, 16, 64, 16, 8, [1, 50, 128, 0], torch.bfloat16),
+    "gqa": (32, 8, 128, 16, 4, [64, 17, 33], torch.bfloat16),
+    "8q1kv": (8, 1, 64, 8, 6, [48, 1, 20], torch.float32),
+    "hd17": (4, 2, 17, 8, 3, [11, 24], torch.float32),
+    "hd31": (4, 2, 31, 4, 5, [19, 6], torch.float32),
+    "bs1": (4, 4, 16, 1, 40, [40, 3], torch.float32),
+    "bs40": (4, 2, 16, 40, 3, [100, 41], torch.float32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FD_CASES))
+@pytest.mark.parametrize("splits", [1, 2, 3])
+@pytest.mark.parametrize("window", [None, 5])
+def test_cuda_flash_decode_matches_plain(cuda, name, splits, window):
+    hq, hkv, hd, bs, maxb, lengths, dtype = FD_CASES[name]
+    q, *rest = _fd_inputs(cuda, b=len(lengths), hq=hq, hkv=hkv, hd=hd,
+                          bs=bs, maxb=maxb, lengths=lengths, dtype=dtype)
+    before = ops.launch_counts(ops.SERVING)["flash_decode"]
+    for q_dt in (torch.float32, torch.bfloat16):
+        qq = q.to(q_dt)
+        got = fd.flash_decode(qq, *rest, window=window, num_splits=splits)
+        want = fd.flash_decode_plain(qq, *rest, window=window,
+                                     num_splits=splits)
+        assert got.dtype == q_dt
+        if q_dt == torch.float32:
+            # sums over the same keys in another order
+            torch.testing.assert_close(got, want, rtol=2e-6, atol=2e-6)
+        else:
+            # fp32 inside; the bf16 roundings may land on neighbours
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=2 ** -7, atol=1e-6)
+        zero = [i for i, n in enumerate(lengths) if n == 0]
+        assert not got[zero].any()
+    assert ops.launch_counts(ops.SERVING)["flash_decode"] == before + 2
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_never_reads_past_lengths(cuda):
+    """NaN in every pool position past each slot's length, and unused table
+    entries pointing at a poisoned block, change no bit of the output."""
+    lengths = [37, 0, 16]
+    q, k, v, table, ln = _fd_inputs(cuda, b=3, hq=8, hkv=2, hd=64, bs=16,
+                                    maxb=4, lengths=lengths,
+                                    dtype=torch.bfloat16)
+    clean = fd.flash_decode(q, k, v, table, ln, num_splits=2)
+    nblk = [-(-n // 16) for n in lengths]
+    used = {b for i, n in enumerate(nblk) for b in table[i, :n].tolist()}
+    poison = sorted(set(range(k.shape[0])) - used)
+    k[poison] = float("nan")
+    v[poison] = float("nan")
+    for i, n in enumerate(lengths):
+        if n % 16:
+            k[table[i, nblk[i] - 1], n % 16:] = float("nan")
+            v[table[i, nblk[i] - 1], n % 16:] = float("nan")
+        table[i, nblk[i]:] = poison[0]
+    assert torch.equal(fd.flash_decode(q, k, v, table, ln, num_splits=2),
+                       clean)
+    assert not clean[1].any()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_rejects_views_and_dtypes(cuda):
+    q, k, v, table, ln = _fd_inputs(cuda, b=2, hq=4, hkv=2, hd=16, bs=4,
+                                    maxb=2, lengths=[3, 5],
+                                    dtype=torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        fd.flash_decode(q, k.transpose(0, 1).contiguous().transpose(0, 1),
+                        v, table, ln)
+    with pytest.raises(TypeError):
+        fd.flash_decode(q.double(), k, v, table, ln)
+    with pytest.raises(TypeError):
+        fd.flash_decode(q, k, v, table.long(), ln)
+    with pytest.raises(ValueError):
+        fd.flash_decode(q, k, v, table.cpu(), ln)
