@@ -39,7 +39,30 @@ device or without the port beside it. Any failure raises. Phases:
    times per decode step. A greedy and a sampled request are then rerun
    alone on the same engine and must give the same tokens. Then five
    decode steps under ``torch.profiler``.
-7. The ``kernels`` line, the card's line, and last:
+7. The kernels of the momentum families against their plain versions on
+   the card: the Newton-Schulz gram and apply kernels, one iteration and
+   the whole 5-step orthogonalization at Trion's factor shapes (wide
+   (24, 128, 1024) and (24, 128, 2816)) and at ragged ones (r = 17, 45),
+   each launch twice (bit-identical, and the Gram exactly symmetric); the
+   single-operand ``colgather_matmul`` at (24, 1024 | 2816, 128). Times are
+   per training step of Trion (35 NS launches of each kernel) and of
+   subspace Muon (7 back-projections). Then the 5-step orthogonalization
+   through the kernels against the plain iteration at full-space Muon's
+   moments ((24, 1024, 1024) and (24, 1024, 2816) wide), held to each
+   other and timed per call and per step.
+8. Trion, the training CLI's default optimizer: ``repro_torch.launch.train``
+   with llama-350m at full width and depth, its defaults (rank 128, fused
+   auto) and 6 steps of batch 8 x 512, the counters zeroed just before and
+   read just after (per step: 7 ``dct_project``, 35 ``ns_gram``, 35
+   ``ns_apply``, 7 ``colgather_matmul_dual``, no other kernel); then where
+   a Trion step goes, as in phase 4.
+9. Subspace Muon (``--rank 128``), Dion, and Dion on its QR route
+   (``--fused off``) and on the plain NS iteration (``--fused fft``), no
+   kernel on either, 3 steps each, and full-space Muon, 2
+   steps, at full width and depth, each with its launch counts (full-space
+   Muon's NS runs the plain iteration: its short side of 1024 is past
+   ``NS_KERNEL_MAX_RANK``).
+10. The ``kernels`` line, the card's line, and last:
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -65,6 +88,42 @@ LAUNCHES_PER_STEP = sum(k for _, k in MAIN_SHAPES)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 TIMED_ITERS = 10
+
+# the momentum families: the CLI's defaults (trion, rank 128, fused auto)
+# with the main path's steps, batch and sequence
+MOMENTUM_ARGV = ["--arch", "llama-350m", "--warmup", "2", "--batch", "8",
+                 "--seq-len", "512", "--log-every", "1"]
+NS_STEPS = 5
+NS_PER_STEP = NS_STEPS * LAUNCHES_PER_STEP
+# (argv, steps, launches per step of each kernel; unnamed kernels 0)
+MOMENTUM_PATHS = {
+    "trion": ([], STEPS, {"dct_project": LAUNCHES_PER_STEP,
+                          "ns_gram": NS_PER_STEP, "ns_apply": NS_PER_STEP,
+                          "colgather_matmul_dual": LAUNCHES_PER_STEP}),
+    "muon rank 128": (["--optimizer", "muon", "--rank", str(RANK)], 3,
+                      {"dct_project": LAUNCHES_PER_STEP,
+                       "ns_gram": NS_PER_STEP, "ns_apply": NS_PER_STEP,
+                       "colgather_matmul": LAUNCHES_PER_STEP}),
+    "dion": (["--optimizer", "dion"], 3,
+             {"ns_gram": NS_PER_STEP, "ns_apply": NS_PER_STEP}),
+    "muon full space": (["--optimizer", "muon"], 2, {}),
+    # witnesses for the "on" route's loss trajectory on the same seed: the
+    # QR route, and the NS polar factor through the plain iteration (no
+    # kernel on either)
+    "dion off": (["--optimizer", "dion", "--fused", "off"], 3, {}),
+    "dion fft": (["--optimizer", "dion", "--fused", "fft"], 3, {}),
+}
+# the kernels against their plain versions, relative to max |out|: the gram
+# (m-term sums), the apply and one iteration (r-term sums) in another order
+# than cuBLAS
+NS_RTOL = 1e-5
+# five iterations: the quintic's slope at 0 is a = 3.4445, so a relative
+# difference in a small singular direction grows up to a^5 ~ 500x; the JAX
+# package holds its Pallas NS to its jnp NS at 1e-3 after 5 steps
+NS_FULL_RTOL = 1e-3
+# NS5 bands singular values instead of driving them to 1
+# (tests/test_newton_schulz_properties.py)
+OFFDIAG_TOL, SV_LO, SV_HI = 0.35, 0.3, 1.35
 
 # serving: llama-350m's attention and the engine's settings
 HEADS, HEAD_DIM, BLOCK = 16, 64, 16
@@ -314,12 +373,13 @@ def run_main_path(torch):
     return counts
 
 
-def time_breakdown(torch, dev) -> None:
-    """Phase 4: where one step of the main path's configuration goes. The
-    step's parts are timed alone with CUDA events (the step is functional,
-    so a part can be repeated on the same state), then one whole step runs
-    under ``torch.profiler`` for the device time by kernel and the device's
-    idle share of the step's wall time."""
+def time_breakdown(torch, dev, optimizer: str = "dct_adamw") -> None:
+    """Phase 4 (and 8 for Trion): where one training step of llama-350m at
+    batch 8 x 512 with ``optimizer`` at rank 128 goes. The step's parts are
+    timed alone with CUDA events (the step is functional, so a part can be
+    repeated on the same state); then the optimizer update alone and one
+    whole step run under ``torch.profiler`` for the device time by kernel
+    and the device's idle share of the step's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.registry import get_config
@@ -329,7 +389,7 @@ def time_breakdown(torch, dev) -> None:
     from repro_torch.train.schedule import cosine_warmup
 
     cfg = get_config("llama-350m")
-    opt = get_optimizer("dct_adamw", lr=cosine_warmup(0.01, 2, STEPS),
+    opt = get_optimizer(optimizer, lr=cosine_warmup(0.01, 2, STEPS),
                         rank=RANK, weight_decay=0.01)
     state = S.init_state(cfg, opt, 0, dev)
     batch = make_batch_fn(cfg, SEQ, BATCH, device=dev)(0)
@@ -344,32 +404,262 @@ def time_breakdown(torch, dev) -> None:
         "optimizer_update_ms": _time_ms(
             lambda: opt.update(grads, state.opt_state, state.params), 3),
     }
-    del grads
     torch.cuda.synchronize()
+    # the optimizer update alone, then one whole step, under the profiler
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as oprof:
+        opt.update(grads, state.opt_state, state.params)
+        torch.cuda.synchronize()
+    del grads
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")
-               and dev_us(e) > 0]
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    top = sorted(kernels, key=dev_us, reverse=True)[:12]
+    kernels, busy_ms = _device_kernels(prof)
+    okernels, obusy_ms = _device_kernels(oprof)
     print(json.dumps({
-        "time_breakdown": parts,
+        "time_breakdown": parts, "optimizer": optimizer,
         "profiled_step_wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "kernel_launches": sum(e.count for e in kernels),
-        "top_device_kernels": [{"name": e.key[:90], "ms": dev_us(e) / 1e3,
-                                "count": e.count} for e in top],
+        "top_device_kernels": _top(kernels, 12),
+        "optimizer_update_device_ms": obusy_ms,
+        "optimizer_update_launches": sum(e.count for e in okernels),
+        "optimizer_update_top_kernels": _top(okernels, 12),
     }), flush=True)
+
+
+def _dev_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def _device_kernels(prof):
+    """The device kernels of a profile and their summed time in ms."""
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and _dev_us(e) > 0]
+    return kernels, sum(_dev_us(e) for e in kernels) / 1e3
+
+
+def _top(kernels, n: int) -> list:
+    return [{"name": e.key[:90], "ms": _dev_us(e) / 1e3, "count": e.count}
+            for e in sorted(kernels, key=_dev_us, reverse=True)[:n]]
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return (got - want).abs().max().item() / want.abs().max().item()
+
+
+def check_momentum_kernels(torch, dev) -> dict:
+    """Phase 7. Returns ``{name: row}`` for ``ns_gram``, ``ns_apply`` and
+    ``colgather_matmul`` (``launches`` come from phases 8-9)."""
+    from repro_torch.core.dct import dct2_matrix
+    from repro_torch.core.newton_schulz import NS_COEFFS, _ns_step, newton_schulz
+    from repro_torch.core.selection import select_top_r
+    from repro_torch.kernels import colgather_matmul as cg
+    from repro_torch.kernels import newton_schulz as ns
+
+    a, b, c = NS_COEFFS
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                   "bytes": 0.0, "flops": 0.0, "max_abs_err": 0.0}
+            for name in ("ns_gram", "ns_apply", "colgather_matmul")}
+    rows["colgather_matmul"]["library_ms"] = None
+    full = {"ms": 0.0, "plain_ms": 0.0}
+    report = []
+    # tall factors (layers, rows, r) as Trion hands them to NS, launches per
+    # step: the main path's two, then ragged ones checked only
+    cases = [((nb, m, RANK), k) for (nb, m, _), k in MAIN_SHAPES]
+    cases += [((3, 100, 17), 0), ((2, 333, 45), 0)]
+    for shape, per_step in cases:
+        nb, m, r = shape
+        bt = torch.randn(shape, generator=gen, device=dev)
+        xw = bt.mT
+        x = (xw / (torch.linalg.norm(xw, dim=(-2, -1), keepdim=True) + 1e-7)
+             ).contiguous()                  # the first iteration's input
+        g_k = ns.ns_gram(x)
+        g_k2 = ns.ns_gram(x)
+        g_p = ns.ns_gram_plain(x)
+        torch.cuda.synchronize()
+        assert torch.equal(g_k, g_k2), f"ns_gram {shape}: not deterministic"
+        assert torch.equal(g_k, g_k.mT), f"ns_gram {shape}: not symmetric"
+        e_gram = _rel(g_k, g_p)
+        assert e_gram <= NS_RTOL, f"ns_gram {shape}: rel err {e_gram}"
+        poly = b * g_k + c * torch.matmul(g_k, g_k)
+        y_k = ns.ns_apply(x, poly, a=a)
+        y_k2 = ns.ns_apply(x, poly, a=a)
+        y_p = ns.ns_apply_plain(x, poly, a)
+        torch.cuda.synchronize()
+        assert torch.equal(y_k, y_k2), f"ns_apply {shape}: not deterministic"
+        e_apply = _rel(y_k, y_p)
+        assert e_apply <= NS_RTOL, f"ns_apply {shape}: rel err {e_apply}"
+        e_iter = _rel(ns.ns_iteration(x), _ns_step(x))
+        assert e_iter <= NS_RTOL, f"ns_iteration {shape}: rel err {e_iter}"
+        o_k = ns.newton_schulz_kernel(bt, steps=NS_STEPS)
+        o_p = newton_schulz(bt, steps=NS_STEPS)
+        torch.cuda.synchronize()
+        e_full = _rel(o_k, o_p)
+        assert o_k.shape == bt.shape and torch.isfinite(o_k).all()
+        assert e_full <= NS_FULL_RTOL, f"newton_schulz {shape}: rel {e_full}"
+        gram_o = o_k.double().mT @ o_k.double()
+        off = (gram_o - torch.diag_embed(torch.diagonal(gram_o, dim1=-2,
+                                                        dim2=-1))).abs().max()
+        sv = torch.linalg.svdvals(o_k.double())
+        assert off.item() < OFFDIAG_TOL, f"newton_schulz {shape}: off {off}"
+        assert SV_LO < sv.min().item() and sv.max().item() < SV_HI, \
+            f"newton_schulz {shape}: singular values {sv.min()} {sv.max()}"
+        rows["ns_gram"]["max_abs_err"] = max(rows["ns_gram"]["max_abs_err"],
+                                             (g_k - g_p).abs().max().item())
+        rows["ns_apply"]["max_abs_err"] = max(
+            rows["ns_apply"]["max_abs_err"], (y_k - y_p).abs().max().item())
+        case = {"shape_wide": [nb, r, m], "rel_err_gram": e_gram,
+                "rel_err_apply": e_apply, "rel_err_iteration": e_iter,
+                "rel_err_ns5": e_full, "ns5_offdiag": off.item(),
+                "ns5_sv": [sv.min().item(), sv.max().item()],
+                "deterministic": True, "gram_symmetric": True}
+        if per_step:
+            launches = per_step * NS_STEPS
+            t = {"gram": _time_ms(lambda: ns.ns_gram(x)),
+                 "gram_plain": _time_ms(lambda: ns.ns_gram_plain(x)),
+                 "gram_library": _time_ms(lambda: torch.bmm(x, x.mT)),
+                 "apply": _time_ms(lambda: ns.ns_apply(x, poly, a=a, out=y_k)),
+                 "apply_plain": _time_ms(lambda: ns.ns_apply_plain(x, poly, a)),
+                 "apply_library": _time_ms(
+                     lambda: torch.baddbmm(x, poly, x, beta=a)),
+                 "ns5": _time_ms(lambda: ns.newton_schulz_kernel(bt)),
+                 "ns5_plain": _time_ms(lambda: newton_schulz(bt))}
+            case["per_call_ms"] = t
+            for name, key, nbytes, flops in (
+                    # A is symmetric: its r(r+1)/2 distinct entries
+                    ("ns_gram", "gram", 4.0 * nb * (r * m + r * r),
+                     1.0 * nb * r * (r + 1) * m),
+                    ("ns_apply", "apply", 4.0 * nb * (2 * r * m + r * r),
+                     2.0 * nb * r * r * m + 2.0 * nb * r * m)):
+                row = rows[name]
+                row["ms"] += launches * t[key]
+                row["plain_ms"] += launches * t[key + "_plain"]
+                row["library_ms"] += launches * t[key + "_library"]
+                row["bytes"] += launches * nbytes
+                row["flops"] += launches * flops
+            full["ms"] += per_step * t["ns5"]
+            full["plain_ms"] += per_step * t["ns5_plain"]
+
+            # the single-operand back-projection of subspace Muon
+            n = RANK * 8
+            qt = dct2_matrix(n, device=dev).T.contiguous()
+            idx = select_top_r(torch.rand((nb, n), generator=gen, device=dev),
+                               RANK)
+            o = torch.randn((nb, m, RANK), generator=gen, device=dev)
+            c_k = cg.colgather_matmul(o, qt, idx)
+            c_p = cg.colgather_matmul_plain(o, qt, idx)
+            torch.cuda.synchronize()
+            e_cg = _rel(c_k, c_p)
+            assert e_cg <= NS_RTOL, f"colgather_matmul {shape}: rel {e_cg}"
+            row = rows["colgather_matmul"]
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     (c_k - c_p).abs().max().item())
+            row["ms"] += per_step * _time_ms(
+                lambda: cg.colgather_matmul(o, qt, idx))
+            row["plain_ms"] += per_step * _time_ms(
+                lambda: cg.colgather_matmul_plain(o, qt, idx))
+            rows_needed = torch.unique(idx).numel()
+            row["bytes"] += per_step * 4.0 * (nb * m * RANK + rows_needed * n
+                                              + nb * RANK + nb * m * n)
+            row["flops"] += per_step * 2.0 * nb * m * n * RANK
+            case["colgather_matmul_rel_err"] = e_cg
+        report.append(case)
+        del bt, x, g_k, g_k2, g_p, poly, y_k, y_k2, y_p, o_k, o_p
+    print(json.dumps({"momentum_kernels": report,
+                      "ns5_ms_per_trion_step": full,
+                      "full_space": _full_space_routes(torch, dev, gen),
+                      "tolerance": f"gram/apply/iteration {NS_RTOL} of max "
+                                   f"|out|, 5 iterations {NS_FULL_RTOL}"}),
+          flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _full_space_routes(torch, dev, gen) -> dict:
+    """Full-space Muon's NS on its whole moments, the kernels against the
+    plain iteration (the route ``NS_KERNEL_MAX_RANK`` picks at a short side
+    of 1024): both held to each other, timed per call and per step."""
+    from repro_torch.core.newton_schulz import NS_COEFFS, newton_schulz
+    from repro_torch.kernels import newton_schulz as ns
+
+    a, b, c = NS_COEFFS
+    out = {"ms_per_step": {"kernel": 0.0, "plain": 0.0}, "cases": []}
+    for shape, per_step in MAIN_SHAPES:
+        bt = torch.randn(shape, generator=gen, device=dev)
+        o_k = ns.newton_schulz_kernel(bt, steps=NS_STEPS)
+        o_p = newton_schulz(bt, steps=NS_STEPS)
+        torch.cuda.synchronize()
+        e_full = _rel(o_k, o_p)
+        assert torch.isfinite(o_k).all() and e_full <= NS_FULL_RTOL, \
+            f"newton_schulz {shape}: rel {e_full}"
+        del o_k, o_p
+        x = bt.mT.contiguous()
+        gram = ns.ns_gram(x)
+        poly = b * gram + c * torch.matmul(gram, gram)
+        t = {"ns5": _time_ms(lambda: ns.newton_schulz_kernel(bt), 3),
+             "ns5_plain": _time_ms(lambda: newton_schulz(bt), 3),
+             "gram": _time_ms(lambda: ns.ns_gram(x), 3),
+             "gram_plain": _time_ms(lambda: ns.ns_gram_plain(x), 3),
+             "apply": _time_ms(lambda: ns.ns_apply(x, poly, a=a), 3),
+             "apply_plain": _time_ms(lambda: ns.ns_apply_plain(x, poly, a), 3)}
+        out["cases"].append({"moment": list(shape), "rel_err_ns5": e_full,
+                             "per_call_ms": t})
+        out["ms_per_step"]["kernel"] += per_step * t["ns5"]
+        out["ms_per_step"]["plain"] += per_step * t["ns5_plain"]
+        del bt, x, gram, poly
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_momentum_path(torch, name: str) -> dict:
+    """Phases 8-9: one momentum family through the training CLI at full
+    width and depth, counters zeroed just before. Returns the counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+
+    extra, steps, per_step = MOMENTUM_PATHS[name]
+    args = train_cli.build([*MOMENTUM_ARGV, "--steps", str(steps), *extra])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = train_cli.run(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    hist = trainer.metrics_history
+    assert len(hist) == steps, hist
+    losses = [h["loss"] for h in hist]
+    assert all(math.isfinite(x) for x in losses), (name, losses)
+    for kernel, n in counts.items():
+        want = per_step.get(kernel, 0) * steps
+        assert n == want, f"{name}: {kernel} ran {n} times in {steps} " \
+                          f"steps, expected {want}"
+    ms_step = sum(h["s_per_step"] for h in hist[1:]) / (steps - 1) * 1e3
+    print(json.dumps({
+        "momentum_path": name, "optimizer": args.optimizer,
+        "rank": args.rank, "fused": args.fused, "steps": steps,
+        "batch": BATCH, "seq_len": SEQ, "losses": losses,
+        "first_step_ms": hist[0]["s_per_step"] * 1e3,
+        "ms_per_step_after_first": ms_step,
+        "tokens_per_s": BATCH * SEQ / (ms_step / 1e3),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "allocated_before_bytes": held,
+        "wall_s": wall,
+        "launches_per_step": {k: v / steps for k, v in counts.items()}}),
+        flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return counts
 
 
 def _fd_case(torch, dev, seed, *, b, hq, hkv, hd, bs, maxb, lengths,
@@ -632,16 +922,8 @@ def run_serving(torch, dev) -> int:
         wall_ms = (time.perf_counter() - t0) * 1e3
     eng.run()
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")
-               and dev_us(e) > 0]
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    fd_ms = sum(dev_us(e) for e in kernels if "flash_decode" in e.key) / 1e3
-    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    kernels, busy_ms = _device_kernels(prof)
+    fd_ms = sum(_dev_us(e) for e in kernels if "flash_decode" in e.key) / 1e3
     print(json.dumps({
         "decode_profile_steps": 5, "slots_running": SLOTS,
         "profiled_wall_ms_per_step": wall_ms / 5,
@@ -649,8 +931,7 @@ def run_serving(torch, dev) -> int:
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "flash_decode_device_ms_per_step": fd_ms / 5,
         "kernel_launches_per_step": sum(e.count for e in kernels) / 5,
-        "top_device_kernels": [{"name": e.key[:90], "ms": dev_us(e) / 1e3,
-                                "count": e.count} for e in top],
+        "top_device_kernels": _top(kernels, 10),
     }), flush=True)
     return counts["flash_decode"]
 
@@ -674,7 +955,8 @@ def main() -> int:
     cuda_lib.library()
     print(json.dumps({"kernel_build_s": time.perf_counter() - t0}), flush=True)
     print("\n".join(line for line in cuda_lib.build_log().splitlines()
-                    if "registers" in line or "Compiling entry" in line))
+                    if "registers" in line or "Compiling entry" in line
+                    or "spill" in line))
 
     rows = check_kernels(torch, dev)
     check_fused_update(torch, dev)
@@ -683,6 +965,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows["flash_decode"] = check_flash_decode(torch, dev)
     counts["flash_decode"] = run_serving(torch, dev)
+    torch.cuda.empty_cache()
+
+    rows.update(check_momentum_kernels(torch, dev))
+    trion = run_momentum_path(torch, "trion")
+    counts["ns_gram"], counts["ns_apply"] = trion["ns_gram"], trion["ns_apply"]
+    time_breakdown(torch, dev, "trion")
+    torch.cuda.empty_cache()
+    counts["colgather_matmul"] = run_momentum_path(
+        torch, "muon rank 128")["colgather_matmul"]
+    run_momentum_path(torch, "dion")
+    run_momentum_path(torch, "dion off")
+    run_momentum_path(torch, "dion fft")
+    run_momentum_path(torch, "muon full space")
 
     sources = {"dequant_add_ef": ("quant_ef.cu", "src/repro/kernels/quant_ef.py:44"),
                "dct_project": ("dct_project.cu", "src/repro/kernels/dct_project.py:63"),
@@ -690,7 +985,23 @@ def main() -> int:
                                          "src/repro/kernels/colgather_matmul.py:80"),
                "quantize_ef": ("quant_ef.cu", "src/repro/kernels/quant_ef.py:32"),
                "flash_decode": ("flash_decode.cu",
-                                "src/repro/kernels/flash_decode.py:46")}
+                                "src/repro/kernels/flash_decode.py:46"),
+               "ns_gram": ("newton_schulz.cu",
+                           "src/repro/kernels/newton_schulz.py:53"),
+               "ns_apply": ("newton_schulz.cu",
+                            "src/repro/kernels/newton_schulz.py:68"),
+               "colgather_matmul": ("colgather_matmul.cu",
+                                    "src/repro/kernels/colgather_matmul.py:65")}
+    times_are = {
+        "flash_decode": "per decode step: 24 launches at llama-350m's shapes "
+                        "(a), 2 splits; library = SDPA on K/V already "
+                        "densified, gather not counted",
+        "ns_gram": "per Trion training step: 35 launches (5 iterations x 7 "
+                   "leaves); library = torch.bmm(x, x.mT)",
+        "ns_apply": "per Trion training step: 35 launches; library = "
+                    "torch.baddbmm(x, p, x, beta=a)",
+        "colgather_matmul": "per subspace-Muon training step: 7 launches",
+    }
     kernels = []
     for name, row in rows.items():
         bound, by = _bound_ms(row["bytes"], row["flops"])
@@ -702,12 +1013,12 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": bound, "bound_by": by,
             "library_ms": row["library_ms"],
-            **({"times_are": "per decode step: 24 launches at llama-350m's "
-                             "shapes (a), 2 splits; library = SDPA on K/V "
-                             "already densified, gather not counted"}
-               if name == "flash_decode" else
-               {"launches_per_step": counts[name] / STEPS,
-                "times_are": "per training step at the main path's shapes"}),
+            **({"times_are": times_are[name]} if name == "flash_decode" else
+               {"launches_per_step": counts[name] / (
+                   MOMENTUM_PATHS["muon rank 128"][1]
+                   if name == "colgather_matmul" else STEPS),
+                "times_are": times_are.get(
+                    name, "per training step at the main path's shapes")}),
         })
     device_line = _device_line()
     print(json.dumps({"kernels": kernels}), flush=True)

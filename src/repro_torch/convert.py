@@ -1,4 +1,4 @@
-"""Carry parameters and DCT-AdamW optimizer state across from the JAX package.
+"""Carry parameters and optimizer state across from the JAX package.
 
 Both functions take the JAX objects with their arrays already turned into
 numpy arrays (``jax.tree.map(np.asarray, tree)``) and import nothing of JAX
@@ -9,13 +9,15 @@ or ``repro``: the JAX state's containers are recognised by their fields.
 * ``pools_from_jax`` does the same for a serving cache (the paged pools, the
   prefill scratch or the dense decode cache: a list of segments), under
   ``segments/{i}/p{j}/k`` and ``/v``.
-* ``opt_state_from_jax`` turns the ``ChainState`` of ``repro``'s
-  ``dct_adamw`` — ``(partition{"lowrank", "full"}, EmptyState, EmptyState)``
-  under ``leaves`` — into the port's ``ChainState``: the step, the stored
-  bases, the full-rank Adam moments, and each ``ProjAdamLeaf``'s moments,
-  int32 indices, error-feedback buffer (int8 payload and scale, or fp32) and
-  ``inner_step``. The JAX PRNG key is dropped: no ported rule draws random
-  numbers.
+* ``opt_state_from_jax`` turns the ``ChainState`` of one of ``repro``'s
+  matrix-optimizer presets — ``dct_adamw``, ``trion``, ``muon`` or ``dion``:
+  ``(partition{"lowrank", "full"}, EmptyState, EmptyState)`` under
+  ``leaves`` — into the port's ``ChainState``: the step, the stored bases,
+  the full-rank Adam moments, and each matrix leaf's rule state: a
+  ``ProjAdamLeaf``'s moments, int32 indices, error-feedback buffer (int8
+  payload and scale, or fp32) and ``inner_step``; a ``TrionLeaf``'s or
+  ``MuonLeaf``'s momentum; a ``DionLeaf``'s momentum and projection. The JAX
+  PRNG key is dropped: no ported rule draws random numbers.
 """
 from __future__ import annotations
 
@@ -24,11 +26,18 @@ import torch
 
 from repro_torch.core.error_feedback import QuantizedBuffer
 from repro_torch.optim.common import AdamMoments, FullAdamLeaf
+from repro_torch.optim.dion import DionLeaf
+from repro_torch.optim.muon import MuonLeaf
 from repro_torch.optim.projected_adam import ProjAdamLeaf
 from repro_torch.optim.transform import ChainState, EmptyState, transposed
+from repro_torch.optim.trion import TrionLeaf
 
 
 def _tensor(x, device) -> torch.Tensor:
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":       # numpy has no bf16 of its own
+        return torch.from_numpy(x.astype(np.float32)).to(device,
+                                                         torch.bfloat16)
     return torch.from_numpy(np.array(x, copy=True)).to(device)
 
 
@@ -59,12 +68,18 @@ def _fields(node) -> tuple[str, ...]:
     return tuple(getattr(node, "_fields", ()))
 
 
+# JAX leaf-state class -> its fields; the momentum families' leaves are told
+# apart by class name (TrionLeaf and MuonLeaf have the same one field)
+_LEAF_FIELDS = {"ProjAdamLeaf": ("m", "v", "proj", "ef", "inner_step"),
+                "FullAdamLeaf": ("mom",), "TrionLeaf": ("m",),
+                "MuonLeaf": ("m",), "DionLeaf": ("m", "q")}
+
+
 def _leaf_states(tree) -> dict:
     """``{path: leaf state}`` of a partition branch, skipping the masked
     positions (``MaskedNode``) that belong to the other label."""
     return {path: node for path, node in _walk(tree, "")
-            if _fields(node) in (("m", "v", "proj", "ef", "inner_step"),
-                                 ("mom",))}
+            if _LEAF_FIELDS.get(type(node).__name__) == _fields(node)}
 
 
 def _proj_leaf(s, device) -> ProjAdamLeaf:
@@ -78,20 +93,32 @@ def _proj_leaf(s, device) -> ProjAdamLeaf:
                         ef=ef, inner_step=int(s.inner_step))
 
 
+def _rule_leaf(s, device):
+    """A matrix leaf's rule state, by the JAX class's name."""
+    kind = type(s).__name__
+    if kind == "ProjAdamLeaf":
+        return _proj_leaf(s, device)
+    if kind == "DionLeaf":
+        return DionLeaf(m=_tensor(s.m, device), q=_tensor(s.q, device))
+    leaf = {"TrionLeaf": TrionLeaf, "MuonLeaf": MuonLeaf}[kind]
+    return leaf(m=_tensor(s.m, device))
+
+
 def _full_leaf(s, device) -> FullAdamLeaf:
     return FullAdamLeaf(AdamMoments(_tensor(s.mom.m, device),
                                     _tensor(s.mom.v, device)))
 
 
 def opt_state_from_jax(state, device=None) -> ChainState:
-    """``repro`` dct_adamw ``ChainState`` (numpy leaves) -> the port's."""
+    """``repro`` matrix-optimizer ``ChainState`` (numpy leaves) -> the
+    port's."""
     if _fields(state) != ("step", "key", "bases", "leaves"):
         raise TypeError(f"expected repro's ChainState, got {type(state)}")
     part, *rest = state.leaves
     if set(part) != {"lowrank", "full"} or len(rest) != 2:
-        raise TypeError("expected the dct_adamw chain "
+        raise TypeError("expected a matrix-optimizer chain "
                         "(partition{lowrank, full}, lr scaling, weight decay)")
-    lowrank = {k: _proj_leaf(s, device)
+    lowrank = {k: _rule_leaf(s, device)
                for k, s in _leaf_states(part["lowrank"]).items()}
     full = {k: _full_leaf(s, device)
             for k, s in _leaf_states(part["full"]).items()}

@@ -5,7 +5,10 @@ The reference step computes, per predefined-basis leaf and step,
 back-projections that each gather ``Q_r^T``, and a dequantized fp32 EF
 temporary. The fused dataflow removes every redundancy: ``g_low`` is cut out
 of ``S`` (paper Alg. 1 line 8), both back-projections share one gather, and
-the int8 error-feedback buffer is read and written by fused kernels.
+the int8 error-feedback buffer is read and written by fused kernels. The
+momentum families (Trion, Muon, Dion) add ``fused_newton_schulz`` (the
+Newton–Schulz kernels on the rank-sized factor) and ``fused_backproject``
+(one back-projection).
 
 Three concrete modes (``resolve`` maps a rule's ``fused`` field to one):
 
@@ -26,12 +29,16 @@ import torch
 
 from repro_torch.core.dct import makhoul_dct2
 from repro_torch.core.error_feedback import QuantizedBuffer, dequantize_q8, quantize_q8
+from repro_torch.core.newton_schulz import newton_schulz
 from repro_torch.core.selection import (
+    allgather_rows,
     allsum,
+    back_project,
     column_norms,
     dual_back_project,
     dynamic_column_selection,
     gather_columns,
+    local_row_block,
     select_top_r,
     take_columns,
 )
@@ -111,6 +118,54 @@ def fused_dual_backproject(u_low: torch.Tensor, g_low: torch.Tensor,
                                          idx.contiguous(),
                                          compute_dtype=compute_dtype)
     return dual_back_project(u_low, g_low, q, idx)
+
+
+def fused_backproject(u_low: torch.Tensor, q: torch.Tensor, idx: torch.Tensor,
+                      *, mode: str, compute_dtype: str = "fp32",
+                      qt: torch.Tensor | None = None) -> torch.Tensor:
+    """``u_low @ Q_r^T``: one back-projection (subspace Muon's update).
+    ``qt`` as for ``fused_dual_backproject``."""
+    lowp.check_compute_dtype(compute_dtype)
+    if mode == "on":
+        if qt is None:
+            qt = q.T.contiguous()
+        return ops.colgather_matmul(u_low.contiguous(), qt, idx.contiguous(),
+                                    compute_dtype=compute_dtype)
+    return back_project(u_low, q, idx)
+
+
+# The JAX package's NS_PALLAS_MAX_RANK = 512 is a TPU limit: its kernel keeps
+# the (r, r) Gram and polynomial resident in VMEM. The CUDA kernels keep
+# neither on chip (the Gram and the polynomial live in device memory; the
+# tiles in shared memory are 32x32 and 64x128 whatever r is), so they have no
+# envelope of their own. The constant is kept as a routing choice at the
+# reference's value, from a measurement (chip_smoke.py phase 7, NVIDIA H100
+# 80GB HBM3 at 700 W): at full-space Muon's llama-350m moments, short side
+# 1024, the 5-step NS through the kernels took 22.5 / 48.9 ms per call at
+# (24, 1024, 1024) / (24, 1024, 2816) against 17.9 / 36.9 ms for the plain
+# iteration on cuBLAS, 1.3x slower per step. Full-space Muon there runs the
+# plain iteration, as in the reference.
+NS_KERNEL_MAX_RANK = 512
+
+
+def fused_newton_schulz(b: torch.Tensor, *, steps: int, mode: str,
+                        gather_axes=None) -> torch.Tensor:
+    """Orthogonalize ``b`` by Newton–Schulz: the CUDA kernels on the "on"
+    path (``ops.newton_schulz_kernel``), the plain iteration otherwise and
+    for factors whose short side exceeds ``NS_KERNEL_MAX_RANK``.
+
+    ``b`` is the (..., m, r) low-rank factor on the subspace path, or the
+    full (..., m, n) moment of full-space Muon. ``gather_axes``: the ZeRO-1
+    row-shard axes of the reference (all-gather, whole-matrix iteration,
+    keep the local rows); identities here that raise on a shard axis.
+    """
+    block = b.shape[-2]
+    bf = allgather_rows(b, gather_axes)
+    if mode == "on" and min(bf.shape[-2:]) <= NS_KERNEL_MAX_RANK:
+        o = ops.newton_schulz_kernel(bf, steps=steps)
+    else:
+        o = newton_schulz(bf, steps=steps)
+    return local_row_block(o, gather_axes, block)
 
 
 def ef_add(gf: torch.Tensor, ef, *, mode: str) -> torch.Tensor:

@@ -1,19 +1,24 @@
-// Dual column-gather back-projection for Hopper:
-//   o1 = b1 @ Qt[idx, :],  o2 = b2 @ Qt[idx, :]
+// Column-gather back-projection for Hopper, one operand or two:
+//   o1 = b1 @ Qt[idx, :]             (colgather_matmul)
+//   o1, o2 = b1, b2 @ Qt[idx, :]     (colgather_matmul_dual)
 // with b1, b2 (batch, m, r), Qt = Q^T (n, n) contiguous, idx (batch, r)
-// int32 per layer. Replaces repro/kernels/colgather_matmul.py::_kernel_dual
-// (fp32 path).
+// int32 per layer. Replaces repro/kernels/colgather_matmul.py::_kernel and
+// ::_kernel_dual (fp32 paths); both are one template instantiated for one
+// and for two operands.
 //
-// Bound: fp32 FMA rate at r = 128 (2 * 2*m*n*r flops per layer against the
-// two (m, n) fp32 outputs). The TPU kernel copies a whole (n, bn) stripe of
-// Qt into VMEM and gathers r rows out of it. Here each CTA, for its column
-// tile and layer, reads idx[b, :] itself and gathers the selected rows
+// Bound: fp32 FMA rate at r = 128 (2*m*n*r flops per operand and layer
+// against the (m, n) fp32 outputs). The TPU kernel copies a whole (n, bn)
+// stripe of Qt into VMEM and gathers r rows out of it. Here each CTA, for its
+// column tile and layer, reads idx[b, :] itself and gathers the selected rows
 // Qt[idx[k], j0:j0+128] straight from global memory (coalesced along the
 // column) into shared memory, 8 rows of the r at a time, so the gathered
-// (r, n) factor never exists in device memory. Both products are taken from
-// the one gathered tile: each thread keeps a 4x8 fp32 register tile per
-// operand. The shared-memory layout follows dct_project.cu (two groups of 4
-// columns 64 apart, transposed and padded A slices).
+// (r, n) factor never exists in device memory. The next slices of b and of
+// the gathered rows are loaded into registers while the current ones are
+// computed from shared memory (the FMA order is unchanged). The dual entry
+// point takes both products from the one gathered tile: each thread keeps a
+// 4x8 fp32 register tile per operand. The shared-memory layout follows
+// dct_project.cu (two groups of 4 columns 64 apart, transposed and padded A
+// slices).
 //
 // An index outside [0, n) gathers a zero row (the load is masked), so a bad
 // index cannot read outside Qt. Ragged m, n and r are masked.
@@ -27,13 +32,15 @@ constexpr int BK = 8;
 constexpr int kThreads = 256;
 constexpr int kPad = 4;
 
-__global__ void __launch_bounds__(kThreads)
-colgather_matmul_dual_kernel(const float* __restrict__ b1, const float* __restrict__ b2,
-                             const float* __restrict__ qt, const int* __restrict__ idx,
-                             float* __restrict__ o1, float* __restrict__ o2, int m, int r,
-                             int n) {
+// at least 2 CTAs per SM: the prefetch registers of the dual instance would
+// otherwise leave one
+template <int kOps>
+__global__ void __launch_bounds__(kThreads, 2)
+colgather_matmul_kernel(const float* __restrict__ b1, const float* __restrict__ b2,
+                        const float* __restrict__ qt, const int* __restrict__ idx,
+                        float* __restrict__ o1, float* __restrict__ o2, int m, int r, int n) {
   __shared__ __align__(16) float A1[BK][BM + kPad];  // b1 slice, transposed
-  __shared__ __align__(16) float A2[BK][BM + kPad];  // b2 slice, transposed
+  __shared__ __align__(16) float A2[kOps == 2 ? BK : 1][BM + kPad];  // b2 slice, transposed
   __shared__ __align__(16) float Bs[BK][BN];         // gathered rows of Qt
 
   const int b = blockIdx.z;
@@ -55,46 +62,66 @@ colgather_matmul_dual_kernel(const float* __restrict__ b1, const float* __restri
       acc2[i][j] = 0.f;
     }
 
-  for (int k0 = 0; k0 < r; k0 += BK) {
+  // the next slices are loaded into registers while this one is computed
+  constexpr int kLoadsA = (BM * BK) / kThreads;
+  constexpr int kLoadsB = (BK * BN) / kThreads;
+  float n1[kLoadsA], n2[kLoadsA], nq[kLoadsB];
+  auto load = [&](int k0) {
 #pragma unroll
-    for (int t = 0; t < (BM * BK) / kThreads; ++t) {
+    for (int t = 0; t < kLoadsA; ++t) {
       const int e = tid + t * kThreads;
-      const int rr = e / BK, c = e % BK;
-      const int gr = row0 + rr, gc = k0 + c;
+      const int gr = row0 + e / BK, gc = k0 + e % BK;
       const bool ok = gr < m && gc < r;
       const long long off = a_off + static_cast<long long>(gr) * r + gc;
-      A1[c][rr] = ok ? b1[off] : 0.f;
-      A2[c][rr] = ok ? b2[off] : 0.f;
+      n1[t] = ok ? b1[off] : 0.f;
+      if constexpr (kOps == 2) n2[t] = ok ? b2[off] : 0.f;
     }
 #pragma unroll
-    for (int t = 0; t < (BK * BN) / kThreads; ++t) {
+    for (int t = 0; t < kLoadsB; ++t) {
       const int e = tid + t * kThreads;
-      const int kr = e / BN, c = e % BN;
-      const int k = k0 + kr, col = col0 + c;
+      const int k = k0 + e / BN, col = col0 + e % BN;
       float v = 0.f;
       if (k < r && col < n) {
         const int src = idx_b[k];
         if (src >= 0 && src < n) v = qt[static_cast<long long>(src) * n + col];
       }
-      Bs[kr][c] = v;
+      nq[t] = v;
+    }
+  };
+  load(0);
+  for (int k0 = 0; k0 < r; k0 += BK) {
+#pragma unroll
+    for (int t = 0; t < kLoadsA; ++t) {
+      const int e = tid + t * kThreads;
+      A1[e % BK][e / BK] = n1[t];
+      if constexpr (kOps == 2) A2[e % BK][e / BK] = n2[t];
+    }
+#pragma unroll
+    for (int t = 0; t < kLoadsB; ++t) {
+      const int e = tid + t * kThreads;
+      Bs[e / BN][e % BN] = nq[t];
     }
     __syncthreads();
+    if (k0 + BK < r) load(k0 + BK);
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
       const float4 x1 = *reinterpret_cast<const float4*>(&A1[kk][ty * 4]);
-      const float4 x2 = *reinterpret_cast<const float4*>(&A2[kk][ty * 4]);
       const float4 q0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
       const float4 q1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
       const float a1[4] = {x1.x, x1.y, x1.z, x1.w};
-      const float a2[4] = {x2.x, x2.y, x2.z, x2.w};
       const float qv[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          acc1[i][j] = fmaf(a1[i], qv[j], acc1[i][j]);
-          acc2[i][j] = fmaf(a2[i], qv[j], acc2[i][j]);
-        }
+        for (int j = 0; j < 8; ++j) acc1[i][j] = fmaf(a1[i], qv[j], acc1[i][j]);
+      if constexpr (kOps == 2) {
+        const float4 x2 = *reinterpret_cast<const float4*>(&A2[kk][ty * 4]);
+        const float a2[4] = {x2.x, x2.y, x2.z, x2.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc2[i][j] = fmaf(a2[i], qv[j], acc2[i][j]);
+      }
     }
     __syncthreads();
   }
@@ -109,7 +136,7 @@ colgather_matmul_dual_kernel(const float* __restrict__ b1, const float* __restri
       if (col < n) {
         const long long off = o_off + static_cast<long long>(row) * n + col;
         o1[off] = acc1[i][j];
-        o2[off] = acc2[i][j];
+        if constexpr (kOps == 2) o2[off] = acc2[i][j];
       }
     }
   }
@@ -122,8 +149,19 @@ extern "C" int repro_colgather_matmul_dual(const float* b1, const float* b2, con
                                            int m, int r, int n, void* stream) {
   if (batch > 0 && m > 0 && n > 0) {
     const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, batch);
-    colgather_matmul_dual_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    colgather_matmul_kernel<2><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         b1, b2, qt, idx, o1, o2, m, r, n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_colgather_matmul(const float* b, const float* qt, const int* idx,
+                                      float* o, int batch, int m, int r, int n,
+                                      void* stream) {
+  if (batch > 0 && m > 0 && n > 0) {
+    const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, batch);
+    colgather_matmul_kernel<1><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        b, nullptr, qt, idx, o, nullptr, m, r, n);
   }
   return static_cast<int>(cudaGetLastError());
 }

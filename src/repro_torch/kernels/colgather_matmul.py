@@ -1,21 +1,21 @@
-"""Fused dual column-gather back-projection:
-``(b1 @ Q^T[idx, :], b2 @ Q^T[idx, :])``.
+"""Column-gather back-projection: ``b @ Q^T[idx, :]``, for one operand or
+two.
 
-The projected-Adam step back-projects both the descent direction
-``u @ Q_r^T`` and the residual reconstruction ``g_low @ Q_r^T`` through the
-same selected columns every step. Both products come from one gather of the
-selected rows of ``Q^T``, and the gathered ``(r, n)`` factor never exists in
-device memory.
+* ``colgather_matmul(b, qt, idx)`` — one back-projection: subspace Muon's
+  update ``o @ Q_r^T``.
+* ``colgather_matmul_dual(b1, b2, qt, idx)`` — the projected-Adam step's
+  descent direction ``u @ Q_r^T`` and residual reconstruction
+  ``g_low @ Q_r^T`` (and Trion's update and EF reconstruction) from one
+  gather of the selected rows of ``Q^T``.
 
-On a CUDA tensor ``colgather_matmul_dual`` launches the kernel of
+The gathered ``(r, n)`` factor never exists in device memory. On CUDA
+tensors each wrapper launches its instance of the kernel template of
 ``csrc/colgather_matmul.cu`` (replacing
-``repro/kernels/colgather_matmul.py::_kernel_dual``; bound by the fp32 FMA
-rate — see the source note) or raises. On a CPU tensor it runs
-``colgather_matmul_dual_plain``. ``qt`` must be a contiguous ``Q^T``, not a
-transposed view of ``Q``: the kernel reads its rows from ``data_ptr()``.
-
-The single-operand ``colgather_matmul`` (no error feedback) is not yet
-ported.
+``repro/kernels/colgather_matmul.py::_kernel`` and ``::_kernel_dual``; bound
+by the fp32 FMA rate — see the source note) or raises. On CPU tensors they
+run ``colgather_matmul_plain`` / ``colgather_matmul_dual_plain``. ``qt`` must
+be a contiguous ``Q^T``, not a transposed view of ``Q``: the kernel reads its
+rows from ``data_ptr()``.
 """
 from __future__ import annotations
 
@@ -23,6 +23,59 @@ import torch
 
 from . import cuda_lib
 from .lowp import check_compute_dtype
+
+
+def colgather_matmul_plain(b: torch.Tensor, qt: torch.Tensor,
+                           idx: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    return (b.float() @ qt[idx.long()].float()).to(out_dtype or b.dtype)
+
+
+def _check_shapes(name: str, bs: tuple[torch.Tensor, ...], qt: torch.Tensor,
+                  idx: torch.Tensor) -> tuple[list[int], int, int, int]:
+    """Returns (batch, m, r, n); raises on operands that do not fit."""
+    *batch, m, r = bs[0].shape
+    n = qt.shape[-1]
+    if any(tuple(b.shape) != tuple(bs[0].shape) for b in bs[1:]) \
+            or tuple(qt.shape) != (n, n) or tuple(idx.shape) != (*batch, r):
+        raise ValueError(f"{name}: shapes {[tuple(b.shape) for b in bs]} "
+                         f"qt {tuple(qt.shape)} idx {tuple(idx.shape)} do "
+                         f"not fit")
+    return batch, m, r, n
+
+
+def _launch_args(name: str, bs: tuple[torch.Tensor, ...], qt: torch.Tensor,
+                 idx: torch.Tensor, m: int, r: int, n: int, out_dtype) -> int:
+    """The checks before a launch; returns the collapsed batch size."""
+    if out_dtype not in (None, torch.float32):
+        raise NotImplementedError(f"{name}: only fp32 is ported")
+    for i, b in enumerate(bs, 1):
+        cuda_lib.require_cuda(f"{name} b{i}", b, torch.float32)
+    cuda_lib.require_cuda(f"{name} qt", qt, torch.float32)
+    cuda_lib.require_cuda(f"{name} idx", idx, torch.int32)
+    nb = bs[0].numel() // (m * r) if m * r else 0
+    if nb >= 2**16 or m >= 2**31 or n >= 2**31:
+        raise ValueError(f"{name}: shape {tuple(bs[0].shape)} exceeds the "
+                         f"grid")
+    return nb
+
+
+def colgather_matmul(b: torch.Tensor, qt: torch.Tensor, idx: torch.Tensor, *,
+                     out_dtype=None, compute_dtype: str = "fp32"
+                     ) -> torch.Tensor:
+    """``b``: (..., m, r); ``qt``: Q^T (n, n); ``idx``: (..., r) int32 per
+    layer. Returns (..., m, n)."""
+    check_compute_dtype(compute_dtype)
+    batch, m, r, n = _check_shapes("colgather_matmul", (b,), qt, idx)
+    if cuda_lib.same_device(b, qt, idx).type == "cpu":
+        return colgather_matmul_plain(b, qt, idx, out_dtype)
+    nb = _launch_args("colgather_matmul", (b,), qt, idx, m, r, n, out_dtype)
+    out = torch.empty((*batch, m, n), dtype=torch.float32, device=b.device)
+    rc = cuda_lib.library().repro_colgather_matmul(
+        b.data_ptr(), qt.data_ptr(), idx.data_ptr(), out.data_ptr(), nb, m, r,
+        n, cuda_lib.stream(b))
+    cuda_lib.check(rc, "colgather_matmul")
+    colgather_matmul.launches += 1
+    return out
 
 
 def colgather_matmul_dual_plain(b1: torch.Tensor, b2: torch.Tensor,
@@ -41,25 +94,11 @@ def colgather_matmul_dual(b1: torch.Tensor, b2: torch.Tensor,
     """``b1``, ``b2``: (..., m, r); ``qt``: Q^T (n, n); ``idx``: (..., r)
     int32 per layer. Returns two (..., m, n)."""
     check_compute_dtype(compute_dtype)
-    *batch, m, r = b1.shape
-    n = qt.shape[-1]
-    if tuple(b2.shape) != tuple(b1.shape) or tuple(qt.shape) != (n, n) \
-            or tuple(idx.shape) != (*batch, r):
-        raise ValueError(f"colgather_matmul_dual: shapes b1 {tuple(b1.shape)} "
-                         f"b2 {tuple(b2.shape)} qt {tuple(qt.shape)} "
-                         f"idx {tuple(idx.shape)} do not fit")
+    batch, m, r, n = _check_shapes("colgather_matmul_dual", (b1, b2), qt, idx)
     if cuda_lib.same_device(b1, b2, qt, idx).type == "cpu":
         return colgather_matmul_dual_plain(b1, b2, qt, idx, out_dtype)
-    if out_dtype not in (None, torch.float32):
-        raise NotImplementedError("colgather_matmul_dual: only fp32 is ported")
-    cuda_lib.require_cuda("colgather_matmul_dual b1", b1, torch.float32)
-    cuda_lib.require_cuda("colgather_matmul_dual b2", b2, torch.float32)
-    cuda_lib.require_cuda("colgather_matmul_dual qt", qt, torch.float32)
-    cuda_lib.require_cuda("colgather_matmul_dual idx", idx, torch.int32)
-    nb = b1.numel() // (m * r) if m * r else 0
-    if nb >= 2**16 or m >= 2**31 or n >= 2**31:
-        raise ValueError(f"colgather_matmul_dual: shape {tuple(b1.shape)} "
-                         f"exceeds the grid")
+    nb = _launch_args("colgather_matmul_dual", (b1, b2), qt, idx, m, r, n,
+                      out_dtype)
     o1 = torch.empty((*batch, m, n), dtype=torch.float32, device=b1.device)
     o2 = torch.empty_like(o1)
     rc = cuda_lib.library().repro_colgather_matmul_dual(
@@ -70,4 +109,5 @@ def colgather_matmul_dual(b1: torch.Tensor, b2: torch.Tensor,
     return o1, o2
 
 
+colgather_matmul.launches = 0
 colgather_matmul_dual.launches = 0

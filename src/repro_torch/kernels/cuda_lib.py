@@ -39,7 +39,10 @@ SIGNATURES = {
     "repro_dequant_add_ef": (_P, _P, _P, _P, _L, _I, _P),
     "repro_dct_project": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "repro_dct_project_block_rows": (),
+    "repro_colgather_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "repro_colgather_matmul_dual": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_ns_gram": (_P, _P, _I, _I, _I, _P),
+    "repro_ns_apply": (_P, _P, _P, _F, _I, _I, _I, _P),
     "repro_flash_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _I, _I, _I, _I, _F, _I, _I, _P),
 }

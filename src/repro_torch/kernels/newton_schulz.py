@@ -1,0 +1,115 @@
+"""Newton–Schulz on the low-rank factor (Trion's hot loop), through the CUDA
+kernels of ``csrc/newton_schulz.cu``.
+
+One NS5 iteration on the wide-oriented factor ``X (r, m)`` (r <= m) is
+
+    A = X X^T            ``ns_gram``  (replaces repro/kernels/newton_schulz.py::_gram_kernel)
+    P = b A + c A A      (r x r) a batched ``torch.matmul``, as the JAX
+                         package computes it outside Pallas
+    X = a X + P X        ``ns_apply`` (replaces ::_apply_kernel)
+
+``newton_schulz_kernel`` is the counterpart of the JAX package's
+``newton_schulz_pallas``: ``core.newton_schulz``'s driver (one orientation
+for the whole stack, a per-matrix Frobenius normalization with ``eps``,
+``steps`` iterations, the input dtype back) with ``ns_iteration`` as its
+step. Its two ``(..., r, m)`` buffers are allocated once and the iterations
+ping-pong between them. Leading stacked-layer axes become the kernels' batch
+grid dimension. There is no block-size knob: the tiles are the kernels'
+own (32x32 Gram tiles, 64x128 apply tiles).
+
+On CUDA tensors ``ns_gram`` / ``ns_apply`` launch their kernel or raise; on
+CPU tensors they run ``ns_gram_plain`` / ``ns_apply_plain``, whose
+composition is exactly ``core.newton_schulz``'s iteration. Both kernels are
+bound by the fp32 FMA rate (see the source note).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.newton_schulz import NS_COEFFS, newton_schulz
+
+from . import cuda_lib
+
+
+def ns_gram_plain(x: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(x, x.mT)
+
+
+def ns_apply_plain(x: torch.Tensor, p: torch.Tensor, a: float,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    return torch.add(a * x, torch.matmul(p, x), out=out)
+
+
+def _batch(name: str, x: torch.Tensor) -> int:
+    *_, r, m = x.shape
+    nb = x.numel() // (r * m) if r * m else 0
+    if nb >= 2**16 or r >= 2**31 or m >= 2**31:
+        raise ValueError(f"{name}: shape {tuple(x.shape)} exceeds the grid")
+    return nb
+
+
+def ns_gram(x: torch.Tensor) -> torch.Tensor:
+    """``A = X X^T`` (..., r, r) of a wide ``x`` (..., r, m), fp32."""
+    *batch, r, m = x.shape
+    if x.device.type == "cpu":
+        return ns_gram_plain(x)
+    cuda_lib.require_cuda("ns_gram x", x, torch.float32)
+    nb = _batch("ns_gram", x)
+    out = torch.empty((*batch, r, r), dtype=torch.float32, device=x.device)
+    rc = cuda_lib.library().repro_ns_gram(x.data_ptr(), out.data_ptr(), nb, r,
+                                          m, cuda_lib.stream(x))
+    cuda_lib.check(rc, "ns_gram")
+    ns_gram.launches += 1
+    return out
+
+
+def ns_apply(x: torch.Tensor, p: torch.Tensor, *, a: float = NS_COEFFS[0],
+             out: torch.Tensor | None = None) -> torch.Tensor:
+    """``a X + P X`` for ``x`` (..., r, m) and ``p`` (..., r, r), into
+    ``out`` (a new tensor if None; never ``x`` itself)."""
+    *batch, r, m = x.shape
+    if tuple(p.shape) != (*batch, r, r):
+        raise ValueError(f"ns_apply: P {tuple(p.shape)} does not fit X "
+                         f"{tuple(x.shape)}")
+    if out is not None and (tuple(out.shape) != tuple(x.shape)
+                            or out.data_ptr() == x.data_ptr()):
+        raise ValueError("ns_apply: out must be a buffer of X's shape other "
+                         "than X")
+    if cuda_lib.same_device(x, p).type == "cpu":
+        return ns_apply_plain(x, p, a, out)
+    cuda_lib.require_cuda("ns_apply x", x, torch.float32)
+    cuda_lib.require_cuda("ns_apply p", p, torch.float32)
+    if out is None:
+        out = torch.empty_like(x)
+    else:
+        cuda_lib.require_cuda("ns_apply out", out, torch.float32)
+    nb = _batch("ns_apply", x)
+    rc = cuda_lib.library().repro_ns_apply(x.data_ptr(), p.data_ptr(),
+                                           out.data_ptr(), a, nb, r, m,
+                                           cuda_lib.stream(x))
+    cuda_lib.check(rc, "ns_apply")
+    ns_apply.launches += 1
+    return out
+
+
+ns_gram.launches = 0
+ns_apply.launches = 0
+
+
+def ns_iteration(x: torch.Tensor, *, out: torch.Tensor | None = None
+                 ) -> torch.Tensor:
+    """One NS5 iteration on a wide ``x (..., r, m)``, r <= m: the gram
+    launch, the (r, r) polynomial, the apply launch (into ``out``)."""
+    a, b, c = NS_COEFFS
+    gram = ns_gram(x)
+    poly = b * gram + c * torch.matmul(gram, gram)
+    return ns_apply(x, poly, a=a, out=out)
+
+
+def newton_schulz_kernel(x: torch.Tensor, *, steps: int = 5,
+                         eps: float = 1e-7) -> torch.Tensor:
+    """Full NS orthogonalization of ``x (..., p, q)`` through the kernels:
+    the counterpart of ``repro.kernels.newton_schulz.newton_schulz_pallas``.
+    ``core.newton_schulz``'s driver (orientation, normalization, the two
+    ping-pong buffers, the cast back) with ``ns_iteration`` as its step."""
+    return newton_schulz(x, steps, eps, iteration=ns_iteration)

@@ -6,16 +6,20 @@ the TPU. Here each wrapper chooses by its tensors' device (CUDA: launch the
 kernel or raise; CPU: the plain version), so callers use the wrappers
 themselves.
 
-``TRAINING`` lists the CUDA kernels of the DCT-AdamW step, ``SERVING``
-those of the paged decode step, ``KERNELS`` both. ``launch_counts`` /
+``TRAINING`` lists the CUDA kernels of the DCT-AdamW step, ``MOMENTUM``
+those the momentum families add (Trion, Muon, Dion: the two Newton–Schulz
+kernels and the single-operand back-projection; Trion and subspace Muon
+also run ``dct_project``, and Trion ``colgather_matmul_dual``), ``SERVING``
+those of the paged decode step, ``KERNELS`` all. ``launch_counts`` /
 ``reset_launch_counts`` read and zero the counters of a group (all by
 default).
 """
 from __future__ import annotations
 
-from .colgather_matmul import colgather_matmul_dual
+from .colgather_matmul import colgather_matmul, colgather_matmul_dual
 from .dct_project import dct_project
 from .flash_decode import flash_decode
+from .newton_schulz import newton_schulz_kernel, ns_apply, ns_gram
 from .quant_ef import dequant_add_ef, quantize_ef
 
 TRAINING = {
@@ -24,10 +28,15 @@ TRAINING = {
     "colgather_matmul_dual": colgather_matmul_dual,
     "quantize_ef": quantize_ef,
 }
+MOMENTUM = {
+    "ns_gram": ns_gram,
+    "ns_apply": ns_apply,
+    "colgather_matmul": colgather_matmul,
+}
 SERVING = {
     "flash_decode": flash_decode,
 }
-KERNELS = {**TRAINING, **SERVING}
+KERNELS = {**TRAINING, **MOMENTUM, **SERVING}
 
 
 def launch_counts(group: dict | None = None) -> dict[str, int]:

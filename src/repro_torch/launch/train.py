@@ -1,13 +1,16 @@
 """Training driver.
 
-  python -m repro_torch.launch.train --arch llama-350m --optimizer dct_adamw \
+  python -m repro_torch.launch.train --arch llama-350m --optimizer trion \
       --rank 128 --steps 300 --seq-len 512 --batch 64 [--smoke] [--device cpu]
 
 Runs on the CUDA card by default and raises if there is none; ``--device
 cpu`` runs on the CPU (the tests). config -> synthetic data -> train step
-with the paper's optimizer -> ``Trainer``. With ``--fused auto`` (the
-default) the optimizer runs its CUDA kernels on the card and the reference
-path on the CPU.
+with the chosen optimizer -> ``Trainer``. ``--optimizer`` is one of
+``trion`` (the default, as in the JAX CLI), ``dct_adamw``, ``muon`` and
+``dion``; ``--rank`` defaults to 128, except for Muon, where no ``--rank``
+means full-space Newton–Schulz and ``--rank r`` the rank-r subspace. With
+``--fused auto`` (the default) these four families run their CUDA kernels on
+the card and the reference path on the CPU.
 
 Flags of the JAX CLI that this port does not support yet exit with
 "not yet ported".
@@ -38,16 +41,18 @@ def build(argv=None) -> argparse.Namespace:
     ap.add_argument("--arch", default="llama-350m")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-sized)")
-    ap.add_argument("--optimizer", default="dct_adamw")
+    ap.add_argument("--optimizer", default="trion")
     ap.add_argument("--rank", type=int, default=None,
-                    help="subspace rank (default 128)")
+                    help="subspace rank of the low-rank families (default "
+                         "128); for muon the default is full-space "
+                         "Newton-Schulz and --rank opts into the subspace")
     ap.add_argument("--lr", type=float, default=0.01)
     ap.add_argument("--weight-decay", type=float, default=0.01)
     ap.add_argument("--fused", default=None,
                     choices=["auto", "on", "fft", "off"],
-                    help="fused-step dispatch of dct_adamw: auto = the CUDA "
-                         "kernels for tensors on the card, the reference "
-                         "path on the CPU")
+                    help="fused-step dispatch of dct_adamw, muon, trion and "
+                         "dion: auto = the CUDA kernels for tensors on the "
+                         "card, the reference path on the CPU")
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--seq-len", type=int, default=512)
@@ -90,8 +95,13 @@ def run(args: argparse.Namespace):
     dev = device_for(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     lr = cosine_warmup(args.lr, args.warmup, args.steps)
-    opt_kw = {"weight_decay": args.weight_decay,
-              "rank": args.rank if args.rank is not None else 128}
+    opt_kw = {"weight_decay": args.weight_decay}
+    if args.optimizer == "muon":
+        # full-space Newton-Schulz unless --rank asks for the subspace
+        if args.rank is not None:
+            opt_kw["rank"] = args.rank
+    else:
+        opt_kw["rank"] = args.rank if args.rank is not None else 128
     if args.fused is not None:
         opt_kw["fused"] = args.fused
     opt = get_optimizer(args.optimizer, lr=lr, **opt_kw)

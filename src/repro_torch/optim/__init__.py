@@ -1,8 +1,12 @@
 """Low-rank adaptive optimizers built from composable gradient transforms.
-Ported so far: the paper's DCT-AdamW."""
+Ported so far: the paper's DCT-AdamW and the momentum families Trion, Muon
+and Dion."""
 from .api import OPTIMIZERS, TRANSFORMS, get_optimizer, get_transform
 from .common import Optimizer, apply_updates
+from .dion import dion, dion_transform
+from .muon import muon, muon_transform
 from .projected_adam import dct_adamw, dct_adamw_transform
+from .trion import trion, trion_transform
 from .transform import (
     ChainState,
     GradientTransform,
@@ -19,6 +23,8 @@ from .transform import (
 __all__ = [
     "OPTIMIZERS", "TRANSFORMS", "get_optimizer", "get_transform",
     "Optimizer", "apply_updates", "dct_adamw", "dct_adamw_transform",
+    "trion", "trion_transform", "muon", "muon_transform", "dion",
+    "dion_transform",
     "GradientTransform", "ChainState", "chain", "partition", "as_optimizer",
     "matrix_optimizer", "lowrank_project", "scale_by_adam",
     "scale_by_learning_rate", "add_decayed_weights",

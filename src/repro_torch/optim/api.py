@@ -1,21 +1,26 @@
 """Optimizer registry — ``get_optimizer(name, lr, **kw)``.
 
-Only ``dct_adamw`` is ported. The other presets of ``repro.optim.api``
-raise "not yet ported".
+Ported: the paper's ``dct_adamw`` and the momentum families ``trion`` (the
+JAX CLI's default), ``muon`` and ``dion``. The other presets of
+``repro.optim.api`` raise "not yet ported".
 """
 from __future__ import annotations
 
 import inspect
 
 from .common import Optimizer, Schedule
+from .dion import dion, dion_transform
+from .muon import muon, muon_transform
 from .projected_adam import dct_adamw, dct_adamw_transform
+from .trion import trion, trion_transform
 
-OPTIMIZERS = {"dct_adamw": dct_adamw}
-TRANSFORMS = {"dct_adamw": dct_adamw_transform}
+OPTIMIZERS = {"dct_adamw": dct_adamw, "trion": trion, "muon": muon,
+              "dion": dion}
+TRANSFORMS = {"dct_adamw": dct_adamw_transform, "trion": trion_transform,
+              "muon": muon_transform, "dion": dion_transform}
 
 #: presets of the JAX registry this package does not build yet
-NOT_YET_PORTED = ("adamw", "muon", "dion", "trion", "ldadamw", "galore",
-                  "frugal", "fira")
+NOT_YET_PORTED = ("adamw", "ldadamw", "galore", "frugal", "fira")
 
 
 def _lookup(table: dict, name: str):

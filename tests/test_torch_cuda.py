@@ -11,9 +11,11 @@ import pytest
 import torch
 
 from repro_torch.core.dct import dct2_matrix
+from repro_torch.core.newton_schulz import NS_COEFFS, _ns_step, newton_schulz
 from repro_torch.kernels import colgather_matmul as cg
 from repro_torch.kernels import dct_project as dp
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import newton_schulz as ns
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_ef as qe
 
@@ -87,6 +89,96 @@ def test_cuda_wrappers_reject_views_and_dtypes(cuda):
         qe.quantize_ef(torch.zeros(4, 4, dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError):
         dp.dct_project(torch.zeros(4, 16, device=cuda), q.cpu())
+
+
+# wide NS factors (..., r, m): ragged r and m, Trion's llama-350m factor, a
+# stacked one, a stacked ragged one past one Gram tile, and r = 1
+NS_SHAPES = {"r17m100": (17, 100), "trion": (128, 2816),
+             "stacked": (3, 128, 300), "stacked_ragged": (2, 45, 333),
+             "r1": (1, 64)}
+# gram (m-term sums), apply and one iteration (r-term sums) in other orders
+# than cuBLAS, relative to max |out|
+NS_RTOL = 1e-5
+
+
+def _ns_input(shape, cuda, seed=0):
+    """A wide factor scaled like the first iteration's input."""
+    x = torch.from_numpy(_rand(shape, seed)).to(cuda)
+    return x / (torch.linalg.norm(x, dim=(-2, -1), keepdim=True) + 1e-7)
+
+
+def _assert_rel(got, want, rtol):
+    err = (got - want).abs().max().item()
+    assert err <= rtol * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(NS_SHAPES))
+def test_cuda_ns_kernels_match_plain(cuda, name):
+    a, b, c = NS_COEFFS
+    x = _ns_input(NS_SHAPES[name], cuda)
+    before = ops.launch_counts(ops.MOMENTUM)
+    g = ns.ns_gram(x)
+    # one CTA per Gram tile sums all columns in a fixed order: the same bits
+    # on every launch, and A[p][q], A[q][p] from the same FMAs
+    assert torch.equal(g, ns.ns_gram(x))
+    assert torch.equal(g, g.mT)
+    _assert_rel(g, ns.ns_gram_plain(x), NS_RTOL)
+    p = b * g + c * torch.matmul(g, g)
+    y = ns.ns_apply(x, p, a=a)
+    assert torch.equal(y, ns.ns_apply(x, p, a=a))
+    _assert_rel(y, ns.ns_apply_plain(x, p, a), NS_RTOL)
+    buf = torch.empty_like(x)
+    assert ns.ns_apply(x, p, a=a, out=buf) is buf and torch.equal(buf, y)
+    _assert_rel(ns.ns_iteration(x), _ns_step(x), NS_RTOL)
+    after = ops.launch_counts(ops.MOMENTUM)
+    assert after["ns_gram"] == before["ns_gram"] + 3
+    assert after["ns_apply"] == before["ns_apply"] + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2816, 128), (3, 100, 17), (16, 64),
+                                   (2, 333, 45)])
+def test_cuda_newton_schulz_kernel_matches_core(cuda, shape):
+    """Five iterations: the quintic's slope at 0 (3.4445) amplifies relative
+    differences up to ~500x, so 1e-4 of max |out| here."""
+    x = torch.from_numpy(_rand(shape, 3)).to(cuda)
+    got = ns.newton_schulz_kernel(x, steps=5)
+    assert got.shape == x.shape and torch.equal(
+        got, ns.newton_schulz_kernel(x, steps=5))
+    _assert_rel(got, newton_schulz(x, steps=5), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_cuda_colgather_matmul_matches_plain(cuda, name):
+    *batch, m, n = SHAPES[name]
+    r = min(8, n)
+    idx = torch.from_numpy(_idx(batch, n, r, 8)).to(cuda)
+    b = torch.from_numpy(_rand((*batch, m, r), 9)).to(cuda)
+    qt = dct2_matrix(n, device=cuda).T.contiguous()
+    before = ops.launch_counts(ops.MOMENTUM)["colgather_matmul"]
+    got = cg.colgather_matmul(b, qt, idx)
+    torch.testing.assert_close(got, cg.colgather_matmul_plain(b, qt, idx),
+                               rtol=1e-5, atol=1e-5)
+    # one template: the single operand sums in the dual kernel's order
+    assert torch.equal(got, cg.colgather_matmul_dual(b, b, qt, idx)[0])
+    assert ops.launch_counts(ops.MOMENTUM)["colgather_matmul"] == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_ns_wrappers_reject_views_and_dtypes(cuda):
+    x = torch.zeros(2, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ns.ns_gram(torch.zeros(2, 16, 8, device=cuda).mT)
+    with pytest.raises(TypeError):
+        ns.ns_gram(x.double())
+    with pytest.raises(ValueError):
+        ns.ns_apply(x, torch.zeros(2, 8, 8))
+    with pytest.raises(TypeError):
+        cg.colgather_matmul(torch.zeros(4, 2, device=cuda),
+                            torch.zeros(4, 4, device=cuda),
+                            torch.zeros(2, dtype=torch.int64, device=cuda))
 
 
 def _fd_inputs(cuda, *, b, hq, hkv, hd, bs, maxb, lengths, dtype, seed=0):

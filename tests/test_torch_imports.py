@@ -23,8 +23,15 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro") or m.startswith(("jax.", "jaxlib.", "repro.")))
 print(len(names), bad)
+print(" ".join(names))
 assert not bad, bad
 """
+
+# the modules of the momentum slice: each must be among those imported
+MOMENTUM_MODULES = ("repro_torch.core.newton_schulz",
+                    "repro_torch.kernels.newton_schulz",
+                    "repro_torch.optim.trion", "repro_torch.optim.muon",
+                    "repro_torch.optim.dion")
 
 
 def _env():
@@ -33,12 +40,22 @@ def _env():
     return env
 
 
-def test_import_every_submodule_without_jax_or_repro():
+@pytest.fixture(scope="module")
+def probe():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n_modules = int(out.stdout.split()[0])
+    return out.stdout.splitlines()
+
+
+def test_import_every_submodule_without_jax_or_repro(probe):
+    n_modules = int(probe[0].split()[0])
     assert n_modules >= 25
+
+
+@pytest.mark.parametrize("name", MOMENTUM_MODULES)
+def test_momentum_modules_import_without_jax_or_repro(probe, name):
+    assert name in probe[1].split()
 
 
 def _imported_roots(path: Path) -> set[str]:

@@ -176,7 +176,7 @@ def test_init_state_layout_matches_jax():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        get_optimizer("muon", lr=0.01)
+        get_optimizer("ldadamw", lr=0.01)
     with pytest.raises(NotImplementedError):
         get_optimizer("dct_adamw", lr=0.01, error_feedback=False)
     with pytest.raises(NotImplementedError):
