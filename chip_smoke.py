@@ -62,7 +62,24 @@ device or without the port beside it. Any failure raises. Phases:
    steps, at full width and depth, each with its launch counts (full-space
    Muon's NS runs the plain iteration: its short side of 1024 is past
    ``NS_KERNEL_MAX_RANK``).
-10. The ``kernels`` line, the card's line, and last:
+10. The bf16 and int8 variants of ``dct_project`` and of the single and
+   dual ``colgather_matmul`` against their plain versions at the main
+   path's shapes: int8 bit-equal (exact integer sums, the same epilogue),
+   bf16 within 1e-6 of max |out|, the norms of each giving the top-128 of
+   the planted spectrum that fp32 gives, each precision within
+   ``LOWP_ERROR_BOUNDS`` of fp32. Times per DCT-AdamW step: the kernel alone
+   on quantized operands and the wrapper with its operand quantization,
+   bounds at the precision's peak.
+11. DCT-AdamW's precisions and bases at full width and depth, 3 steps each,
+   the counters zeroed just before and read just after each: ``--compute-
+   dtype int8`` (7 ``dct_project_q8``, 7 ``colgather_matmul_dual_q8``, 7 of
+   each EF kernel per step, no fp32 projection), ``--compute-dtype bf16``,
+   the API with ``error_feedback=False`` in int8 (7 ``colgather_matmul_q8``,
+   no EF kernel) and in bf16, ``--basis hadamard`` (the fp32 kernels) and
+   ``--basis hadamard --fused fft`` (no kernel). Each step-1 loss must
+   equal phase 3's: the same seed gives the same weights and batch. Then
+   where an int8 step goes, as in phase 4.
+12. The ``kernels`` line, the card's line, and last:
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -84,9 +101,12 @@ LAYERS, RANK = 24, 128
 # (oriented G shape, launches per step): wq/wk/wv/wo, then wg/wu/wd
 MAIN_SHAPES = (((LAYERS, 1024, 1024), 4), ((LAYERS, 2816, 1024), 3))
 LAUNCHES_PER_STEP = sum(k for _, k in MAIN_SHAPES)
-# NVIDIA H100 SXM data sheet: HBM bandwidth and fp32 (non-tensor) peak
+# NVIDIA H100 SXM data sheet: HBM bandwidth, the fp32 (non-tensor) peak and
+# the dense tensor-core peaks of bf16 and int8
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12
+PEAK_INT8_PER_S = 1979e12
 TIMED_ITERS = 10
 
 # the momentum families: the CLI's defaults (trion, rank 128, fused auto)
@@ -125,6 +145,32 @@ NS_FULL_RTOL = 1e-3
 # (tests/test_newton_schulz_properties.py)
 OFFDIAG_TOL, SV_LO, SV_HI = 0.35, 0.3, 1.35
 
+# DCT-AdamW's precisions and bases (phase 11): (CLI argv or API keywords,
+# launches per step of each kernel; unnamed kernels 0). Steps: LOWP_STEPS.
+LOWP_STEPS = 3
+_EF = {"quantize_ef": LAUNCHES_PER_STEP, "dequant_add_ef": LAUNCHES_PER_STEP}
+LOWP_PATHS = {
+    "int8": (["--compute-dtype", "int8"],
+             {"dct_project_q8": LAUNCHES_PER_STEP,
+              "colgather_matmul_dual_q8": LAUNCHES_PER_STEP, **_EF}),
+    "bf16": (["--compute-dtype", "bf16"],
+             {"dct_project_bf16": LAUNCHES_PER_STEP,
+              "colgather_matmul_dual_bf16": LAUNCHES_PER_STEP, **_EF}),
+    "int8 discard": ({"error_feedback": False, "compute_dtype": "int8"},
+                     {"dct_project_q8": LAUNCHES_PER_STEP,
+                      "colgather_matmul_q8": LAUNCHES_PER_STEP}),
+    "bf16 discard": ({"error_feedback": False, "compute_dtype": "bf16"},
+                     {"dct_project_bf16": LAUNCHES_PER_STEP,
+                      "colgather_matmul_bf16": LAUNCHES_PER_STEP}),
+    "hadamard": (["--basis", "hadamard"],
+                 {"dct_project": LAUNCHES_PER_STEP,
+                  "colgather_matmul_dual": LAUNCHES_PER_STEP, **_EF}),
+    "hadamard fft": (["--basis", "hadamard", "--fused", "fft"], {}),
+}
+# a bf16 kernel against its plain version: the same rounded operands
+# multiplied exactly, fp32 sums in another order; relative to max |out|
+LOWP_RTOL = 1e-6
+
 # serving: llama-350m's attention and the engine's settings
 HEADS, HEAD_DIM, BLOCK = 16, 64, 16
 SLOTS, MAX_BLOCKS, NUM_SPLITS = 8, 128, 2
@@ -156,9 +202,10 @@ def _time_ms(fn, iters: int = TIMED_ITERS) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def _bound_ms(nbytes: float, flops: float,
+              peak: float = PEAK_FP32_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -334,7 +381,8 @@ def check_fused_update(torch, dev) -> None:
 
 
 def run_main_path(torch):
-    """Phase 3: the training CLI's code path, counters zeroed just before."""
+    """Phase 3: the training CLI's code path, counters zeroed just before.
+    Returns the counts and the step-1 loss."""
     from repro_torch.core import fused_step
     from repro_torch.kernels import ops
     from repro_torch.launch import train as train_cli
@@ -370,12 +418,14 @@ def run_main_path(torch):
         "launches_per_step": {k: v / STEPS for k, v in counts.items()},
     }
     print(json.dumps(summary), flush=True)
-    return counts
+    return counts, losses[0]
 
 
-def time_breakdown(torch, dev, optimizer: str = "dct_adamw") -> None:
-    """Phase 4 (and 8 for Trion): where one training step of llama-350m at
-    batch 8 x 512 with ``optimizer`` at rank 128 goes. The step's parts are
+def time_breakdown(torch, dev, optimizer: str = "dct_adamw",
+                   **opt_kw) -> None:
+    """Phase 4 (and 8 for Trion, 11 for int8 DCT-AdamW): where one training
+    step of llama-350m at batch 8 x 512 with ``optimizer`` at rank 128 (and
+    ``opt_kw``) goes. The step's parts are
     timed alone with CUDA events (the step is functional, so a part can be
     repeated on the same state); then the optimizer update alone and one
     whole step run under ``torch.profiler`` for the device time by kernel
@@ -390,7 +440,7 @@ def time_breakdown(torch, dev, optimizer: str = "dct_adamw") -> None:
 
     cfg = get_config("llama-350m")
     opt = get_optimizer(optimizer, lr=cosine_warmup(0.01, 2, STEPS),
-                        rank=RANK, weight_decay=0.01)
+                        rank=RANK, weight_decay=0.01, **opt_kw)
     state = S.init_state(cfg, opt, 0, dev)
     batch = make_batch_fn(cfg, SEQ, BATCH, device=dev)(0)
     step = S.make_train_step(cfg, opt)
@@ -419,7 +469,7 @@ def time_breakdown(torch, dev, optimizer: str = "dct_adamw") -> None:
     kernels, busy_ms = _device_kernels(prof)
     okernels, obusy_ms = _device_kernels(oprof)
     print(json.dumps({
-        "time_breakdown": parts, "optimizer": optimizer,
+        "time_breakdown": parts, "optimizer": optimizer, "options": opt_kw,
         "profiled_step_wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
@@ -660,6 +710,275 @@ def run_momentum_path(torch, name: str) -> dict:
     del trainer
     torch.cuda.empty_cache()
     return counts
+
+
+def _lowp_row() -> dict:
+    return {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bytes": 0.0,
+            "flops": 0.0, "max_abs_err": 0.0, "wrapper_ms": 0.0}
+
+
+def _mm_out_dtype(torch) -> bool:
+    """Whether this torch has ``torch.mm(a, b, out_dtype=...)`` on CUDA (a
+    bf16 product with an fp32 result in one call)."""
+    return torch._C._dispatch_has_kernel_for_dispatch_key("aten::mm.dtype",
+                                                          "CUDA")
+
+
+def check_lowp_kernels(torch, dev) -> dict:
+    """Phase 10. Returns ``{name: row}`` of the bf16 and int8 kernels
+    (``launches`` come from phase 11)."""
+    from repro_torch.core.dct import dct2_matrix
+    from repro_torch.core.selection import select_top_r, take_columns
+    from repro_torch.kernels import colgather_matmul as cg
+    from repro_torch.kernels import dct_project as dp
+    from repro_torch.kernels import lowp
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    names = ("dct_project_bf16", "dct_project_q8",
+             "colgather_matmul_dual_bf16", "colgather_matmul_dual_q8",
+             "colgather_matmul_bf16", "colgather_matmul_q8")
+    rows = {name: _lowp_row() for name in names}
+    lib = _mm_out_dtype(torch)
+    report = []
+    for shape, per_step in MAIN_SHAPES:
+        nb, m, n = shape
+        e = nb * m * n
+        q = dct2_matrix(n, device=dev)
+        qt = q.T.contiguous()
+        g = _planted(shape, q, gen)
+        g[0, 0] = 0.0
+        g[0, 1] = 1e-40
+        s32, n32 = dp.dct_project_plain(g, q)
+        idx32 = select_top_r(n32, RANK)
+        case = {"shape": list(shape)}
+
+        # the projections
+        gq, sg = lowp.quant_rows(g)
+        qq, sq = lowp.quant_cols(q)
+        s_bf, n_bf = dp.dct_project(g, q, compute_dtype="bf16")
+        sp_bf, np_bf = dp.dct_project_plain(g, q, compute_dtype="bf16")
+        s_q8, n_q8 = dp.dct_project(g, q, compute_dtype="int8")
+        sp_q8, np_q8 = dp.dct_project_q8_plain(gq, sg, qq, sq)
+        torch.cuda.synchronize()
+        assert torch.equal(s_q8, sp_q8), f"dct_project_q8 {shape}: S differs"
+        e_bf = _rel(s_bf, sp_bf)
+        assert e_bf <= LOWP_RTOL, f"dct_project_bf16 {shape}: rel {e_bf}"
+        for dt, (s, nk, npl) in {"bf16": (s_bf, n_bf, np_bf),
+                                 "int8": (s_q8, n_q8, np_q8)}.items():
+            norm_rel = ((nk - npl).abs() / npl.clamp_min(1e-30)).max().item()
+            assert norm_rel <= 1e-5, f"{dt} norms {shape}: rel {norm_rel}"
+            idx = select_top_r(nk, RANK)
+            assert torch.equal(idx, select_top_r(npl, RANK)), f"{dt} top-r"
+            assert torch.equal(idx, idx32), f"{dt} top-r differs from fp32"
+            fro = (torch.linalg.norm(s.double() - s32.double())
+                   / torch.linalg.norm(s32.double())).item()
+            assert fro <= lowp.LOWP_ERROR_BOUNDS[dt], f"{dt} S vs fp32 {fro}"
+            case[f"dct_project_{dt}"] = {"norms_rel_err": norm_rel,
+                                         "rel_fro_vs_fp32": fro}
+        case["dct_project_bf16"]["rel_err"] = e_bf
+        rows["dct_project_bf16"]["max_abs_err"] = max(
+            rows["dct_project_bf16"]["max_abs_err"],
+            (s_bf - sp_bf).abs().max().item())
+        g16, q16 = g.to(torch.bfloat16), q.to(torch.bfloat16)
+        times = {
+            "dct_project_bf16": (
+                _time_ms(lambda: dp.dct_project_bf16(g, q)), None,
+                _time_ms(lambda: dp.dct_project_plain(
+                    g, q, compute_dtype="bf16")),
+                _time_ms(lambda: torch.mm(g16.view(-1, n), q16,
+                                          out_dtype=torch.float32))
+                if lib else None),
+            "dct_project_q8": (
+                _time_ms(lambda: dp.dct_project_q8(gq, sg, qq, sq)),
+                _time_ms(lambda: dp.dct_project(g, q, compute_dtype="int8")),
+                _time_ms(lambda: dp.dct_project_q8_plain(gq, sg, qq, sq)),
+                None)}
+        # bytes: the function's inputs read once and outputs written once
+        out_b = 4.0 * (e + nb * n)                       # S and the norms
+        cost = {"dct_project_bf16": (4.0 * (e + n * n) + out_b, 2.0 * e * n,
+                                     PEAK_BF16_PER_S),
+                "dct_project_q8": (1.0 * (e + n * n) + 4.0 * (nb * m + n)
+                                   + out_b, 2.0 * e * n, PEAK_INT8_PER_S)}
+        del g16, q16
+
+        # the back-projections on the selected columns
+        b1 = take_columns(s32, idx32).contiguous()
+        b2 = torch.randn(b1.shape, generator=gen, device=dev)
+        o32 = cg.colgather_matmul_dual_plain(b1, b2, qt, idx32)
+        ((b1q, s1), (b2q, s2)), qt_q = cg.quantize_operands((b1, b2), qt,
+                                                            idx32)
+        outs = {
+            "colgather_matmul_dual_bf16": (
+                cg.colgather_matmul_dual(b1, b2, qt, idx32,
+                                         compute_dtype="bf16"),
+                cg.colgather_matmul_dual_plain(b1, b2, qt, idx32,
+                                               compute_dtype="bf16"), o32),
+            "colgather_matmul_dual_q8": (
+                cg.colgather_matmul_dual(b1, b2, qt, idx32,
+                                         compute_dtype="int8"),
+                cg.colgather_q8_plain(((b1q, s1), (b2q, s2)), qt_q, idx32),
+                o32),
+            "colgather_matmul_bf16": (
+                (cg.colgather_matmul(b1, qt, idx32, compute_dtype="bf16"),),
+                (cg.colgather_matmul_plain(b1, qt, idx32,
+                                           compute_dtype="bf16"),), o32[:1]),
+            "colgather_matmul_q8": (
+                (cg.colgather_matmul(b1, qt, idx32, compute_dtype="int8"),),
+                cg.colgather_q8_plain(((b1q, s1),), qt_q, idx32), o32[:1]),
+        }
+        torch.cuda.synchronize()
+        for name, (got, want, ref) in outs.items():
+            dt = "int8" if name.endswith("q8") else "bf16"
+            for a, b, c in zip(got, want, ref):
+                if dt == "int8":
+                    assert torch.equal(a, b), f"{name} {shape}: differs"
+                else:
+                    err = _rel(a, b)
+                    assert err <= LOWP_RTOL, f"{name} {shape}: rel {err}"
+                    rows[name]["max_abs_err"] = max(
+                        rows[name]["max_abs_err"], (a - b).abs().max().item())
+                fro = (torch.linalg.norm(a.double() - c.double())
+                       / torch.linalg.norm(c.double())).item()
+                assert fro <= lowp.LOWP_ERROR_BOUNDS[dt], f"{name} vs fp32"
+                case.setdefault(name, []).append(fro)
+        del outs
+        rows_needed = torch.unique(idx32).numel()
+        times.update({
+            "colgather_matmul_dual_bf16": (
+                _time_ms(lambda: cg.colgather_matmul_dual_bf16(b1, b2, qt,
+                                                               idx32)),
+                None,
+                _time_ms(lambda: cg.colgather_matmul_dual_plain(
+                    b1, b2, qt, idx32, compute_dtype="bf16")), None),
+            "colgather_matmul_dual_q8": (
+                _time_ms(lambda: cg.colgather_matmul_dual_q8(
+                    b1q, s1, b2q, s2, qt_q, idx32)),
+                _time_ms(lambda: cg.colgather_matmul_dual(
+                    b1, b2, qt, idx32, compute_dtype="int8")),
+                _time_ms(lambda: cg.colgather_q8_plain(
+                    ((b1q, s1), (b2q, s2)), qt_q, idx32)), None),
+            "colgather_matmul_bf16": (
+                _time_ms(lambda: cg.colgather_matmul_bf16(b1, qt, idx32)),
+                None,
+                _time_ms(lambda: cg.colgather_matmul_plain(
+                    b1, qt, idx32, compute_dtype="bf16")), None),
+            "colgather_matmul_q8": (
+                _time_ms(lambda: cg.colgather_matmul_q8(b1q, s1, qt_q,
+                                                        idx32)),
+                _time_ms(lambda: cg.colgather_matmul(
+                    b1, qt, idx32, compute_dtype="int8")),
+                _time_ms(lambda: cg.colgather_q8_plain(((b1q, s1),), qt_q,
+                                                       idx32)), None)})
+        # bytes: each b, the indices, the rows of Q^T this run selects (each
+        # distinct row once) and the fp32 outputs; int8 b with row scales
+        for ops_n, suffix in ((2, "dual_"), (1, "")):
+            flops = ops_n * 2.0 * e * RANK
+            cost[f"colgather_matmul_{suffix}bf16"] = (
+                4.0 * (ops_n * nb * m * RANK + rows_needed * n + nb * RANK
+                       + ops_n * e), flops, PEAK_BF16_PER_S)
+            cost[f"colgather_matmul_{suffix}q8"] = (
+                ops_n * (1.0 * nb * m * RANK + 4.0 * nb * m)
+                + 1.0 * rows_needed * n + 4.0 * nb * RANK + 4.0 * ops_n * e,
+                flops, PEAK_INT8_PER_S)
+        for name, (kernel_ms, wrapper_ms, plain_ms, library_ms) in times.items():
+            row = rows[name]
+            row["ms"] += per_step * kernel_ms
+            row["wrapper_ms"] += per_step * (wrapper_ms or kernel_ms)
+            row["plain_ms"] += per_step * plain_ms
+            if library_ms is not None:
+                row["library_ms"] = (row["library_ms"] or 0.0) \
+                    + per_step * library_ms
+            nbytes, flops, peak = cost[name]
+            row["bytes"] += per_step * nbytes
+            row["flops"] += per_step * flops
+            row["peak"] = peak
+        case["per_call_ms"] = dict(times)
+        report.append(case)
+        del g, s32, n32, s_bf, sp_bf, s_q8, sp_q8, gq, b1, b2, b1q, b2q, o32
+        torch.cuda.empty_cache()
+    print(json.dumps({
+        "lowp_kernels": report,
+        "tolerance": f"int8 bit-equal; bf16 {LOWP_RTOL} of max |out|; norms "
+                     "1e-5 relative, top-128 equal to fp32's; each within "
+                     "LOWP_ERROR_BOUNDS of fp32 (relative Frobenius)",
+        "per_call_ms_order": "kernel, wrapper with its operand quantization "
+                             "(None: the same), plain, library"}),
+        flush=True)
+    return rows
+
+
+def run_lowp_path(torch, name: str, step1_loss: float) -> dict:
+    """Phase 11: one of DCT-AdamW's precisions or bases at full width and
+    depth, through the training CLI (argv) or the API (keywords), the
+    counters zeroed just before. Returns the counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+
+    spec, per_step = LOWP_PATHS[name]
+    base = [*TRAIN_ARGV[:TRAIN_ARGV.index("--steps")], "--steps",
+            str(LOWP_STEPS), *TRAIN_ARGV[TRAIN_ARGV.index("--warmup"):]]
+    args = train_cli.build(base + (spec if isinstance(spec, list) else []))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = (train_cli.run(args) if isinstance(spec, list)
+               else _run_api(args, spec))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    hist = trainer.metrics_history
+    assert len(hist) == LOWP_STEPS, hist
+    losses = [h["loss"] for h in hist]
+    assert all(math.isfinite(x) for x in losses), (name, losses)
+    assert losses[0] == step1_loss, \
+        f"{name}: step-1 loss {losses[0]} != the main path's {step1_loss}"
+    for kernel, n in counts.items():
+        want = per_step.get(kernel, 0) * LOWP_STEPS
+        assert n == want, f"{name}: {kernel} ran {n} times in {LOWP_STEPS} " \
+                          f"steps, expected {want}"
+    ms_step = sum(h["s_per_step"] for h in hist[1:]) / (LOWP_STEPS - 1) * 1e3
+    print(json.dumps({
+        "lowp_path": name, "spec": spec, "steps": LOWP_STEPS,
+        "batch": BATCH, "seq_len": SEQ, "losses": losses,
+        "first_step_ms": hist[0]["s_per_step"] * 1e3,
+        "ms_per_step_after_first": ms_step,
+        "tokens_per_s": BATCH * SEQ / (ms_step / 1e3),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "wall_s": wall,
+        "launches_per_step": {k: v / LOWP_STEPS for k, v in counts.items()
+                              if v}}), flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _run_api(args, opt_kw: dict):
+    """The training CLI's ``run`` with DCT-AdamW built through
+    ``get_optimizer`` with ``opt_kw`` (``error_feedback`` has no CLI
+    flag)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.launch.train import device_for
+    from repro_torch.optim.api import get_optimizer
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.schedule import cosine_warmup
+    from repro_torch.train.steps import init_state, make_train_step
+
+    dev = device_for(args.device)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    opt = get_optimizer("dct_adamw", lr=cosine_warmup(args.lr, args.warmup,
+                                                      args.steps),
+                        rank=args.rank, weight_decay=args.weight_decay,
+                        **opt_kw)
+    trainer = Trainer(
+        train_step=make_train_step(cfg, opt),
+        init_state_fn=lambda: init_state(cfg, opt, args.seed, dev),
+        batch_fn=make_batch_fn(cfg, args.seq_len, args.batch, seed=args.seed,
+                               device=dev),
+        log_every=args.log_every)
+    trainer.run(total_steps=args.steps)
+    return trainer
 
 
 def _fd_case(torch, dev, seed, *, b, hq, hkv, hd, bs, maxb, lengths,
@@ -943,7 +1262,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels import cuda_lib, ops
 
     print(_device_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -960,7 +1279,7 @@ def main() -> int:
 
     rows = check_kernels(torch, dev)
     check_fused_update(torch, dev)
-    counts = run_main_path(torch)
+    counts, step1_loss = run_main_path(torch)
     time_breakdown(torch, dev)
     torch.cuda.empty_cache()
     rows["flash_decode"] = check_flash_decode(torch, dev)
@@ -979,6 +1298,17 @@ def main() -> int:
     run_momentum_path(torch, "dion fft")
     run_momentum_path(torch, "muon full space")
 
+    rows.update(check_lowp_kernels(torch, dev))
+    for name in LOWP_PATHS:
+        for kernel, n in run_lowp_path(torch, name, step1_loss).items():
+            # each new kernel's launches: the first path that runs it
+            if kernel not in counts and n:
+                counts[kernel] = n
+    for kernel in ops.LOWP:
+        assert counts.get(kernel), f"{kernel}: no path of phase 11 ran it"
+    time_breakdown(torch, dev, compute_dtype="int8")
+    torch.cuda.empty_cache()
+
     sources = {"dequant_add_ef": ("quant_ef.cu", "src/repro/kernels/quant_ef.py:44"),
                "dct_project": ("dct_project.cu", "src/repro/kernels/dct_project.py:63"),
                "colgather_matmul_dual": ("colgather_matmul.cu",
@@ -991,7 +1321,27 @@ def main() -> int:
                "ns_apply": ("newton_schulz.cu",
                             "src/repro/kernels/newton_schulz.py:68"),
                "colgather_matmul": ("colgather_matmul.cu",
-                                    "src/repro/kernels/colgather_matmul.py:65")}
+                                    "src/repro/kernels/colgather_matmul.py:65"),
+               "dct_project_bf16": ("dct_project.cu",
+                                    "src/repro/kernels/dct_project.py:63"),
+               "dct_project_q8": ("dct_project.cu",
+                                  "src/repro/kernels/dct_project.py:93"),
+               "colgather_matmul_dual_bf16": (
+                   "colgather_matmul.cu", "src/repro/kernels/colgather_matmul.py:80"),
+               "colgather_matmul_dual_q8": (
+                   "colgather_matmul.cu", "src/repro/kernels/colgather_matmul.py:113"),
+               "colgather_matmul_bf16": ("colgather_matmul.cu",
+                                         "src/repro/kernels/colgather_matmul.py:65"),
+               "colgather_matmul_q8": ("colgather_matmul.cu",
+                                       "src/repro/kernels/colgather_matmul.py:98")}
+    lowp_note = ("per DCT-AdamW training step at the main path's shapes (7 "
+                 "launches); ms: the kernel alone, wrapper_ms: with the "
+                 "operand quantization; bound at the precision's tensor-core "
+                 "peak; launches from phase 11's {} run")
+    lowp_path = {"dct_project_bf16": "bf16", "colgather_matmul_dual_bf16": "bf16",
+                 "dct_project_q8": "int8", "colgather_matmul_dual_q8": "int8",
+                 "colgather_matmul_q8": "int8 discard",
+                 "colgather_matmul_bf16": "bf16 discard"}
     times_are = {
         "flash_decode": "per decode step: 24 launches at llama-350m's shapes "
                         "(a), 2 splits; library = SDPA on K/V already "
@@ -1004,8 +1354,21 @@ def main() -> int:
     }
     kernels = []
     for name, row in rows.items():
-        bound, by = _bound_ms(row["bytes"], row["flops"])
+        bound, by = _bound_ms(row["bytes"], row["flops"],
+                              row.get("peak", PEAK_FP32_PER_S))
         src, replaces = sources[name]
+        if name in lowp_path:
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{src}", "replaces": replaces,
+                "launches": counts[name], "max_abs_err": row["max_abs_err"],
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": bound, "bound_by": by,
+                "library_ms": row["library_ms"],
+                "wrapper_ms": row["wrapper_ms"],
+                "launches_per_step": counts[name] / LOWP_STEPS,
+                "times_are": lowp_note.format(lowp_path[name])})
+            continue
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}", "replaces": replaces,

@@ -15,9 +15,10 @@ or ``repro``: the JAX state's containers are recognised by their fields.
   ``leaves`` — into the port's ``ChainState``: the step, the stored bases,
   the full-rank Adam moments, and each matrix leaf's rule state: a
   ``ProjAdamLeaf``'s moments, int32 indices, error-feedback buffer (int8
-  payload and scale, or fp32) and ``inner_step``; a ``TrionLeaf``'s or
-  ``MuonLeaf``'s momentum; a ``DionLeaf``'s momentum and projection. The JAX
-  PRNG key is dropped: no ported rule draws random numbers.
+  payload and scale, fp32, or none where the residual is discarded) and
+  ``inner_step``; a ``TrionLeaf``'s or ``MuonLeaf``'s momentum; a
+  ``DionLeaf``'s momentum and projection. The JAX PRNG key is dropped: no
+  ported rule draws random numbers.
 """
 from __future__ import annotations
 
@@ -83,7 +84,9 @@ def _leaf_states(tree) -> dict:
 
 
 def _proj_leaf(s, device) -> ProjAdamLeaf:
-    if _fields(s.ef) == ("q", "scale"):
+    if s.ef is None:                     # residual "discard": no EF state
+        ef = None
+    elif _fields(s.ef) == ("q", "scale"):
         ef = QuantizedBuffer(q=_tensor(s.ef.q, device),
                              scale=_tensor(s.ef.scale, device))
     else:

@@ -69,6 +69,11 @@ def select_and_project(gf: torch.Tensor, q: torch.Tensor, r: int, *,
     the norms come out of the ``S = G @ Q`` kernel itself; the fft path
     computes ``S`` by the backend's fast transform. Either way ``g_low`` is
     sliced out of ``S`` (``S[:, idx] == G @ Q[:, idx]``).
+
+    ``compute_dtype`` in {"fp32", "bf16", "int8"}: the kernel path passes it
+    to ``dct_project``; the off/fft paths run the mirror
+    ``lowp.lowp_matmul`` instead of the fast transform (there is no int8
+    FFT, and the mirror's exact integer sum keeps the modes in lockstep).
     """
     lowp.check_compute_dtype(compute_dtype)
     if mode == "on":
@@ -79,7 +84,11 @@ def select_and_project(gf: torch.Tensor, q: torch.Tensor, r: int, *,
         idx = select_top_r(rank_norms, r)
         g_low = take_columns(s, idx)
         return (idx, g_low, norms_sq) if return_norms else (idx, g_low)
-    s = backend.apply_fast(gf, q) if backend is not None else makhoul_dct2(gf)
+    if compute_dtype != "fp32":
+        s = lowp.lowp_matmul(gf, q, compute_dtype)
+    else:
+        s = backend.apply_fast(gf, q) if backend is not None \
+            else makhoul_dct2(gf)
     if not return_norms and psum_axes is None:
         return dynamic_column_selection(s, r, ord=norm)
     norms_sq = allsum(column_norms(s, "l2"), psum_axes)
@@ -93,9 +102,12 @@ def select_and_project(gf: torch.Tensor, q: torch.Tensor, r: int, *,
 def project_with_indices(gf: torch.Tensor, q: torch.Tensor, idx: torch.Tensor,
                          *, compute_dtype: str = "fp32") -> torch.Tensor:
     """Keep-branch projection ``G @ Q[:, idx]`` for non-refresh steps
-    (T_u > 1): a gather and a skinny matmul, no full-width ``S``."""
-    lowp.check_compute_dtype(compute_dtype)
-    return gf @ gather_columns(q, idx).to(gf.dtype)
+    (T_u > 1): a gather and a skinny matmul, no full-width ``S``; in
+    ``compute_dtype`` through ``lowp.lowp_matmul``."""
+    qr = gather_columns(q, idx)
+    if lowp.check_compute_dtype(compute_dtype) != "fp32":
+        return lowp.lowp_matmul(gf, qr.float(), compute_dtype)
+    return gf @ qr.to(gf.dtype)
 
 
 def fused_dual_backproject(u_low: torch.Tensor, g_low: torch.Tensor,
@@ -107,7 +119,9 @@ def fused_dual_backproject(u_low: torch.Tensor, g_low: torch.Tensor,
 
     ``qt``: a contiguous ``Q^T`` cached by the caller for the kernel path
     (the kernel reads rows of ``Q^T`` from memory; ``q.T`` is only a view).
-    Without one, the kernel path makes the copy itself.
+    Without one, the kernel path makes the copy itself. Off the kernel
+    path a non-fp32 ``compute_dtype`` runs the mirror
+    ``lowp.lowp_gather_matmul``.
     """
     lowp.check_compute_dtype(compute_dtype)
     if mode == "on":
@@ -117,20 +131,28 @@ def fused_dual_backproject(u_low: torch.Tensor, g_low: torch.Tensor,
                                          g_low.contiguous(), qt,
                                          idx.contiguous(),
                                          compute_dtype=compute_dtype)
+    if compute_dtype != "fp32":
+        d, recon = lowp.lowp_gather_matmul((u_low, g_low), q.T, idx,
+                                           compute_dtype)
+        return d.to(u_low.dtype), recon.to(g_low.dtype)
     return dual_back_project(u_low, g_low, q, idx)
 
 
 def fused_backproject(u_low: torch.Tensor, q: torch.Tensor, idx: torch.Tensor,
                       *, mode: str, compute_dtype: str = "fp32",
                       qt: torch.Tensor | None = None) -> torch.Tensor:
-    """``u_low @ Q_r^T``: one back-projection (subspace Muon's update).
-    ``qt`` as for ``fused_dual_backproject``."""
+    """``u_low @ Q_r^T``: one back-projection (subspace Muon's update, and
+    DCT-AdamW's when it keeps no residual). ``qt`` and ``compute_dtype`` as
+    for ``fused_dual_backproject``."""
     lowp.check_compute_dtype(compute_dtype)
     if mode == "on":
         if qt is None:
             qt = q.T.contiguous()
         return ops.colgather_matmul(u_low.contiguous(), qt, idx.contiguous(),
                                     compute_dtype=compute_dtype)
+    if compute_dtype != "fp32":
+        (d,) = lowp.lowp_gather_matmul((u_low,), q.T, idx, compute_dtype)
+        return d.to(u_low.dtype)
     return back_project(u_low, q, idx)
 
 

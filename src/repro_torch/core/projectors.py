@@ -6,9 +6,10 @@ project / backproject. For a predefined-basis kind the state is int32
 indices ``(..., r)`` into the model-wide shared basis (paper: "only r
 integers per layer"), and selection ranks the backend's column energies.
 
-Only the ``dct`` kind is ported. The dense kinds of ``repro.core.projectors``
-(``svd``, ``power``, ``random``, ``randperm``) and the other basis backends
-are still to come.
+The predefined-basis kinds (every registered backend: ``dct``, ``dst``,
+``hadamard``, ``randortho``) are ported. The dense kinds of
+``repro.core.projectors`` (``svd``, ``power``, ``random``, ``randperm``) are
+still to come.
 """
 from __future__ import annotations
 
@@ -17,15 +18,14 @@ import dataclasses
 import torch
 
 from .selection import back_project, gather_columns, select_top_r
-from .transforms import get_backend
+from .transforms import backend_kinds, get_backend
 
 #: projector kinds of the JAX package this package does not build yet
-NOT_YET_PORTED = ("dst", "hadamard", "randortho", "svd", "power", "random",
-                  "randperm")
+NOT_YET_PORTED = ("svd", "power", "random", "randperm")
 
 
 def projector_kinds() -> tuple[str, ...]:
-    return ("dct",)
+    return backend_kinds()
 
 
 @dataclasses.dataclass(frozen=True)

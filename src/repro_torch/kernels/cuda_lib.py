@@ -1,11 +1,12 @@
 """Build, load and call the hand-written CUDA kernels of ``repro_torch/csrc``.
 
-Every ``*.cu`` file under ``csrc/`` is compiled with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, loaded with
-``ctypes``. The build runs at first use, into ``build/repro_torch_kernels/``
-at the root of the checkout, under a name keyed by a hash of the sources and
-flags, so an edited source rebuilds and an unchanged one loads at once. The
-sources compile in parallel, one ``nvcc`` each.
+Every ``*.cu`` file under ``csrc/`` (with the ``*.cuh`` headers they
+include) is compiled with ``nvcc`` for Hopper (``sm_90a``) into one shared
+library with a plain C interface, loaded with ``ctypes``. The build runs at
+first use, into ``build/repro_torch_kernels/`` at the root of the checkout,
+under a name keyed by a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one loads at once. The sources compile in
+parallel, one ``nvcc`` each.
 
 No ``--use_fast_math``: the quantizer's IEEE division and its handling of
 subnormal rows depend on it being off, and flash decode's ``expf`` stays
@@ -38,9 +39,17 @@ SIGNATURES = {
     "repro_quantize_ef": (_P, _P, _P, _L, _I, _P),
     "repro_dequant_add_ef": (_P, _P, _P, _P, _L, _I, _P),
     "repro_dct_project": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "repro_dct_project_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "repro_dct_project_q8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "repro_dct_project_block_rows": (),
     "repro_colgather_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "repro_colgather_matmul_dual": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_colgather_matmul_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_colgather_matmul_dual_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                         _P),
+    "repro_colgather_matmul_q8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_colgather_matmul_dual_q8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                       _I, _I, _P),
     "repro_ns_gram": (_P, _P, _I, _I, _I, _P),
     "repro_ns_apply": (_P, _P, _P, _F, _I, _I, _I, _P),
     "repro_flash_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -58,7 +67,7 @@ def _nvcc() -> str:
 
 def _digest(sources: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sources:
+    for f in [*sources, *sorted(CSRC.glob("*.cuh"))]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return h.hexdigest()[:16]

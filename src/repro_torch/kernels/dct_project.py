@@ -5,27 +5,125 @@ statistic ``norms[j] = sum_i S[i, j]^2`` of the dynamic column selection, so
 the selection needs no second read of ``S``. Nothing in it is DCT-specific:
 ``Q`` is any shared ``(n, n)`` basis.
 
-On a CUDA tensor ``dct_project`` launches the fp32 SIMT GEMM of
-``csrc/dct_project.cu`` (replacing ``repro/kernels/dct_project.py::_kernel``;
-bound by the fp32 FMA rate — see the source note) and its fixed-order
-row-block reduction of the norms, or raises. On a CPU tensor it runs
-``dct_project_plain``. Leading stacked-layer axes of ``G`` become the
-kernel's batch grid dimension: every layer is projected in one launch
-against the one shared basis.
+``compute_dtype`` selects the precision (``kernels/lowp.py``): "fp32",
+"bf16" (operands rounded to bf16, fp32 accumulation) or "int8" (``G``
+quantized per row, ``Q`` per column, exact integer accumulation, the scales
+in the epilogue; the norms are those of the dequantized ``S``).
+
+On CUDA tensors ``dct_project`` launches the matching kernel of
+``csrc/dct_project.cu`` (replacing ``repro/kernels/dct_project.py::_kernel``
+and ``::_kernel_q8``; see the source note for what bounds each) and its
+fixed-order row-block reduction of the norms, or raises; each precision has
+a launcher with its own launch count (``dct_project``, ``dct_project_bf16``,
+``dct_project_q8``). For int8 the operands are quantized by the same PyTorch
+ops as the plain version, outside the kernel, as in the JAX package. On CPU
+tensors every entry point runs its plain version. Leading stacked-layer axes
+of ``G`` become the kernel's batch grid dimension: every layer is projected
+in one launch against the one shared basis.
 """
 from __future__ import annotations
 
 import torch
 
 from . import cuda_lib
-from .lowp import check_compute_dtype
+from .lowp import (check_compute_dtype, check_q8_depth, int_matmul,
+                   lowp_matmul, quant_cols, quant_rows)
 
 
-def dct_project_plain(g: torch.Tensor, q: torch.Tensor, out_dtype=None
+def _with_norms(s32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return s32, (s32 * s32).sum(dim=-2)
+
+
+def dct_project_q8_plain(gq: torch.Tensor, sg: torch.Tensor,
+                         qq: torch.Tensor, sq: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 product of quantized operands: ``gq`` (..., m, n) int8 with
+    row scales ``sg`` (..., m, 1), ``qq`` (n, n) int8 with column scales
+    ``sq`` (1, n). ``S = (float(sum) * sg) * sq`` in that order."""
+    return _with_norms(int_matmul(gq, qq) * sg * sq)
+
+
+def dct_project_plain(g: torch.Tensor, q: torch.Tensor, out_dtype=None,
+                      compute_dtype: str = "fp32"
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    s32 = g.float() @ q.float()
-    norms = (s32 * s32).sum(dim=-2)
+    if compute_dtype == "int8":
+        s32, norms = dct_project_q8_plain(*quant_rows(g), *quant_cols(q))
+    else:
+        s32, norms = _with_norms(lowp_matmul(g, q, compute_dtype))
     return s32.to(out_dtype or g.dtype), norms
+
+
+def _launch_shape(name: str, g: torch.Tensor) -> tuple[list[int], int, int, int]:
+    """(batch, nb, m, n) of a CUDA launch; raises past the grid."""
+    *batch, m, n = g.shape
+    nb = g.numel() // (m * n) if m * n else 0
+    if nb >= 2**16 or m >= 2**31 or n >= 2**31:
+        raise ValueError(f"{name}: shape {tuple(g.shape)} exceeds the grid")
+    return batch, nb, m, n
+
+
+def _outputs(g: torch.Tensor, batch, nb: int, m: int, n: int):
+    """S, the norms and the partial-norm buffer of a launch."""
+    row_blocks = -(-m // cuda_lib.library().repro_dct_project_block_rows())
+    s = torch.empty((*batch, m, n), dtype=torch.float32, device=g.device)
+    norms = torch.empty((*batch, n), dtype=torch.float32, device=g.device)
+    partial = torch.empty((nb, row_blocks, n), dtype=torch.float32,
+                          device=g.device)
+    return s, norms, partial
+
+
+def _launch_f32(name: str, g: torch.Tensor, q: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 kernel, or its bf16 operand variant (``name``)."""
+    cuda_lib.require_cuda(f"{name} g", g, torch.float32)
+    cuda_lib.require_cuda(f"{name} q", q, torch.float32)
+    batch, nb, m, n = _launch_shape(name, g)
+    s, norms, partial = _outputs(g, batch, nb, m, n)
+    rc = getattr(cuda_lib.library(), f"repro_{name}")(
+        g.data_ptr(), q.data_ptr(), s.data_ptr(), partial.data_ptr(),
+        norms.data_ptr(), nb, m, n, cuda_lib.stream(g))
+    cuda_lib.check(rc, name)
+    return s, norms
+
+
+def dct_project_bf16(g: torch.Tensor, q: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``dct_project`` with both operands rounded to bf16: fp32 ``(S,
+    norms)``."""
+    if cuda_lib.same_device(g, q).type == "cpu":
+        return dct_project_plain(g, q, torch.float32, "bf16")
+    out = _launch_f32("dct_project_bf16", g, q)
+    dct_project_bf16.launches += 1
+    return out
+
+
+def dct_project_q8(gq: torch.Tensor, sg: torch.Tensor, qq: torch.Tensor,
+                   sq: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 product of quantized operands (``dct_project_q8_plain``'s
+    arguments): fp32 ``(S, norms)``, S equal to the plain version's bit for
+    bit."""
+    *_, m, n = gq.shape
+    if tuple(qq.shape) != (n, n) or tuple(sg.shape) != (*gq.shape[:-1], 1) \
+            or tuple(sq.shape) != (1, n):
+        raise ValueError(f"dct_project_q8: shapes gq {tuple(gq.shape)} sg "
+                         f"{tuple(sg.shape)} qq {tuple(qq.shape)} sq "
+                         f"{tuple(sq.shape)} do not fit")
+    check_q8_depth(n)
+    if cuda_lib.same_device(gq, sg, qq, sq).type == "cpu":
+        return dct_project_q8_plain(gq, sg, qq, sq)
+    cuda_lib.require_cuda("dct_project_q8 gq", gq, torch.int8)
+    cuda_lib.require_cuda("dct_project_q8 sg", sg, torch.float32)
+    cuda_lib.require_cuda("dct_project_q8 qq", qq, torch.int8)
+    cuda_lib.require_cuda("dct_project_q8 sq", sq, torch.float32)
+    batch, nb, m, n = _launch_shape("dct_project_q8", gq)
+    s, norms, partial = _outputs(gq, batch, nb, m, n)
+    rc = cuda_lib.library().repro_dct_project_q8(
+        gq.data_ptr(), qq.data_ptr(), sg.data_ptr(), sq.data_ptr(),
+        s.data_ptr(), partial.data_ptr(), norms.data_ptr(), nb, m, n,
+        cuda_lib.stream(gq))
+    cuda_lib.check(rc, "dct_project_q8")
+    dct_project_q8.launches += 1
+    return s, norms
 
 
 def dct_project(g: torch.Tensor, q: torch.Tensor, *, out_dtype=None,
@@ -34,31 +132,24 @@ def dct_project(g: torch.Tensor, q: torch.Tensor, *, out_dtype=None,
     """Returns ``(S, norms)``: ``S = G @ Q`` (..., m, n) and fp32
     squared-l2 column norms (..., n). ``g``: (..., m, n); ``q``: (n, n)."""
     check_compute_dtype(compute_dtype)
-    *batch, m, n = g.shape
+    *_, m, n = g.shape
     if tuple(q.shape) != (n, n):
         raise ValueError(f"dct_project: basis {tuple(q.shape)} does not fit "
                          f"G {tuple(g.shape)}")
     if cuda_lib.same_device(g, q).type == "cpu":
-        return dct_project_plain(g, q, out_dtype)
+        return dct_project_plain(g, q, out_dtype, compute_dtype)
     if out_dtype not in (None, torch.float32):
         raise NotImplementedError("dct_project: only fp32 S is ported")
-    cuda_lib.require_cuda("dct_project g", g, torch.float32)
-    cuda_lib.require_cuda("dct_project q", q, torch.float32)
-    nb = g.numel() // (m * n) if m * n else 0
-    if nb >= 2**16 or m >= 2**31 or n >= 2**31:
-        raise ValueError(f"dct_project: shape {tuple(g.shape)} exceeds the grid")
-    lib = cuda_lib.library()
-    row_blocks = -(-m // lib.repro_dct_project_block_rows())
-    s = torch.empty(g.shape, dtype=torch.float32, device=g.device)
-    norms = torch.empty((*batch, n), dtype=torch.float32, device=g.device)
-    partial = torch.empty((nb, row_blocks, n), dtype=torch.float32,
-                          device=g.device)
-    rc = lib.repro_dct_project(g.data_ptr(), q.data_ptr(), s.data_ptr(),
-                               partial.data_ptr(), norms.data_ptr(), nb, m, n,
-                               cuda_lib.stream(g))
-    cuda_lib.check(rc, "dct_project")
+    if compute_dtype == "int8":
+        cuda_lib.require_cuda("dct_project g", g, torch.float32)
+        return dct_project_q8(*quant_rows(g), *quant_cols(q))
+    if compute_dtype == "bf16":
+        return dct_project_bf16(g, q)
+    out = _launch_f32("dct_project", g, q)
     dct_project.launches += 1
-    return s, norms
+    return out
 
 
 dct_project.launches = 0
+dct_project_bf16.launches = 0
+dct_project_q8.launches = 0

@@ -10,14 +10,24 @@ themselves.
 those the momentum families add (Trion, Muon, Dion: the two Newton–Schulz
 kernels and the single-operand back-projection; Trion and subspace Muon
 also run ``dct_project``, and Trion ``colgather_matmul_dual``), ``SERVING``
-those of the paged decode step, ``KERNELS`` all. ``launch_counts`` /
+those of the paged decode step, ``LOWP`` the bf16 and int8 variants of the
+projection kernels that DCT-AdamW's ``compute_dtype`` runs (a launch of one
+counts on its own name, not on the fp32 kernel's, so a run shows which
+precision ran), ``KERNELS`` all. ``launch_counts`` /
 ``reset_launch_counts`` read and zero the counters of a group (all by
 default).
 """
 from __future__ import annotations
 
-from .colgather_matmul import colgather_matmul, colgather_matmul_dual
-from .dct_project import dct_project
+from .colgather_matmul import (
+    colgather_matmul,
+    colgather_matmul_bf16,
+    colgather_matmul_dual,
+    colgather_matmul_dual_bf16,
+    colgather_matmul_dual_q8,
+    colgather_matmul_q8,
+)
+from .dct_project import dct_project, dct_project_bf16, dct_project_q8
 from .flash_decode import flash_decode
 from .newton_schulz import newton_schulz_kernel, ns_apply, ns_gram
 from .quant_ef import dequant_add_ef, quantize_ef
@@ -36,7 +46,15 @@ MOMENTUM = {
 SERVING = {
     "flash_decode": flash_decode,
 }
-KERNELS = {**TRAINING, **MOMENTUM, **SERVING}
+LOWP = {
+    "dct_project_bf16": dct_project_bf16,
+    "dct_project_q8": dct_project_q8,
+    "colgather_matmul_dual_bf16": colgather_matmul_dual_bf16,
+    "colgather_matmul_dual_q8": colgather_matmul_dual_q8,
+    "colgather_matmul_bf16": colgather_matmul_bf16,
+    "colgather_matmul_q8": colgather_matmul_q8,
+}
+KERNELS = {**TRAINING, **MOMENTUM, **SERVING, **LOWP}
 
 
 def launch_counts(group: dict | None = None) -> dict[str, int]:

@@ -10,7 +10,10 @@ with the chosen optimizer -> ``Trainer``. ``--optimizer`` is one of
 ``dion``; ``--rank`` defaults to 128, except for Muon, where no ``--rank``
 means full-space Newton–Schulz and ``--rank r`` the rank-r subspace. With
 ``--fused auto`` (the default) these four families run their CUDA kernels on
-the card and the reference path on the CPU.
+the card and the reference path on the CPU. For ``dct_adamw``,
+``--compute-dtype bf16|int8`` sets the projection precision (it needs a
+fused mode: on the CPU, ``--fused on`` or ``fft``) and ``--basis
+dct|dst|hadamard|randortho`` the predefined basis.
 
 Flags of the JAX CLI that this port does not support yet exit with
 "not yet ported".
@@ -23,7 +26,7 @@ import sys
 import torch
 
 # flags of ``python -m repro.launch.train`` not ported yet
-NOT_YET_PORTED = ("--basis", "--compute-dtype", "--tune-cache", "--zero",
+NOT_YET_PORTED = ("--tune-cache", "--zero",
                   "--ckpt-dir", "--ckpt-every", "--supervise", "--telemetry",
                   "--telemetry-path", "--telemetry-every", "--adaptive-rank",
                   "--adaptive-refresh", "--control-every", "--obs-dir",
@@ -53,6 +56,14 @@ def build(argv=None) -> argparse.Namespace:
                     help="fused-step dispatch of dct_adamw, muon, trion and "
                          "dion: auto = the CUDA kernels for tensors on the "
                          "card, the reference path on the CPU")
+    ap.add_argument("--basis", default=None,
+                    choices=["dct", "dst", "hadamard", "randortho"],
+                    help="predefined orthogonal basis backend of dct_adamw")
+    ap.add_argument("--compute-dtype", default=None,
+                    choices=["fp32", "bf16", "int8"],
+                    help="projection-matmul precision of dct_adamw: int8 = "
+                         "quantized operands with exact integer "
+                         "accumulation; needs a fused mode")
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--seq-len", type=int, default=512)
@@ -82,6 +93,35 @@ def device_for(name: str) -> torch.device:
     return dev
 
 
+def _precision_and_basis(args: argparse.Namespace, dev: torch.device) -> dict:
+    """The optimizer keywords of ``--compute-dtype`` and ``--basis``, with
+    the JAX CLI's checks (and its messages)."""
+    from repro_torch.core import fused_step
+
+    kw = {}
+    if args.compute_dtype is not None:
+        if args.optimizer != "dct_adamw":
+            raise SystemExit("--compute-dtype applies to dct_adamw, not "
+                             f"{args.optimizer!r}")
+        if args.compute_dtype != "fp32" and \
+                fused_step.resolve(args.fused or "auto", dev) == "off":
+            raise SystemExit(
+                f"--compute-dtype {args.compute_dtype} requires a fused "
+                "dispatch mode; pass --fused on or --fused fft "
+                "(the default --fused auto resolves to the reference "
+                "path on this backend)")
+        kw["compute_dtype"] = args.compute_dtype
+    if args.basis is not None:
+        if args.optimizer in ("galore", "frugal", "fira"):
+            raise SystemExit(f"--basis with {args.optimizer!r} is not yet "
+                             f"ported to repro_torch")
+        if args.optimizer != "dct_adamw":
+            raise SystemExit("--basis applies to dct_adamw/galore/frugal/"
+                             f"fira, not {args.optimizer!r}")
+        kw["basis"] = args.basis
+    return kw
+
+
 def run(args: argparse.Namespace):
     """Train as ``args`` say; returns the finished ``Trainer`` (its
     ``metrics_history`` holds one record per step)."""
@@ -104,6 +144,7 @@ def run(args: argparse.Namespace):
         opt_kw["rank"] = args.rank if args.rank is not None else 128
     if args.fused is not None:
         opt_kw["fused"] = args.fused
+    opt_kw.update(_precision_and_basis(args, dev))
     opt = get_optimizer(args.optimizer, lr=lr, **opt_kw)
     trainer = Trainer(
         train_step=make_train_step(cfg, opt),

@@ -16,11 +16,14 @@ With ``fused`` resolving to "on" or "fft" the hot path runs through
 shared Q_r^T gather for both back-projections, int8 EF read and written by
 fused kernels); "off" is the reference path.
 
-Ported: projector ``dct``, residual ``ef`` with ``q8`` or ``fp32`` buffers,
-rotation, ``update_interval > 1`` (a Python branch on the step), fp32
-compute. Not yet ported: the other projectors and residual modes (and with
-them ldadamw / galore / frugal / fira), bf16/int8 compute, ZeRO-1, telemetry
-(``emit_stats`` is kept but inert: there is no collector yet).
+Ported: every predefined-basis projector (``dct``, ``dst``, ``hadamard``,
+``randortho``), residual ``ef`` with ``q8`` or ``fp32`` buffers and
+``discard`` (no EF state, one back-projection), rotation,
+``update_interval > 1`` (a Python branch on the step), and the projection
+precisions ``compute_dtype`` fp32 / bf16 / int8 on the fused modes. Not yet
+ported: the dense projectors and the ``sign`` / ``fira`` residuals (and with
+them ldadamw / galore / frugal / fira), ZeRO-1, telemetry (``emit_stats`` is
+kept but inert: there is no collector yet).
 """
 from __future__ import annotations
 
@@ -32,8 +35,8 @@ import torch
 from repro_torch.core import fused_step
 from repro_torch.core.error_feedback import zeros_q8
 from repro_torch.core.projectors import Projector, rotation_matrix
-from repro_torch.core.transforms import get_backend, is_backend
-from repro_torch.kernels.lowp import check_compute_dtype
+from repro_torch.core.transforms import backend_kinds, get_backend, is_backend
+from repro_torch.kernels.lowp import COMPUTE_DTYPES
 
 from .common import MatrixRule, Optimizer, Schedule, deorient, orient_right, oriented_dims
 from .transform import (
@@ -45,7 +48,7 @@ from .transform import (
     scale_by_learning_rate,
 )
 
-RESIDUAL_MODES = ("ef",)
+RESIDUAL_MODES = ("ef", "discard")
 EF_DTYPES = ("q8", "fp32")
 RANKING_NORMS = ("l1", "l2")
 
@@ -54,7 +57,7 @@ class ProjAdamLeaf(NamedTuple):
     m: torch.Tensor            # (..., rows, r) first moment, low-rank
     v: torch.Tensor            # (..., rows, r) second moment, low-rank
     proj: Any                  # int32 indices (..., r)
-    ef: Any                    # fp32 tensor | QuantizedBuffer
+    ef: Any                    # None | fp32 tensor | QuantizedBuffer
     inner_step: int            # updates taken by this leaf (bias correction)
 
 
@@ -74,7 +77,10 @@ class ProjectedAdamRule(MatrixRule):
     needs_shared_basis: bool = True
     fused: str = "auto"               # "auto" | "on" | "fft" | "off"
     emit_stats: bool = True           # inert until telemetry is ported
-    compute_dtype: str = "fp32"
+    compute_dtype: str = "fp32"       # projection precision on the fused
+    #   modes: "fp32" | "bf16" | "int8" (kernels/lowp.py); the reference
+    #   path has no low-precision mirror, so a non-fp32 dtype that would run
+    #   there raises instead of silently running fp32
 
     def __post_init__(self):
         def check(name, value, allowed):
@@ -83,14 +89,20 @@ class ProjectedAdamRule(MatrixRule):
                                  f"{value!r}; allowed: {allowed}")
 
         Projector(kind=self.projector, r=1)        # raises on other kinds
-        if self.residual in ("discard", "sign", "fira"):
+        if self.residual in ("sign", "fira"):
             raise NotImplementedError(f"residual={self.residual!r} is not "
                                       f"yet ported to repro_torch")
         check("residual", self.residual, RESIDUAL_MODES)
         check("ef_dtype", self.ef_dtype, EF_DTYPES)
         check("ranking_norm", self.ranking_norm, RANKING_NORMS)
         check("fused", self.fused, fused_step.FUSED_MODES)
-        check_compute_dtype(self.compute_dtype)
+        check("compute_dtype", self.compute_dtype, COMPUTE_DTYPES)
+        if self.compute_dtype != "fp32" and self.fused == "off":
+            raise ValueError(
+                f"{type(self).__name__}: compute_dtype={self.compute_dtype!r} "
+                "requires the fused dataflow (fused='on'/'fft'); the fused"
+                "='off' reference path has no low-precision mirror and would "
+                "silently run fp32")
         if self.rank < 1:
             raise ValueError(f"rank must be >= 1, got {self.rank}")
         if self.update_interval < 1:
@@ -114,8 +126,12 @@ class ProjectedAdamRule(MatrixRule):
         mz = torch.zeros((*batch, rows, r), dtype=torch.float32, device=device)
         vz = torch.zeros((*batch, rows, r), dtype=torch.float32, device=device)
         orient_shape = (*batch, rows, cols)
-        ef = (zeros_q8(orient_shape, device=device) if self.ef_dtype == "q8"
-              else torch.zeros(orient_shape, dtype=torch.float32, device=device))
+        if self.residual == "discard":
+            ef = None
+        elif self.ef_dtype == "q8":
+            ef = zeros_q8(orient_shape, device=device)
+        else:
+            ef = torch.zeros(orient_shape, dtype=torch.float32, device=device)
         return ProjAdamLeaf(m=mz, v=vz,
                             proj=self._proj().init(orient_shape, device),
                             ef=ef, inner_step=0)
@@ -134,8 +150,20 @@ class ProjectedAdamRule(MatrixRule):
                       device=gf.device)
         mode = fused_step.resolve(self.fused, gf.device)
         fused = mode != "off"
+        if self.compute_dtype != "fp32" and not fused:
+            # only the fused dataflow has the low-precision mirror: refuse
+            # rather than silently run fp32 (reachable past __post_init__
+            # through fused="auto" resolving to "off" for CPU tensors; the
+            # reference's other case, a dense projector, is not ported)
+            raise ValueError(
+                f"compute_dtype={self.compute_dtype!r} needs the fused "
+                f"dataflow, but this update resolved to the reference path "
+                f"(fused={self.fused!r} -> mode={mode!r}, "
+                f"projector={self.projector!r}); pass fused='on'/'fft' with "
+                "a registered basis backend")
 
-        gf = fused_step.ef_add(gf, state.ef, mode=mode)
+        if state.ef is not None:
+            gf = fused_step.ef_add(gf, state.ef, mode=mode)
 
         refresh = (self.update_interval == 1
                    or ctx.step % self.update_interval == 1 or ctx.step == 1)
@@ -173,15 +201,22 @@ class ProjectedAdamRule(MatrixRule):
         vhat = v / (1.0 - self.b2**t)
         u_low = mhat / (torch.sqrt(vhat) + self.eps)
 
-        if fused:
+        keep_resid = self.residual == "ef"
+        qt = ctx.basis_t(cols, self.projector)
+        if fused and keep_resid:
             d, recon = fused_step.fused_dual_backproject(
                 u_low, g_low, q, proj_state, mode=mode,
-                compute_dtype=self.compute_dtype,
-                qt=ctx.basis_t(cols, self.projector))
+                compute_dtype=self.compute_dtype, qt=qt)
+        elif fused:
+            d = fused_step.fused_backproject(
+                u_low, q, proj_state, mode=mode,
+                compute_dtype=self.compute_dtype, qt=qt)
         else:
             d = p.backproject(u_low, proj_state, shared_q=q, n=cols)
-            recon = p.backproject(g_low, proj_state, shared_q=q, n=cols)
-        new_ef = fused_step.ef_store(gf - recon, self.ef_dtype, mode=mode)
+            if keep_resid:
+                recon = p.backproject(g_low, proj_state, shared_q=q, n=cols)
+        new_ef = (fused_step.ef_store(gf - recon, self.ef_dtype, mode=mode)
+                  if keep_resid else None)
 
         d = deorient(d, transposed)
         return d, ProjAdamLeaf(m=m, v=v, proj=proj_state, ef=new_ef,
@@ -226,7 +261,15 @@ def dct_adamw(lr: Schedule, *, rank: int = 128, update_interval: int = 1,
               label_fn=None) -> Optimizer:
     """The paper's DCT-AdamW (Algorithm 2). ``fused``: "auto" (the CUDA
     kernels for CUDA tensors, the reference path for CPU tensors) | "on" |
-    "fft" (Makhoul FFT) | "off" (reference) — see core/fused_step.py."""
+    "fft" (the backend's fast transform: Makhoul FFT for dct, FWHT for
+    hadamard) | "off" (reference) — see core/fused_step.py. ``basis``: any
+    registered basis backend (dct/dst/hadamard/randortho).
+    ``error_feedback=False`` discards the residual (no EF state).
+    ``compute_dtype``: the projection precision, fp32 | bf16 | int8, on the
+    fused modes only."""
+    if not is_backend(basis):
+        raise ValueError(f"unknown basis {basis!r}; registered backends: "
+                         f"{backend_kinds()}")
     hk = dict(weight_decay=weight_decay, basis_mode=basis_mode)
     if label_fn is not None:
         hk["label_fn"] = label_fn

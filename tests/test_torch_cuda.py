@@ -275,3 +275,105 @@ def test_cuda_flash_decode_rejects_views_and_dtypes(cuda):
         fd.flash_decode(q, k, v, table.long(), ln)
     with pytest.raises(ValueError):
         fd.flash_decode(q, k, v, table.cpu(), ln)
+
+
+# bf16 operands: the kernel and the plain version multiply the same rounded
+# values exactly and differ only by the order of the fp32 sums
+LOWP_RTOL = 1e-6
+
+
+def _assert_rel_max(got, want, rtol):
+    err = (got - want).abs().max().item()
+    assert err <= rtol * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [8, 17, 40])
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_cuda_lowp_kernels_match_plain(cuda, name, r):
+    """The bf16 and int8 projection kernels against their plain versions:
+    int8 bit for bit (exact integer sums, the same epilogue order), bf16 at
+    LOWP_RTOL of max |out|; each launch counted on its precision's name."""
+    from repro_torch.kernels import lowp
+    *batch, m, n = SHAPES[name]
+    r = min(r, n)
+    g = torch.from_numpy(_rand((*batch, m, n), 7)).to(cuda)
+    g[..., 0, :] = 0.0                              # zero and subnormal rows
+    g[..., 1, :] = 1e-40
+    q = dct2_matrix(n, device=cuda)
+    qt = q.T.contiguous()
+    idx = torch.from_numpy(_idx(batch, n, r, 8)).to(cuda)
+    b1 = torch.from_numpy(_rand((*batch, m, r), 9)).to(cuda)
+    b2 = torch.from_numpy(_rand((*batch, m, r), 10)).to(cuda)
+    ops.reset_launch_counts()
+
+    s, norms = dp.dct_project(g, q, compute_dtype="bf16")
+    s_p, norms_p = dp.dct_project_plain(g, q, compute_dtype="bf16")
+    _assert_rel_max(s, s_p, LOWP_RTOL)
+    torch.testing.assert_close(norms, norms_p, rtol=1e-5, atol=0)
+    gq, sg = lowp.quant_rows(g)
+    qq, sq = lowp.quant_cols(q)
+    s, norms = dp.dct_project(g, q, compute_dtype="int8")
+    s_p, norms_p = dp.dct_project_q8_plain(gq, sg, qq, sq)
+    assert torch.equal(s, s_p)
+    torch.testing.assert_close(norms, norms_p, rtol=1e-5, atol=0)
+
+    for a, b in zip(cg.colgather_matmul_dual(b1, b2, qt, idx,
+                                             compute_dtype="bf16"),
+                    cg.colgather_matmul_dual_plain(b1, b2, qt, idx,
+                                                   compute_dtype="bf16")):
+        _assert_rel_max(a, b, LOWP_RTOL)
+    _assert_rel_max(cg.colgather_matmul(b1, qt, idx, compute_dtype="bf16"),
+                    cg.colgather_matmul_plain(b1, qt, idx,
+                                              compute_dtype="bf16"), LOWP_RTOL)
+    for a, b in zip(cg.colgather_matmul_dual(b1, b2, qt, idx,
+                                             compute_dtype="int8"),
+                    cg.colgather_matmul_dual_plain(b1, b2, qt, idx,
+                                                   compute_dtype="int8")):
+        assert torch.equal(a, b)
+    assert torch.equal(cg.colgather_matmul(b1, qt, idx, compute_dtype="int8"),
+                       cg.colgather_matmul_plain(b1, qt, idx,
+                                                 compute_dtype="int8"))
+    assert ops.launch_counts(ops.LOWP) == {name: 1 for name in ops.LOWP}
+    assert not any(ops.launch_counts(ops.TRAINING).values())
+
+
+@pytest.mark.cuda
+def test_cuda_lowp_wrappers_reject_views_and_dtypes(cuda):
+    q = dct2_matrix(16, device=cuda)
+    gq = torch.zeros(4, 16, dtype=torch.int8, device=cuda)
+    sg = torch.ones(4, 1, device=cuda)
+    qq = torch.zeros(16, 16, dtype=torch.int8, device=cuda)
+    sq = torch.ones(1, 16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        dp.dct_project(torch.zeros(16, 20, device=cuda).T, q,
+                       compute_dtype="bf16")
+    with pytest.raises(TypeError):
+        dp.dct_project_q8(gq.float(), sg, qq, sq)
+    with pytest.raises(ValueError, match="contiguous"):
+        dp.dct_project_q8(gq, sg, qq.T, sq)
+    with pytest.raises(ValueError):
+        dp.dct_project_q8(gq, sg, qq, sq.cpu())
+    idx = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        cg.colgather_matmul_q8(torch.zeros(4, 2, device=cuda),
+                               torch.ones(4, 1, device=cuda), qq, idx)
+    with pytest.raises(TypeError):
+        cg.colgather_matmul(torch.zeros(4, 2, device=cuda), q.T.contiguous(),
+                            idx.long(), compute_dtype="int8")
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_rounding_specials(cuda):
+    """The kernels round to bf16 on the bits: a NaN stays NaN, a value past
+    bf16's largest rounds to inf and a tie to even, as ``.to(bfloat16)``."""
+    x = torch.tensor([float("nan"), float("inf"), -float("inf"), 3.4e38,
+                      1.0 + 2.0**-8, 1.0 + 3 * 2.0**-8, -0.0, 1e-45],
+                     device=cuda)
+    # one column and Q = [[1]]: S is the rounded G itself
+    s, _ = dp.dct_project(x[:, None], torch.ones(1, 1, device=cuda),
+                          compute_dtype="bf16")
+    want = x.to(torch.bfloat16).float()
+    assert torch.equal(torch.isnan(s[:, 0]), torch.isnan(want))
+    fin = ~torch.isnan(want)
+    assert torch.equal(s[:, 0][fin], want[fin])

@@ -33,6 +33,12 @@ MOMENTUM_MODULES = ("repro_torch.core.newton_schulz",
                     "repro_torch.optim.trion", "repro_torch.optim.muon",
                     "repro_torch.optim.dion")
 
+# the modules of the low-precision / basis slice
+LOWP_MODULES = ("repro_torch.kernels.lowp", "repro_torch.kernels.dct_project",
+                "repro_torch.kernels.colgather_matmul",
+                "repro_torch.core.transforms", "repro_torch.core.fused_step",
+                "repro_torch.optim.projected_adam", "repro_torch.convert")
+
 
 def _env():
     env = dict(os.environ)
@@ -55,6 +61,11 @@ def test_import_every_submodule_without_jax_or_repro(probe):
 
 @pytest.mark.parametrize("name", MOMENTUM_MODULES)
 def test_momentum_modules_import_without_jax_or_repro(probe, name):
+    assert name in probe[1].split()
+
+
+@pytest.mark.parametrize("name", LOWP_MODULES)
+def test_lowp_modules_import_without_jax_or_repro(probe, name):
     assert name in probe[1].split()
 
 

@@ -106,9 +106,9 @@ def test_wrappers_reject_bad_shapes():
         cg.colgather_matmul_dual(torch.zeros(3, 2), torch.zeros(3, 2),
                                  torch.zeros(4, 4),
                                  torch.zeros(3, dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="compute_dtype"):
         dp.dct_project(torch.zeros(4, 4), torch.zeros(4, 4),
-                       compute_dtype="bf16")
+                       compute_dtype="fp16")
 
 
 def test_launch_counters_reset():

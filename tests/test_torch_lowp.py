@@ -1,0 +1,494 @@
+"""DCT-AdamW's low-precision projections against the JAX package: the int8
+quantizers, the mirrors of the off/fft modes, the bf16 and int8 plain
+versions of ``dct_project`` / ``colgather_matmul`` against the Pallas
+kernels (interpret mode), ``select_and_project`` within the error bounds,
+the refusals, and 10-step DCT-AdamW trajectories of the smoke llama with
+``compute_dtype`` int8 / bf16 and with ``error_feedback=False``.
+
+Which case holds for the quantizers (checked by
+``test_quantizers_match_jax``): the JAX package's ``quant_rows`` /
+``quant_cols`` run eagerly give the IEEE quotient ``amax / 127``, equal to
+the port's, codes and scales bit for bit; *under jit* (as inside its
+``dct_project`` / ``colgather_matmul`` and every jitted step) XLA divides by
+the constant 127 as a multiply by its reciprocal, one ulp off the IEEE
+quotient in some rows. The port holds its scales to the IEEE quotient
+exactly, to jitted JAX within 1 ulp, and its codes within one. Given the
+same codes and scales, the port's int8 products are bit-equal to the Pallas
+kernels' (``test_int8_*_bit_equal_given_jax_codes``): the integer sum is
+exact and the epilogue multiplies in the same order.
+"""
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import llama_paper as jax_llama
+from repro.core import fused_step as jfs
+from repro.core.dct import dct2_matrix as jax_dct2
+from repro.data.synthetic import SyntheticLM
+from repro.kernels import lowp as jl
+from repro.models import transformer as JT
+from repro.optim.api import get_optimizer as jax_get_optimizer
+from repro.train import steps as JS
+from repro.train.schedule import cosine_warmup as jax_cosine
+from repro_torch import convert
+from repro_torch.configs.registry import get_config
+from repro_torch.core import fused_step as tfs
+from repro_torch.kernels import colgather_matmul as tcg
+from repro_torch.kernels import dct_project as tdp
+from repro_torch.kernels import lowp as tl
+from repro_torch.kernels import ops
+from repro_torch.launch import train as train_cli
+from repro_torch.optim.api import get_optimizer
+from repro_torch.train import steps as TS
+from repro_torch.train.schedule import cosine_warmup
+
+# the package's kernel modules (``repro.kernels`` re-exports functions of
+# the same names)
+jdp = importlib.import_module("repro.kernels.dct_project")
+jcg = importlib.import_module("repro.kernels.colgather_matmul")
+
+# (..., m, n) oriented leaves and ranks: stacked, ragged, transposed-shaped
+LEAVES = {"stacked": ((3, 64, 64), 17), "ragged": ((33, 17), 8),
+          "wide_n": ((2, 40, 40), 17), "tall": ((48, 16), 8)}
+# bf16: the same rounded operands multiplied exactly, fp32 sums in another
+# order, relative to max |out|
+BF16_RTOL = 1e-6
+# the column norms: fp32 sums of squares in another order
+NORM_RTOL = 1e-5
+
+
+def _rand(shape, seed, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale
+            ).astype(np.float32)
+
+
+def _idx(batch, n, r, seed):
+    rng = np.random.default_rng(seed)
+    out = np.stack([np.sort(rng.permutation(n)[:r])
+                    for _ in range(int(np.prod(batch, dtype=int)))])
+    return out.reshape(*batch, r).astype(np.int32)
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x))
+
+
+def _ulps(a: np.ndarray, b: np.ndarray) -> int:
+    """Largest distance in fp32 ulps between two positive arrays."""
+    return int(np.abs(a.view(np.int32).astype(np.int64)
+                      - b.view(np.int32).astype(np.int64)).max())
+
+
+def _assert_rel_max(got, want, rtol):
+    got, want = np.asarray(got), np.asarray(want)
+    err = np.abs(got - want).max()
+    assert err <= rtol * np.abs(want).max(), err
+
+
+def _with_edge_rows(x: np.ndarray) -> np.ndarray:
+    x = x.copy()
+    x[..., 0, :] = 0.0                       # a zero row
+    x[..., 1, :] = 2e-45                     # a subnormal row
+    return x
+
+
+# ---------------------------------------------------------------------------
+# quantizers and mirrors
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("axis", ["rows", "cols"])
+@pytest.mark.parametrize("name", list(LEAVES))
+def test_quantizers_match_jax(name, axis):
+    shape, _ = LEAVES[name]
+    x = _with_edge_rows(_rand(shape, 1, scale=3.0))
+    x[..., 2, :] *= 1e-30                    # a tiny (normal) row
+    jf = getattr(jl, f"quant_{axis}")
+    tq, ts = getattr(tl, f"quant_{axis}")(torch.from_numpy(x))
+    # eager JAX: the IEEE quotient, as the port
+    jq, js = jf(jnp.asarray(x))
+    assert np.array_equal(tq.numpy(), np.asarray(jq))
+    assert np.array_equal(ts.numpy(), np.asarray(js))
+    # the port's scale is the IEEE quotient, clamped at the smallest normal
+    amax = np.abs(x).max(axis=-1 if axis == "rows" else -2, keepdims=True)
+    ieee = np.maximum(amax / np.float32(127.0), np.float32(tl.F32_TINY))
+    assert np.array_equal(ts.numpy(), ieee)
+    # jitted JAX: within an ulp of the scale, one code
+    jq, js = jax.jit(jf)(jnp.asarray(x))
+    assert _ulps(ts.numpy(), np.asarray(js)) <= 1
+    assert np.abs(tq.numpy().astype(int) - np.asarray(jq).astype(int)).max() <= 1
+
+
+def test_q8_zero_and_subnormal_rows_finite():
+    """As ``tests/test_tuning.py``'s case: zero and subnormal rows quantize
+    to zero codes under a finite scale >= the smallest normal."""
+    x = np.zeros((4, 16), np.float32)
+    x[1] = 2e-45
+    x[2] = np.linspace(-1, 1, 16)
+    for quant in (tl.quant_rows, lambda t: tl.quant_cols(t.T)):
+        qv, scale = quant(torch.from_numpy(x))
+        qn, sn = qv.numpy().astype(np.int32), scale.numpy()
+        assert np.isfinite(sn).all() and (sn >= tl.F32_TINY).all()
+        assert np.isfinite(qn.astype(np.float32) * sn).all()
+    qv, _ = tl.quant_rows(torch.from_numpy(x))
+    assert not qv[0].any() and not qv[1].any()
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("name", list(LEAVES))
+def test_lowp_matmul_matches_jax(name, dt):
+    shape, _ = LEAVES[name]
+    n = shape[-1]
+    g = _with_edge_rows(_rand(shape, 2))
+    q = np.array(jax_dct2(n))
+    got = tl.lowp_matmul(torch.from_numpy(g), torch.from_numpy(q), dt)
+    want = jl.lowp_matmul(jnp.asarray(g), jnp.asarray(q), dt)
+    if dt == "int8":       # eager JAX quantizes as the port: bit-equal
+        assert np.array_equal(got.numpy(), np.asarray(want))
+    else:
+        _assert_rel_max(got.numpy(), want, BF16_RTOL)
+    ref = g.astype(np.float64) @ q.astype(np.float64)
+    rel = np.linalg.norm(got.numpy() - ref) / np.linalg.norm(ref)
+    assert rel <= tl.LOWP_ERROR_BOUNDS[dt] or dt == "fp32" and rel < 1e-6
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("name", list(LEAVES))
+def test_lowp_gather_matmul_matches_jax(name, dt):
+    shape, r = LEAVES[name]
+    *batch, m, n = shape
+    qt = np.ascontiguousarray(np.array(jax_dct2(n)).T)
+    idx = _idx(batch, n, r, 3)
+    bs = (_rand((*batch, m, r), 4), _rand((*batch, m, r), 5))
+    got = tl.lowp_gather_matmul(tuple(map(torch.from_numpy, bs)),
+                                torch.from_numpy(qt), torch.from_numpy(idx),
+                                dt)
+    want = jl.lowp_gather_matmul(tuple(map(jnp.asarray, bs)), jnp.asarray(qt),
+                                 jnp.asarray(idx), dt)
+    for a, b in zip(got, want):
+        if dt == "int8":
+            assert np.array_equal(a.numpy(), np.asarray(b))
+        else:
+            _assert_rel_max(a.numpy(), b, BF16_RTOL)
+
+
+# ---------------------------------------------------------------------------
+# the plain versions of the kernels against the Pallas kernels
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("name", list(LEAVES))
+def test_int8_dct_project_bit_equal_given_jax_codes(name):
+    shape, _ = LEAVES[name]
+    n = shape[-1]
+    g = _with_edge_rows(_rand(shape, 6))
+    q = np.array(jax_dct2(n))
+    js, jn = jdp.dct_project(jnp.asarray(g), jnp.asarray(q), interpret=True,
+                             compute_dtype="int8")
+    gq, sg = jax.jit(jl.quant_rows)(jnp.asarray(g))
+    qq, sq = jax.jit(jl.quant_cols)(jnp.asarray(q))
+    s, norms = tdp.dct_project_q8_plain(_t(gq), _t(sg), _t(qq), _t(sq))
+    assert np.array_equal(s.numpy(), np.asarray(js))
+    np.testing.assert_allclose(norms.numpy(), np.asarray(jn), rtol=NORM_RTOL)
+    # the port's own quantization: the same codes within one, scales an ulp
+    s_own, _ = tdp.dct_project(torch.from_numpy(g), torch.from_numpy(q),
+                               compute_dtype="int8")
+    _assert_rel_max(s_own.numpy(), js, 1e-5)
+    assert ops.launch_counts(ops.LOWP)["dct_project_q8"] == 0   # CPU: plain
+
+
+@pytest.mark.parametrize("name", list(LEAVES))
+def test_bf16_dct_project_matches_jax(name):
+    shape, _ = LEAVES[name]
+    n = shape[-1]
+    g = _with_edge_rows(_rand(shape, 7))
+    q = np.array(jax_dct2(n))
+    js, jn = jdp.dct_project(jnp.asarray(g), jnp.asarray(q), interpret=True,
+                             compute_dtype="bf16")
+    s, norms = tdp.dct_project(torch.from_numpy(g), torch.from_numpy(q),
+                               compute_dtype="bf16")
+    _assert_rel_max(s.numpy(), js, BF16_RTOL)
+    np.testing.assert_allclose(norms.numpy(), np.asarray(jn), rtol=NORM_RTOL,
+                               atol=1e-30)
+    assert torch.equal(s, tdp.dct_project_bf16(torch.from_numpy(g),
+                                               torch.from_numpy(q))[0])
+
+
+@jax.jit
+def _jax_colgather_operands(bs, qt, idx):
+    """The int8 operands as the JAX package's ``colgather_matmul`` makes
+    them inside its jit: Q^T per row, the selected scales folded into b."""
+    qt_q, s_qt = jl.quant_rows(qt)
+    s_sel = jnp.take(s_qt[:, 0], idx, axis=0)
+    return qt_q, [jl.quant_rows(b.astype(jnp.float32) * s_sel[..., None, :])
+                  for b in bs]
+
+
+@pytest.mark.parametrize("name", list(LEAVES))
+def test_int8_colgather_bit_equal_given_jax_codes(name):
+    shape, r = LEAVES[name]
+    *batch, m, n = shape
+    qt = np.ascontiguousarray(np.array(jax_dct2(n)).T)
+    idx = _idx(batch, n, r, 8)
+    b1, b2 = _rand((*batch, m, r), 9), _rand((*batch, m, r), 10)
+    jargs = (jnp.asarray(qt), jnp.asarray(idx))
+    jo1, jo2 = jcg.colgather_matmul_dual(jnp.asarray(b1), jnp.asarray(b2),
+                                         *jargs, interpret=True,
+                                         compute_dtype="int8")
+    jo = jcg.colgather_matmul(jnp.asarray(b1), *jargs, interpret=True,
+                              compute_dtype="int8")
+    qt_q, ((b1q, s1), (b2q, s2)) = _jax_colgather_operands(
+        [jnp.asarray(b1), jnp.asarray(b2)], *jargs)
+    o1, o2 = tcg.colgather_matmul_dual_q8(_t(b1q), _t(s1), _t(b2q), _t(s2),
+                                          _t(qt_q), _t(idx))
+    assert np.array_equal(o1.numpy(), np.asarray(jo1))
+    assert np.array_equal(o2.numpy(), np.asarray(jo2))
+    assert np.array_equal(tcg.colgather_matmul_q8(_t(b1q), _t(s1), _t(qt_q),
+                                                  _t(idx)).numpy(),
+                          np.asarray(jo))
+    # the port's own quantization, within the scales' last ulp
+    own = tcg.colgather_matmul_dual(torch.from_numpy(b1), torch.from_numpy(b2),
+                                    torch.from_numpy(qt), torch.from_numpy(idx),
+                                    compute_dtype="int8")
+    for a, b in zip(own, (jo1, jo2)):
+        _assert_rel_max(a.numpy(), b, 1e-5)
+
+
+@pytest.mark.parametrize("name", list(LEAVES))
+def test_bf16_colgather_matches_jax(name):
+    shape, r = LEAVES[name]
+    *batch, m, n = shape
+    qt = np.ascontiguousarray(np.array(jax_dct2(n)).T)
+    idx = _idx(batch, n, r, 11)
+    b1, b2 = _rand((*batch, m, r), 12), _rand((*batch, m, r), 13)
+    args = (jnp.asarray(qt), jnp.asarray(idx))
+    targs = (torch.from_numpy(qt), torch.from_numpy(idx))
+    want = jcg.colgather_matmul_dual(jnp.asarray(b1), jnp.asarray(b2), *args,
+                                     interpret=True, compute_dtype="bf16")
+    got = tcg.colgather_matmul_dual(torch.from_numpy(b1), torch.from_numpy(b2),
+                                    *targs, compute_dtype="bf16")
+    for a, b in zip(got, want):
+        _assert_rel_max(a.numpy(), b, BF16_RTOL)
+    _assert_rel_max(
+        tcg.colgather_matmul_bf16(torch.from_numpy(b1), *targs).numpy(),
+        jcg.colgather_matmul(jnp.asarray(b1), *args, interpret=True,
+                             compute_dtype="bf16"), BF16_RTOL)
+
+
+# ---------------------------------------------------------------------------
+# the fused layer
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dt", ["bf16", "int8"])
+@pytest.mark.parametrize("mode", ["on", "fft"])
+@pytest.mark.parametrize("name", list(LEAVES))
+def test_select_and_project_lowp(name, mode, dt):
+    """The same selection as JAX's on the same input, ``g_low`` within the
+    precision's tolerance of JAX's, the projection within
+    ``LOWP_ERROR_BOUNDS`` of fp32 and the selection mostly the fp32 one."""
+    shape, r = LEAVES[name]
+    n = shape[-1]
+    g = _rand(shape, 14)
+    q = np.array(jax_dct2(n))
+    jidx, jlow = jfs.select_and_project(jnp.asarray(g), jnp.asarray(q), r,
+                                        mode=mode, compute_dtype=dt)
+    idx, low = tfs.select_and_project(torch.from_numpy(g), torch.from_numpy(q),
+                                      r, mode=mode, compute_dtype=dt)
+    assert np.array_equal(idx.numpy(), np.asarray(jidx))
+    _assert_rel_max(low.numpy(), jlow, 1e-5)
+    idx32, _ = tfs.select_and_project(torch.from_numpy(g), torch.from_numpy(q),
+                                      r, mode=mode)
+    assert len(set(idx.flatten().tolist()) & set(idx32.flatten().tolist())) \
+        >= 0.75 * len(set(idx32.flatten().tolist()))
+    s = tl.lowp_matmul(torch.from_numpy(g), torch.from_numpy(q), dt).double()
+    ref = torch.from_numpy(g).double() @ torch.from_numpy(q).double()
+    assert (torch.linalg.norm(s - ref) / torch.linalg.norm(ref)).item() \
+        <= tl.LOWP_ERROR_BOUNDS[dt]
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("mode", ["on", "fft"])
+def test_fused_backprojections_and_keep_branch_match_jax(mode, dt):
+    """``fused_dual_backproject``, ``fused_backproject`` and the T_u > 1
+    keep branch ``project_with_indices`` against JAX's."""
+    *batch, m, n = (2, 40, 40)
+    r = 17
+    q = np.array(jax_dct2(n))
+    idx = _idx(batch, n, r, 15)
+    u, gl = _rand((*batch, m, r), 16), _rand((*batch, m, r), 17)
+    g = _rand((*batch, m, n), 18)
+    J = lambda *xs: [jnp.asarray(x) for x in xs]    # noqa: E731
+    T = lambda *xs: [torch.from_numpy(x) for x in xs]  # noqa: E731
+    want = jfs.fused_dual_backproject(*J(u, gl, q, idx), mode=mode,
+                                      compute_dtype=dt)
+    got = tfs.fused_dual_backproject(*T(u, gl, q, idx), mode=mode,
+                                     compute_dtype=dt)
+    for a, b in zip(got, want):
+        _assert_rel_max(a.numpy(), b, 1e-5)
+    _assert_rel_max(
+        tfs.fused_backproject(*T(u, q, idx), mode=mode,
+                              compute_dtype=dt).numpy(),
+        jfs.fused_backproject(*J(u, q, idx), mode=mode, compute_dtype=dt),
+        1e-5)
+    _assert_rel_max(
+        tfs.project_with_indices(*T(g, q, idx), compute_dtype=dt).numpy(),
+        jfs.project_with_indices(*J(g, q, idx), compute_dtype=dt), 1e-5)
+
+
+def test_lowp_refuses_reference_path():
+    """As ``tests/test_tuning.py``'s case: a non-fp32 compute_dtype fails
+    loudly, never silently runs fp32 — at construction for fused="off", at
+    the update when fused="auto" resolves to the reference path (CPU
+    tensors)."""
+    from repro_torch.optim.projected_adam import ProjectedAdamRule
+    from repro_torch.optim.transform import matrix_optimizer
+
+    with pytest.raises(ValueError, match="compute_dtype"):
+        ProjectedAdamRule(rank=8, fused="off", compute_dtype="int8")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        ProjectedAdamRule(rank=8, compute_dtype="fp16")
+    params = {"w": torch.zeros(16, 16)}
+    grads = {"w": torch.from_numpy(_rand((16, 16), 7))}
+    assert tfs.resolve("auto", "cpu") == "off"
+    opt = matrix_optimizer(ProjectedAdamRule(rank=8, fused="auto",
+                                             compute_dtype="int8"), 1e-3)
+    with pytest.raises(ValueError, match="fused"):
+        opt.update(grads, opt.init(params), params)
+
+
+@pytest.mark.parametrize("dt", ["bf16", "int8"])
+def test_rule_level_lowp_close_to_fp32(dt):
+    """As ``tests/test_tuning.py``'s case: one update in low precision is
+    close to the fp32 one, and not equal to it."""
+    from repro_torch.optim.projected_adam import ProjectedAdamRule
+    from repro_torch.optim.transform import matrix_optimizer
+
+    shape = (2, 48, 64)
+    params = {"w": torch.zeros(shape)}
+    grads = {"w": torch.from_numpy(_rand(shape, 23))}
+    outs = {}
+    for cdt in ("fp32", dt):
+        opt = matrix_optimizer(ProjectedAdamRule(
+            rank=8, ef_dtype="fp32", fused="fft", compute_dtype=cdt), 1e-3)
+        d, _ = opt.update(grads, opt.init(params), params)
+        outs[cdt] = d["w"].double()
+    rel = (torch.linalg.norm(outs[dt] - outs["fp32"])
+           / torch.linalg.norm(outs["fp32"])).item()
+    assert 0 < rel <= 10 * tl.LOWP_ERROR_BOUNDS[dt]
+
+
+def test_discard_keeps_no_error_feedback_state():
+    opt = get_optimizer("dct_adamw", lr=0.01, rank=8, error_feedback=False,
+                        fused="fft")
+    params = {"segments/0/p0/attn/wq/kernel": torch.zeros(2, 48, 32)}
+    state = opt.init(params)
+    leaf = state.leaves[0]["lowrank"]["segments/0/p0/attn/wq/kernel"]
+    assert leaf.ef is None
+    grads = {k: torch.from_numpy(_rand(v.shape, 3)) for k, v in params.items()}
+    _, new = opt.update(grads, state, params)
+    assert new.leaves[0]["lowrank"]["segments/0/p0/attn/wq/kernel"].ef is None
+
+
+# ---------------------------------------------------------------------------
+# 10-step trajectories of the smoke llama
+# ---------------------------------------------------------------------------
+JAX_CFG = jax_llama.SMOKE
+CFG = get_config("llama-350m", smoke=True)
+
+# Stated tolerance of the 10-step trajectories (rank 16, lr 0.01, cosine
+# warmup 2). The frameworks sum in different orders (~1e-7 relative per
+# op); the int8 paths also quantize with scales an ulp apart from jitted
+# JAX's in some rows (module docstring), and the top-16 selection and the
+# int8 EF amplify both. Measured max relative loss difference over the 10
+# steps, alike in modes on and fft: int8 1.2e-4, bf16 2.4e-4, discard (fp32)
+# 2.6e-6, discard int8 1.8e-4; rtol 1e-3, as the fp32 rank-16 trajectory of
+# test_torch_model_train.py.
+LOWP_TRAJECTORY_RTOL = 1e-3
+TRAJECTORY_CASES = [
+    dict(compute_dtype="int8"), dict(compute_dtype="bf16"),
+    dict(error_feedback=False),
+    dict(error_feedback=False, compute_dtype="int8"),
+]
+
+
+def _trajectory(kw, steps=10):
+    jopt = jax_get_optimizer("dct_adamw", lr=jax_cosine(0.01, 2, steps), **kw)
+    topt = get_optimizer("dct_adamw", lr=cosine_warmup(0.01, 2, steps), **kw)
+    jparams = JT.init_params(JAX_CFG, jax.random.PRNGKey(0))
+    jstate = JS.TrainState(jnp.zeros((), jnp.int32), jparams,
+                           jopt.init(jparams))
+    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams))
+    tstate = TS.TrainState(0, tparams, topt.init(tparams))
+    jstep = jax.jit(JS.make_train_step(JAX_CFG, jopt))
+    tstep = TS.make_train_step(CFG, topt)
+    data = SyntheticLM(vocab_size=CFG.vocab_size, seq_len=32, global_batch=4)
+    jls, tls = [], []
+    for i in range(steps):
+        b = {k: np.array(v) for k, v in data.batch(jnp.int32(i)).items()}
+        jstate, jm = jstep(jstate, jax.tree.map(jnp.asarray, b))
+        tstate, tm = tstep(tstate, {k: torch.from_numpy(v)
+                                    for k, v in b.items()})
+        jls.append(float(jm["loss"]))
+        tls.append(float(tm["loss"]))
+    return tls, jls, tstate
+
+
+@pytest.mark.parametrize("fused", ["on", "fft"])
+@pytest.mark.parametrize("case", TRAJECTORY_CASES,
+                         ids=lambda kw: "-".join(f"{v}" for v in kw.values()))
+def test_ten_step_lowp_trajectory_matches_jax(case, fused):
+    tls, jls, tstate = _trajectory(dict(rank=16, fused=fused,
+                                        weight_decay=0.01, **case))
+    np.testing.assert_allclose(tls, jls, rtol=LOWP_TRAJECTORY_RTOL)
+    assert tls[-1] < tls[0] - 0.5
+    if case.get("error_feedback") is False:
+        leaves = tstate.opt_state.leaves[0]["lowrank"].values()
+        assert all(leaf.ef is None for leaf in leaves)
+
+
+# ---------------------------------------------------------------------------
+# the CLI
+# ---------------------------------------------------------------------------
+_SMOKE = ["--smoke", "--device", "cpu", "--steps", "2", "--batch", "2",
+          "--seq-len", "16", "--log-every", "1", "--optimizer", "dct_adamw"]
+
+
+@pytest.mark.parametrize("fused", ["on", "fft"])
+@pytest.mark.parametrize("dt", ["int8", "bf16"])
+def test_cli_compute_dtype_runs_on_cpu(monkeypatch, dt, fused, capsys):
+    from repro_torch.optim import api
+    seen = []
+    build = api.get_optimizer
+    monkeypatch.setattr(api, "get_optimizer",
+                        lambda name, lr, **kw: seen.append(kw) or
+                        build(name, lr, **kw))
+    assert train_cli.main([*_SMOKE, "--compute-dtype", dt,
+                           "--fused", fused]) == 0
+    assert seen[0]["compute_dtype"] == dt and seen[0]["fused"] == fused
+    assert "[train] done at step 2" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--compute-dtype", "int8"], "requires a fused dispatch mode"),
+    (["--compute-dtype", "bf16", "--fused", "auto"],
+     "requires a fused dispatch mode"),
+    (["--compute-dtype", "int8", "--fused", "off"],
+     "requires a fused dispatch mode"),
+    (["--compute-dtype", "int8", "--optimizer", "trion"],
+     "applies to dct_adamw"),
+    (["--basis", "hadamard", "--optimizer", "muon"], "--basis applies to"),
+    (["--basis", "dst", "--optimizer", "galore"], "not yet ported"),
+    (["--basis", "sine"], None),
+])
+def test_cli_lowp_and_basis_exits(argv, match):
+    """The JAX CLI's refusals: --compute-dtype only for dct_adamw and a
+    fused mode (``--fused auto`` resolves to off on the CPU); --basis for
+    the projected-Adam presets (galore/frugal/fira are not ported)."""
+    with pytest.raises(SystemExit) as e:
+        train_cli.main([*_SMOKE, *argv])
+    if match is not None:
+        assert match in str(e.value)
+
+
+def test_cli_flags_are_ported():
+    assert "--compute-dtype" not in train_cli.NOT_YET_PORTED
+    assert "--basis" not in train_cli.NOT_YET_PORTED

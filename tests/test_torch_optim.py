@@ -175,11 +175,12 @@ def test_init_state_layout_matches_jax():
 
 
 def test_unported_options_raise():
+    from repro_torch.optim.projected_adam import ProjectedAdamRule
     with pytest.raises(NotImplementedError):
         get_optimizer("ldadamw", lr=0.01)
     with pytest.raises(NotImplementedError):
-        get_optimizer("dct_adamw", lr=0.01, error_feedback=False)
+        ProjectedAdamRule(residual="sign")
     with pytest.raises(NotImplementedError):
-        get_optimizer("dct_adamw", lr=0.01, compute_dtype="int8")
+        ProjectedAdamRule(projector="power")
     with pytest.raises(TypeError):
         get_optimizer("dct_adamw", lr=0.01, zero=None)
