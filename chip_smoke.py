@@ -79,7 +79,29 @@ device or without the port beside it. Any failure raises. Phases:
    ``--basis hadamard --fused fft`` (no kernel). Each step-1 loss must
    equal phase 3's: the same seed gives the same weights and batch. Then
    where an int8 step goes, as in phase 4.
-12. The ``kernels`` line, the card's line, and last:
+12. The dense ``flash_attention`` kernel against its plain version on the
+   card, each launched twice (bit-identical): (a) llama-350m's prefill (8
+   x 512, 16 / 16 heads of 64, causal, bf16), (b) a gemma3-27b local layer
+   (2 x 2048, 32 / 16 heads of 128, window 1024, bf16), (c) a global one
+   (the same, causal); edge cases: fp32, group 5, head dims 96 and 17, S =
+   1 and 777, a window of 1. Times per call of (a)-(c), each beside its
+   bound and ``scaled_dot_product_attention`` (``enable_gqa``; the window
+   as a boolean mask) on the same tensors.
+13. The dense prefill path, counters zeroed just before each run and read
+   just after: ``ServeEngine`` with llama-350m at full width and depth,
+   bf16, 8 prompts x 512, 16 new tokens (24 ``flash_attention`` launches
+   in its one prefill), and with gemma3-27b at full width, depth cut from
+   62 to 8 layers (one repeat of each schedule segment: 7 local, 1
+   global), bf16, random weights, 2 prompts x 2048, 32 new tokens (8
+   launches). Each prefill's last logits are held to the same forward
+   through the plain chunked loop. Then ``PagedServeEngine`` with the same
+   gemma3-27b: 4 slots, block 16, 6 prompts of 512-2048 tokens, 32 new
+   tokens, prefill chunk 256: 8 ``flash_decode`` launches per decode step
+   (the local layers with their window) and no ``flash_attention``; a
+   greedy request rerun alone gives the same tokens. One prefill of each
+   dense configuration runs under ``torch.profiler``. The training phases
+   (3, 8, 9, 11) launch no ``flash_attention``.
+14. The ``kernels`` line, the card's line, and last:
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -180,6 +202,25 @@ PROMPT_LENS = (64, 1024)
 # version (sums over up to 2048 keys in another order); in bf16 within that
 # plus one bf16 ulp of each element (the fp32 values may round apart)
 FD_RTOL_F32 = 2e-6
+
+# dense attention (phase 12): the JAX package's tolerance for its kernel
+# against its oracle (tests/test_kernels.py) in fp32; in bf16 that plus one
+# bf16 ulp of each element (the last rounding)
+FA_TOL_F32 = 3e-5
+# (b, s, hq, hkv, hd, window) in bf16, causal: the prefill shapes of
+# llama-350m and of a gemma3-27b local and global layer
+FA_CASES = {"a: llama-350m": (8, 512, 16, 16, 64, None),
+            "b: gemma3 local": (2, 2048, 32, 16, 128, 1024),
+            "c: gemma3 global": (2, 2048, 32, 16, 128, None)}
+# the dense prefill path (phase 13)
+LLAMA_PROMPTS, LLAMA_NEW = (8, 512), 16
+GEMMA_PROMPTS, GEMMA_NEW = (2, 2048), 32
+GEMMA_SLOTS, GEMMA_REQUESTS, GEMMA_CHUNK = 4, 6, 256
+GEMMA_PROMPT_LENS = (512, 2048)
+# the last logits of a bf16 prefill through the kernel against the plain
+# chunked loop, relative Frobenius norm: the kernel keeps P in fp32 where
+# the loop rounds it to bf16, and the difference grows through the layers
+PREFILL_LOGITS_RTOL = 5e-2
 
 
 def _device_line() -> str:
@@ -400,6 +441,8 @@ def run_main_path(torch):
     losses = [h["loss"] for h in hist]
     assert all(math.isfinite(x) for x in losses), losses
     counts = ops.launch_counts(ops.TRAINING)
+    assert ops.launch_counts(ops.ATTENTION)["flash_attention"] == 0, \
+        "the training step's attention launched flash_attention"
     for name, n in counts.items():
         assert n == LAUNCHES_PER_STEP * STEPS, \
             f"{name}: {n} launches in {STEPS} steps, expected " \
@@ -1187,6 +1230,8 @@ def run_serving(torch, dev) -> int:
     obs.disable()
     assert counts["flash_decode"] == LAYERS * steps, \
         f"flash_decode: {counts['flash_decode']} launches in {steps} steps"
+    assert ops.launch_counts(ops.ATTENTION)["flash_attention"] == 0, \
+        "the chunked paged prefill launched flash_attention"
     for h in handles:
         assert h.finish_reason == "length" \
             and len(h.tokens) == NEW_TOKENS, h.request.request_id
@@ -1255,6 +1300,295 @@ def run_serving(torch, dev) -> int:
     return counts["flash_decode"]
 
 
+def _fa_pairs(s: int, causal: bool, window) -> int:
+    """Unmasked (query, key) pairs of one head: what the kernel must do."""
+    import numpy as np
+    q = np.arange(s)
+    hi = q + 1 if causal else np.full(s, s)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros(s, int)
+    return int((hi - lo).sum())
+
+
+def _fa_inputs(torch, dev, seed, b, s, hq, hkv, hd, dtype):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype)
+            for h in (hq, hkv, hkv)]
+
+
+def _fa_compare(torch, fa, q, k, v, causal, window) -> float:
+    """The kernel twice (bit-identical) against its plain version: fp32
+    within FA_TOL_F32, bf16 within that plus one bf16 ulp of each element.
+    Returns max |dout|."""
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    again = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape \
+        and torch.isfinite(got).all(), "flash_attention output"
+    assert torch.equal(got, again), "flash_attention: relaunch differs"
+    err = (got.float() - want.float()).abs().max().item()
+    if q.dtype == torch.float32:
+        assert err <= FA_TOL_F32, f"flash_attention fp32: max |dout| {err}"
+    else:
+        ulps = _bf16_excess(got, want, FA_TOL_F32)
+        assert ulps <= 1.0, f"flash_attention bf16: {ulps} ulps past " \
+            f"{FA_TOL_F32}"
+    return err
+
+
+def check_flash_attention(torch, dev) -> dict:
+    """Phase 12. Returns the kernels-line row of ``flash_attention`` (its
+    ``launches`` come from phase 13)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    errs, cases = [], {}
+    for i, (name, (b, s, hq, hkv, hd, window)) in enumerate(FA_CASES.items()):
+        q, k, v = _fa_inputs(torch, dev, i, b, s, hq, hkv, hd, bf16)
+        errs.append(_fa_compare(torch, fa, q, k, v, True, window))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window is None:
+            def lib():
+                return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:
+            pos = torch.arange(s, device=dev)
+            keep = (pos[:, None] >= pos[None, :]) \
+                & (pos[:, None] - pos[None, :] < window)
+
+            def lib():
+                return sdpa(qt, kt, vt, attn_mask=keep, enable_gqa=True)
+        # the yardstick computes the same function (the JAX tolerance in
+        # bf16, tests/test_kernels.py)
+        lib_err = (lib().transpose(1, 2).float()
+                   - fa.flash_attention_ref(q, k, v, window=window).float()
+                   ).abs().max().item()
+        assert lib_err <= 2e-2, f"{name}: SDPA differs by {lib_err}"
+        pairs = b * hq * _fa_pairs(s, True, window)
+        nbytes = 2 * (2 * b * s * hq * hd + 2 * b * s * hkv * hd)
+        bound, by = _bound_ms(nbytes, 4.0 * pairs * hd, PEAK_BF16_PER_S)
+        cases[name] = {
+            "shape": [b, s, hq, hkv, hd], "window": window, "dtype": "bf16",
+            "max_abs_err": errs[-1], "sdpa_max_abs_err": lib_err,
+            "ms": _time_ms(lambda: fa.flash_attention(q, k, v,
+                                                      window=window)),
+            "plain_ms": _time_ms(lambda: fa.flash_attention_ref(
+                q, k, v, window=window), 3),
+            "library_ms": _time_ms(lib), "bound_ms": bound, "bound_by": by,
+            "unmasked_pairs": pairs, "bytes": nbytes}
+        print(json.dumps({"flash_attention_case": name, **cases[name]}),
+              flush=True)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    # edge cases: (b, s, hq, hkv, hd, causal, window, dtype)
+    edges = {"fp32": (2, 512, 16, 16, 64, True, None, f32),
+             "group 5": (2, 300, 10, 2, 64, True, 64, bf16),
+             "hd 96": (2, 257, 8, 4, 96, True, None, bf16),
+             "hd 17": (1, 100, 4, 2, 17, True, None, f32),
+             "S 1": (3, 1, 4, 2, 64, True, None, f32),
+             "S 777": (1, 777, 8, 4, 128, True, 128, bf16),
+             "window 1": (1, 200, 4, 4, 64, True, 1, f32),
+             "no mask": (2, 130, 6, 3, 64, False, None, f32)}
+    for i, (name, (b, s, hq, hkv, hd, causal, window, dt)) in enumerate(
+            edges.items()):
+        q, k, v = _fa_inputs(torch, dev, 10 + i, b, s, hq, hkv, hd, dt)
+        errs.append(_fa_compare(torch, fa, q, k, v, causal, window))
+    print(json.dumps({"kernel": "flash_attention", "cases": list(cases),
+                      "edge_cases": list(edges), "max_abs_err": max(errs),
+                      "tolerance": f"fp32 {FA_TOL_F32}; bf16 that + 1 ulp; "
+                                   f"each launched twice, bit-identical"}),
+          flush=True)
+    # times per dense prefill: llama-350m 24 launches at (a); gemma3-27b
+    # at depth 8: 7 at (b), 1 at (c)
+    a, lb, gc = (cases[n] for n in FA_CASES)
+    row = {key: LAYERS * a[key] for key in ("ms", "plain_ms", "library_ms",
+                                            "bytes")}
+    row.update(flops=LAYERS * 4.0 * a["unmasked_pairs"] * a["shape"][4],
+               peak=PEAK_BF16_PER_S, max_abs_err=max(errs),
+               gemma3_prefill={key: 7 * lb[key] + gc[key] for key in (
+                   "ms", "plain_ms", "library_ms", "bound_ms")},
+               cases=cases)
+    return row
+
+
+def _gemma3_depth8():
+    """gemma3-27b at full width, one repeat of each schedule segment: 7
+    local layers and 1 global."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("gemma3-27b")
+    return dataclasses.replace(
+        cfg, schedule=tuple((pattern, 1) for pattern, _ in cfg.schedule))
+
+
+def _plain_route_last_logits(torch, T, params, tokens, cfg):
+    """The same forward with grad enabled on the parameters: the model's
+    attention runs the plain chunked loop, not the kernel."""
+    with torch.enable_grad():
+        leaves = {k: v.detach().requires_grad_(v.is_floating_point())
+                  for k, v in params.items()}
+        logits, _ = T.forward(leaves, {"tokens": tokens}, cfg)
+    return logits[:, -1].detach().float()
+
+
+def run_dense_prefill(torch, dev, name: str) -> dict:
+    """Phase 13, dense engine: ``ServeEngine.generate`` of llama-350m or
+    gemma3-27b at depth 8, counters zeroed just before. Returns the
+    counts."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeEngine
+
+    if name == "llama-350m":
+        cfg, (b, s), new = get_config(name), LLAMA_PROMPTS, LLAMA_NEW
+    else:
+        cfg, (b, s), new = _gemma3_depth8(), GEMMA_PROMPTS, GEMMA_NEW
+    params = T.init_params(cfg, seed=0, device=dev)
+    eng = ServeEngine(cfg, params, max_len=s + new)
+    del params
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate({"tokens": tokens}, max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == cfg.n_layers, counts
+    assert sum(counts.values()) == cfg.n_layers, counts
+    assert out.shape == (b, new), out.shape
+    again = eng.generate({"tokens": tokens}, max_new_tokens=new)
+    assert torch.equal(out, again), f"{name}: a rerun gave other tokens"
+
+    # the prefill alone: its time, its last logits against the plain
+    # route, and one run under the profiler
+    with torch.inference_mode():
+        T.prefill(eng.params, {"tokens": tokens}, cfg, max_len=s + new)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, _, _ = T.prefill(eng.params, {"tokens": tokens}, cfg,
+                               max_len=s + new)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            T.prefill(eng.params, {"tokens": tokens}, cfg, max_len=s + new)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    plain = _plain_route_last_logits(torch, T, eng.params, tokens, cfg)
+    last = last.float()
+    assert torch.isfinite(last).all() and last.shape == (b, cfg.vocab_size)
+    rel = ((last - plain).norm() / plain.norm()).item()
+    top1 = (last.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    assert rel <= PREFILL_LOGITS_RTOL, \
+        f"{name}: prefill logits {rel} from the plain route"
+    kernels, busy_ms = _device_kernels(prof)
+    fa_ms = sum(_dev_us(e) for e in kernels
+                if "flash_attention" in e.key) / 1e3
+    print(json.dumps({
+        "dense_prefill_path": f"{name} bf16 ServeEngine, flash_attention",
+        "layers": cfg.n_layers, "kinds": list(cfg.block_kinds()),
+        "batch": b, "prompt_len": s, "new_tokens": new,
+        "flash_attention_launches": counts["flash_attention"],
+        "generate_wall_s": wall, "output_tokens_per_s": b * new / wall,
+        "prefill_ms": prefill_ms,
+        "prefill_last_logits_rel_to_plain_route": rel,
+        "prefill_top1_agreement_with_plain_route": top1,
+        "rerun_equal": True,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "profiled_prefill_wall_ms": prof_wall_ms,
+        "prefill_device_busy_ms": busy_ms,
+        "prefill_device_idle_share": 1.0 - busy_ms / prof_wall_ms,
+        "flash_attention_device_ms": fa_ms,
+        "prefill_kernel_launches": sum(e.count for e in kernels),
+        "top_device_kernels": _top(kernels, 8)}), flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_gemma3_paged(torch, dev) -> dict:
+    """Phase 13, paged engine: gemma3-27b at depth 8 on
+    ``PagedServeEngine``, counters zeroed just before. Returns the
+    counts."""
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import PagedServeEngine, Session
+
+    cfg = _gemma3_depth8()
+    max_blocks = -(-(GEMMA_PROMPT_LENS[1] + GEMMA_NEW) // BLOCK)
+    eng = PagedServeEngine(
+        cfg, T.init_params(cfg, seed=0, device=dev), block_size=BLOCK,
+        num_blocks=GEMMA_SLOTS * max_blocks, max_blocks_per_seq=max_blocks,
+        num_slots=GEMMA_SLOTS, max_prefill_len=GEMMA_PROMPT_LENS[1],
+        prefill_chunk=GEMMA_CHUNK, num_splits=NUM_SPLITS)
+    rng = np.random.default_rng(1)
+    lens = rng.permutation(np.linspace(*GEMMA_PROMPT_LENS, GEMMA_REQUESTS)
+                           .astype(int))
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    sess = Session(eng, "gemma3")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    obs.enable()
+    obs.reset()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    handles = [sess.submit(p, max_new_tokens=GEMMA_NEW) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    steps = eng.steps
+    spans = obs.tracer().records()
+    obs.disable()
+    assert counts["flash_decode"] == cfg.n_layers * steps, (counts, steps)
+    assert sum(counts.values()) == counts["flash_decode"], counts
+    for h in handles:
+        assert h.finish_reason == "length" and len(h.tokens) == GEMMA_NEW, \
+            h.request.request_id
+    solo = sess.submit(prompts[2], max_new_tokens=GEMMA_NEW)
+    eng.run()
+    assert solo.tokens == handles[2].tokens, \
+        "gemma3 paged: the solo rerun differs from the churned stream"
+    decode_ms = [r["dur"] / 1e6 for r in spans
+                 if r["name"] == "serve/decode_step"]
+    admit_ms = [r["dur"] / 1e6 for r in spans if r["name"] == "serve/admit"]
+    tokens = sum(len(h.tokens) for h in handles)
+    stats = eng.stats()
+    print(json.dumps({
+        "paged_path": "gemma3-27b depth 8 bf16 PagedServeEngine, "
+                      "flash_decode with window 1024 on local layers",
+        "slots": GEMMA_SLOTS, "block_size": BLOCK,
+        "requests": GEMMA_REQUESTS, "prompt_lens": lens.tolist(),
+        "new_tokens": GEMMA_NEW, "prefill_chunk": GEMMA_CHUNK,
+        "num_splits": NUM_SPLITS, "decode_steps": steps,
+        "flash_decode_launches_per_step": counts["flash_decode"] / steps,
+        "flash_attention_launches": counts["flash_attention"],
+        "decode_ms_per_step_mean": sum(decode_ms) / len(decode_ms),
+        "decode_ms_per_step_median": sorted(decode_ms)[len(decode_ms) // 2],
+        "admit_prefill_ms_mean": sum(admit_ms) / len(admit_ms),
+        "wall_s": wall, "output_tokens": tokens,
+        "output_tokens_per_s": tokens / wall,
+        "ttft_s_mean": sum(h.ttft for h in handles) / len(handles),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "pool_bytes": stats["cache_bytes"], "solo_equals_churn": True}),
+        flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -1309,6 +1643,12 @@ def main() -> int:
     time_breakdown(torch, dev, compute_dtype="int8")
     torch.cuda.empty_cache()
 
+    rows["flash_attention"] = check_flash_attention(torch, dev)
+    prefill_launches = {name: run_dense_prefill(torch, dev, name)[
+        "flash_attention"] for name in ("llama-350m", "gemma3-27b")}
+    counts["flash_attention"] = sum(prefill_launches.values())
+    run_gemma3_paged(torch, dev)
+
     sources = {"dequant_add_ef": ("quant_ef.cu", "src/repro/kernels/quant_ef.py:44"),
                "dct_project": ("dct_project.cu", "src/repro/kernels/dct_project.py:63"),
                "colgather_matmul_dual": ("colgather_matmul.cu",
@@ -1333,7 +1673,9 @@ def main() -> int:
                "colgather_matmul_bf16": ("colgather_matmul.cu",
                                          "src/repro/kernels/colgather_matmul.py:65"),
                "colgather_matmul_q8": ("colgather_matmul.cu",
-                                       "src/repro/kernels/colgather_matmul.py:98")}
+                                       "src/repro/kernels/colgather_matmul.py:98"),
+               "flash_attention": ("flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:32")}
     lowp_note = ("per DCT-AdamW training step at the main path's shapes (7 "
                  "launches); ms: the kernel alone, wrapper_ms: with the "
                  "operand quantization; bound at the precision's tensor-core "
@@ -1351,6 +1693,11 @@ def main() -> int:
         "ns_apply": "per Trion training step: 35 launches; library = "
                     "torch.baddbmm(x, p, x, beta=a)",
         "colgather_matmul": "per subspace-Muon training step: 7 launches",
+        "flash_attention": "per llama-350m dense prefill (8 x 512): 24 "
+                           "launches at shape (a); library = SDPA with "
+                           "enable_gqa; gemma3_prefill: 7 launches at (b) + "
+                           "1 at (c); launches from phase 13's two dense "
+                           "prefills",
     }
     kernels = []
     for name, row in rows.items():
@@ -1377,6 +1724,10 @@ def main() -> int:
             "bound_ms": bound, "bound_by": by,
             "library_ms": row["library_ms"],
             **({"times_are": times_are[name]} if name == "flash_decode" else
+               {"times_are": times_are[name],
+                "launches_per_prefill": prefill_launches,
+                "gemma3_prefill": row["gemma3_prefill"]}
+               if name == "flash_attention" else
                {"launches_per_step": counts[name] / (
                    MOMENTUM_PATHS["muon rank 128"][1]
                    if name == "colgather_matmul" else STEPS),

@@ -13,7 +13,8 @@ also run ``dct_project``, and Trion ``colgather_matmul_dual``), ``SERVING``
 those of the paged decode step, ``LOWP`` the bf16 and int8 variants of the
 projection kernels that DCT-AdamW's ``compute_dtype`` runs (a launch of one
 counts on its own name, not on the fp32 kernel's, so a run shows which
-precision ran), ``KERNELS`` all. ``launch_counts`` /
+precision ran), ``ATTENTION`` the dense ``flash_attention`` of the model's
+no-grad forward (the dense prefill), ``KERNELS`` all. ``launch_counts`` /
 ``reset_launch_counts`` read and zero the counters of a group (all by
 default).
 """
@@ -28,6 +29,7 @@ from .colgather_matmul import (
     colgather_matmul_q8,
 )
 from .dct_project import dct_project, dct_project_bf16, dct_project_q8
+from .flash_attention import flash_attention
 from .flash_decode import flash_decode
 from .newton_schulz import newton_schulz_kernel, ns_apply, ns_gram
 from .quant_ef import dequant_add_ef, quantize_ef
@@ -54,7 +56,15 @@ LOWP = {
     "colgather_matmul_bf16": colgather_matmul_bf16,
     "colgather_matmul_q8": colgather_matmul_q8,
 }
-KERNELS = {**TRAINING, **MOMENTUM, **SERVING, **LOWP}
+ATTENTION = {
+    "flash_attention": flash_attention,
+}
+KERNELS = {**TRAINING, **MOMENTUM, **SERVING, **LOWP, **ATTENTION}
+
+#: the model's entry to the kernel, under the JAX package's name (there the
+#: op picks Pallas interpret mode off the TPU; here the wrapper picks by
+#: device, so the two are one function)
+flash_attention_op = flash_attention
 
 
 def launch_counts(group: dict | None = None) -> dict[str, int]:

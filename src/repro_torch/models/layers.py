@@ -5,6 +5,22 @@ Plain functions on tensors, mirroring ``repro/models/layers.py``. Weights are
 ``(d_in, d_out)`` matrices applied as ``x @ w`` (the JAX layout, not
 ``nn.Linear``'s), and a stacked ``(layers, d_in, d_out)`` leaf holds one
 matrix per layer.
+
+Attention products follow the JAX package's ``preferred_element_type=
+float32``: q (or the softmax weights) is rounded to the K (V) dtype, and the
+product of the rounded operands runs in fp32, never rounded to bf16.
+
+``blockwise_attention`` routes by what the ``flash_attention`` kernel
+computes. A call on CUDA tensors that takes no gradient (grad mode off, or
+no input requiring grad), with ``q_offset == 0``, as many queries as keys
+and a value dim equal to the head dim -- the dense prefill's forward under
+``torch.inference_mode()`` -- goes to ``kernels.ops.flash_attention_op``,
+which launches the kernel or raises. Its result is the JAX package's
+``flash_attention``, which equals the chunked loop to within fp32 sums in
+another order (the JAX package holds the two within 3e-5,
+``tests/test_kernels.py``). Every other call -- CPU tensors, every training
+forward and backward -- runs the plain chunked loop: the JAX package has no
+backward for the kernel.
 """
 from __future__ import annotations
 
@@ -12,6 +28,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.ops import flash_attention_op
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
@@ -82,11 +100,12 @@ NEG_INF = -1e30
 def _attn_scores(qg, k, mask, hd):
     """qg: (B,Hkv,G,qc,hd); k: (B,Hkv,kc,hd) -> fp32 scores (B,Hkv,G,qc,kc).
 
-    The product runs in k's dtype. In bf16 its result is rounded to bf16
-    before the upcast, where the JAX package keeps fp32 (its
-    ``preferred_element_type``); in fp32 the two agree.
+    q is rounded to k's dtype, then the product runs in fp32 on the upcast
+    operands, as the JAX package's ``preferred_element_type=float32`` does
+    (a bf16 product is exact in fp32; the sum is not rounded to bf16).
     """
-    s = (qg.to(k.dtype) @ k[:, :, None].transpose(-1, -2)).float() / math.sqrt(hd)
+    s = (qg.to(k.dtype).float() @ k[:, :, None].transpose(-1, -2).float()
+         ) / math.sqrt(hd)
     return torch.where(mask, s, NEG_INF)
 
 
@@ -94,12 +113,17 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int | None = None,
                         q_chunk: int = 512, kv_chunk: int = 512,
                         q_offset: int = 0):
     """Online-softmax attention over query and key/value chunks, in plain
-    PyTorch (memory O(S * chunk)). q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv,
-    hd). ``q_offset`` is the absolute position of q[0]. Returns (B, Sq, Hq,
-    vd)."""
+    PyTorch (memory O(S * chunk)), or the ``flash_attention`` kernel where
+    the module docstring's route sends the call. q: (B, Sq, Hq, hd); k, v:
+    (B, Skv, Hkv, hd). ``q_offset`` is the absolute position of q[0].
+    Returns (B, Sq, Hq, vd)."""
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     vd = v.shape[-1]
+    if q.is_cuda and q_offset == 0 and sq == skv and vd == hd \
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in (q, k, v))):
+        return flash_attention_op(q, k, v, causal=causal, window=window)
     q_chunk = min(q_chunk, sq)
     kv_chunk = min(kv_chunk, skv)
     if sq % q_chunk:
@@ -139,7 +163,7 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int | None = None,
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             denom = denom * corr + p.sum(dim=-1)
-            pv = (p.to(vb.dtype) @ vb[:, :, None]).float()
+            pv = p.to(vb.dtype).float() @ vb[:, :, None].float()
             acc = acc * corr[..., None] + pv
             m = m_new
         out = acc / torch.clamp_min(denom[..., None], 1e-30)

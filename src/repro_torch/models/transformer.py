@@ -1,4 +1,5 @@
-"""Schedule-driven model builder: the dense GQA llama of the paper.
+"""The schedule-driven transformer: the dense GQA models (the paper's
+llamas, gemma3-27b).
 
 Parameters are a flat dict keyed by the JAX tree's leaf paths, with the same
 layouts: segment ``i``, pattern position ``j`` lives under
@@ -7,14 +8,17 @@ e.g. ``segments/0/p0/attn/wq/kernel`` of shape ``(layers, d, hq * hd)``
 applied as ``x @ w``. ``convert.params_from_jax`` carries a JAX parameter
 tree across unchanged.
 
-Ported for ``family="dense"`` with the ``("attn",)`` block: ``init_params``,
-``cast_params`` and ``forward`` (training); the dense decode path
-(``init_cache``, ``prefill``, ``decode_step``); the paged serving path
-(``init_paged_pools``, ``init_prefill_scratch``, ``prefill_chunk``,
-``write_prefill_to_pools``, ``decode_step_paged``), whose attention is the
-``flash_decode`` kernel. Not yet ported: the other block kinds and families
-(``local`` and ``attn_moe`` paged kinds, MoE, MLA, Mamba, RWKV,
-encoder-decoder, VLM) and sequence-parallel attention.
+Ported for ``family="dense"`` with the ``attn`` and ``local`` (sliding
+window of ``cfg.sliding_window``) blocks and optional qk-norm:
+``init_params``, ``cast_params`` and ``forward`` (training, and the dense
+prefill, whose no-grad attention is the ``flash_attention`` kernel on the
+card); the dense decode path (``init_cache``, ``prefill``, ``decode_step``;
+a ``local`` layer keeps a ring of its last ``window`` positions); the paged
+serving path (``init_paged_pools``, ``init_prefill_scratch``,
+``prefill_chunk``, ``write_prefill_to_pools``, ``decode_step_paged``),
+whose attention is the ``flash_decode`` kernel. Not yet ported: the other
+block kinds and families (``attn_moe``, MoE, MLA, Mamba, RWKV,
+encoder-decoder, VLM), qkv bias and sequence-parallel attention.
 
 Caches and pools are flat dicts too, keyed like the JAX trees:
 ``segments/{i}/p{j}/k`` and ``.../v``. Unlike the JAX package, whose
@@ -42,14 +46,22 @@ from .layers import (
 )
 
 
+#: the block kinds this package builds
+PORTED_KINDS = ("attn", "local")
+
+
 def _check_ported(cfg) -> None:
     kinds = cfg.block_kinds()
-    if cfg.family != "dense" or kinds != ("attn",) or cfg.use_qk_norm \
+    if cfg.family != "dense" or not set(kinds) <= set(PORTED_KINDS) \
             or cfg.qkv_bias or cfg.attn_sp:
         raise NotImplementedError(
-            f"{cfg.name}: only dense ('attn',) models without qk-norm, qkv "
-            f"bias or sequence-parallel attention are ported to repro_torch "
-            f"(family={cfg.family!r}, blocks={kinds})")
+            f"{cfg.name}: only dense models of {PORTED_KINDS} blocks without "
+            f"qkv bias or sequence-parallel attention are ported to "
+            f"repro_torch (family={cfg.family!r}, blocks={kinds})")
+
+
+def _window(kind: str, cfg) -> int | None:
+    return cfg.sliding_window if kind == "local" else None
 
 
 def init_params(cfg, seed: int = 0, device=None) -> dict[str, torch.Tensor]:
@@ -87,6 +99,10 @@ def init_params(cfg, seed: int = 0, device=None) -> dict[str, torch.Tensor]:
                 pre + "mlp/wu/kernel": w(d, f),
                 pre + "mlp/wd/kernel": w(f, d),
             })
+            if cfg.use_qk_norm:
+                for n in ("q", "k"):
+                    params[pre + f"attn/{n}_norm_scale"] = torch.zeros(
+                        (repeats, hd), dtype=torch.float32, device=dev)
     return params
 
 
@@ -108,20 +124,31 @@ def cast_params(params: dict, cfg) -> dict:
     return out
 
 
-def _attn_block(p: dict, x, cfg, return_kv: bool = False):
-    """One ``attn`` block: pre-norm GQA self-attention + SwiGLU MLP. With
-    ``return_kv`` also the block's roped K and V, ``(x, (k, v))``."""
+def _qk_norm(p: dict, q, k, cfg):
+    """qk-norm (an RMS norm over the head dim, eps 1e-6, as the JAX
+    package's ``_qk_norm``) where the config has it; before the rope."""
+    if not cfg.use_qk_norm:
+        return q, k
+    return (rms_norm(q, p["attn/q_norm_scale"]),
+            rms_norm(k, p["attn/k_norm_scale"]))
+
+
+def _attn_block(p: dict, x, cfg, kind: str, return_kv: bool = False):
+    """One ``attn`` or ``local`` block: pre-norm GQA self-attention (a
+    sliding window for ``local``) + SwiGLU MLP. With ``return_kv`` also the
+    block's roped K and V, ``(x, (k, v))``."""
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = rms_norm(x, p["ln1/scale"], cfg.norm_eps)
     q = (h @ p["attn/wq/kernel"]).reshape(b, s, hq, hd)
     k = (h @ p["attn/wk/kernel"]).reshape(b, s, hkv, hd)
     v = (h @ p["attn/wv/kernel"]).reshape(b, s, hkv, hd)
+    q, k = _qk_norm(p, q, k, cfg)
     cos, sin = rope_table(s, hd, cfg.rope_theta, device=x.device)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    a = blockwise_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk,
-                            kv_chunk=cfg.kv_chunk)
+    a = blockwise_attention(q, k, v, causal=True, window=_window(kind, cfg),
+                            q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
     x = x + a.reshape(b, s, hq * hd) @ p["attn/wo/kernel"]
     h = rms_norm(x, p["ln2/scale"], cfg.norm_eps)
     x = x + swiglu(h, p["mlp/wg/kernel"], p["mlp/wu/kernel"],
@@ -130,18 +157,16 @@ def _attn_block(p: dict, x, cfg, return_kv: bool = False):
 
 
 def _layers(p: dict, cfg):
-    """Yield ``(segment prefix, layer index, that layer's parameter views)``
-    in schedule order. One ``unbind`` per stacked leaf: its backward stacks
-    the per-layer gradients in one pass, where indexing the stack per layer
-    would make autograd build and add a full-stack gradient buffer for every
-    layer."""
-    for i, (pattern, repeats) in enumerate(cfg.schedule):
-        for j, _ in enumerate(pattern):
-            pre = f"segments/{i}/p{j}/"
-            stacked = {k[len(pre):]: v.unbind(0) for k, v in p.items()
-                       if k.startswith(pre)}
-            for layer in range(repeats):
-                yield pre, layer, {k: v[layer] for k, v in stacked.items()}
+    """Yield ``(segment prefix, block kind, layer index, that layer's
+    parameter views)`` in schedule order. One ``unbind`` per stacked leaf:
+    its backward stacks the per-layer gradients in one pass, where indexing
+    the stack per layer would make autograd build and add a full-stack
+    gradient buffer for every layer."""
+    for pre, kind, repeats in _kv_keys(cfg):
+        stacked = {k[len(pre):]: v.unbind(0) for k, v in p.items()
+                   if k.startswith(pre)}
+        for layer in range(repeats):
+            yield pre, kind, layer, {k: v[layer] for k, v in stacked.items()}
 
 
 def forward(params: dict, batch: dict, cfg, *, return_cache: bool = False):
@@ -157,14 +182,14 @@ def forward(params: dict, batch: dict, cfg, *, return_cache: bool = False):
     p = cast_params(params, cfg)
     x = p["embed/kernel"][tokens]
     kv: dict[str, list] = {}
-    for pre, _, lp in _layers(p, cfg):
+    for pre, kind, _, lp in _layers(p, cfg):
         if return_cache:
-            x, pair = _attn_block(lp, x, cfg, return_kv=True)
+            x, pair = _attn_block(lp, x, cfg, kind, return_kv=True)
             kv.setdefault(pre, []).append(pair)
         elif cfg.remat:
-            x = checkpoint(_attn_block, lp, x, cfg, use_reentrant=False)
+            x = checkpoint(_attn_block, lp, x, cfg, kind, use_reentrant=False)
         else:
-            x = _attn_block(lp, x, cfg)
+            x = _attn_block(lp, x, cfg, kind)
         x = x.to(cdt)                      # pin the residual-stream dtype
     x = rms_norm(x, p["final_norm/scale"], cfg.norm_eps)
     unemb = p["embed/kernel"] if cfg.tie_embeddings else p["unembed/kernel"]
@@ -180,20 +205,29 @@ def forward(params: dict, batch: dict, cfg, *, return_cache: bool = False):
 # Dense decode cache and decode step
 # ===========================================================================
 def _kv_keys(cfg):
-    """``(segment prefix, repeats)`` of every attention position."""
+    """``(segment prefix, block kind, repeats)`` of every attention
+    position."""
     for i, (pattern, repeats) in enumerate(cfg.schedule):
-        for j, _ in enumerate(pattern):
-            yield f"segments/{i}/p{j}/", repeats
+        for j, kind in enumerate(pattern):
+            yield f"segments/{i}/p{j}/", kind, repeats
+
+
+def _cache_len(kind: str, cfg, max_len: int) -> int:
+    """A ``local`` layer's decode cache is a ring of its window."""
+    return min(cfg.sliding_window, max_len) if kind == "local" else max_len
 
 
 def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
     """Zeroed dense decode cache: ``segments/{i}/p{j}/k`` and ``/v`` of
-    (repeats, B, max_len, Hkv, hd) in the compute dtype."""
+    (repeats, B, max_len, Hkv, hd) in the compute dtype; ``max_len`` is
+    ``min(window, max_len)`` for a ``local`` layer (position p at ring slot
+    p % that length)."""
     _check_ported(cfg)
     cdt = getattr(torch, cfg.compute_dtype)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return {pre + n: torch.zeros((repeats, *shape), dtype=cdt, device=device)
-            for pre, repeats in _kv_keys(cfg) for n in "kv"}
+    return {pre + n: torch.zeros(
+                (repeats, batch, _cache_len(kind, cfg, max_len),
+                 cfg.n_kv_heads, cfg.hd), dtype=cdt, device=device)
+            for pre, kind, repeats in _kv_keys(cfg) for n in "kv"}
 
 
 def _rope_decode(x, cos, sin):
@@ -205,25 +239,37 @@ def _rope_decode(x, cos, sin):
 
 
 def _qkv_decode(p, x_t, pos, cfg):
-    """Roped single-token q (B, Hq, hd), k and v (B, Hkv, hd)."""
+    """Roped (and qk-normed) single-token q (B, Hq, hd), k and v (B, Hkv,
+    hd)."""
     b = x_t.shape[0]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = (x_t @ p["attn/wq/kernel"]).reshape(b, hq, hd)
     k = (x_t @ p["attn/wk/kernel"]).reshape(b, hkv, hd)
     v = (x_t @ p["attn/wv/kernel"]).reshape(b, hkv, hd)
+    q, k = _qk_norm(p, q, k, cfg)
     cos, sin = rope_at(pos, hd, cfg.rope_theta)        # (B, 1, half)
     return _rope_decode(q, cos, sin), _rope_decode(k, cos, sin), v
 
 
-def _gqa_decode(p, x_t, k_cache, v_cache, pos, cfg):
+def _gqa_decode(p, x_t, k_cache, v_cache, pos, cfg, *, window=None):
     """x_t: (B, d); caches (B, S, Hkv, hd) of one layer, written in place at
-    each row's ``pos``. Returns the attention output projected by wo."""
+    each row's ``pos`` or, with a ``window``, at ring slot ``pos % S``
+    (entries masked by the position they hold). Returns the attention
+    output projected by wo."""
     b = x_t.shape[0]
     q, k, v = _qkv_decode(p, x_t, pos, cfg)
     rows = torch.arange(b, device=x_t.device)
-    k_cache[rows, pos] = k.to(k_cache.dtype)
-    v_cache[rows, pos] = v.to(v_cache.dtype)
-    out = decode_attention(q, k_cache, v_cache, length=pos + 1)
+    s = k_cache.shape[1]
+    slot = pos % s if window is not None else pos
+    k_cache[rows, slot] = k.to(k_cache.dtype)
+    v_cache[rows, slot] = v.to(v_cache.dtype)
+    if window is not None:
+        posc = pos[:, None]
+        entry_pos = posc - ((posc - torch.arange(s, device=x_t.device)) % s)
+        mask = (entry_pos >= 0) & (entry_pos >= posc - window + 1)
+        out = decode_attention(q, k_cache, v_cache, mask=mask)
+    else:
+        out = decode_attention(q, k_cache, v_cache, length=pos + 1)
     return out.reshape(b, cfg.n_heads * cfg.hd) @ p["attn/wo/kernel"]
 
 
@@ -236,11 +282,12 @@ def _ffn(p, x_t, cfg):
 
 def block_decode(kind: str, p, x_t, k_cache, v_cache, pos, cfg):
     """One layer of the dense decode step. x_t: (B, d); pos: (B,)."""
-    if kind != "attn":
+    if kind not in PORTED_KINDS:
         raise NotImplementedError(f"decode for block kind {kind!r} is not "
                                   f"yet ported to repro_torch")
     h = rms_norm(x_t, p["ln1/scale"], cfg.norm_eps)
-    x_t = x_t + _gqa_decode(p, h, k_cache, v_cache, pos, cfg)
+    x_t = x_t + _gqa_decode(p, h, k_cache, v_cache, pos, cfg,
+                            window=_window(kind, cfg))
     return _ffn(p, x_t, cfg)
 
 
@@ -268,8 +315,8 @@ def decode_step(params, cache, token, pos, cfg):
     p = cast_params(params, cfg)
     x_t = p["embed/kernel"][token]
     pos = _positions(pos, x_t.shape[0], x_t.device)
-    for pre, layer, lp in _layers(p, cfg):
-        x_t = block_decode("attn", lp, x_t, cache[pre + "k"][layer],
+    for pre, kind, layer, lp in _layers(p, cfg):
+        x_t = block_decode(kind, lp, x_t, cache[pre + "k"][layer],
                            cache[pre + "v"][layer], pos, cfg).to(cdt)
     return _lm_head(x_t, p, cfg), cache
 
@@ -277,25 +324,33 @@ def decode_step(params, cache, token, pos, cfg):
 def prefill(params, batch, cfg, max_len: int | None = None):
     """Run the full prompt and build the decode cache. Returns
     ``(last_logits (B, vocab), cache, n_prompt)``; the per-layer K/V are
-    zero-padded to ``max_len``."""
+    zero-padded to ``max_len``, a ``local`` layer's laid out as its ring."""
     s = batch["tokens"].shape[1]
     max_len = max_len or s
     logits, _, kv = forward(params, batch, cfg, return_cache=True)
     cdt = getattr(torch, cfg.compute_dtype)
+    kinds = {pre: kind for pre, kind, _ in _kv_keys(cfg)}
     cache = {}
     for pre, pairs in kv.items():
+        w = _cache_len(kinds[pre], cfg, max_len)
         for n, t in zip("kv", zip(*pairs)):
-            cache[pre + n] = _prefill_entry(torch.stack(t), max_len, cdt)
+            cache[pre + n] = _prefill_entry(torch.stack(t), w, cdt,
+                                            ring=kinds[pre] == "local")
     return logits[:, -1], cache, s
 
 
-def _prefill_entry(x, max_len: int, cdt):
-    """(R, B, S, Hkv, hd) -> (R, B, max_len, Hkv, hd), zero-padded."""
-    pad = max_len - x.shape[2]
+def _prefill_entry(x, w: int, cdt, *, ring: bool):
+    """(R, B, S, Hkv, hd) -> (R, B, w, Hkv, hd), zero-padded. With ``ring``
+    and S > w, the last ``w`` positions laid out ring-style (position p at
+    slot p % w), as a ``local`` layer's decode cache holds them."""
+    s = x.shape[2]
     x = x.to(cdt)
-    if pad <= 0:
+    if ring and s > w:
+        slots = torch.arange(s - w, s, device=x.device) % w
+        return x[:, :, -w:][:, :, torch.argsort(slots)]
+    if s >= w:
         return x
-    return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+    return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, w - s))
 
 
 # ===========================================================================
@@ -313,8 +368,6 @@ def _prefill_entry(x, max_len: int, cdt):
 #   decode_step_paged(params, pools, ...)         one token for every slot
 # ===========================================================================
 PAGED_KINDS = ("attn", "local", "attn_moe")
-#: the paged kinds this package builds
-PORTED_PAGED_KINDS = ("attn",)
 
 
 def paged_supported(cfg) -> bool:
@@ -331,7 +384,7 @@ def _check_paged(cfg):
             f"paged serving supports kinds {PAGED_KINDS}; {cfg.name!r} "
             f"has {bad} — use the dense ServeEngine for this family")
     missing = sorted({k for pattern, _ in cfg.schedule for k in pattern
-                      if k not in PORTED_PAGED_KINDS})
+                      if k not in PORTED_KINDS})
     if missing:
         raise NotImplementedError(f"paged block kinds {missing} are not yet "
                                   f"ported to repro_torch")
@@ -343,23 +396,25 @@ def init_paged_pools(cfg, num_blocks: int, block_size: int,
     """Zeroed paged K/V pools ``segments/{i}/p{j}/k`` and ``/v`` of
     (repeats, NB, bs, Hkv, hd) in the compute dtype. Block ids are shared
     across layers: entry ``i`` of a block table addresses block ``i`` of
-    every layer's pool."""
+    every layer's pool. A ``local`` layer keeps every position, as the
+    JAX package's pools do: the window is a mask of ``flash_decode``."""
     _check_paged(cfg)
     cdt = getattr(torch, cfg.compute_dtype)
     shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.hd)
     return {pre + n: torch.zeros((repeats, *shape), dtype=cdt, device=device)
-            for pre, repeats in _kv_keys(cfg) for n in "kv"}
+            for pre, _, repeats in _kv_keys(cfg) for n in "kv"}
 
 
 def init_prefill_scratch(cfg, max_prefill_len: int, device=None) -> dict:
     """Dense per-layer K/V scratch of (repeats, 1, max_prefill_len, Hkv, hd)
     used while chunk-prefilling ONE sequence, then scattered into the
-    pools."""
+    pools. ``local`` layers get the full length too (the window is a mask,
+    so the scatter into blocks stays position-indexed)."""
     _check_paged(cfg)
     cdt = getattr(torch, cfg.compute_dtype)
     shape = (1, max_prefill_len, cfg.n_kv_heads, cfg.hd)
     return {pre + n: torch.zeros((repeats, *shape), dtype=cdt, device=device)
-            for pre, repeats in _kv_keys(cfg) for n in "kv"}
+            for pre, _, repeats in _kv_keys(cfg) for n in "kv"}
 
 
 def _paged_gqa_decode(p, x_t, k_pool, v_pool, table, pos, lengths, write,
@@ -418,11 +473,11 @@ def decode_step_paged(params, pools, token, pos, block_table, active, cfg,
     write = (None if n == b else rows_d,
              block_table[rows_d, col_d].long(), off_d)
     x_t = p["embed/kernel"][token_d]
-    for pre, layer, lp in _layers(p, cfg):
+    for pre, kind, layer, lp in _layers(p, cfg):
         h = rms_norm(x_t, lp["ln1/scale"], cfg.norm_eps)
         a = _paged_gqa_decode(lp, h, pools[pre + "k"][layer],
                               pools[pre + "v"][layer], block_table, pos_d,
-                              lengths, write, cfg, window=None,
+                              lengths, write, cfg, window=_window(kind, cfg),
                               num_splits=num_splits)
         x_t = _ffn(lp, x_t + a, cfg).to(cdt)
     return _lm_head(x_t, p, cfg), pools
@@ -446,18 +501,20 @@ def prefill_chunk(params, scratch, tokens, start: int, take_idx: int, cfg):
     qpos = torch.arange(start, end, device=x.device)
     cos, sin = rope_tables_at(qpos, hd, cfg.rope_theta)
     kpos = torch.arange(end, device=x.device)
-    mask = kpos[None, :] <= qpos[:, None]             # causal with offset
-    for pre, layer, lp in _layers(p, cfg):
+    causal = kpos[None, :] <= qpos[:, None]           # causal with offset
+    local = causal & (kpos[None, :] >= qpos[:, None] - cfg.sliding_window + 1)
+    for pre, kind, layer, lp in _layers(p, cfg):
         h = rms_norm(x, lp["ln1/scale"], cfg.norm_eps)
-        q = apply_rope((h @ lp["attn/wq/kernel"]).reshape(b, c, hq, hd),
-                       cos, sin)
-        k = apply_rope((h @ lp["attn/wk/kernel"]).reshape(b, c, hkv, hd),
-                       cos, sin)
+        q = (h @ lp["attn/wq/kernel"]).reshape(b, c, hq, hd)
+        k = (h @ lp["attn/wk/kernel"]).reshape(b, c, hkv, hd)
+        q, k = _qk_norm(lp, q, k, cfg)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         v = (h @ lp["attn/wv/kernel"]).reshape(b, c, hkv, hd)
         sk, sv = scratch[pre + "k"][layer], scratch[pre + "v"][layer]
         sk[:, start:end] = k.to(sk.dtype)
         sv[:, start:end] = v.to(sv.dtype)
-        out = chunk_attention(q, sk[:, :end], sv[:, :end], mask)
+        out = chunk_attention(q, sk[:, :end], sv[:, :end],
+                              local if kind == "local" else causal)
         x = x + out.reshape(b, c, hq * hd) @ lp["attn/wo/kernel"]
         x = _ffn(lp, x, cfg).to(cdt)
     return _lm_head(x[:, take_idx], p, cfg), scratch

@@ -183,5 +183,9 @@ def test_paged_cache_rejects_unpaged_and_unported_kinds():
         PagedKVCache(mla, cc, num_slots=1)
     local = cfg.__class__(**{**cfg.__dict__, "schedule": ((("local",), 1),)})
     assert paged_supported(local)
+    assert set(PagedKVCache(local, cc, num_slots=1).pools) == {
+        "segments/0/p0/k", "segments/0/p0/v"}
+    moe = cfg.__class__(**{**cfg.__dict__, "schedule": ((("attn_moe",), 1),)})
+    assert paged_supported(moe)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        PagedKVCache(local, cc, num_slots=1)
+        PagedKVCache(moe, cc, num_slots=1)
