@@ -15,10 +15,23 @@
 // bank conflicts; the G slice is stored transposed with a 4-float pad for
 // the same reason.
 //
-// bf16 is the same kernel with each operand rounded to bf16 (nearest even)
-// as its tile is loaded, then multiplied and added in fp32: a product of two
-// bf16 values is exact in fp32, so the result differs from an fp32 product
-// of the rounded operands only by the order of the sums.
+// bf16. The function: each fp32 operand rounded once to bf16 (nearest
+// even), exact products, fp32 sums; fp32 S. Bound: bytes (fp32 G read and
+// fp32 S written, 8 bytes per element of S against 2 * n bf16 flops, below
+// the card's bf16 balance at n = 1024, but only if the product runs on the
+// tensor cores). Design: its own kernel on mma.sync.m16n8k16 (bf16 in,
+// fp32 accumulators). A CTA of 8 warps owns a 128 x 128 tile of S (a warp
+// 64 x 32: 4 x 4 mma tiles); the fp32 G and Q tiles of 32-deep k slices
+// arrive by cp.async into a 2-stage fp32 ring, each thread copying 16-byte
+// pieces (4-byte pieces where n % 4 or an address forbids 16) and then
+// rounding the same pieces to bf16 (__floats2bfloat162_rn: the plain
+// version's bf16_round, two at a time) into a double-buffered bf16 tile
+// that ldmatrix reads (Q through ldmatrix.trans), rows padded 16 bytes
+// against bank conflicts. A thread rounds only what it copied itself, so
+// one barrier per k slice suffices: the one before the mma reads. The
+// tensor cores' fp32 sums are not a sequence of IEEE adds, so S differs
+// from the plain version by more than an order of fp32 sums would (the
+// bound is chip_smoke.py's LOWP_TC_RTOL).
 //
 // int8 takes G quantized per row (codes + scales sg (batch, m)) and Q per
 // column (codes + scales sq (n)); the wrapper quantizes. Bound: bytes (the
@@ -46,6 +59,7 @@
 #include <cuda_runtime.h>
 
 #include "lowp.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -55,7 +69,6 @@ constexpr int BK = 8;
 constexpr int kThreads = 256;
 constexpr int kPad = 4;
 
-template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 dct_project_kernel(const float* __restrict__ g, const float* __restrict__ q,
                    float* __restrict__ s, float* __restrict__ partial, int m, int n) {
@@ -85,7 +98,7 @@ dct_project_kernel(const float* __restrict__ g, const float* __restrict__ q,
       const int r = e / BK, c = e % BK;
       const int gr = row0 + r, gc = k0 + c;
       As[c][r] =
-          (gr < m && gc < n) ? operand<kBf16>(gb[static_cast<long long>(gr) * n + gc]) : 0.f;
+          (gr < m && gc < n) ? gb[static_cast<long long>(gr) * n + gc] : 0.f;
     }
 #pragma unroll
     for (int t = 0; t < (BK * BN) / kThreads; ++t) {
@@ -93,7 +106,7 @@ dct_project_kernel(const float* __restrict__ g, const float* __restrict__ q,
       const int r = e / BN, c = e % BN;
       const int qr = k0 + r, qc = col0 + c;
       Bs[r][c] =
-          (qr < n && qc < n) ? operand<kBf16>(q[static_cast<long long>(qr) * n + qc]) : 0.f;
+          (qr < n && qc < n) ? q[static_cast<long long>(qr) * n + qc] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -230,6 +243,185 @@ dct_project_q8_kernel(const int8_t* __restrict__ g, const int8_t* __restrict__ q
   }
 }
 
+// bf16 on the tensor cores: tile shapes (BM = BN = 128 as above, so the
+// partial-norm buffer has the same row blocks)
+namespace tc {
+
+constexpr int BK = 32;          // k slice
+constexpr int kThreads = 256;   // 8 warps: 2 along M (64 rows) x 4 along N (32 columns)
+constexpr int kStages = 2;      // fp32 slices in flight (the loop flips slot ^ 1)
+constexpr int kLdA = BK + 8;    // bf16 row stride of the G tile
+constexpr int kLdB = BN + 8;    // bf16 row stride of the Q tile
+
+struct Smem {
+  float a32[kStages][BM][BK];   // G slices as they arrive
+  float b32[kStages][BK][BN];   // Q slices
+  __nv_bfloat16 a16[2][BM][kLdA];
+  __nv_bfloat16 b16[2][BK][kLdB];
+  float col_sq[2][BN];
+};
+
+// A thread's pieces of one k slice: W = 4 (16-byte cp.async) or 1 (4-byte).
+// Piece e of G is row e / (BK / W), column W * (e % (BK / W)); of Q, row
+// e / (BN / W), column W * (e % (BN / W)). The same thread copies a piece
+// and rounds it.
+template <int W>
+__device__ __forceinline__ void copy_slice(Smem& sm, int slot, const float* gb,
+                                           const float* q, int m, int n, int row0,
+                                           int col0, int k0) {
+#pragma unroll
+  for (int i = 0; i < BM * BK / W / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int r = e / (BK / W), c = W * (e % (BK / W));
+    const bool ok = row0 + r < m && k0 + c < n;
+    const float* src = ok ? gb + static_cast<long long>(row0 + r) * n + k0 + c : gb;
+    if constexpr (W == 4)
+      mma::cp_async16(&sm.a32[slot][r][c], src, ok);
+    else
+      mma::cp_async4(&sm.a32[slot][r][c], src, ok);
+  }
+#pragma unroll
+  for (int i = 0; i < BK * BN / W / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int r = e / (BN / W), c = W * (e % (BN / W));
+    const bool ok = k0 + r < n && col0 + c < n;
+    const float* src = ok ? q + static_cast<long long>(k0 + r) * n + col0 + c : q;
+    if constexpr (W == 4)
+      mma::cp_async16(&sm.b32[slot][r][c], src, ok);
+    else
+      mma::cp_async4(&sm.b32[slot][r][c], src, ok);
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void round_slice(Smem& sm, int slot, int buf) {
+#pragma unroll
+  for (int i = 0; i < BM * BK / W / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int r = e / (BK / W), c = W * (e % (BK / W));
+    if constexpr (W == 4) {
+      const float4 x = *reinterpret_cast<const float4*>(&sm.a32[slot][r][c]);
+      *reinterpret_cast<uint2*>(&sm.a16[buf][r][c]) =
+          make_uint2(mma::pack_bf16(x.x, x.y), mma::pack_bf16(x.z, x.w));
+    } else {
+      sm.a16[buf][r][c] = __float2bfloat16_rn(sm.a32[slot][r][c]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < BK * BN / W / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int r = e / (BN / W), c = W * (e % (BN / W));
+    if constexpr (W == 4) {
+      const float4 x = *reinterpret_cast<const float4*>(&sm.b32[slot][r][c]);
+      *reinterpret_cast<uint2*>(&sm.b16[buf][r][c]) =
+          make_uint2(mma::pack_bf16(x.x, x.y), mma::pack_bf16(x.z, x.w));
+    } else {
+      sm.b16[buf][r][c] = __float2bfloat16_rn(sm.b32[slot][r][c]);
+    }
+  }
+}
+
+// two CTAs per SM (128 registers) with 16-byte copies; the 4-byte copies'
+// address arithmetic would spill there, so one
+template <int W>
+__global__ void __launch_bounds__(kThreads, W == 4 ? 2 : 1)
+dct_project_bf16_kernel(const float* __restrict__ g, const float* __restrict__ q,
+                        float* __restrict__ s, float* __restrict__ partial, int m, int n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+
+  const int b = blockIdx.z;
+  const int row0 = blockIdx.y * BM;
+  const int col0 = blockIdx.x * BN;
+  const float* gb = g + static_cast<long long>(b) * m * n;
+  float* sb = s + static_cast<long long>(b) * m * n;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp >> 2, wn = warp & 3;  // the warp's 64 x 32 tile
+  const int g8 = lane >> 2, t = lane & 3;
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int slices = (n + BK - 1) / BK;
+  copy_slice<W>(sm, 0, gb, q, m, n, row0, col0, 0);
+  mma::cp_async_commit();
+  for (int kt = 0; kt < slices; ++kt) {
+    const int slot = kt & 1;
+    mma::cp_async_wait<kStages - 2>();  // this thread's pieces of slice kt
+    if (kt + 1 < slices) copy_slice<W>(sm, slot ^ 1, gb, q, m, n, row0, col0, (kt + 1) * BK);
+    mma::cp_async_commit();
+    round_slice<W>(sm, slot, slot);
+    __syncthreads();  // the rounded slice is complete; buffer slot ^ 1 is free again
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      unsigned af[4][4], bq[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        mma::ldmatrix_x4(af[mt], &sm.a16[slot][wm * 64 + mt * 16 + (lane & 15)]
+                                        [ks * 16 + (lane >> 4) * 8]);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        unsigned r[4];
+        mma::ldmatrix_x4_trans(r, &sm.b16[slot][ks * 16 + (lane & 15)]
+                                         [wn * 32 + np * 16 + (lane >> 4) * 8]);
+        bq[2 * np][0] = r[0];
+        bq[2 * np][1] = r[1];
+        bq[2 * np + 1][0] = r[2];
+        bq[2 * np + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma::mma_bf16(acc[mt][nt], af[mt], bq[nt][0], bq[nt][1]);
+    }
+  }
+
+  // epilogue: store S; column sums of squares over the warp's 64 rows
+  // (rows past m and columns past n hold exact zeros: their loads were
+  // zero-filled), then over the two warps along M in order
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int lc = wn * 32 + nt * 8 + 2 * t;
+    const int col = col0 + lc;
+    float sq[2] = {0.f, 0.f};
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = row0 + wm * 64 + mt * 16 + g8 + 8 * hf;
+        const float x0 = acc[mt][nt][2 * hf], x1 = acc[mt][nt][2 * hf + 1];
+        sq[0] = fmaf(x0, x0, sq[0]);
+        sq[1] = fmaf(x1, x1, sq[1]);
+        if (row >= m) continue;
+        float* dst = sb + static_cast<long long>(row) * n + col;
+        if (W == 4 && col < n) {
+          *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
+        } else {
+          if (col < n) dst[0] = x0;
+          if (col + 1 < n) dst[1] = x1;
+        }
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) sq[i] += __shfl_xor_sync(0xffffffffu, sq[i], off);
+      if (g8 == 0) sm.col_sq[wm][lc + i] = sq[i];
+    }
+  }
+  __syncthreads();
+  const int c = threadIdx.x;
+  if (c < BN && col0 + c < n)
+    partial[(static_cast<long long>(b) * gridDim.y + blockIdx.y) * n + col0 + c] =
+        __fadd_rn(sm.col_sq[0][c], sm.col_sq[1][c]);
+}
+
+}  // namespace tc
+
 // norms[b, c] = sum over row blocks t, in order, of partial[b, t, c]
 __global__ void sum_row_blocks_kernel(const float* __restrict__ partial,
                                       float* __restrict__ norms, int row_blocks, int n,
@@ -267,26 +459,42 @@ int sum_row_blocks(const float* partial, float* norms, int batch, int m, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kBf16>
-int project(const float* g, const float* q, float* s, float* partial, float* norms, int batch,
-            int m, int n, void* stream) {
+}  // namespace
+
+extern "C" int repro_dct_project(const float* g, const float* q, float* s, float* partial,
+                                 float* norms, int batch, int m, int n, void* stream) {
   if (batch <= 0 || m <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dct_project_kernel<kBf16><<<project_grid(batch, m, n), kThreads, 0, st>>>(g, q, s, partial, m,
-                                                                             n);
+  dct_project_kernel<<<project_grid(batch, m, n), kThreads, 0, st>>>(g, q, s, partial, m, n);
+  return sum_row_blocks(partial, norms, batch, m, n, st);
+}
+
+namespace {
+
+template <int W>
+int project_bf16(const float* g, const float* q, float* s, float* partial, float* norms,
+                 int batch, int m, int n, cudaStream_t st) {
+  auto kernel = tc::dct_project_bf16_kernel<W>;
+  constexpr int smem = static_cast<int>(sizeof(tc::Smem));
+  const cudaError_t rc =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  kernel<<<project_grid(batch, m, n), tc::kThreads, smem, st>>>(g, q, s, partial, m, n);
   return sum_row_blocks(partial, norms, batch, m, n, st);
 }
 
 }  // namespace
 
-extern "C" int repro_dct_project(const float* g, const float* q, float* s, float* partial,
-                                 float* norms, int batch, int m, int n, void* stream) {
-  return project<false>(g, q, s, partial, norms, batch, m, n, stream);
-}
-
+// 16-byte copies need n % 4 == 0 and both operands on 16 bytes; otherwise
+// the same kernel copies 4-byte pieces
 extern "C" int repro_dct_project_bf16(const float* g, const float* q, float* s, float* partial,
                                       float* norms, int batch, int m, int n, void* stream) {
-  return project<true>(g, q, s, partial, norms, batch, m, n, stream);
+  if (batch <= 0 || m <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  return vec ? project_bf16<4>(g, q, s, partial, norms, batch, m, n, st)
+             : project_bf16<1>(g, q, s, partial, norms, batch, m, n, st);
 }
 
 extern "C" int repro_dct_project_q8(const int8_t* g, const int8_t* q, const float* sg,

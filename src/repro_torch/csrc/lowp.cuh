@@ -6,12 +6,11 @@
 
 #include <cuda_bf16.h>
 
-// An fp32 operand as a kernel multiplies it: itself, or rounded to bf16
-// (nearest even; a NaN stays NaN) and held in fp32. The conversion
-// instruction costs the bf16 projection 1.5x the fp32 kernel's time (H100);
-// rounding on the bits with four integer operations cost 1.09x but turns
-// CUDA's canonical NaN 0x7FFFFFFF into -0.0, and its NaN-safe forms (a
-// select, or an early return) cost as much as the conversion or more.
+// An fp32 operand as a SIMT kernel (colgather_matmul.cu) multiplies it:
+// itself, or rounded to bf16 (nearest even; a NaN stays NaN) and held in
+// fp32. Rounding on the bits with four integer operations is cheaper but
+// turns CUDA's canonical NaN 0x7FFFFFFF into -0.0, and its NaN-safe forms (a
+// select, or an early return) cost as much as the conversion or more (H100).
 template <bool kBf16>
 __device__ __forceinline__ float operand(float x) {
   if constexpr (kBf16) return __bfloat162float(__float2bfloat16_rn(x));

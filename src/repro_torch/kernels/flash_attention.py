@@ -16,6 +16,20 @@ model's layout through strides, or raises. On CPU tensors it runs
 ``flash_attention_ref``, a port of the JAX package's
 ``kernels/ref.py::flash_attention_ref``: K/V repeated per query head, one
 masked fp32 softmax over the whole sequence.
+
+``flash_attention_blockwise`` is the model's function, the JAX package's
+``models/layers.py::blockwise_attention``, which its prefill runs: scores
+from q rounded to k's dtype times k with fp32 sums, divided by sqrt(hd);
+the running max taken once per kv chunk of ``kv_chunk`` keys (``min(
+kv_chunk, S)``, or S when S is not a multiple of it); the denominator
+summed over the fp32 p; P rounded to v's dtype before P.V, with fp32 sums.
+Its plain version ``blockwise_attention_ref`` is that chunked loop, which
+the model runs for CPU tensors and for every call that takes a gradient.
+For bf16 CUDA tensors it launches the tensor-core kernel of
+``csrc/flash_attention_blockwise.cu`` (see its source note), or raises.
+In fp32 the rounding to v's dtype is a no-op and the chunk max changes
+only the order of fp32 sums, so the model sends fp32 calls to
+``flash_attention``.
 """
 from __future__ import annotations
 
@@ -63,6 +77,24 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhqk,bkhd->bqhd", p, vx).to(q.dtype)
 
 
+def _check_heads(fn: str, q, k, v, *, aligned: bool = False) -> None:
+    """q, k, v on the card, each with a contiguous head dim; with
+    ``aligned`` every row and head on 16 bytes (a kernel that copies
+    16-byte pieces of the rows)."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{fn} {name}: expected a CUDA tensor, got "
+                             f"{t.device}")
+        if t.stride(3) != 1:
+            raise ValueError(f"{fn} {name}: the head dim must be contiguous "
+                             f"(stride {t.stride(3)})")
+        if aligned and (t.data_ptr() % 16 or any(
+                st * t.element_size() % 16 for st in t.stride()[:3])):
+            raise ValueError(f"{fn} {name}: every row must start on 16 bytes "
+                             f"(strides {t.stride()}, address "
+                             f"{t.data_ptr():#x})")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None
                     ) -> torch.Tensor:
@@ -78,13 +110,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q {q.dtype}, k {k.dtype}, v "
                         f"{v.dtype} must all be float32 or all bfloat16")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda":
-            raise ValueError(f"flash_attention {name}: expected a CUDA "
-                             f"tensor, got {t.device}")
-        if t.stride(3) != 1:
-            raise ValueError(f"flash_attention {name}: the head dim must be "
-                             f"contiguous (stride {t.stride(3)})")
+    _check_heads("flash_attention", q, k, v)
     b, s, hq, hd = q.shape
     hkv = k.shape[2]
     if hd > 256 or hq >= 2**16 or b >= 2**16 or s >= 2**31:
@@ -104,3 +130,121 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def effective_kv_chunk(s: int, kv_chunk: int) -> int:
+    """The kv chunk the model's loop takes for S keys: ``min(kv_chunk, S)``,
+    or S when S is not a multiple of it."""
+    chunk = min(kv_chunk, s)
+    return s if s % chunk else chunk
+
+
+def _attn_scores(qg, k, mask, hd):
+    """qg: (B,Hkv,G,qc,hd); k: (B,Hkv,kc,hd) -> fp32 scores (B,Hkv,G,qc,kc).
+
+    q is rounded to k's dtype, then the product runs in fp32 on the upcast
+    operands, as the JAX package's ``preferred_element_type=float32`` does
+    (a bf16 product is exact in fp32; the sum is not rounded to bf16).
+    """
+    s = (qg.to(k.dtype).float() @ k[:, :, None].transpose(-1, -2).float()
+         ) / math.sqrt(hd)
+    return torch.where(mask, s, NEG_INF)
+
+
+def blockwise_attention_ref(q, k, v, *, causal: bool,
+                            window: int | None = None, q_chunk: int = 512,
+                            kv_chunk: int = 512, q_offset: int = 0):
+    """Plain version of ``flash_attention_blockwise``: the JAX model's
+    online-softmax loop over query and key/value chunks (memory O(S *
+    chunk)), differentiable. q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, vd).
+    ``q_offset`` is the absolute position of q[0]. Returns (B, Sq, Hq, vd)
+    in q's dtype."""
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    vd = v.shape[-1]
+    q_chunk = min(q_chunk, sq)
+    if sq % q_chunk:
+        q_chunk = sq       # odd lengths (tests): one chunk
+    kv_chunk = effective_kv_chunk(skv, kv_chunk)
+    nq, nk = sq // q_chunk, skv // kv_chunk
+    group = hq // hkv
+
+    qt = q.transpose(1, 2)                                # (B, Hq, Sq, hd)
+    kt = k.transpose(1, 2)                                # (B, Hkv, Skv, hd)
+    vt = v.transpose(1, 2)
+    dev = q.device
+
+    outs = []
+    for qi in range(nq):
+        qsl = slice(qi * q_chunk, (qi + 1) * q_chunk)
+        qb = qt[:, :, qsl].reshape(b, hkv, group, q_chunk, hd)
+        qp = q_offset + torch.arange(qsl.start, qsl.stop, device=dev)
+        acc = torch.zeros((b, hkv, group, q_chunk, vd), dtype=torch.float32,
+                          device=dev)
+        m = torch.full((b, hkv, group, q_chunk), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        denom = torch.zeros((b, hkv, group, q_chunk), dtype=torch.float32,
+                            device=dev)
+        for ki in range(nk):
+            ksl = slice(ki * kv_chunk, (ki + 1) * kv_chunk)
+            kb, vb = kt[:, :, ksl], vt[:, :, ksl]
+            kp = torch.arange(ksl.start, ksl.stop, device=dev)
+            mask = torch.ones((q_chunk, kv_chunk), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= qp[:, None] >= kp[None, :]
+            if window is not None:
+                mask &= qp[:, None] - kp[None, :] < window
+            s = _attn_scores(qb, kb, mask, hd)            # (B,Hkv,G,qc,kc)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            denom = denom * corr + p.sum(dim=-1)
+            pv = p.to(vb.dtype).float() @ vb[:, :, None].float()
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp_min(denom[..., None], 1e-30)
+        outs.append(out.reshape(b, hq, q_chunk, vd))
+    out = torch.cat(outs, dim=2)                          # (B, Hq, Sq, vd)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def flash_attention_blockwise(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              window: int | None = None, kv_chunk: int = 512
+                              ) -> torch.Tensor:
+    """The model's attention (module docstring): q (B, S, Hq, hd); k, v (B,
+    S, Hkv, hd) with ``Hq % Hkv == 0``, any S >= 1. On the card: bf16, hd a
+    multiple of 16 up to 256, a contiguous head dim and rows on 16 bytes
+    (other strides are read as they are). ``window``: the sliding window,
+    None for none; ``kv_chunk``: the model's ``cfg.kv_chunk``. Returns (B,
+    S, Hq, hd) contiguous in q's dtype."""
+    _check_shapes(q, k, v, window)
+    if kv_chunk < 1:
+        raise ValueError(f"flash_attention_blockwise: kv_chunk {kv_chunk} < 1")
+    dev = cuda_lib.same_device(q, k, v)
+    if dev.type == "cpu":
+        return blockwise_attention_ref(q, k, v, causal=causal, window=window,
+                                       kv_chunk=kv_chunk)
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention_blockwise: q {q.dtype}, k "
+                        f"{k.dtype}, v {v.dtype} must all be bfloat16")
+    b, s, hq, hd = q.shape
+    if hd % 16 or hd > 256 or hq >= 2**16 or b >= 2**16 or s >= 2**30:
+        raise ValueError(f"flash_attention_blockwise: head dim {hd} is not a "
+                         f"multiple of 16 up to 256, or shape "
+                         f"{tuple(q.shape)} exceeds the grid")
+    _check_heads("flash_attention_blockwise", q, k, v, aligned=True)
+    out = torch.empty((b, s, hq, hd), dtype=q.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    rc = cuda_lib.library().repro_flash_attention_blockwise(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, hq,
+        k.shape[2], hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        int(causal), window or 0, effective_kv_chunk(s, kv_chunk),
+        math.sqrt(hd), cuda_lib.stream(q))
+    cuda_lib.check(rc, "flash_attention_blockwise")
+    flash_attention_blockwise.launches += 1
+    return out
+
+
+flash_attention_blockwise.launches = 0

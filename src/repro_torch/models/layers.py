@@ -10,17 +10,18 @@ Attention products follow the JAX package's ``preferred_element_type=
 float32``: q (or the softmax weights) is rounded to the K (V) dtype, and the
 product of the rounded operands runs in fp32, never rounded to bf16.
 
-``blockwise_attention`` routes by what the ``flash_attention`` kernel
-computes. A call on CUDA tensors that takes no gradient (grad mode off, or
-no input requiring grad), with ``q_offset == 0``, as many queries as keys
-and a value dim equal to the head dim -- the dense prefill's forward under
-``torch.inference_mode()`` -- goes to ``kernels.ops.flash_attention_op``,
-which launches the kernel or raises. Its result is the JAX package's
-``flash_attention``, which equals the chunked loop to within fp32 sums in
-another order (the JAX package holds the two within 3e-5,
-``tests/test_kernels.py``). Every other call -- CPU tensors, every training
-forward and backward -- runs the plain chunked loop: the JAX package has no
-backward for the kernel.
+``blockwise_attention`` is the JAX package's chunked online softmax
+(``kernels.flash_attention.blockwise_attention_ref``). A call on CUDA
+tensors that takes no gradient (grad mode off, or no input requiring
+grad), with ``q_offset == 0``, as many queries as keys and a value dim
+equal to the head dim -- the dense prefill's forward under
+``torch.inference_mode()`` -- launches a kernel or raises: in bf16
+``flash_attention_blockwise``, the same function on tensor cores with the
+model's ``kv_chunk``; in fp32 ``flash_attention``, which equals it to
+within fp32 sums in another order (P's rounding to v's dtype is a no-op
+there). Every other call -- CPU tensors, every training forward and
+backward -- runs the plain loop: the JAX package has no backward for a
+kernel.
 """
 from __future__ import annotations
 
@@ -29,7 +30,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ops import flash_attention_op
+from repro_torch.kernels.flash_attention import blockwise_attention_ref
+from repro_torch.kernels.ops import (flash_attention_blockwise,
+                                     flash_attention_op)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
@@ -97,79 +100,30 @@ def rope_tables_at(positions, head_dim: int, theta: float = 1e4,
 NEG_INF = -1e30
 
 
-def _attn_scores(qg, k, mask, hd):
-    """qg: (B,Hkv,G,qc,hd); k: (B,Hkv,kc,hd) -> fp32 scores (B,Hkv,G,qc,kc).
-
-    q is rounded to k's dtype, then the product runs in fp32 on the upcast
-    operands, as the JAX package's ``preferred_element_type=float32`` does
-    (a bf16 product is exact in fp32; the sum is not rounded to bf16).
-    """
-    s = (qg.to(k.dtype).float() @ k[:, :, None].transpose(-1, -2).float()
-         ) / math.sqrt(hd)
-    return torch.where(mask, s, NEG_INF)
+def _on_card(t: torch.Tensor) -> bool:
+    """The route's device test (the CPU tests patch it to drive the kernel
+    route with spies in place of the launchers)."""
+    return t.is_cuda
 
 
 def blockwise_attention(q, k, v, *, causal: bool, window: int | None = None,
                         q_chunk: int = 512, kv_chunk: int = 512,
                         q_offset: int = 0):
-    """Online-softmax attention over query and key/value chunks, in plain
-    PyTorch (memory O(S * chunk)), or the ``flash_attention`` kernel where
-    the module docstring's route sends the call. q: (B, Sq, Hq, hd); k, v:
-    (B, Skv, Hkv, hd). ``q_offset`` is the absolute position of q[0].
-    Returns (B, Sq, Hq, vd)."""
-    b, sq, hq, hd = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
-    vd = v.shape[-1]
-    if q.is_cuda and q_offset == 0 and sq == skv and vd == hd \
+    """Online-softmax attention over query and key/value chunks: a kernel
+    where the module docstring's route sends the call, else the plain loop.
+    q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, vd). ``q_offset`` is the
+    absolute position of q[0]. Returns (B, Sq, Hq, vd)."""
+    if _on_card(q) and q_offset == 0 and q.shape[1] == k.shape[1] \
+            and v.shape[-1] == q.shape[-1] \
             and not (torch.is_grad_enabled()
                      and any(t.requires_grad for t in (q, k, v))):
+        if q.dtype == torch.bfloat16:
+            return flash_attention_blockwise(q, k, v, causal=causal,
+                                             window=window, kv_chunk=kv_chunk)
         return flash_attention_op(q, k, v, causal=causal, window=window)
-    q_chunk = min(q_chunk, sq)
-    kv_chunk = min(kv_chunk, skv)
-    if sq % q_chunk:
-        q_chunk = sq       # odd lengths (tests): one chunk
-    if skv % kv_chunk:
-        kv_chunk = skv
-    nq, nk = sq // q_chunk, skv // kv_chunk
-    group = hq // hkv
-
-    qt = q.transpose(1, 2)                                # (B, Hq, Sq, hd)
-    kt = k.transpose(1, 2)                                # (B, Hkv, Skv, hd)
-    vt = v.transpose(1, 2)
-    dev = q.device
-
-    outs = []
-    for qi in range(nq):
-        qsl = slice(qi * q_chunk, (qi + 1) * q_chunk)
-        qb = qt[:, :, qsl].reshape(b, hkv, group, q_chunk, hd)
-        qp = q_offset + torch.arange(qsl.start, qsl.stop, device=dev)
-        acc = torch.zeros((b, hkv, group, q_chunk, vd), dtype=torch.float32,
-                          device=dev)
-        m = torch.full((b, hkv, group, q_chunk), NEG_INF, dtype=torch.float32,
-                       device=dev)
-        denom = torch.zeros((b, hkv, group, q_chunk), dtype=torch.float32,
-                            device=dev)
-        for ki in range(nk):
-            ksl = slice(ki * kv_chunk, (ki + 1) * kv_chunk)
-            kb, vb = kt[:, :, ksl], vt[:, :, ksl]
-            kp = torch.arange(ksl.start, ksl.stop, device=dev)
-            mask = torch.ones((q_chunk, kv_chunk), dtype=torch.bool, device=dev)
-            if causal:
-                mask &= qp[:, None] >= kp[None, :]
-            if window is not None:
-                mask &= qp[:, None] - kp[None, :] < window
-            s = _attn_scores(qb, kb, mask, hd)            # (B,Hkv,G,qc,kc)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            denom = denom * corr + p.sum(dim=-1)
-            pv = p.to(vb.dtype).float() @ vb[:, :, None].float()
-            acc = acc * corr[..., None] + pv
-            m = m_new
-        out = acc / torch.clamp_min(denom[..., None], 1e-30)
-        outs.append(out.reshape(b, hq, q_chunk, vd))
-    out = torch.cat(outs, dim=2)                          # (B, Hq, Sq, vd)
-    return out.transpose(1, 2).to(q.dtype)
+    return blockwise_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                   q_offset=q_offset)
 
 
 def decode_attention(q, k_cache, v_cache, *, length=None, window=None,

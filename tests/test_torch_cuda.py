@@ -377,3 +377,37 @@ def test_cuda_bf16_rounding_specials(cuda):
     assert torch.equal(torch.isnan(s[:, 0]), torch.isnan(want))
     fin = ~torch.isnan(want)
     assert torch.equal(s[:, 0][fin], want[fin])
+
+
+# bf16 dct_project on the tensor cores: (..., m, n) with ragged m and n;
+# n % 4 == 0 takes the 16-byte copies, the others (and an operand off 16
+# bytes) the 4-byte ones. Its bar (chip_smoke.py's LOWP_TC_RTOL): the
+# tensor cores' fp32 sums are not a sequence of IEEE adds; twice the worst
+# measured at llama-350m's shapes
+LOWP_TC_RTOL = 4e-6
+BF16_PROJECT_SHAPES = {"ragged-m": (300, 256), "ragged-mn": (2, 129, 260),
+                       "odd-n": (2, 129, 131), "one-column": (5, 1),
+                       "k-tail": (3, 140, 1000)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("name", list(BF16_PROJECT_SHAPES))
+def test_cuda_dct_project_bf16_ragged(cuda, name, offset):
+    """S at LOWP_TC_RTOL of max |S| and the norms at 1e-5 of the plain
+    version, relaunches bit-identical; ``offset`` 1 puts G 4 bytes off 16
+    (the 4-byte copies)."""
+    *batch, m, n = BF16_PROJECT_SHAPES[name]
+    size = int(np.prod(batch, dtype=int)) * m * n
+    flat = torch.from_numpy(_rand(offset + size, 11)).to(cuda)
+    g = flat[offset:].view(*batch, m, n)
+    q = dct2_matrix(n, device=cuda)
+    before = dp.dct_project_bf16.launches
+    s, norms = dp.dct_project(g, q, compute_dtype="bf16")
+    again = dp.dct_project_bf16(g, q)
+    s_p, norms_p = dp.dct_project_plain(g, q, compute_dtype="bf16")
+    torch.cuda.synchronize()
+    assert dp.dct_project_bf16.launches == before + 2
+    assert torch.equal(s, again[0]) and torch.equal(norms, again[1])
+    _assert_rel_max(s, s_p, LOWP_TC_RTOL)
+    torch.testing.assert_close(norms, norms_p, rtol=1e-5, atol=0)

@@ -114,3 +114,19 @@ def test_wrappers_reject_bad_shapes():
 def test_launch_counters_reset():
     ops.reset_launch_counts()
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
+
+
+def test_every_entry_point_called_has_a_signature():
+    """Each ``repro_*`` C entry point a wrapper calls has its argument
+    types in ``cuda_lib.SIGNATURES`` (without them ctypes cannot pass a
+    float and cuts a pointer to 32 bits)."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import cuda_lib
+    called = set()
+    for path in Path(cuda_lib.__file__).parent.glob("*.py"):
+        called |= set(re.findall(r"\b(repro_\w+)\(", path.read_text()))
+    called = {c for c in called if not c.startswith("repro_error")}
+    assert called and called <= set(cuda_lib.SIGNATURES), \
+        called - set(cuda_lib.SIGNATURES)
