@@ -24,21 +24,27 @@ device or without the port beside it. Any failure raises. Phases:
 4. Where a step of that configuration goes: its parts timed alone, then one
    step under ``torch.profiler`` (device time by kernel, idle share).
 5. The ``flash_decode`` kernel of serving against its plain version on the
-   card: (a) llama-350m's shapes (8 slots, 16 heads of 64, block 16, bf16
-   pools, lengths 1-2048, 1, 2 and 4 splits), (b) a GQA shape (32 / 8
-   heads of 128), (c) edge cases (group 8/1, odd head dim 17, a sliding
-   window, a length-0 row that must be exactly zero, pool blocks outside
-   every table poisoned with NaN without changing the output). Times are
-   per decode step of the serving path (24 launches at shape (a), 2
-   splits).
+   card, each launched twice (bit-identical): (a) llama-350m's shapes (8
+   slots, 16 heads of 64, block 16, bf16 pools, lengths 1-2048, 1, 2, 4,
+   16 and 128 splits), (b) a GQA shape (32 / 8 heads of 128) and
+   gemma3-27b's local layer (32 / 16 heads of 128, window 1024), all on
+   the 16-byte path, (c) edge cases on the scalar path (group 8/1, fp32
+   pools, odd head dims 17 and 31), a sliding window, a length-0 row that
+   must be exactly zero, pool blocks outside every table poisoned with NaN
+   without changing the output. Times are per decode step of the serving
+   path (24 launches at shape (a), 2 splits) as device time of CUDA-graph
+   replays (the kernels take less time than the wrapper's host work;
+   eager times beside them), with the time per call at 1-128 splits and
+   SDPA on the densified K/V timed the same way.
 6. The serving path: ``PagedServeEngine`` with llama-350m at full width and
    depth, bf16, random weights: 8 slots, block 16, 128 blocks per
    sequence, 16 requests of prompts 64-1024 and 64 new tokens admitted as
    slots free, prefill chunk 128, 2 splits. The launch counters are zeroed
    just before it and read just after: ``flash_decode`` must have run 24
-   times per decode step. A greedy and a sampled request are then rerun
-   alone on the same engine and must give the same tokens. Then five
-   decode steps under ``torch.profiler``.
+   times per decode step, every layer's pools on the 16-byte path. A
+   greedy and a sampled request are then rerun alone on the same engine
+   and must give the same tokens. Then five decode steps under
+   ``torch.profiler``.
 7. The kernels of the momentum families against their plain versions on
    the card: the Newton-Schulz gram and apply kernels, one iteration and
    the whole 5-step orthogonalization at Trion's factor shapes (wide
@@ -86,15 +92,20 @@ device or without the port beside it. Any failure raises. Phases:
    512, 16 / 16 heads of 64, causal, bf16, kv chunk 512), (b) a gemma3-27b
    local layer (2 x 2048, 32 / 16 heads of 128, window 1024, bf16, kv chunk
    1024), (c) a global one (the same, causal): ``flash_attention`` (the TPU
-   kernel's function) within ``FA_TOL_F32`` plus one bf16 ulp, with edge
-   cases fp32, group 5, head dims 96 and 17, S = 1 and 777, a window of 1;
+   kernel's function, on its route's fp32 inputs) within ``FA_TOL_F32``,
+   timed beside fp32 SDPA and its fp32 bounds (bytes at 4 B an element,
+   operations at the TF32 rate over 3 passes and at the SIMT rate), with
+   edge cases in bf16 (upcast; within ``FA_TOL_F32`` plus one bf16 ulp) at
+   llama-350m's shape, group 5, head dims 96 and 17, S = 1 and 777, a
+   window of 1;
    ``flash_attention_blockwise`` (the JAX model's function, the bf16
    prefill's route) at the model's bar (max |d| <= 4e-3 max |out|, >= 99%
    bit-equal), with edge cases head dims 96, 16 and 256, S = 1 and 777,
    chunks of 100 under a window of 50 (fully masked first chunks), group 5.
    Times per call of (a)-(c), each beside its bound and
    ``scaled_dot_product_attention`` (``enable_gqa``; the window as a
-   boolean mask) on the same tensors.
+   boolean mask) on the same tensors (fp32 for ``flash_attention``, bf16
+   for ``flash_attention_blockwise``).
 13. The dense prefill path, counters zeroed just before each run and read
    just after: ``ServeEngine`` with llama-350m at full width and depth,
    bf16, 8 prompts x 512, 16 new tokens (24 ``flash_attention_blockwise``
@@ -145,6 +156,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 PEAK_BF16_PER_S = 989e12
 PEAK_INT8_PER_S = 1979e12
+# the TF32 tensor-core peak; an fp32-accurate product by 3xTF32 (hi.hi +
+# hi.lo + lo.hi) takes three passes, so its bound runs at a third of it
+PEAK_TF32_PER_S = 495e12
+TF32_PASSES = 3
 TIMED_ITERS = 10
 
 # the momentum families: the CLI's defaults (trion, rank 128, fused auto)
@@ -235,9 +250,10 @@ FA_TOL_F32 = 3e-5
 # than the plain loop's cuBLAS products, so a P or an output may round to a
 # neighbouring bf16 value
 BLOCKWISE_REL_TOL, BLOCKWISE_MIN_EQUAL = 4e-3, 0.99
-# (b, s, hq, hkv, hd, window, kv chunk) in bf16, causal: the prefill shapes
-# of llama-350m and of a gemma3-27b local and global layer, with the
-# model's kv chunk
+# (b, s, hq, hkv, hd, window, kv chunk), causal: the prefill shapes of
+# llama-350m and of a gemma3-27b local and global layer, with the model's
+# kv chunk; flash_attention runs them in fp32 (its route),
+# flash_attention_blockwise in bf16 (its route)
 FA_CASES = {"a: llama-350m": (8, 512, 16, 16, 64, None, 512),
             "b: gemma3 local": (2, 2048, 32, 16, 128, 1024, 1024),
             "c: gemma3 global": (2, 2048, 32, 16, 128, None, 1024)}
@@ -287,6 +303,33 @@ def _time_ms(fn, iters: int = TIMED_ITERS) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, calls: int = 1, iters: int = TIMED_ITERS) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, replayed ``iters`` times between CUDA events. Where a
+    kernel takes less time than its wrapper's host work, eager launches
+    time the host; a replay launches only the captured device work."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * calls)
 
 
 def _bound_ms(nbytes: float, flops: float,
@@ -1126,15 +1169,18 @@ def _bf16_excess(a, b, slack) -> float:
 
 
 def _fd_compare(torch, fd, args, q_dtype, splits, window=None) -> float:
-    """The kernel against its plain version on the same inputs: fp32 within
-    FD_RTOL_F32 of max |out|; bf16 within that plus one bf16 ulp of each
-    element (the last rounding). Returns max |dout|."""
+    """The kernel twice (bit-identical) against its plain version on the
+    same inputs: fp32 within FD_RTOL_F32 of max |out|; bf16 within that
+    plus one bf16 ulp of each element (the last rounding). Returns max
+    |dout|."""
     q, *rest = args
     q = q.to(q_dtype)
     got = fd.flash_decode(q, *rest, window=window, num_splits=splits)
+    again = fd.flash_decode(q, *rest, window=window, num_splits=splits)
     want = fd.flash_decode_plain(q, *rest, window=window, num_splits=splits)
     torch.cuda.synchronize()
     assert got.dtype == q_dtype and torch.isfinite(got).all(), "flash_decode"
+    assert torch.equal(got, again), "flash_decode: relaunch differs"
     err = (got.float() - want.float()).abs().max().item()
     ref = want.float().abs().max().item()
     if q_dtype == torch.float32:
@@ -1147,9 +1193,28 @@ def _fd_compare(torch, fd, args, q_dtype, splits, window=None) -> float:
     return err
 
 
+def _fd_sdpa(torch, q, k, v, table, ln, window=None):
+    """The library yardstick: one ``scaled_dot_product_attention`` call on
+    K/V already densified through the table (the gather is not counted),
+    keys outside each slot's valid range masked."""
+    b, hq, hd = q.shape
+    bs, hkv = k.shape[1], k.shape[2]
+    n = table.shape[1] * bs
+    kd = k[table.long()].reshape(b, n, hkv, hd).transpose(1, 2).contiguous()
+    vd = v[table.long()].reshape(b, n, hkv, hd).transpose(1, 2).contiguous()
+    pos = torch.arange(n, device=q.device)[None, :]
+    keep = pos < ln[:, None]
+    if window:
+        keep &= pos >= ln[:, None] - window
+    keep = keep[:, None, None, :]
+    q4 = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(q4, kd, vd, attn_mask=keep, enable_gqa=hq != hkv)
+
+
 def check_flash_decode(torch, dev) -> dict:
-    """Phase 5. Returns the kernels-line row of ``flash_decode`` (its
-    ``launches`` come from the serving run)."""
+    """Phase 5. Returns the row of ``flash_decode`` for the kernels line
+    (its ``launches`` come from the serving run)."""
     import numpy as np
 
     from repro_torch.kernels import flash_decode as fd
@@ -1157,7 +1222,10 @@ def check_flash_decode(torch, dev) -> dict:
     f32, bf16 = torch.float32, torch.bfloat16
     errs, report = [], []
 
-    def case(name, args, splits, window=None, q_dtypes=(f32, bf16)):
+    def case(name, args, splits, window=None, q_dtypes=(f32, bf16),
+             vector=None):
+        if vector is not None:
+            assert fd.vector_path(args[1], args[2]) == vector, name
         for qd in q_dtypes:
             for sp in splits:
                 errs.append(_fd_compare(torch, fd, args, qd, sp, window))
@@ -1168,18 +1236,26 @@ def check_flash_decode(torch, dev) -> dict:
     args_a = _fd_case(torch, dev, 0, b=SLOTS, hq=HEADS, hkv=HEADS,
                       hd=HEAD_DIM, bs=BLOCK, maxb=maxb, lengths=lens_a,
                       kv_dtype=bf16)
-    case("a: llama-350m", args_a, (1, NUM_SPLITS, 4))
+    case("a: llama-350m", args_a, (1, NUM_SPLITS, 4, 16, maxb), vector=True)
     case("b: gqa 32/8 hd 128",
          _fd_case(torch, dev, 1, b=4, hq=32, hkv=8, hd=128, bs=16, maxb=64,
-                  lengths=[1000, 17, 512, 1024], kv_dtype=bf16), (1, 3))
+                  lengths=[1000, 17, 512, 1024], kv_dtype=bf16), (1, 3),
+         vector=True)
+    case("b: gemma3-27b local layer (32/16 hd 128, window 1024)",
+         _fd_case(torch, dev, 6, b=GEMMA_SLOTS, hq=32, hkv=16, hd=128,
+                  bs=BLOCK, maxb=-(-(GEMMA_PROMPT_LENS[1] + GEMMA_NEW)
+                                   // BLOCK),
+                  lengths=[512, 1034, 1557, 2080], kv_dtype=bf16),
+         (1, NUM_SPLITS), window=1024, vector=True)
     case("c: group 8/1",
          _fd_case(torch, dev, 2, b=3, hq=8, hkv=1, hd=64, bs=8, maxb=16,
-                  lengths=[100, 1, 64], kv_dtype=f32), (1, 2), q_dtypes=(f32,))
+                  lengths=[100, 1, 64], kv_dtype=f32), (1, 2), q_dtypes=(f32,),
+         vector=False)
     for hd in (17, 31):
         case(f"c: hd {hd}",
              _fd_case(torch, dev, 3, b=2, hq=4, hkv=2, hd=hd, bs=8, maxb=3,
                       lengths=[11, 24], kv_dtype=f32), (1, 2, 3),
-             q_dtypes=(f32,))
+             q_dtypes=(f32,), vector=False)
     case("c: window 100",
          _fd_case(torch, dev, 4, b=3, hq=HEADS, hkv=HEADS, hd=HEAD_DIM,
                   bs=BLOCK, maxb=32, lengths=[500, 6, 300], kv_dtype=bf16),
@@ -1215,28 +1291,24 @@ def check_flash_decode(torch, dev) -> dict:
     report.append("c: zero row, NaN-poisoned pool")
 
     # times per decode step of the serving path: 24 launches at shape (a)
-    # with its q in bf16 and 2 splits
+    # with its q in bf16 and 2 splits. The kernels take less time than the
+    # wrapper's host work, so the device time comes from CUDA-graph
+    # replays of 24 calls (wrapper_ms: eager calls, host included)
     q, k, v, table, ln = args_a
     q = q.to(bf16)
-    ms = _time_ms(lambda: fd.flash_decode(q, k, v, table, ln,
-                                          num_splits=NUM_SPLITS))
+
+    def call(sp=NUM_SPLITS):
+        return lambda: fd.flash_decode(q, k, v, table, ln, num_splits=sp)
+
+    ms = _graph_ms(call(), LAYERS)
+    wrapper_ms = _time_ms(call())
     plain_ms = _time_ms(lambda: fd.flash_decode_plain(
         q, k, v, table, ln, num_splits=NUM_SPLITS))
-    # each CTA walks its split's blocks in order: the time per call with
-    # 1-16 splits shows how far the serial walk, not the bytes, sets it
-    split_ms = {sp: _time_ms(lambda: fd.flash_decode(q, k, v, table, ln,
-                                                     num_splits=sp))
-                for sp in (1, 2, 4, 8, 16)}
-    # library: SDPA on K/V already densified through the table (the
-    # gather is not counted), keys past each length masked
-    kd = k[table.long()].reshape(SLOTS, -1, HEADS, HEAD_DIM).transpose(1, 2)
-    vd = v[table.long()].reshape(SLOTS, -1, HEADS, HEAD_DIM).transpose(1, 2)
-    kd, vd = kd.contiguous(), vd.contiguous()
-    mask = (torch.arange(kd.shape[2], device=dev)[None, :]
-            < ln[:, None])[:, None, None, :]
-    q4 = q[:, :, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = _time_ms(lambda: sdpa(q4, kd, vd, attn_mask=mask))
+    # the decomposition does not follow the caller's split count: the time
+    # per call with 1-16 splits (and MAXB) stays flat
+    split_ms = {sp: _graph_ms(call(sp), LAYERS)
+                for sp in (1, 2, 4, 8, 16, maxb)}
+    library_ms = _graph_ms(_fd_sdpa(torch, q, k, v, table, ln), LAYERS)
     # bytes this call must move: the valid K/V rows, q, the table entries
     # of the run blocks, the lengths and the output
     tokens = int(ln.sum())
@@ -1246,13 +1318,20 @@ def check_flash_decode(torch, dev) -> dict:
     flops = 4.0 * tokens * HEADS * HEAD_DIM
     out = {"kernel": "flash_decode", "cases": report,
            "max_abs_err": max(errs), "tolerance": f"fp32 {FD_RTOL_F32} of max "
-           f"|out|; bf16 that + 1 ulp", "per_call_ms": ms, "plain_per_call_ms":
-           plain_ms, "sdpa_per_call_ms_gather_not_counted": library_ms,
-           "per_call_ms_by_splits": split_ms, "lengths": lens_a}
+           f"|out|; bf16 that + 1 ulp; each launched twice, bit-identical",
+           "ranges": dict(zip(("splits", "bps", "cols", "per_split"),
+                              fd.plan_ranges(maxb, BLOCK, NUM_SPLITS))),
+           "per_call_ms": ms, "wrapper_per_call_ms": wrapper_ms,
+           "plain_per_call_ms": plain_ms,
+           "sdpa_per_call_ms_gather_not_counted": library_ms,
+           "per_call_ms_by_splits": split_ms,
+           "bound_per_call_ms": _bound_ms(nbytes, flops)[0],
+           "lengths": lens_a}
     print(json.dumps(out), flush=True)
-    return {"ms": LAYERS * ms, "plain_ms": LAYERS * plain_ms,
-            "library_ms": LAYERS * library_ms, "bytes": LAYERS * nbytes,
-            "flops": LAYERS * flops, "max_abs_err": max(errs)}
+    return {"ms": LAYERS * ms, "wrapper_ms": LAYERS * wrapper_ms,
+            "plain_ms": LAYERS * plain_ms, "library_ms": LAYERS * library_ms,
+            "bytes": LAYERS * nbytes, "flops": LAYERS * flops,
+            "max_abs_err": max(errs)}
 
 
 def run_serving(torch, dev) -> int:
@@ -1297,6 +1376,10 @@ def run_serving(torch, dev) -> int:
     obs.disable()
     assert counts["flash_decode"] == LAYERS * steps, \
         f"flash_decode: {counts['flash_decode']} launches in {steps} steps"
+    # every layer's pools take the 16-byte path
+    from repro_torch.kernels.flash_decode import vector_path
+    assert all(vector_path(x[r], x[r]) for x in eng.cache.pools.values()
+               for r in range(x.shape[0])), "a pool off the 16-byte path"
     assert not any(ops.launch_counts(ops.ATTENTION).values()), \
         "the chunked paged prefill launched an attention kernel"
     for h in handles:
@@ -1403,18 +1486,20 @@ def _fa_compare(torch, fa, q, k, v, causal, window) -> float:
     return err
 
 
-def _per_prefill_row(cases: dict, max_abs_err: float) -> dict:
+def _per_prefill_row(cases: dict, max_abs_err: float, peak: float) -> dict:
     """A dense attention kernel's kernels-line row from its cases (a)-(c):
     times per dense prefill, llama-350m 24 launches at (a), gemma3-27b at
-    depth 8 7 at (b) and 1 at (c)."""
+    depth 8 7 at (b) and 1 at (c); the ops bound at ``peak``."""
     a, lb, gc = (cases[n] for n in FA_CASES)
     row = {key: LAYERS * a[key] for key in ("ms", "plain_ms", "library_ms",
                                             "bytes")}
     row.update(flops=LAYERS * 4.0 * a["unmasked_pairs"] * a["shape"][4],
-               peak=PEAK_BF16_PER_S, max_abs_err=max_abs_err,
+               peak=peak, max_abs_err=max_abs_err,
                gemma3_prefill={key: 7 * lb[key] + gc[key] for key in (
                    "ms", "plain_ms", "library_ms", "bound_ms")},
                cases=cases)
+    if "wrapper_ms" in a:
+        row["wrapper_ms"] = LAYERS * a["wrapper_ms"]
     return row
 
 
@@ -1440,33 +1525,14 @@ def check_flash_attention(torch, dev) -> dict:
     errs, cases = [], {}
     for i, (name, (b, s, hq, hkv, hd, window, _)) in enumerate(
             FA_CASES.items()):
-        q, k, v = _fa_inputs(torch, dev, i, b, s, hq, hkv, hd, bf16)
-        errs.append(_fa_compare(torch, fa, q, k, v, True, window))
-        lib = _sdpa(torch, q, k, v, window)
-        # the yardstick computes the same function (the JAX tolerance in
-        # bf16, tests/test_kernels.py)
-        lib_err = (lib().transpose(1, 2).float()
-                   - fa.flash_attention_ref(q, k, v, window=window).float()
-                   ).abs().max().item()
-        assert lib_err <= 2e-2, f"{name}: SDPA differs by {lib_err}"
-        pairs = b * hq * _fa_pairs(s, True, window)
-        nbytes = 2 * (2 * b * s * hq * hd + 2 * b * s * hkv * hd)
-        bound, by = _bound_ms(nbytes, 4.0 * pairs * hd, PEAK_BF16_PER_S)
-        cases[name] = {
-            "shape": [b, s, hq, hkv, hd], "window": window, "dtype": "bf16",
-            "max_abs_err": errs[-1], "sdpa_max_abs_err": lib_err,
-            "ms": _time_ms(lambda: fa.flash_attention(q, k, v,
-                                                      window=window)),
-            "plain_ms": _time_ms(lambda: fa.flash_attention_ref(
-                q, k, v, window=window), 3),
-            "library_ms": _time_ms(lib), "bound_ms": bound, "bound_by": by,
-            "unmasked_pairs": pairs, "bytes": nbytes}
+        cases[name] = _fa_fp32_case(torch, dev, fa, i, b, s, hq, hkv, hd,
+                                    window)
+        errs.append(cases[name]["max_abs_err"])
         print(json.dumps({"flash_attention_case": name, **cases[name]}),
               flush=True)
-        del q, k, v, lib
-        torch.cuda.empty_cache()
-    # edge cases: (b, s, hq, hkv, hd, causal, window, dtype)
-    edges = {"fp32": (2, 512, 16, 16, 64, True, None, f32),
+    # edge cases: (b, s, hq, hkv, hd, causal, window, dtype); bf16 inputs
+    # are upcast (no route sends them here, the function takes them)
+    edges = {"bf16 llama-350m": (8, 512, 16, 16, 64, True, None, bf16),
              "group 5": (2, 300, 10, 2, 64, True, 64, bf16),
              "hd 96": (2, 257, 8, 4, 96, True, None, bf16),
              "hd 17": (1, 100, 4, 2, 17, True, None, f32),
@@ -1483,7 +1549,50 @@ def check_flash_attention(torch, dev) -> dict:
                       "tolerance": f"fp32 {FA_TOL_F32}; bf16 that + 1 ulp; "
                                    f"each launched twice, bit-identical"}),
           flush=True)
-    return _per_prefill_row(cases, max(errs))
+    return _per_prefill_row(cases, max(errs), PEAK_TF32_PER_S / TF32_PASSES)
+
+
+def _fa_fp32_case(torch, dev, fa, seed, b, s, hq, hkv, hd, window) -> dict:
+    """``flash_attention`` on fp32 inputs (its route) at one causal shape:
+    held to its plain version (twice, bit-identical), timed beside fp32
+    SDPA on the same tensors and its fp32 bounds: bytes at 4 B an element,
+    operations at the TF32 rate over 3 passes (the tensor-core design) and
+    at the fp32 SIMT rate. Kernel and SDPA times are device time of
+    CUDA-graph replays of a prefill's 24 calls (at (a) the kernel takes
+    about as long as the wrapper's host work); ``wrapper_ms``: eager
+    calls."""
+    q, k, v = _fa_inputs(torch, dev, seed, b, s, hq, hkv, hd, torch.float32)
+    err = _fa_compare(torch, fa, q, k, v, True, window)
+    lib = _sdpa(torch, q, k, v, window)
+    # the yardstick computes the same function (within the JAX package's
+    # bf16 tolerance, tests/test_kernels.py: a check of what it computes)
+    lib_err = (lib().transpose(1, 2)
+               - fa.flash_attention_ref(q, k, v, window=window)
+               ).abs().max().item()
+    assert lib_err <= 2e-2, f"SDPA differs by {lib_err}"
+    pairs = b * hq * _fa_pairs(s, True, window)
+    flops = 4.0 * pairs * hd
+    nbytes = 4 * (2 * b * s * hq * hd + 2 * b * s * hkv * hd)
+    bound, by = _bound_ms(nbytes, flops, PEAK_TF32_PER_S / TF32_PASSES)
+    simt_bound, simt_by = _bound_ms(nbytes, flops, PEAK_FP32_PER_S)
+    def call():
+        return fa.flash_attention(q, k, v, window=window)
+
+    ms = _graph_ms(call, LAYERS)
+    case = {
+        "shape": [b, s, hq, hkv, hd], "window": window, "dtype": "fp32",
+        "max_abs_err": err, "sdpa_max_abs_err": lib_err, "ms": ms,
+        "tflop_per_s": flops / ms / 1e9, "wrapper_ms": _time_ms(call),
+        "plain_ms": _time_ms(lambda: fa.flash_attention_ref(
+            q, k, v, window=window), 3),
+        "library_ms": _graph_ms(lib, LAYERS), "bound_ms": bound,
+        "bound_by": by,
+        "bound_peak": "TF32 495 TFLOP/s / 3 passes",
+        "fp32_simt_bound_ms": simt_bound, "fp32_simt_bound_by": simt_by,
+        "unmasked_pairs": pairs, "bytes": nbytes}
+    del q, k, v, lib
+    torch.cuda.empty_cache()
+    return case
 
 
 def _blockwise_compare(torch, fa, q, k, v, causal, window, chunk) -> dict:
@@ -1558,7 +1667,7 @@ def check_flash_attention_blockwise(torch, dev) -> dict:
                                    f">= {BLOCKWISE_MIN_EQUAL} bit-equal; each "
                                    "launched twice, bit-identical"}),
           flush=True)
-    return _per_prefill_row(cases, max(errs))
+    return _per_prefill_row(cases, max(errs), PEAK_BF16_PER_S)
 
 
 def _gemma3_depth8():
@@ -1921,19 +2030,26 @@ def main() -> int:
                  "colgather_matmul_bf16": "bf16 discard"}
     times_are = {
         "flash_decode": "per decode step: 24 launches at llama-350m's shapes "
-                        "(a), 2 splits; library = SDPA on K/V already "
-                        "densified, gather not counted",
+                        "(a), 2 splits; ms and library_ms: device time of "
+                        "CUDA-graph replays of 24 calls; wrapper_ms: eager "
+                        "calls, the wrapper's host work included; library "
+                        "= SDPA on K/V already densified, gather not "
+                        "counted",
         "ns_gram": "per Trion training step: 35 launches (5 iterations x 7 "
                    "leaves); library = torch.bmm(x, x.mT)",
         "ns_apply": "per Trion training step: 35 launches; library = "
                     "torch.baddbmm(x, p, x, beta=a)",
         "colgather_matmul": "per subspace-Muon training step: 7 launches",
-        "flash_attention": "the TPU kernel's function, at the shapes of a "
-                           "llama-350m dense prefill (8 x 512): 24 launches "
-                           "at shape (a); library = SDPA with enable_gqa; "
-                           "gemma3_prefill: 7 launches at (b) + 1 at (c); "
-                           "launches from phase 13's fp32 llama-350m "
-                           "prefill (the fp32 route)",
+        "flash_attention": "the TPU kernel's function on fp32 inputs (its "
+                           "route), at the shapes of a llama-350m dense "
+                           "prefill (8 x 512): 24 launches at shape (a); "
+                           "ms and library_ms: device time of CUDA-graph "
+                           "replays; wrapper_ms: eager calls; "
+                           "bound: bytes at 4 B an element, operations at "
+                           "the TF32 peak over 3 passes (3xTF32); library "
+                           "= fp32 SDPA with enable_gqa; gemma3_prefill: 7 "
+                           "launches at (b) + 1 at (c); launches from "
+                           "phase 13's fp32 llama-350m prefill",
         "flash_attention_blockwise": "the model's function (the bf16 "
                                      "prefill's route), per llama-350m dense "
                                      "prefill (8 x 512): 24 launches at "
@@ -1966,12 +2082,15 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": bound, "bound_by": by,
             "library_ms": row["library_ms"],
-            **({"times_are": times_are[name]} if name == "flash_decode" else
+            **({"times_are": times_are[name], "wrapper_ms": row["wrapper_ms"]}
+               if name == "flash_decode" else
                {"times_are": times_are[name],
                 "launches_per_prefill": {
                     run: n for run, n in prefill_launches.items()
                     if DENSE_RUNS[run] == name},
-                "gemma3_prefill": row["gemma3_prefill"]}
+                "gemma3_prefill": row["gemma3_prefill"],
+                **({"wrapper_ms": row["wrapper_ms"]} if "wrapper_ms" in row
+                   else {})}
                if name in ops.ATTENTION else
                {"launches_per_step": counts[name] / (
                    MOMENTUM_PATHS["muon rank 128"][1]

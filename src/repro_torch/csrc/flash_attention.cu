@@ -1,4 +1,5 @@
-// Dense online-softmax attention (flash attention forward) for Hopper.
+// Dense online-softmax attention (flash attention forward) for Hopper, in
+// fp32 on the tensor cores by 3xTF32: the fp32 prefill's route.
 //
 // Replaces repro/kernels/flash_attention.py::_kernel. q (B, S, Hq, hd) and
 // k, v (B, S, Hkv, hd) are read in the model's layout through their
@@ -9,232 +10,396 @@
 // s = (q . k) * scale with scale = 1 / sqrt(hd) (a multiply, as there);
 // masked entries (causal: key > query; window: query - key >= window; a
 // key past S) set to -1e30; the running max m, sum l and the accumulator
-// in fp32, P not rounded before P.V; O = acc / max(l, 1e-30).
+// in fp32, P not rounded before P.V; O = acc / max(l, 1e-30). Both
+// products run as 3xTF32: each fp32 operand x is split into hi = x
+// truncated to TF32 and lo = x - hi (mma.cuh's split_tf32), and a.b is
+// taken as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi with fp32 accumulators, a few
+// 2^-20 relative per product: fp32's accuracy, not TF32's three digits.
+// exp is the hardware's (__expf: ex2.approx of x * log2(e), a few ulp);
+// both keep the outputs within a few 1e-6 of the fp32 plain version.
 //
-// Bound: operations. Each (query, unmasked key) pair costs 4 * hd flops
-// against 2 * hd K/V values that stay in shared memory for a whole tile of
-// queries, far above the card's bytes-to-flops balance. This first kernel
-// is SIMT fp32 FMA (no tensor cores), so it runs at a fraction of the fp32
-// peak and far from the bf16 tensor-core bound; `mma.sync` / `wgmma` tiles
-// and TMA loads are the way to that bound.
+// Bound: operations. 4 * hd flops per unmasked (query, key) pair against
+// 2 * hd K/V values a tile shares among 64 queries. fp32 at 3 TF32 passes
+// has a third of the TF32 peak (495 / 3 TFLOP/s), which still lies above
+// the fp32 SIMT peak (67): SIMT FMA cannot reach this bound. mma.sync
+// reaches about two thirds of the TF32 peak alone (scripts/
+// tf32_mma_probe.py); here the splits, the softmax and the fragment loads
+// share the issue slots with the three passes, which holds the kernel to
+// about a quarter of that (PERF.md).
 //
 // Design:
-//   * One CTA of 256 threads per (query block of 64 rows, q head, batch
-//     row). It walks the K/V tiles of 64 keys in order, only those that
-//     hold an unmasked pair for some row of its block: [lo, hi) with hi
-//     the causal diagonal (or S) and lo the window's first key of the
-//     block's first row, as the TPU kernel's `pl.when` skip. Blocks are
-//     issued longest walk first.
-//   * Thread (tr, tc) of a 16 x 16 grid owns rows 4 tr .. 4 tr + 3 of the
-//     block. For S = Q K^T it owns key columns 4 tc .. 4 tc + 3 of the
-//     tile; for O it owns the head dims 64 j + 4 tc .. + 3. Q and the K
-//     tile are staged transposed (dim-major) so each step of the dot
-//     product reads one float4 of Q and one of K for 16 FMAs; P goes
-//     through shared memory, transposed, for the P.V product, which reads
-//     one float4 of P and one of V per 16 FMAs.
-//   * The online-softmax state (m, l) of a row lives in the registers of
-//     the 16 threads that share the row, reduced with shuffles; the
-//     accumulator stays in registers for the whole walk.
-//   * K and V share one shared-memory buffer (K transposed, then V in
-//     rows), so a head dim of 128 needs 87 KB and two CTAs fit an SM.
-//   * Loads are synchronous, bounds-masked (rows past S read as 0), so any
-//     S >= 1 works; any group and hd <= 256 (padded to a multiple of 64
-//     in shared memory).
+//   * One CTA of 4 warps per (block of 64 query rows, q head, batch row),
+//     blocks with the longest walks issued first; each warp owns 16 rows.
+//     It walks the key tiles that hold an unmasked pair for some row of
+//     its block: [lo, hi) with hi the causal diagonal (or S) and lo the
+//     window's first key of the block's first row, as the TPU kernel's
+//     `pl.when` skip. Masking runs only on tiles that may hold a masked
+//     pair for some row of the warp.
+//   * Q (the block's 64 rows) is staged once in shared memory as fp32. Up
+//     to hd 64 each warp splits its A fragments once into registers for
+//     the whole walk; above, it reads and splits them per tile. K and V
+//     tiles (64 keys, 32 above hd 64 so that two CTAs fit an SM at hd 128)
+//     arrive by cp.async into a 2-slot ring (16-byte copies where rows and
+//     hd allow, else 4-byte; bf16 inputs by loads converted to fp32), so
+//     the next tile loads while this one computes; each warp splits the
+//     K/V values it reads.
+//   * Fragments are read with 16-byte shared loads by relabelling the
+//     reduction axes: in Q.K^T the k index t of k-step 2j + i is head dim
+//     16j + 4t + 2i (and t + 4 is + 1), so one float4 of a row serves two
+//     k-steps; in P.V the output columns of d-tile 4i + e are dims 32i +
+//     4n + e, so one float4 of a V row serves four d-tiles. Row strides of
+//     hd + 16 (Q, K) and hd + 4 (V) floats keep those loads free of bank
+//     conflicts at hd 64 and 128.
+//   * The three passes of a product run as three sweeps over all of a
+//     warp's accumulators, so consecutive mma feed different ones.
+//   * P goes from the S accumulators straight into the A fragments of
+//     P.V (a C tile is an A fragment once its k index t is read as key 2t
+//     and t + 4 as key 2t + 1; V's rows are read in that order), split
+//     into hi/lo, unrounded otherwise. The accumulator stays in registers
+//     for the walk; the row max and sum across the 4 lanes that share a
+//     row by shuffles, l kept per lane and summed once at the end.
+//   * Rows past S and dims past hd are zero-filled, so any S >= 1 and any
+//     hd <= 256 work (padded to 32, 64, 96, 128, 192 or 256).
 //   * No atomics; every sum runs in a fixed order and each output row is
 //     written by one CTA, so two launches are bit-identical.
+#include <cstdint>
+#include <initializer_list>
+#include <type_traits>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma.cuh"
+
 namespace {
 
-constexpr int kBQ = 64;            // query rows per CTA
-constexpr int kBK = 64;            // keys per tile
-constexpr int kThreads = 256;      // 16 row groups x 16 column groups
-constexpr int kLd = kBQ + 4;       // row stride of the transposed tiles
-constexpr int kMaxSmem = 227 * 1024;
+using bf16 = __nv_bfloat16;
+
+constexpr int kBQ = 64;        // query rows per CTA
+constexpr int kThreads = 128;  // 4 warps x 16 rows
 constexpr float kNegInf = -1e30f;
-static_assert(kBQ == kBK, "Q, K and P tiles share one transposed stride");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// sum / max over the 16 lanes that share a row (lanes differing in bits 0-3)
-__device__ __forceinline__ float row_max(float x) {
-  for (int off = 1; off < 16; off <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
-__device__ __forceinline__ float row_sum(float x) {
-  for (int off = 1; off < 16; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-template <int NCH>
-constexpr size_t smem_bytes() {
-  // q^T (HDP, kLd), K^T (HDP, kLd) / V (kBK, HDP), P^T (kBK, kLd)
-  return sizeof(float) * (2 * static_cast<size_t>(64 * NCH) * kLd + kBK * kLd);
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 struct Strides {
   long long b, s, h;  // elements; the head dim is contiguous
 };
 
-// Stage rows [r0, r0 + kBQ) of one head into shared memory as fp32: one
-// warp per row, lanes over the head dim; rows past S read as 0.
-// Transposed (dst[d * kLd + r]) or in rows (dst[r * ld + d]).
-template <typename T, bool kTransposed>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long row_stride, int r0,
-                                      int s, int hd, int ld) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < kBQ; r += kThreads / 32) {
-    const bool in = r0 + r < s;
-    const T* row = src + static_cast<long long>(r0 + r) * row_stride;
-    for (int d = lane; d < hd; d += 32) {
-      const float x = in ? to_f(row[d]) : 0.f;
-      if (kTransposed)
-        dst[d * kLd + r] = x;
+template <int HDP>
+struct Tile {
+  static_assert(HDP % 32 == 0, "the head dim pads to a multiple of 32");
+  // keys per tile: 64, or 32 above hd 64 so that two CTAs fit an SM at
+  // hd 128 (shared memory)
+  static constexpr int kBK = HDP <= 64 ? 64 : 32;
+  static constexpr int kLdk = HDP + 16;  // Q and K rows: = 16 mod 32 floats
+  static constexpr int kLdv = HDP + 4;   // V rows: = 4 mod 32 floats
+  // Q's TF32 parts stay in registers for the walk up to hd 64; above, Q
+  // stays in shared memory and is split per tile
+  static constexpr bool kQRegs = HDP <= 64;
+  static constexpr int kK = kBK * kLdk;  // floats of a K tile
+  static constexpr int kSlot = kK + kBK * kLdv;  // ... of a K and a V tile
+  static constexpr size_t kSmem = sizeof(float) * (kBQ * kLdk + 2 * kSlot);
+};
+
+// rows [r0, r0 + ROWS) of one head into dst[ROWS][ld] as fp32, rows >= s
+// and dims >= hd zero-filled: by 16-byte cp.async (kVec: fp32, hd % 4 ==
+// 0, rows on 16 bytes), 4-byte cp.async (other fp32), or loads (bf16).
+// The general loops stay rolled: unrolled, their addresses stay live
+// across the walk and spill.
+template <typename T, int HDP, bool kVec, int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src, long long stride,
+                                          int r0, int s, int hd) {
+  constexpr int kPieces = HDP / 4;
+  if constexpr (std::is_same<T, float>::value && kVec && kThreads % kPieces == 0) {
+    // a thread copies one 16-byte column of every kStep-th row: its
+    // addresses advance by a constant, so the copies cost few instructions
+    constexpr int kStep = kThreads / kPieces;
+    const int c = threadIdx.x % kPieces, r = threadIdx.x / kPieces;
+    const bool col_ok = 4 * c < hd;
+    const T* from = src + static_cast<long long>(r0 + r) * stride + 4 * c;
+    float* to = dst + r * ld + 4 * c;
+#pragma unroll
+    for (int i = 0; i < ROWS / kStep; ++i) {
+      const bool ok = col_ok && r0 + r + i * kStep < s;
+      mma::cp_async16(to + i * kStep * ld, ok ? from + i * kStep * stride : src, ok);
+    }
+  } else if constexpr (std::is_same<T, float>::value && kVec) {
+#pragma unroll 1
+    for (int i = 0; i < ROWS * kPieces / kThreads; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      const int r = e / kPieces, c = e % kPieces;
+      const bool ok = r0 + r < s && 4 * c < hd;
+      const T* from = ok ? src + static_cast<long long>(r0 + r) * stride + 4 * c : src;
+      mma::cp_async16(dst + r * ld + 4 * c, from, ok);
+    }
+  } else {
+#pragma unroll 1
+    for (int i = 0; i < ROWS * HDP / kThreads; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      const int r = e / HDP, d = e % HDP;
+      const bool ok = r0 + r < s && d < hd;
+      const T* from = ok ? src + static_cast<long long>(r0 + r) * stride + d : src;
+      if constexpr (std::is_same<T, float>::value)
+        mma::cp_async4(dst + r * ld + d, from, ok);
       else
-        dst[r * ld + d] = x;
+        dst[r * ld + d] = ok ? to_f(*from) : 0.f;
     }
   }
 }
 
-template <typename T, int NCH>
+// the TF32 parts (hi, lo) of four consecutive floats at p
+__device__ __forceinline__ void parts4(const float* p, unsigned (&hi)[4], unsigned (&lo)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  mma::split_tf32(x.x, hi[0], lo[0]);
+  mma::split_tf32(x.y, hi[1], lo[1]);
+  mma::split_tf32(x.z, hi[2], lo[2]);
+  mma::split_tf32(x.w, hi[3], lo[3]);
+}
+
+template <typename T, int HDP, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     T* __restrict__ out, int s, int hq, int group, int hd, Strides qst,
                     Strides kst, Strides vst, int causal, int window, float scale) {
-  constexpr int HDP = 64 * NCH;
+  using TL = Tile<HDP>;
+  constexpr int kBK = TL::kBK, kLdk = TL::kLdk, kLdv = TL::kLdv;
+  constexpr bool kQRegs = TL::kQRegs;
+  constexpr int kKPairs = HDP / 16;  // pairs of k-steps of Q.K^T
+  constexpr int kDTiles = HDP / 8;   // 8-wide output tiles of P.V
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                 // q^T: qs[d * kLd + r]
-  float* kvs = qs + HDP * kLd;      // K^T: kvs[d * kLd + c], then V: kvs[c * HDP + d]
-  float* ps = kvs + HDP * kLd;      // P^T: ps[c * kLd + r]
+  float* qs = smem;               // Q [kBQ][kLdk]
+  float* ring = qs + kBQ * kLdk;  // 2 x [K [kBK][kLdk], V [kBK][kLdv]]
 
   const int qblock = gridDim.x - 1 - blockIdx.x;  // the longest walks first
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = qblock * kBQ;
-  const int tid = threadIdx.x, tc = tid & 15, tr = tid >> 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int row_w = q0 + warp * 16;  // the warp's first row
+  const int rows[2] = {row_w + g, row_w + g + 8};
   const int hk = h / group;
-
   const T* qp = q + b * qst.b + h * qst.h;
   const T* kp = k + b * kst.b + hk * kst.h;
   const T* vp = v + b * vst.b + hk * vst.h;
-
-  stage<T, true>(qs, qp, qst.s, q0, s, hd, kLd);
 
   // the K/V tiles with an unmasked pair for some row of this block
   const int q_last = min(q0 + kBQ, s) - 1;
   const int k_end = causal ? q_last + 1 : s;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
+  const int n_tiles = (k_end - k_begin + kBK - 1) / kBK;
 
-  float acc[4][4 * NCH];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4 * NCH; ++j) acc[i][j] = 0.f;
-  }
+  auto issue = [&](int it) {
+    float* ks = ring + (it & 1) * TL::kSlot;
+    const int k0 = k_begin + it * kBK;
+    load_rows<T, HDP, kVec, kBK>(ks, kLdk, kp, kst.s, k0, s, hd);
+    load_rows<T, HDP, kVec, kBK>(ks + TL::kK, kLdv, vp, vst.s, k0, s, hd);
+  };
+  load_rows<T, HDP, kVec, kBQ>(qs, kLdk, qp, qst.s, q0, s, hd);
+  mma::cp_async_commit();
+  issue(0);
+  mma::cp_async_commit();
+  mma::cp_async_wait<1>();  // Q has landed
+  __syncthreads();
 
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the last tile's reads of kvs and ps are done
-    stage<T, true>(kvs, kp, kst.s, k0, s, hd, kLd);
-    __syncthreads();
-
-    float sc[4][4];
+  // this lane's Q: rows g and g + 8 of the warp, dims 16j + 4t .. + 3; the
+  // A fragment of k-step 2j + i is {row g, k t} = Q[g][16j + 4t + 2i], k t
+  // + 4 the next dim
+  const float* qw = qs + (warp * 16 + g) * kLdk + 4 * t;
+  unsigned qh[kQRegs ? kKPairs : 1][2][4], ql[kQRegs ? kKPairs : 1][2][4];
+  if constexpr (kQRegs) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < kKPairs; ++j) {
+      unsigned xh[4], xl[4], yh[4], yl[4];
+      parts4(qw + 16 * j, xh, xl);
+      parts4(qw + 8 * kLdk + 16 * j, yh, yl);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) sc[i][c] = 0.f;
-    for (int d = 0; d < hd; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(qs + d * kLd + 4 * tr);
-      const float4 kk = *reinterpret_cast<const float4*>(kvs + d * kLd + 4 * tc);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float kv[4] = {kk.x, kk.y, kk.z, kk.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) sc[i][c] = fmaf(av[i], kv[c], sc[i][c]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * tr + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int key = k0 + 4 * tc + c;
-        bool ok = key < s;
-        if (causal) ok = ok && row >= key;
-        if (window > 0) ok = ok && row - key < window;
-        sc[i][c] = ok ? sc[i][c] * scale : kNegInf;
-        mx = fmaxf(mx, sc[i][c]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        sc[i][c] = expf(sc[i][c] - m_new);
-        sum += sc[i][c];
-      }
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4 * NCH; ++j) acc[i][j] *= corr;
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      *reinterpret_cast<float4*>(ps + (4 * tc + c) * kLd + 4 * tr) =
-          make_float4(sc[0][c], sc[1][c], sc[2][c], sc[3][c]);
-    __syncthreads();  // K^T reads done, P visible
-    stage<T, false>(kvs, vp, vst.s, k0, s, hd, HDP);
-    __syncthreads();
-
-    for (int c = 0; c < kBK; ++c) {
-      const float4 pp = *reinterpret_cast<const float4*>(ps + c * kLd + 4 * tr);
-      const float pv[4] = {pp.x, pp.y, pp.z, pp.w};
-#pragma unroll
-      for (int j = 0; j < NCH; ++j) {
-        const float4 vv = *reinterpret_cast<const float4*>(kvs + c * HDP + 64 * j + 4 * tc);
-        const float vx[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][4 * j + e] = fmaf(pv[i], vx[e], acc[i][4 * j + e]);
+      for (int i = 0; i < 2; ++i) {
+        qh[j][i][0] = xh[2 * i], qh[j][i][1] = yh[2 * i];
+        qh[j][i][2] = xh[2 * i + 1], qh[j][i][3] = yh[2 * i + 1];
+        ql[j][i][0] = xl[2 * i], ql[j][i][1] = yl[2 * i];
+        ql[j][i][2] = xl[2 * i + 1], ql[j][i][3] = yl[2 * i + 1];
       }
     }
   }
 
+  float acc[kDTiles][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * tr + i;
-    if (row >= s) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    T* o = out + ((static_cast<long long>(b) * s + row) * hq + h) * hd;
+  for (int j = 0; j < kDTiles; ++j)
 #pragma unroll
-    for (int j = 0; j < NCH; ++j)
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) issue(it + 1);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();
+    __syncthreads();  // this tile has landed
+    const float* ks = ring + (it & 1) * TL::kSlot;
+    const float* vs = ks + TL::kK;
+    const int k0 = k_begin + it * kBK;
+
+    // S = Q K^T: sc[n][e] is row rows[e / 2], key k0 + 8n + 2t + e % 2.
+    // The mma of one pass run over all n before the next pass, so no two
+    // in a row feed the same accumulator.
+    float sc[kBK / 8][4];
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kKPairs; ++j) {
+      unsigned ah[2][4], al[2][4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ah[i][e] = qh[j][i][e], al[i][e] = ql[j][i][e];
+      } else {
+        unsigned xh[4], xl[4], yh[4], yl[4];
+        parts4(qw + 16 * j, xh, xl);
+        parts4(qw + 8 * kLdk + 16 * j, yh, yl);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          ah[i][0] = xh[2 * i], ah[i][1] = yh[2 * i];
+          ah[i][2] = xh[2 * i + 1], ah[i][3] = yh[2 * i + 1];
+          al[i][0] = xl[2 * i], al[i][1] = yl[2 * i];
+          al[i][2] = xl[2 * i + 1], al[i][3] = yl[2 * i + 1];
+        }
+      }
+      // B {k t, col g} of k-step 2j + i = K[8n + g][16j + 4t + 2i], k t + 4
+      // the next dim: bh[n][2i], bh[n][2i + 1]
+      unsigned bh[kBK / 8][4], bl[kBK / 8][4];
+#pragma unroll
+      for (int n = 0; n < kBK / 8; ++n)
+        parts4(ks + (8 * n + g) * kLdk + 16 * j + 4 * t, bh[n], bl[n]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int n = 0; n < kBK / 8; ++n)
+          mma::mma_tf32(sc[n], al[i], bh[n][2 * i], bh[n][2 * i + 1]);
+#pragma unroll
+        for (int n = 0; n < kBK / 8; ++n)
+          mma::mma_tf32(sc[n], ah[i], bl[n][2 * i], bl[n][2 * i + 1]);
+#pragma unroll
+        for (int n = 0; n < kBK / 8; ++n)
+          mma::mma_tf32(sc[n], ah[i], bh[n][2 * i], bh[n][2 * i + 1]);
+      }
+    }
+
+    // scale and mask, only where some key of the tile may be masked for
+    // some row of the warp (a warp-uniform test)
+    const bool need_mask = k0 + kBK > s || (causal && k0 + kBK - 1 > row_w) ||
+                           (window > 0 && k0 <= row_w + 15 - window);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int d = 64 * j + 4 * tc + e;
-        if (d < hd) o[d] = from_f<T>(acc[i][4 * j + e] / den);
+        float x = sc[n][e] * scale;
+        if (need_mask) {
+          const int row = rows[e >> 1], key = k0 + 8 * n + 2 * t + (e & 1);
+          bool ok = key < s;
+          if (causal) ok = ok && key <= row;
+          if (window > 0) ok = ok && row - key < window;
+          x = ok ? x : kNegInf;
+        }
+        sc[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mx[i]));
+      const float corr = __expf(m[i] - m_new);
+      l[i] *= corr;
+#pragma unroll
+      for (int j = 0; j < kDTiles; ++j) {
+        acc[j][2 * i] *= corr;
+        acc[j][2 * i + 1] *= corr;
+      }
+      m[i] = m_new;
+    }
+
+    // O += P V: the k index t of k-step n is key 8n + 2t, t + 4 is 8n + 2t + 1.
+    // Again one pass over every d-tile before the next pass.
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = __expf(sc[n][e] - m[e >> 1]);
+        l[e >> 1] += p[e];
+      }
+      unsigned ph[4], pl[4];
+      mma::split_tf32(p[0], ph[0], pl[0]);  // row g, key 2t
+      mma::split_tf32(p[2], ph[1], pl[1]);  // row g + 8, key 2t
+      mma::split_tf32(p[1], ph[2], pl[2]);  // row g, key 2t + 1
+      mma::split_tf32(p[3], ph[3], pl[3]);  // row g + 8, key 2t + 1
+      // B {k t, col g} of d-tile 4i + e = V[8n + 2t][32i + 4g + e], k t + 4
+      // the next key: bh[4i + e][0], bh[4i + e][1]
+      const float* v0 = vs + (8 * n + 2 * t) * kLdv + 4 * g;
+      unsigned bh[kDTiles][2], bl[kDTiles][2];
+#pragma unroll
+      for (int i = 0; i < HDP / 32; ++i) {
+        unsigned h0[4], l0[4], h1[4], l1[4];
+        parts4(v0 + 32 * i, h0, l0);
+        parts4(v0 + kLdv + 32 * i, h1, l1);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          bh[4 * i + e][0] = h0[e], bh[4 * i + e][1] = h1[e];
+          bl[4 * i + e][0] = l0[e], bl[4 * i + e][1] = l1[e];
+        }
+      }
+#pragma unroll
+      for (int jd = 0; jd < kDTiles; ++jd) mma::mma_tf32(acc[jd], pl, bh[jd][0], bh[jd][1]);
+#pragma unroll
+      for (int jd = 0; jd < kDTiles; ++jd) mma::mma_tf32(acc[jd], ph, bl[jd][0], bl[jd][1]);
+#pragma unroll
+      for (int jd = 0; jd < kDTiles; ++jd) mma::mma_tf32(acc[jd], ph, bh[jd][0], bh[jd][1]);
+    }
+    __syncthreads();  // every warp is done with this slot before it refills
+  }
+
+  // acc[4i + e][c]: row rows[c / 2], dim 32i + 8t + 4 (c % 2) + e
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float den = fmaxf(quad_sum(l[r]), 1e-30f);
+    if (rows[r] >= s) continue;
+    T* o = out + ((static_cast<long long>(b) * s + rows[r]) * hq + h) * hd;
+#pragma unroll
+    for (int i = 0; i < HDP / 32; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int d = 32 * i + 8 * t + 4 * half + e;
+          if (d < hd) o[d] = from_f<T>(acc[4 * i + e][2 * r + half] / den);
+        }
   }
 }
 
-template <typename T, int NCH>
+template <typename T, int HDP, bool kVec>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b, int s, int hq,
                    int hkv, int hd, Strides qst, Strides kst, Strides vst, int causal,
                    int window, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<NCH>();
-  static_assert(smem <= static_cast<size_t>(kMaxSmem), "tile exceeds shared memory");
-  auto kernel = flash_attention_fwd<T, NCH>;
+  constexpr size_t smem = Tile<HDP>::kSmem;
+  static_assert(smem <= 227 * 1024, "tiles exceed shared memory");
+  auto kernel = flash_attention_fwd<T, HDP, kVec>;
   if (smem > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -248,33 +413,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kVec>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int b, int s,
                      int hq, int hkv, int hd, Strides qst, Strides kst, Strides vst, int causal,
                      int window, float scale, cudaStream_t stream) {
-  switch ((hd + 63) / 64) {
-    case 1:
-      return launch<T, 1>(q, k, v, out, b, s, hq, hkv, hd, qst, kst, vst, causal, window,
-                          scale, stream);
-    case 2:
-      return launch<T, 2>(q, k, v, out, b, s, hq, hkv, hd, qst, kst, vst, causal, window,
-                          scale, stream);
-    case 3:
-      return launch<T, 3>(q, k, v, out, b, s, hq, hkv, hd, qst, kst, vst, causal, window,
-                          scale, stream);
-    default:
-      return launch<T, 4>(q, k, v, out, b, s, hq, hkv, hd, qst, kst, vst, causal, window,
-                          scale, stream);
-  }
+#define REPRO_FA_CASE(HDP)                                                                   \
+  return launch<T, HDP, kVec>(q, k, v, out, b, s, hq, hkv, hd, qst, kst, vst, causal, window, \
+                              scale, stream)
+  if (hd <= 32) REPRO_FA_CASE(32);
+  if (hd <= 64) REPRO_FA_CASE(64);
+  if (hd <= 96) REPRO_FA_CASE(96);
+  if (hd <= 128) REPRO_FA_CASE(128);
+  if (hd <= 192) REPRO_FA_CASE(192);
+  REPRO_FA_CASE(256);
+#undef REPRO_FA_CASE
 }
 
 }  // namespace
 
 // q (B, S, Hq, hd), k / v (B, S, Hkv, hd) with the given element strides of
 // the batch, sequence and head axes (the head dim contiguous), all three
-// of one dtype (fp32, or bf16 with is_bf16); out (B, S, Hq, hd) contiguous
-// in that dtype. window <= 0 means no window. The caller checks the grid
-// limits (Hq, B < 65536).
+// of one dtype (fp32, or bf16 with is_bf16, upcast); out (B, S, Hq, hd)
+// contiguous in that dtype. window <= 0 means no window. The caller checks
+// the grid limits (Hq, B < 65536).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
                                      int b, int s, int hq, int hkv, int hd, long long q_sb,
                                      long long q_ss, long long q_sh, long long k_sb,
@@ -286,10 +447,18 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qst{q_sb, q_ss, q_sh}, kst{k_sb, k_ss, k_sh}, vst{v_sb, v_ss, v_sh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return static_cast<int>(dispatch<bf16, false>(q, k, v, out, b, s, hq, hkv, hd, qst, kst,
+                                                  vst, causal, window, scale, st));
+  // 16-byte copies need every row of q, k and v on 16 bytes and hd % 4 == 0
+  bool vec = hd % 4 == 0;
+  for (const void* p : {q, k, v}) vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  for (long long st4 : {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh})
+    vec = vec && st4 % 4 == 0;
   const cudaError_t rc =
-      is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, out, b, s, hq, hkv, hd, qst, kst, vst, causal,
-                                        window, scale, st)
-              : dispatch<float>(q, k, v, out, b, s, hq, hkv, hd, qst, kst, vst, causal, window,
-                                scale, st);
+      vec ? dispatch<float, true>(q, k, v, out, b, s, hq, hkv, hd, qst, kst, vst, causal,
+                                  window, scale, st)
+          : dispatch<float, false>(q, k, v, out, b, s, hq, hkv, hd, qst, kst, vst, causal,
+                                   window, scale, st);
   return static_cast<int>(rc);
 }

@@ -1,6 +1,8 @@
 // Tensor-core building blocks of the Hopper kernels (sm_90a): cp.async
-// copies into shared memory, ldmatrix fragment loads and the bf16
-// mma.sync.m16n8k16 with fp32 accumulators.
+// copies into shared memory, ldmatrix fragment loads, the bf16
+// mma.sync.m16n8k16 and the TF32 mma.sync.m16n8k8 with fp32 accumulators,
+// and the split of an fp32 value into the two TF32 parts of a 3xTF32
+// product (about fp32's accuracy on the TF32 path).
 //
 // Fragment layouts of m16n8k16 (lane = 4 * g + t, g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major), 4 registers of two bf16: {row g, cols 2t..2t+1},
@@ -10,6 +12,15 @@
 // So two C tiles side by side, rounded to bf16 in pairs, are the A fragment
 // of the next product (FlashAttention-2's P . V without a trip through
 // shared memory).
+//
+// m16n8k8 TF32 (one 32-bit register per element):
+//   A (16 x 8), 4 registers: {row g, col t}, {row g + 8, col t},
+//     {row g, col t + 4}, {row g + 8, col t + 4};
+//   B (8 x 8), 2 registers: {k t, col g}, {k t + 4, col g};
+//   C: as m16n8k16's.
+// A C tile is therefore the A fragment of the next product once its k
+// index is read as: k t <-> C column 2t, k t + 4 <-> column 2t + 1 (the B
+// operand's rows are taken in that order too).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -61,6 +72,25 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
                                          unsigned b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo for 3xTF32, in two instructions: hi is x itself, which the
+// tensor cores read as x truncated to TF32 (they drop its low 13 bits);
+// lo = x - trunc(x) (exact in fp32, |lo| < 2^-10 |x|), read truncated in
+// turn, so hi + lo carries x to within 2^-20 |x|.
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = __float_as_uint(x);
+  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
+}
+
+// d += a . b on the tensor cores: TF32 operands, exact products, fp32 sums
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -9,8 +9,9 @@ rebuilds and an unchanged one loads at once. The sources compile in
 parallel, one ``nvcc`` each.
 
 No ``--use_fast_math``: the quantizer's IEEE division and its handling of
-subnormal rows depend on it being off, and the attention kernels' ``expf``
-stays the accurate one.
+subnormal rows depend on it being off, and ``expf`` stays the accurate one
+where a kernel calls it (the fp32 ``flash_attention`` calls the hardware's
+``__expf`` by name).
 
 Nothing here runs at import time: the CPU tests import this module and
 never build or launch a kernel.
@@ -53,7 +54,8 @@ SIGNATURES = {
     "repro_ns_gram": (_P, _P, _I, _I, _I, _P),
     "repro_ns_apply": (_P, _P, _P, _F, _I, _I, _I, _P),
     "repro_flash_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _I, _I, _I, _I, _F, _I, _I, _P),
+                           _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+                           _P),
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
                               _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _P),
     "repro_flash_attention_blockwise": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L,

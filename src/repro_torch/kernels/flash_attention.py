@@ -12,7 +12,11 @@ another order.
 On CUDA tensors ``flash_attention`` launches the kernel of
 ``csrc/flash_attention.cu`` (replacing ``repro/kernels/flash_attention.py::
 _kernel``; bound by its operations — see the source note), reading the
-model's layout through strides, or raises. On CPU tensors it runs
+model's layout through strides, or raises. That kernel runs both products
+on the tensor cores as 3xTF32 (each fp32 operand split into two TF32
+parts, three products summed in fp32: about fp32's accuracy), with P taken
+unrounded from the score accumulators; bf16 inputs are upcast to fp32 as
+they are staged. On CPU tensors it runs
 ``flash_attention_ref``, a port of the JAX package's
 ``kernels/ref.py::flash_attention_ref``: K/V repeated per query head, one
 masked fp32 softmax over the whole sequence.

@@ -9,12 +9,18 @@ column ranges whose unnormalized online-softmax partials ``(acc, m, l)``
 are merged with the max-shift algebra (``merge_splits``). A slot of length
 0 gets an exact zero row.
 
-On CUDA tensors ``flash_decode`` launches the kernel of
+On CUDA tensors ``flash_decode`` launches the kernels of
 ``csrc/flash_decode.cu`` (replacing ``repro/kernels/flash_decode.py::
 _kernel`` and its jnp merge; bound by the bytes of the K/V it reads — see
-the source note), one call for the partials and their merge, or raises. On
-CPU tensors it runs ``flash_decode_plain``: the pool densified through the
-table, masked fp32 softmax per split, then the same merge.
+the source note), or raises. The work reaches the card cut by the table,
+not by the caller's splits: ``plan_ranges`` cuts each split further into
+ranges of about ``RANGE_TOKENS`` tokens, each range's partial goes to fp32
+scratch, and a second kernel merges the live ranges in order with the same
+algebra (the same function up to the order of fp32 sums). bf16 pools whose
+head dim is a multiple of 8 are read as 16-byte vectors (``vector_path``);
+fp32 pools and other head dims take a scalar path. On CPU tensors it runs
+``flash_decode_plain``: the pool densified through the table, masked fp32
+softmax per split, then the same merge.
 """
 from __future__ import annotations
 
@@ -25,6 +31,9 @@ import torch
 from . import cuda_lib
 
 NEG_INF = -1e30
+#: tokens of table columns one range of the kernel covers (the caller's
+#: splits are cut into ranges of ``max(1, RANGE_TOKENS // bs)`` columns)
+RANGE_TOKENS = 128
 
 
 def merge_splits(o_part: torch.Tensor, m_part: torch.Tensor,
@@ -96,6 +105,28 @@ def flash_decode_plain(q: torch.Tensor, k_pool: torch.Tensor,
     return out.reshape(b, hq, hd).to(q.dtype)
 
 
+def plan_ranges(maxb: int, bs: int, num_splits: int
+                ) -> tuple[int, int, int, int]:
+    """How the kernel cuts the table: ``(splits, bps, cols, per_split)``.
+    ``splits`` is ``num_splits`` clamped to [1, MAXB]; split ``s`` holds
+    columns ``[s * bps, min((s + 1) * bps, MAXB))`` (``bps`` = MAXB /
+    splits rounded up, as the plain version cuts them); each split is cut
+    into ``per_split`` ranges of ``cols`` columns (the last may be
+    shorter or empty), range ``p = s * per_split + j``."""
+    splits = max(1, min(num_splits, maxb))
+    bps = -(-maxb // splits)
+    cols = max(1, min(bps, RANGE_TOKENS // bs))
+    return splits, bps, cols, -(-bps // cols)
+
+
+def vector_path(k_pool: torch.Tensor, v_pool: torch.Tensor) -> bool:
+    """Whether the kernel reads the pools as 16-byte vectors: bf16, a head
+    dim that is a multiple of 8 and both pools on 16 bytes (else one
+    element a lane)."""
+    return (k_pool.dtype == torch.bfloat16 and k_pool.shape[-1] % 8 == 0
+            and k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0)
+
+
 def flash_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                  block_table: torch.Tensor, lengths: torch.Tensor, *,
                  window: int | None = None, num_splits: int = 1
@@ -123,25 +154,28 @@ def flash_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     cuda_lib.require_cuda("flash_decode v_pool", v_pool, k_pool.dtype)
     cuda_lib.require_cuda("flash_decode block_table", block_table, torch.int32)
     cuda_lib.require_cuda("flash_decode lengths", lengths, torch.int32)
-    if hd > 256 or b * hkv >= 2**31 or splits >= 2**16 \
-            or maxb * bs >= 2**31:
+    if hd > 256 or b * hq >= 2**31 or maxb * bs >= 2**31:
         raise ValueError(f"flash_decode: head dim {hd} > 256 or shape "
                          f"q {tuple(q.shape)} table {tuple(block_table.shape)}"
                          f" exceeds the grid")
-    group = hq // hkv
-    o_part = torch.empty((splits, b * hkv, group, hd), dtype=torch.float32,
+    splits, bps, cols, per_split = plan_ranges(maxb, bs, splits)
+    parts = splits * per_split
+    if parts >= 2**16:
+        raise ValueError(f"flash_decode: {parts} table ranges exceed the "
+                         f"grid")
+    o_part = torch.empty((parts, b * hq, hd), dtype=torch.float32,
                          device=dev)
-    m_part = torch.empty((splits, b * hkv, group, 1), dtype=torch.float32,
-                         device=dev)
+    m_part = torch.empty((parts, b * hq), dtype=torch.float32, device=dev)
     l_part = torch.empty_like(m_part)
     out = torch.empty_like(q)
     rc = cuda_lib.library().repro_flash_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_table.data_ptr(), lengths.data_ptr(), o_part.data_ptr(),
         m_part.data_ptr(), l_part.data_ptr(), out.data_ptr(), b, hq, hkv, hd,
-        nb, bs, maxb, splits, window or 0, 1.0 / math.sqrt(hd),
-        int(q.dtype == torch.bfloat16), int(k_pool.dtype == torch.bfloat16),
-        cuda_lib.stream(q))
+        nb, bs, maxb, splits, bps, cols, per_split, window or 0,
+        1.0 / math.sqrt(hd), int(q.dtype == torch.bfloat16),
+        int(k_pool.dtype == torch.bfloat16),
+        int(vector_path(k_pool, v_pool)), cuda_lib.stream(q))
     cuda_lib.check(rc, "flash_decode")
     flash_decode.launches += 1
     return out

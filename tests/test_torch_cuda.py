@@ -14,6 +14,7 @@ from repro_torch.core.dct import dct2_matrix
 from repro_torch.core.newton_schulz import NS_COEFFS, _ns_step, newton_schulz
 from repro_torch.kernels import colgather_matmul as cg
 from repro_torch.kernels import dct_project as dp
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import newton_schulz as ns
 from repro_torch.kernels import ops
@@ -275,6 +276,181 @@ def test_cuda_flash_decode_rejects_views_and_dtypes(cuda):
         fd.flash_decode(q, k, v, table.long(), ln)
     with pytest.raises(ValueError):
         fd.flash_decode(q, k, v, table.cpu(), ln)
+
+
+# flash_decode against its plain version: fp32 within this share of max
+# |out| (sums over up to 2048 keys in another order); bf16 within that plus
+# one bf16 ulp of each element (the last rounding)
+FD_RTOL_F32 = 2e-6
+
+
+def _bf16_ulps_past(got, want, slack):
+    """max over elements of (|got - want| - slack) in bf16 ulps of the larger
+    magnitude: <= 1 when the two are within ``slack`` before their last
+    rounding to bf16."""
+    a, b = got.float(), want.float()
+    mag = torch.maximum(a.abs(), b.abs())
+    ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag)[1] - 8)
+    d = torch.clamp_min((a - b).abs() - slack, 0.0)
+    return torch.where(mag > 0, d / ulp, d).max().item()
+
+
+def _fd_twice_against_plain(q, rest, window, splits):
+    """The kernel twice (bit-identical) against its plain version."""
+    got = fd.flash_decode(q, *rest, window=window, num_splits=splits)
+    again = fd.flash_decode(q, *rest, window=window, num_splits=splits)
+    want = fd.flash_decode_plain(q, *rest, window=window, num_splits=splits)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and torch.isfinite(got).all()
+    assert torch.equal(got, again), "relaunch differs"
+    top = want.float().abs().max().item()
+    if q.dtype == torch.float32:
+        err = (got - want).abs().max().item()
+        assert err <= FD_RTOL_F32 * top, (err, top)
+    else:
+        assert _bf16_ulps_past(got, want, FD_RTOL_F32 * top) <= 1.0
+    return got
+
+
+# (bs, hd, Hq, Hkv, pool dtype): blocks of 8 / 16 / 32, head dims 17 (the
+# scalar path, fp32 and bf16 pools), 64 and 128 (the 16-byte path in bf16),
+# groups 1 / 2 / 5 / 8; every case has slots of length 0, 1, bs, bs + 1 and
+# 2048
+FD_SWEEP = {
+    "bs8 hd64 g1 bf16": (8, 64, 4, 4, torch.bfloat16),
+    "bs16 hd64 g1 bf16": (16, 64, 16, 16, torch.bfloat16),
+    "bs32 hd64 g2 bf16": (32, 64, 8, 4, torch.bfloat16),
+    "bs16 hd128 g2 bf16": (16, 128, 8, 4, torch.bfloat16),
+    "bs16 hd128 g5 bf16": (16, 128, 10, 2, torch.bfloat16),
+    "bs8 hd128 g8 bf16": (8, 128, 8, 1, torch.bfloat16),
+    "bs16 hd17 g2 f32": (16, 17, 4, 2, torch.float32),
+    "bs8 hd17 g5 bf16": (8, 17, 10, 2, torch.bfloat16),
+    "bs32 hd64 g8 f32": (32, 64, 16, 2, torch.float32),
+    "bs16 hd128 g1 f32": (16, 128, 2, 2, torch.float32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 1, 100, 1024])
+@pytest.mark.parametrize("name", list(FD_SWEEP))
+def test_cuda_flash_decode_sweep(cuda, name, window):
+    """Every split count from 1 to MAXB, fp32 and bf16 q, each launched
+    twice: held to the plain version, bit-identical, length 0 exactly 0."""
+    bs, hd, hq, hkv, dtype = FD_SWEEP[name]
+    lengths = [0, 1, bs, bs + 1, 2048]
+    maxb = 2048 // bs
+    q, *rest = _fd_inputs(cuda, b=len(lengths), hq=hq, hkv=hkv, hd=hd, bs=bs,
+                          maxb=maxb, lengths=lengths, dtype=dtype, seed=3)
+    assert fd.vector_path(*rest[:2]) == (dtype == torch.bfloat16
+                                         and hd % 8 == 0)
+    before = fd.flash_decode.launches
+    for splits in (1, 2, 3, maxb):
+        for q_dt in (torch.float32, torch.bfloat16):
+            got = _fd_twice_against_plain(q.to(q_dt), rest, window, splits)
+            assert not got[0].any()
+    assert fd.flash_decode.launches == before + 16
+
+
+# (hd, pool dtype, Hq, Hkv, window): the 16-byte path, gemma3's local
+# shape, the scalar path
+FD_POISON = {"hd64 bf16": (64, torch.bfloat16, 8, 2, None),
+             "hd128 bf16 window": (128, torch.bfloat16, 8, 4, 20),
+             "hd17 f32": (17, torch.float32, 4, 2, None)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FD_POISON))
+def test_cuda_flash_decode_poisoned_pool_and_bad_entry(cuda, name):
+    """NaN in every pool position no slot reaches changes no bit; a table
+    entry outside the pool that a valid token needs makes that slot's rows
+    NaN (and only those), one past every length changes nothing."""
+    hd, dtype, hq, hkv, window = FD_POISON[name]
+    bs, lengths = 16, [37, 0, 16, 70]
+    q, k, v, table, ln = _fd_inputs(cuda, b=4, hq=hq, hkv=hkv, hd=hd, bs=bs,
+                                    maxb=6, lengths=lengths, dtype=dtype,
+                                    seed=4)
+    clean = fd.flash_decode(q, k, v, table, ln, window=window, num_splits=2)
+    nblk = [-(-n // bs) for n in lengths]
+    used = {b for i, n in enumerate(nblk) for b in table[i, :n].tolist()}
+    poison = sorted(set(range(k.shape[0])) - used)
+    k[poison] = float("nan")
+    v[poison] = float("nan")
+    for i, n in enumerate(lengths):
+        if n % bs:
+            k[table[i, nblk[i] - 1], n % bs:] = float("nan")
+            v[table[i, nblk[i] - 1], n % bs:] = float("nan")
+        table[i, nblk[i]:] = k.shape[0] + 5 if i % 2 else poison[0]
+    dirty = fd.flash_decode(q, k, v, table, ln, window=window, num_splits=2)
+    torch.cuda.synchronize()
+    assert torch.equal(dirty, clean)
+    assert not clean[1].any()
+    table[3, 4] = -1                       # slot 3 needs column 4 (64..69)
+    bad = fd.flash_decode(q, k, v, table, ln, window=window, num_splits=2)
+    torch.cuda.synchronize()
+    assert torch.isnan(bad[3]).all()
+    assert torch.equal(bad[:3], clean[:3])
+
+
+# fp32 flash_attention (the fp32 route): (b, s, hq, hkv, hd, causal, window,
+# dtype); head dims 17 / 64 / 96 / 128, S 1 / 257 / 777, windows 1 / 128,
+# group 5, causal and not, bf16 inputs upcast
+FA_TOL_F32 = 3e-5
+FA32_CASES = {
+    "hd64 s257": (2, 257, 8, 8, 64, True, None, torch.float32),
+    "hd64 s777 window128": (1, 777, 4, 2, 64, True, 128, torch.float32),
+    "hd128 s777": (1, 777, 4, 2, 128, True, None, torch.float32),
+    "hd128 s257 window1": (1, 257, 4, 4, 128, True, 1, torch.float32),
+    "hd96 s257": (2, 257, 6, 3, 96, True, None, torch.float32),
+    "hd17 s257": (1, 257, 4, 2, 17, True, None, torch.float32),
+    "hd17 s1": (3, 1, 4, 2, 17, True, None, torch.float32),
+    "hd64 s1": (3, 1, 4, 2, 64, True, None, torch.float32),
+    "group5 window128": (1, 300, 10, 2, 64, True, 128, torch.float32),
+    "noncausal hd64": (2, 130, 6, 3, 64, False, None, torch.float32),
+    "noncausal window1": (1, 200, 4, 2, 128, False, 1, torch.float32),
+    "hd256 s100": (1, 100, 2, 1, 256, True, None, torch.float32),
+    "bf16 hd64 s257": (2, 257, 8, 4, 64, True, None, torch.bfloat16),
+    "bf16 hd128 window128": (1, 777, 4, 2, 128, True, 128, torch.bfloat16),
+    "bf16 hd17 noncausal": (1, 100, 5, 1, 17, False, None, torch.bfloat16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FA32_CASES))
+def test_cuda_flash_attention_fp32_matches_plain(cuda, name):
+    """The 3xTF32 kernel twice (bit-identical) against its plain version:
+    fp32 within FA_TOL_F32; bf16 within that plus one bf16 ulp."""
+    b, s, hq, hkv, hd, causal, window, dtype = FA32_CASES[name]
+    q, k, v = (torch.from_numpy(_rand((b, s, h, hd), 20 + i)).to(cuda, dtype)
+               for i, h in enumerate((hq, hkv, hkv)))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    again = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 2
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= FA_TOL_F32
+    else:
+        assert _bf16_ulps_past(got, want, FA_TOL_F32) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 17])
+def test_cuda_flash_attention_fp32_copy_paths_agree(cuda, hd):
+    """Rows off 16 bytes take the 4-byte copies, aligned rows the 16-byte
+    ones: the same arithmetic, so the same bits."""
+    b, s, h = 2, 150, 4
+    n = b * s * h * hd
+    flat = torch.from_numpy(_rand(3 * n + 1, 30)).to(cuda)
+    q, k, v = (flat[1 + i * n:1 + (i + 1) * n].view(b, s, h, hd)
+               for i in range(3))
+    aligned = [t.clone() for t in (q, k, v)]
+    got = fa.flash_attention(q, k, v, causal=True, window=40)
+    want = fa.flash_attention(*aligned, causal=True, window=40)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 # bf16 operands: the kernel and the plain version multiply the same rounded

@@ -149,3 +149,101 @@ def test_rejects_bad_shapes():
         fd.flash_decode(q, k, v, table, lengths)       # 4 % 3 != 0
     with pytest.raises(ValueError, match="window"):
         fd.flash_decode(q[:, :3], k, v, table, lengths, window=0)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's cut of the table (host-side planning, run on the CPU)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("maxb,bs,splits", [
+    (128, 16, 1), (128, 16, 2), (128, 16, 16), (128, 16, 128),
+    (130, 16, 2), (256, 8, 3), (64, 32, 5), (3, 40, 2), (40, 1, 3),
+    (6, 4, 9), (1, 256, 4)])
+def test_plan_ranges_tiles_each_split(maxb, bs, splits):
+    """The ranges cut every caller split into pieces of about RANGE_TOKENS
+    tokens that cover each table column exactly once, in column order."""
+    n, bps, cols, per_split = fd.plan_ranges(maxb, bs, splits)
+    assert n == max(1, min(splits, maxb)) and bps == -(-maxb // n)
+    assert cols == 1 or cols * bs <= fd.RANGE_TOKENS
+    assert cols <= bps and per_split * cols >= bps
+    covered = []
+    for p in range(n * per_split):
+        s, j = divmod(p, per_split)
+        lo = s * bps + j * cols
+        hi = min(lo + cols, (s + 1) * bps, maxb)
+        covered.extend(range(lo, hi))       # empty past the table
+    assert covered == list(range(maxb))
+
+
+def test_plan_ranges_do_not_follow_the_split_count():
+    """At the serving shape every split count gives the same 16 ranges of
+    8 blocks: the kernel's parallelism does not depend on it."""
+    for splits in (1, 2, 4, 8, 16):
+        n, bps, cols, per_split = fd.plan_ranges(128, 16, splits)
+        assert (cols, n * per_split) == (8, 16)
+
+
+def _range_partials(q, k, v, table, lengths, window, bs, plan):
+    """The kernel's decomposition in plain PyTorch: one masked partial per
+    live range (a valid token in its columns), merged in range order."""
+    n, bps, cols, per_split = plan
+    b, hq, hd = q.shape
+    hkv = k.shape[2]
+    kd = k[table.long()].reshape(b, -1, hkv, hd)
+    vd = v[table.long()].reshape(b, -1, hkv, hd)
+    qg = q.reshape(b, hkv, hq // hkv, hd)
+    rows = []
+    for i in range(b):
+        length = int(lengths[i])
+        first = length - window if window else -2**31
+        parts = []
+        for p in range(n * per_split):
+            s, j = divmod(p, per_split)
+            lo = s * bps + j * cols
+            hi = min(lo + cols, (s + 1) * bps, table.shape[1])
+            if not (lo < hi and lo * bs < length and hi * bs > first):
+                continue
+            keys = range(max(lo * bs, first, 0), min(hi * bs, length))
+            sc = torch.einsum("hgd,shd->hgs", qg[i], kd[i, keys]) / hd ** 0.5
+            m = sc.amax(-1, keepdim=True)
+            e = torch.exp(sc - m)
+            parts.append((torch.einsum("hgs,shd->hgd", e, vd[i, keys]), m,
+                          e.sum(-1, keepdim=True)))
+        if not parts:
+            rows.append(torch.zeros(hq, hd))
+            continue
+        o, m, l = (torch.stack(t) for t in zip(*parts))
+        rows.append(fd.merge_splits(o, m, l).reshape(hq, hd))
+    return torch.stack(rows)
+
+
+@pytest.mark.parametrize("window", [None, 1, 7, 40])
+@pytest.mark.parametrize("splits", [1, 2, 3])
+def test_range_partials_merge_to_the_function(window, splits, monkeypatch):
+    """Merging the live ranges' partials (dead ranges skipped, as the merge
+    kernel skips them) is the plain version's function: fp32 sums in
+    another order, a length-0 slot exactly zero."""
+    monkeypatch.setattr(fd, "RANGE_TOKENS", 8)     # ranges of 2 blocks of 4
+    args = _case(np.random.default_rng(10), b=4, hq=6, hkv=2, hd=16,
+                 num_blocks=40, bs=4, maxb=9, lengths=[33, 0, 1, 20])
+    t = [torch.from_numpy(a) for a in args]
+    plan = fd.plan_ranges(9, 4, splits)
+    assert plan[2] == 2
+    got = _range_partials(*t, window, 4, plan)
+    want = fd.flash_decode_plain(*t, window=window, num_splits=splits)
+    torch.testing.assert_close(got, want, **TOL)
+    assert not got[1].any()
+
+
+def test_vector_path_needs_bf16_hd8_and_16_bytes():
+    """The 16-byte path is chosen for bf16 pools with hd % 8 == 0 on 16
+    bytes (the serving and gemma3 shapes); fp32 pools, odd head dims and
+    an offset view take the scalar path."""
+    def pool(hd, dtype=torch.bfloat16):
+        return torch.zeros(4, 16, 2, hd, dtype=dtype)
+    assert fd.vector_path(pool(64), pool(64))
+    assert fd.vector_path(pool(128), pool(128))
+    assert not fd.vector_path(pool(64, torch.float32), pool(64, torch.float32))
+    assert not fd.vector_path(pool(17), pool(17))
+    flat = torch.zeros(1 + 4 * 16 * 2 * 64, dtype=torch.bfloat16)
+    shifted = flat[1:].view(4, 16, 2, 64)
+    assert not fd.vector_path(shifted, pool(64))
