@@ -12,8 +12,10 @@ device or without the port beside it. Any failure raises. Phases:
 2. Each of the four CUDA kernels of the DCT-AdamW step against its plain
    PyTorch version, on the card, at the main path's shapes: G of
    (24, 1024, 1024) and (24, 2816, 1024) with a planted spectrum, r = 128.
-   Times are per training step (4 launches at the first shape, 3 at the
-   second, as the seven matrix leaves of llama-350m give), from CUDA events.
+   ``dct_project`` is launched twice (S and norms bit-identical) and timed
+   beside ``torch.matmul(g, q)``. Times are per training step (4 launches
+   at the first shape, 3 at the second, as the seven matrix leaves of
+   llama-350m give), from CUDA events.
    Then one fused-"on" optimizer update of a square and a transposed leaf
    against the reference path ("off") on the card.
 3. The main path: ``repro_torch.launch.train`` with llama-350m at full width
@@ -71,22 +73,28 @@ device or without the port beside it. Any failure raises. Phases:
 10. The bf16 and int8 variants of ``dct_project`` and of the single and
    dual ``colgather_matmul`` against their plain versions at the main
    path's shapes: int8 bit-equal (exact integer sums, the same epilogue),
-   the bf16 colgathers within ``LOWP_RTOL`` of max |out| and the bf16
-   ``dct_project`` (tensor cores) within ``LOWP_TC_RTOL``, the norms of each
-   giving the top-128 of the planted spectrum that fp32 gives, each
-   precision within ``LOWP_ERROR_BOUNDS`` of fp32. Times per DCT-AdamW
-   step: the kernel alone on quantized operands and the wrapper with its
-   operand quantization, bounds at the precision's peak; library times the
-   bf16 GEMM with an fp32 result and ``torch._int_mm`` on the int8 codes.
+   the int8 ``dct_project``'s quantizer kernels (``quant_rows_q8`` of G,
+   ``quant_cols_q8t`` of Q, codes written as Q^T's) bit-equal to
+   ``lowp.quant_rows`` / ``quant_cols``, the int8 and bf16 ``dct_project``
+   relaunched bit-identical, the bf16 colgathers within ``LOWP_RTOL`` of max
+   |out| and the bf16 ``dct_project`` (tensor cores) within
+   ``LOWP_TC_RTOL``, the norms of each giving the top-128 of the planted
+   spectrum that fp32 gives, each precision within ``LOWP_ERROR_BOUNDS`` of
+   fp32. Times per DCT-AdamW step: the kernel alone on quantized operands
+   and the wrapper with its operand quantization, bounds at the
+   precision's peak; library times the bf16 GEMM with an fp32 result and
+   ``torch._int_mm`` on the int8 codes.
 11. DCT-AdamW's precisions and bases at full width and depth, 3 steps each,
    the counters zeroed just before and read just after each: ``--compute-
-   dtype int8`` (7 ``dct_project_q8``, 7 ``colgather_matmul_dual_q8``, 7 of
-   each EF kernel per step, no fp32 projection), ``--compute-dtype bf16``,
-   the API with ``error_feedback=False`` in int8 (7 ``colgather_matmul_q8``,
-   no EF kernel) and in bf16, ``--basis hadamard`` (the fp32 kernels) and
+   dtype int8`` (7 ``dct_project_q8``, 7 ``quant_rows_q8``, 7
+   ``quant_cols_q8t``, 7 ``colgather_matmul_dual_q8``, 7 of each EF kernel
+   per step, no fp32 projection), ``--compute-dtype bf16``, the API with
+   ``error_feedback=False`` in int8 (7 ``colgather_matmul_q8``, no EF
+   kernel) and in bf16, ``--basis hadamard`` (the fp32 kernels) and
    ``--basis hadamard --fused fft`` (no kernel). Each step-1 loss must
    equal phase 3's: the same seed gives the same weights and batch. Then
-   where an int8 step goes, as in phase 4.
+   where an int8 step goes, as in phase 4, its launch count beside
+   ``INT8_STEP_LAUNCHES_BEFORE``.
 12. The dense attention kernels against their plain versions on the card,
    each launched twice (bit-identical), at (a) llama-350m's prefill (8 x
    512, 16 / 16 heads of 64, causal, bf16, kv chunk 512), (b) a gemma3-27b
@@ -202,16 +210,17 @@ OFFDIAG_TOL, SV_LO, SV_HI = 0.35, 0.3, 1.35
 # launches per step of each kernel; unnamed kernels 0). Steps: LOWP_STEPS.
 LOWP_STEPS = 3
 _EF = {"quantize_ef": LAUNCHES_PER_STEP, "dequant_add_ef": LAUNCHES_PER_STEP}
+# the int8 dct_project: its kernel and one quantizer launch per operand
+_Q8 = {"dct_project_q8": LAUNCHES_PER_STEP, "quant_rows_q8": LAUNCHES_PER_STEP,
+       "quant_cols_q8t": LAUNCHES_PER_STEP}
 LOWP_PATHS = {
     "int8": (["--compute-dtype", "int8"],
-             {"dct_project_q8": LAUNCHES_PER_STEP,
-              "colgather_matmul_dual_q8": LAUNCHES_PER_STEP, **_EF}),
+             {**_Q8, "colgather_matmul_dual_q8": LAUNCHES_PER_STEP, **_EF}),
     "bf16": (["--compute-dtype", "bf16"],
              {"dct_project_bf16": LAUNCHES_PER_STEP,
               "colgather_matmul_dual_bf16": LAUNCHES_PER_STEP, **_EF}),
     "int8 discard": ({"error_feedback": False, "compute_dtype": "int8"},
-                     {"dct_project_q8": LAUNCHES_PER_STEP,
-                      "colgather_matmul_q8": LAUNCHES_PER_STEP}),
+                     {**_Q8, "colgather_matmul_q8": LAUNCHES_PER_STEP}),
     "bf16 discard": ({"error_feedback": False, "compute_dtype": "bf16"},
                      {"dct_project_bf16": LAUNCHES_PER_STEP,
                       "colgather_matmul_bf16": LAUNCHES_PER_STEP}),
@@ -220,6 +229,10 @@ LOWP_PATHS = {
                   "colgather_matmul_dual": LAUNCHES_PER_STEP, **_EF}),
     "hadamard fft": (["--basis", "hadamard", "--fused", "fft"], {}),
 }
+# the kernel launches of one profiled int8 DCT-AdamW step while its
+# projection's operands were quantized by PyTorch ops (commit 7c620c3;
+# NVIDIA H100 80GB HBM3, 700 W): phase 11 prints its own count beside it
+INT8_STEP_LAUNCHES_BEFORE = 8613
 # a bf16 kernel against its plain version: the same rounded operands
 # multiplied exactly, fp32 sums in another order; relative to max |out|
 LOWP_RTOL = 1e-6
@@ -402,6 +415,10 @@ def check_kernels(torch, dev) -> dict:
         idx_k = select_top_r(n_k, RANK)
         idx_p = select_top_r(n_p, RANK)
         assert torch.equal(idx_k, idx_p), f"top-r differs {shape}"
+        again = dp.dct_project(g, q)
+        assert torch.equal(again[0], s_k) and torch.equal(again[1], n_k), \
+            f"dct_project {shape}: a relaunch differs"
+        del again
         acc("dct_project", per_step, err,
             _time_ms(lambda: dp.dct_project(g, q)),
             _time_ms(lambda: dp.dct_project_plain(g, q)),
@@ -409,7 +426,8 @@ def check_kernels(torch, dev) -> dict:
             4.0 * (2 * e + n * n + nb * n), 2.0 * e * n + 2.0 * e)
         print(json.dumps({"kernel": "dct_project", "shape": list(shape),
                           "max_abs_err_S": err, "max_rel_err_norms": norm_rel,
-                          "top_r_equal": True}), flush=True)
+                          "top_r_equal": True, "relaunch_bit_identical": True}),
+              flush=True)
 
         # colgather_matmul_dual on the selected columns
         b1 = take_columns(s_k, idx_k).contiguous()
@@ -561,7 +579,10 @@ def time_breakdown(torch, dev, optimizer: str = "dct_adamw",
     timed alone with CUDA events (the step is functional, so a part can be
     repeated on the same state); then the optimizer update alone and one
     whole step run under ``torch.profiler`` for the device time by kernel
-    and the device's idle share of the step's wall time."""
+    and the device's idle share of the step's wall time. A profile can lose
+    the first kernel records of its window (one leaf's launches of an
+    optimizer update, now and then): the launch counters, asserted by the
+    phases that drive each path, are the count of record."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.registry import get_config
@@ -606,6 +627,9 @@ def time_breakdown(torch, dev, optimizer: str = "dct_adamw",
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "kernel_launches": sum(e.count for e in kernels),
+        **({"kernel_launches_before_quantizer_kernels":
+            INT8_STEP_LAUNCHES_BEFORE}
+           if opt_kw.get("compute_dtype") == "int8" else {}),
         "top_device_kernels": _top(kernels, 12),
         "optimizer_update_device_ms": obusy_ms,
         "optimizer_update_launches": sum(e.count for e in okernels),
@@ -877,11 +901,13 @@ def check_lowp_kernels(torch, dev) -> dict:
     from repro_torch.kernels import colgather_matmul as cg
     from repro_torch.kernels import dct_project as dp
     from repro_torch.kernels import lowp
+    from repro_torch.kernels import quant_ef as qe
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    names = ("dct_project_bf16", "dct_project_q8",
-             "colgather_matmul_dual_bf16", "colgather_matmul_dual_q8",
-             "colgather_matmul_bf16", "colgather_matmul_q8")
+    names = ("dct_project_bf16", "dct_project_q8", "quant_rows_q8",
+             "quant_cols_q8t", "colgather_matmul_dual_bf16",
+             "colgather_matmul_dual_q8", "colgather_matmul_bf16",
+             "colgather_matmul_q8")
     rows = {name: _lowp_row() for name in names}
     lib = _mm_out_dtype(torch)
     int_mm = _has_cuda_op(torch, "aten::_int_mm")
@@ -898,15 +924,26 @@ def check_lowp_kernels(torch, dev) -> dict:
         idx32 = select_top_r(n32, RANK)
         case = {"shape": list(shape)}
 
-        # the projections
+        # the projections; the int8 route's quantizers against lowp's
         gq, sg = lowp.quant_rows(g)
         qq, sq = lowp.quant_cols(q)
+        gq_k, sg_k = qe.quant_rows_q8(g)
+        qtq, sq_k = qe.quant_cols_q8t(q)
         s_bf, n_bf = dp.dct_project(g, q, compute_dtype="bf16")
         sp_bf, np_bf = dp.dct_project_plain(g, q, compute_dtype="bf16")
         s_q8, n_q8 = dp.dct_project(g, q, compute_dtype="int8")
         sp_q8, np_q8 = dp.dct_project_q8_plain(gq, sg, qq, sq)
         torch.cuda.synchronize()
+        assert torch.equal(gq_k, gq) and torch.equal(sg_k, sg), \
+            f"quant_rows_q8 {shape}: differs from lowp.quant_rows"
+        assert torch.equal(qtq, qq.T) and torch.equal(sq_k, sq), \
+            f"quant_cols_q8t {shape}: differs from lowp.quant_cols"
+        del gq_k, sg_k, sq_k
         assert torch.equal(s_q8, sp_q8), f"dct_project_q8 {shape}: S differs"
+        again = dp.dct_project_q8t(gq, sg, qtq, sq)
+        assert torch.equal(again[0], s_q8) and torch.equal(again[1], n_q8), \
+            f"dct_project_q8 {shape}: a relaunch differs"
+        del again
         e_bf = _rel(s_bf, sp_bf)
         assert e_bf <= LOWP_TC_RTOL, f"dct_project_bf16 {shape}: rel {e_bf}"
         again = dp.dct_project_bf16(g, q)
@@ -939,17 +976,28 @@ def check_lowp_kernels(torch, dev) -> dict:
                                           out_dtype=torch.float32))
                 if lib else None),
             "dct_project_q8": (
-                _time_ms(lambda: dp.dct_project_q8(gq, sg, qq, sq)),
+                _time_ms(lambda: dp.dct_project_q8t(gq, sg, qtq, sq)),
                 _time_ms(lambda: dp.dct_project(g, q, compute_dtype="int8")),
                 _time_ms(lambda: dp.dct_project_q8_plain(gq, sg, qq, sq)),
                 _library_ms(lambda: torch._int_mm(gq.view(-1, n), qq))
-                if int_mm else None)}
+                if int_mm else None),
+            "quant_rows_q8": (_time_ms(lambda: qe.quant_rows_q8(g)), None,
+                              _time_ms(lambda: lowp.quant_rows(g)), None),
+            "quant_cols_q8t": (_time_ms(lambda: qe.quant_cols_q8t(q)), None,
+                               _time_ms(lambda: qe.quant_cols_q8t_plain(q)),
+                               None)}
         # bytes: the function's inputs read once and outputs written once
         out_b = 4.0 * (e + nb * n)                       # S and the norms
         cost = {"dct_project_bf16": (4.0 * (e + n * n) + out_b, 2.0 * e * n,
                                      PEAK_BF16_PER_S),
                 "dct_project_q8": (1.0 * (e + n * n) + 4.0 * (nb * m + n)
-                                   + out_b, 2.0 * e * n, PEAK_INT8_PER_S)}
+                                   + out_b, 2.0 * e * n, PEAK_INT8_PER_S),
+                # fp32 in, codes and scales out; a division, a rounding and
+                # a clip per element (as quantize_ef's row of phase 2)
+                "quant_rows_q8": (5.0 * e + 4.0 * nb * m, 5.0 * e,
+                                  PEAK_FP32_PER_S),
+                "quant_cols_q8t": (5.0 * n * n + 4.0 * n, 5.0 * n * n,
+                                   PEAK_FP32_PER_S)}
         del g16, q16
 
         # the back-projections on the selected columns
@@ -1045,11 +1093,13 @@ def check_lowp_kernels(torch, dev) -> dict:
             row["peak"] = peak
         case["per_call_ms"] = dict(times)
         report.append(case)
-        del g, s32, n32, s_bf, sp_bf, s_q8, sp_q8, gq, b1, b2, b1q, b2q, o32
+        del g, s32, n32, s_bf, sp_bf, s_q8, sp_q8, gq, qtq, b1, b2, b1q, b2q, \
+            o32
         torch.cuda.empty_cache()
     print(json.dumps({
         "lowp_kernels": report,
-        "tolerance": f"int8 bit-equal; bf16 colgathers {LOWP_RTOL}, bf16 "
+        "tolerance": f"int8 bit-equal (and its quantizers' codes and "
+                     f"scales); bf16 colgathers {LOWP_RTOL}, bf16 "
                      f"dct_project (tensor cores, relaunch bit-identical) "
                      f"{LOWP_TC_RTOL} of max |out|; norms 1e-5 relative, "
                      "top-128 equal to fp32's; each within "
@@ -2007,6 +2057,8 @@ def main() -> int:
                                     "src/repro/kernels/dct_project.py:63"),
                "dct_project_q8": ("dct_project.cu",
                                   "src/repro/kernels/dct_project.py:93"),
+               "quant_rows_q8": ("quant_ef.cu", "src/repro/kernels/lowp.py:66"),
+               "quant_cols_q8t": ("quant_ef.cu", "src/repro/kernels/lowp.py:75"),
                "colgather_matmul_dual_bf16": (
                    "colgather_matmul.cu", "src/repro/kernels/colgather_matmul.py:80"),
                "colgather_matmul_dual_q8": (
@@ -2024,8 +2076,13 @@ def main() -> int:
                  "launches); ms: the kernel alone, wrapper_ms: with the "
                  "operand quantization; bound at the precision's tensor-core "
                  "peak; launches from phase 11's {} run")
+    quant_note = ("per DCT-AdamW training step at the main path's shapes (7 "
+                  "launches), the int8 dct_project's operand quantizer; "
+                  "plain: lowp.quant_rows (of Q^T for quant_cols_q8t, made "
+                  "contiguous); launches from phase 11's int8 run")
     lowp_path = {"dct_project_bf16": "bf16", "colgather_matmul_dual_bf16": "bf16",
                  "dct_project_q8": "int8", "colgather_matmul_dual_q8": "int8",
+                 "quant_rows_q8": "int8", "quant_cols_q8t": "int8",
                  "colgather_matmul_q8": "int8 discard",
                  "colgather_matmul_bf16": "bf16 discard"}
     times_are = {
@@ -2073,7 +2130,8 @@ def main() -> int:
                 "library_ms": row["library_ms"],
                 "wrapper_ms": row["wrapper_ms"],
                 "launches_per_step": counts[name] / LOWP_STEPS,
-                "times_are": lowp_note.format(lowp_path[name])})
+                "times_are": quant_note if name.startswith("quant_")
+                else lowp_note.format(lowp_path[name])})
             continue
         kernels.append({
             "name": name, "route": "cuda",

@@ -1,6 +1,7 @@
 // Tensor-core building blocks of the Hopper kernels (sm_90a): cp.async
 // copies into shared memory, ldmatrix fragment loads, the bf16
 // mma.sync.m16n8k16 and the TF32 mma.sync.m16n8k8 with fp32 accumulators,
+// the int8 mma.sync.m16n8k32 with int32 accumulators,
 // and the split of an fp32 value into the two TF32 parts of a 3xTF32
 // product (about fp32's accuracy on the TF32 path).
 //
@@ -65,6 +66,21 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
+}
+
+// d += a . b on the tensor cores: int8 operands, exact int32 sums (no
+// saturation: the caller keeps every sum below 2^31). Fragments of
+// m16n8k32, four int8 of consecutive k per register: A {row g, k 4t..4t+3},
+// {row g + 8, k 4t..}, {row g, k 16 + 4t..}, {row g + 8, k 16 + 4t..} --
+// byte for byte m16n8k16's bf16 layout, so ldmatrix_x4 loads it the same
+// way; B {k 4t..4t+3, col g}, {k 16 + 4t.., col g}; C as m16n8k16's.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                       unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // d += a . b on the tensor cores: bf16 operands, exact products, fp32 sums

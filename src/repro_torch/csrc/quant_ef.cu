@@ -1,4 +1,5 @@
-// int8 error-feedback kernels of DCT-AdamW (paper §2.4) for Hopper.
+// int8 quantizers and the error-feedback kernels of DCT-AdamW (paper §2.4)
+// for Hopper.
 //
 // quantize_ef replaces repro/kernels/quant_ef.py::_quant_kernel and
 // dequant_add_ef replaces ::_dequant_add_kernel. Both are bound by bytes:
@@ -7,6 +8,17 @@
 // keeps the row scale in a register for the whole row, so the per-row amax
 // needs no second kernel and the dequant-add needs no division to find its
 // row. Leading stacked axes are collapsed into the row count by the caller.
+//
+// The int8 dct_project's operands are quantized here too, one launch each
+// (the JAX package's repro/kernels/lowp.py quant_rows / quant_cols, which
+// XLA fuses into its jitted step): G per row by the same kernel as the EF
+// buffer (entry point repro_quant_rows_q8, its own launch count), and Q per
+// column by quant_cols_q8t, which writes Q^T's codes (row j = column j of
+// Q), the layout dct_project.cu's int8 kernel reads. A CTA owns 32 columns:
+// it reads them once for the column amax, then again (from L2) in chunks
+// of rows that it quantizes and transposes through shared memory, so the
+// codes are written along rows of Q^T. Bound: bytes; Q is small (n x n),
+// so it is a few microseconds a launch.
 //
 // Numerics follow the JAX reference exactly: IEEE division x / scale (not a
 // multiply by 1/scale, which flips int8 ties), round half to even (rintf),
@@ -56,6 +68,63 @@ quantize_ef_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
   }
 }
 
+// x (rows, cols) row-major -> per-column scales (cols) and the codes of x^T
+// (cols, rows): qt[j * rows + i] = code of x[i, j]. A CTA of 32 x 32
+// threads owns 32 columns: thread (tx, ty) reads column tx at rows ty,
+// ty + 32, ... (128 contiguous bytes per warp), first for the amax, then in
+// chunks of kChunk rows whose codes go through shared memory, so the
+// stores run along rows of x^T.
+constexpr int kChunk = 256;
+
+__global__ void __launch_bounds__(1024)
+quant_cols_q8t_kernel(const float* __restrict__ x, int8_t* __restrict__ qt,
+                      float* __restrict__ scale, int rows, int cols) {
+  __shared__ float part[32][33];
+  __shared__ float col_scale[32];
+  __shared__ int8_t tile[32][kChunk + 4];  // [column][row of the chunk]
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * 32 + tx;
+  const int j0 = blockIdx.x * 32, j = j0 + tx;
+
+  float amax = 0.f;
+  if (j < cols) {
+#pragma unroll 8
+    for (int i = ty; i < rows; i += 32)
+      amax = fmaxf(amax, fabsf(x[static_cast<long long>(i) * cols + j]));
+  }
+  part[ty][tx] = amax;
+  __syncthreads();
+  if (ty == 0) {
+    float m = part[0][tx];
+    for (int w = 1; w < 32; ++w) m = fmaxf(m, part[w][tx]);
+    // the same scale as quantize_ef_kernel's rows
+    const float s = fmaxf(__fdiv_rn(m, 127.f), FLT_MIN);
+    col_scale[tx] = s;
+    if (j < cols) scale[j] = s;
+  }
+  __syncthreads();
+
+  const float s = col_scale[tx];
+  for (int i0 = 0; i0 < rows; i0 += kChunk) {
+#pragma unroll
+    for (int r = ty; r < kChunk; r += 32) {
+      const int i = i0 + r;
+      int8_t code = 0;
+      if (i < rows && j < cols) {
+        const float v = rintf(__fdiv_rn(x[static_cast<long long>(i) * cols + j], s));
+        code = static_cast<int8_t>(fminf(fmaxf(v, -127.f), 127.f));
+      }
+      tile[tx][r] = code;
+    }
+    __syncthreads();
+    for (int e = tid; e < 32 * kChunk; e += 1024) {
+      const int c = e / kChunk, r = e % kChunk;
+      if (j0 + c < cols && i0 + r < rows)
+        qt[static_cast<long long>(j0 + c) * rows + i0 + r] = tile[c][r];
+    }
+    __syncthreads();
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 dequant_add_ef_kernel(const float* __restrict__ g, const int8_t* __restrict__ q,
                       const float* __restrict__ scale, float* __restrict__ out, int n) {
@@ -68,11 +137,34 @@ dequant_add_ef_kernel(const float* __restrict__ g, const int8_t* __restrict__ q,
 
 }  // namespace
 
-extern "C" int repro_quantize_ef(const float* x, int8_t* q, float* scale,
-                                 long long rows, int n, void* stream) {
+namespace {
+
+int quantize_rows(const float* x, int8_t* q, float* scale, long long rows, int n,
+                  void* stream) {
   if (rows > 0 && n > 0)
     quantize_ef_kernel<<<static_cast<unsigned>(rows), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(x, q, scale, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int repro_quantize_ef(const float* x, int8_t* q, float* scale,
+                                 long long rows, int n, void* stream) {
+  return quantize_rows(x, q, scale, rows, n, stream);
+}
+
+// the int8 dct_project's G: the same kernel, launched for another caller
+extern "C" int repro_quant_rows_q8(const float* x, int8_t* q, float* scale,
+                                   long long rows, int n, void* stream) {
+  return quantize_rows(x, q, scale, rows, n, stream);
+}
+
+extern "C" int repro_quant_cols_q8t(const float* x, int8_t* qt, float* scale, int rows,
+                                    int cols, void* stream) {
+  if (rows > 0 && cols > 0)
+    quant_cols_q8t_kernel<<<static_cast<unsigned>((cols + 31) / 32), dim3(32, 32), 0,
+                            static_cast<cudaStream_t>(stream)>>>(x, qt, scale, rows, cols);
   return static_cast<int>(cudaGetLastError());
 }
 

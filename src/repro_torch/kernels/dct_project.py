@@ -15,11 +15,17 @@ On CUDA tensors ``dct_project`` launches the matching kernel of
 and ``::_kernel_q8``; see the source note for what bounds each) and its
 fixed-order row-block reduction of the norms, or raises; each precision has
 a launcher with its own launch count (``dct_project``, ``dct_project_bf16``,
-``dct_project_q8``). For int8 the operands are quantized by the same PyTorch
-ops as the plain version, outside the kernel, as in the JAX package. On CPU
-tensors every entry point runs its plain version. Leading stacked-layer axes
-of ``G`` become the kernel's batch grid dimension: every layer is projected
-in one launch against the one shared basis.
+``dct_project_q8``). For int8 the operands are quantized by two kernels of
+``csrc/quant_ef.cu``, one launch each and counted on their own names:
+``quant_rows_q8`` (G per row) and ``quant_cols_q8t`` (Q per column, its
+codes written as ``Q^T``'s, the layout the int8 kernel reads); codes and
+scales equal ``lowp.quant_rows`` / ``quant_cols``' bit for bit.
+``dct_project_q8t`` is the int8 launcher on ``Q^T``'s codes, the one the
+main path calls; ``dct_project_q8`` takes ``Q``'s codes (the plain
+version's arguments) and transposes them first. On CPU tensors every entry
+point runs its plain version. Leading stacked-layer axes of ``G`` become
+the kernel's batch grid dimension: every layer is projected in one launch
+against the one shared basis.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import torch
 from . import cuda_lib
 from .lowp import (check_compute_dtype, check_q8_depth, int_matmul,
                    lowp_matmul, quant_cols, quant_rows)
+from .quant_ef import quant_cols_q8t, quant_rows_q8
 
 
 def _with_norms(s32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -41,6 +48,14 @@ def dct_project_q8_plain(gq: torch.Tensor, sg: torch.Tensor,
     row scales ``sg`` (..., m, 1), ``qq`` (n, n) int8 with column scales
     ``sq`` (1, n). ``S = (float(sum) * sg) * sq`` in that order."""
     return _with_norms(int_matmul(gq, qq) * sg * sq)
+
+
+def dct_project_q8t_plain(gq: torch.Tensor, sg: torch.Tensor,
+                          qtq: torch.Tensor, sq: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``dct_project_q8_plain`` on ``Q^T``'s codes: ``qtq[j, k] ==
+    qq[k, j]``."""
+    return dct_project_q8_plain(gq, sg, qtq.mT, sq)
 
 
 def dct_project_plain(g: torch.Tensor, q: torch.Tensor, out_dtype=None,
@@ -97,33 +112,51 @@ def dct_project_bf16(g: torch.Tensor, q: torch.Tensor
     return out
 
 
+def _check_q8(name: str, gq: torch.Tensor, sg: torch.Tensor,
+              qq: torch.Tensor, sq: torch.Tensor) -> torch.device:
+    """Shapes, depth and device of an int8 product's operands."""
+    *_, m, n = gq.shape
+    if tuple(qq.shape) != (n, n) or tuple(sg.shape) != (*gq.shape[:-1], 1) \
+            or tuple(sq.shape) != (1, n):
+        raise ValueError(f"{name}: shapes gq {tuple(gq.shape)} sg "
+                         f"{tuple(sg.shape)} codes of Q {tuple(qq.shape)} sq "
+                         f"{tuple(sq.shape)} do not fit")
+    check_q8_depth(n)
+    return cuda_lib.same_device(gq, sg, qq, sq)
+
+
+def dct_project_q8t(gq: torch.Tensor, sg: torch.Tensor, qtq: torch.Tensor,
+                    sq: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 product on ``Q^T``'s codes (``dct_project_q8t_plain``'s
+    arguments; ``quant_cols_q8t`` makes them): fp32 ``(S, norms)``, S equal
+    to the plain version's bit for bit. Counted as ``dct_project_q8``."""
+    if _check_q8("dct_project_q8t", gq, sg, qtq, sq).type == "cpu":
+        return dct_project_q8t_plain(gq, sg, qtq, sq)
+    cuda_lib.require_cuda("dct_project_q8t gq", gq, torch.int8)
+    cuda_lib.require_cuda("dct_project_q8t sg", sg, torch.float32)
+    cuda_lib.require_cuda("dct_project_q8t qtq", qtq, torch.int8)
+    cuda_lib.require_cuda("dct_project_q8t sq", sq, torch.float32)
+    batch, nb, m, n = _launch_shape("dct_project_q8t", gq)
+    s, norms, partial = _outputs(gq, batch, nb, m, n)
+    rc = cuda_lib.library().repro_dct_project_q8t(
+        gq.data_ptr(), qtq.data_ptr(), sg.data_ptr(), sq.data_ptr(),
+        s.data_ptr(), partial.data_ptr(), norms.data_ptr(), nb, m, n,
+        cuda_lib.stream(gq))
+    cuda_lib.check(rc, "dct_project_q8t")
+    dct_project_q8.launches += 1
+    return s, norms
+
+
 def dct_project_q8(gq: torch.Tensor, sg: torch.Tensor, qq: torch.Tensor,
                    sq: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The int8 product of quantized operands (``dct_project_q8_plain``'s
     arguments): fp32 ``(S, norms)``, S equal to the plain version's bit for
-    bit."""
-    *_, m, n = gq.shape
-    if tuple(qq.shape) != (n, n) or tuple(sg.shape) != (*gq.shape[:-1], 1) \
-            or tuple(sq.shape) != (1, n):
-        raise ValueError(f"dct_project_q8: shapes gq {tuple(gq.shape)} sg "
-                         f"{tuple(sg.shape)} qq {tuple(qq.shape)} sq "
-                         f"{tuple(sq.shape)} do not fit")
-    check_q8_depth(n)
-    if cuda_lib.same_device(gq, sg, qq, sq).type == "cpu":
+    bit. On the card ``qq`` is transposed (one copy) for
+    ``dct_project_q8t``."""
+    if _check_q8("dct_project_q8", gq, sg, qq, sq).type == "cpu":
         return dct_project_q8_plain(gq, sg, qq, sq)
-    cuda_lib.require_cuda("dct_project_q8 gq", gq, torch.int8)
-    cuda_lib.require_cuda("dct_project_q8 sg", sg, torch.float32)
     cuda_lib.require_cuda("dct_project_q8 qq", qq, torch.int8)
-    cuda_lib.require_cuda("dct_project_q8 sq", sq, torch.float32)
-    batch, nb, m, n = _launch_shape("dct_project_q8", gq)
-    s, norms, partial = _outputs(gq, batch, nb, m, n)
-    rc = cuda_lib.library().repro_dct_project_q8(
-        gq.data_ptr(), qq.data_ptr(), sg.data_ptr(), sq.data_ptr(),
-        s.data_ptr(), partial.data_ptr(), norms.data_ptr(), nb, m, n,
-        cuda_lib.stream(gq))
-    cuda_lib.check(rc, "dct_project_q8")
-    dct_project_q8.launches += 1
-    return s, norms
+    return dct_project_q8t(gq, sg, qq.mT.contiguous(), sq)
 
 
 def dct_project(g: torch.Tensor, q: torch.Tensor, *, out_dtype=None,
@@ -142,7 +175,7 @@ def dct_project(g: torch.Tensor, q: torch.Tensor, *, out_dtype=None,
         raise NotImplementedError("dct_project: only fp32 S is ported")
     if compute_dtype == "int8":
         cuda_lib.require_cuda("dct_project g", g, torch.float32)
-        return dct_project_q8(*quant_rows(g), *quant_cols(q))
+        return dct_project_q8t(*quant_rows_q8(g), *quant_cols_q8t(q))
     if compute_dtype == "bf16":
         return dct_project_bf16(g, q)
     out = _launch_f32("dct_project", g, q)

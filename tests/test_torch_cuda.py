@@ -510,6 +510,8 @@ def test_cuda_lowp_kernels_match_plain(cuda, name, r):
     assert torch.equal(cg.colgather_matmul(b1, qt, idx, compute_dtype="int8"),
                        cg.colgather_matmul_plain(b1, qt, idx,
                                                  compute_dtype="int8"))
+    # the one int8 dct_project also launched each of its operand quantizers
+    # (quant_rows_q8, quant_cols_q8t) once; the int8 colgathers none
     assert ops.launch_counts(ops.LOWP) == {name: 1 for name in ops.LOWP}
     assert not any(ops.launch_counts(ops.TRAINING).values())
 
@@ -586,4 +588,69 @@ def test_cuda_dct_project_bf16_ragged(cuda, name, offset):
     assert dp.dct_project_bf16.launches == before + 2
     assert torch.equal(s, again[0]) and torch.equal(norms, again[1])
     _assert_rel_max(s, s_p, LOWP_TC_RTOL)
+    torch.testing.assert_close(norms, norms_p, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("name", list(BF16_PROJECT_SHAPES))
+def test_cuda_dct_project_f32_ragged(cuda, name, offset):
+    """The fp32 kernel at ragged shapes: S within 1e-5 of max |S| of the
+    plain version, the norms at 1e-5, a relaunch bit-identical; ``offset``
+    1 puts G 4 bytes off 16 (the 4-byte copies)."""
+    *batch, m, n = BF16_PROJECT_SHAPES[name]
+    size = int(np.prod(batch, dtype=int)) * m * n
+    flat = torch.from_numpy(_rand(offset + size, 12)).to(cuda)
+    g = flat[offset:].view(*batch, m, n)
+    q = dct2_matrix(n, device=cuda)
+    before = dp.dct_project.launches
+    s, norms = dp.dct_project(g, q)
+    again = dp.dct_project(g, q)
+    s_p, norms_p = dp.dct_project_plain(g, q)
+    torch.cuda.synchronize()
+    assert dp.dct_project.launches == before + 2
+    assert torch.equal(s, again[0]) and torch.equal(norms, again[1])
+    _assert_rel_max(s, s_p, 1e-5)
+    torch.testing.assert_close(norms, norms_p, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("name", list(BF16_PROJECT_SHAPES))
+def test_cuda_dct_project_q8_ragged(cuda, name, offset):
+    """The int8 route at ragged shapes: its quantizers' codes and scales
+    equal ``lowp.quant_rows`` / ``quant_cols`` (transposed), S equal to the
+    plain version bit for bit, the norms at 1e-5, the kernel relaunched on
+    codes ``offset`` bytes off 16 (1: the byte copies; the route's own codes
+    take the 16-byte copies where n % 16 == 0, else the 4-byte or byte
+    ones) bit-identical, each launch counted once on its own name."""
+    from repro_torch.kernels import lowp
+    *batch, m, n = BF16_PROJECT_SHAPES[name]
+    size = int(np.prod(batch, dtype=int)) * m * n
+    flat = torch.from_numpy(_rand(offset + size, 13)).to(cuda)
+    g = flat[offset:].view(*batch, m, n)
+    g[..., 0, :] = 0.0                              # zero and subnormal rows
+    if m > 1:
+        g[..., 1, :] = 1e-40
+    q = dct2_matrix(n, device=cuda)
+    ops.reset_launch_counts()
+    s, norms = dp.dct_project(g, q, compute_dtype="int8")
+    gq, sg = lowp.quant_rows(g)
+    qq, sq = lowp.quant_cols(q)
+    codes = torch.empty(offset + gq.numel(), dtype=torch.int8, device=cuda)
+    gq_off = codes[offset:].view(gq.shape)
+    gq_off.copy_(gq)
+    again = dp.dct_project_q8t(gq_off, sg, qq.T.contiguous(), sq)
+    assert ops.launch_counts() == {
+        k: (2 if k == "dct_project_q8" else
+            1 if k in ("quant_rows_q8", "quant_cols_q8t") else 0)
+        for k in ops.KERNELS}
+    s_p, norms_p = dp.dct_project_q8_plain(gq, sg, qq, sq)
+    q_rows, s_rows = qe.quant_rows_q8(g)
+    q_cols, s_cols = qe.quant_cols_q8t(q)
+    torch.cuda.synchronize()
+    assert torch.equal(q_rows, gq) and torch.equal(s_rows, sg)
+    assert torch.equal(q_cols, qq.T) and torch.equal(s_cols, sq)
+    assert torch.equal(s, s_p)
+    assert torch.equal(s, again[0]) and torch.equal(norms, again[1])
     torch.testing.assert_close(norms, norms_p, rtol=1e-5, atol=0)
