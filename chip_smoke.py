@@ -54,10 +54,10 @@ device or without the port beside it. Any failure raises. Phases:
    each launch twice (bit-identical, and the Gram exactly symmetric); the
    single-operand ``colgather_matmul`` at (24, 1024 | 2816, 128). Times are
    per training step of Trion (35 NS launches of each kernel) and of
-   subspace Muon (7 back-projections). Then the 5-step orthogonalization
-   through the kernels against the plain iteration at full-space Muon's
-   moments ((24, 1024, 1024) and (24, 1024, 2816) wide), held to each
-   other and timed per call and per step.
+   subspace Muon (7 back-projections); ``ns_apply`` and
+   ``torch.baddbmm`` are also timed as CUDA-graph replays of a step's
+   launches of each shape (the kernel takes ~20-50 us a call, which the
+   wrapper's host work rivals), and those replays are its row's times.
 8. Trion, the training CLI's default optimizer: ``repro_torch.launch.train``
    with llama-350m at full width and depth, its defaults (rank 128, fused
    auto) and 6 steps of batch 8 x 512, the counters zeroed just before and
@@ -69,21 +69,24 @@ device or without the port beside it. Any failure raises. Phases:
    kernel on either, 3 steps each, and full-space Muon, 2
    steps, at full width and depth, each with its launch counts (full-space
    Muon's NS runs the plain iteration: its short side of 1024 is past
-   ``NS_KERNEL_MAX_RANK``).
+   ``NS_KERNEL_MAX_RANK``, and past the apply kernel's envelope).
 10. The bf16 and int8 variants of ``dct_project`` and of the single and
    dual ``colgather_matmul`` against their plain versions at the main
    path's shapes: int8 bit-equal (exact integer sums, the same epilogue),
    the int8 ``dct_project``'s quantizer kernels (``quant_rows_q8`` of G,
    ``quant_cols_q8t`` of Q, codes written as Q^T's) bit-equal to
    ``lowp.quant_rows`` / ``quant_cols``, the int8 and bf16 ``dct_project``
-   relaunched bit-identical, the bf16 colgathers within ``LOWP_RTOL`` of max
-   |out| and the bf16 ``dct_project`` (tensor cores) within
-   ``LOWP_TC_RTOL``, the norms of each giving the top-128 of the planted
+   relaunched bit-identical, the bf16 ``dct_project`` and colgathers (all
+   on the tensor cores) within ``LOWP_TC_RTOL`` of max |out| and relaunched
+   bit-identical (the single colgather equal to the dual's first output),
+   the norms of each giving the top-128 of the planted
    spectrum that fp32 gives, each precision within ``LOWP_ERROR_BOUNDS`` of
    fp32. Times per DCT-AdamW step: the kernel alone on quantized operands
    and the wrapper with its operand quantization, bounds at the
    precision's peak; library times the bf16 GEMM with an fp32 result and
-   ``torch._int_mm`` on the int8 codes.
+   ``torch._int_mm`` on the int8 codes. Beside the bf16 colgathers, a
+   yardstick that is no single call (so no library time): the gather and
+   cuBLAS, ``torch.matmul(b.bfloat16(), qt[idx].bfloat16())``.
 11. DCT-AdamW's precisions and bases at full width and depth, 3 steps each,
    the counters zeroed just before and read just after each: ``--compute-
    dtype int8`` (7 ``dct_project_q8``, 7 ``quant_rows_q8``, 7
@@ -94,7 +97,7 @@ device or without the port beside it. Any failure raises. Phases:
    ``--basis hadamard --fused fft`` (no kernel). Each step-1 loss must
    equal phase 3's: the same seed gives the same weights and batch. Then
    where an int8 step goes, as in phase 4, its launch count beside
-   ``INT8_STEP_LAUNCHES_BEFORE``.
+   ``INT8_STEP_LAUNCHES_BEFORE``, and where a bf16 step goes.
 12. The dense attention kernels against their plain versions on the card,
    each launched twice (bit-identical), at (a) llama-350m's prefill (8 x
    512, 16 / 16 heads of 64, causal, bf16, kv chunk 512), (b) a gemma3-27b
@@ -233,14 +236,12 @@ LOWP_PATHS = {
 # projection's operands were quantized by PyTorch ops (commit 7c620c3;
 # NVIDIA H100 80GB HBM3, 700 W): phase 11 prints its own count beside it
 INT8_STEP_LAUNCHES_BEFORE = 8613
-# a bf16 kernel against its plain version: the same rounded operands
-# multiplied exactly, fp32 sums in another order; relative to max |out|
-LOWP_RTOL = 1e-6
-# the bf16 dct_project on the tensor cores against its plain version,
-# relative to max |S|: mma's fp32 accumulation is not a sequence of IEEE
-# adds, so the sums part by more than an order of fp32 adds would. Twice
-# the worst measured over this phase's shapes, 1.93e-6 at (24, 2816, 1024)
-# (NVIDIA H100 80GB HBM3, 700 W)
+# the bf16 kernels on the tensor cores (dct_project, the colgathers)
+# against their plain versions, relative to max |out|: the same rounded
+# operands multiplied exactly, but mma's fp32 accumulation is not a
+# sequence of IEEE adds, so the sums part by more than an order of fp32
+# adds would. Twice the worst measured over this phase's shapes, the
+# dct_project's 1.93e-6 at (24, 2816, 1024) (NVIDIA H100 80GB HBM3, 700 W)
 LOWP_TC_RTOL = 4e-6
 
 # serving: llama-350m's attention and the engine's settings
@@ -573,11 +574,11 @@ def run_main_path(torch):
 
 def time_breakdown(torch, dev, optimizer: str = "dct_adamw",
                    **opt_kw) -> None:
-    """Phase 4 (and 8 for Trion, 11 for int8 DCT-AdamW): where one training
-    step of llama-350m at batch 8 x 512 with ``optimizer`` at rank 128 (and
-    ``opt_kw``) goes. The step's parts are
-    timed alone with CUDA events (the step is functional, so a part can be
-    repeated on the same state); then the optimizer update alone and one
+    """Phase 4 (and 8 for Trion, 11 for int8 and bf16 DCT-AdamW): where one
+    training step of llama-350m at batch 8 x 512 with ``optimizer`` at rank
+    128 (and ``opt_kw``) goes. The step's parts are timed alone with CUDA
+    events (the step is functional, so a part can be repeated on the same
+    state); then the optimizer update alone and one
     whole step run under ``torch.profiler`` for the device time by kernel
     and the device's idle share of the step's wall time. A profile can lose
     the first kernel records of its window (one leaf's launches of an
@@ -675,6 +676,8 @@ def check_momentum_kernels(torch, dev) -> dict:
                    "bytes": 0.0, "flops": 0.0, "max_abs_err": 0.0}
             for name in ("ns_gram", "ns_apply", "colgather_matmul")}
     rows["colgather_matmul"]["library_ms"] = None
+    # ns_apply's ms and library_ms are CUDA-graph replays; eager beside them
+    rows["ns_apply"].update(wrapper_ms=0.0, library_eager_ms=0.0)
     full = {"ms": 0.0, "plain_ms": 0.0}
     report = []
     # tall factors (layers, rows, r) as Trion hands them to NS, launches per
@@ -736,9 +739,20 @@ def check_momentum_kernels(torch, dev) -> dict:
                  "apply_plain": _time_ms(lambda: ns.ns_apply_plain(x, poly, a)),
                  "apply_library": _time_ms(
                      lambda: torch.baddbmm(x, poly, x, beta=a)),
+                 # a step's launches of this shape captured in one graph:
+                 # device time without the wrapper's host work
+                 "apply_graph": _graph_ms(
+                     lambda: ns.ns_apply(x, poly, a=a, out=y_k), launches),
+                 "apply_library_graph": _graph_ms(
+                     lambda: torch.baddbmm(x, poly, x, beta=a), launches),
                  "ns5": _time_ms(lambda: ns.newton_schulz_kernel(bt)),
                  "ns5_plain": _time_ms(lambda: newton_schulz(bt))}
             case["per_call_ms"] = t
+            apply_row = rows["ns_apply"]
+            apply_row["wrapper_ms"] += launches * t["apply"]
+            apply_row["library_eager_ms"] += launches * t["apply_library"]
+            t_row = {**t, "apply": t["apply_graph"],
+                     "apply_library": t["apply_library_graph"]}
             for name, key, nbytes, flops in (
                     # A is symmetric: its r(r+1)/2 distinct entries
                     ("ns_gram", "gram", 4.0 * nb * (r * m + r * r),
@@ -746,9 +760,9 @@ def check_momentum_kernels(torch, dev) -> dict:
                     ("ns_apply", "apply", 4.0 * nb * (2 * r * m + r * r),
                      2.0 * nb * r * r * m + 2.0 * nb * r * m)):
                 row = rows[name]
-                row["ms"] += launches * t[key]
-                row["plain_ms"] += launches * t[key + "_plain"]
-                row["library_ms"] += launches * t[key + "_library"]
+                row["ms"] += launches * t_row[key]
+                row["plain_ms"] += launches * t_row[key + "_plain"]
+                row["library_ms"] += launches * t_row[key + "_library"]
                 row["bytes"] += launches * nbytes
                 row["flops"] += launches * flops
             full["ms"] += per_step * t["ns5"]
@@ -781,48 +795,11 @@ def check_momentum_kernels(torch, dev) -> dict:
         del bt, x, g_k, g_k2, g_p, poly, y_k, y_k2, y_p, o_k, o_p
     print(json.dumps({"momentum_kernels": report,
                       "ns5_ms_per_trion_step": full,
-                      "full_space": _full_space_routes(torch, dev, gen),
                       "tolerance": f"gram/apply/iteration {NS_RTOL} of max "
                                    f"|out|, 5 iterations {NS_FULL_RTOL}"}),
           flush=True)
     torch.cuda.empty_cache()
     return rows
-
-
-def _full_space_routes(torch, dev, gen) -> dict:
-    """Full-space Muon's NS on its whole moments, the kernels against the
-    plain iteration (the route ``NS_KERNEL_MAX_RANK`` picks at a short side
-    of 1024): both held to each other, timed per call and per step."""
-    from repro_torch.core.newton_schulz import NS_COEFFS, newton_schulz
-    from repro_torch.kernels import newton_schulz as ns
-
-    a, b, c = NS_COEFFS
-    out = {"ms_per_step": {"kernel": 0.0, "plain": 0.0}, "cases": []}
-    for shape, per_step in MAIN_SHAPES:
-        bt = torch.randn(shape, generator=gen, device=dev)
-        o_k = ns.newton_schulz_kernel(bt, steps=NS_STEPS)
-        o_p = newton_schulz(bt, steps=NS_STEPS)
-        torch.cuda.synchronize()
-        e_full = _rel(o_k, o_p)
-        assert torch.isfinite(o_k).all() and e_full <= NS_FULL_RTOL, \
-            f"newton_schulz {shape}: rel {e_full}"
-        del o_k, o_p
-        x = bt.mT.contiguous()
-        gram = ns.ns_gram(x)
-        poly = b * gram + c * torch.matmul(gram, gram)
-        t = {"ns5": _time_ms(lambda: ns.newton_schulz_kernel(bt), 3),
-             "ns5_plain": _time_ms(lambda: newton_schulz(bt), 3),
-             "gram": _time_ms(lambda: ns.ns_gram(x), 3),
-             "gram_plain": _time_ms(lambda: ns.ns_gram_plain(x), 3),
-             "apply": _time_ms(lambda: ns.ns_apply(x, poly, a=a), 3),
-             "apply_plain": _time_ms(lambda: ns.ns_apply_plain(x, poly, a), 3)}
-        out["cases"].append({"moment": list(shape), "rel_err_ns5": e_full,
-                             "per_call_ms": t})
-        out["ms_per_step"]["kernel"] += per_step * t["ns5"]
-        out["ms_per_step"]["plain"] += per_step * t["ns5_plain"]
-        del bt, x, gram, poly
-        torch.cuda.empty_cache()
-    return out
 
 
 def run_momentum_path(torch, name: str) -> dict:
@@ -1033,14 +1010,27 @@ def check_lowp_kernels(torch, dev) -> dict:
                     assert torch.equal(a, b), f"{name} {shape}: differs"
                 else:
                     err = _rel(a, b)
-                    assert err <= LOWP_RTOL, f"{name} {shape}: rel {err}"
+                    assert err <= LOWP_TC_RTOL, f"{name} {shape}: rel {err}"
                     rows[name]["max_abs_err"] = max(
                         rows[name]["max_abs_err"], (a - b).abs().max().item())
+                    case.setdefault(f"{name}_rel_err", []).append(err)
                 fro = (torch.linalg.norm(a.double() - c.double())
                        / torch.linalg.norm(c.double())).item()
                 assert fro <= lowp.LOWP_ERROR_BOUNDS[dt], f"{name} vs fp32"
                 case.setdefault(name, []).append(fro)
-        del outs
+        # the bf16 colgathers relaunched: the same bits, and the single
+        # operand's output is the dual's first
+        dual_bf = outs["colgather_matmul_dual_bf16"][0]
+        again = cg.colgather_matmul_dual_bf16(b1, b2, qt, idx32)
+        single = cg.colgather_matmul_bf16(b1, qt, idx32)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(again, dual_bf)), \
+            f"colgather_matmul_dual_bf16 {shape}: a relaunch differs"
+        assert torch.equal(single, outs["colgather_matmul_bf16"][0][0]) \
+            and torch.equal(single, dual_bf[0]), \
+            f"colgather_matmul_bf16 {shape}: differs from its relaunch or " \
+            f"the dual's first output"
+        del outs, again, single, dual_bf
         rows_needed = torch.unique(idx32).numel()
         times.update({
             "colgather_matmul_dual_bf16": (
@@ -1068,6 +1058,21 @@ def check_lowp_kernels(torch, dev) -> dict:
                     b1, qt, idx32, compute_dtype="int8")),
                 _time_ms(lambda: cg.colgather_q8_plain(((b1q, s1),), qt_q,
                                                        idx32)), None)})
+        # the bf16 colgathers' yardstick, two calls (no library time): the
+        # gather, then cuBLAS on bf16 operands with a bf16 result
+        idx_l = idx32.long()
+
+        def gather_cublas(bs):
+            rows16 = qt[idx_l].bfloat16()
+            return tuple(torch.matmul(x.bfloat16(), rows16) for x in bs)
+        yardstick = {
+            "colgather_matmul_dual_bf16": _time_ms(
+                lambda: gather_cublas((b1, b2))),
+            "colgather_matmul_bf16": _time_ms(lambda: gather_cublas((b1,)))}
+        for name, ms in yardstick.items():
+            rows[name]["gather_cublas_ms"] = \
+                rows[name].get("gather_cublas_ms", 0.0) + per_step * ms
+        case["gather_cublas_ms"] = yardstick
         # bytes: each b, the indices, the rows of Q^T this run selects (each
         # distinct row once) and the fp32 outputs; int8 b with row scales
         for ops_n, suffix in ((2, "dual_"), (1, "")):
@@ -1099,8 +1104,8 @@ def check_lowp_kernels(torch, dev) -> dict:
     print(json.dumps({
         "lowp_kernels": report,
         "tolerance": f"int8 bit-equal (and its quantizers' codes and "
-                     f"scales); bf16 colgathers {LOWP_RTOL}, bf16 "
-                     f"dct_project (tensor cores, relaunch bit-identical) "
+                     f"scales); bf16 dct_project and colgathers (tensor "
+                     f"cores, relaunch bit-identical) "
                      f"{LOWP_TC_RTOL} of max |out|; norms 1e-5 relative, "
                      "top-128 equal to fp32's; each within "
                      "LOWP_ERROR_BOUNDS of fp32 (relative Frobenius)",
@@ -2028,6 +2033,7 @@ def main() -> int:
     for kernel in ops.LOWP:
         assert counts.get(kernel), f"{kernel}: no path of phase 11 ran it"
     time_breakdown(torch, dev, compute_dtype="int8")
+    time_breakdown(torch, dev, compute_dtype="bf16")
     torch.cuda.empty_cache()
 
     rows["flash_attention"] = check_flash_attention(torch, dev)
@@ -2075,7 +2081,9 @@ def main() -> int:
     lowp_note = ("per DCT-AdamW training step at the main path's shapes (7 "
                  "launches); ms: the kernel alone, wrapper_ms: with the "
                  "operand quantization; bound at the precision's tensor-core "
-                 "peak; launches from phase 11's {} run")
+                 "peak; gather_cublas_ms (bf16 colgathers): the gather and "
+                 "torch.matmul on bf16 operands, two calls; launches from "
+                 "phase 11's {} run")
     quant_note = ("per DCT-AdamW training step at the main path's shapes (7 "
                   "launches), the int8 dct_project's operand quantizer; "
                   "plain: lowp.quant_rows (of Q^T for quant_cols_q8t, made "
@@ -2094,7 +2102,10 @@ def main() -> int:
                         "counted",
         "ns_gram": "per Trion training step: 35 launches (5 iterations x 7 "
                    "leaves); library = torch.bmm(x, x.mT)",
-        "ns_apply": "per Trion training step: 35 launches; library = "
+        "ns_apply": "per Trion training step: 35 launches; ms and "
+                    "library_ms: device time of CUDA-graph replays of a "
+                    "step's launches of each shape; wrapper_ms and "
+                    "library_eager_ms: eager calls; library = "
                     "torch.baddbmm(x, p, x, beta=a)",
         "colgather_matmul": "per subspace-Muon training step: 7 launches",
         "flash_attention": "the TPU kernel's function on fp32 inputs (its "
@@ -2129,6 +2140,8 @@ def main() -> int:
                 "bound_ms": bound, "bound_by": by,
                 "library_ms": row["library_ms"],
                 "wrapper_ms": row["wrapper_ms"],
+                **({"gather_cublas_ms": row["gather_cublas_ms"]}
+                   if "gather_cublas_ms" in row else {}),
                 "launches_per_step": counts[name] / LOWP_STEPS,
                 "times_are": quant_note if name.startswith("quant_")
                 else lowp_note.format(lowp_path[name])})
@@ -2154,7 +2167,9 @@ def main() -> int:
                    MOMENTUM_PATHS["muon rank 128"][1]
                    if name == "colgather_matmul" else STEPS),
                 "times_are": times_are.get(
-                    name, "per training step at the main path's shapes")}),
+                    name, "per training step at the main path's shapes"),
+                **{k: row[k] for k in ("wrapper_ms", "library_eager_ms")
+                   if k in row}}),
         })
     device_line = _device_line()
     print(json.dumps({"kernels": kernels}), flush=True)

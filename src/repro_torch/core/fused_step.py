@@ -158,15 +158,12 @@ def fused_backproject(u_low: torch.Tensor, q: torch.Tensor, idx: torch.Tensor,
 
 # The JAX package's NS_PALLAS_MAX_RANK = 512 is a TPU limit: its kernel keeps
 # the (r, r) Gram and polynomial resident in VMEM. The CUDA kernels keep
-# neither on chip (the Gram and the polynomial live in device memory; the
-# tiles in shared memory are 32x32 and 64x128 whatever r is), so they have no
-# envelope of their own. The constant is kept as a routing choice at the
-# reference's value, from a measurement (chip_smoke.py phase 7, NVIDIA H100
-# 80GB HBM3 at 700 W): at full-space Muon's llama-350m moments, short side
-# 1024, the 5-step NS through the kernels took 22.5 / 48.9 ms per call at
-# (24, 1024, 1024) / (24, 1024, 2816) against 17.9 / 36.9 ms for the plain
-# iteration on cuBLAS, 1.3x slower per step. Full-space Muon there runs the
-# plain iteration, as in the reference.
+# neither on chip (the Gram and the polynomial live in device memory); the
+# apply kernel holds an (r, 64) stripe of X in shared memory, which bounds it
+# at r <= 768 (kernels/newton_schulz.APPLY_MAX_RANK). The constant is kept
+# at the reference's value, inside that envelope. Full-space Muon's
+# llama-350m moments (short side 1024) run the plain iteration, as in the
+# reference.
 NS_KERNEL_MAX_RANK = 512
 
 

@@ -5,7 +5,7 @@
 // int32 per layer, in three precisions. Replaces
 // repro/kernels/colgather_matmul.py::_kernel and ::_kernel_dual (fp32, and
 // bf16 with cast=bfloat16) and ::_kernel_q8 and ::_kernel_dual_q8 (int8);
-// each is one template instantiated for one and for two operands.
+// each precision is one template instantiated for one and for two operands.
 //
 // fp32. Bound: fp32 FMA rate at r = 128 (2*m*n*r flops per operand and
 // layer against the (m, n) fp32 outputs). The TPU kernel copies a whole
@@ -21,10 +21,33 @@
 // The shared-memory layout follows dct_project.cu (two groups of 4 columns
 // 64 apart, transposed and padded A slices).
 //
-// bf16 is the fp32 kernel with b and the gathered rows rounded to bf16
-// (nearest even) as they are loaded, then multiplied and added in fp32
-// (each product exact), so it differs from an fp32 product of the rounded
-// operands only by the order of the sums.
+// bf16. The function: each fp32 operand rounded once to bf16 (nearest
+// even), exact products, fp32 sums; fp32 outputs. Bound: bytes (4 m n bytes
+// of fp32 output per operand against 2 m n r flops: at r = 128, 64 flops a
+// byte, below the card's bf16 balance of ~295 once the products run on the
+// tensor cores). Design: the bf16 dct_project kernel (dct_project.cu) with a
+// gathered B, on mma.sync.m16n8k16 (bf16 in, fp32 accumulators). A CTA of 8
+// warps owns a 128 x 128 tile of each output (a warp 64 x 32: 4 x 4 mma tiles
+// per operand). The CTA's rows of each b (A: row-major, k = r along a row)
+// and the selected rows of Qt (B: row k of the tile is Qt[idx[k], col0 ..
+// col0 + 128), copied from that row's address; an index outside [0, n)
+// copies zeros) arrive by cp.async in 32-deep k slices into a 2-stage fp32
+// ring (16-byte pieces; 4-byte ones where r % 4, n % 4 or an address
+// forbids 16), and each thread rounds the pieces it copied itself to bf16
+// (__floats2bfloat162_rn) into a double-buffered tile that ldmatrix reads
+// (the gathered rows through ldmatrix.trans), so one barrier per slice
+// suffices. A ragged r reads zeros past r. The dual instance takes both
+// products from each B fragment it loads: two accumulator sets, 128 fp32
+// registers a thread and 153 KB of shared memory, one CTA per SM (the single
+// instance: 64 registers of sums and 101 KB, two CTAs per SM). The epilogue
+// stages each output's tile in shared memory (rows padded against bank
+// conflicts) and writes it as 16-byte stores, a warp to each 512-byte
+// row (4-byte stores where n % 4 or an address forbids). The
+// tensor cores' fp32 sums are not a sequence of IEEE adds, so the outputs
+// differ from the plain version by more than an order of fp32 sums would
+// (chip_smoke.py's LOWP_TC_RTOL). The single instance's output equals the
+// dual's first bit for bit (the same mma sequence), and a relaunch gives
+// the same bits.
 //
 // int8 takes Qt quantized per row (codes qt (n, n)) and each b quantized
 // per row after the selected rows' scales were folded into it (codes b
@@ -42,6 +65,7 @@
 #include <cuda_runtime.h>
 
 #include "lowp.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -53,7 +77,7 @@ constexpr int kPad = 4;
 
 // at least 2 CTAs per SM: the prefetch registers of the dual instance would
 // otherwise leave one
-template <int kOps, bool kBf16>
+template <int kOps>
 __global__ void __launch_bounds__(kThreads, 2)
 colgather_matmul_kernel(const float* __restrict__ b1, const float* __restrict__ b2,
                         const float* __restrict__ qt, const int* __restrict__ idx,
@@ -92,8 +116,8 @@ colgather_matmul_kernel(const float* __restrict__ b1, const float* __restrict__ 
       const int gr = row0 + e / BK, gc = k0 + e % BK;
       const bool ok = gr < m && gc < r;
       const long long off = a_off + static_cast<long long>(gr) * r + gc;
-      n1[t] = ok ? operand<kBf16>(b1[off]) : 0.f;
-      if constexpr (kOps == 2) n2[t] = ok ? operand<kBf16>(b2[off]) : 0.f;
+      n1[t] = ok ? b1[off] : 0.f;
+      if constexpr (kOps == 2) n2[t] = ok ? b2[off] : 0.f;
     }
 #pragma unroll
     for (int t = 0; t < kLoadsB; ++t) {
@@ -103,7 +127,7 @@ colgather_matmul_kernel(const float* __restrict__ b1, const float* __restrict__ 
       if (k < r && col < n) {
         const int src = idx_b[k];
         if (src >= 0 && src < n)
-          v = operand<kBf16>(qt[static_cast<long long>(src) * n + col]);
+          v = qt[static_cast<long long>(src) * n + col];
       }
       nq[t] = v;
     }
@@ -265,6 +289,211 @@ colgather_matmul_q8_kernel(const int8_t* __restrict__ b1, const float* __restric
   }
 }
 
+// bf16 on the tensor cores
+namespace tc {
+
+constexpr int BM = 128;
+constexpr int BN = 128;
+constexpr int BK = 32;         // k slice
+constexpr int kThreads = 256;  // 8 warps: 2 along M (64 rows) x 4 along N (32 columns)
+constexpr int kLdA = BK + 8;   // bf16 row stride of the b tiles
+constexpr int kLdB = BN + 8;   // bf16 row stride of the gathered tile
+constexpr int kLdO = BN + 8;   // fp32 row stride of a staged output tile
+
+template <int kOps>
+struct Slices {
+  float a32[2][kOps][BM][BK];  // b slices as they arrive (2-stage ring)
+  float b32[2][BK][BN];        // gathered rows of Qt
+  __nv_bfloat16 a16[2][kOps][BM][kLdA];
+  __nv_bfloat16 b16[2][BK][kLdB];
+};
+
+// the slices' memory stages one output tile at a time for the stores
+template <int kOps>
+union Smem {
+  Slices<kOps> s;
+  float out[BM][kLdO];
+};
+
+template <int W>
+__device__ __forceinline__ void copy_piece(void* dst, const float* src, bool ok) {
+  if constexpr (W == 4)
+    mma::cp_async16(dst, src, ok);
+  else
+    mma::cp_async4(dst, src, ok);
+}
+
+// A thread's pieces of k slice k0: W = 4 (16-byte cp.async) or 1 (4-byte).
+// Piece e of each b is row e / (BK / W), column W * (e % (BK / W)); of the
+// gathered tile, row e / (BN / W) (the selected row idx[k0 + row] of Qt),
+// column W * (e % (BN / W)). The same thread copies a piece and rounds it.
+template <int kOps, int W>
+__device__ __forceinline__ void copy_slice(Slices<kOps>& sm, int slot, const float* a1,
+                                           const float* a2, const float* qt, const int* idx_b,
+                                           int m, int r, int n, int row0, int col0, int k0) {
+#pragma unroll
+  for (int i = 0; i < BM * BK / W / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int row = e / (BK / W), c = W * (e % (BK / W));
+    const bool ok = row0 + row < m && k0 + c < r;
+    const long long off = ok ? static_cast<long long>(row0 + row) * r + k0 + c : 0;
+    copy_piece<W>(&sm.a32[slot][0][row][c], a1 + off, ok);
+    if constexpr (kOps == 2) copy_piece<W>(&sm.a32[slot][1][row][c], a2 + off, ok);
+  }
+#pragma unroll
+  for (int i = 0; i < BK * BN / W / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int k = e / (BN / W), c = W * (e % (BN / W));
+    const int src = k0 + k < r ? idx_b[k0 + k] : -1;
+    const bool ok = src >= 0 && src < n && col0 + c < n;
+    copy_piece<W>(&sm.b32[slot][k][c], ok ? qt + static_cast<long long>(src) * n + col0 + c : qt,
+                  ok);
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void round_piece(__nv_bfloat16* dst, const float* src) {
+  if constexpr (W == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(src);
+    *reinterpret_cast<uint2*>(dst) = make_uint2(mma::pack_bf16(x.x, x.y), mma::pack_bf16(x.z, x.w));
+  } else {
+    *dst = __float2bfloat16_rn(*src);
+  }
+}
+
+template <int kOps, int W>
+__device__ __forceinline__ void round_slice(Slices<kOps>& sm, int slot) {
+#pragma unroll
+  for (int i = 0; i < BM * BK / W / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int row = e / (BK / W), c = W * (e % (BK / W));
+#pragma unroll
+    for (int op = 0; op < kOps; ++op)
+      round_piece<W>(&sm.a16[slot][op][row][c], &sm.a32[slot][op][row][c]);
+  }
+#pragma unroll
+  for (int i = 0; i < BK * BN / W / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int k = e / (BN / W), c = W * (e % (BN / W));
+    round_piece<W>(&sm.b16[slot][k][c], &sm.b32[slot][k][c]);
+  }
+}
+
+// the dual instance's two accumulator sets take up to 255 registers, one CTA
+// per SM; the single one two CTAs per SM (128 registers) with 16-byte
+// copies, one with the 4-byte copies' address arithmetic
+template <int kOps, int W>
+__global__ void __launch_bounds__(kThreads, kOps == 1 && W == 4 ? 2 : 1)
+colgather_matmul_bf16_kernel(const float* __restrict__ b1, const float* __restrict__ b2,
+                             const float* __restrict__ qt, const int* __restrict__ idx,
+                             float* __restrict__ o1, float* __restrict__ o2, int m, int r,
+                             int n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<kOps>& sm = *reinterpret_cast<Smem<kOps>*>(smem_raw);
+
+  const int b = blockIdx.z;
+  const int row0 = blockIdx.y * BM;
+  const int col0 = blockIdx.x * BN;
+  const long long a_off = static_cast<long long>(b) * m * r;
+  const float* a1 = b1 + a_off;
+  const float* a2 = kOps == 2 ? b2 + a_off : nullptr;
+  const int* idx_b = idx + static_cast<long long>(b) * r;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp >> 2, wn = warp & 3;  // the warp's 64 x 32 tile
+  const int g8 = lane >> 2, t = lane & 3;
+
+  float acc[kOps][4][4][4];
+#pragma unroll
+  for (int op = 0; op < kOps; ++op)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[op][i][j][e] = 0.f;
+
+  const int slices = (r + BK - 1) / BK;
+  if (slices > 0) copy_slice<kOps, W>(sm.s, 0, a1, a2, qt, idx_b, m, r, n, row0, col0, 0);
+  mma::cp_async_commit();
+  for (int kt = 0; kt < slices; ++kt) {
+    const int slot = kt & 1;
+    mma::cp_async_wait<0>();  // this thread's pieces of slice kt
+    if (kt + 1 < slices)
+      copy_slice<kOps, W>(sm.s, slot ^ 1, a1, a2, qt, idx_b, m, r, n, row0, col0, (kt + 1) * BK);
+    mma::cp_async_commit();
+    round_slice<kOps, W>(sm.s, slot);
+    __syncthreads();  // the rounded slice is complete; buffer slot ^ 1 is free again
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      // matrix i = lane / 8 of ldmatrix.trans: k 8 (i % 2) + lane % 8 of
+      // the step, columns 8 (i / 2) of the pair's 16: registers {b0, b1} of
+      // column tile 2 np, then 2 np + 1
+      unsigned bq[4][2];
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        unsigned q[4];
+        mma::ldmatrix_x4_trans(q, &sm.s.b16[slot][ks * 16 + (lane & 15)]
+                                           [wn * 32 + np * 16 + (lane >> 4) * 8]);
+        bq[2 * np][0] = q[0];
+        bq[2 * np][1] = q[1];
+        bq[2 * np + 1][0] = q[2];
+        bq[2 * np + 1][1] = q[3];
+      }
+#pragma unroll
+      for (int op = 0; op < kOps; ++op) {
+        unsigned af[4][4];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+          mma::ldmatrix_x4(af[mt], &sm.s.a16[slot][op][wm * 64 + mt * 16 + (lane & 15)]
+                                              [ks * 16 + (lane >> 4) * 8]);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            mma::mma_bf16(acc[op][mt][nt], af[mt], bq[nt][0], bq[nt][1]);
+      }
+    }
+  }
+
+  // epilogue, one output at a time: the fragments into the staged tile, then
+  // a warp to each row of it, 16 bytes a lane
+  const long long o_off = static_cast<long long>(b) * m * n;
+#pragma unroll
+  for (int op = 0; op < kOps; ++op) {
+    __syncthreads();  // the products (or the previous output's stores) are done with the memory
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          *reinterpret_cast<float2*>(&sm.out[wm * 64 + mt * 16 + g8 + 8 * hf]
+                                            [wn * 32 + nt * 8 + 2 * t]) =
+              make_float2(acc[op][mt][nt][2 * hf], acc[op][mt][nt][2 * hf + 1]);
+    __syncthreads();
+    float* ob = (op == 0 ? o1 : o2) + o_off;
+#pragma unroll 4
+    for (int i = 0; i < BM * BN / 4 / kThreads; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      const int row = e / (BN / 4), c = 4 * (e % (BN / 4));
+      const int col = col0 + c;
+      if (row0 + row >= m) break;  // the rows of later i are larger still
+      const float4 v = *reinterpret_cast<const float4*>(&sm.out[row][c]);
+      float* dst = ob + static_cast<long long>(row0 + row) * n + col;
+      if (W == 4) {
+        if (col < n) *reinterpret_cast<float4*>(dst) = v;
+      } else {
+        if (col < n) dst[0] = v.x;
+        if (col + 1 < n) dst[1] = v.y;
+        if (col + 2 < n) dst[2] = v.z;
+        if (col + 3 < n) dst[3] = v.w;
+      }
+    }
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
 namespace {
@@ -273,14 +502,37 @@ dim3 gather_grid(int batch, int m, int n) {
   return dim3((n + BN - 1) / BN, (m + BM - 1) / BM, batch);
 }
 
-template <int kOps, bool kBf16>
+template <int kOps>
 int gather(const float* b1, const float* b2, const float* qt, const int* idx, float* o1,
            float* o2, int batch, int m, int r, int n, void* stream) {
   if (batch > 0 && m > 0 && n > 0)
-    colgather_matmul_kernel<kOps, kBf16>
+    colgather_matmul_kernel<kOps>
         <<<gather_grid(batch, m, n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
             b1, b2, qt, idx, o1, o2, m, r, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
+
+// 16-byte copies and stores need r % 4 == 0, n % 4 == 0 and every operand
+// and output on 16 bytes; otherwise the same kernel moves 4-byte pieces
+template <int kOps>
+int gather_bf16(const float* b1, const float* b2, const float* qt, const int* idx, float* o1,
+                float* o2, int batch, int m, int r, int n, void* stream) {
+  if (batch <= 0 || m <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
+  const auto launch = [&](auto kernel) {
+    const size_t smem = sizeof(tc::Smem<kOps>);
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    kernel<<<dim3((n + tc::BN - 1) / tc::BN, (m + tc::BM - 1) / tc::BM, batch), tc::kThreads,
+             smem, static_cast<cudaStream_t>(stream)>>>(b1, b2, qt, idx, o1, o2, m, r, n);
+    return static_cast<int>(cudaGetLastError());
+  };
+  const bool wide = r % 4 == 0 && n % 4 == 0 && aligned(b1, 16) && aligned(qt, 16) &&
+                    aligned(o1, 16) && (kOps == 1 || (aligned(b2, 16) && aligned(o2, 16)));
+  return wide ? launch(tc::colgather_matmul_bf16_kernel<kOps, 4>)
+              : launch(tc::colgather_matmul_bf16_kernel<kOps, 1>);
 }
 
 template <int kOps>
@@ -299,26 +551,26 @@ int gather_q8(const int8_t* b1, const float* s1, const int8_t* b2, const float* 
 extern "C" int repro_colgather_matmul_dual(const float* b1, const float* b2, const float* qt,
                                            const int* idx, float* o1, float* o2, int batch,
                                            int m, int r, int n, void* stream) {
-  return gather<2, false>(b1, b2, qt, idx, o1, o2, batch, m, r, n, stream);
+  return gather<2>(b1, b2, qt, idx, o1, o2, batch, m, r, n, stream);
 }
 
 extern "C" int repro_colgather_matmul(const float* b, const float* qt, const int* idx,
                                       float* o, int batch, int m, int r, int n,
                                       void* stream) {
-  return gather<1, false>(b, nullptr, qt, idx, o, nullptr, batch, m, r, n, stream);
+  return gather<1>(b, nullptr, qt, idx, o, nullptr, batch, m, r, n, stream);
 }
 
 extern "C" int repro_colgather_matmul_dual_bf16(const float* b1, const float* b2,
                                                 const float* qt, const int* idx, float* o1,
                                                 float* o2, int batch, int m, int r, int n,
                                                 void* stream) {
-  return gather<2, true>(b1, b2, qt, idx, o1, o2, batch, m, r, n, stream);
+  return gather_bf16<2>(b1, b2, qt, idx, o1, o2, batch, m, r, n, stream);
 }
 
 extern "C" int repro_colgather_matmul_bf16(const float* b, const float* qt, const int* idx,
                                            float* o, int batch, int m, int r, int n,
                                            void* stream) {
-  return gather<1, true>(b, nullptr, qt, idx, o, nullptr, batch, m, r, n, stream);
+  return gather_bf16<1>(b, nullptr, qt, idx, o, nullptr, batch, m, r, n, stream);
 }
 
 extern "C" int repro_colgather_matmul_dual_q8(const int8_t* b1, const float* s1,

@@ -1,21 +1,7 @@
-// Helpers of the bf16 and int8 kernels of dct_project.cu and
-// colgather_matmul.cu.
+// Helpers of the int8 kernels of dct_project.cu and colgather_matmul.cu.
 #pragma once
 
 #include <cstdint>
-
-#include <cuda_bf16.h>
-
-// An fp32 operand as a SIMT kernel (colgather_matmul.cu) multiplies it:
-// itself, or rounded to bf16 (nearest even; a NaN stays NaN) and held in
-// fp32. Rounding on the bits with four integer operations is cheaper but
-// turns CUDA's canonical NaN 0x7FFFFFFF into -0.0, and its NaN-safe forms (a
-// select, or an early return) cost as much as the conversion or more (H100).
-template <bool kBf16>
-__device__ __forceinline__ float operand(float x) {
-  if constexpr (kBf16) return __bfloat162float(__float2bfloat16_rn(x));
-  return x;
-}
 
 // int8: four codes of consecutive k are packed in one 32-bit word, byte i
 // holding offset i, the layout __dp4a multiplies.

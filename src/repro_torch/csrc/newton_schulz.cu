@@ -26,21 +26,43 @@
 // and rows past r load as zeros, which add nothing to A (the TPU kernel pads
 // the columns with zeros too).
 //
-// ns_apply: a tiled SIMT GEMM with K = r: 64x128 output tiles, 256 threads
-// with 4x8 register tiles (the layout of colgather_matmul.cu), and the a*X
-// term added in the epilogue as a multiply and then an add, the rounding of
-// the plain version. It writes a buffer other than its input: a CTA owns 64
-// rows of its column block, and the CTAs of the other rows still read X
-// there. The wrapper ping-pongs two buffers across the iterations.
+// ns_apply: a pipelined SIMT GEMM with K = r in which a CTA owns every row
+// of Y for one stripe of 64 columns, so X is read from device memory once
+// and Y written once (the bound's 8 r m bytes). The CTA's (r, 64) stripe of
+// X arrives by cp.async (16-byte pieces; 4-byte ones where r % 4, m % 4 or
+// an address forbids 16) into shared memory and stays there: it is the B
+// operand of P X and the a X of the epilogue. P streams through a 2-stage
+// cp.async ring of 16-deep k slices (r^2 fp32, 64 KB at r = 128, read by
+// every CTA of its layer from L2); each thread transposes the pieces of P it
+// copied itself into a double-buffered k-major tile, so one barrier per
+// slice suffices (the design of dct_project.cu's fp32 kernel). 128 threads,
+// each with an 8 x 8 register tile (rows in two groups of 4, 64 apart;
+// columns in two groups of 4, 32 apart; a warp is 4 thread rows x 8 thread
+// columns, so each float4 shared read covers 64 or 128 contiguous bytes: no
+// bank conflicts), accumulated with IEEE fp32 FMA, k ascending; the a*X term
+// is added in the epilogue as a multiply and then an add, the rounding of
+// the plain version. The same bits on every launch. Rows come in blocks of
+// 128: for r > 128 the CTA loops over them, streaming each block's rows of P
+// against the resident stripe. The grid is (m / 64, layers): Trion's leaves
+// give 384 CTAs at m = 1024 and 1056 at m = 2816, on 132 SMs that hold 3
+// CTAs each at r = 128 (65 KB of shared memory, at most 170 registers a
+// thread). It writes a buffer other than its input; the wrapper ping-pongs
+// two buffers across the iterations.
 //
-// Both kernels load the next chunk of their operands into registers while
-// the current one is computed from shared memory, so the loads' latency
-// overlaps the FMAs; the FMA order, and so every bit, is that of loading
-// and computing in turn.
+// Envelope: the stripe takes 256 bytes per row of X (rows padded to the
+// slice), so r <= 768 fits a block's 227 KB beside the ring
+// (kernels/newton_schulz.py's APPLY_MAX_RANK, where the wrapper refuses a
+// larger r). fused_step.py routes r <= 512 to the kernels.
 //
-// Shared memory is 26 KB (gram) and 6.5 KB (apply) whatever r is: the
-// kernels have no envelope on r of their own (see fused_step.py).
+// ns_gram loads the next chunk of its operands into registers while the
+// current one is computed from shared memory, so the loads' latency overlaps
+// the FMAs; the FMA order, and so every bit, is that of loading and
+// computing in turn. Its 26 KB of shared memory do not depend on r.
+#include <cstdint>
+
 #include <cuda_runtime.h>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -142,95 +164,185 @@ ns_gram_kernel(const float* __restrict__ x, float* __restrict__ gram, int r, int
 }
 
 // ---- apply ----------------------------------------------------------------
-constexpr int BM = 64;
-constexpr int BN = 128;
-constexpr int BK = 8;
-constexpr int kApplyThreads = 256;
-constexpr int kPad = 4;
+namespace apply {
 
-__global__ void __launch_bounds__(kApplyThreads)
+constexpr int BM = 128;                        // rows of a row block
+constexpr int BN = 64;                         // columns of X and Y per CTA
+constexpr int TM = 8;                          // rows per thread
+constexpr int TN = 8;                          // columns per thread
+constexpr int kThreads = BM * BN / (TM * TN);  // 128
+constexpr int TX = BN / TN;                    // thread columns, a multiple of 8
+constexpr int BK = 16;                         // k slice
+constexpr int kMinBlocks = 3;                  // CTAs per SM at r = 128
+constexpr int kLdT = BM + 4;                   // row stride of the transposed P slice
+
+// the P ring; X's stripe follows it in shared memory, (r padded to BK) x BN
+struct Ring {
+  float p32[2][BM][BK];   // P slices as they arrive: rows of P
+  float pt[2][BK][kLdT];  // the same, transposed: k rows of 128 P rows
+};
+
+size_t smem_bytes(int r) {
+  return sizeof(Ring) + sizeof(float) * BN * ((static_cast<size_t>(r) + BK - 1) / BK * BK);
+}
+
+template <int W>
+__device__ __forceinline__ void copy_piece(float* dst, const float* src, bool ok) {
+  if constexpr (W == 4)
+    mma::cp_async16(dst, src, ok);
+  else
+    mma::cp_async4(dst, src, ok);
+}
+
+// A thread's pieces of k slice k0: W = 4 (16-byte cp.async) or 1 (4-byte).
+// Piece e of P is row e / (BK / W), column W * (e % (BK / W)) of the slice;
+// with_x, piece e of X is row e / (BN / W), column W * (e % (BN / W)), into
+// the stripe's row k0 + e / (BN / W). The thread that copies a piece of P
+// also transposes it (transpose_slice).
+template <int W>
+__device__ __forceinline__ void copy_slice(Ring& rg, float* xs, int slot, const float* pb,
+                                           const float* xb, int r, int m, int row0, int col0,
+                                           int k0, bool with_x) {
+#pragma unroll
+  for (int i = 0; i < BM * BK / W / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int rr = e / (BK / W), c = W * (e % (BK / W));
+    const bool ok = row0 + rr < r && k0 + c < r;
+    const float* src = ok ? pb + static_cast<long long>(row0 + rr) * r + k0 + c : pb;
+    copy_piece<W>(&rg.p32[slot][rr][c], src, ok);
+  }
+  if (!with_x) return;
+#pragma unroll
+  for (int i = 0; i < BK * BN / W / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int k = e / (BN / W), c = W * (e % (BN / W));
+    const bool ok = k0 + k < r && col0 + c < m;
+    const float* src = ok ? xb + static_cast<long long>(k0 + k) * m + col0 + c : xb;
+    copy_piece<W>(&xs[(k0 + k) * BN + c], src, ok);
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void transpose_slice(Ring& rg, int buf) {
+#pragma unroll
+  for (int i = 0; i < BM * BK / W / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int rr = e / (BK / W), c = W * (e % (BK / W));
+    if constexpr (W == 4) {
+      const float4 v = *reinterpret_cast<const float4*>(&rg.p32[buf][rr][c]);
+      rg.pt[buf][c][rr] = v.x;
+      rg.pt[buf][c + 1][rr] = v.y;
+      rg.pt[buf][c + 2][rr] = v.z;
+      rg.pt[buf][c + 3][rr] = v.w;
+    } else {
+      rg.pt[buf][c][rr] = rg.p32[buf][rr][c];
+    }
+  }
+}
+
+// the thread's local row i < TM and column j < TN: groups of 4, the groups
+// BM / (TM / 4) rows and BN / (TN / 4) columns apart
+__device__ __forceinline__ int local_row(int ty, int i) {
+  return (BM / (TM / 4)) * (i / 4) + 4 * ty + i % 4;
+}
+__device__ __forceinline__ int local_col(int tx, int j) {
+  return (BN / (TN / 4)) * (j / 4) + 4 * tx + j % 4;
+}
+
+// three CTAs per SM at r = 128: at most 170 registers a thread
+template <int W>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 ns_apply_kernel(const float* __restrict__ x, const float* __restrict__ p,
                 float* __restrict__ y, float a, int r, int m) {
-  __shared__ __align__(16) float As[BK][BM + kPad];  // P slice, transposed
-  __shared__ __align__(16) float Bs[BK][BN];         // X slice
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Ring& rg = *reinterpret_cast<Ring*>(smem_raw);
+  float* xs = reinterpret_cast<float*>(smem_raw + sizeof(Ring));
 
-  const int b = blockIdx.z;
-  const int row0 = blockIdx.y * BM;
+  const int b = blockIdx.y;
   const int col0 = blockIdx.x * BN;
   const float* xb = x + static_cast<long long>(b) * r * m;
   const float* pb = p + static_cast<long long>(b) * r * r;
   float* yb = y + static_cast<long long>(b) * r * m;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  // a warp is 4 thread rows x 8 thread columns
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ty = (warp / (TX / 8)) * 4 + (lane >> 3);
+  const int tx = (warp % (TX / 8)) * 8 + (lane & 7);
+  const int slices = (r + BK - 1) / BK;
 
-  float acc[4][8];
+  for (int row0 = 0; row0 < r; row0 += BM) {
+    const bool with_x = row0 == 0;  // the first row block brings the stripe
+    float acc[TM][TN];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  // the next slices are loaded into registers while this one is computed
-  constexpr int kLoadsA = (BM * BK) / kApplyThreads;
-  constexpr int kLoadsB = (BK * BN) / kApplyThreads;
-  float na[kLoadsA], nx[kLoadsB];
-  auto load = [&](int k0) {
+    copy_slice<W>(rg, xs, 0, pb, xb, r, m, row0, col0, 0, with_x);
+    mma::cp_async_commit();
+    for (int kt = 0; kt < slices; ++kt) {
+      const int buf = kt & 1;
+      mma::cp_async_wait<0>();  // this thread's pieces of slice kt
+      transpose_slice<W>(rg, buf);
+      // every piece of slice kt is in place; every thread is done with
+      // slice kt - 1, so its ring slot and transposed buffer are free
+      __syncthreads();
+      if (kt + 1 < slices)
+        copy_slice<W>(rg, xs, buf ^ 1, pb, xb, r, m, row0, col0, (kt + 1) * BK, with_x);
+      mma::cp_async_commit();
+      const float* xk = xs + kt * BK * BN;
 #pragma unroll
-    for (int t = 0; t < kLoadsA; ++t) {
-      const int e = tid + t * kApplyThreads;
-      const int gr = row0 + e / BK, gc = k0 + e % BK;
-      na[t] = (gr < r && gc < r) ? pb[static_cast<long long>(gr) * r + gc] : 0.f;
-    }
+      for (int k = 0; k < BK; ++k) {
+        float av[TM], bv[TN];
 #pragma unroll
-    for (int t = 0; t < kLoadsB; ++t) {
-      const int e = tid + t * kApplyThreads;
-      const int k = k0 + e / BN, col = col0 + e % BN;
-      nx[t] = (k < r && col < m) ? xb[static_cast<long long>(k) * m + col] : 0.f;
-    }
-  };
-  load(0);
-  for (int k0 = 0; k0 < r; k0 += BK) {
+        for (int h = 0; h < TM / 4; ++h) {
+          const float4 v = *reinterpret_cast<const float4*>(&rg.pt[buf][k][local_row(ty, 4 * h)]);
+          av[4 * h] = v.x, av[4 * h + 1] = v.y, av[4 * h + 2] = v.z, av[4 * h + 3] = v.w;
+        }
 #pragma unroll
-    for (int t = 0; t < kLoadsA; ++t) {
-      const int e = tid + t * kApplyThreads;
-      As[e % BK][e / BK] = na[t];
-    }
+        for (int h = 0; h < TN / 4; ++h) {
+          const float4 v = *reinterpret_cast<const float4*>(&xk[k * BN + local_col(tx, 4 * h)]);
+          bv[4 * h] = v.x, bv[4 * h + 1] = v.y, bv[4 * h + 2] = v.z, bv[4 * h + 3] = v.w;
+        }
 #pragma unroll
-    for (int t = 0; t < kLoadsB; ++t) {
-      const int e = tid + t * kApplyThreads;
-      Bs[e / BN][e % BN] = nx[t];
-    }
-    __syncthreads();
-    if (k0 + BK < r) load(k0 + BK);
+        for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 p4 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 x0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float4 x1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-      const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(pv[i], xv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty * 4 + i;
-    if (row >= r) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = col0 + ((j < 4) ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-      if (col < m) {
-        const long long off = static_cast<long long>(row) * m + col;
-        yb[off] = __fadd_rn(__fmul_rn(a, xb[off]), acc[i][j]);
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
       }
     }
+
+    // epilogue: Y = a X + P X with X's rows from the stripe
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int row = row0 + local_row(ty, i);
+      if (row >= r) continue;
+#pragma unroll
+      for (int h = 0; h < TN / 4; ++h) {
+        const int lc = local_col(tx, 4 * h);
+        const float4 xv = *reinterpret_cast<const float4*>(&xs[row * BN + lc]);
+        const float4 v = make_float4(__fadd_rn(__fmul_rn(a, xv.x), acc[i][4 * h]),
+                                     __fadd_rn(__fmul_rn(a, xv.y), acc[i][4 * h + 1]),
+                                     __fadd_rn(__fmul_rn(a, xv.z), acc[i][4 * h + 2]),
+                                     __fadd_rn(__fmul_rn(a, xv.w), acc[i][4 * h + 3]));
+        const int col = col0 + lc;
+        float* dst = yb + static_cast<long long>(row) * m + col;
+        if (W == 4) {
+          if (col < m) *reinterpret_cast<float4*>(dst) = v;
+        } else {
+          if (col < m) dst[0] = v.x;
+          if (col + 1 < m) dst[1] = v.y;
+          if (col + 2 < m) dst[2] = v.z;
+          if (col + 3 < m) dst[3] = v.w;
+        }
+      }
+    }
+    // every thread is done with the ring before the next row block's copies
+    __syncthreads();
   }
 }
+
+}  // namespace apply
+
+bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
 
 }  // namespace
 
@@ -245,12 +357,22 @@ extern "C" int repro_ns_gram(const float* x, float* gram, int batch, int r, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// 16-byte copies need r % 4 == 0, m % 4 == 0 and X, P, Y on 16 bytes;
+// otherwise the same kernel copies 4-byte pieces. An r whose stripe does not
+// fit a block's shared memory fails in cudaFuncSetAttribute.
 extern "C" int repro_ns_apply(const float* x, const float* p, float* y, float a, int batch,
                               int r, int m, void* stream) {
-  if (batch > 0 && r > 0 && m > 0) {
-    const dim3 grid((m + BN - 1) / BN, (r + BM - 1) / BM, batch);
-    ns_apply_kernel<<<grid, kApplyThreads, 0, static_cast<cudaStream_t>(stream)>>>(x, p, y, a,
-                                                                                   r, m);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (batch <= 0 || r <= 0 || m <= 0) return static_cast<int>(cudaGetLastError());
+  const size_t smem = apply::smem_bytes(r);
+  const auto launch = [&](auto kernel) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    kernel<<<dim3((m + apply::BN - 1) / apply::BN, batch), apply::kThreads, smem,
+             static_cast<cudaStream_t>(stream)>>>(x, p, y, a, r, m);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return r % 4 == 0 && m % 4 == 0 && aligned(x, 16) && aligned(p, 16) && aligned(y, 16)
+             ? launch(apply::ns_apply_kernel<4>)
+             : launch(apply::ns_apply_kernel<1>);
 }

@@ -19,8 +19,9 @@ The gathered ``(r, n)`` factor never exists in device memory. On CUDA
 tensors each wrapper launches its instance of the kernel templates of
 ``csrc/colgather_matmul.cu`` (replacing
 ``repro/kernels/colgather_matmul.py::_kernel``, ``::_kernel_dual``,
-``::_kernel_q8`` and ``::_kernel_dual_q8``; see the source note for what
-bounds each) or raises; each precision has launchers with launch counts of
+``::_kernel_q8`` and ``::_kernel_dual_q8``: fp32 on the SIMT cores, bf16 on
+the tensor cores, int8 by ``__dp4a``; see the source note for what bounds
+each) or raises; each precision has launchers with launch counts of
 their own (``colgather_matmul[_dual]``, ``..._bf16``, ``..._q8``). For int8
 the operands are quantized by the same PyTorch ops as the plain version,
 outside the kernel, as in the JAX package. On CPU tensors every entry point

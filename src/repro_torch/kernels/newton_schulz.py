@@ -15,7 +15,11 @@ for the whole stack, a per-matrix Frobenius normalization with ``eps``,
 step. Its two ``(..., r, m)`` buffers are allocated once and the iterations
 ping-pong between them. Leading stacked-layer axes become the kernels' batch
 grid dimension. There is no block-size knob: the tiles are the kernels'
-own (32x32 Gram tiles, 64x128 apply tiles).
+own (32x32 Gram tiles; the apply kernel's CTA owns all r rows of a 64-column
+stripe of X, held in shared memory, so it reads X once).
+``ns_apply_smem_bytes`` is that kernel's shared memory at a given r;
+``APPLY_MAX_RANK`` (768) is the largest r whose stripe fits a block, and the
+wrapper refuses a larger one on the card (``fused_step`` routes r <= 512).
 
 On CUDA tensors ``ns_gram`` / ``ns_apply`` launch their kernel or raise; on
 CPU tensors they run ``ns_gram_plain`` / ``ns_apply_plain``, whose
@@ -29,6 +33,24 @@ import torch
 from repro_torch.core.newton_schulz import NS_COEFFS, newton_schulz
 
 from . import cuda_lib
+
+
+# ns_apply's shared memory (csrc/newton_schulz.cu): the ring of P slices
+# (2 x (128 x 16) fp32 as they arrive, 2 x 16 x 132 transposed), then X's
+# (r, 64) fp32 stripe with r padded to the 16-deep slice
+SMEM_PER_BLOCK = 232448                  # H100: 227 KB a block can use
+_APPLY_COLS, _APPLY_SLICE = 64, 16
+_APPLY_RING_BYTES = 4 * (2 * 128 * 16 + 2 * 16 * 132)
+
+
+def ns_apply_smem_bytes(r: int) -> int:
+    """Bytes of shared memory the apply kernel takes at rank ``r``."""
+    slices = -(-r // _APPLY_SLICE)
+    return _APPLY_RING_BYTES + 4 * _APPLY_COLS * _APPLY_SLICE * slices
+
+
+APPLY_MAX_RANK = ((SMEM_PER_BLOCK - _APPLY_RING_BYTES)
+                  // (4 * _APPLY_COLS * _APPLY_SLICE) * _APPLY_SLICE)
 
 
 def ns_gram_plain(x: torch.Tensor) -> torch.Tensor:
@@ -79,6 +101,10 @@ def ns_apply(x: torch.Tensor, p: torch.Tensor, *, a: float = NS_COEFFS[0],
         return ns_apply_plain(x, p, a, out)
     cuda_lib.require_cuda("ns_apply x", x, torch.float32)
     cuda_lib.require_cuda("ns_apply p", p, torch.float32)
+    if r > APPLY_MAX_RANK:
+        raise ValueError(f"ns_apply: r = {r} exceeds the kernel's "
+                         f"APPLY_MAX_RANK = {APPLY_MAX_RANK} (X's stripe must "
+                         f"fit a block's shared memory)")
     if out is None:
         out = torch.empty_like(x)
     else:

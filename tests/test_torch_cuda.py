@@ -150,6 +150,55 @@ def test_cuda_newton_schulz_kernel_matches_core(cuda, shape):
     _assert_rel(got, newton_schulz(x, steps=5), 1e-4)
 
 
+# ns_apply at the ranks fused_step routes, on ragged wide factors (..., r,
+# m): one row block (r <= 128) and several (300, 512)
+APPLY_CASES = {"r8": (8, 100), "r17": (17, 333), "r45": (2, 45, 1000),
+               "r128": (3, 128, 1030), "r300": (300, 333),
+               "r512": (2, 512, 700)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("name", list(APPLY_CASES))
+def test_cuda_ns_apply_ranks(cuda, name, offset):
+    """Y within NS_RTOL of max |Y| of the plain version, a relaunch
+    bit-identical, each launch counted; ``offset`` 1 puts X 4 bytes off 16
+    (the 4-byte copies), which gives the same bits as the aligned X."""
+    a, b, c = NS_COEFFS
+    shape = APPLY_CASES[name]
+    x0 = _rand(shape, 5)
+    x0 /= np.linalg.norm(x0, axis=(-2, -1), keepdims=True)
+    x = _at_offset(cuda, x0, offset)
+    g = ns.ns_gram_plain(x)
+    p = b * g + c * torch.matmul(g, g)
+    before = ns.ns_apply.launches
+    y = ns.ns_apply(x, p, a=a)
+    again = ns.ns_apply(x, p, a=a)
+    aligned = ns.ns_apply(torch.from_numpy(x0).to(cuda), p, a=a)
+    want = ns.ns_apply_plain(x, p, a)
+    torch.cuda.synchronize()
+    assert ns.ns_apply.launches == before + 3
+    assert torch.equal(y, again) and torch.equal(y, aligned)
+    _assert_rel(y, want, NS_RTOL)
+
+
+@pytest.mark.cuda
+def test_cuda_ns_apply_envelope(cuda):
+    """The largest r the kernel takes launches; one more is refused before
+    any launch (a block's shared memory cannot hold X's stripe)."""
+    a = NS_COEFFS[0]
+    r = ns.APPLY_MAX_RANK
+    x = _ns_input((r, 130), cuda)
+    p = torch.from_numpy(_rand((r, r), 6, 1e-2)).to(cuda)
+    before = ns.ns_apply.launches
+    _assert_rel(ns.ns_apply(x, p, a=a), ns.ns_apply_plain(x, p, a), NS_RTOL)
+    assert ns.ns_apply.launches == before + 1
+    x = _ns_input((r + 1, 130), cuda)
+    with pytest.raises(ValueError, match="APPLY_MAX_RANK"):
+        ns.ns_apply(x, torch.zeros(r + 1, r + 1, device=cuda), a=a)
+    assert ns.ns_apply.launches == before + 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(SHAPES))
 def test_cuda_colgather_matmul_matches_plain(cuda, name):
@@ -468,8 +517,9 @@ def _assert_rel_max(got, want, rtol):
 @pytest.mark.parametrize("name", list(SHAPES))
 def test_cuda_lowp_kernels_match_plain(cuda, name, r):
     """The bf16 and int8 projection kernels against their plain versions:
-    int8 bit for bit (exact integer sums, the same epilogue order), bf16 at
-    LOWP_RTOL of max |out|; each launch counted on its precision's name."""
+    int8 bit for bit (exact integer sums, the same epilogue order), the bf16
+    dct_project at LOWP_RTOL of max |out|, the bf16 colgathers (tensor
+    cores) at LOWP_TC_RTOL; each launch counted on its precision's name."""
     from repro_torch.kernels import lowp
     *batch, m, n = SHAPES[name]
     r = min(r, n)
@@ -494,14 +544,16 @@ def test_cuda_lowp_kernels_match_plain(cuda, name, r):
     assert torch.equal(s, s_p)
     torch.testing.assert_close(norms, norms_p, rtol=1e-5, atol=0)
 
+    # the bf16 colgathers run on the tensor cores: LOWP_TC_RTOL
     for a, b in zip(cg.colgather_matmul_dual(b1, b2, qt, idx,
                                              compute_dtype="bf16"),
                     cg.colgather_matmul_dual_plain(b1, b2, qt, idx,
                                                    compute_dtype="bf16")):
-        _assert_rel_max(a, b, LOWP_RTOL)
+        _assert_rel_max(a, b, LOWP_TC_RTOL)
     _assert_rel_max(cg.colgather_matmul(b1, qt, idx, compute_dtype="bf16"),
                     cg.colgather_matmul_plain(b1, qt, idx,
-                                              compute_dtype="bf16"), LOWP_RTOL)
+                                              compute_dtype="bf16"),
+                    LOWP_TC_RTOL)
     for a, b in zip(cg.colgather_matmul_dual(b1, b2, qt, idx,
                                              compute_dtype="int8"),
                     cg.colgather_matmul_dual_plain(b1, b2, qt, idx,
@@ -654,3 +706,80 @@ def test_cuda_dct_project_q8_ragged(cuda, name, offset):
     assert torch.equal(s, s_p)
     assert torch.equal(s, again[0]) and torch.equal(norms, again[1])
     torch.testing.assert_close(norms, norms_p, rtol=1e-5, atol=0)
+
+
+# the bf16 colgathers on the tensor cores: BF16_PROJECT_SHAPES' ragged
+# (..., m, n), r from part of one 32-deep k slice to four slices
+BF16_GATHER_RANKS = [8, 17, 40, 128]
+
+
+def _at_offset(cuda, values: np.ndarray, offset: int) -> torch.Tensor:
+    """``values`` on the card, ``offset`` floats past a 16-byte boundary."""
+    flat = torch.zeros(offset + values.size, device=cuda)
+    flat[offset:] = torch.from_numpy(values.ravel()).to(cuda)
+    return flat[offset:].view(values.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", BF16_GATHER_RANKS)
+@pytest.mark.parametrize("name", list(BF16_PROJECT_SHAPES))
+def test_cuda_colgather_bf16_ragged(cuda, name, r):
+    """Dual and single within LOWP_TC_RTOL of max |out| of their plain
+    versions, relaunches bit-identical, the single equal to the dual's first
+    output bit for bit, each launch counted once on its own name; with b 4
+    bytes off 16 (the 4-byte copies) the same bits again."""
+    *batch, m, n = BF16_PROJECT_SHAPES[name]
+    r = min(r, n)
+    b1_np, b2_np = _rand((*batch, m, r), 21), _rand((*batch, m, r), 22)
+    qt = dct2_matrix(n, device=cuda).T.contiguous()
+    idx = torch.from_numpy(_idx(batch, n, r, 23)).to(cuda)
+    outs = []
+    for offset in (0, 1):
+        b1, b2 = _at_offset(cuda, b1_np, offset), _at_offset(cuda, b2_np, offset)
+        ops.reset_launch_counts()
+        o1, o2 = cg.colgather_matmul_dual(b1, b2, qt, idx, compute_dtype="bf16")
+        again = cg.colgather_matmul_dual_bf16(b1, b2, qt, idx)
+        single = cg.colgather_matmul(b1, qt, idx, compute_dtype="bf16")
+        single2 = cg.colgather_matmul_bf16(b1, qt, idx)
+        p1, p2 = cg.colgather_matmul_dual_plain(b1, b2, qt, idx,
+                                                compute_dtype="bf16")
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == {
+            k: 2 if k in ("colgather_matmul_dual_bf16", "colgather_matmul_bf16")
+            else 0 for k in ops.KERNELS}
+        assert torch.equal(o1, again[0]) and torch.equal(o2, again[1])
+        assert torch.equal(single, single2) and torch.equal(single, o1)
+        _assert_rel_max(o1, p1, LOWP_TC_RTOL)
+        _assert_rel_max(o2, p2, LOWP_TC_RTOL)
+        outs.append((o1, o2))
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_colgather_bf16_repeated_and_bad_indices(cuda, offset):
+    """A repeated index gathers its row twice; an index outside [0, n)
+    gathers a zero row (a zero column of Q_r), reading nothing outside Qt:
+    both outputs within LOWP_TC_RTOL of the product on such a gather."""
+    from repro_torch.kernels.lowp import bf16_round
+    m, n, r = 130, 260, 40
+    b1 = _at_offset(cuda, _rand((2, m, r), 31), offset)
+    b2 = _at_offset(cuda, _rand((2, m, r), 32), offset)
+    qt = torch.from_numpy(_rand((n, n), 33)).to(cuda)
+    idx_np = _idx((2,), n, r, 34)
+    idx_np[0, :4] = [-1, n, n + 7, -(2**31)]
+    idx_np[1, 5:9] = idx_np[1, 4]                    # one row four times
+    idx_np[1, 20] = 2**31 - 1
+    idx = torch.from_numpy(idx_np).to(cuda)
+    bad = (idx < 0) | (idx >= n)
+    gathered = qt[idx.clamp(0, n - 1).long()]
+    gathered[bad] = 0.0
+    gathered = bf16_round(gathered)
+    before = cg.colgather_matmul_dual_bf16.launches
+    o1, o2 = cg.colgather_matmul_dual(b1, b2, qt, idx, compute_dtype="bf16")
+    single = cg.colgather_matmul(b1, qt, idx, compute_dtype="bf16")
+    torch.cuda.synchronize()
+    assert cg.colgather_matmul_dual_bf16.launches == before + 1
+    for got, b in ((o1, b1), (o2, b2), (single, b1)):
+        _assert_rel_max(got, bf16_round(b) @ gathered, LOWP_TC_RTOL)
+    assert torch.equal(single, o1)

@@ -1,7 +1,7 @@
 """The port stands alone: importing ``repro_torch`` and every submodule
 loads neither JAX nor any module of the JAX package ``repro``, no port
-source or ``chip_smoke.py`` names them in an import, and ``chip_smoke.py``
-fails without a CUDA device."""
+source, card script or ``chip_smoke.py`` names them in an import, and
+``chip_smoke.py`` fails without a CUDA device."""
 import ast
 import os
 import subprocess
@@ -90,8 +90,16 @@ def _imported_roots(path: Path) -> set[str]:
     return roots
 
 
+# the port's scripts that run on the card, beside chip_smoke.py (the
+# machine with the card has no JAX)
+CARD_SCRIPTS = ("attention_kernels_probe.py", "backproject_probe.py",
+                "dct_project_probe.py", "ns_apply_tiles_probe.py",
+                "sanitize_kernels.py", "tf32_mma_probe.py")
+
+
 @pytest.mark.parametrize("path", sorted(
-    [*(SRC / "repro_torch").rglob("*.py"), ROOT / "chip_smoke.py"]),
+    [*(SRC / "repro_torch").rglob("*.py"), ROOT / "chip_smoke.py",
+     *(ROOT / "scripts" / name for name in CARD_SCRIPTS)]),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_repro(path):
     assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}

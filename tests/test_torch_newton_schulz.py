@@ -75,6 +75,62 @@ def test_ns_iteration_matches_jax_pallas(shape):
     _close(got, want, ITER_RTOL)
 
 
+# the ranks the apply kernel's tests cover on the card, each on a ragged
+# wide factor (r, m), scaled like the first iteration's input
+APPLY_RANKS = {8: 100, 17: 333, 45: 1000, 128: 300, 300: 333, 512: 600}
+
+
+@pytest.mark.parametrize("r", list(APPLY_RANKS))
+def test_ns_iteration_matches_jax_pallas_at_ranks(r):
+    x = _rand((r, APPLY_RANKS[r]), seed=r)
+    x /= np.linalg.norm(x)
+    got = ns.ns_iteration(torch.from_numpy(x)).numpy()
+    want = np.asarray(jax_ns_iteration(jnp.asarray(x), bm=256,
+                                       interpret=True))
+    _close(got, want, ITER_RTOL)
+
+
+def test_ns_apply_smem_fits_every_routed_rank():
+    """Every r that fused_step routes to the kernels gets a launch within a
+    block's shared memory; APPLY_MAX_RANK is the largest r that does."""
+    assert ns.APPLY_MAX_RANK >= fused_step.NS_KERNEL_MAX_RANK
+    for r in range(1, fused_step.NS_KERNEL_MAX_RANK + 1):
+        assert ns.ns_apply_smem_bytes(r) <= ns.SMEM_PER_BLOCK, r
+    assert ns.ns_apply_smem_bytes(ns.APPLY_MAX_RANK) <= ns.SMEM_PER_BLOCK
+    assert ns.ns_apply_smem_bytes(ns.APPLY_MAX_RANK + 1) > ns.SMEM_PER_BLOCK
+    # three CTAs per SM (228 KB, 1 KB reserved per block) at Trion's r
+    assert 3 * (ns.ns_apply_smem_bytes(128) + 1024) <= 228 * 1024
+
+
+def test_ns_apply_smem_mirrors_the_kernel_source():
+    """``ns_apply_smem_bytes`` recomputed from the constants of the apply
+    kernel's source: its P ring (two slices as they arrive, two transposed)
+    and X's stripe, r padded to the slice."""
+    import re
+    from pathlib import Path
+    src = (Path(ns.__file__).resolve().parent.parent / "csrc"
+           / "newton_schulz.cu").read_text()
+    body = src[src.index("namespace apply {"):src.index("}  // namespace apply")]
+    const = {k: int(v) for k, v in
+             re.findall(r"constexpr int (\w+) = (\d+);", body)}
+    pad = int(re.search(r"constexpr int kLdT = BM \+ (\d+);", body).group(1))
+    bm, bn, bk = const["BM"], const["BN"], const["BK"]
+    for r in (1, 17, 128, 500, 512, ns.APPLY_MAX_RANK):
+        ring = 4 * (2 * bm * bk + 2 * bk * (bm + pad))
+        stripe = 4 * bn * (-(-r // bk) * bk)
+        assert ns.ns_apply_smem_bytes(r) == ring + stripe, r
+
+
+def test_ns_apply_cpu_has_no_envelope():
+    """The plain version takes an r past the kernel's envelope."""
+    a = NS_COEFFS[0]
+    r = ns.APPLY_MAX_RANK + 16
+    x = torch.from_numpy(_rand((r, r + 3), seed=3, scale=0.01))
+    p = torch.from_numpy(_rand((r, r), seed=4, scale=0.01))
+    torch.testing.assert_close(ns.ns_apply(x, p, a=a),
+                               ns.ns_apply_plain(x, p, a), rtol=0, atol=0)
+
+
 def test_ns_iteration_matches_polynomial():
     """One iteration == a*X + (b*G + c*G^2) X literally (float64)."""
     a, b, c = NS_COEFFS
