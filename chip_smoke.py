@@ -13,9 +13,11 @@ device or without the port beside it. Any failure raises. Phases:
    PyTorch version, on the card, at the main path's shapes: G of
    (24, 1024, 1024) and (24, 2816, 1024) with a planted spectrum, r = 128.
    ``dct_project`` is launched twice (S and norms bit-identical) and timed
-   beside ``torch.matmul(g, q)``. Times are per training step (4 launches
-   at the first shape, 3 at the second, as the seven matrix leaves of
-   llama-350m give), from CUDA events.
+   beside ``torch.matmul(g, q)``; ``colgather_matmul_dual`` twice (the same
+   bits), timed beside the gather and ``torch.matmul`` of the stacked
+   operands (three calls, no library time). Times are per training step
+   (4 launches at the first shape, 3 at the second, as the seven matrix
+   leaves of llama-350m give), from CUDA events.
    Then one fused-"on" optimizer update of a square and a transposed leaf
    against the reference path ("off") on the card.
 3. The main path: ``repro_torch.launch.train`` with llama-350m at full width
@@ -52,7 +54,8 @@ device or without the port beside it. Any failure raises. Phases:
    the whole 5-step orthogonalization at Trion's factor shapes (wide
    (24, 128, 1024) and (24, 128, 2816)) and at ragged ones (r = 17, 45),
    each launch twice (bit-identical, and the Gram exactly symmetric); the
-   single-operand ``colgather_matmul`` at (24, 1024 | 2816, 128). Times are
+   single-operand ``colgather_matmul`` at (24, 1024 | 2816, 128), relaunched
+   bit-identical and equal to the dual's first output. Times are
    per training step of Trion (35 NS launches of each kernel) and of
    subspace Muon (7 back-projections); ``ns_apply`` and
    ``torch.baddbmm`` are also timed as CUDA-graph replays of a step's
@@ -75,7 +78,9 @@ device or without the port beside it. Any failure raises. Phases:
    path's shapes: int8 bit-equal (exact integer sums, the same epilogue),
    the int8 ``dct_project``'s quantizer kernels (``quant_rows_q8`` of G,
    ``quant_cols_q8t`` of Q, codes written as Q^T's) bit-equal to
-   ``lowp.quant_rows`` / ``quant_cols``, the int8 and bf16 ``dct_project``
+   ``lowp.quant_rows`` / ``quant_cols``, the int8 colgathers' (``quant_qt_q8``
+   of Q^T, ``quant_fold_q8`` of both b) to ``quantize_operands_plain``, the
+   int8 and bf16 ``dct_project``
    relaunched bit-identical, the bf16 ``dct_project`` and colgathers (all
    on the tensor cores) within ``LOWP_TC_RTOL`` of max |out| and relaunched
    bit-identical (the single colgather equal to the dual's first output),
@@ -84,16 +89,18 @@ device or without the port beside it. Any failure raises. Phases:
    fp32. Times per DCT-AdamW step: the kernel alone on quantized operands
    and the wrapper with its operand quantization, bounds at the
    precision's peak; library times the bf16 GEMM with an fp32 result and
-   ``torch._int_mm`` on the int8 codes. Beside the bf16 colgathers, a
+   ``torch._int_mm`` on the int8 codes; the quantizers as device time of
+   CUDA-graph replays (eager beside). Beside the bf16 colgathers, a
    yardstick that is no single call (so no library time): the gather and
    cuBLAS, ``torch.matmul(b.bfloat16(), qt[idx].bfloat16())``.
 11. DCT-AdamW's precisions and bases at full width and depth, 3 steps each,
    the counters zeroed just before and read just after each: ``--compute-
    dtype int8`` (7 ``dct_project_q8``, 7 ``quant_rows_q8``, 7
-   ``quant_cols_q8t``, 7 ``colgather_matmul_dual_q8``, 7 of each EF kernel
-   per step, no fp32 projection), ``--compute-dtype bf16``, the API with
-   ``error_feedback=False`` in int8 (7 ``colgather_matmul_q8``, no EF
-   kernel) and in bf16, ``--basis hadamard`` (the fp32 kernels) and
+   ``quant_cols_q8t``, 7 ``colgather_matmul_dual_q8``, 7 ``quant_qt_q8``, 7
+   ``quant_fold_q8``, 7 of each EF kernel per step, no fp32 projection),
+   ``--compute-dtype bf16``, the API with ``error_feedback=False`` in int8
+   (7 ``colgather_matmul_q8`` with its two quantizers, no EF kernel) and in
+   bf16, ``--basis hadamard`` (the fp32 kernels) and
    ``--basis hadamard --fused fft`` (no kernel). Each step-1 loss must
    equal phase 3's: the same seed gives the same weights and batch. Then
    where an int8 step goes, as in phase 4, its launch count beside
@@ -216,14 +223,19 @@ _EF = {"quantize_ef": LAUNCHES_PER_STEP, "dequant_add_ef": LAUNCHES_PER_STEP}
 # the int8 dct_project: its kernel and one quantizer launch per operand
 _Q8 = {"dct_project_q8": LAUNCHES_PER_STEP, "quant_rows_q8": LAUNCHES_PER_STEP,
        "quant_cols_q8t": LAUNCHES_PER_STEP}
+# the int8 colgather's operand quantizers: one launch each per call
+_Q8_GATHER = {"quant_qt_q8": LAUNCHES_PER_STEP,
+              "quant_fold_q8": LAUNCHES_PER_STEP}
 LOWP_PATHS = {
     "int8": (["--compute-dtype", "int8"],
-             {**_Q8, "colgather_matmul_dual_q8": LAUNCHES_PER_STEP, **_EF}),
+             {**_Q8, "colgather_matmul_dual_q8": LAUNCHES_PER_STEP, **_Q8_GATHER,
+              **_EF}),
     "bf16": (["--compute-dtype", "bf16"],
              {"dct_project_bf16": LAUNCHES_PER_STEP,
               "colgather_matmul_dual_bf16": LAUNCHES_PER_STEP, **_EF}),
     "int8 discard": ({"error_feedback": False, "compute_dtype": "int8"},
-                     {**_Q8, "colgather_matmul_q8": LAUNCHES_PER_STEP}),
+                     {**_Q8, "colgather_matmul_q8": LAUNCHES_PER_STEP,
+                      **_Q8_GATHER}),
     "bf16 discard": ({"error_feedback": False, "compute_dtype": "bf16"},
                      {"dct_project_bf16": LAUNCHES_PER_STEP,
                       "colgather_matmul_bf16": LAUNCHES_PER_STEP}),
@@ -232,10 +244,10 @@ LOWP_PATHS = {
                   "colgather_matmul_dual": LAUNCHES_PER_STEP, **_EF}),
     "hadamard fft": (["--basis", "hadamard", "--fused", "fft"], {}),
 }
-# the kernel launches of one profiled int8 DCT-AdamW step while its
-# projection's operands were quantized by PyTorch ops (commit 7c620c3;
+# the kernel launches of one profiled int8 DCT-AdamW step while the int8
+# colgather's operands were quantized by PyTorch ops (commit ee07339;
 # NVIDIA H100 80GB HBM3, 700 W): phase 11 prints its own count beside it
-INT8_STEP_LAUNCHES_BEFORE = 8613
+INT8_STEP_LAUNCHES_BEFORE = 8495
 # the bf16 kernels on the tensor cores (dct_project, the colgathers)
 # against their plain versions, relative to max |out|: the same rounded
 # operands multiplied exactly, but mma's fp32 accumulation is not a
@@ -435,10 +447,21 @@ def check_kernels(torch, dev) -> dict:
         b2 = torch.randn(b1.shape, generator=gen, device=dev)
         o_k = cg.colgather_matmul_dual(b1, b2, qt, idx_k)
         o_p = cg.colgather_matmul_dual_plain(b1, b2, qt, idx_k)
+        again = cg.colgather_matmul_dual(b1, b2, qt, idx_k)
         torch.cuda.synchronize()
         err = max((a - b).abs().max().item() for a, b in zip(o_k, o_p))
         ref = max(b.abs().max().item() for b in o_p)
         assert err <= 1e-5 * ref, f"colgather_matmul_dual {shape}: {err}"
+        assert all(map(torch.equal, again, o_k)), \
+            f"colgather_matmul_dual {shape}: a relaunch differs"
+        del again
+        # the yardstick, three calls (no library time): the gather, then
+        # cuBLAS on the stacked operands
+        idx_l = idx_k.long()
+        rows["colgather_matmul_dual"]["gather_cublas_ms"] = \
+            rows["colgather_matmul_dual"].get("gather_cublas_ms", 0.0) \
+            + per_step * _time_ms(
+                lambda: torch.matmul(torch.stack((b1, b2)), qt[idx_l]))
         # bytes: b1, b2, the indices, the rows of Q^T this run selects (each
         # distinct row once, whichever layers share it) and both outputs
         rows_needed = torch.unique(idx_k).numel()
@@ -450,7 +473,8 @@ def check_kernels(torch, dev) -> dict:
             2 * 2.0 * nb * m * n * RANK)
         print(json.dumps({"kernel": "colgather_matmul_dual",
                           "shape": list(shape), "max_abs_err": err,
-                          "max_abs_out": ref}), flush=True)
+                          "max_abs_out": ref,
+                          "relaunch_bit_identical": True}), flush=True)
 
         # quantize_ef of the residual, then dequant_add_ef back onto G
         resid = g - o_k[1]
@@ -628,7 +652,7 @@ def time_breakdown(torch, dev, optimizer: str = "dct_adamw",
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "kernel_launches": sum(e.count for e in kernels),
-        **({"kernel_launches_before_quantizer_kernels":
+        **({"kernel_launches_before_colgather_quantizers":
             INT8_STEP_LAUNCHES_BEFORE}
            if opt_kw.get("compute_dtype") == "int8" else {}),
         "top_device_kernels": _top(kernels, 12),
@@ -776,9 +800,15 @@ def check_momentum_kernels(torch, dev) -> dict:
             o = torch.randn((nb, m, RANK), generator=gen, device=dev)
             c_k = cg.colgather_matmul(o, qt, idx)
             c_p = cg.colgather_matmul_plain(o, qt, idx)
+            again = cg.colgather_matmul(o, qt, idx)
+            dual_first, _ = cg.colgather_matmul_dual(o, o.flip(-1), qt, idx)
             torch.cuda.synchronize()
             e_cg = _rel(c_k, c_p)
             assert e_cg <= NS_RTOL, f"colgather_matmul {shape}: rel {e_cg}"
+            assert torch.equal(again, c_k) and torch.equal(dual_first, c_k), \
+                f"colgather_matmul {shape}: differs from its relaunch or " \
+                f"the dual's first output"
+            del again, dual_first
             row = rows["colgather_matmul"]
             row["max_abs_err"] = max(row["max_abs_err"],
                                      (c_k - c_p).abs().max().item())
@@ -791,6 +821,7 @@ def check_momentum_kernels(torch, dev) -> dict:
                                               + nb * RANK + nb * m * n)
             row["flops"] += per_step * 2.0 * nb * m * n * RANK
             case["colgather_matmul_rel_err"] = e_cg
+            case["colgather_matmul_equals_dual_first"] = True
         report.append(case)
         del bt, x, g_k, g_k2, g_p, poly, y_k, y_k2, y_p, o_k, o_p
     print(json.dumps({"momentum_kernels": report,
@@ -884,7 +915,7 @@ def check_lowp_kernels(torch, dev) -> dict:
     names = ("dct_project_bf16", "dct_project_q8", "quant_rows_q8",
              "quant_cols_q8t", "colgather_matmul_dual_bf16",
              "colgather_matmul_dual_q8", "colgather_matmul_bf16",
-             "colgather_matmul_q8")
+             "colgather_matmul_q8", "quant_qt_q8", "quant_fold_q8")
     rows = {name: _lowp_row() for name in names}
     lib = _mm_out_dtype(torch)
     int_mm = _has_cuda_op(torch, "aten::_int_mm")
@@ -958,9 +989,16 @@ def check_lowp_kernels(torch, dev) -> dict:
                 _time_ms(lambda: dp.dct_project_q8_plain(gq, sg, qq, sq)),
                 _library_ms(lambda: torch._int_mm(gq.view(-1, n), qq))
                 if int_mm else None),
-            "quant_rows_q8": (_time_ms(lambda: qe.quant_rows_q8(g)), None,
+            # the quantizers: device time of CUDA-graph replays (their
+            # kernels take less time than their wrappers' host work),
+            # eager calls beside
+            "quant_rows_q8": (_graph_ms(lambda: qe.quant_rows_q8(g),
+                                        per_step),
+                              _time_ms(lambda: qe.quant_rows_q8(g)),
                               _time_ms(lambda: lowp.quant_rows(g)), None),
-            "quant_cols_q8t": (_time_ms(lambda: qe.quant_cols_q8t(q)), None,
+            "quant_cols_q8t": (_graph_ms(lambda: qe.quant_cols_q8t(q),
+                                         per_step),
+                               _time_ms(lambda: qe.quant_cols_q8t(q)),
                                _time_ms(lambda: qe.quant_cols_q8t_plain(q)),
                                None)}
         # bytes: the function's inputs read once and outputs written once
@@ -981,8 +1019,20 @@ def check_lowp_kernels(torch, dev) -> dict:
         b1 = take_columns(s32, idx32).contiguous()
         b2 = torch.randn(b1.shape, generator=gen, device=dev)
         o32 = cg.colgather_matmul_dual_plain(b1, b2, qt, idx32)
+        # the int8 route's operand quantizers against their plain versions
         ((b1q, s1), (b2q, s2)), qt_q = cg.quantize_operands((b1, b2), qt,
                                                             idx32)
+        plain_ops = cg.quantize_operands_plain((b1, b2), qt, idx32)
+        s_qt = qe.quant_qt_q8(qt)[1]
+        torch.cuda.synchronize()
+        assert torch.equal(qt_q, plain_ops[1]) \
+            and torch.equal(s_qt, lowp.quant_rows(qt)[1]), \
+            f"quant_qt_q8 {shape}: differs from lowp.quant_rows"
+        assert all(torch.equal(x, y) for pair, plain in
+                   zip(((b1q, s1), (b2q, s2)), plain_ops[0])
+                   for x, y in zip(pair, plain)), \
+            f"quant_fold_q8 {shape}: differs from its plain version"
+        ((p1q, p1s), (p2q, p2s)), pt_q = plain_ops
         outs = {
             "colgather_matmul_dual_bf16": (
                 cg.colgather_matmul_dual(b1, b2, qt, idx32,
@@ -992,7 +1042,7 @@ def check_lowp_kernels(torch, dev) -> dict:
             "colgather_matmul_dual_q8": (
                 cg.colgather_matmul_dual(b1, b2, qt, idx32,
                                          compute_dtype="int8"),
-                cg.colgather_q8_plain(((b1q, s1), (b2q, s2)), qt_q, idx32),
+                cg.colgather_q8_plain(((p1q, p1s), (p2q, p2s)), pt_q, idx32),
                 o32),
             "colgather_matmul_bf16": (
                 (cg.colgather_matmul(b1, qt, idx32, compute_dtype="bf16"),),
@@ -1000,7 +1050,7 @@ def check_lowp_kernels(torch, dev) -> dict:
                                            compute_dtype="bf16"),), o32[:1]),
             "colgather_matmul_q8": (
                 (cg.colgather_matmul(b1, qt, idx32, compute_dtype="int8"),),
-                cg.colgather_q8_plain(((b1q, s1),), qt_q, idx32), o32[:1]),
+                cg.colgather_q8_plain(((p1q, p1s),), pt_q, idx32), o32[:1]),
         }
         torch.cuda.synchronize()
         for name, (got, want, ref) in outs.items():
@@ -1057,7 +1107,16 @@ def check_lowp_kernels(torch, dev) -> dict:
                 _time_ms(lambda: cg.colgather_matmul(
                     b1, qt, idx32, compute_dtype="int8")),
                 _time_ms(lambda: cg.colgather_q8_plain(((b1q, s1),), qt_q,
-                                                       idx32)), None)})
+                                                       idx32)), None),
+            "quant_qt_q8": (_graph_ms(lambda: qe.quant_qt_q8(qt), per_step),
+                            _time_ms(lambda: qe.quant_qt_q8(qt)),
+                            _time_ms(lambda: lowp.quant_rows(qt)), None),
+            "quant_fold_q8": (
+                _graph_ms(lambda: qe.quant_fold_q8((b1, b2), s_qt, idx32),
+                          per_step),
+                _time_ms(lambda: qe.quant_fold_q8((b1, b2), s_qt, idx32)),
+                _time_ms(lambda: qe.quant_fold_q8_plain((b1, b2), s_qt,
+                                                        idx32)), None)})
         # the bf16 colgathers' yardstick, two calls (no library time): the
         # gather, then cuBLAS on bf16 operands with a bf16 result
         idx_l = idx32.long()
@@ -1073,6 +1132,16 @@ def check_lowp_kernels(torch, dev) -> dict:
             rows[name]["gather_cublas_ms"] = \
                 rows[name].get("gather_cublas_ms", 0.0) + per_step * ms
         case["gather_cublas_ms"] = yardstick
+        # the int8 colgather's quantizers: Q^T per row (as quant_rows_q8);
+        # both b read, codes and scales written, Q^T's scales and the
+        # indices read, a product, a division, a rounding and a clip per
+        # element of each b
+        e_b = nb * m * RANK
+        cost["quant_qt_q8"] = (5.0 * n * n + 4.0 * n, 5.0 * n * n,
+                               PEAK_FP32_PER_S)
+        cost["quant_fold_q8"] = (2 * (5.0 * e_b + 4.0 * nb * m)
+                                 + 4.0 * (nb * RANK + n), 2 * 5.0 * e_b,
+                                 PEAK_FP32_PER_S)
         # bytes: each b, the indices, the rows of Q^T this run selects (each
         # distinct row once) and the fp32 outputs; int8 b with row scales
         for ops_n, suffix in ((2, "dual_"), (1, "")):
@@ -1099,7 +1168,7 @@ def check_lowp_kernels(torch, dev) -> dict:
         case["per_call_ms"] = dict(times)
         report.append(case)
         del g, s32, n32, s_bf, sp_bf, s_q8, sp_q8, gq, qtq, b1, b2, b1q, b2q, \
-            o32
+            o32, plain_ops, p1q, p2q
         torch.cuda.empty_cache()
     print(json.dumps({
         "lowp_kernels": report,
@@ -1109,8 +1178,10 @@ def check_lowp_kernels(torch, dev) -> dict:
                      f"{LOWP_TC_RTOL} of max |out|; norms 1e-5 relative, "
                      "top-128 equal to fp32's; each within "
                      "LOWP_ERROR_BOUNDS of fp32 (relative Frobenius)",
-        "per_call_ms_order": "kernel, wrapper with its operand quantization "
-                             "(None: the same), plain, library"}),
+        "per_call_ms_order": "kernel (the quantizers: CUDA-graph replays), "
+                             "wrapper with its operand quantization (the "
+                             "quantizers: eager; None: the same), plain, "
+                             "library"}),
         flush=True)
     return rows
 
@@ -2065,6 +2136,10 @@ def main() -> int:
                                   "src/repro/kernels/dct_project.py:93"),
                "quant_rows_q8": ("quant_ef.cu", "src/repro/kernels/lowp.py:66"),
                "quant_cols_q8t": ("quant_ef.cu", "src/repro/kernels/lowp.py:75"),
+               "quant_qt_q8": ("quant_ef.cu",
+                               "src/repro/kernels/colgather_matmul.py:158"),
+               "quant_fold_q8": ("quant_ef.cu",
+                                 "src/repro/kernels/colgather_matmul.py:162"),
                "colgather_matmul_dual_bf16": (
                    "colgather_matmul.cu", "src/repro/kernels/colgather_matmul.py:80"),
                "colgather_matmul_dual_q8": (
@@ -2085,12 +2160,18 @@ def main() -> int:
                  "torch.matmul on bf16 operands, two calls; launches from "
                  "phase 11's {} run")
     quant_note = ("per DCT-AdamW training step at the main path's shapes (7 "
-                  "launches), the int8 dct_project's operand quantizer; "
+                  "launches), an operand quantizer of the int8 dct_project "
+                  "(quant_rows_q8, quant_cols_q8t) or colgather (quant_qt_q8: "
+                  "Q^T; quant_fold_q8: both b of the dual, the selected "
+                  "scales folded in); ms: device time of CUDA-graph replays "
+                  "of a step's calls of each shape, wrapper_ms: eager calls; "
                   "plain: lowp.quant_rows (of Q^T for quant_cols_q8t, made "
-                  "contiguous); launches from phase 11's int8 run")
+                  "contiguous), quant_fold_q8_plain; launches from phase "
+                  "11's int8 run")
     lowp_path = {"dct_project_bf16": "bf16", "colgather_matmul_dual_bf16": "bf16",
                  "dct_project_q8": "int8", "colgather_matmul_dual_q8": "int8",
                  "quant_rows_q8": "int8", "quant_cols_q8t": "int8",
+                 "quant_qt_q8": "int8", "quant_fold_q8": "int8",
                  "colgather_matmul_q8": "int8 discard",
                  "colgather_matmul_bf16": "bf16 discard"}
     times_are = {
@@ -2108,6 +2189,10 @@ def main() -> int:
                     "library_eager_ms: eager calls; library = "
                     "torch.baddbmm(x, p, x, beta=a)",
         "colgather_matmul": "per subspace-Muon training step: 7 launches",
+        "colgather_matmul_dual": "per training step at the main path's "
+                                 "shapes; gather_cublas_ms: the gather and "
+                                 "torch.matmul of the stacked operands, "
+                                 "three calls",
         "flash_attention": "the TPU kernel's function on fp32 inputs (its "
                            "route), at the shapes of a llama-350m dense "
                            "prefill (8 x 512): 24 launches at shape (a); "
@@ -2168,8 +2253,8 @@ def main() -> int:
                    if name == "colgather_matmul" else STEPS),
                 "times_are": times_are.get(
                     name, "per training step at the main path's shapes"),
-                **{k: row[k] for k in ("wrapper_ms", "library_eager_ms")
-                   if k in row}}),
+                **{k: row[k] for k in ("wrapper_ms", "library_eager_ms",
+                                       "gather_cublas_ms") if k in row}}),
         })
     device_line = _device_line()
     print(json.dumps({"kernels": kernels}), flush=True)

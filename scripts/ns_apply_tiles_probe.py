@@ -40,24 +40,27 @@ VARIANTS = {
 }
 
 
-def _compile(name: str, consts: dict) -> tuple[Path, subprocess.Popen]:
-    """Write the variant's source and start its nvcc."""
-    text = (CSRC / "newton_schulz.cu").read_text()
-    head, rest = text.split("namespace apply {", 1)
+def _compile(name: str, consts: dict, source: str = "newton_schulz.cu",
+             namespace: str = "apply", out: Path = OUT
+             ) -> tuple[Path, subprocess.Popen]:
+    """Write the variant's source (``consts`` replacing the ``constexpr
+    int`` lines of ``namespace``) and start its nvcc."""
+    text = (CSRC / source).read_text()
+    head, rest = text.split(f"namespace {namespace} {{", 1)
     for key, value in consts.items():
         old = next(line for line in rest.splitlines()
                    if line.startswith(f"constexpr int {key} = "))
         rest = rest.replace(old, f"constexpr int {key} = {value};", 1)
-    d = OUT / "".join(ch if ch.isalnum() else "_" for ch in name)
+    d = out / "".join(ch if ch.isalnum() else "_" for ch in name)
     d.mkdir(parents=True, exist_ok=True)
     for header in CSRC.glob("*.cuh"):
         shutil.copy(header, d)
-    (d / "newton_schulz.cu").write_text(head + "namespace apply {" + rest)
+    (d / source).write_text(head + f"namespace {namespace} {{" + rest)
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     return d, subprocess.Popen(
         [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-o", str(d / "lib.so"),
-         str(d / "newton_schulz.cu")],
+         str(d / source)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 

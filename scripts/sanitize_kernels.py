@@ -16,8 +16,13 @@ support), it says so and runs both parts without it, and those runs count.
 
 * ``--launch``: each kernel wrapper on CUDA tensors at small ragged shapes
   (rows, columns and ranks off every tile, operands 4 bytes off 16 for the
-  4-byte copy paths), each output held to its plain version. This is a
-  memory check; the tests hold the numeric tolerances.
+  4-byte copy paths), each output held to its plain version; the
+  colgathers with indices outside [0, n) (a zero row of Q^T). Then the fp32
+  and int8 colgathers and the int8 colgather's quantizers once more through
+  their C entry points, each output inside a buffer whose ``GUARD``
+  elements on either side are poisoned and must be untouched after the
+  launch (outputs on 16 bytes, then 4 bytes off: the 4-byte stores). This
+  is a memory check; the tests hold the numeric tolerances.
 * ``--int8-discard``: DCT-AdamW in int8 without error feedback
   (``chip_smoke.py`` phase 11's "int8 discard" path) on llama-350m at full
   width with its depth cut to one layer, 2 steps of batch 2 x 128.
@@ -38,6 +43,10 @@ ROOT = Path(__file__).resolve().parents[1]
 TOOLS = (("memcheck", "--launch"), ("racecheck", "--launch"),
          ("initcheck", "--int8-discard"))
 RUN_TIMEOUT_S = 420
+# poisoned elements on either side of a guarded output; the fp32 poison (a
+# NaN) as int32 bits, the int8 one
+GUARD = 64
+POISON_F32, POISON_I8 = 0x7FC0DEAD, 0x5A
 
 
 def _sanitizer() -> str | None:
@@ -108,6 +117,86 @@ def _close(got, want, rtol: float, name: str) -> None:
     assert err <= rtol * scale and torch.isfinite(got).all(), (name, err)
 
 
+def _poisoned(shape, dtype, offset: int):
+    """A tensor of ``shape`` inside a buffer whose GUARD + ``offset``
+    elements before it and GUARD after hold the poison: (buffer, view)."""
+    import numpy as np
+    import torch
+    numel, lead = int(np.prod(shape)), GUARD + offset
+    buf = torch.empty(lead + numel + GUARD, dtype=dtype, device="cuda")
+    if dtype == torch.int8:
+        buf.fill_(POISON_I8)
+    else:
+        buf.view(torch.int32).fill_(POISON_F32)
+    return buf, buf[lead:lead + numel].view(shape)
+
+
+def _guards_intact(buf, offset: int) -> bool:
+    import torch
+    ends = torch.cat([buf[:GUARD + offset], buf[-GUARD:]])
+    if ends.dtype == torch.int8:
+        return bool((ends == POISON_I8).all())
+    return bool((ends.view(torch.int32) == POISON_F32).all())
+
+
+def guarded_gathers(b1, b2, qt, idx, offset: int) -> None:
+    """The fp32 and int8 colgathers (dual and single) and the int8 route's
+    quantizers through their C entry points, each output in a poisoned
+    buffer: equal to the wrappers' outputs, the poison intact."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import colgather_matmul as cg
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels import quant_ef as qe
+
+    lib, st = cuda_lib.library(), cuda_lib.stream(qt)
+    *batch, m, r = b1.shape
+    nb, n = int(np.prod(batch)), qt.shape[0]
+    f32, i8 = torch.float32, torch.int8
+    ((q1, s1), (q2, s2)), qt_q = cg.quantize_operands((b1, b2), qt, idx)
+    s_qt = qe.quant_qt_q8(qt)[1]
+    want32 = cg.colgather_matmul_dual(b1, b2, qt, idx)
+    want8 = cg.colgather_matmul_dual_q8(q1, s1, q2, s2, qt_q, idx)
+    bufs = []
+
+    def out(shape, dtype):
+        buf, view = _poisoned(shape, dtype, offset)
+        bufs.append(buf)
+        return view
+    ptr = [t.data_ptr() for t in (b1, b2, qt, idx, q1, s1, q2, s2, qt_q, s_qt)]
+    pb1, pb2, pqt, pidx, pq1, ps1, pq2, ps2, pqtq, psqt = ptr
+    o1, o2, o, p1, p2, p = (out((*batch, m, n), f32) for _ in range(6))
+    c1, c2, cq = out(b1.shape, i8), out(b1.shape, i8), out(qt.shape, i8)
+    t1, t2, tq = out((*batch, m, 1), f32), out((*batch, m, 1), f32), \
+        out((n, 1), f32)
+    for rc in (
+            lib.repro_colgather_matmul_dual(pb1, pb2, pqt, pidx, o1.data_ptr(),
+                                            o2.data_ptr(), nb, m, r, n, st),
+            lib.repro_colgather_matmul(pb1, pqt, pidx, o.data_ptr(), nb, m, r,
+                                       n, st),
+            lib.repro_colgather_matmul_dual_q8(pq1, ps1, pq2, ps2, pqtq, pidx,
+                                               p1.data_ptr(), p2.data_ptr(),
+                                               nb, m, r, n, st),
+            lib.repro_colgather_matmul_q8(pq1, ps1, pqtq, pidx, p.data_ptr(),
+                                          nb, m, r, n, st),
+            lib.repro_quant_fold_q8(pb1, pb2, psqt, pidx, c1.data_ptr(),
+                                    c2.data_ptr(), t1.data_ptr(),
+                                    t2.data_ptr(), nb * m, m, r, n, st),
+            lib.repro_quant_qt_q8(pqt, cq.data_ptr(), tq.data_ptr(), n, n,
+                                  st)):
+        assert rc == 0, rc
+    torch.cuda.synchronize()
+    pairs = {"fp32 dual": ((o1, o2), want32), "fp32 single": ((o,), want32),
+             "int8 dual": ((p1, p2), want8), "int8 single": ((p,), want8),
+             "quant_fold_q8": ((c1, t1, c2, t2), (q1, s1, q2, s2)),
+             "quant_qt_q8": ((cq, tq), (qt_q, s_qt))}
+    for name, (got, want) in pairs.items():
+        assert all(map(torch.equal, got, want)), name
+    assert all(_guards_intact(b, offset) for b in bufs), \
+        f"a guarded output's poison was overwritten (offset {offset})"
+
+
 def launch() -> int:
     """Each wrapper once (the int8 and bf16 ones through their public
     routes), at ragged shapes, held to its plain version."""
@@ -158,24 +247,27 @@ def launch() -> int:
                                           *lowp.quant_cols(q))
         assert torch.equal(s, want), "dct_project int8"
         qt = q.T.contiguous()
+        # a bad index gathers a zero row: the plain versions on Q^T with a
+        # zero row appended, the bad indices pointing at it
+        qt_zero = torch.cat([qt, torch.zeros_like(qt[:1])])
         for r in (17, 40):
-            idx = indices(2, 131, r)
+            bad = indices(2, 131, r)
+            bad[0, 0], bad[1, 1] = -1, 131
+            rows = torch.where((bad < 0) | (bad >= 131), 131, bad)
             b1, b2 = rand(2, 129, r, offset=offset), rand(2, 129, r)
             for dt, tol in (("fp32", 1e-5), ("bf16", 4e-6), ("int8", 0.0)):
-                # int8: bit-equal; its operand quantization (PyTorch ops)
-                # indexes the scales, so only valid indices there
-                bad = idx.clone()
-                if dt != "int8":
-                    bad[0, 0], bad[1, 1] = -1, 131  # gather zero rows
-                keep = ((bad >= 0) & (bad < 131)).float()[:, None, :]
                 outs = cg.colgather_matmul_dual(b1, b2, qt, bad,
                                                 compute_dtype=dt)
-                want = cg.colgather_matmul_dual_plain(
-                    b1 * keep, b2 * keep, qt, bad.clamp(0, 130),
-                    compute_dtype=dt)
+                want = lowp.lowp_gather_matmul((b1, b2), qt_zero, rows, dt)
                 single = cg.colgather_matmul(b1, qt, bad, compute_dtype=dt)
                 for o, w in zip((*outs, single), (*want, want[0])):
                     _close(o, w, tol, f"colgather_matmul {dt}")
+            guarded_gathers(b1, b2, qt, bad, offset)
+        # r and n multiples of 16: the 16-byte copies of both precisions
+        q256 = dct2_matrix(256, device=dev).T.contiguous()
+        bad = indices(2, 256, 32)
+        bad[0, 3], bad[1, 0] = 256, -7
+        guarded_gathers(rand(2, 129, 32), rand(2, 129, 32), q256, bad, offset)
         a, b, c = NS_COEFFS
         for r, m in ((17, 100), (45, 333), (300, 301)):
             x = rand(2, r, m)

@@ -20,6 +20,18 @@
 // codes are written along rows of Q^T. Bound: bytes; Q is small (n x n),
 // so it is a few microseconds a launch.
 //
+// The int8 colgather's operands (the JAX package's
+// repro/kernels/colgather_matmul.py:158-162, jnp ops that XLA fuses into
+// its jitted step) are quantized here too, two launches per call: Q^T per
+// row by the same kernel again (entry point repro_quant_qt_q8, its own
+// launch count), and both b operands of a dual call (or the one of a
+// single call) by quant_fold_q8: each row of b times the scales of the
+// selected rows of Q^T (column k takes s_qt[idx[k]]; an index outside
+// [0, n) reads as a zero row, whose scale is F32_TINY), then quantized per
+// row. The rows are r long (the rank, ~128), so a warp owns a row and a
+// CTA eight of them; it reads the row twice (the amax, then the codes),
+// computing the same products both times. Bound: bytes.
+//
 // Numerics follow the JAX reference exactly: IEEE division x / scale (not a
 // multiply by 1/scale, which flips int8 ties), round half to even (rintf),
 // the F32_TINY clamp on the scale, and no fused multiply-add in g + q*scale.
@@ -125,6 +137,57 @@ quant_cols_q8t_kernel(const float* __restrict__ x, int8_t* __restrict__ qt,
   }
 }
 
+// rows (batch * m) of b1 (and b2), r long, idx (batch, r), s_qt (n): a
+// warp per row of every operand
+constexpr int kFoldWarps = 8;
+
+template <int kOps>
+__global__ void __launch_bounds__(kFoldWarps * 32)
+quant_fold_q8_kernel(const float* __restrict__ b1, const float* __restrict__ b2,
+                     const float* __restrict__ s_qt, const int* __restrict__ idx,
+                     int8_t* __restrict__ q1, int8_t* __restrict__ q2, float* __restrict__ sc1,
+                     float* __restrict__ sc2, long long rows, int m, int r, int n) {
+  const long long row = static_cast<long long>(blockIdx.x) * kFoldWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const int* idx_b = idx + (row / m) * r;
+  const long long off = row * r;
+  const float* x[2] = {b1 + off, kOps == 2 ? b2 + off : nullptr};
+  // the selected row's scale; a zero row's (F32_TINY) for a bad index
+  const auto sel = [&](int k) {
+    const int j = idx_b[k];
+    return j >= 0 && j < n ? s_qt[j] : FLT_MIN;
+  };
+
+  float amax[2] = {0.f, 0.f};
+  for (int k = lane; k < r; k += 32) {
+    const float s = sel(k);
+#pragma unroll
+    for (int op = 0; op < kOps; ++op) amax[op] = fmaxf(amax[op], fabsf(__fmul_rn(x[op][k], s)));
+  }
+  float scale[2];
+#pragma unroll
+  for (int op = 0; op < kOps; ++op) {
+    for (int o = 16; o > 0; o >>= 1)
+      amax[op] = fmaxf(amax[op], __shfl_xor_sync(0xffffffffu, amax[op], o));
+    // quantize_ef_kernel's scale
+    scale[op] = fmaxf(__fdiv_rn(amax[op], 127.f), FLT_MIN);
+  }
+  if (lane == 0) {
+    sc1[row] = scale[0];
+    if constexpr (kOps == 2) sc2[row] = scale[1];
+  }
+  int8_t* q[2] = {q1 + off, kOps == 2 ? q2 + off : nullptr};
+  for (int k = lane; k < r; k += 32) {
+    const float s = sel(k);
+#pragma unroll
+    for (int op = 0; op < kOps; ++op) {
+      const float v = rintf(__fdiv_rn(__fmul_rn(x[op][k], s), scale[op]));
+      q[op][k] = static_cast<int8_t>(fminf(fmaxf(v, -127.f), 127.f));
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 dequant_add_ef_kernel(const float* __restrict__ g, const int8_t* __restrict__ q,
                       const float* __restrict__ scale, float* __restrict__ out, int n) {
@@ -158,6 +221,30 @@ extern "C" int repro_quantize_ef(const float* x, int8_t* q, float* scale,
 extern "C" int repro_quant_rows_q8(const float* x, int8_t* q, float* scale,
                                    long long rows, int n, void* stream) {
   return quantize_rows(x, q, scale, rows, n, stream);
+}
+
+// the int8 colgather's Q^T: the same kernel, launched for another caller
+extern "C" int repro_quant_qt_q8(const float* x, int8_t* q, float* scale, long long rows, int n,
+                                 void* stream) {
+  return quantize_rows(x, q, scale, rows, n, stream);
+}
+
+// both b operands of the int8 colgather (b2 null: the one of a single call)
+extern "C" int repro_quant_fold_q8(const float* b1, const float* b2, const float* s_qt,
+                                   const int* idx, int8_t* q1, int8_t* q2, float* sc1,
+                                   float* sc2, long long rows, int m, int r, int n,
+                                   void* stream) {
+  if (rows > 0 && r > 0) {
+    const unsigned grid = static_cast<unsigned>((rows + kFoldWarps - 1) / kFoldWarps);
+    const auto st = static_cast<cudaStream_t>(stream);
+    if (b2)
+      quant_fold_q8_kernel<2><<<grid, kFoldWarps * 32, 0, st>>>(b1, b2, s_qt, idx, q1, q2, sc1,
+                                                                sc2, rows, m, r, n);
+    else
+      quant_fold_q8_kernel<1><<<grid, kFoldWarps * 32, 0, st>>>(b1, b2, s_qt, idx, q1, q2, sc1,
+                                                                sc2, rows, m, r, n);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int repro_quant_cols_q8t(const float* x, int8_t* qt, float* scale, int rows,

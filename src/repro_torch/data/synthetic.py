@@ -26,11 +26,14 @@ class SyntheticLM:
     markov_shift: int = 7
 
     def _zipf_sample(self, gen: torch.Generator, shape, device):
-        """Inverse-CDF Zipf over [2, vocab) (0/1 reserved: pad/bos)."""
+        """Inverse-CDF Zipf over [2, vocab) (0/1 reserved: pad/bos). The CDF
+        is summed on the CPU, in order: on a CUDA device the cumsum of one
+        long vector (a decoupled look-back scan) can add in another order
+        from one call to the next, and move a token of the batch."""
         v = self.vocab_size - 2
-        ranks = torch.arange(1, v + 1, dtype=torch.float32, device=device)
+        ranks = torch.arange(1, v + 1, dtype=torch.float32)
         w = ranks ** (-self.zipf_a)
-        cdf = torch.cumsum(w, 0) / w.sum()
+        cdf = (torch.cumsum(w, 0) / w.sum()).to(device)
         u = torch.rand(shape, generator=gen, device=device)
         idx = torch.searchsorted(cdf, u).clamp_max(v - 1)
         return idx + 2

@@ -19,14 +19,17 @@ The gathered ``(r, n)`` factor never exists in device memory. On CUDA
 tensors each wrapper launches its instance of the kernel templates of
 ``csrc/colgather_matmul.cu`` (replacing
 ``repro/kernels/colgather_matmul.py::_kernel``, ``::_kernel_dual``,
-``::_kernel_q8`` and ``::_kernel_dual_q8``: fp32 on the SIMT cores, bf16 on
-the tensor cores, int8 by ``__dp4a``; see the source note for what bounds
-each) or raises; each precision has launchers with launch counts of
-their own (``colgather_matmul[_dual]``, ``..._bf16``, ``..._q8``). For int8
-the operands are quantized by the same PyTorch ops as the plain version,
-outside the kernel, as in the JAX package. On CPU tensors every entry point
-runs its plain version. ``qt`` must be a contiguous ``Q^T``, not a
-transposed view of ``Q``: the kernel reads its rows from ``data_ptr()``.
+``::_kernel_q8`` and ``::_kernel_dual_q8``: fp32 on the SIMT cores, bf16 and
+int8 on the tensor cores; see the source note for what bounds each) or
+raises; each precision has launchers with launch counts of their own
+(``colgather_matmul[_dual]``, ``..._bf16``, ``..._q8``). For int8 the
+operands are quantized outside the product, as in the JAX package, by two
+kernels of ``csrc/quant_ef.cu`` (``quantize_operands``: ``quant_qt_q8``
+for ``Q^T``, ``quant_fold_q8`` for every ``b`` of the call), each counted
+on its own name. On CPU tensors every entry point runs its plain version.
+``qt`` must be a contiguous ``Q^T``, not a transposed view of ``Q``: the
+kernel reads its rows from ``data_ptr()``. On the card an index outside
+[0, n) gathers a zero row of ``Q^T``.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import torch
 from . import cuda_lib
 from .lowp import (check_compute_dtype, check_q8_depth, int_matmul,
                    lowp_gather_matmul, quant_rows)
+from .quant_ef import quant_fold_q8, quant_fold_q8_plain, quant_qt_q8
 
 
 def colgather_matmul_plain(b: torch.Tensor, qt: torch.Tensor,
@@ -63,13 +67,20 @@ def colgather_q8_plain(bqs: tuple[tuple[torch.Tensor, torch.Tensor], ...],
     return tuple(int_matmul(bq, gathered) * sb for bq, sb in bqs)
 
 
-def quantize_operands(bs: tuple[torch.Tensor, ...], qt: torch.Tensor,
-                      idx: torch.Tensor):
+def quantize_operands_plain(bs: tuple[torch.Tensor, ...], qt: torch.Tensor,
+                            idx: torch.Tensor):
     """``Q^T`` quantized per row, its selected rows' scales folded into each
     ``b`` and each ``b`` quantized per row: ``(((bq, sb), ...), qt_q)``."""
     qt_q, s_qt = quant_rows(qt)
-    s_sel = s_qt[:, 0][idx.long()]                    # (..., r)
-    return tuple(quant_rows(b.float() * s_sel[..., None, :]) for b in bs), qt_q
+    return quant_fold_q8_plain(bs, s_qt, idx), qt_q
+
+
+def quantize_operands(bs: tuple[torch.Tensor, ...], qt: torch.Tensor,
+                      idx: torch.Tensor):
+    """``quantize_operands_plain``'s codes and scales bit for bit; on the
+    card two launches (``quant_qt_q8``, ``quant_fold_q8``)."""
+    qt_q, s_qt = quant_qt_q8(qt)
+    return quant_fold_q8(bs, s_qt, idx), qt_q
 
 
 def _check_shapes(name: str, bs: tuple[torch.Tensor, ...], qt: torch.Tensor,
@@ -113,13 +124,28 @@ def _launch(name: str, bs: tuple[torch.Tensor, ...], qt: torch.Tensor,
     return outs
 
 
+def _check_q8(name: str, bqs: tuple[torch.Tensor, ...],
+              scales: tuple[torch.Tensor, ...], qt_q: torch.Tensor,
+              idx: torch.Tensor) -> None:
+    """The int8 operands' shapes and dtypes, on every device."""
+    batch, m, r, _ = _check_shapes(name, bqs, qt_q, idx)
+    check_q8_depth(r)
+    for t, dtype in [*((b, torch.int8) for b in bqs),
+                     *((s, torch.float32) for s in scales),
+                     (qt_q, torch.int8), (idx, torch.int32)]:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if any(tuple(s.shape) != (*batch, m, 1) for s in scales):
+        raise ValueError(f"{name}: scales {[tuple(s.shape) for s in scales]}"
+                         f" do not fit {(*batch, m, 1)}")
+
+
 def colgather_matmul_q8(bq: torch.Tensor, sb: torch.Tensor,
                         qt_q: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """The int8 back-projection of quantized operands
     (``colgather_q8_plain``'s), bit-equal to the plain version."""
-    check_q8_depth(bq.shape[-1])
+    _check_q8("colgather_matmul_q8", (bq,), (sb,), qt_q, idx)
     if cuda_lib.same_device(bq, sb, qt_q, idx).type == "cpu":
-        _check_shapes("colgather_matmul_q8", (bq,), qt_q, idx)
         return colgather_q8_plain(((bq, sb),), qt_q, idx)[0]
     (out,) = _launch("colgather_matmul_q8", (bq,), qt_q, idx, (sb,))
     colgather_matmul_q8.launches += 1
@@ -131,9 +157,8 @@ def colgather_matmul_dual_q8(b1q: torch.Tensor, s1: torch.Tensor,
                              qt_q: torch.Tensor, idx: torch.Tensor
                              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Both int8 back-projections from one gather of the int8 rows."""
-    check_q8_depth(b1q.shape[-1])
+    _check_q8("colgather_matmul_dual_q8", (b1q, b2q), (s1, s2), qt_q, idx)
     if cuda_lib.same_device(b1q, s1, b2q, s2, qt_q, idx).type == "cpu":
-        _check_shapes("colgather_matmul_dual_q8", (b1q, b2q), qt_q, idx)
         return colgather_q8_plain(((b1q, s1), (b2q, s2)), qt_q, idx)
     outs = _launch("colgather_matmul_dual_q8", (b1q, b2q), qt_q, idx,
                    (s1, s2))

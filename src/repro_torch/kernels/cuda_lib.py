@@ -44,6 +44,9 @@ SIGNATURES = {
     "repro_dct_project_q8t": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "repro_quant_rows_q8": (_P, _P, _P, _L, _I, _P),
     "repro_quant_cols_q8t": (_P, _P, _P, _I, _I, _P),
+    "repro_quant_qt_q8": (_P, _P, _P, _L, _I, _P),
+    "repro_quant_fold_q8": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
+                            _P),
     "repro_dct_project_block_rows": (),
     "repro_colgather_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "repro_colgather_matmul_dual": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -13,8 +13,10 @@ also run ``dct_project``, and Trion ``colgather_matmul_dual``), ``SERVING``
 those of the paged decode step, ``LOWP`` the bf16 and int8 variants of the
 projection kernels that DCT-AdamW's ``compute_dtype`` runs (a launch of one
 counts on its own name, not on the fp32 kernel's, so a run shows which
-precision ran) with the int8 projection's operand quantizers
-(``quant_rows_q8``, ``quant_cols_q8t``), ``ATTENTION`` the dense attention
+precision ran) with the int8 projections' operand quantizers
+(``dct_project``'s ``quant_rows_q8`` and ``quant_cols_q8t``,
+``colgather_matmul``'s ``quant_qt_q8`` and ``quant_fold_q8``),
+``ATTENTION`` the dense attention
 kernels of the model's no-grad forward (the dense prefill:
 ``flash_attention_blockwise`` in bf16, ``flash_attention`` in fp32),
 ``KERNELS`` all. ``launch_counts`` /
@@ -35,8 +37,8 @@ from .dct_project import dct_project, dct_project_bf16, dct_project_q8
 from .flash_attention import flash_attention, flash_attention_blockwise
 from .flash_decode import flash_decode
 from .newton_schulz import newton_schulz_kernel, ns_apply, ns_gram
-from .quant_ef import (dequant_add_ef, quant_cols_q8t, quant_rows_q8,
-                       quantize_ef)
+from .quant_ef import (dequant_add_ef, quant_cols_q8t, quant_fold_q8,
+                       quant_qt_q8, quant_rows_q8, quantize_ef)
 
 TRAINING = {
     "dequant_add_ef": dequant_add_ef,
@@ -61,6 +63,8 @@ LOWP = {
     "colgather_matmul_dual_q8": colgather_matmul_dual_q8,
     "colgather_matmul_bf16": colgather_matmul_bf16,
     "colgather_matmul_q8": colgather_matmul_q8,
+    "quant_qt_q8": quant_qt_q8,
+    "quant_fold_q8": quant_fold_q8,
 }
 ATTENTION = {
     "flash_attention": flash_attention,

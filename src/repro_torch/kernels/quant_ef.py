@@ -13,11 +13,18 @@ int8 ``dct_project``'s operand quantizers.
   its codes written transposed, ``(n, k)``: column j of ``Q`` is row j of
   ``Q^T``, so the codes and scales are ``quant_rows(Q^T)``'s bit for bit.
   The int8 projection kernel reads its B operand in that layout.
+* ``quant_qt_q8``    — ``lowp.quant_rows`` of ``Q^T`` for the int8
+  ``colgather_matmul``: the same kernel again, counted on its own name.
+* ``quant_fold_q8``  — the int8 ``colgather_matmul``'s ``b`` operands, one
+  launch for both of a dual call: each ``b`` times the scales of the
+  selected rows of ``Q^T`` (column k takes ``s_qt[idx[k]]``), then
+  ``quant_rows``; codes and scales bit for bit.
 
 On a CUDA tensor each wrapper launches its kernel from ``csrc/quant_ef.cu``
 (replacing ``repro/kernels/quant_ef.py::_quant_kernel`` and
 ``::_dequant_add_kernel``, and the jnp quantizers of
-``repro/kernels/lowp.py``; bound by bytes — see the source note) or raises.
+``repro/kernels/lowp.py`` and ``repro/kernels/colgather_matmul.py``; bound
+by bytes — see the source note) or raises.
 On a CPU tensor it runs the plain PyTorch version beside it, which is also
 what the kernels are held against on the card. Leading stacked-layer axes
 collapse into the row count, so a ``(layers, m, n)`` leaf is one launch.
@@ -108,9 +115,84 @@ def quant_cols_q8t(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return codes, scale
 
 
+def quant_qt_q8(qt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lowp.quant_rows`` of ``Q^T`` (n, n) for the int8 back-projection:
+    ((n, n) int8 codes, (n, 1) fp32 row scales), bit for bit."""
+    if qt.device.type == "cpu":
+        return quant_rows(qt)
+    out = _quantize_rows("quant_qt_q8", qt)
+    quant_qt_q8.launches += 1
+    return out
+
+
+def quant_fold_q8_plain(bs: tuple[torch.Tensor, ...], s_qt: torch.Tensor,
+                        idx: torch.Tensor
+                        ) -> tuple[tuple[torch.Tensor, torch.Tensor], ...]:
+    """Plain version of ``quant_fold_q8``: the selected row scales of
+    ``Q^T`` folded into each ``b``, then ``quant_rows``."""
+    s_sel = s_qt[:, 0][idx.long()]                    # (..., r)
+    return tuple(quant_rows(b.float() * s_sel[..., None, :]) for b in bs)
+
+
+def _check_fold(bs: tuple[torch.Tensor, ...], s_qt: torch.Tensor,
+                idx: torch.Tensor) -> None:
+    if len(bs) not in (1, 2) or bs[0].dim() < 2 \
+            or any(tuple(b.shape) != tuple(bs[0].shape) for b in bs):
+        raise ValueError(f"quant_fold_q8: one or two (..., m, r) operands of "
+                         f"one shape, got {[tuple(b.shape) for b in bs]}")
+    *batch, _, r = bs[0].shape
+    for i, b in enumerate(bs, 1):
+        if b.dtype != torch.float32:
+            raise TypeError(f"quant_fold_q8 b{i}: expected torch.float32, "
+                            f"got {b.dtype}")
+    if s_qt.dtype != torch.float32 or idx.dtype != torch.int32:
+        raise TypeError(f"quant_fold_q8: expected fp32 scales and int32 "
+                        f"indices, got {s_qt.dtype} and {idx.dtype}")
+    if s_qt.dim() != 2 or s_qt.shape[1] != 1 \
+            or tuple(idx.shape) != (*batch, r):
+        raise ValueError(f"quant_fold_q8: scales {tuple(s_qt.shape)} and "
+                         f"idx {tuple(idx.shape)} do not fit b "
+                         f"{tuple(bs[0].shape)}")
+
+
+def quant_fold_q8(bs: tuple[torch.Tensor, ...], s_qt: torch.Tensor,
+                  idx: torch.Tensor
+                  ) -> tuple[tuple[torch.Tensor, torch.Tensor], ...]:
+    """``bs``: one or two fp32 (..., m, r); ``s_qt``: the (n, 1) row scales
+    of ``Q^T``; ``idx``: (..., r) int32. Returns ``((codes, scales), ...)``,
+    each (..., m, r) int8 with (..., m, 1) fp32 row scales, in one launch.
+    On the card an index outside [0, n) reads as a zero row of ``Q^T``
+    (its scale ``F32_TINY``)."""
+    _check_fold(bs, s_qt, idx)
+    if cuda_lib.same_device(*bs, s_qt, idx).type == "cpu":
+        return quant_fold_q8_plain(bs, s_qt, idx)
+    for i, b in enumerate(bs, 1):
+        cuda_lib.require_cuda(f"quant_fold_q8 b{i}", b, torch.float32)
+    cuda_lib.require_cuda("quant_fold_q8 s_qt", s_qt, torch.float32)
+    cuda_lib.require_cuda("quant_fold_q8 idx", idx, torch.int32)
+    *batch, m, r = bs[0].shape
+    codes = [torch.empty(b.shape, dtype=torch.int8, device=b.device)
+             for b in bs]
+    scales = [torch.empty((*batch, m, 1), dtype=torch.float32,
+                          device=b.device) for b in bs]
+    rows = bs[0].numel() // r if r else 0
+    two = len(bs) == 2
+    rc = cuda_lib.library().repro_quant_fold_q8(
+        bs[0].data_ptr(), bs[1].data_ptr() if two else None,
+        s_qt.data_ptr(), idx.data_ptr(), codes[0].data_ptr(),
+        codes[1].data_ptr() if two else None, scales[0].data_ptr(),
+        scales[1].data_ptr() if two else None, rows, m, r, s_qt.shape[0],
+        cuda_lib.stream(s_qt))
+    cuda_lib.check(rc, "quant_fold_q8")
+    quant_fold_q8.launches += 1
+    return tuple(zip(codes, scales))
+
+
 quantize_ef.launches = 0
 quant_rows_q8.launches = 0
 quant_cols_q8t.launches = 0
+quant_qt_q8.launches = 0
+quant_fold_q8.launches = 0
 
 
 def dequant_add_ef(g: torch.Tensor, q: torch.Tensor,

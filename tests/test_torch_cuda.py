@@ -82,6 +82,19 @@ def test_cuda_kernels_match_plain(cuda, name):
 
 
 @pytest.mark.cuda
+def test_cuda_synthetic_batches_repeat(cuda):
+    """One (seed, step) gives the same batch on every call on the card (the
+    Zipf CDF is summed on the CPU: a CUDA cumsum of one long vector may add
+    in another order from call to call)."""
+    from repro_torch.data.synthetic import SyntheticLM
+    ds = SyntheticLM(vocab_size=32000, seq_len=512, global_batch=8)
+    first = ds.batch(0, cuda)
+    for _ in range(200):
+        again = ds.batch(0, cuda)
+        assert all(torch.equal(first[k], again[k]) for k in first)
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_reject_views_and_dtypes(cuda):
     q = dct2_matrix(16, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -563,8 +576,11 @@ def test_cuda_lowp_kernels_match_plain(cuda, name, r):
                        cg.colgather_matmul_plain(b1, qt, idx,
                                                  compute_dtype="int8"))
     # the one int8 dct_project also launched each of its operand quantizers
-    # (quant_rows_q8, quant_cols_q8t) once; the int8 colgathers none
-    assert ops.launch_counts(ops.LOWP) == {name: 1 for name in ops.LOWP}
+    # (quant_rows_q8, quant_cols_q8t) once; each int8 colgather (a dual,
+    # a single) its two (quant_qt_q8, quant_fold_q8) once
+    assert ops.launch_counts(ops.LOWP) == {
+        name: 2 if name in ("quant_qt_q8", "quant_fold_q8") else 1
+        for name in ops.LOWP}
     assert not any(ops.launch_counts(ops.TRAINING).values())
 
 
@@ -708,9 +724,19 @@ def test_cuda_dct_project_q8_ragged(cuda, name, offset):
     torch.testing.assert_close(norms, norms_p, rtol=1e-5, atol=0)
 
 
-# the bf16 colgathers on the tensor cores: BF16_PROJECT_SHAPES' ragged
-# (..., m, n), r from part of one 32-deep k slice to four slices
-BF16_GATHER_RANKS = [8, 17, 40, 128]
+# the colgathers at BF16_PROJECT_SHAPES' ragged (..., m, n), r from part
+# of one k slice to several
+BF16_GATHER_RANKS = [8, 17, 40, 45, 128]
+# each precision's launch counters (dual, single) and its bar against the
+# plain version relative to max |out|: fp32 sums in another order than
+# cuBLAS; bf16 on the tensor cores; int8 bit-equal (None)
+GATHER_PRECISIONS = {
+    "fp32": (("colgather_matmul_dual", "colgather_matmul"), 1e-5),
+    "bf16": (("colgather_matmul_dual_bf16", "colgather_matmul_bf16"),
+             LOWP_TC_RTOL),
+    "int8": (("colgather_matmul_dual_q8", "colgather_matmul_q8"), None)}
+# the int8 route's operand quantizers, one launch each per call
+GATHER_QUANTIZERS = ("quant_qt_q8", "quant_fold_q8")
 
 
 def _at_offset(cuda, values: np.ndarray, offset: int) -> torch.Tensor:
@@ -720,16 +746,35 @@ def _at_offset(cuda, values: np.ndarray, offset: int) -> torch.Tensor:
     return flat[offset:].view(values.shape)
 
 
+def _codes_at(codes: torch.Tensor, offset: int) -> torch.Tensor:
+    """A copy of int8 ``codes`` ``offset`` bytes past a 16-byte boundary."""
+    flat = torch.zeros(offset + codes.numel(), dtype=torch.int8,
+                       device=codes.device)
+    flat[offset:] = codes.reshape(-1)
+    return flat[offset:].view(codes.shape)
+
+
+def _assert_gather_close(got, want, tol):
+    if tol is None:
+        assert torch.equal(got, want)
+    else:
+        _assert_rel_max(got, want, tol)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", list(GATHER_PRECISIONS))
 @pytest.mark.parametrize("r", BF16_GATHER_RANKS)
 @pytest.mark.parametrize("name", list(BF16_PROJECT_SHAPES))
-def test_cuda_colgather_bf16_ragged(cuda, name, r):
-    """Dual and single within LOWP_TC_RTOL of max |out| of their plain
-    versions, relaunches bit-identical, the single equal to the dual's first
-    output bit for bit, each launch counted once on its own name; with b 4
-    bytes off 16 (the 4-byte copies) the same bits again."""
+def test_cuda_colgather_bf16_ragged(cuda, name, r, precision):
+    """Each precision's dual and single against their plain versions
+    (GATHER_PRECISIONS' bar), relaunches bit-identical, the single equal to
+    the dual's first output bit for bit, each launch counted once on its
+    precision's names (int8: its two quantizers once per call); with b 4
+    bytes off 16 (the 4-byte copies) the same bits again; int8 also on
+    codes 4 and 1 bytes off 16 (the 4-byte copies and the byte loads)."""
     *batch, m, n = BF16_PROJECT_SHAPES[name]
     r = min(r, n)
+    (dual_name, single_name), tol = GATHER_PRECISIONS[precision]
     b1_np, b2_np = _rand((*batch, m, r), 21), _rand((*batch, m, r), 22)
     qt = dct2_matrix(n, device=cuda).T.contiguous()
     idx = torch.from_numpy(_idx(batch, n, r, 23)).to(cuda)
@@ -737,31 +782,52 @@ def test_cuda_colgather_bf16_ragged(cuda, name, r):
     for offset in (0, 1):
         b1, b2 = _at_offset(cuda, b1_np, offset), _at_offset(cuda, b2_np, offset)
         ops.reset_launch_counts()
-        o1, o2 = cg.colgather_matmul_dual(b1, b2, qt, idx, compute_dtype="bf16")
-        again = cg.colgather_matmul_dual_bf16(b1, b2, qt, idx)
-        single = cg.colgather_matmul(b1, qt, idx, compute_dtype="bf16")
-        single2 = cg.colgather_matmul_bf16(b1, qt, idx)
+        o1, o2 = cg.colgather_matmul_dual(b1, b2, qt, idx,
+                                          compute_dtype=precision)
+        again = cg.colgather_matmul_dual(b1, b2, qt, idx,
+                                         compute_dtype=precision)
+        single = cg.colgather_matmul(b1, qt, idx, compute_dtype=precision)
+        single2 = cg.colgather_matmul(b1, qt, idx, compute_dtype=precision)
         p1, p2 = cg.colgather_matmul_dual_plain(b1, b2, qt, idx,
-                                                compute_dtype="bf16")
+                                                compute_dtype=precision)
         torch.cuda.synchronize()
+        quantizers = 4 if precision == "int8" else 0
         assert ops.launch_counts() == {
-            k: 2 if k in ("colgather_matmul_dual_bf16", "colgather_matmul_bf16")
-            else 0 for k in ops.KERNELS}
+            k: 2 if k in (dual_name, single_name)
+            else quantizers if k in GATHER_QUANTIZERS else 0
+            for k in ops.KERNELS}
         assert torch.equal(o1, again[0]) and torch.equal(o2, again[1])
         assert torch.equal(single, single2) and torch.equal(single, o1)
-        _assert_rel_max(o1, p1, LOWP_TC_RTOL)
-        _assert_rel_max(o2, p2, LOWP_TC_RTOL)
+        _assert_gather_close(o1, p1, tol)
+        _assert_gather_close(o2, p2, tol)
         outs.append((o1, o2))
     assert all(torch.equal(a, b) for a, b in zip(*outs))
+    if precision == "int8":
+        ((q1, s1), (q2, s2)), qt_q = cg.quantize_operands((b1, b2), qt, idx)
+        for code_offset in (4, 1):
+            c1, c2 = _codes_at(q1, code_offset), _codes_at(q2, code_offset)
+            cq = _codes_at(qt_q, code_offset)
+            d1, d2 = cg.colgather_matmul_dual_q8(c1, s1, c2, s2, cq, idx)
+            one = cg.colgather_matmul_q8(c1, s1, cq, idx)
+            torch.cuda.synchronize()
+            assert torch.equal(d1, o1) and torch.equal(d2, o2)
+            assert torch.equal(one, o1)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", list(GATHER_PRECISIONS))
 @pytest.mark.parametrize("offset", [0, 1])
-def test_cuda_colgather_bf16_repeated_and_bad_indices(cuda, offset):
+def test_cuda_colgather_bf16_repeated_and_bad_indices(cuda, offset,
+                                                      precision):
     """A repeated index gathers its row twice; an index outside [0, n)
     gathers a zero row (a zero column of Q_r), reading nothing outside Qt:
-    both outputs within LOWP_TC_RTOL of the product on such a gather."""
-    from repro_torch.kernels.lowp import bf16_round
+    both outputs within GATHER_PRECISIONS' bar of the product on such a
+    gather. int8 bit-equal to the plain version on Q^T with a zero row
+    appended, the bad indices pointing at it (its scale F32_TINY folded
+    into b)."""
+    from repro_torch.kernels.lowp import bf16_round, int_matmul, quant_rows
+    from repro_torch.kernels.quant_ef import quant_fold_q8_plain
+    (dual_name, _), tol = GATHER_PRECISIONS[precision]
     m, n, r = 130, 260, 40
     b1 = _at_offset(cuda, _rand((2, m, r), 31), offset)
     b2 = _at_offset(cuda, _rand((2, m, r), 32), offset)
@@ -772,14 +838,26 @@ def test_cuda_colgather_bf16_repeated_and_bad_indices(cuda, offset):
     idx_np[1, 20] = 2**31 - 1
     idx = torch.from_numpy(idx_np).to(cuda)
     bad = (idx < 0) | (idx >= n)
-    gathered = qt[idx.clamp(0, n - 1).long()]
-    gathered[bad] = 0.0
-    gathered = bf16_round(gathered)
-    before = cg.colgather_matmul_dual_bf16.launches
-    o1, o2 = cg.colgather_matmul_dual(b1, b2, qt, idx, compute_dtype="bf16")
-    single = cg.colgather_matmul(b1, qt, idx, compute_dtype="bf16")
+    if precision == "int8":
+        rows = torch.where(bad, n, idx).long()      # the appended zero row
+        qt_q, s_qt = quant_rows(torch.cat([qt, torch.zeros_like(qt[:1])]))
+
+        def want(b):
+            ((bq, sb),) = quant_fold_q8_plain((b,), s_qt, rows)
+            return int_matmul(bq, qt_q[rows]) * sb
+    else:
+        cast = bf16_round if precision == "bf16" else (lambda x: x)
+        gathered = qt[idx.clamp(0, n - 1).long()]
+        gathered[bad] = 0.0
+        gathered = cast(gathered)
+
+        def want(b):
+            return cast(b) @ gathered
+    before = getattr(cg, dual_name).launches
+    o1, o2 = cg.colgather_matmul_dual(b1, b2, qt, idx, compute_dtype=precision)
+    single = cg.colgather_matmul(b1, qt, idx, compute_dtype=precision)
     torch.cuda.synchronize()
-    assert cg.colgather_matmul_dual_bf16.launches == before + 1
+    assert getattr(cg, dual_name).launches == before + 1
     for got, b in ((o1, b1), (o2, b2), (single, b1)):
-        _assert_rel_max(got, bf16_round(b) @ gathered, LOWP_TC_RTOL)
+        _assert_gather_close(got, want(b), tol)
     assert torch.equal(single, o1)
