@@ -53,14 +53,17 @@ device or without the port beside it. Any failure raises. Phases:
    the card: the Newton-Schulz gram and apply kernels, one iteration and
    the whole 5-step orthogonalization at Trion's factor shapes (wide
    (24, 128, 1024) and (24, 128, 2816)) and at ragged ones (r = 17, 45),
-   each launch twice (bit-identical, and the Gram exactly symmetric); the
+   each launch twice (bit-identical, and the Gram exactly symmetric), and
+   the Gram alone at ``GRAM_RAGGED`` (r = 8-512, m of 1, 37, 333, 700,
+   1030); the
    single-operand ``colgather_matmul`` at (24, 1024 | 2816, 128), relaunched
    bit-identical and equal to the dual's first output. Times are
    per training step of Trion (35 NS launches of each kernel) and of
-   subspace Muon (7 back-projections); ``ns_apply`` and
-   ``torch.baddbmm`` are also timed as CUDA-graph replays of a step's
-   launches of each shape (the kernel takes ~20-50 us a call, which the
-   wrapper's host work rivals), and those replays are its row's times.
+   subspace Muon (7 back-projections); ``ns_gram`` / ``ns_apply`` and
+   ``torch.bmm`` / ``torch.baddbmm`` are also timed as CUDA-graph replays
+   of a step's launches of each shape (the kernels take ~10-50 us a call,
+   which the wrappers' host work rivals), and those replays are their
+   rows' times (eager beside them).
 8. Trion, the training CLI's default optimizer: ``repro_torch.launch.train``
    with llama-350m at full width and depth, its defaults (rank 128, fused
    auto) and 6 steps of batch 8 x 512, the counters zeroed just before and
@@ -215,6 +218,11 @@ NS_FULL_RTOL = 1e-3
 # NS5 bands singular values instead of driving them to 1
 # (tests/test_newton_schulz_properties.py)
 OFFDIAG_TOL, SV_LO, SV_HI = 0.35, 0.3, 1.35
+# the Gram alone at other ranks (one to four 32-row blocks; r > 128 on
+# several 128-row macro tiles) on ragged m: one column, below one range of
+# the kernel's split, off a multiple of 4
+GRAM_RAGGED = ((24, 8, 1), (1, 45, 37), (24, 128, 1030), (2, 300, 333),
+               (2, 512, 700))
 
 # DCT-AdamW's precisions and bases (phase 11): (CLI argv or API keywords,
 # launches per step of each kernel; unnamed kernels 0). Steps: LOWP_STEPS.
@@ -700,8 +708,9 @@ def check_momentum_kernels(torch, dev) -> dict:
                    "bytes": 0.0, "flops": 0.0, "max_abs_err": 0.0}
             for name in ("ns_gram", "ns_apply", "colgather_matmul")}
     rows["colgather_matmul"]["library_ms"] = None
-    # ns_apply's ms and library_ms are CUDA-graph replays; eager beside them
-    rows["ns_apply"].update(wrapper_ms=0.0, library_eager_ms=0.0)
+    # the NS kernels' ms and library_ms are CUDA-graph replays; eager beside
+    for name in ("ns_gram", "ns_apply"):
+        rows[name].update(wrapper_ms=0.0, library_eager_ms=0.0)
     full = {"ms": 0.0, "plain_ms": 0.0}
     report = []
     # tall factors (layers, rows, r) as Trion hands them to NS, launches per
@@ -759,12 +768,15 @@ def check_momentum_kernels(torch, dev) -> dict:
             t = {"gram": _time_ms(lambda: ns.ns_gram(x)),
                  "gram_plain": _time_ms(lambda: ns.ns_gram_plain(x)),
                  "gram_library": _time_ms(lambda: torch.bmm(x, x.mT)),
+                 # a step's launches of this shape captured in one graph:
+                 # device time without the wrapper's host work
+                 "gram_graph": _graph_ms(lambda: ns.ns_gram(x), launches),
+                 "gram_library_graph": _graph_ms(
+                     lambda: torch.bmm(x, x.mT), launches),
                  "apply": _time_ms(lambda: ns.ns_apply(x, poly, a=a, out=y_k)),
                  "apply_plain": _time_ms(lambda: ns.ns_apply_plain(x, poly, a)),
                  "apply_library": _time_ms(
                      lambda: torch.baddbmm(x, poly, x, beta=a)),
-                 # a step's launches of this shape captured in one graph:
-                 # device time without the wrapper's host work
                  "apply_graph": _graph_ms(
                      lambda: ns.ns_apply(x, poly, a=a, out=y_k), launches),
                  "apply_library_graph": _graph_ms(
@@ -772,11 +784,12 @@ def check_momentum_kernels(torch, dev) -> dict:
                  "ns5": _time_ms(lambda: ns.newton_schulz_kernel(bt)),
                  "ns5_plain": _time_ms(lambda: newton_schulz(bt))}
             case["per_call_ms"] = t
-            apply_row = rows["ns_apply"]
-            apply_row["wrapper_ms"] += launches * t["apply"]
-            apply_row["library_eager_ms"] += launches * t["apply_library"]
-            t_row = {**t, "apply": t["apply_graph"],
-                     "apply_library": t["apply_library_graph"]}
+            t_row = dict(t)
+            for name, key in (("ns_gram", "gram"), ("ns_apply", "apply")):
+                rows[name]["wrapper_ms"] += launches * t[key]
+                rows[name]["library_eager_ms"] += launches * t[key + "_library"]
+                t_row[key] = t[key + "_graph"]
+                t_row[key + "_library"] = t[key + "_library_graph"]
             for name, key, nbytes, flops in (
                     # A is symmetric: its r(r+1)/2 distinct entries
                     ("ns_gram", "gram", 4.0 * nb * (r * m + r * r),
@@ -824,6 +837,21 @@ def check_momentum_kernels(torch, dev) -> dict:
             case["colgather_matmul_equals_dual_first"] = True
         report.append(case)
         del bt, x, g_k, g_k2, g_p, poly, y_k, y_k2, y_p, o_k, o_p
+    # the Gram alone at the other ranks fused_step routes, on m of one
+    # column, below one range of the kernel's split and off a multiple of 4
+    for nb, r, m in GRAM_RAGGED:
+        x = torch.randn((nb, r, m), generator=gen, device=dev)
+        x /= torch.linalg.norm(x, dim=(-2, -1), keepdim=True)
+        g_k, g_k2, g_p = ns.ns_gram(x), ns.ns_gram(x), ns.ns_gram_plain(x)
+        torch.cuda.synchronize()
+        e_gram = _rel(g_k, g_p)
+        assert torch.equal(g_k, g_k2), f"ns_gram {(nb, r, m)}: not deterministic"
+        assert torch.equal(g_k, g_k.mT), f"ns_gram {(nb, r, m)}: not symmetric"
+        assert e_gram <= NS_RTOL, f"ns_gram {(nb, r, m)}: rel err {e_gram}"
+        rows["ns_gram"]["max_abs_err"] = max(rows["ns_gram"]["max_abs_err"],
+                                             (g_k - g_p).abs().max().item())
+        report.append({"gram_only_wide": [nb, r, m], "rel_err_gram": e_gram,
+                       "deterministic": True, "gram_symmetric": True})
     print(json.dumps({"momentum_kernels": report,
                       "ns5_ms_per_trion_step": full,
                       "tolerance": f"gram/apply/iteration {NS_RTOL} of max "
@@ -2182,7 +2210,10 @@ def main() -> int:
                         "= SDPA on K/V already densified, gather not "
                         "counted",
         "ns_gram": "per Trion training step: 35 launches (5 iterations x 7 "
-                   "leaves); library = torch.bmm(x, x.mT)",
+                   "leaves); ms and library_ms: device time of CUDA-graph "
+                   "replays of a step's launches of each shape; wrapper_ms "
+                   "and library_eager_ms: eager calls; library = "
+                   "torch.bmm(x, x.mT)",
         "ns_apply": "per Trion training step: 35 launches; ms and "
                     "library_ms: device time of CUDA-graph replays of a "
                     "step's launches of each shape; wrapper_ms and "

@@ -21,8 +21,10 @@ support), it says so and runs both parts without it, and those runs count.
   and int8 colgathers and the int8 colgather's quantizers once more through
   their C entry points, each output inside a buffer whose ``GUARD``
   elements on either side are poisoned and must be untouched after the
-  launch (outputs on 16 bytes, then 4 bytes off: the 4-byte stores). This
-  is a memory check; the tests hold the numeric tolerances.
+  launch (outputs on 16 bytes, then 4 bytes off: the 4-byte stores), and
+  ``ns_gram`` the same way at each of its ragged shapes, its workspace of
+  partial sums between poisoned guards too.
+  This is a memory check; the tests hold the numeric tolerances.
 * ``--int8-discard``: DCT-AdamW in int8 without error feedback
   (``chip_smoke.py`` phase 11's "int8 discard" path) on llama-350m at full
   width with its depth cut to one layer, 2 steps of batch 2 x 128.
@@ -197,6 +199,32 @@ def guarded_gathers(b1, b2, qt, idx, offset: int) -> None:
         f"a guarded output's poison was overwritten (offset {offset})"
 
 
+def guarded_gram(x, offset: int) -> None:
+    """``ns_gram`` through its C entry point (the wrapper's split) into a
+    poisoned output and a poisoned workspace: equal to the wrapper's
+    output, the poison of both intact."""
+    import torch
+
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels import newton_schulz as ns
+
+    *batch, r, m = x.shape
+    nb = x.numel() // (r * m)
+    want = ns.ns_gram(x)
+    splits, width = ns.ns_gram_splits(nb, r, m)
+    buf, out = _poisoned((*batch, r, r), torch.float32, offset)
+    wbuf, ws = _poisoned((ns.ns_gram_workspace_floats(nb, r, splits),),
+                         torch.float32, 0)
+    rc = cuda_lib.library().repro_ns_gram(x.data_ptr(), out.data_ptr(),
+                                          ws.data_ptr(), nb, r, m, splits,
+                                          width, cuda_lib.stream(x))
+    assert rc == 0, rc
+    torch.cuda.synchronize()
+    assert torch.equal(out, want), "ns_gram"
+    assert _guards_intact(buf, offset) and _guards_intact(wbuf, 0), \
+        f"ns_gram's poison was overwritten (offset {offset})"
+
+
 def launch() -> int:
     """Each wrapper once (the int8 and bf16 ones through their public
     routes), at ragged shapes, held to its plain version."""
@@ -269,12 +297,14 @@ def launch() -> int:
         bad[0, 3], bad[1, 0] = 256, -7
         guarded_gathers(rand(2, 129, 32), rand(2, 129, 32), q256, bad, offset)
         a, b, c = NS_COEFFS
-        for r, m in ((17, 100), (45, 333), (300, 301)):
+        for r, m in ((17, 100), (45, 333), (300, 301), (128, 1030),
+                     (8, 1)):
             x = rand(2, r, m)
             x = (x / torch.linalg.norm(x, dim=(-2, -1), keepdim=True)).cpu()
             x = rand(2, r, m, offset=offset).copy_(x)
             gram = ns.ns_gram(x)
             _close(gram, ns.ns_gram_plain(x), 1e-5, "ns_gram")
+            guarded_gram(x, offset)
             p = b * gram + c * gram @ gram
             _close(ns.ns_apply(x, p, a=a), ns.ns_apply_plain(x, p, a), 1e-5,
                    "ns_apply")

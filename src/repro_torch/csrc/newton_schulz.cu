@@ -12,19 +12,51 @@
 // a = 3.4445, so a relative error in a small singular direction grows up to
 // a^steps times over the iteration.
 //
-// ns_gram: the TPU kernel sweeps X's column blocks as a sequential grid axis
-// with the (r, r) sum resident in VMEM. CTAs run in parallel and in no order
-// here, so each CTA owns one 32x32 tile of A for one layer and itself loops
-// over all m columns, 32 at a time, in a fixed order: no split across CTAs,
-// no atomics, the same bits on every launch. Inside the CTA four groups of 64
-// threads take the four 8-column slices of every chunk (each thread a 4x4
-// register tile), and the four partial tiles are added in a fixed order at
-// the end. Only the tiles on or above the diagonal are computed (10 of 16 at
-// r = 128); each off-diagonal one is written with its transpose, so A is
-// exactly symmetric (inside a diagonal tile A[p][q] and A[q][p] come from
-// the same FMAs: fmaf(x_p, x_q, s) == fmaf(x_q, x_p, s)). Columns past m
-// and rows past r load as zeros, which add nothing to A (the TPU kernel pads
-// the columns with zeros too).
+// ns_gram replaces the TPU kernel's sweep over X's column blocks, a
+// sequential grid axis with the (r, r) sum resident in VMEM. Bound: the
+// fp32 FMA rate (r (r + 1) m flops for the distinct entries of A against
+// 4 r m bytes of X). Trion's calls have A of 128 x 128 per layer and
+// m = 1024 or 2816, so the long axis is m, and a CTA per output tile (24 x
+// 10 at r = 128) does not fill 132 SMs. Design: a split-K SIMT GEMM and a
+// fixed-order sum, two kernels behind one C entry point.
+//
+// * Split. m is cut into S ranges of `width` columns (a multiple of the
+//   16-deep k slice; the wrapper chooses both: 16 ranges at Trion's m, 384
+//   CTAs for 24 layers, at most 3 on an SM). A CTA owns one (layer, range)
+//   pair and one 128 x 128 macro tile of A on or above the diagonal: at
+//   r <= 128 all of A, so X is read once.
+// * Symmetry. A macro tile is cut into 32 x 32 blocks; only the blocks on
+//   or above the diagonal are computed (10 of 16 at r = 128), two to a
+//   warp: a warp's 32 x 64 region is one row of blocks by two column
+//   blocks (pairs within a row; the rows' odd blocks out, all in the last
+//   column, as a row of their transposes). So a CTA has as many warps as
+//   the macro tile has pairs: 5 at r = 128 (1-3 for r <= 96; 8 for a tile
+//   off the diagonal, when r > 128), and no warp idles at r <= 128. Each
+//   block off the diagonal is written to A[i][j] and A[j][i]; inside a
+//   block on the diagonal A[p][q] and A[q][p] come from the same FMAs
+//   (fmaf(x_p, x_q, s) == fmaf(x_q, x_p, s)) and the same sum, so A is
+//   exactly symmetric.
+// * Loads. X's rows arrive by cp.async (16-byte pieces; 4-byte ones where
+//   m % 4 or X's address forbids 16) into a 4-stage ring of 16-deep k
+//   slices; each thread transposes the pieces it copied into a
+//   double-buffered k-major tile, so one barrier per slice suffices (the
+//   design of dct_project.cu's fp32 kernel). A thread owns an 8 x 8
+//   register tile (rows in two groups of 4, 16 apart; columns 4 in each of
+//   its warp's two blocks): 4 float4 shared reads per 64 FMAs, each
+//   covering 64 or 128 contiguous bytes of a warp. 49 KB of shared memory
+//   and at most 128 registers: 3 CTAs per SM at r = 128.
+// * Fixed-order sum. Each CTA writes its partial sums (IEEE fp32 FMA, k
+//   ascending) from registers to its entry of a workspace the wrapper
+//   allocates (S x 40 KB per layer at r = 128, in L2); the second kernel
+//   sums each entry over ranges 0, 1, ..., S - 1 in that order and writes
+//   A. No atomics: the same bits on every launch. Columns past m and rows
+//   past r load as zeros, which add nothing to A (the TPU kernel pads the
+//   columns with zeros too). Why not one launch: summing a layer's ranges
+//   inside a thread-block cluster of 16 through distributed shared memory
+//   (no workspace) measured 1.39 ms per Trion step against this 1.11 on an
+//   H100 80GB HBM3 at 700 W (scripts/ns_gram_probe.py): the clusters were
+//   not spread evenly over the SMs, so the slowest CTA's k loop ran 1.3x
+//   the median, and the two cluster barriers waited ~4 us a call.
 //
 // ns_apply: a pipelined SIMT GEMM with K = r in which a CTA owns every row
 // of Y for one stripe of 64 columns, so X is read from device memory once
@@ -53,11 +85,6 @@
 // slice), so r <= 768 fits a block's 227 KB beside the ring
 // (kernels/newton_schulz.py's APPLY_MAX_RANK, where the wrapper refuses a
 // larger r). fused_step.py routes r <= 512 to the kernels.
-//
-// ns_gram loads the next chunk of its operands into registers while the
-// current one is computed from shared memory, so the loads' latency overlaps
-// the FMAs; the FMA order, and so every bit, is that of loading and
-// computing in turn. Its 26 KB of shared memory do not depend on r.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -66,102 +93,289 @@
 
 namespace {
 
+template <int W>
+__device__ __forceinline__ void copy_piece(float* dst, const float* src, bool ok) {
+  if constexpr (W == 4)
+    mma::cp_async16(dst, src, ok);
+  else
+    mma::cp_async4(dst, src, ok);
+}
+
 // ---- gram -----------------------------------------------------------------
-constexpr int GT = 32;            // A tile
-constexpr int GK = 32;            // columns of X per chunk
-constexpr int kGroups = 4;        // column slices of a chunk, one per group
-constexpr int kGramThreads = 256;
-constexpr int kGPad = 4;          // keeps float4 rows aligned
+namespace gram {
 
-// at least 3 CTAs per SM: Trion's 24 x 10 = 240 tiles run in one wave
-__global__ void __launch_bounds__(kGramThreads, 3)
-ns_gram_kernel(const float* __restrict__ x, float* __restrict__ gram, int r, int m) {
-  __shared__ __align__(16) float Xi[GK][GT + kGPad];   // rows i0.., transposed
-  __shared__ __align__(16) float Xj[GK][GT + kGPad];   // rows j0.., transposed
-  __shared__ float part[kGroups][GT][GT + 1];
+constexpr int BB = 32;          // a block of A: BB x BB entries
+constexpr int kMacro = 4;       // blocks per side of a macro tile (128 rows)
+constexpr int BK = 16;          // k slice: columns of X
+constexpr int kStages = 4;      // slices in flight
+constexpr int kPad = 4;         // keeps the transposed rows on 16 bytes
+constexpr int kMinBlocks = 3;   // CTAs per SM the launch bounds ask for, r <= 128
+constexpr int kMaxSplits = 64;  // ranges of m
+constexpr int kSumThreads = 256;
 
-  // blockIdx.x counts the tiles (ti, tj), ti <= tj, row by row
-  const int tiles = (r + GT - 1) / GT;
-  int ti = 0, rest = blockIdx.x;
-  while (rest >= tiles - ti) {
-    rest -= tiles - ti;
-    ++ti;
+// rows of X a CTA holds -> its warps: one per pair of blocks of its macro tile
+// (r <= 128: rows = 32 * ceil(r / 32), one macro tile; r > 128: the rows of
+// two macro tiles, 8 pairs off the diagonal)
+template <int kRows>
+constexpr int kWarpsOf =
+    kRows == 32 ? 1 : kRows == 64 ? 2 : kRows == 96 ? 3 : kRows == 128 ? 5 : 8;
+
+template <int kRows>
+struct Ring {
+  float raw[kStages][kRows][BK];   // X's slices as they arrive: rows of X
+  float xt[2][BK][kRows + kPad];   // the same, transposed: k rows
+};
+
+// a warp's partial sums: its 32 x 64 region, row-major; a CTA's are the
+// workspace's (layer, macro tile, range) entry
+constexpr int kPartFloats = BB * 2 * BB;
+
+// A warp's two blocks: row block rb by column blocks cb0 and cb1, as block
+// indices into the CTA's rows of X; cb1 < 0: one block; rb < 0: no blocks.
+struct Pair {
+  int rb, cb0, cb1;
+};
+
+// the blocks on or above the diagonal of a macro tile of tm x tm blocks
+__device__ __forceinline__ Pair diagonal_pair(int w, int tm) {
+  switch (tm) {
+    case 1:
+      if (w == 0) return {0, 0, -1};
+      break;
+    case 2:
+      if (w == 0) return {0, 0, 1};
+      if (w == 1) return {1, 1, -1};
+      break;
+    case 3:  // (0,2) as its transpose (2,0)
+      if (w < 3) return w == 2 ? Pair{2, 0, 2} : Pair{w, w, w + 1};
+      break;
+    default:  // (1,3) as its transpose (3,1)
+      if (w == 0) return {0, 0, 1};
+      if (w == 1) return {0, 2, 3};
+      if (w == 2) return {1, 1, 2};
+      if (w == 3) return {2, 2, 3};
+      if (w == 4) return {3, 1, 3};
   }
-  const int b = blockIdx.z;
-  const int i0 = ti * GT;
-  const int j0 = (ti + rest) * GT;
-  const float* xb = x + static_cast<long long>(b) * r * m;
-  const int tid = threadIdx.x;
-  const int grp = tid / 64;
-  const int t = tid % 64;
-  const int tx = t % 8;           // columns j0 + tx*4 .. +4 of the tile
-  const int ty = t / 8;           // rows    i0 + ty*4 .. +4
+  return {-1, -1, -1};
+}
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+// a macro tile off the diagonal: 4 row blocks (the CTA's first 128 rows) by
+// tj column blocks (its rows 128..), two to a warp
+__device__ __forceinline__ Pair off_diagonal_pair(int w, int tj) {
+  const int c = 2 * (w & 1);
+  if (c >= tj) return {-1, -1, -1};
+  return {w >> 1, kMacro + c, c + 1 < tj ? kMacro + c + 1 : -1};
+}
 
-  // the next chunk is loaded into registers while this one is computed
-  constexpr int kLoads = (GT * GK) / kGramThreads;
-  float ni[kLoads], nj[kLoads];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      const int e = tid + u * kGramThreads;
-      const int rr = e / GK, c = e % GK;       // a warp reads 32 columns of a row
-      const int col = k0 + c;
-      const bool okc = col < m;
-      const int ri = i0 + rr, rj = j0 + rr;
-      ni[u] = (okc && ri < r) ? xb[static_cast<long long>(ri) * m + col] : 0.f;
-      nj[u] = (okc && rj < r) ? xb[static_cast<long long>(rj) * m + col] : 0.f;
+// The macro tile (ti, tj), ti <= tj, of A counted row by row as blockIdx.y
+// counts them, and warp w's blocks in it.
+struct Tile {
+  int ti, tj, blocks;
+  __device__ __forceinline__ Tile(int r, int index) : blocks((r + BB - 1) / BB) {
+    const int tiles = (blocks + kMacro - 1) / kMacro;
+    ti = 0;
+    while (index >= tiles - ti) {
+      index -= tiles - ti;
+      ++ti;
     }
-  };
-  load(0);
-  for (int k0 = 0; k0 < m; k0 += GK) {
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      const int e = tid + u * kGramThreads;
-      Xi[e % GK][e / GK] = ni[u];
-      Xj[e % GK][e / GK] = nj[u];
-    }
-    __syncthreads();
-    if (k0 + GK < m) load(k0 + GK);
-#pragma unroll
-    for (int kk = 0; kk < GK / kGroups; ++kk) {
-      const int k = grp * (GK / kGroups) + kk;
-      const float4 a4 = *reinterpret_cast<const float4*>(&Xi[k][ty * 4]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&Xj[k][tx * 4]);
-      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+    tj = ti + index;
   }
+  __device__ __forceinline__ Pair pair(int w) const {
+    return ti == tj ? diagonal_pair(w, min(kMacro, blocks - kMacro * ti))
+                    : off_diagonal_pair(w, min(kMacro, blocks - kMacro * tj));
+  }
+  // the CTA's block sb -> block of A
+  __device__ __forceinline__ int block(int sb) const {
+    return sb < kMacro ? kMacro * ti + sb : kMacro * tj + sb - kMacro;
+  }
+  // global row of X held as the CTA's row sr; -1: not held
+  template <int kRows>
+  __device__ __forceinline__ int x_row(int sr) const {
+    if (kRows <= kMacro * BB) return sr;
+    if (sr < kMacro * BB) return ti * kMacro * BB + sr;
+    return ti == tj ? -1 : tj * kMacro * BB + sr - kMacro * BB;
+  }
+};
 
+// A thread's pieces of the k slice at column k0 (< k_end, this range's
+// end): W = 4 (16-byte cp.async) or 1 (4-byte). Piece e is row e / (BK /
+// W), column W * (e % (BK / W)). The thread that copies a piece also
+// transposes it (transpose_slice).
+template <int kRows, int W>
+__device__ __forceinline__ void copy_slice(Ring<kRows>& rg, int slot, const Tile& tile,
+                                           const float* xb, int r, int m, int k0, int k_end) {
+  constexpr int kPieces = kRows * BK / W, kThreads = 32 * kWarpsOf<kRows>;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < (kPieces + kThreads - 1) / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int sr = e / (BK / W), c = W * (e % (BK / W));
+    const int row = tile.x_row<kRows>(sr);
+    if (e >= kPieces || row < 0) continue;
+    const bool ok = row < r && k0 + c < k_end;
+    const float* src = ok ? xb + static_cast<long long>(row) * m + k0 + c : xb;
+    copy_piece<W>(&rg.raw[slot][sr][c], src, ok);
+  }
+}
+
+template <int kRows, int W>
+__device__ __forceinline__ void transpose_slice(Ring<kRows>& rg, int slot, int buf,
+                                                const Tile& tile) {
+  constexpr int kPieces = kRows * BK / W, kThreads = 32 * kWarpsOf<kRows>;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) part[grp][ty * 4 + i][tx * 4 + j] = acc[i][j];
-  __syncthreads();
-  float* gb = gram + static_cast<long long>(b) * r * r;
-#pragma unroll
-  for (int u = 0; u < (GT * GT) / kGramThreads; ++u) {
-    const int e = tid + u * kGramThreads;
-    const int p = e / GT, q = e % GT;
-    float s = part[0][p][q];
-#pragma unroll
-    for (int g = 1; g < kGroups; ++g) s = __fadd_rn(s, part[g][p][q]);
-    if (i0 + p < r && j0 + q < r) {
-      gb[static_cast<long long>(i0 + p) * r + j0 + q] = s;
-      if (i0 != j0) gb[static_cast<long long>(j0 + q) * r + i0 + p] = s;
+  for (int i = 0; i < (kPieces + kThreads - 1) / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int sr = e / (BK / W), c = W * (e % (BK / W));
+    if (e >= kPieces || tile.x_row<kRows>(sr) < 0) continue;
+    if constexpr (W == 4) {
+      const float4 v = *reinterpret_cast<const float4*>(&rg.raw[slot][sr][c]);
+      rg.xt[buf][c][sr] = v.x;
+      rg.xt[buf][c + 1][sr] = v.y;
+      rg.xt[buf][c + 2][sr] = v.z;
+      rg.xt[buf][c + 3][sr] = v.w;
+    } else {
+      rg.xt[buf][c][sr] = rg.raw[slot][sr][c];
     }
   }
 }
+
+// The partial sums of one range of m: grid (S ranges, macro tiles on or
+// above the diagonal, layers); writes the workspace entry ((layer, tile),
+// range). r <= 128: 3 CTAs per SM (at most 128 registers a thread).
+template <int kRows, int W>
+__global__ void __launch_bounds__(32 * kWarpsOf<kRows>, kRows <= kMacro * BB ? kMinBlocks : 2)
+ns_gram_kernel(const float* __restrict__ x, float* __restrict__ ws, int r, int m, int width) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Ring<kRows>& rg = *reinterpret_cast<Ring<kRows>*>(smem_raw);
+
+  const Tile tile(r, blockIdx.y);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Pair mine = tile.pair(warp);
+  const int b = blockIdx.z;
+  const float* xb = x + static_cast<long long>(b) * r * m;
+  const int k_begin = blockIdx.x * width;
+  const int k_end = min(m, k_begin + width);
+  const int slices = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+
+  // a warp is 4 thread rows x 8 thread columns: rows ra + {0..3, 16..19},
+  // columns ca + {0..3} of block cb0 and cb + {0..3} of block cb1
+  const int ty = lane >> 3, tx = lane & 7;
+  const int ra = mine.rb * BB + 4 * ty;
+  const int ca = mine.cb0 * BB + 4 * tx;
+  const int cb = (mine.cb1 >= 0 ? mine.cb1 : mine.cb0) * BB + 4 * tx;
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < slices) copy_slice<kRows, W>(rg, st, tile, xb, r, m, k_begin + st * BK, k_end);
+    mma::cp_async_commit();
+  }
+  for (int kt = 0; kt < slices; ++kt) {
+    const int buf = kt & 1;
+    mma::cp_async_wait<kStages - 2>();  // this thread's pieces of slice kt
+    transpose_slice<kRows, W>(rg, kt % kStages, buf, tile);
+    // every piece of slice kt is in place; every thread is done with slice
+    // kt - 1, so its ring slot and transposed buffer are free
+    __syncthreads();
+    const int next = kt + kStages - 1;
+    if (next < slices)
+      copy_slice<kRows, W>(rg, next % kStages, tile, xb, r, m, k_begin + next * BK, k_end);
+    mma::cp_async_commit();
+    if (mine.rb < 0) continue;
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      const float* xk = rg.xt[buf][k];
+      const float4 a0 = *reinterpret_cast<const float4*>(xk + ra);
+      const float4 a1 = *reinterpret_cast<const float4*>(xk + ra + 16);
+      const float4 b0 = *reinterpret_cast<const float4*>(xk + ca);
+      const float4 b1 = *reinterpret_cast<const float4*>(xk + cb);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      // rows in order, the columns of odd rows backwards (consecutive FMAs
+      // share an operand at the turn); each entry's k order is ascending
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = (i & 1) ? 7 - jj : jj;
+          acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        }
+    }
+  }
+
+  if (mine.rb < 0) return;
+  float* pw = ws + ((static_cast<long long>(b) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) *
+                       kWarpsOf<kRows> * kPartFloats +
+              warp * kPartFloats;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = 16 * (i / 4) + 4 * ty + i % 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float4*>(&pw[row * 2 * BB + h * BB + 4 * tx]) =
+          make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+  }
+}
+
+// The fixed-order sum: grid (chunks of a tile's partials, macro tiles,
+// layers). Each thread sums one float4 of the tile's partials over ranges
+// 0, 1, ..., S - 1 in that order and writes the entries (and, off the
+// diagonal, their transposes).
+template <int kRows>
+__global__ void __launch_bounds__(kSumThreads)
+ns_gram_sum_kernel(const float* __restrict__ ws, float* __restrict__ gram, int r, int splits,
+                   bool vec_out) {
+  constexpr int kChunks = kWarpsOf<kRows> * kPartFloats / 4;
+  const int c = blockIdx.x * kSumThreads + threadIdx.x;
+  if (c >= kChunks) return;
+  const Tile tile(r, blockIdx.y);
+  const int w = c / (kPartFloats / 4), e = 4 * (c % (kPartFloats / 4));
+  const int row = e / (2 * BB), col = e % (2 * BB);
+  const Pair pr = tile.pair(w);
+  const int cbk = col < BB ? pr.cb0 : pr.cb1;
+  if (pr.rb < 0 || cbk < 0) return;
+  const int gi = tile.block(pr.rb), gj = tile.block(cbk);
+  const int p = gi * BB + row, q = gj * BB + col % BB;
+  if (p >= r || q >= r) return;
+
+  const int b = blockIdx.z;
+  const float4* src = reinterpret_cast<const float4*>(ws) +
+                      (static_cast<long long>(b) * gridDim.y + blockIdx.y) * splits * kChunks + c;
+  float4 v = src[0];
+  // eight ranges' partials are loaded before their adds
+  for (int s0 = 1; s0 < splits; s0 += 8) {
+    float4 u[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (s0 + j < splits) u[j] = src[static_cast<long long>(s0 + j) * kChunks];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (s0 + j < splits)
+        v = make_float4(__fadd_rn(v.x, u[j].x), __fadd_rn(v.y, u[j].y), __fadd_rn(v.z, u[j].z),
+                        __fadd_rn(v.w, u[j].w));
+  }
+  const float vs[4] = {v.x, v.y, v.z, v.w};
+  float* gb = gram + static_cast<long long>(b) * r * r;
+  float* dst = gb + static_cast<long long>(p) * r + q;
+  if (vec_out) {  // r % 4 == 0: q + 3 < r
+    *reinterpret_cast<float4*>(dst) = v;
+  } else {
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      if (q + t < r) dst[t] = vs[t];
+  }
+  if (gi != gj) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      if (q + t < r) gb[static_cast<long long>(q + t) * r + p] = vs[t];
+  }
+}
+
+}  // namespace gram
 
 // ---- apply ----------------------------------------------------------------
 namespace apply {
@@ -184,14 +398,6 @@ struct Ring {
 
 size_t smem_bytes(int r) {
   return sizeof(Ring) + sizeof(float) * BN * ((static_cast<size_t>(r) + BK - 1) / BK * BK);
-}
-
-template <int W>
-__device__ __forceinline__ void copy_piece(float* dst, const float* src, bool ok) {
-  if constexpr (W == 4)
-    mma::cp_async16(dst, src, ok);
-  else
-    mma::cp_async4(dst, src, ok);
 }
 
 // A thread's pieces of k slice k0: W = 4 (16-byte cp.async) or 1 (4-byte).
@@ -344,17 +550,56 @@ ns_apply_kernel(const float* __restrict__ x, const float* __restrict__ p,
 
 bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
 
+namespace gram {
+
+template <int kRows>
+int launch(const float* x, float* gram, float* ws, int batch, int r, int m, int splits,
+           int width, cudaStream_t stream) {
+  const int tiles = (r + kMacro * BB - 1) / (kMacro * BB);
+  const long long pairs = static_cast<long long>(tiles) * (tiles + 1) / 2;
+  if (pairs > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const bool w4 = m % 4 == 0 && aligned(x, 16);
+  auto kernel = w4 ? &ns_gram_kernel<kRows, 4> : &ns_gram_kernel<kRows, 1>;
+  constexpr size_t smem = sizeof(Ring<kRows>);
+  cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        static_cast<int>(smem));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const unsigned tiles_y = static_cast<unsigned>(pairs);
+  kernel<<<dim3(splits, tiles_y, batch), 32 * kWarpsOf<kRows>, smem, stream>>>(x, ws, r, m,
+                                                                                 width);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  constexpr int kChunks = kWarpsOf<kRows> * kPartFloats / 4;
+  const bool vec_out = r % 4 == 0 && aligned(gram, 16);
+  ns_gram_sum_kernel<kRows>
+      <<<dim3((kChunks + kSumThreads - 1) / kSumThreads, tiles_y, batch), kSumThreads, 0,
+         stream>>>(ws, gram, r, splits, vec_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace gram
+
 }  // namespace
 
-extern "C" int repro_ns_gram(const float* x, float* gram, int batch, int r, int m,
-                             void* stream) {
-  if (batch > 0 && r > 0) {
-    const int tiles = (r + GT - 1) / GT;
-    const dim3 grid(tiles * (tiles + 1) / 2, 1, batch);
-    ns_gram_kernel<<<grid, kGramThreads, 0, static_cast<cudaStream_t>(stream)>>>(x, gram, r,
-                                                                                 m);
-  }
-  return static_cast<int>(cudaGetLastError());
+// m is cut into `splits` ranges of `width` columns: 1 <= splits <=
+// kMaxSplits, width a positive multiple of the k slice, splits * width >= m
+// (the wrapper chooses them). ws holds batch * macro tiles * splits * warps
+// * kPartFloats floats (kernels/newton_schulz.py's
+// ns_gram_workspace_floats). 16-byte copies need m % 4 == 0 and X on 16
+// bytes, 16-byte stores r % 4 == 0 and A on 16 bytes; otherwise 4-byte ones.
+extern "C" int repro_ns_gram(const float* x, float* gram, float* ws, int batch, int r, int m,
+                             int splits, int width, void* stream) {
+  using namespace gram;
+  if (batch <= 0 || r <= 0) return static_cast<int>(cudaGetLastError());
+  if (splits < 1 || splits > kMaxSplits || width <= 0 || width % BK != 0 ||
+      static_cast<long long>(splits) * width < m)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (r <= BB) return launch<BB>(x, gram, ws, batch, r, m, splits, width, st);
+  if (r <= 2 * BB) return launch<2 * BB>(x, gram, ws, batch, r, m, splits, width, st);
+  if (r <= 3 * BB) return launch<3 * BB>(x, gram, ws, batch, r, m, splits, width, st);
+  if (r <= kMacro * BB) return launch<kMacro * BB>(x, gram, ws, batch, r, m, splits, width, st);
+  return launch<2 * kMacro * BB>(x, gram, ws, batch, r, m, splits, width, st);
 }
 
 // 16-byte copies need r % 4 == 0, m % 4 == 0 and X, P, Y on 16 bytes;

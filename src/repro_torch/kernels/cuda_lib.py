@@ -56,7 +56,7 @@ SIGNATURES = {
     "repro_colgather_matmul_q8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "repro_colgather_matmul_dual_q8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                        _I, _I, _P),
-    "repro_ns_gram": (_P, _P, _I, _I, _I, _P),
+    "repro_ns_gram": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "repro_ns_apply": (_P, _P, _P, _F, _I, _I, _I, _P),
     "repro_flash_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,

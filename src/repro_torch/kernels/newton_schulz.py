@@ -15,8 +15,12 @@ for the whole stack, a per-matrix Frobenius normalization with ``eps``,
 step. Its two ``(..., r, m)`` buffers are allocated once and the iterations
 ping-pong between them. Leading stacked-layer axes become the kernels' batch
 grid dimension. There is no block-size knob: the tiles are the kernels'
-own (32x32 Gram tiles; the apply kernel's CTA owns all r rows of a 64-column
-stripe of X, held in shared memory, so it reads X once).
+own. The Gram kernel splits X's m columns into ranges (``ns_gram_splits``),
+a CTA per range computing the 32 x 32 blocks of A on or above the diagonal
+into a workspace the wrapper allocates (``ns_gram_workspace_floats``), and
+a second kernel sums the ranges in a fixed order: the same bits every
+time, A exactly symmetric. The apply kernel's CTA owns all r rows of a
+64-column stripe of X, held in shared memory, so it reads X once.
 ``ns_apply_smem_bytes`` is that kernel's shared memory at a given r;
 ``APPLY_MAX_RANK`` (768) is the largest r whose stripe fits a block, and the
 wrapper refuses a larger one on the card (``fused_step`` routes r <= 512).
@@ -53,6 +57,47 @@ APPLY_MAX_RANK = ((SMEM_PER_BLOCK - _APPLY_RING_BYTES)
                   // (4 * _APPLY_COLS * _APPLY_SLICE) * _APPLY_SLICE)
 
 
+# ns_gram's geometry (csrc/newton_schulz.cu, namespace gram): A in 32 x 32
+# blocks, macro tiles of 4 x 4 blocks; X's m columns cut into ranges of a
+# multiple of the k slice, one CTA each per (layer, macro tile), at most
+# GRAM_MAX_SPLITS. The wrapper cuts m into as many ranges of at least
+# GRAM_SPLIT_MIN_COLS columns as give about GRAM_CTAS CTAs, 3 on each of an
+# H100's 132 SMs (Trion's 24 layers at r = 128: 16 ranges, 384 CTAs)
+GRAM_BLOCK, GRAM_MACRO, GRAM_SLICE = 32, 4, 16
+GRAM_MAX_SPLITS = 64
+GRAM_CTAS, GRAM_SPLIT_MIN_COLS = 3 * 132, 64
+
+
+def _gram_tiles(r: int) -> tuple[int, int]:
+    """(macro tiles on or above the diagonal, warps of a CTA) at rank r: a
+    warp per two blocks on or above the diagonal of its macro tile (1, 2, 3
+    or 5 at r <= 128), 8 when r > 128."""
+    blocks = -(-r // GRAM_BLOCK)
+    if blocks <= GRAM_MACRO:
+        return 1, -(-blocks * (blocks + 1) // 4)
+    n = -(-blocks // GRAM_MACRO)
+    return n * (n + 1) // 2, 8
+
+
+def ns_gram_splits(batch: int, r: int, m: int) -> tuple[int, int]:
+    """``(splits, width)`` of the Gram kernel for ``batch`` layers of (r, m):
+    ``width`` a multiple of ``GRAM_SLICE``, ``splits`` ranges of it covering
+    m, none empty."""
+    ctas = max(1, batch * _gram_tiles(r)[0])
+    splits = max(1, min(GRAM_CTAS // ctas, m // GRAM_SPLIT_MIN_COLS,
+                        GRAM_MAX_SPLITS))
+    width = -(-max(m, 1) // splits)
+    width = -(-width // GRAM_SLICE) * GRAM_SLICE
+    return max(1, -(-m // width)), width
+
+
+def ns_gram_workspace_floats(batch: int, r: int, splits: int) -> int:
+    """fp32 entries of the Gram kernel's workspace: a 32 x 64 region of
+    partial sums per warp, per (layer, macro tile, range)."""
+    tiles, warps = _gram_tiles(r)
+    return batch * tiles * splits * warps * 2 * GRAM_BLOCK * GRAM_BLOCK
+
+
 def ns_gram_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, x.mT)
 
@@ -78,8 +123,12 @@ def ns_gram(x: torch.Tensor) -> torch.Tensor:
     cuda_lib.require_cuda("ns_gram x", x, torch.float32)
     nb = _batch("ns_gram", x)
     out = torch.empty((*batch, r, r), dtype=torch.float32, device=x.device)
-    rc = cuda_lib.library().repro_ns_gram(x.data_ptr(), out.data_ptr(), nb, r,
-                                          m, cuda_lib.stream(x))
+    splits, width = ns_gram_splits(nb, r, m)
+    ws = torch.empty(ns_gram_workspace_floats(nb, r, splits),
+                     dtype=torch.float32, device=x.device)
+    rc = cuda_lib.library().repro_ns_gram(x.data_ptr(), out.data_ptr(),
+                                          ws.data_ptr(), nb, r, m, splits,
+                                          width, cuda_lib.stream(x))
     cuda_lib.check(rc, "ns_gram")
     ns_gram.launches += 1
     return out

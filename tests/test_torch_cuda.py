@@ -133,8 +133,9 @@ def test_cuda_ns_kernels_match_plain(cuda, name):
     x = _ns_input(NS_SHAPES[name], cuda)
     before = ops.launch_counts(ops.MOMENTUM)
     g = ns.ns_gram(x)
-    # one CTA per Gram tile sums all columns in a fixed order: the same bits
-    # on every launch, and A[p][q], A[q][p] from the same FMAs
+    # the split's partials are summed in a fixed order: the same bits on
+    # every launch; each block off the diagonal written to both places, and
+    # A[p][q], A[q][p] inside a diagonal block from the same FMAs
     assert torch.equal(g, ns.ns_gram(x))
     assert torch.equal(g, g.mT)
     _assert_rel(g, ns.ns_gram_plain(x), NS_RTOL)
@@ -148,6 +149,123 @@ def test_cuda_ns_kernels_match_plain(cuda, name):
     after = ops.launch_counts(ops.MOMENTUM)
     assert after["ns_gram"] == before["ns_gram"] + 3
     assert after["ns_apply"] == before["ns_apply"] + 4
+
+
+# ns_gram at the ranks fused_step routes (one to four 32-row blocks, and
+# r > 128: several 128-row macro tiles) on m of one column, below one
+# range of the split, off a multiple of 4, and at 16 ranges
+GRAM_RANKS = (8, 17, 45, 128, 300, 512)
+GRAM_COLS = (1, 37, 333, 1030)
+
+
+def _gram_input(cuda, batch, r, m, seed=0):
+    x = _rand((batch, r, m), seed + r + m)
+    x /= np.linalg.norm(x, axis=(-2, -1), keepdims=True)
+    return torch.from_numpy(x).to(cuda)
+
+
+def _assert_gram(g, x):
+    """Relaunch bit-identical, exactly symmetric, within NS_RTOL of max
+    |A| of the plain version."""
+    assert torch.equal(g, ns.ns_gram(x))
+    assert torch.equal(g, g.mT)
+    _assert_rel(g, ns.ns_gram_plain(x), NS_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 24])
+@pytest.mark.parametrize("m", GRAM_COLS)
+@pytest.mark.parametrize("r", GRAM_RANKS)
+def test_cuda_ns_gram_ranks(cuda, r, m, batch):
+    x = _gram_input(cuda, batch, r, m)
+    before = ns.ns_gram.launches
+    g = ns.ns_gram(x)
+    assert g.shape == (batch, r, r) and ns.ns_gram.launches == before + 1
+    _assert_gram(g, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [45, 128, 300])
+def test_cuda_ns_gram_any_split(cuda, r):
+    """Through the C entry point, every split of m (1-64 ranges; 16-byte
+    and, with X 4 bytes off 16, 4-byte copies; A 4 bytes off 16: 4-byte
+    stores) is within NS_RTOL of the plain version, exactly symmetric and
+    the same bits on a relaunch; a split the kernels cannot take is refused
+    before any launch."""
+    from repro_torch.kernels import cuda_lib
+    m = 1000
+    x0 = _rand((3, r, m), 11)
+    x0 /= np.linalg.norm(x0, axis=(-2, -1), keepdims=True)
+    want = ns.ns_gram_plain(torch.from_numpy(x0).to(cuda))
+    lib = cuda_lib.library()
+    for offset in (0, 1):
+        x = _at_offset(cuda, x0, offset)
+        st = cuda_lib.stream(x)
+        for splits in (1, 3, 8, 16, 22, ns.GRAM_MAX_SPLITS):
+            width = -(-m // splits // ns.GRAM_SLICE) * ns.GRAM_SLICE
+            ws = torch.empty(ns.ns_gram_workspace_floats(3, r, splits),
+                             device=cuda)
+            outs = []
+            for _ in range(2):
+                out = _at_offset(cuda, np.zeros((3, r, r), np.float32), offset)
+                rc = lib.repro_ns_gram(x.data_ptr(), out.data_ptr(),
+                                       ws.data_ptr(), 3, r, m, splits, width,
+                                       st)
+                assert rc == 0, (splits, rc)
+                outs.append(out)
+            torch.cuda.synchronize()
+            assert torch.equal(outs[0], outs[1]), splits
+            assert torch.equal(outs[0], outs[0].mT), splits
+            _assert_rel(outs[0], want, NS_RTOL)
+        out = torch.full((3, r, r), 7.0, device=cuda)
+        ws = torch.empty(ns.ns_gram_workspace_floats(3, r, 1), device=cuda)
+        for splits, width in ((ns.GRAM_MAX_SPLITS + 1, 64), (0, 64), (16, 8),
+                              (2, 16), (1, -16)):
+            rc = lib.repro_ns_gram(x.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                                   3, r, m, splits, width, st)
+            assert rc != 0, (splits, width)
+        torch.cuda.synchronize()
+        assert bool((out == 7.0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_ns_gram_two_streams(cuda):
+    """Two calls in flight on two streams give the bits of one call alone."""
+    x1 = _gram_input(cuda, 24, 128, 2816, seed=1)
+    x2 = _gram_input(cuda, 24, 128, 1024, seed=2)
+    want1, want2 = ns.ns_gram(x1), ns.ns_gram(x2)
+    torch.cuda.synchronize()
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    got = []
+    for _ in range(3):
+        with torch.cuda.stream(s1):
+            g1 = ns.ns_gram(x1)
+        with torch.cuda.stream(s2):
+            g2 = ns.ns_gram(x2)
+        got.append((g1, g2))
+    torch.cuda.synchronize()
+    for g1, g2 in got:
+        assert torch.equal(g1, want1) and torch.equal(g2, want2)
+
+
+@pytest.mark.cuda
+def test_cuda_ns_gram_graph_capture(cuda):
+    """A call captured in a CUDA graph and replayed equals the eager one,
+    and each replay writes the graph's output anew."""
+    x = _gram_input(cuda, 24, 128, 1024, seed=3)
+    want = ns.ns_gram(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ns.ns_gram(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ns.ns_gram(x)
+    out.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 @pytest.mark.cuda

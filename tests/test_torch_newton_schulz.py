@@ -9,6 +9,8 @@ properties of that file (Gram near identity, singular-value band,
 near-singular inputs) are checked on the port's own results. The CUDA
 kernels against these plain versions are in ``test_torch_cuda.py``.
 """
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -119,6 +121,93 @@ def test_ns_apply_smem_mirrors_the_kernel_source():
         ring = 4 * (2 * bm * bk + 2 * bk * (bm + pad))
         stripe = 4 * bn * (-(-r // bk) * bk)
         assert ns.ns_apply_smem_bytes(r) == ring + stripe, r
+
+
+def _gram_consts() -> dict:
+    import re
+    src = (Path(ns.__file__).resolve().parent.parent / "csrc"
+           / "newton_schulz.cu").read_text()
+    body = src[src.index("namespace gram {"):src.index("}  // namespace gram")]
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (\w+) = (\d+);", body)}
+
+
+def test_ns_gram_geometry_mirrors_the_kernel_source():
+    """The wrapper's split and workspace use the Gram kernel's block, macro
+    tile, k slice, largest split and warps per CTA; Trion's m (1024, 2816)
+    take 16 ranges, and its (24, 128, m) factors a workspace of 16 x 5
+    warps' 32 x 64 partials per layer."""
+    import re
+    const = _gram_consts()
+    assert (ns.GRAM_BLOCK, ns.GRAM_MACRO, ns.GRAM_SLICE, ns.GRAM_MAX_SPLITS) \
+        == (const["BB"], const["kMacro"], const["BK"], const["kMaxSplits"])
+    src = (Path(ns.__file__).resolve().parent.parent / "csrc"
+           / "newton_schulz.cu").read_text()
+    table = re.search(r"constexpr int kWarpsOf =\s*([^;]+);", src).group(1)
+    warps = {int(rows): int(w) for rows, w in
+             re.findall(r"kRows == (\d+) \? (\d+)", table)}
+    warps_past = int(table.rsplit(":", 1)[1])
+    assert re.search(r"constexpr int kPartFloats = BB \* 2 \* BB;", src)
+    part = 2 * const["BB"] ** 2
+    for r in range(1, 600):
+        blocks = -(-r // const["BB"])
+        if blocks <= const["kMacro"]:
+            tiles, w = 1, warps[const["BB"] * blocks]
+        else:
+            n = -(-blocks // const["kMacro"])
+            tiles, w = n * (n + 1) // 2, warps_past
+        assert ns.ns_gram_workspace_floats(3, r, 7) == 3 * tiles * 7 * w * part
+    assert ns.ns_gram_splits(24, 128, 1024) == (16, 64)
+    assert ns.ns_gram_splits(24, 128, 2816) == (16, 176)
+    assert ns.ns_gram_workspace_floats(24, 128, 16) == 24 * 16 * 5 * part
+
+
+@pytest.mark.parametrize("batch, r", [(1, 8), (24, 128), (2, 300),
+                                      (24, 512), (1000, 64)])
+@pytest.mark.parametrize("m", [0, 1, 37, 64, 100, 333, 1030, 4096,
+                               100_000])
+def test_ns_gram_splits_meet_the_entry_point(batch, r, m):
+    """What ``repro_ns_gram`` accepts: 1 <= splits <= GRAM_MAX_SPLITS, width
+    a positive multiple of the k slice, splits * width >= m; no range
+    empty, none short of GRAM_SPLIT_MIN_COLS columns but where m is; the
+    CTAs no more than GRAM_CTAS but where one range per tile exceeds it."""
+    splits, width = ns.ns_gram_splits(batch, r, m)
+    assert 1 <= splits <= ns.GRAM_MAX_SPLITS
+    assert width > 0 and width % ns.GRAM_SLICE == 0
+    assert splits * width >= m and (splits - 1) * width < max(m, 1)
+    assert splits == 1 or width >= ns.GRAM_SPLIT_MIN_COLS
+    ctas = batch * ns._gram_tiles(r)[0]
+    assert splits == 1 or ctas * splits <= ns.GRAM_CTAS
+
+
+@pytest.mark.parametrize("r", list(APPLY_RANKS))
+def test_ns_gram_matches_jax_gram_kernel(r):
+    """The Gram on the CPU (the kernel's plain version) against the JAX
+    package's ``_gram_kernel`` in interpret mode, over column blocks of 128
+    (zero-padded), on a stacked ragged factor: the same products summed in
+    other orders, within ITER_RTOL of max |A|."""
+    import functools
+
+    import jax
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    from repro.kernels import newton_schulz as jns
+    m, bm = APPLY_RANKS[r], 128
+    x = _rand((2, r, m), seed=r + 1)
+    x /= np.linalg.norm(x, axis=(-2, -1), keepdims=True)
+    xp = np.pad(x, ((0, 0), (0, 0), (0, -m % bm)))
+    nk = xp.shape[-1] // bm
+    want = pl.pallas_call(
+        functools.partial(jns._gram_kernel, nk=nk), grid=(2, nk),
+        in_specs=[pl.BlockSpec((1, r, bm), lambda bi, k: (bi, 0, k))],
+        out_specs=pl.BlockSpec((1, r, r), lambda bi, k: (bi, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((2, r, r), jnp.float32),
+        scratch_shapes=[pltpu.VMEM((r, r), jnp.float32)],
+        interpret=True)(jnp.asarray(xp))
+    got = ns.ns_gram(torch.from_numpy(x))
+    assert got.shape == (2, r, r)
+    _close(got.numpy(), np.asarray(want), ITER_RTOL)
 
 
 def test_ns_apply_cpu_has_no_envelope():
