@@ -149,11 +149,37 @@ device or without the port beside it. Any failure raises. Phases:
    gives the same tokens. One prefill of each
    dense configuration runs under ``torch.profiler``. The training phases
    (3, 8, 9, 11) and the paged runs launch neither attention kernel.
-14. The ``kernels`` line, the card's line, and last:
+14. The paper's baselines at full width and depth, 3 steps each of batch
+   8 x 512, rank 128, through ``repro_torch.launch.train``, the counters
+   zeroed just before each run and read just after: ``--optimizer
+   ldadamw``, ``galore``, ``frugal``, ``fira`` (SVD) and ``adamw`` launch no
+   kernel; ``galore --basis dct`` launches 7 ``dct_project`` in the run (T_u
+   200: step 1 refreshes, steps 2-3 keep) and 7 ``colgather_matmul`` per
+   step, ``frugal`` / ``fira --basis dct`` 7 ``dct_project`` and 7
+   ``colgather_matmul_dual`` per step; FRUGAL with ``projector="random"``
+   and ``"randperm"`` through the API launches none. No other kernel runs.
+   Each run's step-1 loss must equal phase 3's, its losses be finite; it
+   prints its peak device memory and the Trainer's time of the refresh
+   step (step 1) and of a keep step (mean of steps 2-3). Then, through the
+   API on one gradient of llama-350m, each preset's optimizer state in
+   bytes (projector state, shared bases and their transposes, moments, EF,
+   full-rank Adam; DCT-AdamW beside them) and the time of a refresh update
+   and of a keep update alone (CUDA events). Then the dense refresh on the
+   card against float64 on the CPU: a leaf of (24, 1024, 1024) with planted,
+   well separated singular values (numpy, from ``--seed``): GaLore's SVD
+   basis and LDAdamW's one power-iteration step from ``eye(n, r)`` must
+   span the float64 reference's subspace (every singular value of
+   ``Q_card^T Q_ref``, and of ``Q_card`` made orthonormal in float64, >= 1
+   - ``DENSE_SPAN_TOL``; ``|Q_card^T Q_card - I|`` <= ``DENSE_ORTHO_TOL``);
+   the SVD and power refreshes are timed at (24, 1024, 1024) and (24,
+   2816, 1024). The phase's wall time is printed.
+15. The ``kernels`` line, the card's line, and last:
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import argparse
+import gc
 import json
 import math
 import subprocess
@@ -317,6 +343,38 @@ FLOOR_SHARE = 1e-5
 # BLOCKWISE_MIN_EQUAL bit-equal. An output may round to its neighbour, and
 # a P that rounded apart may move it by up to one ulp more
 LAYER_MAX_ULPS = 2.0
+
+# the paper's baselines (phase 14): (CLI argv, or API keywords with the
+# preset's name, launches of each kernel in the run; unnamed kernels 0).
+# GaLore / FRUGAL / FIRA refresh every 200 steps: with --basis dct, step 1
+# runs dct_project (7 launches in all) and every step its back-projection
+BASELINE_STEPS = 3
+_DCT_REFRESH = {"dct_project": LAUNCHES_PER_STEP}
+_PER_STEP = LAUNCHES_PER_STEP * BASELINE_STEPS
+BASELINE_PATHS = {
+    "ldadamw": (["--optimizer", "ldadamw"], {}),
+    "galore": (["--optimizer", "galore"], {}),
+    "frugal": (["--optimizer", "frugal"], {}),
+    "fira": (["--optimizer", "fira"], {}),
+    "adamw": (["--optimizer", "adamw"], {}),
+    "galore dct": (["--optimizer", "galore", "--basis", "dct"],
+                   {**_DCT_REFRESH, "colgather_matmul": _PER_STEP}),
+    "frugal dct": (["--optimizer", "frugal", "--basis", "dct"],
+                   {**_DCT_REFRESH, "colgather_matmul_dual": _PER_STEP}),
+    "fira dct": (["--optimizer", "fira", "--basis", "dct"],
+                 {**_DCT_REFRESH, "colgather_matmul_dual": _PER_STEP}),
+    "frugal random": ({"name": "frugal", "projector": "random"}, {}),
+    "frugal randperm": ({"name": "frugal", "projector": "randperm"}, {}),
+}
+# the dense refresh on the card against float64 on the CPU: every singular
+# value of Q_card^T Q_ref (the cosines of the principal angles between the
+# two rank-r subspaces) at least 1 - this
+DENSE_SPAN_TOL = 1e-4
+# |Q^T Q - I| of the card's bases, max entry: QR's is ~1e-6; cuSOLVER's
+# fp32 SVD of (24, 1024, 1024) (torch's default, Jacobi gesvdj) measured
+# 6.0e-4 at this leaf (NVIDIA H100 80GB HBM3, 700.00 W)
+DENSE_ORTHO_TOL = 2e-3
+DENSE_SHAPE = (LAYERS, 1024, 1024)
 
 
 def _device_line() -> str:
@@ -1260,10 +1318,10 @@ def run_lowp_path(torch, name: str, step1_loss: float) -> dict:
     return counts
 
 
-def _run_api(args, opt_kw: dict):
-    """The training CLI's ``run`` with DCT-AdamW built through
-    ``get_optimizer`` with ``opt_kw`` (``error_feedback`` has no CLI
-    flag)."""
+def _run_api(args, opt_kw: dict, name: str = "dct_adamw"):
+    """The training CLI's ``run`` with the preset ``name`` built through
+    ``get_optimizer`` with ``opt_kw`` (``error_feedback`` and FRUGAL's
+    random projectors have no CLI flag)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data.synthetic import make_batch_fn
     from repro_torch.launch.train import device_for
@@ -1274,8 +1332,8 @@ def _run_api(args, opt_kw: dict):
 
     dev = device_for(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
-    opt = get_optimizer("dct_adamw", lr=cosine_warmup(args.lr, args.warmup,
-                                                      args.steps),
+    opt = get_optimizer(name, lr=cosine_warmup(args.lr, args.warmup,
+                                                args.steps),
                         rank=args.rank, weight_decay=args.weight_decay,
                         **opt_kw)
     trainer = Trainer(
@@ -2080,7 +2138,238 @@ def run_gemma3_paged(torch, dev) -> dict:
     return counts
 
 
-def main() -> int:
+def _baseline_args(spec):
+    """The training CLI's arguments of a phase-14 run (the API runs take the
+    CLI's rank, seed, batch and schedule)."""
+    from repro_torch.launch import train as train_cli
+
+    base = [*TRAIN_ARGV[:TRAIN_ARGV.index("--steps")], "--steps",
+            str(BASELINE_STEPS), *TRAIN_ARGV[TRAIN_ARGV.index("--warmup"):]]
+    base = [a for a in base if a not in ("--optimizer", "dct_adamw")]
+    return train_cli.build(base + (spec if isinstance(spec, list) else []))
+
+
+def run_baseline_path(torch, name: str, step1_loss: float) -> dict:
+    """Phase 14: one baseline at full width and depth through the training
+    CLI (argv) or the API (keywords), the counters zeroed just before.
+    Returns the counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+
+    spec, want = BASELINE_PATHS[name]
+    args = _baseline_args(spec)
+    # the earlier phases' engines hold reference cycles: collect them, so
+    # the peak is this run's and not that of garbage awaiting collection
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    if isinstance(spec, list):
+        trainer = train_cli.run(args)
+    else:
+        kw = dict(spec)
+        trainer = _run_api(args, kw, kw.pop("name"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    hist = trainer.metrics_history
+    assert len(hist) == BASELINE_STEPS, hist
+    losses = [h["loss"] for h in hist]
+    assert all(math.isfinite(x) for x in losses), (name, losses)
+    assert losses[0] == step1_loss, \
+        f"{name}: step-1 loss {losses[0]} != the main path's {step1_loss}"
+    for kernel, n in counts.items():
+        assert n == want.get(kernel, 0), \
+            f"{name}: {kernel} ran {n} times in {BASELINE_STEPS} steps, " \
+            f"expected {want.get(kernel, 0)}"
+    print(json.dumps({
+        "baseline_path": name, "spec": spec, "steps": BASELINE_STEPS,
+        "batch": BATCH, "seq_len": SEQ, "rank": RANK, "losses": losses,
+        "refresh_step_ms": hist[0]["s_per_step"] * 1e3,
+        "keep_step_ms": sum(h["s_per_step"] for h in hist[1:])
+        / (BASELINE_STEPS - 1) * 1e3,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "memory_allocated_at_start_bytes": at_start,
+        "wall_s": wall,
+        "launches": {k: v for k, v in counts.items() if v}}), flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _nbytes(tree) -> int:
+    """Bytes of every tensor in a state tree."""
+    if hasattr(tree, "element_size"):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(_nbytes(v) for v in tree)
+    return 0
+
+
+def _state_bytes(state) -> dict:
+    """An optimizer state's bytes by part."""
+    rule = state.leaves[0]
+    out = {"shared_bases": _nbytes(state.bases),
+           "shared_bases_t": _nbytes(state.bases_t)}
+    if "lowrank" in rule:
+        leaves = list(rule["lowrank"].values())
+        out.update(projector_state=sum(_nbytes(x.proj) for x in leaves),
+                   low_rank_moments=sum(_nbytes((x.m, x.v)) for x in leaves),
+                   error_feedback=sum(_nbytes(x.ef) for x in leaves),
+                   full_rank_adam=_nbytes(rule["full"]))
+    else:
+        out["full_rank_adam"] = _nbytes(rule)
+    out["total"] = _nbytes(state)
+    return out
+
+
+def _once_ms(fn) -> float:
+    """Device time of one call (CUDA events), for work too slow to repeat."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def baseline_states_and_updates(torch, dev) -> None:
+    """Phase 14: each baseline's optimizer state in bytes and the time of a
+    refresh update and of a keep update, through the API on one gradient
+    of llama-350m at batch 8 x 512, each alone between CUDA events (updates
+    are functional, so a call repeats): the mean of 3 calls after an
+    untimed one, but a refresh that takes over a second (the SVD's; the
+    runs before warmed cuSOLVER) is timed once."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.api import get_optimizer
+    from repro_torch.train import steps as S
+
+    cfg = get_config("llama-350m")
+    params = T.init_params(cfg, 0, dev)
+    batch = make_batch_fn(cfg, SEQ, BATCH, device=dev)(0)
+    grads, _ = S.grad_fn(params, batch, cfg)
+    grads, _ = S._clip_by_global_norm(grads, 1.0)
+    del batch
+    runs = {"dct_adamw (main path)": ("dct_adamw", {"rank": RANK,
+                                                   "weight_decay": 0.01})}
+    for name, (spec, _) in BASELINE_PATHS.items():
+        args = _baseline_args(spec)
+        if isinstance(spec, list):
+            runs[name] = (args.optimizer,
+                          train_cli._optimizer_kwargs(args, dev))
+        else:
+            kw = dict(spec)
+            runs[name] = (kw.pop("name"), {"rank": args.rank,
+                                           "weight_decay": 0.01, **kw})
+    rows = {}
+    for name, (preset, kw) in runs.items():
+        opt = get_optimizer(preset, lr=0.01, **kw)
+        state = opt.init(params)
+        refresh = lambda: opt.update(grads, state, params)  # noqa: E731
+        refresh_ms = _once_ms(refresh)
+        if refresh_ms < 1e3:       # cheap: the first call allocated; repeat
+            refresh_ms = _time_ms(refresh, 3)
+        _, after = refresh()
+        keep_ms = _time_ms(lambda: opt.update(grads, after, params), 3)
+        rows[name] = {"preset": preset, "options": kw,
+                      "state_bytes": _state_bytes(state),
+                      "refresh_update_ms": refresh_ms,
+                      "keep_update_ms": keep_ms}
+        del opt, state, after
+        torch.cuda.empty_cache()
+    print(json.dumps({"baseline_updates": rows,
+                      "note": "update alone on one llama-350m gradient; "
+                              "refresh = a state at step 0, keep = after "
+                              "one update (ldadamw refreshes every step, "
+                              "adamw has no basis)"}), flush=True)
+
+
+def check_dense_refresh(torch, dev, seed: int) -> None:
+    """Phase 14: GaLore's SVD basis and LDAdamW's power-iteration step on
+    the card against float64 on the CPU, on a leaf with planted singular
+    values; then the two refreshes timed at the main path's shapes."""
+    import numpy as np
+
+    from repro_torch.core.projectors import Projector
+
+    layers, m, n = DENSE_SHAPE
+    rng = np.random.default_rng(seed)
+    # 128 singular values from 10 down to 5, the rest from 1 down to 0.1:
+    # neighbours 0.4-0.8% apart and a 5x gap at the cut
+    s = np.concatenate([np.linspace(10.0, 5.0, RANK),
+                        np.linspace(1.0, 0.1, n - RANK)])
+    g64 = np.empty(DENSE_SHAPE)
+    for i in range(layers):
+        u, _ = np.linalg.qr(rng.standard_normal((m, n)))
+        v, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        g64[i] = (u * s) @ v.T
+    g32 = torch.from_numpy(g64.astype(np.float32))
+    g64 = g32.double()                  # the same G, in float64
+    t0 = time.perf_counter()
+    v_ref = torch.linalg.svd(g64, full_matrices=False).Vh[:, :RANK].mT
+    eye = torch.eye(n, RANK, dtype=torch.float64).expand(layers, n, RANK)
+    p_ref = torch.linalg.qr(g64.mT @ (g64 @ eye)).Q
+    ref_s = time.perf_counter() - t0
+    g = g32.to(dev)
+    out = {"shape": list(DENSE_SHAPE), "rank": RANK, "seed": seed,
+           "reference_cpu_float64_s": ref_s}
+    for kind, ref in (("svd", v_ref), ("power", p_ref)):
+        proj = Projector(kind=kind, r=RANK)
+        q = proj.update(g, proj.init(g.shape, dev))
+        assert q.device == g.device and q.dtype == torch.float32, kind
+        ortho = (q.mT @ q - torch.eye(RANK, device=dev)).abs().max().item()
+        q64 = q.double().cpu()
+        # the bar on Q_card itself, and on its span alone (Q_card made
+        # orthonormal in float64: a basis a little off orthonormal can
+        # read cosines above 1)
+        cos = torch.linalg.svdvals(q64.mT @ ref)
+        span = torch.linalg.svdvals(torch.linalg.qr(q64).Q.mT @ ref)
+        out[kind] = {"min_cosine": cos.min().item(),
+                     "max_cosine": cos.max().item(),
+                     "span_one_minus_min_cosine": 1.0 - span.min().item(),
+                     "orthonormality_max_abs": ortho}
+    print(json.dumps({"dense_refresh_check": out}), flush=True)
+    for kind in ("svd", "power"):
+        assert out[kind]["min_cosine"] >= 1.0 - DENSE_SPAN_TOL, (kind, out)
+        assert out[kind]["span_one_minus_min_cosine"] <= DENSE_SPAN_TOL, \
+            (kind, out)
+        assert out[kind]["orthonormality_max_abs"] <= DENSE_ORTHO_TOL, \
+            (kind, out)
+    # the refreshes at the main path's shapes: 4 leaves of (24, 1024, 1024)
+    # and 3 of (24, 2816, 1024) per refresh step
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    times = {}
+    for shape, _ in MAIN_SHAPES:
+        x = torch.randn(shape, generator=gen, device=dev)
+        for kind in ("svd", "power"):
+            proj = Projector(kind=kind, r=RANK)
+            prev = proj.init(shape, dev)
+            fn = lambda: proj.update(x, prev)  # noqa: E731
+            times[f"{kind} {shape}"] = (_once_ms(fn) if kind == "svd"
+                                        else _time_ms(fn, 3))
+        del x
+    for kind in ("svd", "power"):
+        times[f"{kind} per refresh step (7 leaves)"] = sum(
+            times[f"{kind} {shape}"] * k for shape, k in MAIN_SHAPES)
+    print(json.dumps({"dense_refresh_ms": times}), flush=True)
+    torch.cuda.empty_cache()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of phase 14's planted dense-refresh leaf")
+    opts = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT / "src"))
     import torch
 
@@ -2144,6 +2433,15 @@ def main() -> int:
         counts[kernel] = sum(n for name, n in prefill_launches.items()
                              if DENSE_RUNS[name] == kernel)
     run_gemma3_paged(torch, dev)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    for name in BASELINE_PATHS:
+        run_baseline_path(torch, name, step1_loss)
+    baseline_states_and_updates(torch, dev)
+    check_dense_refresh(torch, dev, opts.seed)
+    print(json.dumps({"baselines_phase_wall_s": time.perf_counter() - t0}),
+          flush=True)
 
     sources = {"dequant_add_ef": ("quant_ef.cu", "src/repro/kernels/quant_ef.py:44"),
                "dct_project": ("dct_project.cu", "src/repro/kernels/dct_project.py:63"),

@@ -10,15 +10,20 @@ or ``repro``: the JAX state's containers are recognised by their fields.
   prefill scratch or the dense decode cache: a list of segments), under
   ``segments/{i}/p{j}/k`` and ``/v``.
 * ``opt_state_from_jax`` turns the ``ChainState`` of one of ``repro``'s
-  matrix-optimizer presets — ``dct_adamw``, ``trion``, ``muon`` or ``dion``:
-  ``(partition{"lowrank", "full"}, EmptyState, EmptyState)`` under
-  ``leaves`` — into the port's ``ChainState``: the step, the stored bases,
-  the full-rank Adam moments, and each matrix leaf's rule state: a
-  ``ProjAdamLeaf``'s moments, int32 indices, error-feedback buffer (int8
-  payload and scale, fp32, or none where the residual is discarded) and
-  ``inner_step``; a ``TrionLeaf``'s or ``MuonLeaf``'s momentum; a
-  ``DionLeaf``'s momentum and projection. The JAX PRNG key is dropped: no
-  ported rule draws random numbers.
+  presets into the port's ``ChainState``. The matrix-optimizer presets
+  (``dct_adamw``, ``ldadamw``, ``galore``, ``frugal``, ``fira``, ``trion``,
+  ``muon``, ``dion``) hold ``(partition{"lowrank", "full"}, EmptyState,
+  EmptyState)`` under ``leaves``; ``adamw`` holds ``(scale_by_adam tree,
+  EmptyState, EmptyState)``. Carried: the step, the stored bases, the
+  full-rank Adam moments, and each matrix leaf's rule state: a
+  ``ProjAdamLeaf``'s moments, projector state (int32 indices, or the dense
+  kinds' fp32 ``(..., n, r)`` basis), error-feedback buffer (int8 payload and
+  scale, fp32, or none where the residual is not EF) and ``inner_step``; a
+  ``TrionLeaf``'s or ``MuonLeaf``'s momentum; a ``DionLeaf``'s momentum and
+  projection. The JAX key ``PRNGKey(seed)`` (threefry: ``[seed >> 32, seed
+  & 0xFFFFFFFF]``) becomes the port's ``seed``; the stream itself cannot
+  carry across (the port draws from ``torch.Generator``, see
+  ``optim.transform.fold_in``).
 """
 from __future__ import annotations
 
@@ -91,9 +96,11 @@ def _proj_leaf(s, device) -> ProjAdamLeaf:
                              scale=_tensor(s.ef.scale, device))
     else:
         ef = _tensor(s.ef, device)
+    proj = _tensor(s.proj, device)
+    if not proj.is_floating_point():     # indices: int32, as JAX holds them
+        proj = proj.to(torch.int32)
     return ProjAdamLeaf(m=_tensor(s.m, device), v=_tensor(s.v, device),
-                        proj=_tensor(s.proj, device).to(torch.int32),
-                        ef=ef, inner_step=int(s.inner_step))
+                        proj=proj, ef=ef, inner_step=int(s.inner_step))
 
 
 def _rule_leaf(s, device):
@@ -112,21 +119,37 @@ def _full_leaf(s, device) -> FullAdamLeaf:
                                     _tensor(s.mom.v, device)))
 
 
+def seed_from_jax_key(key) -> int:
+    """The seed of a JAX ``PRNGKey(seed)`` (a uint32 pair, high word
+    first)."""
+    hi, lo = (int(x) for x in np.asarray(key).reshape(-1)[-2:])
+    return (hi << 32) | lo
+
+
 def opt_state_from_jax(state, device=None) -> ChainState:
-    """``repro`` matrix-optimizer ``ChainState`` (numpy leaves) -> the
-    port's."""
+    """``repro`` ``ChainState`` of a matrix-optimizer preset or of
+    ``adamw`` (numpy leaves) -> the port's."""
     if _fields(state) != ("step", "key", "bases", "leaves"):
         raise TypeError(f"expected repro's ChainState, got {type(state)}")
     part, *rest = state.leaves
-    if set(part) != {"lowrank", "full"} or len(rest) != 2:
-        raise TypeError("expected a matrix-optimizer chain "
-                        "(partition{lowrank, full}, lr scaling, weight decay)")
-    lowrank = {k: _rule_leaf(s, device)
-               for k, s in _leaf_states(part["lowrank"]).items()}
-    full = {k: _full_leaf(s, device)
-            for k, s in _leaf_states(part["full"]).items()}
+    if len(rest) != 2 or any(type(x).__name__ != "EmptyState" for x in rest):
+        raise TypeError("expected a chain of (update rule, lr scaling, "
+                        "weight decay)")
+    if set(part) == {"lowrank", "full"}:
+        lowrank = {k: _rule_leaf(s, device)
+                   for k, s in _leaf_states(part["lowrank"]).items()}
+        full = {k: _full_leaf(s, device)
+                for k, s in _leaf_states(part["full"]).items()}
+        rule_state = {"lowrank": lowrank, "full": full}
+    else:                                # adamw: one scale_by_adam tree
+        leaves = _leaf_states(part)
+        if not leaves or any(type(s).__name__ != "FullAdamLeaf"
+                             for s in leaves.values()):
+            raise TypeError("expected a matrix-optimizer partition "
+                            "{lowrank, full} or adamw's scale_by_adam tree")
+        rule_state = {k: _full_leaf(s, device) for k, s in leaves.items()}
     bases = {k: _tensor(q, device) for k, q in state.bases.items()}
-    return ChainState(step=int(state.step), bases=bases,
+    return ChainState(step=int(state.step),
+                      seed=seed_from_jax_key(state.key), bases=bases,
                       bases_t=transposed(bases),
-                      leaves=({"lowrank": lowrank, "full": full},
-                              EmptyState(), EmptyState()))
+                      leaves=(rule_state, EmptyState(), EmptyState()))

@@ -44,6 +44,11 @@ class BasisBackend:
     """
 
     kind: str = ""
+    #: a per-leaf key is needed at refresh (none of the built-ins:
+    #: ``randortho`` is a fixed seeded basis, cached process-wide)
+    needs_key: bool = False
+    #: the energy statistic decomposes over row blocks (ZeRO-1 eligible)
+    zero_shardable: bool = True
 
     def matrix(self, n: int, dtype=torch.float32, device=None) -> torch.Tensor:
         """The ``(n, n)`` orthogonal basis ``Q`` (``x @ Q`` = transform)."""

@@ -5,15 +5,20 @@
 
 Runs on the CUDA card by default and raises if there is none; ``--device
 cpu`` runs on the CPU (the tests). config -> synthetic data -> train step
-with the chosen optimizer -> ``Trainer``. ``--optimizer`` is one of
-``trion`` (the default, as in the JAX CLI), ``dct_adamw``, ``muon`` and
-``dion``; ``--rank`` defaults to 128, except for Muon, where no ``--rank``
-means full-space Newton–Schulz and ``--rank r`` the rank-r subspace. With
-``--fused auto`` (the default) these four families run their CUDA kernels on
-the card and the reference path on the CPU. For ``dct_adamw``,
+with the chosen optimizer -> ``Trainer``. ``--optimizer`` is any preset of
+the registry: ``trion`` (the default, as in the JAX CLI), ``muon``,
+``dion``, the paper's ``dct_adamw`` and its baselines ``ldadamw``,
+``galore``, ``frugal``, ``fira`` and the full-rank ``adamw``. ``--rank``
+defaults to 128; ``adamw`` takes none, and for Muon no ``--rank`` means
+full-space Newton–Schulz and ``--rank r`` the rank-r subspace. ``--fused``
+applies to the projected-Adam family and the momentum families: with
+``auto`` (the default) they run their CUDA kernels on the card and the
+reference path on the CPU (the dense projectors of ldadamw / galore / frugal
+/ fira run ``torch.linalg`` either way). For ``dct_adamw``,
 ``--compute-dtype bf16|int8`` sets the projection precision (it needs a
-fused mode: on the CPU, ``--fused on`` or ``fft``) and ``--basis
-dct|dst|hadamard|randortho`` the predefined basis.
+fused mode: on the CPU, ``--fused on`` or ``fft``); ``--basis
+dct|dst|hadamard|randortho`` sets its predefined basis, and the projector of
+galore / frugal / fira in place of their SVD.
 
 Flags of the JAX CLI that this port does not support yet exit with
 "not yet ported".
@@ -24,6 +29,12 @@ import argparse
 import sys
 
 import torch
+
+# the presets built on ProjectedAdamRule
+PROJECTED_ADAM_FAMILY = ("dct_adamw", "ldadamw", "galore", "frugal", "fira")
+# presets with a fused-step dispatch field: the projected-Adam family plus
+# the momentum-orthogonalization rules
+FUSED_FAMILY = PROJECTED_ADAM_FAMILY + ("muon", "trion", "dion")
 
 # flags of ``python -m repro.launch.train`` not ported yet
 NOT_YET_PORTED = ("--tune-cache", "--zero",
@@ -53,12 +64,14 @@ def build(argv=None) -> argparse.Namespace:
     ap.add_argument("--weight-decay", type=float, default=0.01)
     ap.add_argument("--fused", default=None,
                     choices=["auto", "on", "fft", "off"],
-                    help="fused-step dispatch of dct_adamw, muon, trion and "
-                         "dion: auto = the CUDA kernels for tensors on the "
-                         "card, the reference path on the CPU")
+                    help="fused-step dispatch of the projected-Adam family "
+                         "and muon/trion/dion: auto = the CUDA kernels for "
+                         "tensors on the card, the reference path on the "
+                         "CPU")
     ap.add_argument("--basis", default=None,
                     choices=["dct", "dst", "hadamard", "randortho"],
-                    help="predefined orthogonal basis backend of dct_adamw")
+                    help="predefined orthogonal basis backend of dct_adamw "
+                         "(or the projector of galore/frugal/fira)")
     ap.add_argument("--compute-dtype", default=None,
                     choices=["fp32", "bf16", "int8"],
                     help="projection-matmul precision of dct_adamw: int8 = "
@@ -93,12 +106,24 @@ def device_for(name: str) -> torch.device:
     return dev
 
 
-def _precision_and_basis(args: argparse.Namespace, dev: torch.device) -> dict:
-    """The optimizer keywords of ``--compute-dtype`` and ``--basis``, with
-    the JAX CLI's checks (and its messages)."""
+def _optimizer_kwargs(args: argparse.Namespace, dev: torch.device) -> dict:
+    """The optimizer keywords of the flags, with the JAX CLI's checks (and
+    its messages)."""
     from repro_torch.core import fused_step
 
-    kw = {}
+    kw = {"weight_decay": args.weight_decay}
+    if args.optimizer == "muon":
+        # full-space Newton-Schulz unless --rank asks for the subspace
+        if args.rank is not None:
+            kw["rank"] = args.rank
+    elif args.optimizer != "adamw":
+        kw["rank"] = args.rank if args.rank is not None else 128
+    if args.fused is not None:
+        if args.optimizer not in FUSED_FAMILY:
+            raise SystemExit(f"--fused applies to "
+                             f"{'/'.join(FUSED_FAMILY)}, "
+                             f"not {args.optimizer!r}")
+        kw["fused"] = args.fused
     if args.compute_dtype is not None:
         if args.optimizer != "dct_adamw":
             raise SystemExit("--compute-dtype applies to dct_adamw, not "
@@ -112,13 +137,15 @@ def _precision_and_basis(args: argparse.Namespace, dev: torch.device) -> dict:
                 "path on this backend)")
         kw["compute_dtype"] = args.compute_dtype
     if args.basis is not None:
-        if args.optimizer in ("galore", "frugal", "fira"):
-            raise SystemExit(f"--basis with {args.optimizer!r} is not yet "
-                             f"ported to repro_torch")
-        if args.optimizer != "dct_adamw":
+        if args.optimizer == "dct_adamw":
+            kw["basis"] = args.basis
+        elif args.optimizer in ("galore", "frugal", "fira"):
+            kw["projector"] = args.basis
+        else:
+            # ldadamw is defined by its power-iteration projector; the
+            # other presets have no predefined-basis plug point
             raise SystemExit("--basis applies to dct_adamw/galore/frugal/"
                              f"fira, not {args.optimizer!r}")
-        kw["basis"] = args.basis
     return kw
 
 
@@ -135,17 +162,7 @@ def run(args: argparse.Namespace):
     dev = device_for(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     lr = cosine_warmup(args.lr, args.warmup, args.steps)
-    opt_kw = {"weight_decay": args.weight_decay}
-    if args.optimizer == "muon":
-        # full-space Newton-Schulz unless --rank asks for the subspace
-        if args.rank is not None:
-            opt_kw["rank"] = args.rank
-    else:
-        opt_kw["rank"] = args.rank if args.rank is not None else 128
-    if args.fused is not None:
-        opt_kw["fused"] = args.fused
-    opt_kw.update(_precision_and_basis(args, dev))
-    opt = get_optimizer(args.optimizer, lr=lr, **opt_kw)
+    opt = get_optimizer(args.optimizer, lr=lr, **_optimizer_kwargs(args, dev))
     trainer = Trainer(
         train_step=make_train_step(cfg, opt),
         init_state_fn=lambda: init_state(cfg, opt, args.seed, dev),

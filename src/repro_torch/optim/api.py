@@ -1,32 +1,40 @@
 """Optimizer registry — ``get_optimizer(name, lr, **kw)``.
 
-Ported: the paper's ``dct_adamw`` and the momentum families ``trion`` (the
-JAX CLI's default), ``muon`` and ``dion``. The other presets of
-``repro.optim.api`` raise "not yet ported".
+The nine presets of ``repro.optim.api``: the paper's ``dct_adamw``, its
+baselines ``ldadamw``, ``galore``, ``frugal``, ``fira`` and the full-rank
+``adamw``, and the momentum families ``trion`` (the JAX CLI's default),
+``muon`` and ``dion``. ``TRANSFORMS`` holds the transform-level factories
+for composition. ``galore`` / ``frugal`` / ``fira`` take ``projector=``: a
+dense kind (svd, random, randperm) or a registered basis backend
+(dct/dst/hadamard/randortho), which runs the fused dataflow.
 """
 from __future__ import annotations
 
 import inspect
 
+from .adamw import adamw, adamw_transform
 from .common import Optimizer, Schedule
 from .dion import dion, dion_transform
 from .muon import muon, muon_transform
-from .projected_adam import dct_adamw, dct_adamw_transform
+from .projected_adam import (
+    dct_adamw,
+    dct_adamw_transform,
+    fira,
+    frugal,
+    galore,
+    ldadamw,
+)
 from .trion import trion, trion_transform
 
-OPTIMIZERS = {"dct_adamw": dct_adamw, "trion": trion, "muon": muon,
-              "dion": dion}
-TRANSFORMS = {"dct_adamw": dct_adamw_transform, "trion": trion_transform,
-              "muon": muon_transform, "dion": dion_transform}
-
-#: presets of the JAX registry this package does not build yet
-NOT_YET_PORTED = ("adamw", "ldadamw", "galore", "frugal", "fira")
+OPTIMIZERS = {"adamw": adamw, "muon": muon, "dion": dion, "trion": trion,
+              "dct_adamw": dct_adamw, "ldadamw": ldadamw, "galore": galore,
+              "frugal": frugal, "fira": fira}
+TRANSFORMS = {"adamw": adamw_transform, "muon": muon_transform,
+              "dion": dion_transform, "trion": trion_transform,
+              "dct_adamw": dct_adamw_transform}
 
 
 def _lookup(table: dict, name: str):
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(f"optimizer {name!r} is not yet ported to "
-                                  f"repro_torch; have {sorted(table)}")
     if name not in table:
         raise KeyError(f"unknown optimizer {name!r}; have {sorted(table)}")
     return table[name]

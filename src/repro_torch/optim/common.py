@@ -3,7 +3,7 @@
 ``Optimizer(init, update)`` pairs plus the shared vocabulary of the
 optimizer layer: leaf routing (``default_label_fn``), matrix orientation,
 Adam moments, the per-leaf :class:`MatrixRule` protocol and the
-:class:`Context` that carries the step and the shared bases.
+:class:`Context` that carries the step, the key and the shared bases.
 
 Parameter, gradient and state trees are flat dicts keyed by the JAX tree's
 leaf path (``"segments/0/p0/attn/wq/kernel"``), so ``default_label_fn`` routes
@@ -156,6 +156,10 @@ class Context:
     # contiguous transposes of ``bases``, same keys: the back-projection
     # kernel reads rows of Q^T from memory, and ``q.T`` is only a view
     bases_t: dict = dataclasses.field(default_factory=dict)
+    # the step's key in the chain runtime, the leaf's inside
+    # ``lowrank_project`` (``transform.leaf_key``): the random projectors'
+    # draws are seeded from it
+    key: int | None = None
 
     def basis(self, n: int, dtype=torch.float32, kind: str = "dct",
               device=None) -> torch.Tensor:

@@ -1,29 +1,38 @@
-"""Low-rank projected AdamW: the paper's DCT-AdamW (Algorithm 2).
+"""Generic low-rank projected AdamW — one rule, five optimizers.
+
+The projector (DCT dynamic column selection vs SVD vs block power iteration
+vs random/randperm) is a swappable component inside an otherwise identical
+low-rank Adam(W):
+
+  optimizer   projector   T_u    rotate   residual handling
+  ---------   ---------   ----   ------   -----------------
+  DCT-AdamW   dct         any    yes      error feedback (fp32 or int8)
+  LDAdamW     power       1      yes      error feedback (fp32)
+  GaLore      svd         200    no       discarded
+  FRUGAL      svd/dct/..  200    no       SignSGD on the state-free part
+  FIRA        svd/dct     200    no       norm-scaled pass-through
 
 Per matrix leaf (oriented so the projected dim is last, size n <= m):
 
-    G_t  = grad + EF buffer
-    refresh (every T_u steps): new indices from G_t; rotation
+    G_t  = grad (+ EF buffer)
+    refresh (every T_u steps): new indices/basis from G_t; rotation
         R = Q_prev^T Q_crt applied to m, v (|.| on v) — a 0/1 partial
         permutation for index-based projectors (DESIGN.md §1)
     g_t  = G_t @ Q_crt                      (m x r)
-    Xi   = G_t - g_t Q_crt^T                (residual -> EF buffer)
+    Xi   = G_t - g_t Q_crt^T                (residual; see table)
     m, v = Adam moments on g_t; u = mhat / (sqrt(vhat) + eps)
-    D    = u @ Q_crt^T
+    D    = u @ Q_crt^T (+ residual term)
 
-With ``fused`` resolving to "on" or "fft" the hot path runs through
-:mod:`repro_torch.core.fused_step` (one select+project pass over G, one
-shared Q_r^T gather for both back-projections, int8 EF read and written by
-fused kernels); "off" is the reference path.
+For a predefined-basis projector with ``fused`` resolving to "on" or "fft"
+the hot path runs through :mod:`repro_torch.core.fused_step` (one
+select+project pass over G, one shared Q_r^T gather for both
+back-projections, int8 EF read and written by fused kernels); "off" is the
+reference path. The dense projectors always take the reference math, as in
+the JAX package: ``torch.linalg`` refreshes and matmuls on the gradient's
+device (only their EF buffer goes through ``fused_step``).
 
-Ported: every predefined-basis projector (``dct``, ``dst``, ``hadamard``,
-``randortho``), residual ``ef`` with ``q8`` or ``fp32`` buffers and
-``discard`` (no EF state, one back-projection), rotation,
-``update_interval > 1`` (a Python branch on the step), and the projection
-precisions ``compute_dtype`` fp32 / bf16 / int8 on the fused modes. Not yet
-ported: the dense projectors and the ``sign`` / ``fira`` residuals (and with
-them ldadamw / galore / frugal / fira), ZeRO-1, telemetry (``emit_stats`` is
-kept but inert: there is no collector yet).
+Not yet ported: ZeRO-1 (``zero_shardable`` is kept as a property) and
+telemetry (``emit_stats`` is kept but inert: there is no collector yet).
 """
 from __future__ import annotations
 
@@ -34,7 +43,8 @@ import torch
 
 from repro_torch.core import fused_step
 from repro_torch.core.error_feedback import zeros_q8
-from repro_torch.core.projectors import Projector, rotation_matrix
+from repro_torch.core.projectors import Projector, projector_kinds, rotation_matrix
+from repro_torch.core.selection import allsum
 from repro_torch.core.transforms import backend_kinds, get_backend, is_backend
 from repro_torch.kernels.lowp import COMPUTE_DTYPES
 
@@ -48,7 +58,7 @@ from .transform import (
     scale_by_learning_rate,
 )
 
-RESIDUAL_MODES = ("ef", "discard")
+RESIDUAL_MODES = ("ef", "discard", "sign", "fira")
 EF_DTYPES = ("q8", "fp32")
 RANKING_NORMS = ("l1", "l2")
 
@@ -56,7 +66,7 @@ RANKING_NORMS = ("l1", "l2")
 class ProjAdamLeaf(NamedTuple):
     m: torch.Tensor            # (..., rows, r) first moment, low-rank
     v: torch.Tensor            # (..., rows, r) second moment, low-rank
-    proj: Any                  # int32 indices (..., r)
+    proj: Any                  # int32 indices (..., r) or fp32 basis (..., n, r)
     ef: Any                    # None | fp32 tensor | QuantizedBuffer
     inner_step: int            # updates taken by this leaf (bias correction)
 
@@ -67,7 +77,7 @@ class ProjectedAdamRule(MatrixRule):
     projector: str = "dct"
     update_interval: int = 1          # T_u
     rotate: bool = True
-    residual: str = "ef"
+    residual: str = "ef"              # "ef" | "discard" | "sign" | "fira"
     ef_dtype: str = "q8"              # "fp32" | "q8"
     b1: float = 0.9
     b2: float = 0.999
@@ -88,10 +98,7 @@ class ProjectedAdamRule(MatrixRule):
                 raise ValueError(f"{type(self).__name__}: unknown {name} "
                                  f"{value!r}; allowed: {allowed}")
 
-        Projector(kind=self.projector, r=1)        # raises on other kinds
-        if self.residual in ("sign", "fira"):
-            raise NotImplementedError(f"residual={self.residual!r} is not "
-                                      f"yet ported to repro_torch")
+        check("projector", self.projector, projector_kinds())
         check("residual", self.residual, RESIDUAL_MODES)
         check("ef_dtype", self.ef_dtype, EF_DTYPES)
         check("ranking_norm", self.ranking_norm, RANKING_NORMS)
@@ -109,13 +116,29 @@ class ProjectedAdamRule(MatrixRule):
             raise ValueError(
                 f"update_interval must be >= 1, got {self.update_interval}")
 
+    @property
+    def zero_shardable(self) -> bool:
+        """Index-into-shared-basis projectors (a backend with a
+        row-decomposable statistic, or randperm) keep r integers of state
+        and a row-parallel step: the ZeRO-1 precondition. The dense-basis
+        refreshes and the FIRA residual (psum'd norms in the update
+        arithmetic) are not. ZeRO-1 itself is not ported."""
+        if self.residual == "fira":
+            return False
+        if is_backend(self.projector):
+            return get_backend(self.projector).zero_shardable
+        return self.projector == "randperm"
+
     def _proj(self):
         return Projector(kind=self.projector, r=self.rank,
                          norm=self.ranking_norm)
 
     def basis_sizes(self, shape) -> tuple:
         """The shared basis this leaf needs: ``(kind, n)`` at the min
-        oriented dim (bare ``n`` for dct)."""
+        oriented dim (bare ``n`` for dct). The dense kinds need none, even
+        with ``needs_shared_basis`` left True on the rule."""
+        if not is_backend(self.projector):
+            return ()
         n = oriented_dims(shape)[1]
         return ((self.projector, n),) if self.projector != "dct" else (n,)
 
@@ -126,7 +149,7 @@ class ProjectedAdamRule(MatrixRule):
         mz = torch.zeros((*batch, rows, r), dtype=torch.float32, device=device)
         vz = torch.zeros((*batch, rows, r), dtype=torch.float32, device=device)
         orient_shape = (*batch, rows, cols)
-        if self.residual == "discard":
+        if self.residual != "ef":
             ef = None
         elif self.ef_dtype == "q8":
             ef = zeros_q8(orient_shape, device=device)
@@ -145,16 +168,18 @@ class ProjectedAdamRule(MatrixRule):
         gf = gf.contiguous()
         cols = gf.shape[-1]
         r = min(self.rank, cols)
-        backend = get_backend(self.projector)
-        q = ctx.basis(cols, torch.float32, kind=self.projector,
-                      device=gf.device)
+        backend = get_backend(self.projector) if p.needs_shared_basis else None
+        q = (ctx.basis(cols, torch.float32, kind=self.projector,
+                       device=gf.device) if p.needs_shared_basis else None)
         mode = fused_step.resolve(self.fused, gf.device)
-        fused = mode != "off"
+        # the fused dataflow exists for the predefined-basis projectors; the
+        # dense kinds keep the reference math (their EF still goes fused)
+        fused = mode != "off" and backend is not None
         if self.compute_dtype != "fp32" and not fused:
             # only the fused dataflow has the low-precision mirror: refuse
             # rather than silently run fp32 (reachable past __post_init__
-            # through fused="auto" resolving to "off" for CPU tensors; the
-            # reference's other case, a dense projector, is not ported)
+            # through fused="auto" resolving to "off" for CPU tensors, or a
+            # dense projector)
             raise ValueError(
                 f"compute_dtype={self.compute_dtype!r} needs the fused "
                 f"dataflow, but this update resolved to the reference path "
@@ -174,14 +199,14 @@ class ProjectedAdamRule(MatrixRule):
                     gf, q, r, norm=self.ranking_norm, mode=mode,
                     backend=backend, compute_dtype=self.compute_dtype)
             else:
-                proj_state = p.update(gf, state.proj, shared_q=q)
+                proj_state = p.update(gf, state.proj, shared_q=q, key=ctx.key)
                 g_low = p.project(gf, proj_state, shared_q=q)
             if self.rotate:
                 rot = rotation_matrix(state.proj, proj_state, p, cols,
                                       shared_q=q,
                                       exact_matmul=self.exact_rotation_matmul)
         else:
-            # keep step: stale indices, identity rotation (m @ I == m exactly)
+            # keep step: stale basis, identity rotation (m @ I == m exactly)
             proj_state = state.proj
             g_low = (fused_step.project_with_indices(
                         gf, q, proj_state, compute_dtype=self.compute_dtype)
@@ -201,9 +226,9 @@ class ProjectedAdamRule(MatrixRule):
         vhat = v / (1.0 - self.b2**t)
         u_low = mhat / (torch.sqrt(vhat) + self.eps)
 
-        keep_resid = self.residual == "ef"
-        qt = ctx.basis_t(cols, self.projector)
-        if fused and keep_resid:
+        need_resid = self.residual != "discard"
+        qt = ctx.basis_t(cols, self.projector) if fused else None
+        if fused and need_resid:
             d, recon = fused_step.fused_dual_backproject(
                 u_low, g_low, q, proj_state, mode=mode,
                 compute_dtype=self.compute_dtype, qt=qt)
@@ -213,10 +238,24 @@ class ProjectedAdamRule(MatrixRule):
                 compute_dtype=self.compute_dtype, qt=qt)
         else:
             d = p.backproject(u_low, proj_state, shared_q=q, n=cols)
-            if keep_resid:
+            if need_resid:
                 recon = p.backproject(g_low, proj_state, shared_q=q, n=cols)
-        new_ef = (fused_step.ef_store(gf - recon, self.ef_dtype, mode=mode)
-                  if keep_resid else None)
+
+        new_ef = None
+        if need_resid:
+            resid = gf - recon
+            if self.residual == "ef":
+                new_ef = fused_step.ef_store(resid, self.ef_dtype, mode=mode)
+            elif self.residual == "sign":
+                d = d + torch.sign(resid)                   # FRUGAL state-free
+            else:
+                # FIRA scaling: norms over the last two axes per stacked
+                # layer, summed over the ZeRO axes (none: identity)
+                u_n = torch.sqrt(allsum(
+                    (u_low * u_low).sum(dim=(-2, -1), keepdim=True), None))
+                g_n = torch.sqrt(allsum(
+                    (g_low * g_low).sum(dim=(-2, -1), keepdim=True), None))
+                d = d + (u_n / (g_n + self.eps)) * resid
 
         d = deorient(d, transposed)
         return d, ProjAdamLeaf(m=m, v=v, proj=proj_state, ef=new_ef,
@@ -229,10 +268,25 @@ def _rule(rule_kw) -> ProjectedAdamRule:
     return ProjectedAdamRule(**rule_kw)
 
 
+def _build(lr, rule_kw, harness_kw) -> Optimizer:
+    rule = _rule(rule_kw)
+    return matrix_optimizer(rule, lr, b1=rule.b1, b2=rule.b2, eps=rule.eps,
+                            **harness_kw)
+
+
+def _harness(weight_decay, overrides, label_fn, **kw) -> dict:
+    hk = dict(weight_decay=weight_decay, overrides=overrides, **kw)
+    if label_fn is not None:
+        hk["label_fn"] = label_fn
+    return hk
+
+
 def projected_adam_transform(rule: ProjectedAdamRule, lr: Schedule, *,
-                             weight_decay: float = 0.0) -> GradientTransform:
+                             weight_decay: float = 0.0,
+                             overrides: dict[str, dict] | None = None
+                             ) -> GradientTransform:
     """Matrix-leaf projected-Adam pipeline (rule -> -lr -> decay)."""
-    return chain(lowrank_project(rule),
+    return chain(lowrank_project(rule, overrides=overrides),
                  scale_by_learning_rate(lr),
                  add_decayed_weights(weight_decay, schedule=lr))
 
@@ -242,14 +296,16 @@ def dct_adamw_transform(lr: Schedule, *, rank: int = 128,
                         error_feedback: bool = True, ef_dtype: str = "q8",
                         b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                         fused: str = "auto", basis: str = "dct",
-                        compute_dtype: str = "fp32") -> GradientTransform:
+                        compute_dtype: str = "fp32",
+                        overrides: dict | None = None) -> GradientTransform:
     """Matrix-leaf DCT-AdamW pipeline for ``partition``."""
     rule = _rule(dict(rank=rank, projector=basis,
                       update_interval=update_interval, rotate=True,
                       residual="ef" if error_feedback else "discard",
                       ef_dtype=ef_dtype, b1=b1, b2=b2, eps=eps, fused=fused,
                       compute_dtype=compute_dtype))
-    return projected_adam_transform(rule, lr, weight_decay=weight_decay)
+    return projected_adam_transform(rule, lr, weight_decay=weight_decay,
+                                    overrides=overrides)
 
 
 def dct_adamw(lr: Schedule, *, rank: int = 128, update_interval: int = 1,
@@ -258,7 +314,7 @@ def dct_adamw(lr: Schedule, *, rank: int = 128, update_interval: int = 1,
               eps: float = 1e-8, exact_rotation_matmul: bool = False,
               fused: str = "auto", basis: str = "dct",
               compute_dtype: str = "fp32", basis_mode: str = "stored",
-              label_fn=None) -> Optimizer:
+              label_fn=None, overrides: dict | None = None) -> Optimizer:
     """The paper's DCT-AdamW (Algorithm 2). ``fused``: "auto" (the CUDA
     kernels for CUDA tensors, the reference path for CPU tensors) | "on" |
     "fft" (the backend's fast transform: Makhoul FFT for dct, FWHT for
@@ -266,18 +322,75 @@ def dct_adamw(lr: Schedule, *, rank: int = 128, update_interval: int = 1,
     registered basis backend (dct/dst/hadamard/randortho).
     ``error_feedback=False`` discards the residual (no EF state).
     ``compute_dtype``: the projection precision, fp32 | bf16 | int8, on the
-    fused modes only."""
+    fused modes only. ``overrides``: per-leaf-path rule field
+    replacements."""
     if not is_backend(basis):
         raise ValueError(f"unknown basis {basis!r}; registered backends: "
                          f"{backend_kinds()}")
-    hk = dict(weight_decay=weight_decay, basis_mode=basis_mode)
-    if label_fn is not None:
-        hk["label_fn"] = label_fn
-    rule = _rule(dict(rank=rank, projector=basis,
-                      update_interval=update_interval, rotate=True,
-                      residual="ef" if error_feedback else "discard",
-                      ef_dtype=ef_dtype, b1=b1, b2=b2, eps=eps,
-                      exact_rotation_matmul=exact_rotation_matmul,
-                      fused=fused, compute_dtype=compute_dtype))
-    return matrix_optimizer(rule, lr, b1=rule.b1, b2=rule.b2, eps=rule.eps,
-                            **hk)
+    return _build(lr, dict(rank=rank, projector=basis,
+                           update_interval=update_interval, rotate=True,
+                           residual="ef" if error_feedback else "discard",
+                           ef_dtype=ef_dtype, b1=b1, b2=b2, eps=eps,
+                           exact_rotation_matmul=exact_rotation_matmul,
+                           fused=fused, compute_dtype=compute_dtype),
+                  _harness(weight_decay, overrides, label_fn,
+                           basis_mode=basis_mode))
+
+
+def ldadamw(lr: Schedule, *, rank: int = 128, weight_decay: float = 0.01,
+            error_feedback: bool = True, b1: float = 0.9, b2: float = 0.999,
+            eps: float = 1e-8, fused: str = "auto", label_fn=None,
+            overrides: dict | None = None) -> Optimizer:
+    """LDAdamW baseline: block power iteration, a new subspace every step,
+    rotation by the r x r matmul of two stored bases, fp32 error feedback.
+    ``fused`` covers the EF only (the power projector keeps the reference
+    math)."""
+    return _build(lr, dict(rank=rank, projector="power", update_interval=1,
+                           rotate=True,
+                           residual="ef" if error_feedback else "discard",
+                           ef_dtype="fp32", b1=b1, b2=b2, eps=eps,
+                           fused=fused),
+                  _harness(weight_decay, overrides, label_fn))
+
+
+def galore(lr: Schedule, *, rank: int = 128, update_interval: int = 200,
+           weight_decay: float = 0.01, projector: str = "svd",
+           b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+           fused: str = "auto", label_fn=None,
+           overrides: dict | None = None) -> Optimizer:
+    """GaLore baseline: SVD every T_u steps, residual discarded, no
+    rotation. ``projector``: any projector kind (svd, or a basis backend,
+    which runs the fused dataflow)."""
+    return _build(lr, dict(rank=rank, projector=projector,
+                           update_interval=update_interval, rotate=False,
+                           residual="discard", b1=b1, b2=b2, eps=eps,
+                           fused=fused),
+                  _harness(weight_decay, overrides, label_fn))
+
+
+def frugal(lr: Schedule, *, rank: int = 128, update_interval: int = 200,
+           weight_decay: float = 0.01, projector: str = "svd",
+           b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+           fused: str = "auto", label_fn=None,
+           overrides: dict | None = None) -> Optimizer:
+    """FRUGAL baseline: state-full low-rank AdamW + state-free SignSGD on the
+    residual. ``projector`` in {svd, random, randperm} or any registered
+    basis backend (dct/dst/hadamard/randortho, paper Table 6)."""
+    return _build(lr, dict(rank=rank, projector=projector,
+                           update_interval=update_interval, rotate=False,
+                           residual="sign", b1=b1, b2=b2, eps=eps,
+                           fused=fused),
+                  _harness(weight_decay, overrides, label_fn))
+
+
+def fira(lr: Schedule, *, rank: int = 128, update_interval: int = 200,
+         weight_decay: float = 0.01, projector: str = "svd",
+         b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         fused: str = "auto", label_fn=None,
+         overrides: dict | None = None) -> Optimizer:
+    """FIRA baseline: low-rank AdamW + norm-scaled full-rank residual."""
+    return _build(lr, dict(rank=rank, projector=projector,
+                           update_interval=update_interval, rotate=False,
+                           residual="fira", b1=b1, b2=b2, eps=eps,
+                           fused=fused),
+                  _harness(weight_decay, overrides, label_fn))

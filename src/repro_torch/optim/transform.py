@@ -14,14 +14,22 @@ Adam), ``scale_by_learning_rate``, ``add_decayed_weights`` and
 ``lowrank_project(rule)``, which lifts a per-matrix-leaf
 :class:`~repro_torch.optim.common.MatrixRule` to a whole-tree transform.
 ``as_optimizer`` closes a transform into ``Optimizer(init, update)``: it
-owns the step counter and the shared-basis store.
+owns the step counter, the root key and the shared-basis store.
+
+Randomness: the runtime folds the step into its root key (the ``seed``),
+and ``lowrank_project`` folds in ``path_hash`` of each leaf's path
+(``leaf_key``), as the JAX package does with ``jax.random.fold_in``. The
+keys here are 63-bit integers mixed by splitmix64, so the stream is the
+port's own: the same seed gives other draws than JAX's.
 
 Not yet ported from ``repro.optim.transform``: ``inject_hyperparams``,
-``lr_scale_transform``, ``clip_global_norm``, ``scale_by_schedule``,
-per-leaf rule ``overrides``, ZeRO-1 and the telemetry collector.
+``lr_scale_transform``, ``clip_global_norm``, ``scale_by_schedule``, ZeRO-1
+and the telemetry collector.
 """
 from __future__ import annotations
 
+import dataclasses
+import zlib
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -58,6 +66,31 @@ class GradientTransform(NamedTuple):
 
 class EmptyState(NamedTuple):
     """State of a stateless transform."""
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(key: int, data: int) -> int:
+    """A new 63-bit key from ``key`` and ``data`` (splitmix64 of their
+    mix): the port's counterpart of ``jax.random.fold_in``."""
+    z = (key * 0x9E3779B97F4A7C15 + data + 0x632BE59BD9B4E019) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+def path_hash(path: str) -> int:
+    """Stable 31-bit hash of a leaf path ('block/0/wq'), the per-leaf fold
+    constant: crc32, the JAX package's own."""
+    return zlib.crc32(path.encode("utf-8")) & 0x7FFFFFFF
+
+
+def leaf_key(key: int | None, path: str) -> int | None:
+    """Per-leaf key: fold the path hash into the step key."""
+    if key is None:
+        return None
+    return fold_in(key, path_hash(path))
 
 
 def chain(*transforms: GradientTransform) -> GradientTransform:
@@ -180,19 +213,32 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
     return GradientTransform(init, update)
 
 
-def lowrank_project(rule: MatrixRule) -> GradientTransform:
+def lowrank_project(rule: MatrixRule, *,
+                    overrides: dict[str, dict] | None = None
+                    ) -> GradientTransform:
     """Lift a per-matrix-leaf :class:`MatrixRule` to a whole-tree transform.
-    Emits the rule's raw descent direction ``D``; compose with
-    ``scale_by_learning_rate`` / ``add_decayed_weights``."""
+    Each leaf gets a :class:`Context` whose key folds in the hash of its
+    path. Emits the rule's raw descent direction ``D``; compose with
+    ``scale_by_learning_rate`` / ``add_decayed_weights``.
+
+    ``overrides`` maps leaf paths to field replacements on ``rule``, e.g.
+    ``{"block/0/wq": {"rank": 192, "update_interval": 4}}``."""
+
+    def rule_for(path: str) -> MatrixRule:
+        if overrides and path in overrides:
+            return dataclasses.replace(rule, **overrides[path])
+        return rule
 
     def init(params):
-        return {k: rule.init(p.shape, p.dtype, p.device)
+        return {k: rule_for(k).init(p.shape, p.dtype, p.device)
                 for k, p in params.items()}
 
     def update(updates, state, params, ctx):
         d, new_state = {}, {}
         for k, g in updates.items():
-            d[k], new_state[k] = rule.update(g, state[k], params[k], ctx)
+            leaf_ctx = dataclasses.replace(ctx, key=leaf_key(ctx.key, k))
+            d[k], new_state[k] = rule_for(k).update(g, state[k], params[k],
+                                                    leaf_ctx)
         return d, new_state
 
     def basis_sizes(params):
@@ -207,17 +253,18 @@ def lowrank_project(rule: MatrixRule) -> GradientTransform:
 
 class ChainState(NamedTuple):
     """Top-level optimizer state emitted by ``as_optimizer``: the global step,
-    the shared bases (and their contiguous transposes) and the wrapped
-    transform's state. The JAX ``ChainState`` also carries a PRNG key; no
-    ported rule draws random numbers."""
+    the root key (``seed``: where the JAX ``ChainState`` holds
+    ``PRNGKey(seed)``), the shared bases (and their contiguous transposes)
+    and the wrapped transform's state."""
 
     step: int
+    seed: int
     bases: dict
     bases_t: dict
     leaves: Any
 
 
-def as_optimizer(transform: GradientTransform, *,
+def as_optimizer(transform: GradientTransform, *, seed: int = 0,
                  basis_mode: str = "stored") -> Optimizer:
     """Close a transform into the ``Optimizer(init, update)`` interface.
 
@@ -237,12 +284,14 @@ def as_optimizer(transform: GradientTransform, *,
         device = next(iter(params.values())).device if params else None
         bases = {basis_store_key(k, n): shared_basis(k, n, torch.float32, device)
                  for k, n in reqs}
-        return ChainState(step=0, bases=bases, bases_t=transposed(bases),
+        return ChainState(step=0, seed=seed, bases=bases,
+                          bases_t=transposed(bases),
                           leaves=transform.init(params))
 
     def update(grads, state: ChainState, params):
         step = state.step + 1
-        ctx = Context(step=step, bases=state.bases, bases_t=state.bases_t)
+        ctx = Context(step=step, bases=state.bases, bases_t=state.bases_t,
+                      key=fold_in(state.seed, step))
         updates, leaves = transform.update(grads, state.leaves, params, ctx)
         return updates, state._replace(step=step, leaves=leaves)
 
@@ -258,14 +307,16 @@ def matrix_optimizer(rule: MatrixRule, lr: Schedule, *,
                      weight_decay: float = 0.0, b1: float = 0.9,
                      b2: float = 0.999, eps: float = 1e-8,
                      label_fn=default_label_fn,
-                     basis_mode: str = "stored") -> Optimizer:
-    """The matrix-optimizer preset as a chain: matrix leaves to ``rule``,
-    everything else to full-rank Adam, then lr scaling and decoupled weight
-    decay on every leaf — the same chain, and state layout, as the JAX
-    preset. (Its ``fullrank_weight_decay=False`` variant is not ported.)"""
-    routes = {"lowrank": lowrank_project(rule),
+                     basis_mode: str = "stored", seed: int = 0,
+                     overrides: dict[str, dict] | None = None) -> Optimizer:
+    """The matrix-optimizer preset as a chain: matrix leaves to ``rule``
+    (with the per-leaf ``overrides``), everything else to full-rank Adam,
+    then lr scaling and decoupled weight decay on every leaf — the same
+    chain, and state layout, as the JAX preset. (Its
+    ``fullrank_weight_decay=False`` variant is not ported.)"""
+    routes = {"lowrank": lowrank_project(rule, overrides=overrides),
               "full": scale_by_adam(b1, b2, eps)}
     t = chain(partition(routes, label_fn),
               scale_by_learning_rate(lr),
               add_decayed_weights(weight_decay, schedule=lr))
-    return as_optimizer(t, basis_mode=basis_mode)
+    return as_optimizer(t, seed=seed, basis_mode=basis_mode)

@@ -54,11 +54,10 @@ def clean_cache():
 # ---------------------------------------------------------------------------
 def test_registry_holds_the_four_kinds():
     assert ttr.backend_kinds() == KINDS == jtr.backend_kinds()
-    assert projector_kinds() == KINDS
+    assert projector_kinds() == KINDS + ("svd", "power", "random", "randperm")
     for kind in KINDS:
         Projector(kind=kind, r=4)
-    with pytest.raises(NotImplementedError):
-        Projector(kind="svd", r=4)
+    Projector(kind="svd", r=4)
     with pytest.raises(ValueError, match="unknown projector kind 'wavelet'"):
         Projector(kind="wavelet", r=4)
 

@@ -979,3 +979,110 @@ def test_cuda_colgather_bf16_repeated_and_bad_indices(cuda, offset,
     for got, b in ((o1, b1), (o2, b2), (single, b1)):
         _assert_gather_close(got, want(b), tol)
     assert torch.equal(single, o1)
+
+
+# the paper's baselines: (preset, keywords, kernel launches of one update
+# of the two matrix leaves below). On the card fused "auto" runs the kernels
+# for a basis backend; the dense kinds run torch.linalg and no kernel.
+BASELINES = {
+    "ldadamw": ("ldadamw", {}, {}),
+    "galore": ("galore", {}, {}),
+    "galore dct": ("galore", {"projector": "dct"},
+                   {"dct_project": 2, "colgather_matmul": 2}),
+    "frugal": ("frugal", {}, {}),
+    "frugal dct": ("frugal", {"projector": "dct"},
+                   {"dct_project": 2, "colgather_matmul_dual": 2}),
+    "frugal random": ("frugal", {"projector": "random"}, {}),
+    "frugal randperm": ("frugal", {"projector": "randperm"}, {}),
+    "fira": ("fira", {}, {}),
+    "fira dct": ("fira", {"projector": "dct"},
+                 {"dct_project": 2, "colgather_matmul_dual": 2}),
+    "adamw": ("adamw", {}, {}),
+}
+BASELINE_RANK = 6
+
+
+def _baseline_grad(shape, seed, dct: bool):
+    """A gradient whose top-r subspace is well defined: singular values
+    10 * 0.7^k (the dense kinds), or r of the DCT columns 8x the rest (the
+    dct projector), in the oriented layout (n last), handed over in the
+    parameter's."""
+    rng = np.random.default_rng(seed)
+    *batch, m, n = shape
+    flip = n > m
+    if flip:
+        m, n = n, m
+    out = np.empty((*batch, m, n))
+    q = dct2_matrix(n, dtype=torch.float64).numpy()
+    for b in np.ndindex(*batch):
+        if dct:
+            scale = np.full(n, 0.125)
+            scale[rng.permutation(n)[:BASELINE_RANK]] = 1.0
+            out[b] = (rng.standard_normal((m, n)) * scale) @ q.T
+        else:
+            u, _ = np.linalg.qr(rng.standard_normal((m, n)))
+            v, _ = np.linalg.qr(rng.standard_normal((n, n)))
+            out[b] = (u * (10.0 * 0.7 ** np.arange(n))) @ v.T
+    out = np.swapaxes(out, -1, -2) if flip else out
+    return torch.from_numpy(np.ascontiguousarray(out, dtype=np.float32))
+
+
+def _tensors(tree):
+    """Every tensor of a state or update tree."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(BASELINES))
+def test_cuda_baseline_update_matches_cpu(cuda, monkeypatch, case):
+    """One update of each baseline from its init state, on the card against
+    the CPU: rtol 1e-4 and atol 1e-4 of max |u| (fp32 sums in other orders;
+    cuSOLVER's and LAPACK's singular vectors may differ in sign, which a
+    refresh from zero moments does not see). The random kinds draw from the
+    CPU generator on both, moved to the device, so the draws are equal. No
+    tensor of the result leaves the card, and only the dct variants launch
+    kernels."""
+    from repro_torch.core import projectors
+    from repro_torch.optim.api import get_optimizer
+
+    name, kw, launches = BASELINES[case]
+    draw_n, draw_p = projectors.gaussian_draw, projectors.permutation_draw
+    monkeypatch.setattr(projectors, "gaussian_draw",
+                        lambda key, shape, device: draw_n(key, shape, "cpu")
+                        .to(device))
+    monkeypatch.setattr(projectors, "permutation_draw",
+                        lambda key, n, device: draw_p(key, n, "cpu")
+                        .to(device))
+    if name != "adamw":
+        kw = dict(kw, rank=BASELINE_RANK)
+    dct = kw.get("projector") == "dct"
+    params = {"a/kernel": _baseline_grad((3, 40, 24), 1, False),
+              "b/kernel": _baseline_grad((24, 48), 2, False),
+              "final_norm/scale": torch.ones(24)}
+    grads = {"a/kernel": _baseline_grad((3, 40, 24), 3, dct),
+             "b/kernel": _baseline_grad((24, 48), 4, dct),
+             "final_norm/scale": torch.linspace(-1, 1, 24)}
+    out = {}
+    for dev in ("cpu", cuda):
+        opt = get_optimizer(name, lr=0.01, **kw)
+        p = {k: v.to(dev) for k, v in params.items()}
+        state = opt.init(p)
+        before = ops.launch_counts()
+        u, state = opt.update({k: v.to(dev) for k, v in grads.items()},
+                              state, p)
+        got = {k: n - before[k] for k, n in ops.launch_counts().items() if
+               n != before[k]}
+        out[str(dev)] = u
+    torch.cuda.synchronize()
+    assert got == launches, got
+    assert all(t.device.type == "cuda" for t in _tensors((u, state))), case
+    for k, want in out["cpu"].items():
+        torch.testing.assert_close(out[str(cuda)][k].cpu(), want, rtol=1e-4,
+                                   atol=1e-4 * want.abs().max().item())

@@ -39,6 +39,11 @@ LOWP_MODULES = ("repro_torch.kernels.lowp", "repro_torch.kernels.dct_project",
                 "repro_torch.core.transforms", "repro_torch.core.fused_step",
                 "repro_torch.optim.projected_adam", "repro_torch.convert")
 
+# the modules of the baselines slice
+BASELINE_MODULES = ("repro_torch.optim.adamw", "repro_torch.core.projectors",
+                    "repro_torch.optim.projected_adam",
+                    "repro_torch.optim.transform", "repro_torch.launch.train")
+
 # the modules of the dense-attention / gemma3 slice
 ATTENTION_MODULES = ("repro_torch.kernels.flash_attention",
                      "repro_torch.kernels.ops", "repro_torch.models.layers",
@@ -72,6 +77,11 @@ def test_momentum_modules_import_without_jax_or_repro(probe, name):
 
 @pytest.mark.parametrize("name", LOWP_MODULES)
 def test_lowp_modules_import_without_jax_or_repro(probe, name):
+    assert name in probe[1].split()
+
+
+@pytest.mark.parametrize("name", BASELINE_MODULES)
+def test_baseline_modules_import_without_jax_or_repro(probe, name):
     assert name in probe[1].split()
 
 

@@ -476,13 +476,13 @@ def test_cli_compute_dtype_runs_on_cpu(monkeypatch, dt, fused, capsys):
     (["--compute-dtype", "int8", "--optimizer", "trion"],
      "applies to dct_adamw"),
     (["--basis", "hadamard", "--optimizer", "muon"], "--basis applies to"),
-    (["--basis", "dst", "--optimizer", "galore"], "not yet ported"),
+    (["--basis", "dst", "--optimizer", "ldadamw"], "--basis applies to"),
     (["--basis", "sine"], None),
 ])
 def test_cli_lowp_and_basis_exits(argv, match):
     """The JAX CLI's refusals: --compute-dtype only for dct_adamw and a
     fused mode (``--fused auto`` resolves to off on the CPU); --basis for
-    the projected-Adam presets (galore/frugal/fira are not ported)."""
+    dct_adamw and the projector of galore/frugal/fira, never ldadamw's."""
     with pytest.raises(SystemExit) as e:
         train_cli.main([*_SMOKE, *argv])
     if match is not None:

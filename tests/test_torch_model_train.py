@@ -144,7 +144,7 @@ def test_cli_default_device_raises_without_cuda():
 
 
 @pytest.mark.parametrize("argv", [["--zero", "1"], ["--telemetry=jsonl"],
-                                  ["--optimizer", "ldadamw"],
+                                  ["--optimizer", "adamw", "--fused", "on"],
                                   ["--arch", "qwen2.5-32b"]])
 def test_cli_unported_choices_fail(argv):
     with pytest.raises((SystemExit, NotImplementedError)):

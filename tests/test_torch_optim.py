@@ -174,13 +174,17 @@ def test_init_state_layout_matches_jax():
     assert set(tstate.leaves[0]["full"]) == {"final_norm/scale"}
 
 
-def test_unported_options_raise():
+@pytest.mark.parametrize("name", ["dct_adamw", "ldadamw", "galore",
+                                  "frugal", "fira", "adamw"])
+def test_unported_options_raise(name):
+    """ZeRO-1 and the resilience ladder's lr_scale stay unported: the
+    presets leave ``zero=`` and ``lr_scale=`` out of their signatures."""
     from repro_torch.optim.projected_adam import ProjectedAdamRule
-    with pytest.raises(NotImplementedError):
-        get_optimizer("ldadamw", lr=0.01)
-    with pytest.raises(NotImplementedError):
-        ProjectedAdamRule(residual="sign")
-    with pytest.raises(NotImplementedError):
-        ProjectedAdamRule(projector="power")
-    with pytest.raises(TypeError):
-        get_optimizer("dct_adamw", lr=0.01, zero=None)
+    with pytest.raises(TypeError, match="unknown kwargs"):
+        get_optimizer(name, lr=0.01, zero=None)
+    with pytest.raises(TypeError, match="unknown kwargs"):
+        get_optimizer(name, lr=0.01, lr_scale=True)
+    with pytest.raises(ValueError, match="unknown residual"):
+        ProjectedAdamRule(residual="nesterov")
+    with pytest.raises(ValueError, match="unknown projector"):
+        ProjectedAdamRule(projector="wavelet")
