@@ -173,7 +173,28 @@ device or without the port beside it. Any failure raises. Phases:
    - ``DENSE_SPAN_TOL``; ``|Q_card^T Q_card - I|`` <= ``DENSE_ORTHO_TOL``);
    the SVD and power refreshes are timed at (24, 1024, 1024) and (24,
    2816, 1024). The phase's wall time is printed.
-15. The ``kernels`` line, the card's line, and last:
+15. The training substrate at the main path's configuration, through
+   ``repro_torch.launch.train`` (its ``run`` in this process, the counters
+   zeroed just before each run and read just after: 7 launches of each of
+   the four kernels per step): (a guard) 6 steps without and with
+   ``--resilient`` in turns (plain, resilient, resilient, plain), every
+   run's losses equal to phase 3's bit for bit; s_per_step and peak memory
+   of each. (a) ``--resilient --ckpt-dir --ckpt-every 2 --obs-dir``,
+   stopped after step 4 as a preemption would (the schedule still spans 6
+   steps), then a second run that resumes from step 4: steps 1-6 equal
+   phase 3's losses bit for bit; the mean data wait, dispatch and host
+   sync of a step and the checkpoint's bytes, snapshot, write and restore
+   seconds from the run's ``metrics.prom``. (b) Through the API, a chaos
+   NaN on one data step: the guarded step refuses with the four kernels
+   launched (7 each) and every tensor of the pre-step state, cloned, is
+   bit-equal to the state after it. (d) NaN on every batch exhausts the
+   ladder: the CLI returns 86 and writes ``halt.json``. (c) ``--supervise``
+   with a checkpoint ``sigkill`` at ``mid_write`` of step 4, in fresh
+   processes at full width and depth: the supervisor restarts the child,
+   which resumes from step 2 and finishes. The checkpoints (2.6 GB each,
+   two on disk at most) live under ``build/chip_smoke_substrate`` and are
+   deleted at the end.
+16. The ``kernels`` line, the card's line, and last:
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -182,6 +203,8 @@ import argparse
 import gc
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -375,6 +398,15 @@ DENSE_SPAN_TOL = 1e-4
 # 6.0e-4 at this leaf (NVIDIA H100 80GB HBM3, 700.00 W)
 DENSE_ORTHO_TOL = 2e-3
 DENSE_SHAPE = (LAYERS, 1024, 1024)
+
+# the training substrate (phase 15): its checkpoints, plans and obs files
+# live here, inside the checkout, and are deleted at the end of the phase
+SUBSTRATE_DIR = ROOT / "build" / "chip_smoke_substrate"
+# run (a) stops after this step (the schedule still spans STEPS) and a
+# second run resumes from its checkpoint
+SUBSTRATE_STOP = 4
+# (c): the supervised run's steps and the checkpoint step of its kill
+SUPERVISED_STEPS, SUPERVISED_KILL = 4, 4
 
 
 def _device_line() -> str:
@@ -621,7 +653,7 @@ def check_fused_update(torch, dev) -> None:
 
 def run_main_path(torch):
     """Phase 3: the training CLI's code path, counters zeroed just before.
-    Returns the counts and the step-1 loss."""
+    Returns the counts and the losses."""
     from repro_torch.core import fused_step
     from repro_torch.kernels import ops
     from repro_torch.launch import train as train_cli
@@ -659,7 +691,7 @@ def run_main_path(torch):
         "launches_per_step": {k: v / STEPS for k, v in counts.items()},
     }
     print(json.dumps(summary), flush=True)
-    return counts, losses[0]
+    return counts, losses
 
 
 def time_breakdown(torch, dev, optimizer: str = "dct_adamw",
@@ -2365,6 +2397,247 @@ def check_dense_refresh(torch, dev, seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the training substrate
+# ---------------------------------------------------------------------------
+def _cli_run(torch, argv, stop_at=None, steps=STEPS):
+    """One in-process run of the training CLI's path (``launch.train.run``),
+    the counters zeroed just before it and read just after; each kernel of
+    the step must have run 7 times per step. Returns the history, the
+    counts and the peak device memory."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    trainer = train_cli.run(train_cli.build(argv), stop_at)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = ops.launch_counts(ops.TRAINING)
+    hist = trainer.metrics_history
+    assert len(hist) == steps, (argv, len(hist))
+    for name, n in counts.items():
+        assert n == LAUNCHES_PER_STEP * steps, \
+            f"{argv}: {name} ran {n} times in {steps} steps, expected " \
+            f"{LAUNCHES_PER_STEP * steps}"
+    return hist, counts, peak
+
+
+def _ms_after_first(hist) -> float:
+    return sum(h["s_per_step"] for h in hist[1:]) / (len(hist) - 1) * 1e3
+
+
+def _prom_means(path: Path) -> dict:
+    """``{name: sum / count}`` of every histogram, and every counter, of a
+    Prometheus text file."""
+    vals = {}
+    for line in path.read_text().splitlines():
+        if line and not line.startswith("#") and "{" not in line:
+            name, value = line.split()
+            vals[name] = float(value)
+    out = {k: v for k, v in vals.items()
+           if not k.endswith(("_sum", "_count"))}
+    for k, v in vals.items():
+        if k.endswith("_sum") and vals.get(k[:-4] + "_count"):
+            out[k[:-4] + "_mean"] = v / vals[k[:-4] + "_count"]
+    return out
+
+
+def _same_bits(a, b) -> bool:
+    """The same dtype, shape and bytes (NaN and -0.0 included)."""
+    import torch
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).contiguous().view(torch.uint8),
+                            b.reshape(-1).contiguous().view(torch.uint8)))
+
+
+def _guard_overhead(torch, main_losses) -> dict:
+    """s_per_step and peak memory without and with ``--resilient`` (the
+    guard, the ladder and ``lr_scale``), in turns: plain, resilient,
+    resilient, plain. Each run's losses equal phase 3's bit for bit."""
+    runs = {"plain": [], "resilient": []}
+    peaks = {}
+    for name in ("plain", "resilient", "resilient", "plain"):
+        argv = TRAIN_ARGV + (["--resilient"] if name == "resilient" else [])
+        hist, _, peak = _cli_run(torch, argv)
+        losses = [h["loss"] for h in hist]
+        assert losses == main_losses, (name, losses, main_losses)
+        if name == "resilient":
+            assert all(h["all_finite"] == 1.0 for h in hist), hist
+        runs[name].append(_ms_after_first(hist))
+        peaks[name] = max(peaks.get(name, 0), peak)
+    plain, res = (sum(v) / len(v) for v in (runs["plain"],
+                                            runs["resilient"]))
+    return {"ms_per_step_after_first": runs,
+            "plain_ms": plain, "resilient_ms": res,
+            "resilient_over_plain": res / plain,
+            "max_memory_allocated_bytes": peaks}
+
+
+def _resume(torch, main_losses) -> dict:
+    """(a): ``--resilient --ckpt-dir --ckpt-every 2 --obs-dir``, stopped
+    after step SUBSTRATE_STOP, then a second run that resumes from its
+    checkpoint; steps 1-6 of the two equal phase 3's losses bit for bit."""
+    from repro_torch import obs
+
+    ck, od = SUBSTRATE_DIR / "resume", SUBSTRATE_DIR / "obs"
+    argv = TRAIN_ARGV + ["--resilient", "--ckpt-dir", str(ck),
+                         "--ckpt-every", "2", "--obs-dir", str(od)]
+    obs.reset()
+    try:
+        first, _, peak1 = _cli_run(torch, argv, SUBSTRATE_STOP,
+                                   SUBSTRATE_STOP)
+        saved = sorted(p.name for p in ck.iterdir())
+        assert saved == ["step_2", f"step_{SUBSTRATE_STOP}"], saved
+        ckpt_bytes = (ck / f"step_{SUBSTRATE_STOP}" / "state.npz").stat(
+            ).st_size
+        # keep two checkpoints on disk at most (2.6 GB each)
+        shutil.rmtree(ck / "step_2")
+        second, _, peak2 = _cli_run(torch, argv, None,
+                                    STEPS - SUBSTRATE_STOP)
+    finally:
+        obs.disable()
+    assert [h["step"] for h in second] == list(
+        range(SUBSTRATE_STOP + 1, STEPS + 1)), second
+    losses = [h["loss"] for h in first + second]
+    assert losses == main_losses, (losses, main_losses)
+    prom = _prom_means(od / "metrics.prom")
+    obs.reset()
+    keys = ("train_data_wait_seconds_mean", "train_dispatch_seconds_mean",
+            "train_host_sync_seconds_mean", "train_step_seconds_mean",
+            "ckpt_snapshot_seconds_mean", "ckpt_save_seconds_mean",
+            "ckpt_restore_seconds_mean", "ckpt_bytes_written_total",
+            "ckpt_saves_total", "ckpt_restores_total")
+    return {"losses": losses, "equal_to_phase_3": True,
+            "checkpoint_file_bytes": ckpt_bytes,
+            "checkpoint_leaf_bytes": prom["ckpt_bytes_written_total"]
+            / prom["ckpt_saves_total"],
+            "max_memory_allocated_bytes": max(peak1, peak2),
+            **{k: prom[k] for k in keys},
+            "trace_json_bytes": (od / "trace.json").stat().st_size}
+
+
+def _refused_step(torch, dev) -> dict:
+    """(b): a chaos NaN on data step 1 makes the guarded step refuse with
+    the fused kernels launched; every tensor of the pre-step state, cloned,
+    is bit-equal to the state after it."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.kernels import ops
+    from repro_torch.optim.api import get_optimizer
+    from repro_torch.train import steps as S
+    from repro_torch.train.chaos import ChaosPlan, Fault
+    from repro_torch.train.checkpoint import tree_items
+    from repro_torch.train.schedule import cosine_warmup
+
+    cfg = get_config("llama-350m")
+    opt = get_optimizer("dct_adamw", lr=cosine_warmup(0.01, 2, STEPS),
+                        rank=RANK, weight_decay=0.01, lr_scale=True)
+    plan = ChaosPlan([Fault(step=1, site="grads", mode="nan")])
+    step = S.make_train_step(cfg, opt, guard=True, chaos=plan)
+    batch_fn = plan.wrap_batch_fn(make_batch_fn(cfg, SEQ, BATCH,
+                                                device=dev))
+    state, m = step(S.init_state(cfg, opt, 0, dev), batch_fn(0))
+    assert bool(m["all_finite"]) and state.step == 1
+    before = [t.clone() for _, t in tree_items(state)
+              if isinstance(t, torch.Tensor)]
+    ops.reset_launch_counts()
+    after, m = step(state, batch_fn(1))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts(ops.TRAINING)
+    assert not bool(m["all_finite"]), m
+    assert after.step == state.step == 1 and after.opt_state.step == 1
+    now = [t for _, t in tree_items(after) if isinstance(t, torch.Tensor)]
+    assert len(now) == len(before)
+    assert all(_same_bits(a, b) for a, b in zip(now, before)), \
+        "a refused step changed the pre-step state"
+    for name, n in counts.items():
+        assert n == LAUNCHES_PER_STEP, f"refused step: {name} ran {n}"
+    state, m = step(after, batch_fn(2))
+    assert bool(m["all_finite"]) and state.step == 2
+    return {"refused_step_bit_equal": True, "tensors": len(before),
+            "state_bytes": sum(t.numel() * t.element_size() for t in before),
+            "launches": counts, "recovered_loss": float(m["loss"])}
+
+
+def _supervised(torch) -> dict:
+    """(c): ``--supervise`` with a checkpoint ``sigkill`` at ``mid_write``:
+    the first child dies writing step SUPERVISED_KILL's checkpoint, the
+    supervisor restarts it, the second resumes from step 2 and finishes.
+    Full width and depth (the CLI has no depth option), fresh processes."""
+    ck = SUBSTRATE_DIR / "supervised"
+    plan = SUBSTRATE_DIR / "sigkill.json"
+    plan.write_text(json.dumps([{"step": SUPERVISED_KILL,
+                                 "site": "checkpoint", "mode": "sigkill",
+                                 "arg": "mid_write"}]))
+    argv = [a for a in TRAIN_ARGV]
+    argv[argv.index("--steps") + 1] = str(SUPERVISED_STEPS)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *argv,
+           "--ckpt-dir", str(ck), "--ckpt-every", "2", "--chaos", str(plan),
+           "--supervise"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    text = out.stdout + out.stderr
+    assert out.returncode == 0, text[-4000:]
+    assert text.count("[supervisor] launching") == 2, text[-4000:]
+    assert f"SIGKILL at checkpoint step {SUPERVISED_KILL}" in text, \
+        text[-4000:]
+    assert "resumed from checkpoint step 2" in text, text[-4000:]
+    assert f"[train] done at step {SUPERVISED_STEPS}" in text, text[-4000:]
+    steps = sorted(p.name for p in ck.iterdir() if p.name.startswith("step"))
+    assert steps == ["step_2", f"step_{SUPERVISED_KILL}"], steps
+    return {"supervised_rc": out.returncode, "children": 2,
+            "killed_at": f"checkpoint step {SUPERVISED_KILL} mid_write",
+            "resumed_from": 2, "wall_s": wall,
+            "cut": "none: full width and depth (24 layers)"}
+
+
+def _halt(torch) -> dict:
+    """(d): NaN gradients on every batch exhaust the ladder (one skip, one
+    rollback): the CLI returns 86 and writes halt.json."""
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.resilience import HALT_EXIT_CODE
+
+    ck = SUBSTRATE_DIR / "halt"
+    plan = SUBSTRATE_DIR / "nan.json"
+    plan.write_text(json.dumps([{"step": list(range(4 * STEPS)),
+                                 "site": "grads", "mode": "nan"}]))
+    rc = train_cli.main(TRAIN_ARGV + [
+        "--resilient", "--ckpt-dir", str(ck), "--chaos", str(plan),
+        "--max-skips", "1", "--max-rollbacks", "1"])
+    assert rc == HALT_EXIT_CODE == 86, rc
+    rec = json.loads((ck / "halt.json").read_text())
+    assert rec["halted"] and rec["ladder"]["n_rollbacks"] == 2, rec
+    return {"halt_rc": rc, "ladder": rec["ladder"]}
+
+
+def run_substrate(torch, dev, main_losses) -> None:
+    """Phase 15: the training substrate on the card (the main path's
+    configuration through ``repro_torch.launch.train``)."""
+    t0 = time.perf_counter()
+    shutil.rmtree(SUBSTRATE_DIR, ignore_errors=True)
+    SUBSTRATE_DIR.mkdir(parents=True)
+    try:
+        out = {"guard": _guard_overhead(torch, main_losses)}
+        out["resume"] = _resume(torch, main_losses)
+        torch.cuda.empty_cache()
+        out["refused_step"] = _refused_step(torch, dev)
+        torch.cuda.empty_cache()
+        out["halt"] = _halt(torch)
+        torch.cuda.empty_cache()
+        out["supervisor"] = _supervised(torch)
+    finally:
+        shutil.rmtree(SUBSTRATE_DIR, ignore_errors=True)
+    print(json.dumps({"substrate": out, "device": _device_line(),
+                      "substrate_phase_wall_s": time.perf_counter() - t0}),
+          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2393,7 +2666,8 @@ def main(argv=None) -> int:
 
     rows = check_kernels(torch, dev)
     check_fused_update(torch, dev)
-    counts, step1_loss = run_main_path(torch)
+    counts, main_losses = run_main_path(torch)
+    step1_loss = main_losses[0]
     time_breakdown(torch, dev)
     torch.cuda.empty_cache()
     rows["flash_decode"] = check_flash_decode(torch, dev)
@@ -2442,6 +2716,9 @@ def main(argv=None) -> int:
     check_dense_refresh(torch, dev, opts.seed)
     print(json.dumps({"baselines_phase_wall_s": time.perf_counter() - t0}),
           flush=True)
+
+    torch.cuda.empty_cache()
+    run_substrate(torch, dev, main_losses)
 
     sources = {"dequant_add_ef": ("quant_ef.cu", "src/repro/kernels/quant_ef.py:44"),
                "dct_project": ("dct_project.cu", "src/repro/kernels/dct_project.py:63"),

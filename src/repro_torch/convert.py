@@ -20,7 +20,9 @@ or ``repro``: the JAX state's containers are recognised by their fields.
   kinds' fp32 ``(..., n, r)`` basis), error-feedback buffer (int8 payload and
   scale, fp32, or none where the residual is not EF) and ``inner_step``; a
   ``TrionLeaf``'s or ``MuonLeaf``'s momentum; a ``DionLeaf``'s momentum and
-  projection. The JAX key ``PRNGKey(seed)`` (threefry: ``[seed >> 32, seed
+  projection. A preset built with ``lr_scale=True`` holds ``(that chain,
+  InjectHyperparamsState)``: its ``hyperparams`` become 0-d fp32 tensors and
+  its inner ``EmptyState`` stays empty. The JAX key ``PRNGKey(seed)`` (threefry: ``[seed >> 32, seed
   & 0xFFFFFFFF]``) becomes the port's ``seed``; the stream itself cannot
   carry across (the port draws from ``torch.Generator``, see
   ``optim.transform.fold_in``).
@@ -35,7 +37,8 @@ from repro_torch.optim.common import AdamMoments, FullAdamLeaf
 from repro_torch.optim.dion import DionLeaf
 from repro_torch.optim.muon import MuonLeaf
 from repro_torch.optim.projected_adam import ProjAdamLeaf
-from repro_torch.optim.transform import ChainState, EmptyState, transposed
+from repro_torch.optim.transform import (ChainState, EmptyState,
+                                        InjectHyperparamsState, transposed)
 from repro_torch.optim.trion import TrionLeaf
 
 
@@ -126,12 +129,9 @@ def seed_from_jax_key(key) -> int:
     return (hi << 32) | lo
 
 
-def opt_state_from_jax(state, device=None) -> ChainState:
-    """``repro`` ``ChainState`` of a matrix-optimizer preset or of
-    ``adamw`` (numpy leaves) -> the port's."""
-    if _fields(state) != ("step", "key", "bases", "leaves"):
-        raise TypeError(f"expected repro's ChainState, got {type(state)}")
-    part, *rest = state.leaves
+def _rule_chain(leaves, device) -> tuple:
+    """``(update rule state, EmptyState, EmptyState)`` of a preset's chain."""
+    part, *rest = leaves
     if len(rest) != 2 or any(type(x).__name__ != "EmptyState" for x in rest):
         raise TypeError("expected a chain of (update rule, lr scaling, "
                         "weight decay)")
@@ -148,8 +148,24 @@ def opt_state_from_jax(state, device=None) -> ChainState:
             raise TypeError("expected a matrix-optimizer partition "
                             "{lowrank, full} or adamw's scale_by_adam tree")
         rule_state = {k: _full_leaf(s, device) for k, s in leaves.items()}
+    return (rule_state, EmptyState(), EmptyState())
+
+
+def opt_state_from_jax(state, device=None) -> ChainState:
+    """``repro`` ``ChainState`` of a matrix-optimizer preset or of
+    ``adamw`` (numpy leaves), with or without ``lr_scale``, -> the port's."""
+    if _fields(state) != ("step", "key", "bases", "leaves"):
+        raise TypeError(f"expected repro's ChainState, got {type(state)}")
+    if len(state.leaves) == 2 and \
+            _fields(state.leaves[1]) == ("hyperparams", "inner"):
+        inner, inj = state.leaves
+        leaves = (_rule_chain(inner, device), InjectHyperparamsState(
+            hyperparams={k: _tensor(v, device)
+                         for k, v in inj.hyperparams.items()},
+            inner=EmptyState()))
+    else:
+        leaves = _rule_chain(state.leaves, device)
     bases = {k: _tensor(q, device) for k, q in state.bases.items()}
     return ChainState(step=int(state.step),
                       seed=seed_from_jax_key(state.key), bases=bases,
-                      bases_t=transposed(bases),
-                      leaves=(rule_state, EmptyState(), EmptyState()))
+                      bases_t=transposed(bases), leaves=leaves)

@@ -1,1 +1,5 @@
-"""Synthetic language-model data."""
+"""Synthetic language-model data and the prefetching pipeline."""
+from .pipeline import DataPipeline
+from .synthetic import SyntheticLM, make_batch_fn
+
+__all__ = ["SyntheticLM", "make_batch_fn", "DataPipeline"]

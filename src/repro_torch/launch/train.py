@@ -1,11 +1,13 @@
 """Training driver.
 
   python -m repro_torch.launch.train --arch llama-350m --optimizer trion \
-      --rank 128 --steps 300 --seq-len 512 --batch 64 [--smoke] [--device cpu]
+      --rank 128 --steps 300 --seq-len 512 --batch 64 \
+      [--ckpt-dir DIR] [--resilient] [--supervise] [--smoke] [--device cpu]
 
 Runs on the CUDA card by default and raises if there is none; ``--device
-cpu`` runs on the CPU (the tests). config -> synthetic data -> train step
-with the chosen optimizer -> ``Trainer``. ``--optimizer`` is any preset of
+cpu`` runs on the CPU (the tests). The JAX CLI's path: config -> data
+pipeline -> train step with the chosen optimizer -> checkpoint manager ->
+supervisor restarts. ``--optimizer`` is any preset of
 the registry: ``trion`` (the default, as in the JAX CLI), ``muon``,
 ``dion``, the paper's ``dct_adamw`` and its baselines ``ldadamw``,
 ``galore``, ``frugal``, ``fira`` and the full-rank ``adamw``. ``--rank``
@@ -20,12 +22,25 @@ fused mode: on the CPU, ``--fused on`` or ``fft``); ``--basis
 dct|dst|hadamard|randortho`` sets its predefined basis, and the projector of
 galore / frugal / fira in place of their SVD.
 
+``--ckpt-dir`` / ``--ckpt-every`` save verified checkpoints and resume from
+the newest one. ``--resilient`` arms the guarded step and the escalation
+ladder (skip -> rollback -> rollback + LR cut -> halt, exit code 86 with
+``halt.json`` in the checkpoint directory), and builds the optimizer with
+``lr_scale``; ``--max-skips``, ``--max-rollbacks`` and ``--lr-cut`` tune
+it. ``--chaos plan.json`` injects the faults of a plan (the schema of
+docs/resilience.md). ``--supervise`` runs this CLI again, without
+``--supervise``, as a child of the restart supervisor. ``--obs-dir DIR``
+turns on the obs layer and writes ``DIR/metrics.prom`` and
+``DIR/trace.json`` at the end (halted runs included); ``--obs-sync-every
+N`` also synchronizes the card every N steps.
+
 Flags of the JAX CLI that this port does not support yet exit with
 "not yet ported".
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import torch
@@ -37,12 +52,9 @@ PROJECTED_ADAM_FAMILY = ("dct_adamw", "ldadamw", "galore", "frugal", "fira")
 FUSED_FAMILY = PROJECTED_ADAM_FAMILY + ("muon", "trion", "dion")
 
 # flags of ``python -m repro.launch.train`` not ported yet
-NOT_YET_PORTED = ("--tune-cache", "--zero",
-                  "--ckpt-dir", "--ckpt-every", "--supervise", "--telemetry",
+NOT_YET_PORTED = ("--tune-cache", "--zero", "--telemetry",
                   "--telemetry-path", "--telemetry-every", "--adaptive-rank",
-                  "--adaptive-refresh", "--control-every", "--obs-dir",
-                  "--obs-sync-every", "--resilient", "--max-skips",
-                  "--max-rollbacks", "--lr-cut", "--chaos")
+                  "--adaptive-refresh", "--control-every")
 
 
 def build(argv=None) -> argparse.Namespace:
@@ -82,7 +94,34 @@ def build(argv=None) -> argparse.Namespace:
     ap.add_argument("--seq-len", type=int, default=512)
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--supervise", action="store_true",
+                    help="run this CLI as a child of the restart supervisor "
+                         "(crash -> resume from the latest checkpoint)")
+    ap.add_argument("--obs-dir", default=None, metavar="DIR",
+                    help="enable the obs layer (host-side metrics + phase "
+                         "spans) and write DIR/metrics.prom + "
+                         "DIR/trace.json at the end of the run (halted "
+                         "runs included)")
+    ap.add_argument("--obs-sync-every", type=int, default=0,
+                    help="with --obs-dir: every N steps also synchronize "
+                         "the card into train_full_sync_seconds (0 = off)")
+    ap.add_argument("--resilient", action="store_true",
+                    help="arm the guarded step and the escalation ladder "
+                         "(skip -> rollback -> rollback+LR-cut -> halt); "
+                         "builds the optimizer with lr_scale")
+    ap.add_argument("--max-skips", type=int, default=2,
+                    help="consecutive non-finite steps skipped before the "
+                         "ladder escalates to a rollback")
+    ap.add_argument("--max-rollbacks", type=int, default=3,
+                    help="rollbacks before the run halts (exit code 86)")
+    ap.add_argument("--lr-cut", type=float, default=0.5,
+                    help="LR factor applied on the 2nd+ rollback")
+    ap.add_argument("--chaos", default=None, metavar="PLAN.json",
+                    help="deterministic fault-injection plan "
+                         "(train/chaos.py; schema in docs/resilience.md)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap.parse_args(argv)
@@ -112,6 +151,9 @@ def _optimizer_kwargs(args: argparse.Namespace, dev: torch.device) -> dict:
     from repro_torch.core import fused_step
 
     kw = {"weight_decay": args.weight_decay}
+    if args.resilient:
+        # the ladder's LR-cut rung needs the injected lr_scale entry
+        kw["lr_scale"] = True
     if args.optimizer == "muon":
         # full-space Newton-Schulz unless --rank asks for the subspace
         if args.rank is not None:
@@ -149,9 +191,13 @@ def _optimizer_kwargs(args: argparse.Namespace, dev: torch.device) -> dict:
     return kw
 
 
-def run(args: argparse.Namespace):
+def run(args: argparse.Namespace, stop_at: int | None = None):
     """Train as ``args`` say; returns the finished ``Trainer`` (its
-    ``metrics_history`` holds one record per step)."""
+    ``metrics_history`` holds one record per committed step). A halted run
+    raises :class:`~repro_torch.train.resilience.TrainingHalted`.
+    ``stop_at``: end after that step, as a preemption would; the LR
+    schedule still spans ``--steps``, so a later run resumes on it."""
+    from repro_torch import obs
     from repro_torch.configs.registry import get_config
     from repro_torch.data.synthetic import make_batch_fn
     from repro_torch.optim.api import get_optimizer
@@ -163,21 +209,81 @@ def run(args: argparse.Namespace):
     cfg = get_config(args.arch, smoke=args.smoke)
     lr = cosine_warmup(args.lr, args.warmup, args.steps)
     opt = get_optimizer(args.optimizer, lr=lr, **_optimizer_kwargs(args, dev))
+    chaos_plan = None
+    if args.chaos is not None:
+        from repro_torch.train.chaos import ChaosPlan
+        chaos_plan = ChaosPlan.load(args.chaos)
+        print(f"[train] chaos plan armed: {len(chaos_plan.faults)} faults "
+              f"from {args.chaos}")
+    resilience = None
+    if args.resilient:
+        from repro_torch.train.resilience import (ResilienceConfig,
+                                                  ResilienceManager)
+        resilience = ResilienceManager(ResilienceConfig(
+            max_skips=args.max_skips, max_rollbacks=args.max_rollbacks,
+            lr_cut=args.lr_cut))
+    batch_fn = make_batch_fn(cfg, args.seq_len, args.batch, seed=args.seed,
+                             device=dev)
+    trainer_kw = {}
+    if chaos_plan is not None:
+        batch_fn = chaos_plan.wrap_batch_fn(batch_fn)
+        if args.ckpt_dir:
+            trainer_kw["ckpt_fault_hook"] = chaos_plan.bind_checkpoint_dir(
+                args.ckpt_dir)
     trainer = Trainer(
-        train_step=make_train_step(cfg, opt),
+        train_step=make_train_step(cfg, opt, guard=args.resilient,
+                                   chaos=chaos_plan),
         init_state_fn=lambda: init_state(cfg, opt, args.seed, dev),
-        batch_fn=make_batch_fn(cfg, args.seq_len, args.batch, seed=args.seed,
-                               device=dev),
-        log_every=args.log_every)
-    state = trainer.run(total_steps=args.steps)
+        batch_fn=batch_fn, ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every, log_every=args.log_every,
+        resilience=resilience, sync_sample_every=args.obs_sync_every,
+        **trainer_kw)
+    if args.obs_dir:
+        obs.enable()
+    try:
+        state = trainer.run(total_steps=args.steps if stop_at is None
+                            else stop_at)
+    finally:
+        if args.obs_dir:
+            # halted runs included
+            os.makedirs(args.obs_dir, exist_ok=True)
+            prom = obs.write_prometheus(
+                os.path.join(args.obs_dir, "metrics.prom"))
+            trace = obs.write_chrome_trace(
+                os.path.join(args.obs_dir, "trace.json"))
+            print(f"[train] obs artifacts: {prom}, {trace}")
     if trainer.metrics_history:
         print(f"[train] done at step {state.step}: "
               f"loss {trainer.metrics_history[-1]['loss']:.4f}")
     return trainer
 
 
+def _supervise(args: argparse.Namespace, argv: list[str]) -> int:
+    """``--supervise``: this CLI again, without the flag, as the child of
+    the restart supervisor (progress-aware with ``--ckpt-dir``)."""
+    from repro_torch.train.supervisor import checkpoint_progress_fn, supervise
+
+    child = [sys.executable, "-m", "repro_torch.launch.train"] + [
+        a for a in argv if a != "--supervise"]
+    progress_fn = (checkpoint_progress_fn(args.ckpt_dir)
+                   if args.ckpt_dir else None)
+    return supervise(child, progress_fn=progress_fn)
+
+
 def main(argv=None) -> int:
-    run(build(argv))
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = build(argv)
+    if args.supervise:
+        return _supervise(args, argv)
+    from repro_torch.train.resilience import HALT_EXIT_CODE, TrainingHalted
+
+    try:
+        run(args)
+    except TrainingHalted as e:
+        # rung 4: the diagnostic dump is on disk; the exit code tells the
+        # supervisor not to restart
+        print(f"[train] halted: {e}")
+        return HALT_EXIT_CODE
     return 0
 
 

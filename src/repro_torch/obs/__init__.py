@@ -15,8 +15,10 @@ Observability is **opt-in and process-wide**: everything starts disabled
 and every instrumented call site costs one attribute test until
 :func:`enable` is called. In the port, the serving engine
 (``serve/engine.py`` — TTFT/ITL/queue-wait/E2E histograms, pool and slot
-gauges, admission counters, admit and decode-step spans) is instrumented;
-the trainer and checkpoints are not yet.
+gauges, admission counters, admit and decode-step spans), the trainer
+(``train/loop.py`` — the data-wait / dispatch / host-sync spans and
+``train_*_seconds`` histograms), the checkpoints (``train/checkpoint.py``)
+and the resilience ladder (``train/resilience.py``) are instrumented.
 
 Typical use::
 

@@ -21,6 +21,7 @@ from .transform import (
     add_decayed_weights,
     as_optimizer,
     chain,
+    inject_hyperparams,
     lowrank_project,
     matrix_optimizer,
     partition,
@@ -34,7 +35,8 @@ __all__ = [
     "ldadamw", "galore", "frugal", "fira", "adamw", "adamw_transform",
     "trion", "trion_transform", "muon", "muon_transform", "dion",
     "dion_transform",
-    "GradientTransform", "ChainState", "chain", "partition", "as_optimizer",
+    "GradientTransform", "ChainState", "chain", "partition",
+    "inject_hyperparams", "as_optimizer",
     "matrix_optimizer", "lowrank_project", "scale_by_adam",
     "scale_by_learning_rate", "add_decayed_weights",
 ]

@@ -1,8 +1,9 @@
 """Full-rank AdamW — the paper's reference optimizer, as a transform chain.
 
 ``adamw_transform`` is the composable building block (usable inside
-``partition``); ``adamw`` closes it into ``Optimizer(init, update)``. The
-JAX preset's ``lr_scale=`` (the resilience ladder's LR cut) is not ported.
+``partition`` or ``inject_hyperparams``); ``adamw`` closes it into
+``Optimizer(init, update)``, with the resilience ladder's ``lr_scale`` seam
+on request.
 """
 from __future__ import annotations
 
@@ -29,6 +30,8 @@ def adamw_transform(lr: Schedule, *, weight_decay: float = 0.01,
 
 
 def adamw(lr: Schedule, *, weight_decay: float = 0.01, b1: float = 0.9,
-          b2: float = 0.999, eps: float = 1e-8) -> Optimizer:
+          b2: float = 0.999, eps: float = 1e-8,
+          lr_scale: bool = False) -> Optimizer:
     return as_optimizer(adamw_transform(lr, weight_decay=weight_decay,
-                                        b1=b1, b2=b2, eps=eps))
+                                        b1=b1, b2=b2, eps=eps),
+                        lr_scale=lr_scale)

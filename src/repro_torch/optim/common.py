@@ -41,15 +41,12 @@ def apply_updates(params: dict, updates: dict) -> dict:
     return {k: p + updates[k].to(p.dtype) for k, p in params.items()}
 
 
-def reject_unported(*, zero=None, lr_scale: bool = False) -> None:
-    """Raise on the preset options of the JAX package the port does not
-    have yet: ZeRO-1 sharding and the resilience ladder's ``lr_scale``."""
+def reject_unported(*, zero=None) -> None:
+    """Raise on the preset option of the JAX package the port does not have
+    yet: ZeRO-1 sharding."""
     if zero is not None:
         raise NotImplementedError("zero= (ZeRO-1 sharding) is not yet ported "
                                   "to repro_torch")
-    if lr_scale:
-        raise NotImplementedError("lr_scale= is not yet ported to "
-                                  "repro_torch")
 
 
 def sched_value(lr: Schedule, step: int) -> float:

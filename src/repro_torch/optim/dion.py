@@ -22,8 +22,8 @@ kernels on "on". Both factors span the same subspace. Column signs of a QR
 differ between libraries, which flips the signs of ``P_t`` and ``Q_t``
 together: ``M_t`` and ``O_t`` do not depend on them, the state ``Q_t`` does.
 
-Not yet ported: ZeRO-1 (``zero=``), the ``lr_scale`` seam and telemetry
-(``emit_stats`` is kept but inert).
+Not yet ported: ZeRO-1 (``zero=``) and telemetry (``emit_stats`` is kept
+but inert).
 """
 from __future__ import annotations
 
@@ -123,9 +123,10 @@ def dion(lr: Schedule, *, rank: int = 128, mu: float = 0.95,
          b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, label_fn=None,
          zero=None, lr_scale: bool = False) -> Optimizer:
     """Dion on the matrix leaves, full-rank Adam on the rest."""
-    reject_unported(zero=zero, lr_scale=lr_scale)
+    reject_unported(zero=zero)
     rule = DionRule(rank=rank, mu=mu, ns_steps=ns_steps, fused=fused)
-    kw = dict(weight_decay=weight_decay, b1=b1, b2=b2, eps=eps)
+    kw = dict(weight_decay=weight_decay, b1=b1, b2=b2, eps=eps,
+              lr_scale=lr_scale)
     if label_fn is not None:
         kw["label_fn"] = label_fn
     return matrix_optimizer(rule, lr, **kw)

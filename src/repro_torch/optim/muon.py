@@ -15,8 +15,8 @@ Momentum is stored *oriented* (projected dim last). Full-space NS on a
 moment whose short side exceeds ``fused_step.NS_KERNEL_MAX_RANK`` runs the
 plain iteration even on the "on" path (llama-350m's: 1024).
 
-Not yet ported: ZeRO-1 (``zero=``), the ``lr_scale`` seam and telemetry
-(``emit_stats`` is kept but inert).
+Not yet ported: ZeRO-1 (``zero=``) and telemetry (``emit_stats`` is kept
+but inert).
 """
 from __future__ import annotations
 
@@ -135,11 +135,11 @@ def muon(lr: Schedule, *, rank: int | None = None, mu: float = 0.95,
          lr_scale: bool = False) -> Optimizer:
     """Muon on the matrix leaves (full space, or the rank-r subspace),
     full-rank Adam on the rest."""
-    reject_unported(zero=zero, lr_scale=lr_scale)
+    reject_unported(zero=zero)
     rule = MuonRule(rank=rank, mu=mu, ns_steps=ns_steps, nesterov=nesterov,
                     ranking_norm=ranking_norm, fused=fused)
     kw = dict(weight_decay=weight_decay, basis_mode=basis_mode, b1=b1, b2=b2,
-              eps=eps)
+              eps=eps, lr_scale=lr_scale)
     if label_fn is not None:
         kw["label_fn"] = label_fn
     return matrix_optimizer(rule, lr, **kw)

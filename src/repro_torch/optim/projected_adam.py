@@ -48,7 +48,8 @@ from repro_torch.core.selection import allsum
 from repro_torch.core.transforms import backend_kinds, get_backend, is_backend
 from repro_torch.kernels.lowp import COMPUTE_DTYPES
 
-from .common import MatrixRule, Optimizer, Schedule, deorient, orient_right, oriented_dims
+from .common import (MatrixRule, Optimizer, Schedule, deorient, orient_right,
+                     oriented_dims, reject_unported)
 from .transform import (
     GradientTransform,
     add_decayed_weights,
@@ -274,7 +275,8 @@ def _build(lr, rule_kw, harness_kw) -> Optimizer:
                             **harness_kw)
 
 
-def _harness(weight_decay, overrides, label_fn, **kw) -> dict:
+def _harness(weight_decay, overrides, label_fn, zero, **kw) -> dict:
+    reject_unported(zero=zero)
     hk = dict(weight_decay=weight_decay, overrides=overrides, **kw)
     if label_fn is not None:
         hk["label_fn"] = label_fn
@@ -314,7 +316,8 @@ def dct_adamw(lr: Schedule, *, rank: int = 128, update_interval: int = 1,
               eps: float = 1e-8, exact_rotation_matmul: bool = False,
               fused: str = "auto", basis: str = "dct",
               compute_dtype: str = "fp32", basis_mode: str = "stored",
-              label_fn=None, overrides: dict | None = None) -> Optimizer:
+              label_fn=None, overrides: dict | None = None,
+              zero=None, lr_scale: bool = False) -> Optimizer:
     """The paper's DCT-AdamW (Algorithm 2). ``fused``: "auto" (the CUDA
     kernels for CUDA tensors, the reference path for CPU tensors) | "on" |
     "fft" (the backend's fast transform: Makhoul FFT for dct, FWHT for
@@ -323,7 +326,8 @@ def dct_adamw(lr: Schedule, *, rank: int = 128, update_interval: int = 1,
     ``error_feedback=False`` discards the residual (no EF state).
     ``compute_dtype``: the projection precision, fp32 | bf16 | int8, on the
     fused modes only. ``overrides``: per-leaf-path rule field
-    replacements."""
+    replacements. ``lr_scale=True`` appends the resilience ladder's LR-cut
+    seam (``transform.lr_scale_transform``); ``zero=`` is not ported."""
     if not is_backend(basis):
         raise ValueError(f"unknown basis {basis!r}; registered backends: "
                          f"{backend_kinds()}")
@@ -333,14 +337,15 @@ def dct_adamw(lr: Schedule, *, rank: int = 128, update_interval: int = 1,
                            ef_dtype=ef_dtype, b1=b1, b2=b2, eps=eps,
                            exact_rotation_matmul=exact_rotation_matmul,
                            fused=fused, compute_dtype=compute_dtype),
-                  _harness(weight_decay, overrides, label_fn,
-                           basis_mode=basis_mode))
+                  _harness(weight_decay, overrides, label_fn, zero,
+                           basis_mode=basis_mode, lr_scale=lr_scale))
 
 
 def ldadamw(lr: Schedule, *, rank: int = 128, weight_decay: float = 0.01,
             error_feedback: bool = True, b1: float = 0.9, b2: float = 0.999,
             eps: float = 1e-8, fused: str = "auto", label_fn=None,
-            overrides: dict | None = None) -> Optimizer:
+            overrides: dict | None = None, zero=None,
+            lr_scale: bool = False) -> Optimizer:
     """LDAdamW baseline: block power iteration, a new subspace every step,
     rotation by the r x r matmul of two stored bases, fp32 error feedback.
     ``fused`` covers the EF only (the power projector keeps the reference
@@ -350,14 +355,16 @@ def ldadamw(lr: Schedule, *, rank: int = 128, weight_decay: float = 0.01,
                            residual="ef" if error_feedback else "discard",
                            ef_dtype="fp32", b1=b1, b2=b2, eps=eps,
                            fused=fused),
-                  _harness(weight_decay, overrides, label_fn))
+                  _harness(weight_decay, overrides, label_fn, zero,
+                           lr_scale=lr_scale))
 
 
 def galore(lr: Schedule, *, rank: int = 128, update_interval: int = 200,
            weight_decay: float = 0.01, projector: str = "svd",
            b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
            fused: str = "auto", label_fn=None,
-           overrides: dict | None = None) -> Optimizer:
+           overrides: dict | None = None, zero=None,
+           lr_scale: bool = False) -> Optimizer:
     """GaLore baseline: SVD every T_u steps, residual discarded, no
     rotation. ``projector``: any projector kind (svd, or a basis backend,
     which runs the fused dataflow)."""
@@ -365,14 +372,16 @@ def galore(lr: Schedule, *, rank: int = 128, update_interval: int = 200,
                            update_interval=update_interval, rotate=False,
                            residual="discard", b1=b1, b2=b2, eps=eps,
                            fused=fused),
-                  _harness(weight_decay, overrides, label_fn))
+                  _harness(weight_decay, overrides, label_fn, zero,
+                           lr_scale=lr_scale))
 
 
 def frugal(lr: Schedule, *, rank: int = 128, update_interval: int = 200,
            weight_decay: float = 0.01, projector: str = "svd",
            b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
            fused: str = "auto", label_fn=None,
-           overrides: dict | None = None) -> Optimizer:
+           overrides: dict | None = None, zero=None,
+           lr_scale: bool = False) -> Optimizer:
     """FRUGAL baseline: state-full low-rank AdamW + state-free SignSGD on the
     residual. ``projector`` in {svd, random, randperm} or any registered
     basis backend (dct/dst/hadamard/randortho, paper Table 6)."""
@@ -380,17 +389,20 @@ def frugal(lr: Schedule, *, rank: int = 128, update_interval: int = 200,
                            update_interval=update_interval, rotate=False,
                            residual="sign", b1=b1, b2=b2, eps=eps,
                            fused=fused),
-                  _harness(weight_decay, overrides, label_fn))
+                  _harness(weight_decay, overrides, label_fn, zero,
+                           lr_scale=lr_scale))
 
 
 def fira(lr: Schedule, *, rank: int = 128, update_interval: int = 200,
          weight_decay: float = 0.01, projector: str = "svd",
          b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
          fused: str = "auto", label_fn=None,
-         overrides: dict | None = None) -> Optimizer:
+         overrides: dict | None = None, zero=None,
+         lr_scale: bool = False) -> Optimizer:
     """FIRA baseline: low-rank AdamW + norm-scaled full-rank residual."""
     return _build(lr, dict(rank=rank, projector=projector,
                            update_interval=update_interval, rotate=False,
                            residual="fira", b1=b1, b2=b2, eps=eps,
                            fused=fused),
-                  _harness(weight_decay, overrides, label_fn))
+                  _harness(weight_decay, overrides, label_fn, zero,
+                           lr_scale=lr_scale))

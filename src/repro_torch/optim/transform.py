@@ -8,10 +8,12 @@ A ``GradientTransform`` is an ``(init, update)`` pair with the signature
 where the trees are flat ``{leaf path: tensor}`` dicts and ``ctx`` is the
 :class:`~repro_torch.optim.common.Context` threaded by the chain runtime.
 
-Combinators: ``chain`` (sequential composition) and ``partition`` (route
-leaves to transforms by label). Primitives: ``scale_by_adam`` (full-rank
-Adam), ``scale_by_learning_rate``, ``add_decayed_weights`` and
-``lowrank_project(rule)``, which lifts a per-matrix-leaf
+Combinators: ``chain`` (sequential composition), ``partition`` (route
+leaves to transforms by label) and ``inject_hyperparams`` (float
+hyperparameters become 0-d fp32 state tensors, updatable between steps).
+Primitives: ``scale_by_adam`` (full-rank Adam), ``scale_by_learning_rate``,
+``add_decayed_weights``, ``lr_scale_transform`` (the resilience ladder's
+LR-cut seam) and ``lowrank_project(rule)``, which lifts a per-matrix-leaf
 :class:`~repro_torch.optim.common.MatrixRule` to a whole-tree transform.
 ``as_optimizer`` closes a transform into ``Optimizer(init, update)``: it
 owns the step counter, the root key and the shared-basis store.
@@ -22,13 +24,14 @@ and ``lowrank_project`` folds in ``path_hash`` of each leaf's path
 keys here are 63-bit integers mixed by splitmix64, so the stream is the
 port's own: the same seed gives other draws than JAX's.
 
-Not yet ported from ``repro.optim.transform``: ``inject_hyperparams``,
-``lr_scale_transform``, ``clip_global_norm``, ``scale_by_schedule``, ZeRO-1
-and the telemetry collector.
+Not yet ported from ``repro.optim.transform``: ``clip_global_norm``,
+``scale_by_schedule``, ``merge_by_label``, ``masked``, ZeRO-1 and the
+telemetry collector.
 """
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import zlib
 from typing import Any, Callable, NamedTuple
 
@@ -165,6 +168,85 @@ def stateless(update_fn) -> GradientTransform:
     )
 
 
+class InjectHyperparamsState(NamedTuple):
+    hyperparams: dict        # name -> 0-d fp32 tensor
+    inner: Any
+
+
+def inject_hyperparams(factory: Callable[..., GradientTransform],
+                       *, static_args: tuple[str, ...] = ()):
+    """Make a transform factory's float hyperparameters updatable at run
+    time, as the JAX package's ``inject_hyperparams`` does.
+
+    ``inject_hyperparams(factory)(lr_scale=1.0)`` returns a transform whose
+    state carries ``{"lr_scale": tensor(1.0)}``: a 0-d fp32 tensor on the
+    parameters' device. The transform is rebuilt from those tensors at every
+    update, so overwriting one between steps changes the next update.
+    Python floats are injected; ints, bools, strings, callables and anything
+    named in ``static_args`` stay static."""
+    sig = inspect.signature(factory)
+
+    def wrapped(*args, **kwargs) -> GradientTransform:
+        bound = sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        hyper: dict[str, float] = {}
+        static: dict[str, Any] = {}
+
+        def place(name, val):
+            if name not in static_args and isinstance(val, float):
+                hyper[name] = val
+            else:
+                static[name] = val
+
+        for name, val in bound.arguments.items():
+            if sig.parameters[name].kind == inspect.Parameter.VAR_KEYWORD:
+                for k, v in val.items():
+                    place(k, v)
+            else:
+                place(name, val)
+
+        def make(hp):
+            return factory(**static, **hp)
+
+        def init(params):
+            device = next(iter(params.values())).device if params else None
+            return InjectHyperparamsState(
+                hyperparams={k: torch.tensor(v, dtype=torch.float32,
+                                             device=device)
+                             for k, v in hyper.items()},
+                inner=make(hyper).init(params))
+
+        def update(updates, state, params, ctx):
+            t = make({k: state.hyperparams[k] for k in hyper})
+            updates, inner = t.update(updates, state.inner, params, ctx)
+            return updates, InjectHyperparamsState(dict(state.hyperparams),
+                                                   inner)
+
+        def basis_sizes(params):
+            return make(hyper).basis_sizes(params)
+
+        return GradientTransform(init, update, basis_sizes)
+
+    return wrapped
+
+
+def lr_scale_transform(initial: float = 1.0) -> GradientTransform:
+    """A run-time LR multiplier as an injected hyperparameter. At the end of
+    a chain it scales the final update (descent and decay alike). Its
+    ``lr_scale`` state tensor is what the resilience ladder's LR-cut rung
+    rewrites between steps (``train.resilience.scale_hyperparam``). Each
+    update is multiplied by that 0-d tensor in the update's dtype, never by
+    a Python float, so the product is the JAX package's IEEE one."""
+
+    def factory(lr_scale: float = 1.0) -> GradientTransform:
+        # only updates run the product, and they rebuild the transform
+        # from the state's tensor
+        return stateless(lambda updates, params, ctx: {
+            k: u * lr_scale.to(u.dtype) for k, u in updates.items()})
+
+    return inject_hyperparams(factory)(lr_scale=float(initial))
+
+
 def scale_by_learning_rate(lr: Schedule) -> GradientTransform:
     """Descent scaling ``u -> -lr_t * u`` (fp32)."""
 
@@ -265,7 +347,8 @@ class ChainState(NamedTuple):
 
 
 def as_optimizer(transform: GradientTransform, *, seed: int = 0,
-                 basis_mode: str = "stored") -> Optimizer:
+                 basis_mode: str = "stored", lr_scale: bool = False
+                 ) -> Optimizer:
     """Close a transform into the ``Optimizer(init, update)`` interface.
 
     ``basis_mode="stored"`` materializes one ``(n, n)`` basis per distinct
@@ -273,10 +356,16 @@ def as_optimizer(transform: GradientTransform, *, seed: int = 0,
     from the process-wide BasisCache, on the parameters' device) and one
     contiguous transpose of each; ``"onthefly"`` stores nothing and lets
     ``Context.basis`` rebuild it inside the step.
+
+    ``lr_scale=True`` appends :func:`lr_scale_transform`, the resilience
+    ladder's LR-cut seam (off by default: the chain and its state are then
+    those of a build without the option).
     """
     if basis_mode not in ("stored", "onthefly"):
         raise ValueError(f"unknown basis_mode {basis_mode!r}; expected "
                          f"'stored' or 'onthefly'")
+    if lr_scale:
+        transform = chain(transform, lr_scale_transform())
 
     def init(params):
         sizes = transform.basis_sizes(params) if basis_mode == "stored" else ()
@@ -308,15 +397,18 @@ def matrix_optimizer(rule: MatrixRule, lr: Schedule, *,
                      b2: float = 0.999, eps: float = 1e-8,
                      label_fn=default_label_fn,
                      basis_mode: str = "stored", seed: int = 0,
-                     overrides: dict[str, dict] | None = None) -> Optimizer:
+                     overrides: dict[str, dict] | None = None,
+                     lr_scale: bool = False) -> Optimizer:
     """The matrix-optimizer preset as a chain: matrix leaves to ``rule``
     (with the per-leaf ``overrides``), everything else to full-rank Adam,
     then lr scaling and decoupled weight decay on every leaf — the same
-    chain, and state layout, as the JAX preset. (Its
-    ``fullrank_weight_decay=False`` variant is not ported.)"""
+    chain, and state layout, as the JAX preset. ``lr_scale`` is forwarded to
+    :func:`as_optimizer`. (Its ``fullrank_weight_decay=False`` variant is
+    not ported.)"""
     routes = {"lowrank": lowrank_project(rule, overrides=overrides),
               "full": scale_by_adam(b1, b2, eps)}
     t = chain(partition(routes, label_fn),
               scale_by_learning_rate(lr),
               add_decayed_weights(weight_decay, schedule=lr))
-    return as_optimizer(t, seed=seed, basis_mode=basis_mode)
+    return as_optimizer(t, seed=seed, basis_mode=basis_mode,
+                        lr_scale=lr_scale)

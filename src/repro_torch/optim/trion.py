@@ -30,8 +30,8 @@ so the top-r margin shrinks step by step until a 1-ulp difference in S flips
 it. Over many steps two implementations that sum in different orders may
 therefore select differently; one step from the same state selects alike.
 
-Not yet ported: ZeRO-1 (``zero=``), the ``lr_scale`` seam and telemetry
-(``emit_stats`` is kept but inert).
+Not yet ported: ZeRO-1 (``zero=``) and telemetry (``emit_stats`` is kept
+but inert).
 """
 from __future__ import annotations
 
@@ -153,12 +153,12 @@ def trion(lr: Schedule, *, rank: int = 128, mu: float = 0.95,
     """Trion on the matrix leaves, full-rank Adam on the rest. ``fused``:
     "auto" (the CUDA kernels for CUDA tensors, the reference path for CPU
     tensors) | "on" | "fft" | "off"."""
-    reject_unported(zero=zero, lr_scale=lr_scale)
+    reject_unported(zero=zero)
     rule = TrionRule(rank=rank, mu=mu, ns_steps=ns_steps,
                      ranking_norm=ranking_norm, dct_method=dct_method,
                      momentum_dtype=momentum_dtype, fused=fused)
     kw = dict(weight_decay=weight_decay, basis_mode=basis_mode, b1=b1, b2=b2,
-              eps=eps)
+              eps=eps, lr_scale=lr_scale)
     if label_fn is not None:
         kw["label_fn"] = label_fn
     return matrix_optimizer(rule, lr, **kw)

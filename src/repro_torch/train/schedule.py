@@ -1,8 +1,21 @@
-"""LR schedule: a pure function of the integer step, returning a float.
-Only ``cosine_warmup`` (the CLI's) is ported."""
+"""LR schedules: pure functions of the integer step, returning a float (the
+JAX package's return an fp32 scalar; these compute in float64, and the
+update rounds the value to fp32 where it multiplies)."""
 from __future__ import annotations
 
 import math
+
+
+def constant(lr: float):
+    def fn(step: int) -> float:
+        return float(lr)
+    return fn
+
+
+def linear_warmup(lr: float, warmup: int):
+    def fn(step: int) -> float:
+        return lr * min(1.0, step / max(warmup, 1))
+    return fn
 
 
 def cosine_warmup(lr: float, warmup: int, total: int, final_frac: float = 0.1):

@@ -51,6 +51,13 @@ ATTENTION_MODULES = ("repro_torch.kernels.flash_attention",
                      "repro_torch.configs.registry")
 
 
+# the modules of the training-substrate slice
+SUBSTRATE_MODULES = ("repro_torch.data.pipeline", "repro_torch.train.checkpoint",
+                     "repro_torch.train.resilience", "repro_torch.train.chaos",
+                     "repro_torch.train.supervisor", "repro_torch.train.loop",
+                     "repro_torch.train.steps", "repro_torch.train.schedule")
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC)
@@ -90,6 +97,11 @@ def test_attention_modules_import_without_jax_or_repro(probe, name):
     assert name in probe[1].split()
 
 
+@pytest.mark.parametrize("name", SUBSTRATE_MODULES)
+def test_substrate_modules_import_without_jax_or_repro(probe, name):
+    assert name in probe[1].split()
+
+
 def _imported_roots(path: Path) -> set[str]:
     roots = set()
     for node in ast.walk(ast.parse(path.read_text())):
@@ -104,7 +116,8 @@ def _imported_roots(path: Path) -> set[str]:
 # machine with the card has no JAX)
 CARD_SCRIPTS = ("attention_kernels_probe.py", "backproject_probe.py",
                 "dct_project_probe.py", "ns_apply_tiles_probe.py",
-                "sanitize_kernels.py", "tf32_mma_probe.py")
+                "sanitize_kernels.py", "substrate_probe.py",
+                "tf32_mma_probe.py")
 
 
 @pytest.mark.parametrize("path", sorted(

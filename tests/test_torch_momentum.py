@@ -34,6 +34,7 @@ from repro_torch.optim.common import Context
 from repro_torch.optim.dion import DionLeaf
 from repro_torch.optim.muon import MuonLeaf
 from repro_torch.optim.trion import TrionLeaf
+from test_torch_optim import lr_scale_cut_matches_jax
 
 R = 6
 # parameter layouts: square-ish, layer-stacked, odd, and wide (orients by a
@@ -395,9 +396,10 @@ def test_cpu_tensors_launch_nothing():
 
 @pytest.mark.parametrize("name", ["trion", "muon", "dion"])
 def test_unported_options_raise(name):
+    """ZeRO-1 stays unported; ``lr_scale=True`` is ported and matches JAX
+    under a cut of 0.5."""
     with pytest.raises(NotImplementedError):
         get_optimizer(name, lr=0.01, zero=("data",))
-    with pytest.raises(NotImplementedError):
-        get_optimizer(name, lr=0.01, lr_scale=True)
+    lr_scale_cut_matches_jax(name, rank=8)
     with pytest.raises(ValueError):
         get_optimizer(name, lr=0.01, fused="sometimes")

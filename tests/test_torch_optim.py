@@ -174,16 +174,47 @@ def test_init_state_layout_matches_jax():
     assert set(tstate.leaves[0]["full"]) == {"final_norm/scale"}
 
 
+def lr_scale_cut_matches_jax(name, **kw):
+    """``lr_scale=True`` builds the LR-cut seam: after a cut of 0.5 through
+    ``scale_hyperparam`` in both packages, one update from a JAX-built,
+    converted state equals JAX's at the preset tolerance of this file."""
+    from repro.train.resilience import scale_hyperparam as jax_scale
+    from repro_torch.train.resilience import scale_hyperparam
+    rng = np.random.default_rng(5)
+    params_np = {"block": {"w": {"kernel": rng.standard_normal(
+        (40, 24)).astype(np.float32)}},
+                 "final_norm": {"scale": np.ones(24, np.float32)}}
+    g_np = jax.tree.map(lambda x: rng.standard_normal(x.shape).astype(
+        np.float32), params_np)
+    jparams = jax.tree.map(jnp.asarray, params_np)
+    jopt = jax_get_optimizer(name, lr=0.01, lr_scale=True, **kw)
+    jstate = jopt.init(jparams)
+    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate))
+    jstate, jhits = jax_scale(jstate, "lr_scale", 0.5)
+    tstate, thits = scale_hyperparam(tstate, "lr_scale", 0.5)
+    assert jhits == thits == 1
+    ju, _ = jopt.update(jax.tree.map(jnp.asarray, g_np), jstate, jparams)
+    tu, _ = get_optimizer(name, lr=0.01, lr_scale=True, **kw).update(
+        convert.params_from_jax(g_np), tstate,
+        convert.params_from_jax(params_np))
+    for path in ("block/w/kernel", "final_norm/scale"):
+        _close(tu[path].numpy(), np.asarray(
+            convert.params_from_jax(jax.tree.map(np.asarray, ju))[path]))
+
+
 @pytest.mark.parametrize("name", ["dct_adamw", "ldadamw", "galore",
                                   "frugal", "fira", "adamw"])
 def test_unported_options_raise(name):
-    """ZeRO-1 and the resilience ladder's lr_scale stay unported: the
-    presets leave ``zero=`` and ``lr_scale=`` out of their signatures."""
+    """ZeRO-1 stays unported; the resilience ladder's ``lr_scale`` is ported
+    and matches JAX under a cut of 0.5."""
     from repro_torch.optim.projected_adam import ProjectedAdamRule
-    with pytest.raises(TypeError, match="unknown kwargs"):
-        get_optimizer(name, lr=0.01, zero=None)
-    with pytest.raises(TypeError, match="unknown kwargs"):
-        get_optimizer(name, lr=0.01, lr_scale=True)
+    if name == "adamw":                 # the JAX preset has no zero= either
+        with pytest.raises(TypeError, match="unknown kwargs"):
+            get_optimizer(name, lr=0.01, zero=None)
+    else:
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            get_optimizer(name, lr=0.01, zero=("data",))
+    lr_scale_cut_matches_jax(name, **({} if name == "adamw" else {"rank": R}))
     with pytest.raises(ValueError, match="unknown residual"):
         ProjectedAdamRule(residual="nesterov")
     with pytest.raises(ValueError, match="unknown projector"):
