@@ -194,7 +194,34 @@ device or without the port beside it. Any failure raises. Phases:
    which resumes from step 2 and finishes. The checkpoints (2.6 GB each,
    two on disk at most) live under ``build/chip_smoke_substrate`` and are
    deleted at the end.
-16. The ``kernels`` line, the card's line, and last:
+16. Subspace telemetry and closed-loop control at the main path's
+   configuration: (a) ``--telemetry jsonl --telemetry-every 2`` through
+   the CLI, the counters zeroed just before and read just after: losses
+   equal to phase 3's bit for bit, 7 launches of each of the four kernels
+   per step, every row finite with captured energy in [0, 1]; then one
+   step and the Trainer's host conversion of its metrics under the
+   profiler without and with telemetry, in turns: the kernels and device
+   time telemetry adds, and exactly one more device -> host copy. (b) The
+   rule's captured energy of a real ``mlp/wg`` gradient (oriented (24,
+   2816, 1024)) on the kernel path within ``ENERGY_RTOL`` of float64
+   numpy's ||G Q_r||^2 / ||G||^2. (c) The closed loop through the API: a
+   ``RankAllocator`` (deadband 0, decide every 2 steps) drives
+   ``AdaptiveOptimizerManager`` for 6 steps: at least one rebuild to a
+   non-uniform allocation within the weighted budget, each leaf's moments
+   shaped (24, rows, r_leaf), 7 launches of each kernel every step (after
+   a rebuild too), finite losses, steps 1-2 equal to phase 3's; peak
+   memory against phase 3's and each rebuild's own, the basis cache's hits
+   and misses; then the four kernels against their plain versions at an
+   allocated rank off a multiple of 16, fp32 and int8. (d)
+   ``--adaptive-refresh --control-every 2`` through the CLI at rank 128
+   and at rank 1024 (every column: no drift, so the intervals double and
+   keep steps follow): keep steps report the -1 sentinels, ``dct_project``
+   runs once per leaf and refresh step, the other kernels 7 a step. (e)
+   (c) with checkpoints every 2 steps, stopped after step 4 and resumed by
+   a new manager: the losses equal to (c)'s bit for bit. Its files live
+   under ``build/chip_smoke_telemetry`` and are deleted at the end. The
+   phase's wall time is printed.
+17. The ``kernels`` line, the card's line, and last:
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -408,6 +435,22 @@ SUBSTRATE_STOP = 4
 # (c): the supervised run's steps and the checkpoint step of its kill
 SUPERVISED_STEPS, SUPERVISED_KILL = 4, 4
 
+# telemetry and closed-loop control (phase 16): its telemetry files and
+# checkpoints live here and are deleted at the end of the phase
+TELEMETRY_DIR = ROOT / "build" / "chip_smoke_telemetry"
+# (b): the rule's captured energy against float64, relative
+ENERGY_RTOL = 1e-5
+# (c): the allocator decides every 2 steps on any spread of captured energy
+ADAPTIVE_ALLOC = dict(deadband=0.0, decide_every=2)
+# (c): the kernels at an allocated rank off a multiple of 16 (the int8
+# colgathers' 4-byte copies); this one when the allocation has none
+OFF16_RANK = 136
+# (d): the adaptive-refresh runs through the CLI, (rank, steps): the main
+# path's rank, and every column (r = n = 1024: the selection cannot drift,
+# so the scheduler doubles each leaf's interval at each decision and keep
+# steps follow)
+REFRESH_RUNS = ((RANK, STEPS), (1024, 10))
+
 
 def _device_line() -> str:
     return subprocess.run(
@@ -463,14 +506,14 @@ def _bound_ms(nbytes: float, flops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _planted(shape, q, gen):
-    """G whose projection S = G @ Q has RANK planted columns per layer, 8x
+def _planted(shape, q, gen, r: int = RANK):
+    """G whose projection S = G @ Q has ``r`` planted columns per layer, 8x
     larger than the rest, so the top-r selection has a clear margin."""
     import torch
     *batch, m, n = shape
     s = torch.randn(shape, generator=gen, device=q.device)
     big = torch.rand((*batch, n), generator=gen, device=q.device
-                     ).argsort(dim=-1)[..., :RANK]
+                     ).argsort(dim=-1)[..., :r]
     col_scale = torch.full((*batch, n), 0.125, device=q.device)
     col_scale.scatter_(-1, big, 1.0)
     return (s * col_scale[..., None, :]) @ q.T
@@ -651,6 +694,10 @@ def check_fused_update(torch, dev) -> None:
               flush=True)
 
 
+# phase 3's peak device memory, for the phases that compare with it
+MAIN_PATH = {}
+
+
 def run_main_path(torch):
     """Phase 3: the training CLI's code path, counters zeroed just before.
     Returns the counts and the losses."""
@@ -678,6 +725,7 @@ def run_main_path(torch):
             f"{name}: {n} launches in {STEPS} steps, expected " \
             f"{LAUNCHES_PER_STEP * STEPS}"
     ms_step = sum(h["s_per_step"] for h in hist[1:]) / (STEPS - 1) * 1e3
+    MAIN_PATH["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
     summary = {
         "main_path": "llama-350m dct_adamw rank 128 fused auto->on",
         "steps": STEPS, "batch": BATCH, "seq_len": SEQ,
@@ -2638,6 +2686,465 @@ def run_substrate(torch, dev, main_losses) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: subspace telemetry and closed-loop rank / refresh control
+# ---------------------------------------------------------------------------
+def _profile_step_and_fetch(torch, step, state, batch):
+    """One train step and the Trainer's host conversion of its metrics
+    (each scalar, then the telemetry tree in one piece) under the
+    profiler: device kernels, device -> host copies, and the CPU side's
+    kernel launch and copy calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.telemetry.stats import to_host
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, m = step(state, batch)
+        host = {k: v if k == "telemetry" else float(v) for k, v in m.items()}
+        if "telemetry" in host:
+            host["telemetry"] = to_host(host["telemetry"])
+        torch.cuda.synchronize()
+    dev_events, busy_ms = _device_kernels(prof)
+    dtoh = sum(e.count for e in dev_events if "DtoH" in e.key)
+    memcpy = sum(e.count for e in dev_events if "Memcpy" in e.key
+                 or "Memset" in e.key)
+    cpu = {e.key: e.count for e in prof.key_averages()
+           if e.key.startswith(("cudaLaunchKernel", "cudaMemcpy"))}
+    return {"device_kernels": sum(e.count for e in dev_events) - memcpy,
+            "device_busy_ms": busy_ms, "device_dtoh_copies": dtoh,
+            "cuda_launch_calls": sum(v for k, v in cpu.items()
+                                     if k.startswith("cudaLaunchKernel")),
+            "cuda_memcpy_calls": sum(v for k, v in cpu.items()
+                                     if k.startswith("cudaMemcpy"))}
+
+
+def _telemetry_on(torch, dev, main_losses) -> dict:
+    """(a): ``--telemetry jsonl --telemetry-every 2``, 6 steps through the
+    CLI: losses bit-equal to phase 3's, 7 launches of each kernel a step,
+    every row finite with captured energy in [0, 1]; then one step without
+    and with telemetry under the profiler, in turns (off, on, on, off), with
+    the Trainer's host conversion: the launches and device time telemetry
+    adds and its device -> host copies (one a step)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.optim.api import get_optimizer
+    from repro_torch.train import steps as S
+    from repro_torch.train.schedule import cosine_warmup
+
+    path = TELEMETRY_DIR / "telemetry.jsonl"
+    hist, counts, peak = _cli_run(torch, TRAIN_ARGV + [
+        "--telemetry", "jsonl", "--telemetry-every", "2",
+        "--telemetry-path", str(path)])
+    losses = [h["loss"] for h in hist]
+    assert losses == main_losses, (losses, main_losses)
+    rows = [json.loads(x) for x in path.read_text().splitlines()]
+    assert [r["step"] for r in rows] == [2.0, 4.0, 6.0], rows
+    stats = {k: v for r in rows for k, v in r.items()
+             if k.startswith("telemetry/")}
+    assert len(stats) == 7 * 5, sorted(stats)
+    for r in rows:
+        for k, v in r.items():
+            vals = v if isinstance(v, list) else [v]
+            assert all(math.isfinite(x) for x in vals), (k, v)
+            if k.endswith("/captured_energy"):
+                assert len(vals) == LAYERS
+                assert all(0.0 <= x <= 1.0 for x in vals), (k, v)
+
+    cfg = get_config("llama-350m")
+    opt = get_optimizer("dct_adamw", lr=cosine_warmup(0.01, 2, STEPS),
+                        rank=RANK, weight_decay=0.01)
+    state = S.init_state(cfg, opt, 0, dev)
+    batch = make_batch_fn(cfg, SEQ, BATCH, device=dev)(0)
+    steps = {tel: S.make_train_step(cfg, opt, telemetry=tel == "on")
+             for tel in ("off", "on")}
+    for step in steps.values():
+        step(state, batch)                       # warm
+    prof = {"off": [], "on": []}
+    for tel in ("off", "on", "on", "off"):
+        prof[tel].append(_profile_step_and_fetch(torch, steps[tel], state,
+                                                 batch))
+    del state
+    on, off = ({k: sum(p[k] for p in prof[t]) / 2 for k in prof[t][0]}
+               for t in ("on", "off"))
+    extra = {k: on[k] - off[k] for k in on}
+    for p_on in prof["on"]:
+        for p_off in prof["off"]:
+            assert p_on["device_dtoh_copies"] \
+                - p_off["device_dtoh_copies"] == 1, prof
+    mean = {k.split("/")[-1]: [] for k in stats}
+    for k, v in stats.items():
+        mean[k.split("/")[-1]].extend(v)
+    return {"losses_equal_to_phase_3": True, "launches": counts,
+            "launches_per_step": {k: v / STEPS for k, v in counts.items()},
+            "rows": len(rows), "ms_per_step_after_first":
+            _ms_after_first(hist), "max_memory_allocated_bytes": peak,
+            "profiled_step_and_fetch": prof, "telemetry_adds": extra,
+            "row_means": {k: sum(v) / len(v) for k, v in mean.items()}}
+
+
+def _captured_energy_vs_float64(torch, dev) -> dict:
+    """(b): one leaf's gradient of the main path (``mlp/wg``, oriented
+    (24, 2816, 1024)) through the rule on the kernel path under a
+    collector: its captured energy against float64 numpy's ||G Q_r||^2 /
+    ||G||^2 at the indices the rule selected, per layer."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.transforms import shared_basis
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.common import Context
+    from repro_torch.optim.projected_adam import ProjectedAdamRule
+    from repro_torch.optim.transform import transposed
+    from repro_torch.telemetry.stats import collect
+    from repro_torch.train import steps as S
+
+    cfg = get_config("llama-350m")
+    params = T.init_params(cfg, 0, dev)
+    batch = make_batch_fn(cfg, SEQ, BATCH, device=dev)(0)
+    path = "segments/0/p0/mlp/wg/kernel"
+    grads, _ = S.grad_fn(params, batch, cfg)
+    g = grads[path]
+    del grads, params
+    n = min(g.shape[-2:])
+    bases = {str(n): shared_basis("dct", n, device=dev)}
+    rule = ProjectedAdamRule(rank=RANK, fused="on")
+    state = rule.init(g.shape, g.dtype, dev)
+    with collect() as col:
+        ctx = Context(step=1, bases=bases, bases_t=transposed(bases),
+                      stats=col.scope(path))
+        _, new = rule.update(g, state, None, ctx)
+    ce = col.tree()[path].captured_energy.cpu().numpy().astype(np.float64)
+    g64 = g.transpose(-1, -2).double().cpu().numpy()        # oriented
+    q64 = bases[str(n)].double().cpu().numpy()
+    idx = new.proj.long().cpu().numpy()
+    want = np.array([np.sum((g64[i] @ q64[:, idx[i]]) ** 2)
+                     / np.sum(g64[i] ** 2) for i in range(g64.shape[0])])
+    rel = float(np.max(np.abs(ce - want) / want))
+    assert rel <= ENERGY_RTOL, (rel, ce, want)
+    return {"leaf": path, "oriented_shape": list(g64.shape),
+            "max_rel_err_vs_float64": rel, "captured_energy_min":
+            float(want.min()), "captured_energy_max": float(want.max())}
+
+
+def check_kernels_at_rank(torch, dev, r: int, shape) -> dict:
+    """(c): the four kernels of the step against their plain versions at
+    an allocated rank ``r``, fp32 and int8, at the leaf's oriented
+    ``shape`` (G with ``r`` planted columns): ``dct_project`` (S within
+    1e-5 of max |S|, norms 1e-5 relative, the same top-r; int8 S equal),
+    ``colgather_matmul_dual`` on the selected columns (1e-5 of max |out|,
+    relaunch bit-identical; int8 equal given the plain quantizers'
+    operands, its quantizers' codes and scales equal), ``quantize_ef``
+    (scales equal, codes within 1) and ``dequant_add_ef`` (exact), as
+    phases 2 and 10 hold them at r = 128."""
+    from repro_torch.core.dct import dct2_matrix
+    from repro_torch.core.selection import select_top_r, take_columns
+    from repro_torch.kernels import colgather_matmul as cg
+    from repro_torch.kernels import dct_project as dp
+    from repro_torch.kernels import lowp
+    from repro_torch.kernels import quant_ef as qe
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    n = shape[-1]
+    q = dct2_matrix(n, device=dev)
+    qt = q.T.contiguous()
+    g = _planted(shape, q, gen, r)
+    out = {"rank": r, "shape": list(shape), "r_mod_16": r % 16}
+    s_k, n_k = dp.dct_project(g, q)
+    s_p, n_p = dp.dct_project_plain(g, q)
+    idx = select_top_r(n_k, r)
+    torch.cuda.synchronize()
+    out["dct_project_rel_err"] = _rel(s_k, s_p)
+    assert out["dct_project_rel_err"] <= 1e-5, out
+    norm_rel = ((n_k - n_p).abs() / n_p.clamp_min(1e-30)).max().item()
+    assert norm_rel <= 1e-5 and torch.equal(idx, select_top_r(n_p, r)), \
+        (r, norm_rel)
+    b1 = take_columns(s_k, idx).contiguous()
+    b2 = torch.randn(b1.shape, generator=gen, device=dev)
+    del s_p, n_p
+    o_k = cg.colgather_matmul_dual(b1, b2, qt, idx)
+    o_p = cg.colgather_matmul_dual_plain(b1, b2, qt, idx)
+    again = cg.colgather_matmul_dual(b1, b2, qt, idx)
+    torch.cuda.synchronize()
+    out["colgather_matmul_dual_rel_err"] = max(
+        _rel(a, b) for a, b in zip(o_k, o_p))
+    assert out["colgather_matmul_dual_rel_err"] <= 1e-5, out
+    assert all(map(torch.equal, again, o_k)), f"colgather relaunch, r={r}"
+    resid = g - o_k[1]
+    q_k, sc_k = qe.quantize_ef(resid)
+    q_p, sc_p = qe.quantize_ef_plain(resid)
+    ef_k = qe.dequant_add_ef(g, q_k, sc_k)
+    ef_p = qe.dequant_add_ef_plain(g, q_k, sc_k)
+    torch.cuda.synchronize()
+    dq = (q_k.int() - q_p.int()).abs().max().item()
+    assert torch.equal(sc_k, sc_p) and dq <= 1, (r, dq)
+    assert torch.equal(ef_k, ef_p), f"dequant_add_ef, r={r}"
+    out["quantize_ef_max_abs_dq"] = dq
+    del o_k, o_p, again, resid, q_k, q_p, ef_k, ef_p
+    # int8: the projection and the dual colgather at the same rank
+    gq, sg = lowp.quant_rows(g)
+    qq, sq = lowp.quant_cols(q)
+    s8, n8 = dp.dct_project(g, q, compute_dtype="int8")
+    s8p, n8p = dp.dct_project_q8_plain(gq, sg, qq, sq)
+    torch.cuda.synchronize()
+    assert torch.equal(s8, s8p), f"dct_project_q8, r={r}"
+    idx8 = select_top_r(n8, r)
+    assert torch.equal(idx8, select_top_r(n8p, r)), f"int8 top-r, r={r}"
+    del s8p, gq, qq
+    b1 = take_columns(s8, idx8).contiguous()
+    ops_k = cg.quantize_operands((b1, b2), qt, idx8)
+    ops_p = cg.quantize_operands_plain((b1, b2), qt, idx8)
+    o8 = cg.colgather_matmul_dual(b1, b2, qt, idx8, compute_dtype="int8")
+    o8p = cg.colgather_q8_plain(*ops_p, idx8)
+    torch.cuda.synchronize()
+    assert torch.equal(ops_k[1], ops_p[1]) and all(
+        torch.equal(x, y) for kp, pp in zip(ops_k[0], ops_p[0])
+        for x, y in zip(kp, pp)), f"int8 colgather quantizers, r={r}"
+    assert all(map(torch.equal, o8, o8p)), f"colgather_matmul_dual_q8, r={r}"
+    out["int8"] = ("dct_project_q8, its quantizers and "
+                   "colgather_matmul_dual_q8 bit-equal")
+    del g, s_k, s8, b1, b2, o8, o8p, ops_k, ops_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def _adaptive_trainer(torch, dev, ckpt_dir=None, record=None):
+    """The closed loop at the main path's configuration through the API:
+    DCT-AdamW rank 128 rebuilt by a RankAllocator(deadband 0, decide every
+    2 steps) from the telemetry, the CLI's schedule, batches and seed.
+    ``record`` gets each step's launch counts, the rebuilds' memory and
+    the manager's log lines."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.api import get_optimizer
+    from repro_torch.telemetry.adaptive import AdaptiveOptimizerManager
+    from repro_torch.telemetry.controllers import (RankAllocator,
+                                                   RankAllocatorConfig,
+                                                   leaf_inventory)
+    from repro_torch.train import steps as S
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.schedule import cosine_warmup
+
+    cfg = get_config("llama-350m")
+    lr = cosine_warmup(0.01, 2, STEPS)
+    record = record if record is not None else {}
+    record.setdefault("log", [])
+    mgr = AdaptiveOptimizerManager(
+        make_optimizer=lambda ov=None: get_optimizer(
+            "dct_adamw", lr=lr, rank=RANK, weight_decay=0.01, overrides=ov),
+        make_step=lambda opt: S.make_train_step(cfg, opt, telemetry=True),
+        make_train_state=lambda opt: S.init_state(cfg, opt, 0, dev),
+        rank_allocator=RankAllocator(
+            RankAllocatorConfig(base_rank=RANK, **ADAPTIVE_ALLOC),
+            leaf_inventory(T.init_params(cfg, 0, "meta"))),
+        log_fn=record["log"].append)
+    last = {}
+
+    def log_metrics(rec):
+        now = ops.launch_counts(ops.TRAINING)
+        record.setdefault("per_step", []).append(
+            {k: v - last.get(k, 0) for k, v in now.items()})
+        last.update(now)
+
+    def control_hook(step, state, metrics):
+        record["run_peak"] = max(record.get("run_peak", 0),
+                                 torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        new = mgr.control_hook(step, state, metrics)
+        if new is not None:
+            record.setdefault("rebuilds", []).append({
+                "step": step, "allocated_before": before,
+                "peak_during": torch.cuda.max_memory_allocated(),
+                "allocated_after": torch.cuda.memory_allocated()})
+        return new
+
+    trainer = Trainer(train_step=mgr.step, init_state_fn=mgr.init_state,
+                      batch_fn=make_batch_fn(cfg, SEQ, BATCH, seed=0,
+                                             device=dev),
+                      control_hook=control_hook, extra_state=mgr,
+                      log_metrics=log_metrics, ckpt_dir=ckpt_dir,
+                      ckpt_every=2, log_every=100, log_fn=lambda s: None)
+    return trainer, mgr
+
+
+def _adaptive_rank(torch, dev, main_losses) -> tuple[dict, list]:
+    """(c): the closed loop through the API, 6 steps: at least one rebuild
+    to a non-uniform allocation within the weighted budget, each leaf's
+    moments shaped (24, rows, r_leaf), 7 launches of each kernel every step
+    (after the rebuild too), finite losses, steps 1-2 (before the first
+    decision) equal to phase 3's; the peak memory against phase 3's and the
+    rebuild's own; then the kernels at an allocated rank off a multiple of
+    16. Returns the summary and the losses."""
+    from repro_torch.core.transforms import basis_cache
+    from repro_torch.kernels import ops
+    from repro_torch.optim.common import oriented_dims
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    record = {}
+    cache0 = basis_cache().stats()
+    trainer, mgr = _adaptive_trainer(torch, dev, record=record)
+    state = trainer.run(total_steps=STEPS)
+    torch.cuda.synchronize()
+    peak = max(record.get("run_peak", 0), torch.cuda.max_memory_allocated())
+    losses = [h["loss"] for h in trainer.metrics_history]
+    assert len(losses) == STEPS and all(map(math.isfinite, losses)), losses
+    assert losses[:2] == main_losses[:2], (losses, main_losses)
+    alloc = dict(mgr.rank_allocator.alloc)
+    assert mgr.n_rebuilds >= 1, record["log"]
+    assert len(set(alloc.values())) > 1, alloc
+    leaves = mgr.rank_allocator.leaves
+    used = sum(leaves[p].rows * r for p, r in alloc.items())
+    assert used <= mgr.rank_allocator.budget, (used, alloc)
+    lowrank = state.opt_state.leaves[0]["lowrank"]
+    for path, leaf in lowrank.items():
+        rows = oriented_dims(state.params[path].shape)[0]
+        want = (LAYERS, rows, alloc[path])
+        assert tuple(leaf.m.shape) == tuple(leaf.v.shape) == want, \
+            (path, leaf.m.shape, want)
+    for i, counts in enumerate(record["per_step"], 1):
+        for name, c in counts.items():
+            assert c == LAUNCHES_PER_STEP, (i, name, c)
+    cache = basis_cache().stats()
+    # the kernels at an allocated rank that is not a multiple of 16
+    off16 = sorted((r, p) for p, r in alloc.items() if r % 16)
+    r, path = off16[0] if off16 else (OFF16_RANK, next(iter(alloc)))
+    shape = (LAYERS, *oriented_dims(state.params[path].shape))
+    del state, trainer, lowrank
+    gc.collect()
+    torch.cuda.empty_cache()
+    at_rank = check_kernels_at_rank(torch, dev, r, shape)
+    at_rank["rank_from"] = path if off16 else "OFF16_RANK (none allocated)"
+    return {"rebuilds": mgr.n_rebuilds, "allocation": alloc,
+            "ranks": sorted(set(alloc.values())),
+            "budget_used": used, "budget": mgr.rank_allocator.budget,
+            "losses": losses, "launches_per_step": record["per_step"],
+            "max_memory_allocated_bytes": peak,
+            "phase_3_max_memory_allocated_bytes":
+            MAIN_PATH.get("max_memory_allocated_bytes"),
+            "peak_over_phase_3_bytes": peak
+            - MAIN_PATH.get("max_memory_allocated_bytes", peak),
+            "rebuild_memory": record.get("rebuilds"),
+            "basis_cache": {"before": cache0, "after": cache},
+            "manager_log": record["log"],
+            "kernels_at_allocated_rank": at_rank}, losses
+
+
+def _adaptive_refresh(torch, rank: int, steps: int) -> dict:
+    """(d): ``--adaptive-refresh --control-every 2`` through the CLI, with
+    ``--telemetry jsonl --telemetry-every 1`` (a row a step): keep steps
+    report the -1 sentinels; ``dct_project`` runs once per leaf and refresh
+    step (7 a step that refreshes every leaf, 0 a keep step), the other
+    three kernels 7 a step."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+
+    path = TELEMETRY_DIR / f"refresh_{rank}.jsonl"
+    argv = [a for a in TRAIN_ARGV]
+    argv[argv.index("--steps") + 1] = str(steps)
+    argv[argv.index("--rank") + 1] = str(rank)
+    argv += ["--adaptive-refresh", "--control-every", "2", "--telemetry",
+             "jsonl", "--telemetry-every", "1", "--telemetry-path", str(path)]
+    gc.collect()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = train_cli.run(train_cli.build(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts(ops.TRAINING)
+    losses = [h["loss"] for h in trainer.metrics_history]
+    assert len(losses) == steps and all(map(math.isfinite, losses)), losses
+    rows = [json.loads(x) for x in path.read_text().splitlines()]
+    assert len(rows) == steps
+    refresh, keep_steps = 0, []
+    for row in rows:
+        ov = {k: v for k, v in row.items() if k.endswith("/index_overlap")}
+        mg = {k: v for k, v in row.items() if k.endswith("/topr_margin")}
+        assert len(ov) == len(mg) == LAUNCHES_PER_STEP
+        kept = [k for k, v in ov.items() if v[0] < 0]
+        for k in kept:
+            assert all(x == -1.0 for x in ov[k]), (row["step"], k)
+            assert all(x == -1.0 for x in mg[k.replace("index_overlap",
+                                                       "topr_margin")])
+        refresh += len(ov) - len(kept)
+        if len(kept) == len(ov):
+            keep_steps.append(int(row["step"]))
+    assert counts["dct_project"] == refresh, (counts, refresh)
+    for name in ("dequant_add_ef", "colgather_matmul_dual", "quantize_ef"):
+        assert counts[name] == LAUNCHES_PER_STEP * steps, (name, counts)
+    drift = {int(r["step"]): sorted({round(1 - v[0], 4) for k, v in r.items()
+                                     if k.endswith("/index_overlap")
+                                     and v[0] >= 0}) for r in rows}
+    return {"rank": rank, "steps": steps, "launches": counts,
+            "leaf_refreshes": refresh, "keep_steps": keep_steps,
+            "drift_by_step": drift, "losses": losses, "wall_s": wall}
+
+
+def _adaptive_resume(torch, dev, adaptive_losses) -> dict:
+    """(e): (c)'s loop with checkpoints every 2 steps, stopped after step
+    4 (a rebuild at step 2, before its save), then resumed to 6 by a new
+    manager and Trainer, which rebuild the optimizer from the manifest's
+    allocation before the restore: the losses bit-equal to (c)'s."""
+    ck = TELEMETRY_DIR / "ckpt"
+    first, mgr1 = _adaptive_trainer(torch, dev, str(ck))
+    first.run(total_steps=4)
+    assert mgr1.n_rebuilds >= 1
+    manifest = json.loads((ck / "step_4" / "manifest.json").read_text())
+    saved = manifest["extra_state"]["rank_allocator"]["alloc"]
+    assert saved == mgr1.rank_allocator.alloc
+    losses = [h["loss"] for h in first.metrics_history]
+    shutil.rmtree(ck / "step_2")                  # two on disk at most
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+    second, mgr2 = _adaptive_trainer(torch, dev, str(ck))
+    second.run(total_steps=STEPS)
+    assert [h["step"] for h in second.metrics_history] == [5, 6]
+    losses += [h["loss"] for h in second.metrics_history]
+    assert losses == adaptive_losses, (losses, adaptive_losses)
+    return {"losses_equal_to_c": True, "saved_allocation": saved,
+            "rebuilds_before_save": mgr1.n_rebuilds,
+            "rebuilds_after_resume": mgr2.n_rebuilds,
+            "final_allocation": mgr2.rank_allocator.alloc}
+
+
+def run_telemetry(torch, dev, main_losses) -> None:
+    """Phase 16: subspace telemetry and closed-loop control on the card at
+    the main path's configuration."""
+    t0 = time.perf_counter()
+    shutil.rmtree(TELEMETRY_DIR, ignore_errors=True)
+    TELEMETRY_DIR.mkdir(parents=True)
+    out = {}
+    try:
+        out["telemetry_on"] = _telemetry_on(torch, dev, main_losses)
+        torch.cuda.empty_cache()
+        out["captured_energy"] = _captured_energy_vs_float64(torch, dev)
+        torch.cuda.empty_cache()
+        out["adaptive_rank"], losses = _adaptive_rank(torch, dev, main_losses)
+        torch.cuda.empty_cache()
+        out["adaptive_refresh"] = []
+        for rank, steps in REFRESH_RUNS:
+            out["adaptive_refresh"].append(_adaptive_refresh(torch, rank,
+                                                             steps))
+            torch.cuda.empty_cache()
+        assert out["adaptive_refresh"][-1]["keep_steps"], \
+            out["adaptive_refresh"]
+        out["resume"] = _adaptive_resume(torch, dev, losses)
+    finally:
+        shutil.rmtree(TELEMETRY_DIR, ignore_errors=True)
+    print(json.dumps({"telemetry": out, "device": _device_line(),
+                      "telemetry_phase_wall_s": time.perf_counter() - t0}),
+          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2719,6 +3226,8 @@ def main(argv=None) -> int:
 
     torch.cuda.empty_cache()
     run_substrate(torch, dev, main_losses)
+    torch.cuda.empty_cache()
+    run_telemetry(torch, dev, main_losses)
 
     sources = {"dequant_add_ef": ("quant_ef.cu", "src/repro/kernels/quant_ef.py:44"),
                "dct_project": ("dct_project.cu", "src/repro/kernels/dct_project.py:63"),

@@ -119,3 +119,15 @@ def topr_margin(norms: torch.Tensor, r: int) -> torch.Tensor:
                           device=norms.device)
     v = torch.topk(norms.float(), r + 1, dim=-1).values
     return (v[..., r - 1] - v[..., r]) / (v[..., 0] + 1e-30)
+
+
+def reconstruction_error_sq(g: torch.Tensor, q: torch.Tensor,
+                            idx: torch.Tensor) -> torch.Tensor:
+    """``||G - G Q_r Q_r^T||_F^2`` by the §4.1 identity (right projection):
+    ``||G||_F^2 - sum over the selected i of ||G q_i||_2^2``, no
+    reconstruction materialized."""
+    gf = g.float()
+    norms = column_norms(gf @ q.float(), "l2")
+    total = (gf * gf).sum(dim=(-2, -1))
+    sel = torch.gather(norms, -1, idx.long()).sum(dim=-1)
+    return total - sel

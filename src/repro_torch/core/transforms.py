@@ -272,6 +272,10 @@ class BasisCache:
             raise ValueError(f"basis of shape {tuple(q.shape)} for n={n}")
         self._store[(kind, int(n), str(q.dtype), str(q.device))] = q
 
+    def stats(self) -> dict[str, int]:
+        return {"hits": self.hits, "misses": self.misses,
+                "entries": len(self._store)}
+
     def clear(self) -> None:
         self._store.clear()
         self.hits = 0

@@ -34,6 +34,17 @@ turns on the obs layer and writes ``DIR/metrics.prom`` and
 ``DIR/trace.json`` at the end (halted runs included); ``--obs-sync-every
 N`` also synchronizes the card every N steps.
 
+``--telemetry jsonl|csv`` collects each matrix leaf's subspace stats
+(captured energy, top-r margin, index overlap, EF norm, rank utilization)
+in the optimizer update and writes a row every ``--telemetry-every`` steps
+to ``--telemetry-path`` (default ``telemetry.<fmt>`` in ``--ckpt-dir``,
+else in the working directory; appended to when the run resumes).
+``--adaptive-rank`` (the projected-Adam family) reallocates the rank budget
+across layers by captured energy, ``--adaptive-refresh`` (``dct_adamw``)
+stretches or shrinks each leaf's refresh interval by index drift, each
+every ``--control-every`` steps: the optimizer is rebuilt with per-leaf
+overrides and its state migrated (``telemetry/adaptive.py``).
+
 Flags of the JAX CLI that this port does not support yet exit with
 "not yet ported".
 """
@@ -52,9 +63,7 @@ PROJECTED_ADAM_FAMILY = ("dct_adamw", "ldadamw", "galore", "frugal", "fira")
 FUSED_FAMILY = PROJECTED_ADAM_FAMILY + ("muon", "trion", "dion")
 
 # flags of ``python -m repro.launch.train`` not ported yet
-NOT_YET_PORTED = ("--tune-cache", "--zero", "--telemetry",
-                  "--telemetry-path", "--telemetry-every", "--adaptive-rank",
-                  "--adaptive-refresh", "--control-every")
+NOT_YET_PORTED = ("--tune-cache", "--zero")
 
 
 def build(argv=None) -> argparse.Namespace:
@@ -100,6 +109,25 @@ def build(argv=None) -> argparse.Namespace:
     ap.add_argument("--supervise", action="store_true",
                     help="run this CLI as a child of the restart supervisor "
                          "(crash -> resume from the latest checkpoint)")
+    # telemetry and adaptive control
+    ap.add_argument("--telemetry", default="off",
+                    choices=["off", "jsonl", "csv"],
+                    help="collect per-leaf SubspaceStats in the optimizer "
+                         "update and write step-bucketed rows to "
+                         "--telemetry-path")
+    ap.add_argument("--telemetry-path", default=None,
+                    help="output file (default telemetry.<fmt> in "
+                         "--ckpt-dir, else ./telemetry.<fmt>)")
+    ap.add_argument("--telemetry-every", type=int, default=10,
+                    help="steps aggregated per telemetry row")
+    ap.add_argument("--adaptive-rank", action="store_true",
+                    help="closed-loop per-layer rank reallocation from "
+                         "captured energy (projected-Adam family only)")
+    ap.add_argument("--adaptive-refresh", action="store_true",
+                    help="closed-loop per-layer refresh-interval control "
+                         "from index-overlap drift (dct_adamw)")
+    ap.add_argument("--control-every", type=int, default=50,
+                    help="steps between controller decisions")
     ap.add_argument("--obs-dir", default=None, metavar="DIR",
                     help="enable the obs layer (host-side metrics + phase "
                          "spans) and write DIR/metrics.prom + "
@@ -205,10 +233,29 @@ def run(args: argparse.Namespace, stop_at: int | None = None):
     from repro_torch.train.schedule import cosine_warmup
     from repro_torch.train.steps import init_state, make_train_step
 
+    adaptive = args.adaptive_rank or args.adaptive_refresh
+    if adaptive and args.optimizer not in PROJECTED_ADAM_FAMILY:
+        raise SystemExit("--adaptive-rank/--adaptive-refresh apply to the "
+                         f"projected-Adam family only, not "
+                         f"{args.optimizer!r}")
+    if args.adaptive_refresh and args.optimizer != "dct_adamw":
+        # drift is measured from index overlap, which only index-based
+        # projectors emit (the other presets of the family refresh dense
+        # bases: the scheduler would be silently inert)
+        raise SystemExit("--adaptive-refresh needs an index-based projector"
+                         " (dct); use --optimizer dct_adamw")
     dev = device_for(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     lr = cosine_warmup(args.lr, args.warmup, args.steps)
-    opt = get_optimizer(args.optimizer, lr=lr, **_optimizer_kwargs(args, dev))
+    opt_kw = _optimizer_kwargs(args, dev)
+    telemetry_on = args.telemetry != "off" or adaptive
+
+    def make_optimizer(overrides=None):
+        kw = dict(opt_kw)
+        if overrides:
+            kw["overrides"] = overrides
+        return get_optimizer(args.optimizer, lr=lr, **kw)
+
     chaos_plan = None
     if args.chaos is not None:
         from repro_torch.train.chaos import ChaosPlan
@@ -230,10 +277,65 @@ def run(args: argparse.Namespace, stop_at: int | None = None):
         if args.ckpt_dir:
             trainer_kw["ckpt_fault_hook"] = chaos_plan.bind_checkpoint_dir(
                 args.ckpt_dir)
+
+    def make_step(opt):
+        return make_train_step(cfg, opt, telemetry=telemetry_on,
+                               guard=args.resilient, chaos=chaos_plan)
+
+    sink = None
+    if args.telemetry != "off":
+        from repro_torch.telemetry.sink import TelemetrySink
+        from repro_torch.train.checkpoint import CheckpointManager
+        path = args.telemetry_path or (
+            os.path.join(args.ckpt_dir, f"telemetry.{args.telemetry}")
+            if args.ckpt_dir else f"telemetry.{args.telemetry}")
+        # append exactly when this run resumes from a checkpoint: a restart
+        # must not truncate the telemetry before it, a fresh run must not
+        # inherit a stale file
+        resuming = bool(args.ckpt_dir) and CheckpointManager(
+            args.ckpt_dir).latest_step() is not None
+        sink = TelemetrySink(path, fmt=args.telemetry,
+                             every=args.telemetry_every, append=resuming)
+        trainer_kw["log_metrics"] = sink.log_metrics
+
+    allocator = None
+    if adaptive:
+        from repro_torch.models import transformer as T
+        from repro_torch.telemetry.adaptive import AdaptiveOptimizerManager
+        from repro_torch.telemetry.controllers import (
+            RankAllocator, RankAllocatorConfig, RefreshScheduler,
+            RefreshSchedulerConfig, leaf_inventory)
+
+        leaves = leaf_inventory(T.init_params(cfg, args.seed, "meta"))
+        scheduler = None
+        if args.adaptive_rank:
+            allocator = RankAllocator(
+                RankAllocatorConfig(base_rank=opt_kw["rank"],
+                                    decide_every=args.control_every),
+                leaves)
+        if args.adaptive_refresh:
+            # the ladder starts from the preset's cadence (the dct_adamw
+            # preset refreshes every step), so a stretch doubles it
+            scheduler = RefreshScheduler(
+                RefreshSchedulerConfig(base_interval=1,
+                                       decide_every=args.control_every,
+                                       cooldown=args.control_every),
+                leaves)
+        manager = AdaptiveOptimizerManager(
+            make_optimizer=make_optimizer, make_step=make_step,
+            make_train_state=lambda opt: init_state(cfg, opt, args.seed,
+                                                    dev),
+            rank_allocator=allocator, refresh_scheduler=scheduler)
+        trainer_kw.update(train_step=manager.step,
+                          init_state_fn=manager.init_state,
+                          control_hook=manager.control_hook,
+                          extra_state=manager)
+    else:
+        opt = make_optimizer()
+        trainer_kw.update(train_step=make_step(opt),
+                          init_state_fn=lambda: init_state(cfg, opt,
+                                                           args.seed, dev))
     trainer = Trainer(
-        train_step=make_train_step(cfg, opt, guard=args.resilient,
-                                   chaos=chaos_plan),
-        init_state_fn=lambda: init_state(cfg, opt, args.seed, dev),
         batch_fn=batch_fn, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, log_every=args.log_every,
         resilience=resilience, sync_sample_every=args.obs_sync_every,
@@ -244,6 +346,8 @@ def run(args: argparse.Namespace, stop_at: int | None = None):
         state = trainer.run(total_steps=args.steps if stop_at is None
                             else stop_at)
     finally:
+        if sink is not None:
+            sink.close()
         if args.obs_dir:
             # halted runs included
             os.makedirs(args.obs_dir, exist_ok=True)
@@ -255,6 +359,8 @@ def run(args: argparse.Namespace, stop_at: int | None = None):
     if trainer.metrics_history:
         print(f"[train] done at step {state.step}: "
               f"loss {trainer.metrics_history[-1]['loss']:.4f}")
+    if allocator is not None:
+        print(f"[train] final rank allocation: {allocator.alloc}")
     return trainer
 
 

@@ -66,10 +66,14 @@ def _window(kind: str, cfg) -> int | None:
 
 def init_params(cfg, seed: int = 0, device=None) -> dict[str, torch.Tensor]:
     """Full parameter dict from a ``torch.Generator`` seeded with ``seed``
-    (its own stream: the values differ from ``repro``'s for the same seed)."""
+    (its own stream: the values differ from ``repro``'s for the same seed).
+    ``device="meta"`` gives the shapes and dtypes without values (the
+    counterpart of ``jax.eval_shape``; a meta tensor draws from no
+    generator)."""
     _check_ported(cfg)
     dev = torch.device(device or "cpu")
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     dt = getattr(torch, cfg.param_dtype)
     d, hq, hkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                          cfg.d_ff)

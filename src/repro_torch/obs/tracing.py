@@ -25,9 +25,9 @@ Exports:
     Perfetto): complete ``"X"`` events with microsecond ``ts``/``dur``,
     instants as ``"i"`` events.
   * :meth:`SpanTracer.to_sink` — step-bucketed records into any sink
-    with a ``log_metrics(record)`` method (the JAX package's
-    ``TelemetrySink``; the port has no telemetry sink yet): span
-    durations become ``span/<name>`` fields of per-step records.
+    with a ``log_metrics(record)`` method (such as
+    ``repro_torch.telemetry.sink.TelemetrySink``): span durations become
+    ``span/<name>`` fields of per-step records.
 """
 from __future__ import annotations
 

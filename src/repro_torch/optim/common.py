@@ -157,6 +157,22 @@ class Context:
     # ``lowrank_project`` (``transform.leaf_key``): the random projectors'
     # draws are seeded from it
     key: int | None = None
+    # telemetry channel (``repro_torch.telemetry.stats``): the chain runtime
+    # installs the active StatsCollector here and ``lowrank_project``
+    # narrows it to a per-leaf StatsScope. None = telemetry off: the rules
+    # then build no stat, and the step launches what it launches without
+    # telemetry.
+    stats: Any = None
+
+    def record_stats(self, stats) -> None:
+        """Emit this leaf's SubspaceStats into the active collector (no-op
+        when telemetry is off)."""
+        if self.stats is not None:
+            self.stats.record(stats)
+
+    @property
+    def wants_stats(self) -> bool:
+        return self.stats is not None
 
     def basis(self, n: int, dtype=torch.float32, kind: str = "dct",
               device=None) -> torch.Tensor:

@@ -22,8 +22,13 @@ kernels on "on". Both factors span the same subspace. Column signs of a QR
 differ between libraries, which flips the signs of ``P_t`` and ``Q_t``
 together: ``M_t`` and ``O_t`` do not depend on them, the state ``Q_t`` does.
 
-Not yet ported: ZeRO-1 (``zero=``) and telemetry (``emit_stats`` is kept
-but inert).
+Telemetry (``emit_stats``, with a collector installed): ``P_t`` is
+orthonormal, so the energy ``span(P_t)`` captures is ``||R_t||_F^2``; the
+per-column energies of ``R_t`` play the part the selected column norms play
+for Muon and Trion, ``ef_norm`` is ``||M_t||_F``, and margin and overlap
+are the -1 sentinel (Dion ranks no columns).
+
+Not yet ported: ZeRO-1 (``zero=``).
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import fused_step
+from repro_torch.telemetry import stats as tstats
 
 from .common import (
     MatrixRule,
@@ -66,7 +72,7 @@ class DionRule(MatrixRule):
     ns_steps: int = 5
     needs_shared_basis: bool = False
     fused: str = "auto"   # "off" / "auto" on the CPU: QR; "on" / "fft": NS
-    emit_stats: bool = True  # inert until telemetry is ported
+    emit_stats: bool = True  # SubspaceStats into ctx.stats
 
     def __post_init__(self):
         if self.fused not in fused_step.FUSED_MODES:
@@ -105,6 +111,16 @@ class DionRule(MatrixRule):
         col_norm = torch.linalg.vector_norm(r_t, dim=-2, keepdim=True)
         q_t = r_t / (col_norm + self.eps)
         out = p @ q_t.mT                                   # O_t
+        if ctx.wants_stats and self.emit_stats:
+            col_e = (r_t * r_t).sum(dim=-2)
+            batch = b_full.shape[:-2]
+            ctx.record_stats(tstats.SubspaceStats(
+                captured_energy=tstats.captured_energy(
+                    col_e.sum(dim=-1), (b_full * b_full).sum(dim=(-2, -1))),
+                topr_margin=tstats.sentinel(batch, b_full.device),
+                index_overlap=tstats.sentinel(batch, b_full.device),
+                ef_norm=torch.linalg.vector_norm(new_m, dim=(-2, -1)),
+                rank_utilization=tstats.rank_utilization(col_e)))
         d = deorient(scale * out, transposed)
         return d, DionLeaf(m=new_m, q=q_t)
 

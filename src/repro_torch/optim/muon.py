@@ -15,8 +15,12 @@ Momentum is stored *oriented* (projected dim last). Full-space NS on a
 moment whose short side exceeds ``fused_step.NS_KERNEL_MAX_RANK`` runs the
 plain iteration even on the "on" path (llama-350m's: 1024).
 
-Not yet ported: ZeRO-1 (``zero=``) and telemetry (``emit_stats`` is kept
-but inert).
+Telemetry (``emit_stats``, with a collector installed): the subspace
+variant records the captured energy and top-r margin of its selection from
+the column norms of S; it keeps no EF (``ef_norm`` 0) and no indices
+(overlap -1). Full-space Muon selects nothing and records nothing.
+
+Not yet ported: ZeRO-1 (``zero=``).
 """
 from __future__ import annotations
 
@@ -26,7 +30,9 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import fused_step
-from repro_torch.core.selection import column_norms, select_top_r, take_columns
+from repro_torch.core.selection import (column_norms, select_top_r,
+                                        take_columns, topr_margin)
+from repro_torch.telemetry import stats as tstats
 
 from .common import (
     MatrixRule,
@@ -62,7 +68,7 @@ class MuonRule(MatrixRule):
     ranking_norm: str = "l2"
     needs_shared_basis: bool = True  # basis_sizes() is () when rank is None
     fused: str = "auto"              # "auto" | "on" | "fft" | "off"
-    emit_stats: bool = True          # inert until telemetry is ported
+    emit_stats: bool = True          # SubspaceStats into ctx.stats
 
     def __post_init__(self):
         if self.ranking_norm not in _RANKING_NORMS:
@@ -101,13 +107,33 @@ class MuonRule(MatrixRule):
         n = ns_in.shape[-1]
         r = min(self.rank, n)
         q = ctx.basis(n, torch.float32, device=gf.device)
+        want_stats = ctx.wants_stats and self.emit_stats
         if mode != "off":
-            idx, b_low = fused_step.select_and_project(
-                ns_in, q, r, norm=self.ranking_norm, mode=mode)
+            sp = fused_step.select_and_project(
+                ns_in, q, r, norm=self.ranking_norm, mode=mode,
+                return_norms=want_stats)
+            idx, b_low = sp[0], sp[1]
+            norms_sq = sp[2] if want_stats else None
         else:
             s = ns_in @ q
-            idx = select_top_r(column_norms(s, self.ranking_norm), r)
+            norms_sq = (column_norms(s, "l2")
+                        if want_stats or self.ranking_norm == "l2" else None)
+            rank_norms = (norms_sq if self.ranking_norm == "l2"
+                          else column_norms(s, self.ranking_norm))
+            idx = select_top_r(rank_norms, r)
             b_low = take_columns(s, idx)
+        if want_stats:
+            col_e = torch.gather(norms_sq, -1, idx.long())
+            sel_sq = col_e.sum(dim=-1)
+            batch = ns_in.shape[:-2]
+            ctx.record_stats(tstats.SubspaceStats(
+                captured_energy=tstats.captured_energy(
+                    sel_sq, norms_sq.sum(dim=-1)),
+                topr_margin=topr_margin(norms_sq, r),
+                index_overlap=tstats.sentinel(batch, ns_in.device),
+                ef_norm=torch.zeros(batch, dtype=torch.float32,
+                                    device=ns_in.device),
+                rank_utilization=tstats.rank_utilization(col_e)))
         o = fused_step.fused_newton_schulz(b_low, steps=self.ns_steps,
                                            mode=mode)
         d = fused_step.fused_backproject(o, q, idx, mode=mode,

@@ -31,8 +31,16 @@ reference path. The dense projectors always take the reference math, as in
 the JAX package: ``torch.linalg`` refreshes and matmuls on the gradient's
 device (only their EF buffer goes through ``fused_step``).
 
-Not yet ported: ZeRO-1 (``zero_shardable`` is kept as a property) and
-telemetry (``emit_stats`` is kept but inert: there is no collector yet).
+Telemetry (``emit_stats``, with a collector installed: ``repro_torch.
+telemetry``): each update records the leaf's :class:`SubspaceStats` from
+tensors it already holds. On a fused refresh step the total energy is the
+sum of the column norms ``select_and_project`` returns (on the kernel path
+they come out of ``dct_project`` itself), the selected energies a gather of
+them; on a keep step margin and overlap are the -1 sentinel and the total
+is one reduction over ``G``; ``ef_norm`` is the orthogonal split
+``sqrt(||G||^2 - ||g_low||^2)``, never a reduction over the residual.
+
+Not yet ported: ZeRO-1 (``zero_shardable`` is kept as a property).
 """
 from __future__ import annotations
 
@@ -44,9 +52,10 @@ import torch
 from repro_torch.core import fused_step
 from repro_torch.core.error_feedback import zeros_q8
 from repro_torch.core.projectors import Projector, projector_kinds, rotation_matrix
-from repro_torch.core.selection import allsum
+from repro_torch.core.selection import allsum, index_overlap, topr_margin
 from repro_torch.core.transforms import backend_kinds, get_backend, is_backend
 from repro_torch.kernels.lowp import COMPUTE_DTYPES
+from repro_torch.telemetry import stats as tstats
 
 from .common import (MatrixRule, Optimizer, Schedule, deorient, orient_right,
                      oriented_dims, reject_unported)
@@ -87,7 +96,8 @@ class ProjectedAdamRule(MatrixRule):
     exact_rotation_matmul: bool = False   # paper-literal R via matmul
     needs_shared_basis: bool = True
     fused: str = "auto"               # "auto" | "on" | "fft" | "off"
-    emit_stats: bool = True           # inert until telemetry is ported
+    emit_stats: bool = True           # record SubspaceStats when a
+    #   telemetry collector is installed (``ctx.stats``)
     compute_dtype: str = "fp32"       # projection precision on the fused
     #   modes: "fp32" | "bf16" | "int8" (kernels/lowp.py); the reference
     #   path has no low-precision mirror, so a non-fp32 dtype that would run
@@ -191,14 +201,19 @@ class ProjectedAdamRule(MatrixRule):
         if state.ef is not None:
             gf = fused_step.ef_add(gf, state.ef, mode=mode)
 
+        want_stats = ctx.wants_stats and self.emit_stats
         refresh = (self.update_interval == 1
                    or ctx.step % self.update_interval == 1 or ctx.step == 1)
         rot = None
+        norms_sq = None
         if refresh:
             if fused:
-                proj_state, g_low = fused_step.select_and_project(
+                sp = fused_step.select_and_project(
                     gf, q, r, norm=self.ranking_norm, mode=mode,
-                    backend=backend, compute_dtype=self.compute_dtype)
+                    return_norms=want_stats, backend=backend,
+                    compute_dtype=self.compute_dtype)
+                proj_state, g_low = sp[0], sp[1]
+                norms_sq = sp[2] if want_stats else None
             else:
                 proj_state = p.update(gf, state.proj, shared_q=q, key=ctx.key)
                 g_low = p.project(gf, proj_state, shared_q=q)
@@ -212,6 +227,11 @@ class ProjectedAdamRule(MatrixRule):
             g_low = (fused_step.project_with_indices(
                         gf, q, proj_state, compute_dtype=self.compute_dtype)
                      if fused else p.project(gf, proj_state, shared_q=q))
+        if want_stats:
+            # no later op of the step writes into any tensor read here
+            ctx.record_stats(self._stats(gf, g_low, norms_sq, state.proj,
+                                         proj_state, refresh, p.index_based,
+                                         r))
 
         if rot is not None:
             m_prev = state.m @ rot
@@ -261,6 +281,41 @@ class ProjectedAdamRule(MatrixRule):
         d = deorient(d, transposed)
         return d, ProjAdamLeaf(m=m, v=v, proj=proj_state, ef=new_ef,
                                inner_step=inner)
+
+    def _stats(self, gf, g_low, norms_sq, prev_proj, proj_state, refresh,
+               idx_based, r) -> "tstats.SubspaceStats":
+        """The leaf's SubspaceStats, from what the update already holds.
+
+        A fused refresh has the squared column norms of ``S = G Q``
+        (``norms_sq``): the total energy is their sum (Q orthogonal:
+        ||S||^2 == ||G||^2) and the selected energies a gather of them at
+        the new indices. Elsewhere the total is one reduction over ``gf``
+        and the selected energies one over the skinny ``g_low``. A keep
+        step ran no selection: margin and overlap are the -1 sentinel, as
+        is the overlap of a projector that keeps no indices."""
+        batch = gf.shape[:-2]
+        if norms_sq is not None:
+            total_sq = norms_sq.sum(dim=-1)
+            col_e = torch.gather(norms_sq, -1, proj_state.long())
+            margin = topr_margin(norms_sq, r)
+        else:
+            total_sq = (gf * gf).sum(dim=(-2, -1))
+            col_e = (g_low * g_low).sum(dim=-2)
+            margin = tstats.sentinel(batch, gf.device)
+        overlap = (index_overlap(prev_proj, proj_state)
+                   if refresh and idx_based
+                   else tstats.sentinel(batch, gf.device))
+        sel_sq = col_e.sum(dim=-1)
+        if self.residual == "ef":
+            # the orthogonal split ||Xi||^2 = ||G||^2 - ||g_low||^2
+            ef_norm = torch.sqrt(torch.clamp_min(total_sq - sel_sq, 0.0))
+        else:
+            ef_norm = torch.zeros(batch, dtype=torch.float32,
+                                  device=gf.device)
+        return tstats.SubspaceStats(
+            captured_energy=tstats.captured_energy(sel_sq, total_sq),
+            topr_margin=margin, index_overlap=overlap, ef_norm=ef_norm,
+            rank_utilization=tstats.rank_utilization(col_e))
 
 
 def _rule(rule_kw) -> ProjectedAdamRule:

@@ -24,9 +24,13 @@ and ``lowrank_project`` folds in ``path_hash`` of each leaf's path
 keys here are 63-bit integers mixed by splitmix64, so the stream is the
 port's own: the same seed gives other draws than JAX's.
 
+Telemetry: ``as_optimizer`` puts the collector installed by
+``telemetry.stats.collect`` (if any) into the step's ``Context``, and
+``lowrank_project`` narrows it to each leaf's path, the key ``overrides=``
+takes.
+
 Not yet ported from ``repro.optim.transform``: ``clip_global_norm``,
-``scale_by_schedule``, ``merge_by_label``, ``masked``, ZeRO-1 and the
-telemetry collector.
+``scale_by_schedule``, ``merge_by_label``, ``masked`` and ZeRO-1.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from repro_torch.core.transforms import (
     normalize_basis_request,
     shared_basis,
 )
+from repro_torch.telemetry.stats import active_collector
 
 from .common import (
     AdamMoments,
@@ -304,7 +309,11 @@ def lowrank_project(rule: MatrixRule, *,
     ``scale_by_learning_rate`` / ``add_decayed_weights``.
 
     ``overrides`` maps leaf paths to field replacements on ``rule``, e.g.
-    ``{"block/0/wq": {"rank": 192, "update_interval": 4}}``."""
+    ``{"block/0/wq": {"rank": 192, "update_interval": 4}}``: the plug point
+    the adaptive rank / refresh controllers drive (``telemetry.adaptive``
+    rebuilds the optimizer and migrates its state when they move). The
+    telemetry collector, if one is installed, is narrowed to the same path,
+    so a leaf's stats land under its override key."""
 
     def rule_for(path: str) -> MatrixRule:
         if overrides and path in overrides:
@@ -318,7 +327,9 @@ def lowrank_project(rule: MatrixRule, *,
     def update(updates, state, params, ctx):
         d, new_state = {}, {}
         for k, g in updates.items():
-            leaf_ctx = dataclasses.replace(ctx, key=leaf_key(ctx.key, k))
+            leaf_ctx = dataclasses.replace(
+                ctx, key=leaf_key(ctx.key, k),
+                stats=ctx.stats.scope(k) if ctx.stats is not None else None)
             d[k], new_state[k] = rule_for(k).update(g, state[k], params[k],
                                                     leaf_ctx)
         return d, new_state
@@ -379,8 +390,11 @@ def as_optimizer(transform: GradientTransform, *, seed: int = 0,
 
     def update(grads, state: ChainState, params):
         step = state.step + 1
+        # the collector installed around this call (``telemetry.stats.
+        # collect``), if any, rides the ctx; rules record into it
         ctx = Context(step=step, bases=state.bases, bases_t=state.bases_t,
-                      key=fold_in(state.seed, step))
+                      key=fold_in(state.seed, step),
+                      stats=active_collector())
         updates, leaves = transform.update(grads, state.leaves, params, ctx)
         return updates, state._replace(step=step, leaves=leaves)
 

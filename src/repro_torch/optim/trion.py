@@ -30,8 +30,13 @@ so the top-r margin shrinks step by step until a 1-ulp difference in S flips
 it. Over many steps two implementations that sum in different orders may
 therefore select differently; one step from the same state selects alike.
 
-Not yet ported: ZeRO-1 (``zero=``) and telemetry (``emit_stats`` is kept
-but inert).
+Telemetry (``emit_stats``, with a collector installed): the stats come
+from the column norms of S (``dct_project``'s own on the kernel path): the
+captured energy of the selected columns, the top-r margin, and the EF mass
+``sqrt(||B||^2 - ||b||^2)``; the indices are recomputed every step, so the
+overlap is the -1 sentinel.
+
+Not yet ported: ZeRO-1 (``zero=``).
 """
 from __future__ import annotations
 
@@ -42,7 +47,10 @@ import torch
 
 from repro_torch.core import fused_step
 from repro_torch.core.dct import makhoul_dct2
-from repro_torch.core.selection import dynamic_column_selection
+from repro_torch.core.selection import (column_norms,
+                                        dynamic_column_selection,
+                                        topr_margin)
+from repro_torch.telemetry import stats as tstats
 
 from .common import (
     MatrixRule,
@@ -81,7 +89,7 @@ class TrionRule(MatrixRule):
     momentum_dtype: str = "float32"  # "float32" | "bfloat16"
     needs_shared_basis: bool = True
     fused: str = "auto"              # "auto" | "on" | "fft" | "off"
-    emit_stats: bool = True          # inert until telemetry is ported
+    emit_stats: bool = True          # SubspaceStats into ctx.stats
 
     def __post_init__(self):
         for name, value, allowed in (
@@ -112,14 +120,31 @@ class TrionRule(MatrixRule):
         scale = max(1.0, (g_rows / g_cols) ** 0.5)
         mode = fused_step.resolve(self.fused, gf.device)
 
+        want_stats = ctx.wants_stats and self.emit_stats
+
         b_full = (state.m.float() + gf).contiguous()            # B_t
         q = ctx.basis(cols, torch.float32, device=gf.device)
         if mode != "off":
-            idx, b = fused_step.select_and_project(
-                b_full, q, r, norm=self.ranking_norm, mode=mode)
+            sp = fused_step.select_and_project(
+                b_full, q, r, norm=self.ranking_norm, mode=mode,
+                return_norms=want_stats)
+            idx, b = sp[0], sp[1]
+            norms_sq = sp[2] if want_stats else None
         else:
             s = makhoul_dct2(b_full) if self.dct_method == "fft" else b_full @ q
             idx, b = dynamic_column_selection(s, r, ord=self.ranking_norm)
+            norms_sq = column_norms(s, "l2") if want_stats else None
+        if want_stats:
+            col_e = torch.gather(norms_sq, -1, idx.long())
+            sel_sq = col_e.sum(dim=-1)
+            total_sq = norms_sq.sum(dim=-1)
+            ctx.record_stats(tstats.SubspaceStats(
+                captured_energy=tstats.captured_energy(sel_sq, total_sq),
+                topr_margin=topr_margin(norms_sq, r),
+                index_overlap=tstats.sentinel(b_full.shape[:-2],
+                                              b_full.device),
+                ef_norm=torch.sqrt(torch.clamp_min(total_sq - sel_sq, 0.0)),
+                rank_utilization=tstats.rank_utilization(col_e)))
 
         o = fused_step.fused_newton_schulz(b, steps=self.ns_steps, mode=mode)
         # both back-projections share one Q_r^T gather

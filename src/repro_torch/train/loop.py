@@ -14,6 +14,11 @@ Hooks (the reference's):
     ``record`` is ``{"step": int, "s_per_step": float, **metrics}``. The
     console line (``[trainer] step N loss L (T ms/step)`` every
     ``log_every`` steps) is built from the same records.
+    A step made with ``telemetry=True`` returns its per-leaf stats under
+    ``metrics["telemetry"]``; when ``log_metrics`` or ``control_hook`` is
+    set, the Trainer copies the whole tree to the host in one piece
+    (``telemetry.stats.to_host``: one device -> host copy a step) and both
+    hooks read that copy. ``metrics_history`` keeps the scalars only.
 ``control_hook(step, state, metrics) -> state | None``
     Called every committed step; a non-None return replaces the state.
 ``extra_state``
@@ -47,6 +52,8 @@ import torch
 
 from repro_torch import obs
 from repro_torch.data.pipeline import DataPipeline
+
+from repro_torch.telemetry.stats import to_host
 
 from .checkpoint import CheckpointManager
 from .resilience import TrainingHalted
@@ -222,7 +229,8 @@ class Trainer:
                 # gradient norm waits for the backward): it proves them
                 # ready, not the optimizer update (module docstring)
                 with self._tracer.span("train/host_sync", step=step + 1):
-                    metrics = {k: float(v) for k, v in metrics.items()}
+                    metrics = {k: v if k == "telemetry" else float(v)
+                               for k, v in metrics.items()}
                 dt = time.perf_counter() - t0
                 self._m["data_wait"].observe(t_data - t0)
                 self._m["dispatch"].observe(t_disp - t_data)
@@ -235,6 +243,12 @@ class Trainer:
                         _sync_device(state)
                     self._m["full_sync"].observe(
                         time.perf_counter() - t_data)
+                if "telemetry" in metrics and (
+                        self.log_metrics is not None
+                        or self.control_hook is not None):
+                    # one bulk device -> host copy shared by the sink and
+                    # the controllers (not one per field, twice)
+                    metrics["telemetry"] = to_host(metrics["telemetry"])
                 committed = True
                 if res is not None:
                     action = res.observe(
@@ -263,8 +277,11 @@ class Trainer:
                         raise TrainingHalted(action.reason)
                 if committed:
                     self._m["steps"].inc(1, ("committed",))
-                    history.append(dict(metrics, step=step + 1,
-                                        s_per_step=dt))
+                    # scalars only: every step's per-leaf stats would
+                    # pile up, and the sink's ring and file keep them
+                    history.append({**{k: v for k, v in metrics.items()
+                                       if k != "telemetry"},
+                                    "step": step + 1, "s_per_step": dt})
                     self._emit(step + 1, metrics, dt)
                     if self.control_hook is not None:
                         new_state = self.control_hook(step + 1, state,

@@ -7,9 +7,11 @@ PyTorch; the DCT projection, the column selection and the error feedback run
 inside the optimizer update, never differentiated. The step is functional:
 it returns a new ``TrainState`` and writes into no tensor of the old one.
 That is what lets the guarded step (``guard=True``) refuse an update by
-returning the old state whole (``train.resilience``).
-
-Not yet ported: the telemetry collector (``telemetry=True``).
+returning the old state whole (``train.resilience``). ``telemetry=True``
+installs a stats collector around the optimizer update and returns the
+rules' per-leaf :class:`~repro_torch.telemetry.stats.SubspaceStats` under
+``metrics["telemetry"]``, on the device (the Trainer copies them to the
+host in one piece).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 
 from repro_torch.models import transformer as T
 from repro_torch.optim import apply_updates
+from repro_torch.telemetry.stats import collect
 from repro_torch.train.chaos import strip_chaos_key
 from repro_torch.train.resilience import all_finite_tree, select_tree
 
@@ -88,12 +91,15 @@ def make_train_step(cfg, optimizer, *, grad_clip: float = 1.0,
     step counter included (``resilience.select_tree``). With ``guard=False``
     the step launches what it launched before the option existed.
 
+    ``telemetry=True`` installs a stats collector around the optimizer
+    update; the per-leaf :class:`SubspaceStats` the rules record come back
+    under ``metrics["telemetry"]``. The stats only read what the update
+    computes: the new state is bit-equal to the one without telemetry.
+    Off, the step launches what it launched before the option existed.
+
     ``chaos``: a :class:`~repro_torch.train.chaos.ChaosPlan` whose ``grads``
     faults are added to the gradients on the data step the plan's batch
     wrapper stamps into each batch (tests and drills only)."""
-    if telemetry:
-        raise NotImplementedError("telemetry=True (the stats collector) is "
-                                  "not yet ported to repro_torch")
     if accum_dtype not in _ACCUM_DTYPES:
         raise ValueError(f"accum_dtype {accum_dtype!r}: expected one of "
                          f"{sorted(_ACCUM_DTYPES)}")
@@ -129,10 +135,19 @@ def make_train_step(cfg, optimizer, *, grad_clip: float = 1.0,
         else:
             gnorm = _global_norm(grads)
 
-        updates, new_opt = optimizer.update(grads, state.opt_state,
-                                            state.params)
+        metrics = dict(metrics)
+        if telemetry:
+            with collect() as col:
+                updates, new_opt = optimizer.update(grads, state.opt_state,
+                                                    state.params)
+            tel = col.tree()
+            if tel:
+                metrics["telemetry"] = tel
+        else:
+            updates, new_opt = optimizer.update(grads, state.opt_state,
+                                                state.params)
         new_params = apply_updates(state.params, updates)
-        metrics = dict(metrics, grad_norm=gnorm)
+        metrics["grad_norm"] = gnorm
         new_state = TrainState(state.step + 1, new_params, new_opt)
         if guard:
             # gnorm is a sum of squares over every gradient element, so a

@@ -58,6 +58,14 @@ SUBSTRATE_MODULES = ("repro_torch.data.pipeline", "repro_torch.train.checkpoint"
                      "repro_torch.train.steps", "repro_torch.train.schedule")
 
 
+# the modules of the telemetry slice
+TELEMETRY_MODULES = ("repro_torch.telemetry", "repro_torch.telemetry.stats",
+                     "repro_torch.telemetry.sink",
+                     "repro_torch.telemetry.controllers",
+                     "repro_torch.telemetry.adaptive",
+                     "repro_torch.core.selection")
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC)
@@ -102,6 +110,11 @@ def test_substrate_modules_import_without_jax_or_repro(probe, name):
     assert name in probe[1].split()
 
 
+@pytest.mark.parametrize("name", TELEMETRY_MODULES)
+def test_telemetry_modules_import_without_jax_or_repro(probe, name):
+    assert name in probe[1].split()
+
+
 def _imported_roots(path: Path) -> set[str]:
     roots = set()
     for node in ast.walk(ast.parse(path.read_text())):
@@ -117,7 +130,7 @@ def _imported_roots(path: Path) -> set[str]:
 CARD_SCRIPTS = ("attention_kernels_probe.py", "backproject_probe.py",
                 "dct_project_probe.py", "ns_apply_tiles_probe.py",
                 "sanitize_kernels.py", "substrate_probe.py",
-                "tf32_mma_probe.py")
+                "telemetry_probe.py", "tf32_mma_probe.py")
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -143,7 +143,7 @@ def test_cli_default_device_raises_without_cuda():
         train_cli.main(["--smoke", "--steps", "1"])
 
 
-@pytest.mark.parametrize("argv", [["--zero", "1"], ["--telemetry=jsonl"],
+@pytest.mark.parametrize("argv", [["--zero", "1"], ["--tune-cache", "x"],
                                   ["--optimizer", "adamw", "--fused", "on"],
                                   ["--arch", "qwen2.5-32b"]])
 def test_cli_unported_choices_fail(argv):

@@ -379,11 +379,20 @@ def test_accumulated_gradients_match_jax(accum_dtype):
 
 
 def test_accum_dtype_rejects_unknown_and_telemetry_is_unported():
+    """The name predates telemetry's port: an unknown accum_dtype is still
+    refused, and telemetry=True now returns the stats."""
     opt = get_optimizer("adamw", lr=0.01)
     with pytest.raises(ValueError, match="accum_dtype"):
         TS.make_train_step(CFG, opt, accum_dtype="float16")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TS.make_train_step(CFG, opt, telemetry=True)
+    # adamw has no low-rank leaf: nothing to record, no telemetry entry
+    batch = {k: torch.from_numpy(v) for k, v in _np_batch(2).items()}
+    _, m = TS.make_train_step(CFG, opt, telemetry=True)(
+        TS.init_state(CFG, opt, seed=0), batch)
+    assert "telemetry" not in m
+    opt = get_optimizer("dct_adamw", lr=0.01, rank=16)
+    _, m = TS.make_train_step(CFG, opt, telemetry=True)(
+        TS.init_state(CFG, opt, seed=0), batch)
+    assert len(m["telemetry"]) == 7
 
 
 def test_eval_step_matches_jax():
@@ -552,10 +561,7 @@ def test_cli_flags_and_resilient_optimizer(monkeypatch):
                  "--max-skips", "--max-rollbacks", "--lr-cut", "--chaos",
                  "--obs-dir", "--obs-sync-every"):
         assert flag not in train_cli.NOT_YET_PORTED
-    assert set(train_cli.NOT_YET_PORTED) == {
-        "--tune-cache", "--zero", "--telemetry", "--telemetry-path",
-        "--telemetry-every", "--adaptive-rank", "--adaptive-refresh",
-        "--control-every"}
+    assert set(train_cli.NOT_YET_PORTED) == {"--tune-cache", "--zero"}
     args = train_cli.build(CLI + ["--resilient"])
     assert (args.max_skips, args.max_rollbacks, args.lr_cut,
             args.ckpt_every, args.obs_sync_every) == (2, 3, 0.5, 50, 0)
