@@ -221,12 +221,44 @@ device or without the port beside it. Any failure raises. Phases:
    a new manager: the losses equal to (c)'s bit for bit. Its files live
    under ``build/chip_smoke_telemetry`` and are deleted at the end. The
    phase's wall time is printed.
-17. The ``kernels`` line, the card's line, and last:
+17. The dense configurations of the JAX registry at full width on random
+   weights (``--seed`` of the CLIs' default 0), bf16 compute: qwen2.5-32b
+   (qkv bias, 40 / 8 heads: group 5), phi3-mini-3.8b (32 / 32 heads of 96)
+   and command-r-plus-104b (96 / 8 heads: group 12). (a) The kernels at
+   their shapes against their plain versions, each launched twice
+   (bit-identical): ``flash_decode`` on the 16-byte path (4 slots, block
+   16, lengths 512-2080, 1 and 2 splits, q in fp32 and bf16) at the bar of
+   phase 5, and ``flash_attention_blockwise`` at each model's prefill (2 x
+   2048, causal, kv chunk 1024) at the model's bar; each timed per call
+   beside its bound and SDPA on the same tensors. (b) Serving, the
+   counters zeroed just before each run and read just after: the dense
+   ``ServeEngine`` (2 prompts x 2048, 32 new tokens; ``depth``
+   ``flash_attention_blockwise`` launches per prefill, nothing else) with
+   phase 13's checks (last logits against the plain loop within
+   ``PREFILL_LOGITS_RTOL`` beside the floor, each layer's kernel output
+   against the loop on its own inputs, a rerun equal), and
+   ``PagedServeEngine`` as gemma3-27b's in phase 13 (``depth``
+   ``flash_decode`` launches per decode step; a solo rerun equal). Depths
+   (``CONFIG_SERVE_DEPTHS``): qwen2.5-32b cut from 64 to 8 layers,
+   phi3-mini-3.8b at its full 32, command-r-plus-104b cut from 64 to 4
+   (its untied 256000 x 12288 embedding and unembedding are 6.3 GB of the
+   25.2). (c) Training through ``repro_torch.launch.train`` (its ``run``
+   in this process; a cut depth by the registry's entry, the CLI has no
+   depth flag): DCT-AdamW, rank 128, 3 steps: phi3-mini-3.8b at full width,
+   depth cut from 32 to 24 (at 32 a step runs out of memory), batch 8 x
+   512 (fp32 parameters), and qwen2.5-32b at full width, depth cut to 2,
+   batch 2 x 512 (bf16 parameters with the qkv bias): 7 launches of each
+   of the four kernels per step, finite losses, step time and peak memory;
+   then phi3-mini-3.8b's optimizer update alone at depth 24 on one
+   gradient (no Trainer, no new parameters), timed and under the profiler
+   (its device time by kernel). The phase's wall time is printed.
+18. The ``kernels`` line, the card's line, and last:
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -450,6 +482,29 @@ OFF16_RANK = 136
 # so the scheduler doubles each leaf's interval at each decision and keep
 # steps follow)
 REFRESH_RUNS = ((RANK, STEPS), (1024, 10))
+
+# the dense configurations (phase 17): serving depths (full width; qwen2.5-32b
+# and command-r-plus-104b cut from 64 layers to fit one card beside the
+# checks' extra forwards), and the training runs: (arch, depth, batch); 3
+# steps of seq 512, DCT-AdamW rank 128. phi3-mini-3.8b is cut from 32
+# layers to 24: at 32 its second step ran out of the card's 79.2 GiB (69.0
+# allocated, 8.3 reserved free; fp32 parameters, gradients, updates and
+# the new parameters are 15.3 GB each; NVIDIA H100 80GB HBM3, 700 W)
+CONFIG_SERVE_DEPTHS = {"qwen2.5-32b": 8, "phi3-mini-3.8b": 32,
+                       "command-r-plus-104b": 4}
+CONFIG_TRAIN_RUNS = (("phi3-mini-3.8b", 24, 8), ("qwen2.5-32b", 2, 2))
+CONFIG_TRAIN_STEPS = 3
+# the optimizer update alone (no Trainer, no new parameters): (arch, depth,
+# batch of its gradient). At phi3-mini-3.8b's full 32 layers it peaked at
+# 77.4 GB of the card's 79.2 GiB (scripts/dense_configs_probe.py
+# --update-depth 32; NVIDIA H100 80GB HBM3, 700 W): too close to run after
+# the other phases, so at the trained depth
+CONFIG_UPDATE_PROFILE = ("phi3-mini-3.8b", 24, 8)
+# flash_decode at the configurations' decode shapes: (hq, hkv, hd)
+CONFIG_DECODE_SHAPES = {"qwen2.5-32b": (40, 8, 128),
+                        "phi3-mini-3.8b": (32, 32, 96),
+                        "command-r-plus-104b": (96, 8, 128)}
+CONFIG_DECODE_LENS = [512, 1034, 1557, 2080]
 
 
 def _device_line() -> str:
@@ -2010,7 +2065,9 @@ def _prefill_attention_probe(torch, T, params, tokens, cfg, mode: str):
     from repro_torch.models import layers as L
 
     gaps = []
-    route = T.blockwise_attention
+    # attn_sp configurations attend through sp_blockwise_attention (the
+    # same function and route on one device)
+    routes = (T.blockwise_attention, T.sp_blockwise_attention)
 
     def attn(q, k, v, **kw):
         want = fa.blockwise_attention_ref(q, k, v, **kw)
@@ -2026,19 +2083,20 @@ def _prefill_attention_probe(torch, T, params, tokens, cfg, mode: str):
                      (d.max() / ulp).item()))
         return got
 
-    T.blockwise_attention = attn
+    T.blockwise_attention = T.sp_blockwise_attention = attn
     try:
         with torch.inference_mode():
             logits, _ = T.forward(params, {"tokens": tokens}, cfg)
     finally:
-        T.blockwise_attention = route
+        T.blockwise_attention, T.sp_blockwise_attention = routes
     return gaps if mode == "gaps" else logits[:, -1].float()
 
 
-def run_dense_prefill(torch, dev, name: str) -> dict:
+def run_dense_prefill(torch, dev, name: str, cfg=None) -> dict:
     """Phase 13, dense engine: ``ServeEngine.generate`` of llama-350m (bf16,
-    or fp32 compute) or gemma3-27b at depth 8, counters zeroed just before.
-    Returns the counts."""
+    or fp32 compute) or gemma3-27b at depth 8, counters zeroed just before;
+    phase 17: of ``cfg`` (a dense configuration, bf16 compute, 2 prompts x
+    2048). Returns the counts."""
     import dataclasses
 
     import numpy as np
@@ -2049,7 +2107,9 @@ def run_dense_prefill(torch, dev, name: str) -> dict:
     from repro_torch.models import transformer as T
     from repro_torch.serve import ServeEngine
 
-    if name == "llama-350m":
+    if cfg is not None:
+        (b, s), new = GEMMA_PROMPTS, GEMMA_NEW
+    elif name == "llama-350m":
         cfg, (b, s), new = get_config(name), LLAMA_PROMPTS, LLAMA_NEW
     elif name == "llama-350m fp32":
         cfg = dataclasses.replace(get_config("llama-350m"),
@@ -2057,7 +2117,7 @@ def run_dense_prefill(torch, dev, name: str) -> dict:
         (b, s), new = LLAMA_F32_PROMPTS, LLAMA_NEW
     else:
         cfg, (b, s), new = _gemma3_depth8(), GEMMA_PROMPTS, GEMMA_NEW
-    kernel = DENSE_RUNS[name]
+    kernel = DENSE_RUNS.get(name, "flash_attention_blockwise")
     params = T.init_params(cfg, seed=0, device=dev)
     eng = ServeEngine(cfg, params, max_len=s + new)
     del params
@@ -2093,6 +2153,7 @@ def run_dense_prefill(torch, dev, name: str) -> dict:
             T.prefill(eng.params, {"tokens": tokens}, cfg, max_len=s + new)
             torch.cuda.synchronize()
             prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    prefill_peak = torch.cuda.max_memory_allocated()
     plain = _plain_route_last_logits(torch, T, eng.params, tokens, cfg)
     last = last.float()
     assert torch.isfinite(last).all() and last.shape == (b, cfg.vocab_size)
@@ -2131,7 +2192,11 @@ def run_dense_prefill(torch, dev, name: str) -> dict:
         "per_layer_attention_max_rel": [g[1] for g in gaps],
         "per_layer_attention_max_ulps_of_max_out": [g[2] for g in gaps],
         "rerun_equal": True,
+        "ttft_ms": prefill_ms,
+        "decode_ms_per_step_est": (wall * 1e3 - prefill_ms) / new,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "serving_max_memory_allocated_bytes": prefill_peak,
+        "params": T.param_count(eng.params),
         "profiled_prefill_wall_ms": prof_wall_ms,
         "prefill_device_busy_ms": busy_ms,
         "prefill_device_idle_share": 1.0 - busy_ms / prof_wall_ms,
@@ -2143,10 +2208,10 @@ def run_dense_prefill(torch, dev, name: str) -> dict:
     return counts
 
 
-def run_gemma3_paged(torch, dev) -> dict:
+def run_paged(torch, dev, cfg=None, label=None) -> dict:
     """Phase 13, paged engine: gemma3-27b at depth 8 on
-    ``PagedServeEngine``, counters zeroed just before. Returns the
-    counts."""
+    ``PagedServeEngine``, counters zeroed just before; phase 17: ``cfg``
+    the same way. Returns the counts."""
     import numpy as np
 
     from repro_torch import obs
@@ -2154,7 +2219,10 @@ def run_gemma3_paged(torch, dev) -> dict:
     from repro_torch.models import transformer as T
     from repro_torch.serve import PagedServeEngine, Session
 
-    cfg = _gemma3_depth8()
+    if cfg is None:
+        cfg = _gemma3_depth8()
+        label = ("gemma3-27b depth 8 bf16 PagedServeEngine, flash_decode "
+                 "with window 1024 on local layers")
     max_blocks = -(-(GEMMA_PROMPT_LENS[1] + GEMMA_NEW) // BLOCK)
     eng = PagedServeEngine(
         cfg, T.init_params(cfg, seed=0, device=dev), block_size=BLOCK,
@@ -2188,15 +2256,14 @@ def run_gemma3_paged(torch, dev) -> dict:
     solo = sess.submit(prompts[2], max_new_tokens=GEMMA_NEW)
     eng.run()
     assert solo.tokens == handles[2].tokens, \
-        "gemma3 paged: the solo rerun differs from the churned stream"
+        f"{cfg.name} paged: the solo rerun differs from the churned stream"
     decode_ms = [r["dur"] / 1e6 for r in spans
                  if r["name"] == "serve/decode_step"]
     admit_ms = [r["dur"] / 1e6 for r in spans if r["name"] == "serve/admit"]
     tokens = sum(len(h.tokens) for h in handles)
     stats = eng.stats()
     print(json.dumps({
-        "paged_path": "gemma3-27b depth 8 bf16 PagedServeEngine, "
-                      "flash_decode with window 1024 on local layers",
+        "paged_path": label,
         "slots": GEMMA_SLOTS, "block_size": BLOCK,
         "requests": GEMMA_REQUESTS, "prompt_lens": lens.tolist(),
         "new_tokens": GEMMA_NEW, "prefill_chunk": GEMMA_CHUNK,
@@ -3145,6 +3212,230 @@ def run_telemetry(torch, dev, main_losses) -> None:
           flush=True)
 
 
+def _config(arch: str, depth=None):
+    """``arch`` at full width, its one schedule segment cut to ``depth``
+    layers (``None``: the configuration's own depth)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    if depth is None or depth == cfg.n_layers:
+        return cfg
+    (pattern, _), = cfg.schedule
+    return dataclasses.replace(cfg, schedule=((pattern, depth),))
+
+
+def check_config_kernels(torch, dev) -> dict:
+    """Phase 17 (a): ``flash_decode`` and ``flash_attention_blockwise`` at
+    the dense configurations' decode and prefill shapes against their plain
+    versions, each timed per call beside its bound and SDPA on the same
+    tensors. Returns ``{arch: {kernel: case}}``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    maxb = -(-(GEMMA_PROMPT_LENS[1] + GEMMA_NEW) // BLOCK)
+    run_blocks = sum(-(-n // BLOCK) for n in CONFIG_DECODE_LENS)
+    b, s = GEMMA_PROMPTS
+    out = {}
+    for i, (arch, (hq, hkv, hd)) in enumerate(CONFIG_DECODE_SHAPES.items()):
+        cfg = _config(arch)
+        assert (cfg.n_heads, cfg.n_kv_heads, cfg.hd) == (hq, hkv, hd), arch
+        # decode: the paged engine's slots, lengths up to a 2048-token
+        # prompt and 32 new tokens
+        args = _fd_case(torch, dev, 40 + i, b=GEMMA_SLOTS, hq=hq, hkv=hkv,
+                        hd=hd, bs=BLOCK, maxb=maxb,
+                        lengths=CONFIG_DECODE_LENS, kv_dtype=bf16)
+        assert fd.vector_path(args[1], args[2]), arch
+        errs = [_fd_compare(torch, fd, args, qd, sp)
+                for qd in (f32, bf16) for sp in (1, NUM_SPLITS)]
+        q, k, v, table, ln = args
+        q = q.to(bf16)
+
+        def call():
+            return fd.flash_decode(q, k, v, table, ln, num_splits=NUM_SPLITS)
+
+        tokens = int(ln.sum())
+        nbytes = (tokens * hkv * hd * 2 * 2 + 2 * q.numel() * 2
+                  + run_blocks * 4 + GEMMA_SLOTS * 4)
+        flops = 4.0 * tokens * hq * hd
+        bound, by = _bound_ms(nbytes, flops)
+        decode = {
+            "shape": [GEMMA_SLOTS, hq, hkv, hd], "lengths": CONFIG_DECODE_LENS,
+            "splits": NUM_SPLITS, "max_abs_err": max(errs),
+            "ms": _graph_ms(call, CONFIG_SERVE_DEPTHS[arch]),
+            "wrapper_ms": _time_ms(call),
+            "plain_ms": _time_ms(lambda: fd.flash_decode_plain(
+                q, k, v, table, ln, num_splits=NUM_SPLITS), 3),
+            "library_ms": _graph_ms(_fd_sdpa(torch, q, k, v, table, ln),
+                                    CONFIG_SERVE_DEPTHS[arch]),
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+            "flops": flops}
+        del q, k, v, table, ln, args
+        # prefill: 2 x 2048, causal, the model's kv chunk
+        qa, ka, va = _fa_inputs(torch, dev, 50 + i, b, s, hq, hkv, hd, bf16)
+        chunk = cfg.kv_chunk
+        gaps = _blockwise_compare(torch, fa, qa, ka, va, True, None, chunk)
+        lib = _sdpa(torch, qa, ka, va, None)
+        pairs = b * hq * _fa_pairs(s, True, None)
+        flops = 4.0 * pairs * hd
+        nbytes = 2 * (2 * b * s * hq * hd + 2 * b * s * hkv * hd)
+        bound, by = _bound_ms(nbytes, flops, PEAK_BF16_PER_S)
+        ms = _time_ms(lambda: fa.flash_attention_blockwise(
+            qa, ka, va, kv_chunk=chunk))
+        prefill = {
+            "shape": [b, s, hq, hkv, hd], "kv_chunk": chunk, **gaps,
+            "ms": ms, "tflop_per_s": flops / ms / 1e9,
+            "plain_ms": _time_ms(lambda: fa.blockwise_attention_ref(
+                qa, ka, va, causal=True, kv_chunk=chunk), 3),
+            "library_ms": _time_ms(lib), "bound_ms": bound, "bound_by": by,
+            "bytes": nbytes, "flops": flops}
+        del qa, ka, va, lib
+        torch.cuda.empty_cache()
+        out[arch] = {"flash_decode": decode,
+                     "flash_attention_blockwise": prefill}
+        print(json.dumps({"config_kernels": arch, **out[arch],
+                          "tolerance": "flash_decode: phase 5's; blockwise: "
+                                       "phase 12's; each launched twice, "
+                                       "bit-identical"}), flush=True)
+    return out
+
+
+def run_config_serving(torch, dev) -> dict:
+    """Phase 17 (b): the dense and the paged engine of each configuration
+    at ``CONFIG_SERVE_DEPTHS``, through phase 13's runs (their launch
+    counts asserted there: ``depth`` per prefill, ``depth`` per decode
+    step). Returns ``{arch: launches}``."""
+    launches = {}
+    for arch, depth in CONFIG_SERVE_DEPTHS.items():
+        cfg = _config(arch, depth)
+        name = f"{arch} depth {depth}"
+        dense = run_dense_prefill(torch, dev, name, cfg)
+        paged = run_paged(torch, dev, cfg, f"{name} bf16 "
+                                 "PagedServeEngine, flash_decode")
+        launches[arch] = {
+            "flash_attention_blockwise_per_prefill":
+                dense["flash_attention_blockwise"],
+            "flash_decode_per_decode_step": depth,
+            "flash_decode_in_paged_run": paged["flash_decode"]}
+        torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def _registry_depth(arch: str, depth):
+    """The registry's ``arch`` cut to ``depth`` layers while the training
+    CLI builds and runs (the CLI has no depth flag)."""
+    from repro_torch.configs import registry
+
+    full = registry.ARCHS[arch]
+    registry.ARCHS[arch] = _config(arch, depth)
+    try:
+        yield registry.ARCHS[arch]
+    finally:
+        registry.ARCHS[arch] = full
+
+
+def _config_update_profile(torch, dev, cfg, batch: int) -> dict:
+    """The DCT-AdamW update of ``cfg`` alone on one clipped gradient: CUDA
+    events (mean of 2) and one update under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.optim.api import get_optimizer
+    from repro_torch.train import steps as S
+
+    torch.cuda.reset_peak_memory_stats()
+    opt = get_optimizer("dct_adamw", lr=0.01, rank=RANK, weight_decay=0.01)
+    state = S.init_state(cfg, opt, 0, dev)
+    grads, _ = S.grad_fn(state.params,
+                         make_batch_fn(cfg, SEQ, batch, device=dev)(0), cfg)
+    grads, _ = S._clip_by_global_norm(grads, 1.0)
+    ms = _time_ms(lambda: opt.update(grads, state.opt_state, state.params), 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        opt.update(grads, state.opt_state, state.params)
+        torch.cuda.synchronize()
+    kernels, busy_ms = _device_kernels(prof)
+    by_kernel = {}
+    for e in kernels:
+        name = next((k for k in ("dct_project", "colgather_matmul",
+                                 "dequant_add", "quantize_ef")
+                     if k in e.key), "other")
+        by_kernel[name] = by_kernel.get(name, 0.0) + _dev_us(e) / 1e3
+    return {"max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "optimizer_update_ms": ms, "optimizer_update_device_ms": busy_ms,
+            "optimizer_update_device_ms_by_kernel": by_kernel,
+            "optimizer_update_launches": sum(e.count for e in kernels),
+            "optimizer_update_top_kernels": _top(kernels, 10)}
+
+
+def run_config_training(torch, dev, update_depth=None) -> dict:
+    """Phase 17 (c): DCT-AdamW through the training CLI on the
+    configurations of ``CONFIG_TRAIN_RUNS``, counters zeroed just before
+    each run and read just after (7 launches of each of the four kernels
+    per step, asserted by ``_cli_run``). Returns ``{arch: launches per
+    step}``. ``update_depth``: the depth of the update-alone profile, in
+    place of ``CONFIG_UPDATE_PROFILE``'s."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    out = {}
+    for arch, depth, batch in CONFIG_TRAIN_RUNS:
+        argv = ["--arch", arch, "--optimizer", "dct_adamw", "--rank",
+                str(RANK), "--steps", str(CONFIG_TRAIN_STEPS), "--warmup",
+                "2", "--batch", str(batch), "--seq-len", str(SEQ),
+                "--log-every", "1"]
+        with _registry_depth(arch, depth) as cfg:
+            t0 = time.perf_counter()
+            hist, counts, peak = _cli_run(torch, argv,
+                                          steps=CONFIG_TRAIN_STEPS)
+            wall = time.perf_counter() - t0
+        assert not any(ops.launch_counts(ops.ATTENTION).values()), arch
+        losses = [h["loss"] for h in hist]
+        assert all(math.isfinite(x) for x in losses), (arch, losses)
+        ms = _ms_after_first(hist)
+        gc.collect()
+        torch.cuda.empty_cache()
+        summary = {
+            "config_training": f"{arch} depth {cfg.n_layers} dct_adamw rank "
+                               f"{RANK} fused auto->on",
+            "param_dtype": cfg.param_dtype, "qkv_bias": cfg.qkv_bias,
+            "params": T.param_count(T.init_params(cfg, 0, "meta")),
+            "steps": CONFIG_TRAIN_STEPS, "batch": batch, "seq_len": SEQ,
+            "losses": losses, "first_step_ms": hist[0]["s_per_step"] * 1e3,
+            "ms_per_step_after_first": ms,
+            "tokens_per_s": batch * SEQ / (ms / 1e3),
+            "max_memory_allocated_bytes": peak, "wall_s": wall,
+            "launches_per_step": {k: v / CONFIG_TRAIN_STEPS
+                                  for k, v in counts.items()}}
+        print(json.dumps(summary), flush=True)
+        out[arch] = summary["launches_per_step"]
+    arch, depth, batch = CONFIG_UPDATE_PROFILE
+    cfg = _config(arch, update_depth or depth)
+    print(json.dumps({"config_update_alone": f"{arch} depth {cfg.n_layers} "
+                                             f"dct_adamw rank {RANK}",
+                      **_config_update_profile(torch, dev, cfg, batch)}),
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_dense_configs(torch, dev) -> dict:
+    """Phase 17: (a) the kernels at the configurations' shapes, (b)
+    serving, (c) training. Returns the kernels line's additions."""
+    t0 = time.perf_counter()
+    cases = check_config_kernels(torch, dev)
+    serving = run_config_serving(torch, dev)
+    training = run_config_training(torch, dev)
+    print(json.dumps({"dense_configs_phase_wall_s": time.perf_counter() - t0}),
+          flush=True)
+    return {"cases": cases, "serving": serving, "training": training}
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3213,7 +3504,7 @@ def main(argv=None) -> int:
     for kernel in ops.ATTENTION:
         counts[kernel] = sum(n for name, n in prefill_launches.items()
                              if DENSE_RUNS[name] == kernel)
-    run_gemma3_paged(torch, dev)
+    run_paged(torch, dev)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -3228,6 +3519,15 @@ def main(argv=None) -> int:
     run_substrate(torch, dev, main_losses)
     torch.cuda.empty_cache()
     run_telemetry(torch, dev, main_losses)
+    torch.cuda.empty_cache()
+    dense_configs = run_dense_configs(torch, dev)
+    for arch, case in dense_configs["cases"].items():
+        for kernel, row in case.items():
+            row["launches"] = dense_configs["serving"][arch][
+                "flash_attention_blockwise_per_prefill"
+                if kernel == "flash_attention_blockwise"
+                else "flash_decode_per_decode_step"]
+            rows[kernel].setdefault("dense_configs", {})[arch] = row
 
     sources = {"dequant_add_ef": ("quant_ef.cu", "src/repro/kernels/quant_ef.py:44"),
                "dct_project": ("dct_project.cu", "src/repro/kernels/dct_project.py:63"),
@@ -3292,7 +3592,9 @@ def main(argv=None) -> int:
                         "CUDA-graph replays of 24 calls; wrapper_ms: eager "
                         "calls, the wrapper's host work included; library "
                         "= SDPA on K/V already densified, gather not "
-                        "counted",
+                        "counted; dense_configs: phase 17's shapes (4 "
+                        "slots, lengths 512-2080), ms per call, launches "
+                        "per decode step of the depth served",
         "ns_gram": "per Trion training step: 35 launches (5 iterations x 7 "
                    "leaves); ms and library_ms: device time of CUDA-graph "
                    "replays of a step's launches of each shape; wrapper_ms "
@@ -3324,13 +3626,26 @@ def main(argv=None) -> int:
                                      "shape (a); library = SDPA with "
                                      "enable_gqa; gemma3_prefill: 7 launches "
                                      "at (b) + 1 at (c); launches from phase "
-                                     "13's two bf16 dense prefills",
+                                     "13's two bf16 dense prefills; "
+                                     "dense_configs: phase 17's prefill "
+                                     "shapes (2 x 2048), ms per call, "
+                                     "launches per prefill of the depth "
+                                     "served",
     }
     kernels = []
     for name, row in rows.items():
         bound, by = _bound_ms(row["bytes"], row["flops"],
                               row.get("peak", PEAK_FP32_PER_S))
         src, replaces = sources[name]
+        # phase 17: the dense configurations' shapes (per call, launches
+        # per decode step or prefill) and training launches per step
+        extra = {}
+        if "dense_configs" in row:
+            extra["dense_configs"] = row["dense_configs"]
+        if name in dense_configs["training"].get("phi3-mini-3.8b", {}):
+            extra["dense_configs_launches_per_step"] = {
+                arch: per_step[name]
+                for arch, per_step in dense_configs["training"].items()}
         if name in lowp_path:
             kernels.append({
                 "name": name, "route": "cuda",
@@ -3344,7 +3659,7 @@ def main(argv=None) -> int:
                    if "gather_cublas_ms" in row else {}),
                 "launches_per_step": counts[name] / LOWP_STEPS,
                 "times_are": quant_note if name.startswith("quant_")
-                else lowp_note.format(lowp_path[name])})
+                else lowp_note.format(lowp_path[name]), **extra})
             continue
         kernels.append({
             "name": name, "route": "cuda",
@@ -3370,6 +3685,7 @@ def main(argv=None) -> int:
                     name, "per training step at the main path's shapes"),
                 **{k: row[k] for k in ("wrapper_ms", "library_eager_ms",
                                        "gather_cublas_ms") if k in row}}),
+            **extra,
         })
     device_line = _device_line()
     print(json.dumps({"kernels": kernels}), flush=True)

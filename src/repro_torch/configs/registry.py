@@ -1,31 +1,39 @@
 """``--arch <id>`` lookup.
 
-The paper's four llama models and gemma3-27b (sliding-window local layers,
-GQA, qk-norm) are ported. Every other architecture of
+Ported: the paper's four llama models and the dense GQA configurations of
+the JAX registry: gemma3-27b (sliding-window local layers, qk-norm),
+qwen2.5-32b (qkv bias, group 5), phi3-mini-3.8b (head dim 96, plain MHA)
+and command-r-plus-104b (group 12). Every other architecture of
 ``repro.configs.registry`` raises "not yet ported". Unlike the JAX
 registry, ``smoke=True`` works for the llamas too: it returns the
-architecture's ``reduced()`` config (d=128, one layer, vocab 512);
-gemma3-27b's is its module's ``SMOKE``, as in the JAX registry.
+architecture's ``reduced()`` config (d=128, one layer, vocab 512); the
+other archs' is their module's ``SMOKE``, as in the JAX registry.
 """
 from __future__ import annotations
 
-from . import gemma3_27b, llama_paper
+from . import (command_r_plus_104b, gemma3_27b, llama_paper, phi3_mini_3p8b,
+               qwen25_32b)
 
+_MODULES = {
+    "gemma3-27b": gemma3_27b,
+    "qwen2.5-32b": qwen25_32b,
+    "phi3-mini-3.8b": phi3_mini_3p8b,
+    "command-r-plus-104b": command_r_plus_104b,
+}
 ARCHS = {
     "llama-30m": llama_paper.LLAMA_30M,
     "llama-350m": llama_paper.LLAMA_350M,
     "llama-800m": llama_paper.LLAMA_800M,
     "llama-1.3b": llama_paper.LLAMA_1_3B,
-    "gemma3-27b": gemma3_27b.CONFIG,
+    **{name: mod.CONFIG for name, mod in _MODULES.items()},
 }
 SMOKES = {name: cfg.reduced() for name, cfg in ARCHS.items()}
-SMOKES["gemma3-27b"] = gemma3_27b.SMOKE
+SMOKES.update({name: mod.SMOKE for name, mod in _MODULES.items()})
 
 #: architectures of the JAX registry this package does not build yet
 NOT_YET_PORTED = (
     "whisper-large-v3", "llama-3.2-vision-90b", "deepseek-v3-671b",
-    "deepseek-moe-16b", "jamba-1.5-large-398b", "rwkv6-1.6b", "qwen2.5-32b",
-    "phi3-mini-3.8b", "command-r-plus-104b",
+    "deepseek-moe-16b", "jamba-1.5-large-398b", "rwkv6-1.6b",
 )
 
 

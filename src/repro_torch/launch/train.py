@@ -73,7 +73,10 @@ def build(argv=None) -> argparse.Namespace:
             raise SystemExit(f"{a.split('=', 1)[0]} is not yet ported to "
                              f"repro_torch")
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama-350m")
+    ap.add_argument("--arch", default="llama-350m",
+                    help="one of repro_torch.configs.registry.list_archs(): "
+                         "the llamas, gemma3-27b, qwen2.5-32b, "
+                         "phi3-mini-3.8b, command-r-plus-104b")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-sized)")
     ap.add_argument("--optimizer", default="trion")

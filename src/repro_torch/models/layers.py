@@ -1,5 +1,5 @@
-"""Model primitives: init helpers, RMS norm, RoPE, blockwise, decode and
-chunk attention, SwiGLU.
+"""Model primitives: init helpers, RMS norm, RoPE, blockwise (and its
+sequence-parallel entry), decode and chunk attention, SwiGLU.
 
 Plain functions on tensors, mirroring ``repro/models/layers.py``. Weights are
 ``(d_in, d_out)`` matrices applied as ``x @ w`` (the JAX layout, not
@@ -126,6 +126,29 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int | None = None,
                                    q_offset=q_offset)
 
 
+def sp_blockwise_attention(q, k, v, *, causal: bool, window=None,
+                           q_chunk: int = 512, kv_chunk: int = 512):
+    """Sequence-parallel attention (``cfg.attn_sp``), on one device.
+
+    The JAX package shards the query sequence over the mesh's ``model`` axis
+    inside a ``shard_map`` and runs ``blockwise_attention`` on each slice;
+    with no mesh it runs plain ``blockwise_attention`` with no ``q_offset``.
+    This package has no mesh yet (``parallel/`` is not ported), so this is
+    that call, through the same route to the prefill's kernels."""
+    return blockwise_attention(q, k, v, causal=causal, window=window,
+                               q_chunk=q_chunk, kv_chunk=kv_chunk)
+
+
+def matmul(x, w):
+    """``x @ w`` with JAX's dtype promotion: a bf16 operand beside an fp32
+    one is widened (exactly) first, where torch's matmul wants one dtype.
+    A qkv bias kept in fp32 makes bf16 activations fp32 this way."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 def decode_attention(q, k_cache, v_cache, *, length=None, window=None,
                      mask=None, scale=None):
     """Single-token attention against a (B, S, Hkv, hd) cache.
@@ -178,5 +201,5 @@ def chunk_attention(q, k_cache, v_cache, mask, *, scale=None):
 
 
 def swiglu(x, wg, wu, wd):
-    h = F.silu(x @ wg) * (x @ wu)
-    return h @ wd
+    h = F.silu(matmul(x, wg)) * matmul(x, wu)
+    return matmul(h, wd)

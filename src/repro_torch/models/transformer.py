@@ -1,5 +1,5 @@
 """The schedule-driven transformer: the dense GQA models (the paper's
-llamas, gemma3-27b).
+llamas, gemma3-27b, qwen2.5-32b, phi3-mini-3.8b, command-r-plus-104b).
 
 Parameters are a flat dict keyed by the JAX tree's leaf paths, with the same
 layouts: segment ``i``, pattern position ``j`` lives under
@@ -9,8 +9,11 @@ applied as ``x @ w``. ``convert.params_from_jax`` carries a JAX parameter
 tree across unchanged.
 
 Ported for ``family="dense"`` with the ``attn`` and ``local`` (sliding
-window of ``cfg.sliding_window``) blocks and optional qk-norm:
-``init_params``, ``cast_params`` and ``forward`` (training, and the dense
+window of ``cfg.sliding_window``) blocks, optional qk-norm, optional qkv
+bias (``attn/w{q,k,v}/bias``, added after each projection's product) and
+``attn_sp`` (``layers.sp_blockwise_attention``, plain blockwise attention
+on one device): ``init_params``, ``param_count``, ``cast_params`` and
+``forward`` (training, and the dense
 prefill, whose no-grad attention is the ``flash_attention`` kernel on the
 card); the dense decode path (``init_cache``, ``prefill``, ``decode_step``;
 a ``local`` layer keeps a ring of its last ``window`` positions); the paged
@@ -18,7 +21,7 @@ serving path (``init_paged_pools``, ``init_prefill_scratch``,
 ``prefill_chunk``, ``write_prefill_to_pools``, ``decode_step_paged``),
 whose attention is the ``flash_decode`` kernel. Not yet ported: the other
 block kinds and families (``attn_moe``, MoE, MLA, Mamba, RWKV,
-encoder-decoder, VLM), qkv bias and sequence-parallel attention.
+encoder-decoder, VLM), and the mesh of sequence-parallel attention.
 
 Caches and pools are flat dicts too, keyed like the JAX trees:
 ``segments/{i}/p{j}/k`` and ``.../v``. Unlike the JAX package, whose
@@ -38,10 +41,12 @@ from .layers import (
     decode_attention,
     dense_init,
     embed_init,
+    matmul,
     rms_norm,
     rope_at,
     rope_table,
     rope_tables_at,
+    sp_blockwise_attention,
     swiglu,
 )
 
@@ -52,12 +57,10 @@ PORTED_KINDS = ("attn", "local")
 
 def _check_ported(cfg) -> None:
     kinds = cfg.block_kinds()
-    if cfg.family != "dense" or not set(kinds) <= set(PORTED_KINDS) \
-            or cfg.qkv_bias or cfg.attn_sp:
+    if cfg.family != "dense" or not set(kinds) <= set(PORTED_KINDS):
         raise NotImplementedError(
-            f"{cfg.name}: only dense models of {PORTED_KINDS} blocks without "
-            f"qkv bias or sequence-parallel attention are ported to "
-            f"repro_torch (family={cfg.family!r}, blocks={kinds})")
+            f"{cfg.name}: only dense models of {PORTED_KINDS} blocks are "
+            f"ported to repro_torch (family={cfg.family!r}, blocks={kinds})")
 
 
 def _window(kind: str, cfg) -> int | None:
@@ -103,11 +106,22 @@ def init_params(cfg, seed: int = 0, device=None) -> dict[str, torch.Tensor]:
                 pre + "mlp/wu/kernel": w(d, f),
                 pre + "mlp/wd/kernel": w(f, d),
             })
+            if cfg.qkv_bias:
+                for n, width in (("q", hq * hd), ("k", hkv * hd),
+                                 ("v", hkv * hd)):
+                    params[pre + f"attn/w{n}/bias"] = torch.zeros(
+                        (repeats, width), dtype=dt, device=dev)
             if cfg.use_qk_norm:
                 for n in ("q", "k"):
                     params[pre + f"attn/{n}_norm_scale"] = torch.zeros(
                         (repeats, hd), dtype=torch.float32, device=dev)
     return params
+
+
+def param_count(params: dict) -> int:
+    """Elements over every leaf; a ``device="meta"`` dict counts too (a
+    full configuration without allocating it)."""
+    return sum(p.numel() for p in params.values())
 
 
 _PRECISION_CRITICAL = ("norm", "ln", "scale", "bias", "a_log", "d_skip",
@@ -137,6 +151,16 @@ def _qk_norm(p: dict, q, k, cfg):
             rms_norm(k, p["attn/k_norm_scale"]))
 
 
+def _proj(p: dict, h, n: str):
+    """``h @ attn/w{n}/kernel``, then its bias where the config has one: a
+    separate add after the product, as the JAX package's (one rounding
+    more than a fused ``addmm`` in bf16). A bias kept in fp32 beside bf16
+    products widens the result to fp32, as JAX's promotion does."""
+    y = h @ p[f"attn/w{n}/kernel"]
+    bias = p.get(f"attn/w{n}/bias")
+    return y if bias is None else y + bias
+
+
 def _attn_block(p: dict, x, cfg, kind: str, return_kv: bool = False):
     """One ``attn`` or ``local`` block: pre-norm GQA self-attention (a
     sliding window for ``local``) + SwiGLU MLP. With ``return_kv`` also the
@@ -144,16 +168,17 @@ def _attn_block(p: dict, x, cfg, kind: str, return_kv: bool = False):
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = rms_norm(x, p["ln1/scale"], cfg.norm_eps)
-    q = (h @ p["attn/wq/kernel"]).reshape(b, s, hq, hd)
-    k = (h @ p["attn/wk/kernel"]).reshape(b, s, hkv, hd)
-    v = (h @ p["attn/wv/kernel"]).reshape(b, s, hkv, hd)
+    q = _proj(p, h, "q").reshape(b, s, hq, hd)
+    k = _proj(p, h, "k").reshape(b, s, hkv, hd)
+    v = _proj(p, h, "v").reshape(b, s, hkv, hd)
     q, k = _qk_norm(p, q, k, cfg)
     cos, sin = rope_table(s, hd, cfg.rope_theta, device=x.device)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    a = blockwise_attention(q, k, v, causal=True, window=_window(kind, cfg),
-                            q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    x = x + a.reshape(b, s, hq * hd) @ p["attn/wo/kernel"]
+    attend = sp_blockwise_attention if cfg.attn_sp else blockwise_attention
+    a = attend(q, k, v, causal=True, window=_window(kind, cfg),
+               q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    x = x + matmul(a.reshape(b, s, hq * hd), p["attn/wo/kernel"])
     h = rms_norm(x, p["ln2/scale"], cfg.norm_eps)
     x = x + swiglu(h, p["mlp/wg/kernel"], p["mlp/wu/kernel"],
                    p["mlp/wd/kernel"])
@@ -247,9 +272,9 @@ def _qkv_decode(p, x_t, pos, cfg):
     hd)."""
     b = x_t.shape[0]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x_t @ p["attn/wq/kernel"]).reshape(b, hq, hd)
-    k = (x_t @ p["attn/wk/kernel"]).reshape(b, hkv, hd)
-    v = (x_t @ p["attn/wv/kernel"]).reshape(b, hkv, hd)
+    q = _proj(p, x_t, "q").reshape(b, hq, hd)
+    k = _proj(p, x_t, "k").reshape(b, hkv, hd)
+    v = _proj(p, x_t, "v").reshape(b, hkv, hd)
     q, k = _qk_norm(p, q, k, cfg)
     cos, sin = rope_at(pos, hd, cfg.rope_theta)        # (B, 1, half)
     return _rope_decode(q, cos, sin), _rope_decode(k, cos, sin), v
@@ -274,7 +299,7 @@ def _gqa_decode(p, x_t, k_cache, v_cache, pos, cfg, *, window=None):
         out = decode_attention(q, k_cache, v_cache, mask=mask)
     else:
         out = decode_attention(q, k_cache, v_cache, length=pos + 1)
-    return out.reshape(b, cfg.n_heads * cfg.hd) @ p["attn/wo/kernel"]
+    return matmul(out.reshape(b, cfg.n_heads * cfg.hd), p["attn/wo/kernel"])
 
 
 def _ffn(p, x_t, cfg):
@@ -440,7 +465,7 @@ def _paged_gqa_decode(p, x_t, k_pool, v_pool, table, pos, lengths, write,
     v_pool[blk, off] = v.to(v_pool.dtype)
     out = flash_decode(q, k_pool, v_pool, table, lengths, window=window,
                        num_splits=num_splits)
-    return out.reshape(b, cfg.n_heads * cfg.hd) @ p["attn/wo/kernel"]
+    return matmul(out.reshape(b, cfg.n_heads * cfg.hd), p["attn/wo/kernel"])
 
 
 def decode_step_paged(params, pools, token, pos, block_table, active, cfg,
@@ -509,17 +534,17 @@ def prefill_chunk(params, scratch, tokens, start: int, take_idx: int, cfg):
     local = causal & (kpos[None, :] >= qpos[:, None] - cfg.sliding_window + 1)
     for pre, kind, layer, lp in _layers(p, cfg):
         h = rms_norm(x, lp["ln1/scale"], cfg.norm_eps)
-        q = (h @ lp["attn/wq/kernel"]).reshape(b, c, hq, hd)
-        k = (h @ lp["attn/wk/kernel"]).reshape(b, c, hkv, hd)
+        q = _proj(lp, h, "q").reshape(b, c, hq, hd)
+        k = _proj(lp, h, "k").reshape(b, c, hkv, hd)
         q, k = _qk_norm(lp, q, k, cfg)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        v = (h @ lp["attn/wv/kernel"]).reshape(b, c, hkv, hd)
+        v = _proj(lp, h, "v").reshape(b, c, hkv, hd)
         sk, sv = scratch[pre + "k"][layer], scratch[pre + "v"][layer]
         sk[:, start:end] = k.to(sk.dtype)
         sv[:, start:end] = v.to(sv.dtype)
         out = chunk_attention(q, sk[:, :end], sv[:, :end],
                               local if kind == "local" else causal)
-        x = x + out.reshape(b, c, hq * hd) @ lp["attn/wo/kernel"]
+        x = x + matmul(out.reshape(b, c, hq * hd), lp["attn/wo/kernel"])
         x = _ffn(lp, x, cfg).to(cdt)
     return _lm_head(x[:, take_idx], p, cfg), scratch
 

@@ -145,7 +145,7 @@ def test_cli_default_device_raises_without_cuda():
 
 @pytest.mark.parametrize("argv", [["--zero", "1"], ["--tune-cache", "x"],
                                   ["--optimizer", "adamw", "--fused", "on"],
-                                  ["--arch", "qwen2.5-32b"]])
+                                  ["--arch", "deepseek-moe-16b"]])
 def test_cli_unported_choices_fail(argv):
     with pytest.raises((SystemExit, NotImplementedError)):
         train_cli.main(["--smoke", "--device", "cpu", "--steps", "1", *argv])
