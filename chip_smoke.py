@@ -252,7 +252,32 @@ device or without the port beside it. Any failure raises. Phases:
    then phi3-mini-3.8b's optimizer update alone at depth 24 on one
    gradient (no Trainer, no new parameters), timed and under the profiler
    (its device time by kernel). The phase's wall time is printed.
-18. The ``kernels`` line, the card's line, and last:
+18. The rest of the transform-chain runtime, llama-350m at full width and
+   depth, phase 3's batch and seed: (a) DCT-AdamW through the legacy
+   harness ``optim.common.make_matrix_optimizer`` in ``make_train_step``
+   for 3 steps, the counters zeroed just before each step and read just
+   after (7 launches of each of the four kernels): the losses equal to
+   phase 3's, and each step's parameters equal to those of the chain
+   preset ``get_optimizer("dct_adamw")`` stepped beside it, bit for bit;
+   (b) ``core.fused_step.set_default_fused_mode``: "off" gives a step with
+   no launch of the four kernels, "fft" one with no ``dct_project`` (each
+   twice from the same state: the first of a mode builds the libraries'
+   plans; the step-1 loss still phase 3's), and the default is put back;
+   (c)
+   ``fullrank_weight_decay=False`` with weight decay 0.1: the chain and the
+   harness agree bit for bit for one step; (d) each ``kernels.ops.*_op``
+   alias of the JAX package's dispatchers at the main path's shapes (the
+   serving and prefill ones at phase 5's and phase 13's) adds one to its
+   kernel's counter (``newton_schulz_op`` five of each NS kernel) and
+   equals the direct wrapper call bit for bit; (e) ``python -m
+   repro_torch.launch.serve --arch llama-350m --engine paged --metrics
+   --metrics-dir DIR`` as a subprocess: exit 0, ``flash_decode`` launched
+   (its printed count), ``metrics.prom`` parsed with
+   ``serve_ttft_seconds_count`` equal to the requests that produced a
+   token, ``trace.json`` with its decode-step spans, TTFT / ITL p50 / p99
+   printed. Files under ``build/chip_smoke_runtime``, deleted at the end.
+   The phase's wall time is printed.
+19. The ``kernels`` line, the card's line, and last:
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -260,6 +285,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import importlib
 import json
 import math
 import os
@@ -494,6 +520,9 @@ CONFIG_SERVE_DEPTHS = {"qwen2.5-32b": 8, "phi3-mini-3.8b": 32,
                        "command-r-plus-104b": 4}
 CONFIG_TRAIN_RUNS = (("phi3-mini-3.8b", 24, 8), ("qwen2.5-32b", 2, 2))
 CONFIG_TRAIN_STEPS = 3
+# the transform-chain runtime (phase 18): its serving CLI's metrics files
+RUNTIME_DIR = ROOT / "build" / "chip_smoke_runtime"
+RUNTIME_STEPS = 3
 # the optimizer update alone (no Trainer, no new parameters): (arch, depth,
 # batch of its gradient). At phi3-mini-3.8b's full 32 layers it peaked at
 # 77.4 GB of the card's 79.2 GiB (scripts/dense_configs_probe.py
@@ -579,8 +608,8 @@ def check_kernels(torch, dev) -> dict:
     (``launches`` is filled in by the main path)."""
     from repro_torch.core.dct import dct2_matrix
     from repro_torch.core.selection import select_top_r, take_columns
-    from repro_torch.kernels import colgather_matmul as cg
-    from repro_torch.kernels import dct_project as dp
+    cg = importlib.import_module("repro_torch.kernels.colgather_matmul")
+    dp = importlib.import_module("repro_torch.kernels.dct_project")
     from repro_torch.kernels import quant_ef as qe
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -892,7 +921,7 @@ def check_momentum_kernels(torch, dev) -> dict:
     from repro_torch.core.dct import dct2_matrix
     from repro_torch.core.newton_schulz import NS_COEFFS, _ns_step, newton_schulz
     from repro_torch.core.selection import select_top_r
-    from repro_torch.kernels import colgather_matmul as cg
+    cg = importlib.import_module("repro_torch.kernels.colgather_matmul")
     from repro_torch.kernels import newton_schulz as ns
 
     a, b, c = NS_COEFFS
@@ -1127,8 +1156,8 @@ def check_lowp_kernels(torch, dev) -> dict:
     (``launches`` come from phase 11)."""
     from repro_torch.core.dct import dct2_matrix
     from repro_torch.core.selection import select_top_r, take_columns
-    from repro_torch.kernels import colgather_matmul as cg
-    from repro_torch.kernels import dct_project as dp
+    cg = importlib.import_module("repro_torch.kernels.colgather_matmul")
+    dp = importlib.import_module("repro_torch.kernels.dct_project")
     from repro_torch.kernels import lowp
     from repro_torch.kernels import quant_ef as qe
 
@@ -1459,13 +1488,13 @@ def _run_api(args, opt_kw: dict, name: str = "dct_adamw"):
     random projectors have no CLI flag)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data.synthetic import make_batch_fn
-    from repro_torch.launch.train import device_for
+    from repro_torch.devices import resolve_device
     from repro_torch.optim.api import get_optimizer
     from repro_torch.train.loop import Trainer
     from repro_torch.train.schedule import cosine_warmup
     from repro_torch.train.steps import init_state, make_train_step
 
-    dev = device_for(args.device)
+    dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     opt = get_optimizer(name, lr=cosine_warmup(args.lr, args.warmup,
                                                 args.steps),
@@ -1564,7 +1593,7 @@ def check_flash_decode(torch, dev) -> dict:
     (its ``launches`` come from the serving run)."""
     import numpy as np
 
-    from repro_torch.kernels import flash_decode as fd
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
 
     f32, bf16 = torch.float32, torch.bfloat16
     errs, report = [], []
@@ -1866,7 +1895,7 @@ def _sdpa(torch, q, k, v, window):
 def check_flash_attention(torch, dev) -> dict:
     """Phase 12. Returns the kernels-line row of ``flash_attention`` (its
     ``launches`` come from phase 13)."""
-    from repro_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
 
     f32, bf16 = torch.float32, torch.bfloat16
     errs, cases = [], {}
@@ -1966,7 +1995,7 @@ def _blockwise_compare(torch, fa, q, k, v, causal, window, chunk) -> dict:
 def check_flash_attention_blockwise(torch, dev) -> dict:
     """Phase 12, the model's route. Returns the kernels-line row of
     ``flash_attention_blockwise`` (its ``launches`` come from phase 13)."""
-    from repro_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
 
     cases, errs = {}, []
     for i, (name, (b, s, hq, hkv, hd, window, chunk)) in enumerate(
@@ -2061,7 +2090,7 @@ def _prefill_attention_probe(torch, T, params, tokens, cfg, mode: str):
     with the kernel's output; "floor" runs the plain
     loop with FLOOR_SHARE of layer 0's outputs moved by one ulp and returns
     the last logits."""
-    from repro_torch.kernels import flash_attention as fa
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     from repro_torch.models import layers as L
 
     gaps = []
@@ -2908,8 +2937,8 @@ def check_kernels_at_rank(torch, dev, r: int, shape) -> dict:
     phases 2 and 10 hold them at r = 128."""
     from repro_torch.core.dct import dct2_matrix
     from repro_torch.core.selection import select_top_r, take_columns
-    from repro_torch.kernels import colgather_matmul as cg
-    from repro_torch.kernels import dct_project as dp
+    cg = importlib.import_module("repro_torch.kernels.colgather_matmul")
+    dp = importlib.import_module("repro_torch.kernels.dct_project")
     from repro_torch.kernels import lowp
     from repro_torch.kernels import quant_ef as qe
 
@@ -3230,8 +3259,8 @@ def check_config_kernels(torch, dev) -> dict:
     the dense configurations' decode and prefill shapes against their plain
     versions, each timed per call beside its bound and SDPA on the same
     tensors. Returns ``{arch: {kernel: case}}``."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import flash_decode as fd
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
 
     f32, bf16 = torch.float32, torch.bfloat16
     maxb = -(-(GEMMA_PROMPT_LENS[1] + GEMMA_NEW) // BLOCK)
@@ -3436,6 +3465,251 @@ def run_dense_configs(torch, dev) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the rest of the transform-chain runtime
+# ---------------------------------------------------------------------------
+def _timed_step(torch, step, state, batch):
+    """One train step, the counters zeroed just before it and read just
+    after. Returns the new state, its loss, the counts and its ms."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return state, loss, ops.launch_counts(ops.TRAINING), ms
+
+
+def _runtime_harness(torch, dev, main_losses) -> dict:
+    """(a)-(c): the legacy harness against the chain preset, the fused-mode
+    default, ``fullrank_weight_decay=False``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import fused_step
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.optim.api import get_optimizer
+    from repro_torch.optim.common import make_matrix_optimizer
+    from repro_torch.optim.projected_adam import ProjectedAdamRule
+    from repro_torch.optim.transform import matrix_optimizer
+    from repro_torch.train import steps as S
+    from repro_torch.train.schedule import cosine_warmup
+
+    cfg = get_config("llama-350m")
+    lr = cosine_warmup(0.01, 2, STEPS)
+    # the rule get_optimizer("dct_adamw", rank=RANK) builds
+    rule = ProjectedAdamRule(rank=RANK, projector="dct", update_interval=1,
+                             rotate=True, residual="ef", ef_dtype="q8")
+    hkw = dict(b1=rule.b1, b2=rule.b2, eps=rule.eps)
+    batch_fn = make_batch_fn(cfg, SEQ, BATCH, seed=0, device=dev)
+    legacy = make_matrix_optimizer(rule, lr, weight_decay=0.01, **hkw)
+    chain = get_optimizer("dct_adamw", lr=lr, rank=RANK, weight_decay=0.01)
+    steps = {"harness": S.make_train_step(cfg, legacy),
+             "chain": S.make_train_step(cfg, chain)}
+    states = {"harness": S.init_state(cfg, legacy, 0, dev),
+              "chain": S.init_state(cfg, chain, 0, dev)}
+    out = {"harness_ms": [], "chain_ms": [], "harness_launches": []}
+    for i in range(RUNTIME_STEPS):
+        batch = batch_fn(i)
+        states["harness"], loss, counts, ms = _timed_step(
+            torch, steps["harness"], states["harness"], batch)
+        assert loss == main_losses[i], (i, loss, main_losses[i])
+        for name, n in counts.items():
+            assert n == LAUNCHES_PER_STEP, f"harness step {i + 1}: {name} " \
+                f"ran {n} times, expected {LAUNCHES_PER_STEP}"
+        out["harness_ms"].append(ms)
+        out["harness_launches"].append(counts)
+        states["chain"], closs, _, cms = _timed_step(
+            torch, steps["chain"], states["chain"], batch)
+        out["chain_ms"].append(cms)
+        assert closs == loss, (i, closs, loss)
+        hp, cp = states["harness"].params, states["chain"].params
+        assert hp.keys() == cp.keys()
+        bad = [k for k in hp if not _same_bits(hp[k], cp[k])]
+        assert not bad, f"step {i + 1}: harness params differ at {bad[:3]}"
+    out["losses"] = main_losses[:RUNTIME_STEPS]
+    del states
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the process-wide default of the rules whose fused is "auto"
+    batch = batch_fn(0)
+    state = S.init_state(cfg, chain, 0, dev)
+    default = {}
+    try:
+        for mode in ("off", "fft"):
+            fused_step.set_default_fused_mode(mode)
+            assert fused_step.resolve("auto", dev) == mode
+            default[mode] = {"launches": [], "step_ms": []}
+            # twice: the first step of a mode builds its library plans
+            for _ in range(2):
+                _, loss, counts, ms = _timed_step(torch, steps["chain"],
+                                                  state, batch)
+                assert loss == main_losses[0], (mode, loss)
+                if mode == "off":
+                    assert not any(counts.values()), (mode, counts)
+                assert counts["dct_project"] == 0, (mode, counts)
+                default[mode]["launches"].append(counts)
+                default[mode]["step_ms"].append(ms)
+    finally:
+        fused_step.set_default_fused_mode("auto")
+    assert fused_step.default_fused_mode() == "auto"
+    _, _, counts, ms = _timed_step(torch, steps["chain"], state, batch)
+    assert all(n == LAUNCHES_PER_STEP for n in counts.values()), counts
+    default["auto (restored)"] = {"launches": counts, "step_ms": ms}
+    out["default_fused_mode"] = default
+    del state
+
+    # (c) the decay on the matrix leaves only
+    wd = dict(weight_decay=0.1, fullrank_weight_decay=False, **hkw)
+    opts = {"harness": make_matrix_optimizer(rule, lr, **wd),
+            "chain": matrix_optimizer(rule, lr, **wd)}
+    new = {}
+    for name, opt in opts.items():
+        st = S.init_state(cfg, opt, 0, dev)
+        new[name], loss, counts, _ = _timed_step(
+            torch, S.make_train_step(cfg, opt), st, batch)
+        del st
+        assert loss == main_losses[0], (name, loss)
+        assert all(n == LAUNCHES_PER_STEP for n in counts.values()), counts
+    hp, cp = new["harness"].params, new["chain"].params
+    bad = [k for k in hp if not _same_bits(hp[k], cp[k])]
+    assert not bad, f"fullrank_weight_decay=False: params differ at {bad[:3]}"
+    out["no_fullrank_decay_bit_equal"] = True
+    del new, opts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _runtime_op_aliases(torch, dev) -> dict:
+    """(d): each ``*_op`` alias once, its counter read, against the direct
+    wrapper call on the same tensors."""
+    from repro_torch.core.dct import dct2_matrix
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.newton_schulz import (newton_schulz_kernel,
+                                                   ns_iteration)
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    (nb, m, n), _ = MAIN_SHAPES[1]
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    g = randn(nb, m, n)
+    q = dct2_matrix(n, device=dev)
+    qt = q.T.contiguous()
+    idx = torch.sort(torch.randperm(n, generator=gen, device=dev)
+                     .view(1, n).expand(nb, n)[:, :RANK], dim=-1).values \
+        .to(torch.int32).contiguous()
+    b1, b2 = randn(nb, m, RANK), randn(nb, m, RANK)
+    codes, scale = ops.quantize_ef(randn(nb, m, n) * 0.1)
+    fd_args = _fd_case(torch, dev, 3, b=8, hq=16, hkv=16, hd=64, bs=16,
+                       maxb=128, lengths=[1, 17, 256, 511, 1024, 1500, 2000,
+                                          2048], kv_dtype=torch.bfloat16)
+    cases = {
+        "dct_project_op": ((g, q), ops.dct_project, {"dct_project": 1}),
+        "colgather_matmul_op": ((b1, qt, idx), ops.colgather_matmul,
+                                {"colgather_matmul": 1}),
+        "colgather_matmul_dual_op": ((b1, b2, qt, idx),
+                                     ops.colgather_matmul_dual,
+                                     {"colgather_matmul_dual": 1}),
+        "newton_schulz_op": ((randn(nb, RANK, m),), newton_schulz_kernel,
+                             {"ns_gram": NS_STEPS, "ns_apply": NS_STEPS}),
+        "ns_iteration_op": ((randn(nb, RANK, m) * 0.02,), ns_iteration,
+                            {"ns_gram": 1, "ns_apply": 1}),
+        "flash_attention_op": ((randn(BATCH, SEQ, 16, 64),
+                                randn(BATCH, SEQ, 16, 64),
+                                randn(BATCH, SEQ, 16, 64)),
+                               ops.flash_attention, {"flash_attention": 1}),
+        "flash_decode_op": ((fd_args[0].to(torch.bfloat16), *fd_args[1:]),
+                            ops.flash_decode, {"flash_decode": 1}),
+        "quantize_ef_op": ((g,), ops.quantize_ef, {"quantize_ef": 1}),
+        "dequant_add_ef_op": ((g, codes, scale), ops.dequant_add_ef,
+                              {"dequant_add_ef": 1}),
+    }
+    out = {}
+    for name, (args, wrapper, want) in cases.items():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        got = getattr(ops, name)(*args)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        assert counts == want, (name, counts, want)
+        direct = wrapper(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        direct = direct if isinstance(direct, tuple) else (direct,)
+        assert all(_same_bits(a, b) for a, b in zip(got, direct)), name
+        assert all(torch.isfinite(a.float()).all() for a in got), name
+        out[name] = counts
+    return out
+
+
+def _runtime_serve_metrics(torch) -> dict:
+    """(e): the serving CLI with ``--metrics`` in a fresh process."""
+    shutil.rmtree(RUNTIME_DIR, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "llama-350m", "--engine", "paged", "--metrics", "--metrics-dir",
+         str(RUNTIME_DIR)], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    assert run.returncode == 0, run.stderr[-4000:]
+    out = run.stdout
+    launches = [line for line in out.splitlines()
+                if line.startswith("kernel launches:")]
+    assert len(launches) == 1, out[-2000:]
+    fd = int(launches[0].split("flash_decode=")[1].split(",")[0])
+    assert fd > 0, launches
+    table = out.split("per-request latency")[1].splitlines()[2:]
+    rows = [line.split() for line in table if line.startswith("  ")]
+    served = sum(1 for r in rows if int(r[2]) > 0)
+    assert len(rows) == 4 and served >= 3, rows
+    samples = {}
+    for line in (RUNTIME_DIR / "metrics.prom").read_text().splitlines():
+        if line and not line.startswith("#"):
+            series, value = line.rsplit(" ", 1)
+            samples[series] = float(value)
+    assert samples["serve_ttft_seconds_count"] == served, samples
+    trace = json.loads((RUNTIME_DIR / "trace.json").read_text())
+    spans = [e for e in trace["traceEvents"]
+             if e.get("name") == "serve/decode_step"]
+    assert spans, "trace.json has no decode-step span"
+    qline = [line for line in out.splitlines()
+             if line.startswith("ttft p50/p99:")]
+    assert len(qline) == 1, out[-2000:]
+    words = qline[0].split()
+    ttft = [float(x) for x in words[2].split("/")]
+    itl = [float(x) for x in words[5].split("/")]
+    assert all(math.isfinite(x) and x > 0 for x in ttft + itl), qline
+    shutil.rmtree(RUNTIME_DIR, ignore_errors=True)
+    return {"exit": run.returncode, "flash_decode_launches": fd,
+            "requests": len(rows), "requests_with_a_token": served,
+            "serve_ttft_seconds_count": samples["serve_ttft_seconds_count"],
+            "decode_step_spans": len(spans),
+            "ttft_p50_s": ttft[0], "ttft_p99_s": ttft[1],
+            "itl_p50_s": itl[0], "itl_p99_s": itl[1],
+            "subprocess_wall_s": wall}
+
+
+def run_runtime(torch, dev, main_losses) -> None:
+    """Phase 18: (a)-(c) the harness, the fused-mode default and the decay
+    option; (d) the op aliases; (e) the serving CLI's ``--metrics``."""
+    t0 = time.perf_counter()
+    harness = _runtime_harness(torch, dev, main_losses)
+    print(json.dumps({"runtime_harness": harness}), flush=True)
+    aliases = _runtime_op_aliases(torch, dev)
+    print(json.dumps({"runtime_op_aliases": aliases}), flush=True)
+    torch.cuda.empty_cache()
+    metrics = _runtime_serve_metrics(torch)
+    print(json.dumps({"runtime_serve_metrics": metrics}), flush=True)
+    print(json.dumps({"runtime_phase_wall_s": time.perf_counter() - t0}),
+          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3521,6 +3795,8 @@ def main(argv=None) -> int:
     run_telemetry(torch, dev, main_losses)
     torch.cuda.empty_cache()
     dense_configs = run_dense_configs(torch, dev)
+    torch.cuda.empty_cache()
+    run_runtime(torch, dev, main_losses)
     for arch, case in dense_configs["cases"].items():
         for kernel, row in case.items():
             row["launches"] = dense_configs["serving"][arch][

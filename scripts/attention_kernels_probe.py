@@ -28,6 +28,7 @@ Prints one JSON line per measurement and a ``probe_summary`` line:
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import sys
 from pathlib import Path
@@ -87,8 +88,8 @@ def main() -> int:
         return 1
     import chip_smoke as cs
     from repro_torch.kernels import cuda_lib
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import flash_decode as fd
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
 
     assert Path(cuda_lib.__file__).resolve().is_relative_to(tree), \
         cuda_lib.__file__

@@ -42,6 +42,7 @@ Prints one JSON line per measurement and a ``probe_summary`` line.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import subprocess
 import sys
@@ -82,7 +83,7 @@ def main() -> int:
     from repro_torch.core.dct import dct2_matrix
     from repro_torch.core.newton_schulz import NS_COEFFS
     from repro_torch.core.selection import select_top_r
-    from repro_torch.kernels import colgather_matmul as cg
+    cg = importlib.import_module("repro_torch.kernels.colgather_matmul")
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels import newton_schulz as ns
 

@@ -20,6 +20,7 @@ limit.
 from __future__ import annotations
 
 import ctypes
+import importlib
 import json
 import re
 import sys
@@ -73,7 +74,7 @@ def main() -> int:
 
     from repro_torch.core.dct import dct2_matrix
     from repro_torch.core.selection import select_top_r
-    from repro_torch.kernels import colgather_matmul as cg
+    cg = importlib.import_module("repro_torch.kernels.colgather_matmul")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(5)

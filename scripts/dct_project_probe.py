@@ -33,6 +33,7 @@ Prints one JSON line per measurement and a ``probe_summary`` line.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import shutil
 import subprocess
@@ -168,7 +169,7 @@ def main() -> int:
 
     from repro_torch.core.dct import dct2_matrix
     from repro_torch.kernels import cuda_lib, lowp
-    from repro_torch.kernels import dct_project as dp
+    dp = importlib.import_module("repro_torch.kernels.dct_project")
 
     assert Path(cuda_lib.__file__).resolve().is_relative_to(tree), \
         cuda_lib.__file__

@@ -48,7 +48,8 @@ from repro_torch.train.schedule import cosine_warmup
 
 
 def _rel_distance(tparams: dict, jparams) -> float:
-    want = convert.params_from_jax(jax.tree.map(np.asarray, jparams))
+    want = convert.params_from_jax(jax.tree.map(np.asarray, jparams),
+                                   device="cpu")
     num = sum(float(torch.sum((tparams[k].double() - want[k].double()) ** 2))
               for k in want)
     den = sum(float(torch.sum(want[k].double() ** 2)) for k in want)
@@ -78,8 +79,10 @@ def main(argv=None) -> None:
     jopt_state = jopt.init(jparams)
     jstate = JS.TrainState(jnp.zeros((), jnp.int32), jparams, jopt_state)
     tstate = TS.TrainState(
-        0, convert.params_from_jax(jax.tree.map(np.asarray, jparams)),
-        convert.opt_state_from_jax(jax.tree.map(np.asarray, jopt_state)))
+        0, convert.params_from_jax(jax.tree.map(np.asarray, jparams),
+                                   device="cpu"),
+        convert.opt_state_from_jax(jax.tree.map(np.asarray, jopt_state),
+                                   device="cpu"))
     jstep = jax.jit(JS.make_train_step(jcfg, jopt))
     tstep = TS.make_train_step(tcfg, topt)
     data = SyntheticLM(vocab_size=tcfg.vocab_size, seq_len=args.seq_len,

@@ -32,6 +32,7 @@ support), it says so and runs both parts without it, and those runs count.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import math
 import os
@@ -148,7 +149,7 @@ def guarded_gathers(b1, b2, qt, idx, offset: int) -> None:
     import numpy as np
     import torch
 
-    from repro_torch.kernels import colgather_matmul as cg
+    cg = importlib.import_module("repro_torch.kernels.colgather_matmul")
     from repro_torch.kernels import cuda_lib
     from repro_torch.kernels import quant_ef as qe
 
@@ -233,10 +234,10 @@ def launch() -> int:
 
     from repro_torch.core.dct import dct2_matrix
     from repro_torch.core.newton_schulz import NS_COEFFS
-    from repro_torch.kernels import colgather_matmul as cg
-    from repro_torch.kernels import dct_project as dp
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import flash_decode as fd
+    cg = importlib.import_module("repro_torch.kernels.colgather_matmul")
+    dp = importlib.import_module("repro_torch.kernels.dct_project")
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
     from repro_torch.kernels import lowp
     from repro_torch.kernels import newton_schulz as ns
     from repro_torch.kernels import ops

@@ -33,12 +33,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.error_feedback import QuantizedBuffer
+from repro_torch.devices import resolve_device
 from repro_torch.optim.common import AdamMoments, FullAdamLeaf
 from repro_torch.optim.dion import DionLeaf
 from repro_torch.optim.muon import MuonLeaf
 from repro_torch.optim.projected_adam import ProjAdamLeaf
 from repro_torch.optim.transform import (ChainState, EmptyState,
-                                        InjectHyperparamsState, transposed)
+                                        InjectHyperparamsState, MaskedNode,
+                                        transposed)
 from repro_torch.optim.trion import TrionLeaf
 
 
@@ -51,7 +53,11 @@ def _tensor(x, device) -> torch.Tensor:
 
 
 def _walk(node, path: str):
-    """Yield ``(path, node)`` for every node below dicts and lists."""
+    """Yield ``(path, node)`` for every node below dicts and lists, skipping
+    the masked positions of a JAX partition state (its ``MaskedNode``, the
+    port's by name: the class itself is JAX's)."""
+    if type(node).__name__ == MaskedNode.__name__:
+        return
     if isinstance(node, dict):
         for k, v in node.items():
             yield from _walk(v, f"{path}/{k}" if path else str(k))
@@ -63,7 +69,9 @@ def _walk(node, path: str):
 
 
 def params_from_jax(tree, device=None) -> dict[str, torch.Tensor]:
-    """Nested JAX parameter tree of numpy arrays -> ``{path: tensor}``."""
+    """Nested JAX parameter tree of numpy arrays -> ``{path: tensor}`` on
+    ``device`` (None: the card; ``resolve_device``)."""
+    device = resolve_device(device)
     return {path: _tensor(leaf, device) for path, leaf in _walk(tree, "")}
 
 
@@ -85,8 +93,8 @@ _LEAF_FIELDS = {"ProjAdamLeaf": ("m", "v", "proj", "ef", "inner_step"),
 
 
 def _leaf_states(tree) -> dict:
-    """``{path: leaf state}`` of a partition branch, skipping the masked
-    positions (``MaskedNode``) that belong to the other label."""
+    """``{path: leaf state}`` of a partition branch (``_walk`` skips the
+    positions that belong to the other label)."""
     return {path: node for path, node in _walk(tree, "")
             if _LEAF_FIELDS.get(type(node).__name__) == _fields(node)}
 
@@ -153,7 +161,9 @@ def _rule_chain(leaves, device) -> tuple:
 
 def opt_state_from_jax(state, device=None) -> ChainState:
     """``repro`` ``ChainState`` of a matrix-optimizer preset or of
-    ``adamw`` (numpy leaves), with or without ``lr_scale``, -> the port's."""
+    ``adamw`` (numpy leaves), with or without ``lr_scale``, -> the port's,
+    on ``device`` (None: the card)."""
+    device = resolve_device(device)
     if _fields(state) != ("step", "key", "bases", "leaves"):
         raise TypeError(f"expected repro's ChainState, got {type(state)}")
     if len(state.leaves) == 2 and \

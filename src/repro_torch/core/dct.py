@@ -44,6 +44,15 @@ def dct2_matrix(n: int, dtype=torch.float32, device=None) -> torch.Tensor:
     return dct3_matrix(n, dtype, device).T.contiguous()
 
 
+def dct_basis_np(n: int) -> np.ndarray:
+    """Float64 NumPy DCT-III basis: the test oracle."""
+    i = np.arange(n, dtype=np.float64)[:, None]
+    j = np.arange(n, dtype=np.float64)[None, :]
+    q = np.sqrt(2.0 / n) * np.cos(i * (2.0 * j + 1.0) * (np.pi / (2.0 * n)))
+    q[0, :] /= np.sqrt(2.0)
+    return q
+
+
 @functools.lru_cache(maxsize=64)
 def _makhoul_permutation(n: int) -> np.ndarray:
     """Makhoul input permutation: [a b c d e f] -> [a c e f d b]: even
@@ -70,3 +79,15 @@ def makhoul_dct2(x: torch.Tensor) -> torch.Tensor:
     scale[0] = np.sqrt(1.0 / (4.0 * n))
     return (y * scale).to(x.dtype)
 
+
+
+def dct2(x: torch.Tensor, method: str = "matmul") -> torch.Tensor:
+    """Row-wise orthonormal DCT-II: the similarity transform ``S = G @ Q``.
+    ``method="matmul"`` multiplies by ``dct2_matrix``; ``"fft"`` is
+    Makhoul's algorithm on ``torch.fft``."""
+    if method == "fft":
+        return makhoul_dct2(x)
+    if method != "matmul":
+        raise ValueError(f"unknown method {method!r}; expected 'matmul' or "
+                         f"'fft'")
+    return x @ dct2_matrix(x.shape[-1], x.dtype, x.device)

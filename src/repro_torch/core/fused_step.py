@@ -20,8 +20,10 @@ Three concrete modes (``resolve`` maps a rule's ``fused`` field to one):
               DCT).
   ``"off"`` — the reference path.
 
-``"auto"`` resolves by the device of the tensors: ``"on"`` for CUDA
-tensors, ``"off"`` for CPU tensors.
+A rule's ``"auto"`` takes the process-wide default
+(``set_default_fused_mode``), itself ``"auto"`` unless set: that resolves
+by the device of the tensors, ``"on"`` for CUDA tensors, ``"off"`` for CPU
+tensors.
 """
 from __future__ import annotations
 
@@ -46,6 +48,24 @@ from repro_torch.kernels import lowp, ops
 
 FUSED_MODES = ("auto", "off", "on", "fft")
 
+# process-wide default consulted by rules whose ``fused`` is "auto"; itself
+# "auto" = the kernels for CUDA tensors, the reference path for CPU ones
+_DEFAULT_MODE = "auto"
+
+
+def set_default_fused_mode(mode: str) -> None:
+    """Override the process-wide dispatch default (benchmarks,
+    experiments); ``"auto"`` restores the device rule."""
+    global _DEFAULT_MODE
+    if mode not in FUSED_MODES:
+        raise ValueError(f"unknown fused mode {mode!r}; expected one of "
+                         f"{FUSED_MODES}")
+    _DEFAULT_MODE = mode
+
+
+def default_fused_mode() -> str:
+    return _DEFAULT_MODE
+
 
 def resolve(mode: str, device: torch.device | str) -> str:
     """Rule-level mode -> concrete mode in {"off", "on", "fft"} for tensors
@@ -53,6 +73,8 @@ def resolve(mode: str, device: torch.device | str) -> str:
     if mode not in FUSED_MODES:
         raise ValueError(f"unknown fused mode {mode!r}; expected one of "
                          f"{FUSED_MODES}")
+    if mode == "auto":
+        mode = _DEFAULT_MODE
     if mode == "auto":
         return "on" if torch.device(device).type == "cuda" else "off"
     return mode

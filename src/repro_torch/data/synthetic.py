@@ -15,6 +15,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.devices import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class SyntheticLM:
@@ -39,8 +41,9 @@ class SyntheticLM:
         return idx + 2
 
     def batch(self, step: int, device=None) -> dict:
-        """``{"tokens", "targets"}`` (B, S) int64 for one global step."""
-        dev = torch.device(device or "cpu")
+        """``{"tokens", "targets"}`` (B, S) int64 for one global step, on
+        ``device`` (None: the card; ``resolve_device``)."""
+        dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(
             self.seed * 1_000_003 + step)
         b, s = self.global_batch, self.seq_len
@@ -57,11 +60,12 @@ class SyntheticLM:
 
 def make_batch_fn(cfg, seq_len: int, global_batch: int, seed: int = 0,
                   device=None):
-    """``step -> batch`` on ``device``. Only token inputs are ported (no
-    audio-frame or image-embedding stubs)."""
+    """``step -> batch`` on ``device`` (None: the card). Only token inputs
+    are ported (no audio-frame or image-embedding stubs)."""
     if cfg.encoder_layers or cfg.n_image_tokens:
         raise NotImplementedError("synthetic frames / image embeddings are "
                                   "not yet ported to repro_torch")
+    device = resolve_device(device)
     ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq_len,
                      global_batch=global_batch, seed=seed)
 

@@ -188,3 +188,7 @@ def newton_schulz_kernel(x: torch.Tensor, *, steps: int = 5,
     ``core.newton_schulz``'s driver (orientation, normalization, the two
     ping-pong buffers, the cast back) with ``ns_iteration`` as its step."""
     return newton_schulz(x, steps, eps, iteration=ns_iteration)
+
+
+#: the JAX package's name of the full NS through the kernels
+newton_schulz_pallas = newton_schulz_kernel

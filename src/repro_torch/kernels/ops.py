@@ -1,10 +1,20 @@
 """The kernel entry points of the port, grouped by the path that runs them,
 and their launch counts.
 
-The JAX package's ``*_op`` wrappers exist to pick Pallas interpret mode off
-the TPU. Here each wrapper chooses by its tensors' device (CUDA: launch the
-kernel or raise; CPU: the plain version), so callers use the wrappers
-themselves.
+The JAX package's ``*_op`` dispatchers exist to pick Pallas interpret
+mode off the TPU. Here each wrapper chooses by its tensors' device (CUDA:
+launch the kernel or raise; CPU: the plain version), so the ``*_op`` names
+below are the wrappers themselves, with the reference's argument order:
+``dct_project_op(g, q)``, ``colgather_matmul_op(b, qt, idx)``,
+``colgather_matmul_dual_op(b1, b2, qt, idx)``, ``newton_schulz_op(x)``
+(the full NS: ``steps`` launches each of ``ns_gram`` and ``ns_apply``),
+``ns_iteration_op(x)`` (one of each), ``flash_attention_op(q, k, v)``,
+``flash_decode_op(q, k_pool, v_pool, block_table, lengths)``,
+``quantize_ef_op(x)`` and ``dequant_add_ef_op(g, q, scale)``. Their
+keywords are the port's (no ``interpret``, no ``block``). ``ON_TPU`` is not
+ported: the port never runs on a TPU, and its dispatch is by device. The
+tile defaults ``DEFAULT_BLOCK`` / ``DEFAULT_BM`` of the reference's kernels
+wait for the port's tuner.
 
 ``TRAINING`` lists the CUDA kernels of the DCT-AdamW step, ``MOMENTUM``
 those the momentum families add (Trion, Muon, Dion: the two Newton–Schulz
@@ -36,7 +46,8 @@ from .colgather_matmul import (
 from .dct_project import dct_project, dct_project_bf16, dct_project_q8
 from .flash_attention import flash_attention, flash_attention_blockwise
 from .flash_decode import flash_decode
-from .newton_schulz import newton_schulz_kernel, ns_apply, ns_gram
+from .newton_schulz import (newton_schulz_kernel, ns_apply, ns_gram,
+                            ns_iteration)
 from .quant_ef import (dequant_add_ef, quant_cols_q8t, quant_fold_q8,
                        quant_qt_q8, quant_rows_q8, quantize_ef)
 
@@ -72,10 +83,16 @@ ATTENTION = {
 }
 KERNELS = {**TRAINING, **MOMENTUM, **SERVING, **LOWP, **ATTENTION}
 
-#: the model's entry to the kernel, under the JAX package's name (there the
-#: op picks Pallas interpret mode off the TPU; here the wrapper picks by
-#: device, so the two are one function)
+# the JAX package's dispatcher names: each is its wrapper
+dct_project_op = dct_project
+colgather_matmul_op = colgather_matmul
+colgather_matmul_dual_op = colgather_matmul_dual
+newton_schulz_op = newton_schulz_kernel
+ns_iteration_op = ns_iteration
 flash_attention_op = flash_attention
+flash_decode_op = flash_decode
+quantize_ef_op = quantize_ef
+dequant_add_ef_op = dequant_add_ef
 
 
 def launch_counts(group: dict | None = None) -> dict[str, int]:

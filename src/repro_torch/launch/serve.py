@@ -2,7 +2,8 @@
 
   python -m repro_torch.launch.serve --arch llama-350m --engine paged \
       [--batch 4] [--prompt-len 12] [--new-tokens 16] [--block-size 8] \
-      [--prefill-chunk 8] [--num-splits 2] [--smoke] [--device cpu]
+      [--prefill-chunk 8] [--num-splits 2] [--smoke] [--device cpu] \
+      [--metrics [--metrics-dir DIR]]
 
 Runs on the CUDA card by default and raises if there is none; ``--device
 cpu`` runs on the CPU (the tests). The weights are random, from
@@ -13,7 +14,16 @@ requests with different sampling parameters into a block-pool KV cache; the
 continuous-batching scheduler admits and retires them between decode steps,
 whose attention is the ``flash_decode`` kernel on the card. One request
 streams token by token, one is admitted mid-flight, one is cancelled, and
-the pool's stats are printed at the end.
+the pool's stats are printed at the end, with the serving kernels' launch
+counts of the run (``flash_decode`` on the card, 0 on the CPU).
+
+``--metrics`` (paged engine only) enables the obs layer (``repro_torch.
+obs``) before the engine is built: at the end it prints the per-request
+latency table (queue wait, TTFT, mean ITL, E2E, from each handle's
+timestamps), TTFT and ITL p50 / p99 from the registry's histograms, and
+writes a Prometheus text snapshot ``metrics.prom`` and a Chrome trace
+``trace.json`` under ``--metrics-dir`` (default: ``build/serve_metrics``
+of the checkout).
 
 ``--engine dense``: one prefill and decode steps over a dense cache for a
 batch of prompts.
@@ -21,13 +31,18 @@ batch of prompts.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from repro_torch.launch.train import device_for
+from repro_torch.devices import resolve_device
+
+DEFAULT_METRICS_DIR = Path(__file__).resolve().parents[3] / "build" / \
+    "serve_metrics"
 
 
 def build(argv=None) -> argparse.Namespace:
@@ -50,6 +65,11 @@ def build(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--metrics", action="store_true",
+                    help="enable the obs layer (paged engine only): "
+                         "per-request latency table + Prometheus snapshot "
+                         "+ Chrome trace under --metrics-dir")
+    ap.add_argument("--metrics-dir", default=str(DEFAULT_METRICS_DIR))
     return ap.parse_args(sys.argv[1:] if argv is None else argv)
 
 
@@ -72,6 +92,7 @@ def run_dense(cfg, params, args, rng, dev) -> dict:
 
 
 def run_paged(cfg, params, args, rng, dev) -> dict:
+    from repro_torch.kernels import ops
     from repro_torch.serve import PagedServeEngine, SamplingParams, Session
 
     bs = args.block_size
@@ -123,15 +144,62 @@ def run_paged(cfg, params, args, rng, dev) -> dict:
           f"after drain, paged {stats['cache_bytes'] / 1e6:.2f}MB vs "
           f"dense-equivalent {stats['dense_bytes_equivalent'] / 1e6:.2f}MB, "
           f"{stats['steps']} decode steps")
-    return {"handles": {h.request.request_id: h for h in handles},
-            "streamed": got, "stats": stats, "seconds": dt}
+    launches = ops.launch_counts(ops.SERVING)
+    print("kernel launches: " + ", ".join(f"{k}={n}"
+                                          for k, n in launches.items()))
+    out = {"handles": {h.request.request_id: h for h in handles},
+           "streamed": got, "stats": stats, "seconds": dt,
+           "launches": launches}
+    if args.metrics:
+        out["metrics"] = report_metrics(args.metrics_dir, handles)
+    return out
+
+
+def _fmt(v, spec: str) -> str:
+    # a request cancelled before admission has no queue wait or TTFT
+    return format(v, spec) if v is not None else "-"
+
+
+def report_metrics(metrics_dir: str, handles) -> dict:
+    """The ``--metrics`` report of a paged run: the per-request latency
+    table, TTFT / ITL p50 and p99 from the registry's histograms, and
+    ``metrics.prom`` and ``trace.json`` written under ``metrics_dir``.
+    Returns the quantiles and the two paths."""
+    from repro_torch import obs
+
+    print("\nper-request latency (seconds; quantized to decode steps):")
+    print(f"  {'request':<22} {'finish':<10} {'toks':>4} {'queue':>7} "
+          f"{'ttft':>7} {'itl_mean':>8} {'e2e':>7}")
+    for h in handles:
+        s = h.latency_summary()
+        print(f"  {s['request_id']:<22} {s['finish_reason']:<10} "
+              f"{s['n_tokens']:>4} {_fmt(s['queue_wait'], '.3f'):>7} "
+              f"{_fmt(s['ttft'], '.3f'):>7} {_fmt(s['itl_mean'], '.4f'):>8} "
+              f"{_fmt(s['e2e'], '.3f'):>7}")
+    r = obs.registry()
+    ttft, itl = r.get("serve_ttft_seconds"), r.get("serve_itl_seconds")
+    q = {"ttft_p50": ttft.quantile(0.5), "ttft_p99": ttft.quantile(0.99),
+         "itl_p50": itl.quantile(0.5), "itl_p99": itl.quantile(0.99)}
+    print(f"ttft p50/p99: {q['ttft_p50']:.3f}/{q['ttft_p99']:.3f}"
+          f"  itl p50/p99: {q['itl_p50']:.4f}/{q['itl_p99']:.4f}")
+    os.makedirs(metrics_dir, exist_ok=True)
+    prom = obs.write_prometheus(os.path.join(metrics_dir, "metrics.prom"))
+    trace = obs.write_chrome_trace(os.path.join(metrics_dir, "trace.json"))
+    print(f"wrote {prom} and {trace}")
+    return {**q, "prometheus": prom, "trace": trace}
 
 
 def run(args: argparse.Namespace) -> dict:
     from repro_torch.configs.registry import get_config
     from repro_torch.models import transformer as T
 
-    dev = device_for(args.device)
+    if args.metrics:
+        if args.engine != "paged":
+            raise SystemExit("--metrics instruments the paged engine; "
+                             "use --engine paged")
+        from repro_torch import obs
+        obs.enable()
+    dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     params = T.init_params(cfg, seed=args.seed, device=dev)
     rng = np.random.default_rng(args.seed)

@@ -56,6 +56,8 @@ import sys
 
 import torch
 
+from repro_torch.devices import resolve_device
+
 # the presets built on ProjectedAdamRule
 PROJECTED_ADAM_FAMILY = ("dct_adamw", "ldadamw", "galore", "frugal", "fira")
 # presets with a fused-step dispatch field: the projected-Adam family plus
@@ -158,24 +160,6 @@ def build(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def device_for(name: str) -> torch.device:
-    """The run's device; ``cuda`` without a card raises rather than falling
-    back to the CPU."""
-    dev = torch.device(name)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("--device cuda was asked for but no CUDA "
-                               "device is available (pass --device cpu to "
-                               "run on the CPU)")
-        # fp32 matmuls in full fp32 (the reference's numbers), stated here
-        # rather than left to the library defaults
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {name!r}")
-    return dev
-
-
 def _optimizer_kwargs(args: argparse.Namespace, dev: torch.device) -> dict:
     """The optimizer keywords of the flags, with the JAX CLI's checks (and
     its messages)."""
@@ -247,7 +231,7 @@ def run(args: argparse.Namespace, stop_at: int | None = None):
         # bases: the scheduler would be silently inert)
         raise SystemExit("--adaptive-refresh needs an index-based projector"
                          " (dct); use --optimizer dct_adamw")
-    dev = device_for(args.device)
+    dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     lr = cosine_warmup(args.lr, args.warmup, args.steps)
     opt_kw = _optimizer_kwargs(args, dev)

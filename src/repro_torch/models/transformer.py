@@ -12,8 +12,9 @@ Ported for ``family="dense"`` with the ``attn`` and ``local`` (sliding
 window of ``cfg.sliding_window``) blocks, optional qk-norm, optional qkv
 bias (``attn/w{q,k,v}/bias``, added after each projection's product) and
 ``attn_sp`` (``layers.sp_blockwise_attention``, plain blockwise attention
-on one device): ``init_params``, ``param_count``, ``cast_params`` and
-``forward`` (training, and the dense
+on one device): ``init_params``, ``param_count``, ``cast_params``, the
+per-block API (``ATTN_KINDS``, ``init_block``, ``block_apply``: the one
+place a block's math lives) and ``forward`` (training, and the dense
 prefill, whose no-grad attention is the ``flash_attention`` kernel on the
 card); the dense decode path (``init_cache``, ``prefill``, ``decode_step``;
 a ``local`` layer keeps a ring of its last ``window`` positions); the paged
@@ -21,7 +22,8 @@ serving path (``init_paged_pools``, ``init_prefill_scratch``,
 ``prefill_chunk``, ``write_prefill_to_pools``, ``decode_step_paged``),
 whose attention is the ``flash_decode`` kernel. Not yet ported: the other
 block kinds and families (``attn_moe``, MoE, MLA, Mamba, RWKV,
-encoder-decoder, VLM), and the mesh of sequence-parallel attention.
+encoder-decoder, VLM, with ``MLA_KINDS``, ``MOE_KINDS`` and ``encode``),
+and the mesh of sequence-parallel attention.
 
 Caches and pools are flat dicts too, keyed like the JAX trees:
 ``segments/{i}/p{j}/k`` and ``.../v``. Unlike the JAX package, whose
@@ -33,6 +35,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.devices import resolve_device
 
 from .layers import (
     apply_rope,
@@ -51,6 +55,8 @@ from .layers import (
 )
 
 
+#: the reference's attention block kinds
+ATTN_KINDS = ("attn", "local", "attn_moe", "enc", "dec", "cross")
 #: the block kinds this package builds
 PORTED_KINDS = ("attn", "local")
 
@@ -63,23 +69,29 @@ def _check_ported(cfg) -> None:
             f"ported to repro_torch (family={cfg.family!r}, blocks={kinds})")
 
 
+def _check_kind(kind: str) -> None:
+    if kind not in PORTED_KINDS:
+        raise NotImplementedError(f"block kind {kind!r} is not yet ported to "
+                                  f"repro_torch (ported: {PORTED_KINDS})")
+
+
 def _window(kind: str, cfg) -> int | None:
     return cfg.sliding_window if kind == "local" else None
 
 
 def init_params(cfg, seed: int = 0, device=None) -> dict[str, torch.Tensor]:
     """Full parameter dict from a ``torch.Generator`` seeded with ``seed``
-    (its own stream: the values differ from ``repro``'s for the same seed).
+    (its own stream: the values differ from ``repro``'s for the same seed),
+    on ``device`` (None: the card; ``resolve_device``).
     ``device="meta"`` gives the shapes and dtypes without values (the
     counterpart of ``jax.eval_shape``; a meta tensor draws from no
     generator)."""
     _check_ported(cfg)
-    dev = torch.device(device or "cpu")
+    dev = resolve_device(device)
     gen = (None if dev.type == "meta"
            else torch.Generator(device=dev).manual_seed(seed))
     dt = getattr(torch, cfg.param_dtype)
-    d, hq, hkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                         cfg.d_ff)
+    d = cfg.d_model
     params = {"embed/kernel": embed_init(gen, cfg.vocab_size, d, dt,
                                          device=dev)}
     if not cfg.tie_embeddings:
@@ -89,33 +101,56 @@ def init_params(cfg, seed: int = 0, device=None) -> dict[str, torch.Tensor]:
                                              device=dev)
     for i, (pattern, repeats) in enumerate(cfg.schedule):
         for j, _ in enumerate(pattern):
-            pre = f"segments/{i}/p{j}/"
-            L = (repeats,)
-
-            def w(d_in, d_out):
-                return dense_init(gen, d_in, d_out, dt, batch=L, device=dev)
-
-            params.update({
-                pre + "ln1/scale": torch.zeros((repeats, d), device=dev),
-                pre + "attn/wq/kernel": w(d, hq * hd),
-                pre + "attn/wk/kernel": w(d, hkv * hd),
-                pre + "attn/wv/kernel": w(d, hkv * hd),
-                pre + "attn/wo/kernel": w(hq * hd, d),
-                pre + "ln2/scale": torch.zeros((repeats, d), device=dev),
-                pre + "mlp/wg/kernel": w(d, f),
-                pre + "mlp/wu/kernel": w(d, f),
-                pre + "mlp/wd/kernel": w(f, d),
-            })
-            if cfg.qkv_bias:
-                for n, width in (("q", hq * hd), ("k", hkv * hd),
-                                 ("v", hkv * hd)):
-                    params[pre + f"attn/w{n}/bias"] = torch.zeros(
-                        (repeats, width), dtype=dt, device=dev)
-            if cfg.use_qk_norm:
-                for n in ("q", "k"):
-                    params[pre + f"attn/{n}_norm_scale"] = torch.zeros(
-                        (repeats, hd), dtype=torch.float32, device=dev)
+            block = _block_leaves(gen, cfg, (repeats,), dev)
+            params.update({f"segments/{i}/p{j}/{k}": v
+                           for k, v in block.items()})
     return params
+
+
+def _block_leaves(gen, cfg, batch: tuple, dev) -> dict[str, torch.Tensor]:
+    """One ``attn`` / ``local`` block's leaves with leading ``batch`` axes
+    (the stacked layers of a schedule position, or none), the weights drawn
+    from ``gen`` in a fixed order: wq, wk, wv, wo, wg, wu, wd."""
+    dt = getattr(torch, cfg.param_dtype)
+    d, hq, hkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                         cfg.d_ff)
+
+    def w(d_in, d_out):
+        return dense_init(gen, d_in, d_out, dt, batch=batch, device=dev)
+
+    p = {
+        "ln1/scale": torch.zeros((*batch, d), device=dev),
+        "attn/wq/kernel": w(d, hq * hd),
+        "attn/wk/kernel": w(d, hkv * hd),
+        "attn/wv/kernel": w(d, hkv * hd),
+        "attn/wo/kernel": w(hq * hd, d),
+        "ln2/scale": torch.zeros((*batch, d), device=dev),
+        "mlp/wg/kernel": w(d, f),
+        "mlp/wu/kernel": w(d, f),
+        "mlp/wd/kernel": w(f, d),
+    }
+    if cfg.qkv_bias:
+        for n, width in (("q", hq * hd), ("k", hkv * hd), ("v", hkv * hd)):
+            p[f"attn/w{n}/bias"] = torch.zeros((*batch, width), dtype=dt,
+                                               device=dev)
+    if cfg.use_qk_norm:
+        for n in ("q", "k"):
+            p[f"attn/{n}_norm_scale"] = torch.zeros(
+                (*batch, hd), dtype=torch.float32, device=dev)
+    return p
+
+
+def init_block(gen, kind: str, cfg, device=None) -> dict[str, torch.Tensor]:
+    """One block's leaves, keyed as a layer's parameters under its
+    ``segments/{i}/p{j}/`` prefix (``attn/wq/kernel`` of (d, hq * hd), no
+    stacked axis), drawn from the ``torch.Generator`` ``gen`` (the JAX
+    package's ``init_block`` takes a key; the streams differ). ``device``:
+    the generator's by default; ``"meta"`` (with ``gen=None``) gives shapes
+    only."""
+    _check_kind(kind)
+    return _block_leaves(gen, cfg, (),
+                         torch.device(device) if device is not None
+                         else gen.device)
 
 
 def param_count(params: dict) -> int:
@@ -161,10 +196,17 @@ def _proj(p: dict, h, n: str):
     return y if bias is None else y + bias
 
 
-def _attn_block(p: dict, x, cfg, kind: str, return_kv: bool = False):
-    """One ``attn`` or ``local`` block: pre-norm GQA self-attention (a
-    sliding window for ``local``) + SwiGLU MLP. With ``return_kv`` also the
-    block's roped K and V, ``(x, (k, v))``."""
+def block_apply(kind: str, p: dict, x, cfg, ctx=None, *,
+                return_kv: bool = False):
+    """One block of the schedule on ``x`` (B, S, d): pre-norm GQA
+    self-attention (a sliding window for ``local``) and a SwiGLU MLP, each
+    added to the residual. ``p``: the block's leaves (one layer's, keyed as
+    ``init_block``'s); ``ctx``: the cross-attention inputs of the
+    reference's other kinds (the ported kinds read none). Returns ``(x,
+    aux, kv)``: ``aux`` the block's auxiliary loss (a 0-d fp32 zero: no
+    MoE), ``kv`` the block's roped ``(k, v)`` with ``return_kv``, else
+    None."""
+    _check_kind(kind)
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = rms_norm(x, p["ln1/scale"], cfg.norm_eps)
@@ -182,7 +224,8 @@ def _attn_block(p: dict, x, cfg, kind: str, return_kv: bool = False):
     h = rms_norm(x, p["ln2/scale"], cfg.norm_eps)
     x = x + swiglu(h, p["mlp/wg/kernel"], p["mlp/wu/kernel"],
                    p["mlp/wd/kernel"])
-    return (x, (k, v)) if return_kv else x
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux, ((k, v) if return_kv else None)
 
 
 def _layers(p: dict, cfg):
@@ -210,21 +253,23 @@ def forward(params: dict, batch: dict, cfg, *, return_cache: bool = False):
     cdt = getattr(torch, cfg.compute_dtype)
     p = cast_params(params, cfg)
     x = p["embed/kernel"][tokens]
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     kv: dict[str, list] = {}
     for pre, kind, _, lp in _layers(p, cfg):
-        if return_cache:
-            x, pair = _attn_block(lp, x, cfg, kind, return_kv=True)
-            kv.setdefault(pre, []).append(pair)
-        elif cfg.remat:
-            x = checkpoint(_attn_block, lp, x, cfg, kind, use_reentrant=False)
+        if cfg.remat and not return_cache:
+            x, a, _ = checkpoint(block_apply, kind, lp, x, cfg, {},
+                                 use_reentrant=False)
         else:
-            x = _attn_block(lp, x, cfg, kind)
+            x, a, pair = block_apply(kind, lp, x, cfg, {},
+                                     return_kv=return_cache)
+            if return_cache:
+                kv.setdefault(pre, []).append(pair)
         x = x.to(cdt)                      # pin the residual-stream dtype
+        aux_total = aux_total + a
     x = rms_norm(x, p["final_norm/scale"], cfg.norm_eps)
     unemb = p["embed/kernel"] if cfg.tie_embeddings else p["unembed/kernel"]
     logits = x @ unemb.to(cdt).T
-    aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device),
-           "mtp_logits": None}
+    aux = {"moe_aux": aux_total, "mtp_logits": None}
     if return_cache:
         return logits, aux, kv
     return logits, aux
@@ -250,12 +295,13 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
     """Zeroed dense decode cache: ``segments/{i}/p{j}/k`` and ``/v`` of
     (repeats, B, max_len, Hkv, hd) in the compute dtype; ``max_len`` is
     ``min(window, max_len)`` for a ``local`` layer (position p at ring slot
-    p % that length)."""
+    p % that length), on ``device`` (None: the card)."""
     _check_ported(cfg)
     cdt = getattr(torch, cfg.compute_dtype)
+    dev = resolve_device(device)
     return {pre + n: torch.zeros(
                 (repeats, batch, _cache_len(kind, cfg, max_len),
-                 cfg.n_kv_heads, cfg.hd), dtype=cdt, device=device)
+                 cfg.n_kv_heads, cfg.hd), dtype=cdt, device=dev)
             for pre, kind, repeats in _kv_keys(cfg) for n in "kv"}
 
 
@@ -311,9 +357,7 @@ def _ffn(p, x_t, cfg):
 
 def block_decode(kind: str, p, x_t, k_cache, v_cache, pos, cfg):
     """One layer of the dense decode step. x_t: (B, d); pos: (B,)."""
-    if kind not in PORTED_KINDS:
-        raise NotImplementedError(f"decode for block kind {kind!r} is not "
-                                  f"yet ported to repro_torch")
+    _check_kind(kind)
     h = rms_norm(x_t, p["ln1/scale"], cfg.norm_eps)
     x_t = x_t + _gqa_decode(p, h, k_cache, v_cache, pos, cfg,
                             window=_window(kind, cfg))
@@ -426,11 +470,13 @@ def init_paged_pools(cfg, num_blocks: int, block_size: int,
     (repeats, NB, bs, Hkv, hd) in the compute dtype. Block ids are shared
     across layers: entry ``i`` of a block table addresses block ``i`` of
     every layer's pool. A ``local`` layer keeps every position, as the
-    JAX package's pools do: the window is a mask of ``flash_decode``."""
+    JAX package's pools do: the window is a mask of ``flash_decode``. On
+    ``device`` (None: the card)."""
     _check_paged(cfg)
     cdt = getattr(torch, cfg.compute_dtype)
     shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.hd)
-    return {pre + n: torch.zeros((repeats, *shape), dtype=cdt, device=device)
+    dev = resolve_device(device)
+    return {pre + n: torch.zeros((repeats, *shape), dtype=cdt, device=dev)
             for pre, _, repeats in _kv_keys(cfg) for n in "kv"}
 
 
@@ -438,11 +484,13 @@ def init_prefill_scratch(cfg, max_prefill_len: int, device=None) -> dict:
     """Dense per-layer K/V scratch of (repeats, 1, max_prefill_len, Hkv, hd)
     used while chunk-prefilling ONE sequence, then scattered into the
     pools. ``local`` layers get the full length too (the window is a mask,
-    so the scatter into blocks stays position-indexed)."""
+    so the scatter into blocks stays position-indexed). On ``device``
+    (None: the card)."""
     _check_paged(cfg)
     cdt = getattr(torch, cfg.compute_dtype)
     shape = (1, max_prefill_len, cfg.n_kv_heads, cfg.hd)
-    return {pre + n: torch.zeros((repeats, *shape), dtype=cdt, device=device)
+    dev = resolve_device(device)
+    return {pre + n: torch.zeros((repeats, *shape), dtype=cdt, device=dev)
             for pre, _, repeats in _kv_keys(cfg) for n in "kv"}
 
 

@@ -21,12 +21,14 @@ from .transform import (
     add_decayed_weights,
     as_optimizer,
     chain,
+    clip_global_norm,
     inject_hyperparams,
     lowrank_project,
     matrix_optimizer,
     partition,
     scale_by_adam,
     scale_by_learning_rate,
+    scale_by_schedule,
 )
 
 __all__ = [
@@ -38,5 +40,6 @@ __all__ = [
     "GradientTransform", "ChainState", "chain", "partition",
     "inject_hyperparams", "as_optimizer",
     "matrix_optimizer", "lowrank_project", "scale_by_adam",
-    "scale_by_learning_rate", "add_decayed_weights",
+    "scale_by_learning_rate", "scale_by_schedule", "add_decayed_weights",
+    "clip_global_norm",
 ]

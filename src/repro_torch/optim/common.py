@@ -14,9 +14,13 @@ which is how per-layer column indices of shape ``(layers, r)`` fall out.
 The step is a host integer: the branches that depend on it (refresh every
 ``update_interval`` steps, bias correction) are Python branches.
 
-The legacy ``make_matrix_optimizer`` harness of the JAX package is not
-ported; the transform chains of :mod:`repro_torch.optim.transform` are the
-live presets there too.
+The monolithic ``make_matrix_optimizer`` harness at the bottom is the
+legacy reference implementation, as in the JAX package: the live presets
+are the transform chains of :mod:`repro_torch.optim.transform`, and the
+harness is kept so the tests can pin the chains against it bit for bit.
+
+``path_str`` (the JAX package's join of a pytree key path) is not ported:
+the port's trees are flat dicts already keyed by the string it returns.
 """
 from __future__ import annotations
 
@@ -25,7 +29,12 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.core.transforms import basis_store_key, get_backend
+from repro_torch.core.transforms import (
+    basis_store_key,
+    get_backend,
+    normalize_basis_request,
+    shared_basis,
+)
 
 Schedule = Callable[[int], float] | float
 
@@ -186,3 +195,87 @@ class Context:
     def basis_t(self, n: int, kind: str = "dct") -> torch.Tensor | None:
         """The cached contiguous ``Q^T``, or None when none is stored."""
         return self.bases_t.get(basis_store_key(kind, n))
+
+
+class HarnessState(NamedTuple):
+    """State of the legacy harness: the global step, the root key (the
+    ``seed``, as the port's ``ChainState`` holds it), the shared bases
+    with their contiguous transposes (as in ``ChainState``) and the flat
+    ``{path: leaf state}`` leaves."""
+
+    step: int
+    key: int
+    bases: dict
+    leaves: dict
+    bases_t: dict
+
+
+def make_matrix_optimizer(
+    rule: MatrixRule,
+    lr: Schedule,
+    *,
+    weight_decay: float = 0.0,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    label_fn=default_label_fn,
+    basis_mode: str = "stored",   # "stored" (paper) | "onthefly"
+    seed: int = 0,
+    fullrank_weight_decay: bool = True,
+) -> Optimizer:
+    """Wrap a MatrixRule into a full-model optimizer with an AdamW
+    fallback for the ``"full"`` leaves: the legacy reference harness. The
+    live presets are the equivalent chains of
+    ``transform.matrix_optimizer``; the tests pin the two bit for bit."""
+    # the chain runtime's key stream and basis store, one module up
+    from .transform import fold_in, leaf_key, transposed
+
+    def init(params):
+        labels = labelled_tree(params, label_fn)
+        sizes = set()
+        if rule.needs_shared_basis and basis_mode == "stored":
+            for path, p in params.items():
+                if labels[path] == "lowrank":
+                    sizes.update(normalize_basis_request(s)
+                                 for s in rule.basis_sizes(p.shape))
+        device = next(iter(params.values())).device if params else None
+        bases = {basis_store_key(k, n): shared_basis(k, n, torch.float32,
+                                                     device)
+                 for k, n in sorted(sizes)}
+        leaves = {}
+        for path, p in params.items():
+            if labels[path] == "lowrank":
+                leaves[path] = rule.init(p.shape, p.dtype, p.device)
+            else:
+                leaves[path] = FullAdamLeaf(AdamMoments(
+                    torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                    torch.zeros(p.shape, dtype=torch.float32,
+                                device=p.device)))
+        return HarnessState(step=0, key=seed, bases=bases, leaves=leaves,
+                            bases_t=transposed(bases))
+
+    def update(grads, state: HarnessState, params):
+        step = state.step + 1
+        lr_t = sched_value(lr, step)
+        labels = labelled_tree(params, label_fn)
+        key = fold_in(state.key, step)
+        updates, leaves = {}, {}
+        for path, g in grads.items():
+            s, p = state.leaves[path], params[path]
+            if labels[path] == "lowrank":
+                # per-leaf key: a stable hash of the path, not the order of
+                # the leaves
+                ctx = Context(step=step, bases=state.bases,
+                              bases_t=state.bases_t, key=leaf_key(key, path))
+                d, leaves[path] = rule.update(g, s, p, ctx)
+                upd = -lr_t * d.float()
+                updates[path] = upd - lr_t * weight_decay * p.float()
+                continue
+            direction, mom = adam_update(g, s.mom, step, b1, b2, eps)
+            upd = -lr_t * direction
+            if fullrank_weight_decay:
+                upd = upd - lr_t * weight_decay * p.float()
+            updates[path], leaves[path] = upd, FullAdamLeaf(mom)
+        return updates, state._replace(step=step, leaves=leaves)
+
+    return Optimizer(init=init, update=update)

@@ -9,11 +9,13 @@ where the trees are flat ``{leaf path: tensor}`` dicts and ``ctx`` is the
 :class:`~repro_torch.optim.common.Context` threaded by the chain runtime.
 
 Combinators: ``chain`` (sequential composition), ``partition`` (route
-leaves to transforms by label) and ``inject_hyperparams`` (float
-hyperparameters become 0-d fp32 state tensors, updatable between steps).
-Primitives: ``scale_by_adam`` (full-rank Adam), ``scale_by_learning_rate``,
-``add_decayed_weights``, ``lr_scale_transform`` (the resilience ladder's
-LR-cut seam) and ``lowrank_project(rule)``, which lifts a per-matrix-leaf
+leaves to transforms by label; ``merge_by_label`` puts the per-label trees
+back together) and ``inject_hyperparams`` (float hyperparameters become 0-d
+fp32 state tensors, updatable between steps). Primitives:
+``clip_global_norm``, ``scale_by_schedule``, ``scale_by_adam`` (full-rank
+Adam), ``scale_by_learning_rate``, ``add_decayed_weights``,
+``lr_scale_transform`` (the resilience ladder's LR-cut seam) and
+``lowrank_project(rule)``, which lifts a per-matrix-leaf
 :class:`~repro_torch.optim.common.MatrixRule` to a whole-tree transform.
 ``as_optimizer`` closes a transform into ``Optimizer(init, update)``: it
 owns the step counter, the root key and the shared-basis store.
@@ -29,8 +31,12 @@ Telemetry: ``as_optimizer`` puts the collector installed by
 ``lowrank_project`` narrows it to each leaf's path, the key ``overrides=``
 takes.
 
-Not yet ported from ``repro.optim.transform``: ``clip_global_norm``,
-``scale_by_schedule``, ``merge_by_label``, ``masked`` and ZeRO-1.
+Masked positions: JAX's ``partition`` hands each sub-transform the whole
+tree with ``MASKED`` in the other labels' places. On flat dicts the port's
+``partition`` drops those paths instead, so no tree of the port holds a
+``MaskedNode``; the class is the port's name for the JAX holes that
+``convert`` meets in a carried partition state, and ``merge_by_label``
+accepts per-label trees either way. ZeRO-1 (``zero=``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -74,6 +80,23 @@ class GradientTransform(NamedTuple):
 
 class EmptyState(NamedTuple):
     """State of a stateless transform."""
+
+
+class MaskedNode:
+    """Placeholder for a leaf hidden from a partitioned sub-transform (the
+    JAX package's pytree node with no leaves). All instances are equal."""
+
+    def __repr__(self):
+        return "MaskedNode"
+
+    def __eq__(self, other):
+        return isinstance(other, MaskedNode)
+
+    def __hash__(self):
+        return hash(MaskedNode)
+
+
+MASKED = MaskedNode()
 
 
 _MASK64 = (1 << 64) - 1
@@ -128,6 +151,13 @@ def _mask(labels: dict, tree: dict, label: str) -> dict:
     return {k: v for k, v in tree.items() if labels[k] == label}
 
 
+def merge_by_label(labels: dict, by_label: dict) -> dict:
+    """Inverse of the partition's split: one ``{path: leaf}`` tree taking
+    each path from its own label's tree (which may hold only its label's
+    paths, or ``MASKED`` in the others' places)."""
+    return {path: by_label[lbl][path] for path, lbl in labels.items()}
+
+
 def partition(transforms: dict[str, GradientTransform],
               label_fn=default_label_fn) -> GradientTransform:
     """Route each parameter leaf to the transform of its label. An unknown
@@ -153,7 +183,7 @@ def partition(transforms: dict[str, GradientTransform],
             outs[lbl], new_state[lbl] = t.update(
                 _mask(labels, updates, lbl), state[lbl],
                 _mask(labels, params, lbl), ctx)
-        return {k: outs[labels[k]][k] for k in updates}, new_state
+        return merge_by_label(labels, outs), new_state
 
     def basis_sizes(params):
         labels = _labels(params)
@@ -250,6 +280,35 @@ def lr_scale_transform(initial: float = 1.0) -> GradientTransform:
             k: u * lr_scale.to(u.dtype) for k, u in updates.items()})
 
     return inject_hyperparams(factory)(lr_scale=float(initial))
+
+
+def clip_global_norm(max_norm: float) -> GradientTransform:
+    """Scale updates so their global l2 norm is at most ``max_norm``: the
+    norm in fp32, the factor ``min(1, max_norm / max(norm, 1e-9))`` as a 0-d
+    fp32 tensor (a bf16 update is widened to fp32 by it, as JAX's
+    promotion does)."""
+
+    def upd(updates, params, ctx):
+        norm = torch.sqrt(sum(torch.sum(torch.square(u.float()))
+                              for u in updates.values()))
+        # a tensor quotient: torch divides a Python scalar by a tensor as a
+        # multiply by the reciprocal, an ulp off IEEE
+        scale = torch.clamp(torch.full_like(norm, max_norm)
+                            / torch.clamp_min(norm, 1e-9), max=1.0)
+        return {k: u.to(torch.promote_types(u.dtype, scale.dtype)) * scale
+                for k, u in updates.items()}
+
+    return stateless(upd)
+
+
+def scale_by_schedule(step_size_fn: Schedule) -> GradientTransform:
+    """Multiply updates by ``step_size_fn(step)`` (or a constant)."""
+
+    def upd(updates, params, ctx):
+        s = sched_value(step_size_fn, ctx.step)
+        return {k: s * u for k, u in updates.items()}
+
+    return stateless(upd)
 
 
 def scale_by_learning_rate(lr: Schedule) -> GradientTransform:
@@ -411,18 +470,28 @@ def matrix_optimizer(rule: MatrixRule, lr: Schedule, *,
                      b2: float = 0.999, eps: float = 1e-8,
                      label_fn=default_label_fn,
                      basis_mode: str = "stored", seed: int = 0,
+                     fullrank_weight_decay: bool = True,
                      overrides: dict[str, dict] | None = None,
                      lr_scale: bool = False) -> Optimizer:
     """The matrix-optimizer preset as a chain: matrix leaves to ``rule``
     (with the per-leaf ``overrides``), everything else to full-rank Adam,
-    then lr scaling and decoupled weight decay on every leaf — the same
-    chain, and state layout, as the JAX preset. ``lr_scale`` is forwarded to
-    :func:`as_optimizer`. (Its ``fullrank_weight_decay=False`` variant is
-    not ported.)"""
+    then lr scaling and decoupled weight decay — the same chain, and state
+    layout, as the JAX preset, and bit for bit the legacy
+    ``common.make_matrix_optimizer``. With ``fullrank_weight_decay=False``
+    the decay applies to the matrix leaves only: the partition then holds
+    ``(rule, lr, decay)`` under ``"lowrank"`` and ``(adam, lr)`` under
+    ``"full"``. ``lr_scale`` is forwarded to :func:`as_optimizer`."""
     routes = {"lowrank": lowrank_project(rule, overrides=overrides),
               "full": scale_by_adam(b1, b2, eps)}
-    t = chain(partition(routes, label_fn),
-              scale_by_learning_rate(lr),
-              add_decayed_weights(weight_decay, schedule=lr))
+    if fullrank_weight_decay:
+        t = chain(partition(routes, label_fn),
+                  scale_by_learning_rate(lr),
+                  add_decayed_weights(weight_decay, schedule=lr))
+    else:
+        t = partition({
+            "lowrank": chain(routes["lowrank"], scale_by_learning_rate(lr),
+                             add_decayed_weights(weight_decay, schedule=lr)),
+            "full": chain(routes["full"], scale_by_learning_rate(lr)),
+        }, label_fn)
     return as_optimizer(t, seed=seed, basis_mode=basis_mode,
                         lr_scale=lr_scale)

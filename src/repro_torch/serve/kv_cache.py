@@ -31,6 +31,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.devices import resolve_device
+
 # the block kinds the paged path serves, from the model layer
 from repro_torch.models.transformer import PAGED_KINDS, paged_supported  # noqa: F401
 
@@ -165,7 +167,8 @@ class PagedKVCache:
     int32 array (mutated at admit/retire/extend boundaries only) and
     uploaded to the pools' device when a step finds it changed; unused
     entries hold 0 and are never read because the kernel skips blocks past
-    each slot's length.
+    each slot's length. The pools live on ``device`` (None: the card;
+    ``resolve_device``).
     """
 
     def __init__(self, cfg, cache_cfg: PagedCacheConfig, num_slots: int,
@@ -175,7 +178,7 @@ class PagedKVCache:
         self.model_cfg = cfg
         self.cfg = cache_cfg
         self.num_slots = num_slots
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.allocator = BlockAllocator(cache_cfg.num_blocks,
                                         cache_cfg.block_size)
         self.pools = T.init_paged_pools(cfg, cache_cfg.num_blocks,

@@ -174,5 +174,7 @@ def make_eval_step(cfg):
 
 
 def init_state(cfg, optimizer, seed: int = 0, device=None) -> TrainState:
+    """Step 0: ``init_params(cfg, seed, device)`` (None: the card) and the
+    optimizer's state of them."""
     params = T.init_params(cfg, seed, device)
     return TrainState(0, params, optimizer.init(params))

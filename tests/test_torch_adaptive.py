@@ -194,10 +194,12 @@ def test_migrate_opt_state_matches_jax(ef_dtype, lr_scale):
     jmig = jctl.migrate_opt_state(jstate, jnew.init(jparams))
 
     tparams = {k: torch.from_numpy(v) for k, v in params_np.items()}
-    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate))
+    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate),
+                                        device="cpu")
     tnew = get_optimizer("dct_adamw", lr=1e-3, overrides=ov, **kw)
     tmig = tctl.migrate_opt_state(tstate, tnew.init(tparams))
-    want = _items(convert.opt_state_from_jax(jax.tree.map(np.asarray, jmig)))
+    want = _items(convert.opt_state_from_jax(jax.tree.map(np.asarray, jmig),
+                                             device="cpu"))
     got = _items(tmig)
     assert set(got) == set(want)
     for k, w in want.items():
@@ -222,7 +224,7 @@ def test_migrate_opt_state_matches_jax(ef_dtype, lr_scale):
     tu, tmig2 = tnew.update({k: torch.from_numpy(v) for k, v in g.items()},
                             tmig, tparams)
     assert tmig2.step == 4
-    ju = convert.params_from_jax(jax.tree.map(np.asarray, ju))
+    ju = convert.params_from_jax(jax.tree.map(np.asarray, ju), device="cpu")
     for k, u in tu.items():
         np.testing.assert_allclose(u.numpy(), ju[k].numpy(), rtol=1e-4,
                                    atol=1e-4 * float(ju[k].abs().max()))
@@ -285,7 +287,8 @@ def _jax_loop(steps):
 
 
 def _torch_loop(steps, jparams):
-    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams))
+    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams),
+                                      device="cpu")
 
     def make_optimizer(overrides=None):
         return get_optimizer("dct_adamw", lr=cosine_warmup(0.01, 2, steps),

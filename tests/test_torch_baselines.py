@@ -156,16 +156,17 @@ def test_baseline_steps_match_jax(monkeypatch, case, shape_name):
     _, jstate = jopt.update(
         jax.tree.map(jnp.asarray, _grads(shape, 10, projector)), jstate,
         jparams)
-    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate))
-    tparams = convert.params_from_jax(params_np)
+    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate),
+                                        device="cpu")
+    tparams = convert.params_from_jax(params_np, device="cpu")
     assert tstate.step == 1 and tstate.seed == 0
     _hand_jax_draws(monkeypatch, steps=(2, 3, 4))
     for step in range(3):
         g_np = _grads(shape, 20 + step, projector)
         ju, jstate = jopt.update(jax.tree.map(jnp.asarray, g_np), jstate,
                                  jparams)
-        tu, tstate = topt.update(convert.params_from_jax(g_np), tstate,
-                                 tparams)
+        tu, tstate = topt.update(convert.params_from_jax(g_np, device="cpu"),
+                                 tstate, tparams)
         ju_flat = _flat(jax.tree.map(np.asarray, ju))
         assert set(tu) == set(ju_flat)
         for path, u in tu.items():
@@ -206,8 +207,9 @@ def test_galore_refresh_and_keep_steps_match_jax(monkeypatch, shape_name):
     topt = get_optimizer("galore", lr=0.01, **kw)
     jparams = jax.tree.map(jnp.asarray, params_np)
     jstate = jopt.init(jparams)
-    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate))
-    tparams = convert.params_from_jax(params_np)
+    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate),
+                                        device="cpu")
+    tparams = convert.params_from_jax(params_np, device="cpu")
     svd = torch.linalg.svd
     flips = []
 
@@ -228,8 +230,8 @@ def test_galore_refresh_and_keep_steps_match_jax(monkeypatch, shape_name):
         g_np = _grads(shape, 30 + step, "svd")
         ju, jstate = jopt.update(jax.tree.map(jnp.asarray, g_np), jstate,
                                  jparams)
-        tu, tstate = topt.update(convert.params_from_jax(g_np), tstate,
-                                 tparams)
+        tu, tstate = topt.update(convert.params_from_jax(g_np, device="cpu"),
+                                 tstate, tparams)
         _close(tu["block/w/kernel"].numpy(),
                np.asarray(ju["block"]["w"]["kernel"]), f"step {step}")
     assert len(flips) == 2          # the two refreshes, steps 1 and 4
@@ -246,11 +248,13 @@ def test_svd_refresh_from_zero_moments_matches_jax(name, shape_name):
     topt = get_optimizer(name, lr=0.01, rank=R)
     jparams = jax.tree.map(jnp.asarray, params_np)
     jstate = jopt.init(jparams)
-    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate))
+    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate),
+                                        device="cpu")
     g_np = _grads(shape, 40, "svd")
     ju, jstate = jopt.update(jax.tree.map(jnp.asarray, g_np), jstate, jparams)
-    tu, tstate = topt.update(convert.params_from_jax(g_np), tstate,
-                             convert.params_from_jax(params_np))
+    tu, tstate = topt.update(convert.params_from_jax(g_np, device="cpu"),
+                             tstate,
+                             convert.params_from_jax(params_np, device="cpu"))
     _close(tu["block/w/kernel"].numpy(), np.asarray(ju["block"]["w"]["kernel"]))
     _same_up_to_sign(tstate.leaves[0]["lowrank"]["block/w/kernel"].proj.numpy(),
                      np.asarray(jstate.leaves[0]["lowrank"]["block"]["w"]
@@ -336,9 +340,10 @@ def test_dense_presets_store_no_basis(name, kw):
     jstate = jax_get_optimizer(name, lr=0.01, rank=R, **kw).init(
         jax.tree.map(jnp.asarray, params_np))
     tstate = get_optimizer(name, lr=0.01, rank=R, **kw).init(
-        convert.params_from_jax(params_np))
+        convert.params_from_jax(params_np, device="cpu"))
     assert jstate.bases == {} and tstate.bases == {} and tstate.bases_t == {}
-    conv = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate))
+    conv = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate),
+                                      device="cpu")
     a = tstate.leaves[0]["lowrank"]["block/w/kernel"]
     b = conv.leaves[0]["lowrank"]["block/w/kernel"]
     for x, y in [(a.m, b.m), (a.v, b.v), (a.proj, b.proj)]:
@@ -351,17 +356,18 @@ def test_adamw_and_seed_carry_across():
     jopt = jax_get_optimizer("adamw", lr=0.01)
     jstate = jopt.init(jax.tree.map(jnp.asarray, params_np))
     tstate = get_optimizer("adamw", lr=0.01).init(
-        convert.params_from_jax(params_np))
-    conv = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate))
+        convert.params_from_jax(params_np, device="cpu"))
+    conv = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate),
+                                      device="cpu")
     assert set(conv.leaves[0]) == set(tstate.leaves[0]) == set(PATHS)
     assert conv.bases == tstate.bases == {}
     big = jax.tree.map(np.asarray, jax_get_optimizer(
         "galore", lr=0.01, rank=R).init(jax.tree.map(jnp.asarray, params_np)))
     big = big._replace(key=np.asarray(jax.random.PRNGKey(7)))
-    assert convert.opt_state_from_jax(big).seed == 7
+    assert convert.opt_state_from_jax(big, device="cpu").seed == 7
     # threefry's uint32 pair, high word first
     big = big._replace(key=np.array([1, 5], np.uint32))
-    assert convert.opt_state_from_jax(big).seed == 2**32 + 5
+    assert convert.opt_state_from_jax(big, device="cpu").seed == 2**32 + 5
 
 
 # ---------------------------------------------------------------------------
@@ -430,12 +436,12 @@ def test_overrides_reach_each_leaf():
     jstate = jax_get_optimizer("galore", lr=0.01, rank=R, overrides=over
                                ).init(jax.tree.map(jnp.asarray, params_np))
     tstate = get_optimizer("galore", lr=0.01, rank=R, overrides=over).init(
-        convert.params_from_jax(params_np))
+        convert.params_from_jax(params_np, device="cpu"))
     leaf = tstate.leaves[0]["lowrank"]["block/w/kernel"]
     jleaf = jstate.leaves[0]["lowrank"]["block"]["w"]["kernel"]
     assert leaf.proj.shape == jleaf.proj.shape == (3, 24, 3)
     assert get_optimizer("dct_adamw", lr=0.01, rank=R, overrides=over).init(
-        convert.params_from_jax(params_np)).leaves[0]["lowrank"][
+        convert.params_from_jax(params_np, device="cpu")).leaves[0]["lowrank"][
             "block/w/kernel"].proj.shape == (3, 3)
 
 
@@ -504,7 +510,8 @@ def test_cli_ten_step_loss_trajectory_matches_jax(monkeypatch, argv):
     jparams = _jax_params()
     jstate = JS.TrainState(jnp.zeros((), jnp.int32), jparams,
                            jopt.init(jparams))
-    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams))
+    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams),
+                                      device="cpu")
     tstate = TS.TrainState(0, tparams, topt.init(tparams))
     jstep = jax.jit(JS.make_train_step(JAX_CFG, jopt))
     tstep = TS.make_train_step(CFG, topt)

@@ -196,16 +196,17 @@ def test_dct_adamw_basis_steps_match_jax(shape, kind, mode):
     key = f"{kind}:{n}"
     assert set(jstate.bases) == {key}
     q = np.asarray(jstate.bases[key])
-    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate))
+    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate),
+                                        device="cpu")
     assert np.array_equal(tstate.bases[key].numpy(), q)
-    tparams = convert.params_from_jax(params_np)
+    tparams = convert.params_from_jax(params_np, device="cpu")
     for step in range(3):
         g = _planted(shape, q, 30 + step)
         g_np = {"w": {"kernel": g}}
         ju, jstate = jopt.update(jax.tree.map(jnp.asarray, g_np), jstate,
                                  jparams)
-        tu, tstate = topt.update(convert.params_from_jax(g_np), tstate,
-                                 tparams)
+        tu, tstate = topt.update(convert.params_from_jax(g_np, device="cpu"),
+                                 tstate, tparams)
         jleaf = jstate.leaves[0]["lowrank"]["w"]["kernel"]
         tleaf = tstate.leaves[0]["lowrank"]["w/kernel"]
         np.testing.assert_array_equal(tleaf.proj.numpy(),
@@ -239,7 +240,8 @@ def test_ten_step_basis_trajectory_matches_jax(kind, fused, clean_cache):
     if kind == "randortho":       # the JAX matrix, through the cache
         clean_cache.put(kind, 128, torch.from_numpy(
             np.array(jstate.opt_state.bases[f"{kind}:128"])))
-    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams))
+    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams),
+                                      device="cpu")
     tstate = TS.TrainState(0, tparams, topt.init(tparams))
     assert np.array_equal(tstate.opt_state.bases[f"{kind}:128"].numpy(),
                           np.asarray(jstate.opt_state.bases[f"{kind}:128"]))

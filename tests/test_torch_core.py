@@ -186,3 +186,25 @@ def test_shared_basis_is_built_once():
     assert shared_basis("dct", 12) is a and cache.hits == hits + 1
     np.testing.assert_allclose(a.numpy(), np.asarray(jdct.dct2_matrix(12)),
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [1, 8, 17, 64])
+def test_dct_basis_np_equals_jax(n):
+    got = tdct.dct_basis_np(n)
+    assert got.dtype == np.float64
+    np.testing.assert_array_equal(got, jdct.dct_basis_np(n))
+
+
+@pytest.mark.parametrize("method", ["matmul", "fft"])
+@pytest.mark.parametrize("shape", [(5, 8), (3, 4, 17), (6, 64)])
+def test_dct2_matches_jax(method, shape):
+    x = np.random.default_rng(1).standard_normal(shape).astype(np.float32)
+    want = np.asarray(jdct.dct2(jnp.asarray(x), method=method))
+    got = tdct.dct2(_t(x), method=method)
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    # atol 1e-5 of the largest entry: fp32 sums (or FFT butterflies) in
+    # another order than JAX's
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    with pytest.raises(ValueError, match="unknown method"):
+        tdct.dct2(_t(x), method="dst")

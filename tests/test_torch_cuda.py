@@ -6,19 +6,22 @@ PyTorch only:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.dct import dct2_matrix
 from repro_torch.core.newton_schulz import NS_COEFFS, _ns_step, newton_schulz
-from repro_torch.kernels import colgather_matmul as cg
-from repro_torch.kernels import dct_project as dp
-from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import newton_schulz as ns
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_ef as qe
+# the modules: ``repro_torch.kernels`` exports wrappers of the same names
+cg = importlib.import_module("repro_torch.kernels.colgather_matmul")
+dp = importlib.import_module("repro_torch.kernels.dct_project")
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
+fd = importlib.import_module("repro_torch.kernels.flash_decode")
 
 # (..., m, n) oriented gradients: 2d, a layer-stacked leaf, odd sizes that
 # are no tile multiple, and a row count past one 128-row tile

@@ -20,10 +20,11 @@ import torch
 
 from repro.core.dct import dct2_matrix as jax_dct2
 from repro.kernels import lowp as jl
-from repro_torch.kernels import dct_project as tdp
 from repro_torch.kernels import lowp as tl
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_ef as tqe
+# the modules: ``repro_torch.kernels`` exports wrappers of the same names
+tdp = importlib.import_module("repro_torch.kernels.dct_project")
 
 jdp = importlib.import_module("repro.kernels.dct_project")
 

@@ -28,11 +28,14 @@ imported inside the CPU tests only, so on a machine without JAX
 
 runs the card's tests.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import flash_attention as fa
+# the modules: ``repro_torch.kernels`` exports wrappers of the same names
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
 from repro_torch.kernels import ops
 from repro_torch.models import layers as TL
 
@@ -214,7 +217,8 @@ def test_smoke_prefill_logits_match_jax(arch):
     tcfg = get_config(arch, smoke=True)
     assert tcfg.kv_chunk == jcfg.kv_chunk == 8
     jparams = JT.init_params(jcfg, jax.random.PRNGKey(1))
-    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams))
+    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams),
+                                      device="cpu")
     toks = np.random.default_rng(5).integers(0, tcfg.vocab_size, (2, 32))
     jlast, jcache, _ = JT.prefill(jparams, {"tokens": toks.astype(np.int32)},
                                   jcfg, max_len=40)
@@ -224,7 +228,7 @@ def test_smoke_prefill_logits_match_jax(arch):
     tol = dict(rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(tlast.numpy(), np.asarray(jlast), **tol)
     for key, want in convert.pools_from_jax(
-            jax.tree.map(np.asarray, jcache)).items():
+            jax.tree.map(np.asarray, jcache), device="cpu").items():
         np.testing.assert_allclose(tcache[key].numpy(), want.numpy(), **tol,
                                    err_msg=key)
 

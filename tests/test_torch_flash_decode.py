@@ -8,14 +8,17 @@ longer than one split with 1-6 splits, sliding windows, and inactive
 entries. fp32 throughout; atol = rtol = 2e-6 (sums over the same keys in
 another order).
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels.flash_decode import flash_decode as jax_flash_decode
-from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops
+# the modules: ``repro_torch.kernels`` exports wrappers of the same names
+fd = importlib.import_module("repro_torch.kernels.flash_decode")
 
 TOL = dict(atol=2e-6, rtol=2e-6)
 

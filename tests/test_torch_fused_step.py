@@ -146,3 +146,51 @@ def test_resolve_by_device():
         assert tfs.resolve(mode, "cpu") == mode
     with pytest.raises(ValueError):
         tfs.resolve("bogus", "cpu")
+
+
+@pytest.fixture
+def default_mode_restored():
+    """Puts the process-wide default back whatever the test did."""
+    yield
+    tfs.set_default_fused_mode("auto")
+
+
+def _rule_updates(fused, shape=(3, 40, 24)):
+    """Two DCT-AdamW leaf updates of a rule with ``fused``, and its state."""
+    from repro_torch.optim.common import Context
+    from repro_torch.optim.projected_adam import ProjectedAdamRule
+
+    n = shape[-1]
+    bases = {str(n): dct2_matrix(n)}
+    rule = ProjectedAdamRule(rank=R, fused=fused)
+    state = rule.init(shape, torch.float32, "cpu")
+    out = []
+    for step, seed in enumerate((1, 2), 1):
+        ctx = Context(step=step, bases=bases,
+                      bases_t={k: q.T.contiguous() for k, q in bases.items()})
+        d, state = rule.update(_t(planted(shape, seed)), state, None, ctx)
+        out.append(d)
+    return out, state
+
+
+def test_default_fused_mode_routes_auto_rules(default_mode_restored):
+    """``set_default_fused_mode("fft")``: a rule with ``fused="auto"`` gives
+    ``fused="fft"``'s updates and state bit for bit, on any device; "auto"
+    puts the device rule back."""
+    assert tfs.default_fused_mode() == "auto"
+    tfs.set_default_fused_mode("fft")
+    assert tfs.default_fused_mode() == "fft"
+    assert tfs.resolve("auto", "cpu") == tfs.resolve("auto", "cuda") == "fft"
+    assert tfs.resolve("off", "cpu") == "off"
+    (auto, sa), (fft, sf) = _rule_updates("auto"), _rule_updates("fft")
+    for a, f in zip(auto, fft):
+        assert torch.equal(a, f)
+    assert torch.equal(sa.proj, sf.proj) and torch.equal(sa.m, sf.m)
+    assert torch.equal(sa.ef.q, sf.ef.q)
+    tfs.set_default_fused_mode("auto")
+    assert tfs.resolve("auto", "cpu") == "off"
+    (auto, _), (off, _) = _rule_updates("auto"), _rule_updates("off")
+    assert all(torch.equal(a, o) for a, o in zip(auto, off))
+    with pytest.raises(ValueError, match="unknown fused mode"):
+        tfs.set_default_fused_mode("bogus")
+    assert tfs.default_fused_mode() == "auto"

@@ -35,7 +35,30 @@ TOL = dict(rtol=1e-4, atol=1e-5)
 @pytest.fixture(scope="module")
 def params():
     jparams = JT.init_params(JCFG, jax.random.PRNGKey(0))
-    return jparams, convert.params_from_jax(jax.tree.map(np.asarray, jparams))
+    return jparams, convert.params_from_jax(jax.tree.map(np.asarray, jparams),
+                                            device="cpu")
+
+
+@pytest.fixture(scope="module")
+def jfn():
+    """The JAX functions the cases compare with, jitted once for the module
+    (each compiles once per shape and is shared by the cases that call it;
+    run eagerly, every op compiles and dispatches on its own)."""
+    return {
+        "forward": jax.jit(lambda p, toks: JT.forward(
+            p, {"tokens": toks}, JCFG)[0]),
+        "prefill": jax.jit(lambda p, toks: JT.prefill(
+            p, {"tokens": toks}, JCFG, max_len=24)[:2]),
+        "prefill_chunk": jax.jit(lambda p, scr, toks, start, take:
+                                 JT.prefill_chunk(p, scr, toks, start, take,
+                                                  JCFG)),
+        "write": jax.jit(lambda pools, scr, ids, length:
+                         JT.write_prefill_to_pools(pools, scr, ids, length,
+                                                   4)),
+        "decode": jax.jit(lambda p, pools, tok, pos, table, active:
+                          JT.decode_step_paged(p, pools, tok, pos, table,
+                                               active, JCFG, num_splits=2)),
+    }
 
 
 def _np(tree):
@@ -52,7 +75,7 @@ def test_configs_match_jax():
 
 def test_init_params_has_the_jax_leaves(params):
     _, tparams = params
-    own = TT.init_params(CFG, seed=0)
+    own = TT.init_params(CFG, seed=0, device="cpu")
     assert {k: tuple(v.shape) for k, v in own.items()} == \
         {k: tuple(v.shape) for k, v in tparams.items()}
     assert own["segments/0/p0/attn/q_norm_scale"].shape == (1, CFG.hd)
@@ -61,36 +84,34 @@ def test_init_params_has_the_jax_leaves(params):
 
 
 @pytest.mark.parametrize("s", [6, 20])
-def test_forward_logits_match_jax(params, s):
+def test_forward_logits_match_jax(params, jfn, s):
     """20 tokens: every local layer masks past its window of 8."""
     jparams, tparams = params
     toks = np.random.default_rng(s).integers(0, CFG.vocab_size, (2, s))
-    jlogits, _ = JT.forward(jparams, {"tokens": jnp.asarray(toks, jnp.int32)},
-                            JCFG)
+    jlogits = jfn["forward"](jparams, jnp.asarray(toks, jnp.int32))
     tlogits, _ = TT.forward(tparams, {"tokens": torch.from_numpy(toks)}, CFG)
     np.testing.assert_allclose(tlogits.detach().numpy(), np.asarray(jlogits),
                                **TOL)
 
 
-def test_dense_ring_cache_after_prefill_matches_jax(params):
+def test_dense_ring_cache_after_prefill_matches_jax(params, jfn):
     """A 13-token prompt past the window of 8: each local layer's cache is
     its last 8 positions at ring slots p % 8, the global layer's the whole
     prompt zero-padded to max_len."""
     jparams, tparams = params
     toks = np.random.default_rng(3).integers(0, CFG.vocab_size, (2, 13))
-    jlast, jcache, _ = JT.prefill(jparams, {"tokens": jnp.asarray(
-        toks, jnp.int32)}, JCFG, max_len=24)
+    jlast, jcache = jfn["prefill"](jparams, jnp.asarray(toks, jnp.int32))
     tlast, tcache, _ = TT.prefill(tparams, {"tokens": torch.from_numpy(toks)},
                                   CFG, max_len=24)
     np.testing.assert_allclose(tlast.numpy(), np.asarray(jlast), **TOL)
-    want = convert.pools_from_jax(_np(jcache))
+    want = convert.pools_from_jax(_np(jcache), device="cpu")
     assert set(tcache) == set(want)
     assert tcache["segments/0/p0/k"].shape == (1, 2, 8, 2, 32)
     assert tcache["segments/0/p5/k"].shape == (1, 2, 24, 2, 32)
     for key in want:
         np.testing.assert_allclose(tcache[key].numpy(), want[key].numpy(),
                                    **TOL, err_msg=key)
-    zero = TT.init_cache(CFG, 2, 24)
+    zero = TT.init_cache(CFG, 2, 24, device="cpu")
     assert {k: v.shape for k, v in zero.items()} == \
         {k: v.shape for k, v in tcache.items()}
 
@@ -153,7 +174,7 @@ def test_paged_engine_greedy_streams_match_jax(params):
     assert s["running"] == 0 and s["free_blocks"] == 48
 
 
-def test_paged_decode_and_prefill_chunks_match_jax(params):
+def test_paged_decode_and_prefill_chunks_match_jax(params, jfn):
     """One 14-token prompt chunk-prefilled (chunks of 8, past the window),
     then three paged decode steps: logits at rtol 1e-4."""
     jparams, tparams = params
@@ -161,24 +182,24 @@ def test_paged_decode_and_prefill_chunks_match_jax(params):
     padded = np.zeros((1, 16), np.int32)
     padded[0, :14] = prompt
     jscr = JT.init_prefill_scratch(JCFG, 16)
-    tscr = TT.init_prefill_scratch(CFG, 16)
+    tscr = TT.init_prefill_scratch(CFG, 16, device="cpu")
     for start in (0, 8):
         take = min(13 - start, 7)
-        jl, jscr = JT.prefill_chunk(jparams, jscr, jnp.asarray(
-            padded[:, start:start + 8]), start, take, JCFG)
+        jl, jscr = jfn["prefill_chunk"](jparams, jscr, jnp.asarray(
+            padded[:, start:start + 8]), start, take)
         tl, tscr = TT.prefill_chunk(tparams, tscr, torch.from_numpy(
             padded[:, start:start + 8]).long(), start, take, CFG)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     table = np.array([[2, 5, 1, 7, 0, 0]], np.int32)
-    jpools = JT.write_prefill_to_pools(JT.init_paged_pools(JCFG, 8, 4), jscr,
-                                       jnp.asarray(table[0]), 14, 4)
-    tpools = convert.pools_from_jax(_np(jpools))
+    jpools = jfn["write"](JT.init_paged_pools(JCFG, 8, 4), jscr,
+                          jnp.asarray(table[0]), 14)
+    tpools = convert.pools_from_jax(_np(jpools), device="cpu")
     token = np.argmax(np.asarray(jl), axis=-1).astype(np.int32)
     pos, active = np.array([14], np.int32), np.array([True])
     for _ in range(3):
-        jlogits, jpools = JT.decode_step_paged(
+        jlogits, jpools = jfn["decode"](
             jparams, jpools, jnp.asarray(token), jnp.asarray(pos),
-            jnp.asarray(table), jnp.asarray(active), JCFG, num_splits=2)
+            jnp.asarray(table), jnp.asarray(active))
         tlogits, tpools = TT.decode_step_paged(
             tparams, tpools, token, pos, torch.from_numpy(table), active,
             CFG, num_splits=2)

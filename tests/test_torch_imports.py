@@ -115,6 +115,82 @@ def test_telemetry_modules_import_without_jax_or_repro(probe, name):
     assert name in probe[1].split()
 
 
+# the modules of the transform-runtime slice
+RUNTIME_MODULES = ("repro_torch.devices", "repro_torch.optim.common",
+                   "repro_torch.launch.serve", "repro_torch.core.dct",
+                   "repro_torch.kernels.ops", "repro_torch.models.transformer")
+
+
+@pytest.mark.parametrize("name", RUNTIME_MODULES)
+def test_runtime_modules_import_without_jax_or_repro(probe, name):
+    assert name in probe[1].split()
+
+
+def _reference_all(pkg: str) -> list[str]:
+    """``__all__`` of ``repro/<pkg>/__init__.py``, read without importing
+    it (this file imports no JAX)."""
+    tree = ast.parse((SRC / "repro" / pkg / "__init__.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and \
+                any(getattr(t, "id", None) == "__all__" for t in node.targets):
+            return list(ast.literal_eval(node.value))
+    raise AssertionError(f"repro/{pkg} has no __all__")
+
+
+# names of a reference package's __all__ the port leaves out on purpose:
+# ``kernels.ref`` (each kernel module's plain version takes its place) and
+# the dry-run cells of ``configs/shapes.py`` (the HLO tooling, queue 1)
+NOT_PORTED = {"kernels": {"ref"},
+              "configs": {"SHAPES", "input_specs", "cell_applicable",
+                          "skip_reason"}}
+
+
+@pytest.mark.parametrize("pkg", ["core", "kernels", "configs", "optim"])
+def test_packages_export_the_reference_names(pkg):
+    import importlib
+    mod = importlib.import_module(f"repro_torch.{pkg}")
+    want = set(_reference_all(pkg)) - NOT_PORTED.get(pkg, set())
+    assert want and not want - set(dir(mod)), want - set(dir(mod))
+    assert not want - set(mod.__all__), want - set(mod.__all__)
+
+
+# the public names of the reference's modules this slice ports
+RUNTIME_NAMES = {
+    "repro_torch.optim.transform": (
+        "MaskedNode", "MASKED", "merge_by_label", "clip_global_norm",
+        "scale_by_schedule", "matrix_optimizer"),
+    "repro_torch.optim.common": ("make_matrix_optimizer", "HarnessState"),
+    "repro_torch.core.fused_step": ("set_default_fused_mode",
+                                    "default_fused_mode"),
+    "repro_torch.core.dct": ("dct_basis_np", "dct2"),
+    "repro_torch.kernels.ops": (
+        "dct_project_op", "colgather_matmul_op", "colgather_matmul_dual_op",
+        "newton_schulz_op", "ns_iteration_op", "flash_attention_op",
+        "flash_decode_op", "quantize_ef_op", "dequant_add_ef_op"),
+    "repro_torch.kernels.newton_schulz": ("newton_schulz_pallas",),
+    "repro_torch.models.transformer": ("ATTN_KINDS", "init_block",
+                                       "block_apply"),
+}
+
+
+@pytest.mark.parametrize("module", list(RUNTIME_NAMES))
+def test_runtime_names_exist(module):
+    import importlib
+    mod = importlib.import_module(module)
+    missing = [n for n in RUNTIME_NAMES[module] if not hasattr(mod, n)]
+    assert not missing, missing
+
+
+def test_unported_names_say_why():
+    """``ON_TPU`` and ``path_str`` are left out, and their modules say so."""
+    import importlib
+    ops = importlib.import_module("repro_torch.kernels.ops")
+    common = importlib.import_module("repro_torch.optim.common")
+    assert not hasattr(ops, "ON_TPU") and "``ON_TPU`` is not" in ops.__doc__
+    assert not hasattr(common, "path_str") and \
+        "``path_str``" in common.__doc__
+
+
 def _imported_roots(path: Path) -> set[str]:
     roots = set()
     for node in ast.walk(ast.parse(path.read_text())):
@@ -129,8 +205,9 @@ def _imported_roots(path: Path) -> set[str]:
 # machine with the card has no JAX)
 CARD_SCRIPTS = ("attention_kernels_probe.py", "backproject_probe.py",
                 "dct_project_probe.py", "ns_apply_tiles_probe.py",
-                "sanitize_kernels.py", "substrate_probe.py",
-                "telemetry_probe.py", "tf32_mma_probe.py")
+                "runtime_probe.py", "sanitize_kernels.py",
+                "substrate_probe.py", "telemetry_probe.py",
+                "tf32_mma_probe.py")
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -6,6 +6,8 @@ nothing), which is held against the JAX package's kernel entry point
 inputs. The CUDA kernels against their plain versions are in
 ``test_torch_cuda.py``, which needs no JAX.
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,10 +16,11 @@ import torch
 from repro.core.dct import dct2_matrix as jax_dct2
 from repro.kernels import ops as jops
 from repro_torch.core.dct import dct2_matrix
-from repro_torch.kernels import colgather_matmul as cg
-from repro_torch.kernels import dct_project as dp
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_ef as qe
+# the modules: ``repro_torch.kernels`` exports wrappers of the same names
+cg = importlib.import_module("repro_torch.kernels.colgather_matmul")
+dp = importlib.import_module("repro_torch.kernels.dct_project")
 
 # (..., m, n) gradients as the optimizer hands them over (oriented): the
 # shapes of tests/test_fused_step.py — 2d and transposed orient by a
@@ -130,3 +133,67 @@ def test_every_entry_point_called_has_a_signature():
     called = {c for c in called if not c.startswith("repro_error")}
     assert called and called <= set(cuda_lib.SIGNATURES), \
         called - set(cuda_lib.SIGNATURES)
+
+
+def _op_cases():
+    """``*_op`` name -> (the port's wrapper, arguments) on CPU tensors."""
+    from repro_torch.kernels import flash_attention as fa_fn
+    from repro_torch.kernels import flash_decode as fd_fn
+    from repro_torch.kernels.newton_schulz import (newton_schulz_kernel,
+                                                   ns_iteration)
+
+    t = torch.from_numpy
+    g = t(_rand((3, 40, 24), 11))
+    q = dct2_matrix(24)
+    qt = q.T.contiguous()
+    idx = t(_idx((3,), 24, 6, 12))
+    b1, b2 = t(_rand((3, 40, 6), 13)), t(_rand((3, 40, 6), 14))
+    codes, scale = qe.quantize_ef(t(_rand((3, 40, 24), 15, 0.1)))
+    table = t(np.array([[2, 0, 1], [3, 1, 0]], np.int32))
+    lengths = t(np.array([10, 5], np.int32))
+    return {
+        "dct_project_op": (dp.dct_project, (g, q)),
+        "colgather_matmul_op": (cg.colgather_matmul, (b1, qt, idx)),
+        "colgather_matmul_dual_op": (cg.colgather_matmul_dual,
+                                     (b1, b2, qt, idx)),
+        "newton_schulz_op": (newton_schulz_kernel, (t(_rand((3, 8, 20), 16)),)),
+        "ns_iteration_op": (ns_iteration, (t(_rand((3, 8, 20), 17, 0.2)),)),
+        "flash_attention_op": (fa_fn, (t(_rand((2, 9, 4, 16), 18)),
+                                       t(_rand((2, 9, 2, 16), 19)),
+                                       t(_rand((2, 9, 2, 16), 20)))),
+        "flash_decode_op": (fd_fn, (t(_rand((2, 4, 16), 21)),
+                                    t(_rand((4, 4, 2, 16), 22)),
+                                    t(_rand((4, 4, 2, 16), 23)), table,
+                                    lengths)),
+        "quantize_ef_op": (qe.quantize_ef, (g,)),
+        "dequant_add_ef_op": (qe.dequant_add_ef, (g, codes, scale)),
+    }
+
+
+OP_NAMES = ["dct_project_op", "colgather_matmul_op", "colgather_matmul_dual_op",
+            "newton_schulz_op", "ns_iteration_op", "flash_attention_op",
+            "flash_decode_op", "quantize_ef_op", "dequant_add_ef_op"]
+
+
+@pytest.mark.parametrize("name", OP_NAMES)
+def test_op_alias_equals_its_wrapper_on_cpu(name):
+    """The JAX package's dispatcher names, with its argument order: on CPU
+    tensors each gives its wrapper's output bit for bit (the plain
+    version) and launches nothing."""
+    wrapper, args = _op_cases()[name]
+    ops.reset_launch_counts()
+    got, want = getattr(ops, name)(*args), wrapper(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    assert not any(ops.launch_counts().values())
+    # the same names as the JAX package's ops module
+    assert hasattr(jops, name)
+
+
+def test_newton_schulz_pallas_is_newton_schulz_kernel():
+    from repro_torch.kernels import newton_schulz_pallas
+    from repro_torch.kernels.newton_schulz import newton_schulz_kernel
+    assert newton_schulz_pallas is newton_schulz_kernel

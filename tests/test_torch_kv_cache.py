@@ -152,7 +152,7 @@ def test_scheduler_matches_jax_admission():
 def test_paged_cache_table_and_sizing():
     cfg = get_config("llama-350m", smoke=True)
     cc = PagedCacheConfig(block_size=4, num_blocks=16, max_blocks_per_seq=4)
-    cache = PagedKVCache(cfg, cc, num_slots=2)
+    cache = PagedKVCache(cfg, cc, num_slots=2, device="cpu")
     assert set(cache.pools) == {"segments/0/p0/k", "segments/0/p0/v"}
     for leaf in cache.pools.values():
         assert leaf.shape == (1, 16, 4, cfg.n_kv_heads, cfg.hd)
@@ -180,12 +180,12 @@ def test_paged_cache_rejects_unpaged_and_unported_kinds():
                            "schedule": ((("mla_dense",), 1),)})
     assert not paged_supported(mla)
     with pytest.raises(ValueError, match="paged"):
-        PagedKVCache(mla, cc, num_slots=1)
+        PagedKVCache(mla, cc, num_slots=1, device="cpu")
     local = cfg.__class__(**{**cfg.__dict__, "schedule": ((("local",), 1),)})
     assert paged_supported(local)
-    assert set(PagedKVCache(local, cc, num_slots=1).pools) == {
+    assert set(PagedKVCache(local, cc, num_slots=1, device="cpu").pools) == {
         "segments/0/p0/k", "segments/0/p0/v"}
     moe = cfg.__class__(**{**cfg.__dict__, "schedule": ((("attn_moe",), 1),)})
     assert paged_supported(moe)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        PagedKVCache(moe, cc, num_slots=1)
+        PagedKVCache(moe, cc, num_slots=1, device="cpu")

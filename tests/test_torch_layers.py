@@ -17,14 +17,17 @@ with a window of 256 (gemma3: rows whose first chunk is all masked), and
 S = 700, one chunk. The TPU kernel's function (``flash_attention_ref``: P
 unrounded, one max over the sequence) misses the bar on the first of them.
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.models import layers as JL
-from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import layers as TL
+# the modules: ``repro_torch.kernels`` exports wrappers of the same names
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
 
 REL_TOL, MIN_EQUAL = 4e-3, 0.99
 

@@ -37,14 +37,15 @@ from repro.train.schedule import cosine_warmup as jax_cosine
 from repro_torch import convert
 from repro_torch.configs.registry import get_config
 from repro_torch.core import fused_step as tfs
-from repro_torch.kernels import colgather_matmul as tcg
-from repro_torch.kernels import dct_project as tdp
 from repro_torch.kernels import lowp as tl
 from repro_torch.kernels import ops
 from repro_torch.launch import train as train_cli
 from repro_torch.optim.api import get_optimizer
 from repro_torch.train import steps as TS
 from repro_torch.train.schedule import cosine_warmup
+# the modules: ``repro_torch.kernels`` exports wrappers of the same names
+tcg = importlib.import_module("repro_torch.kernels.colgather_matmul")
+tdp = importlib.import_module("repro_torch.kernels.dct_project")
 
 # the package's kernel modules (``repro.kernels`` re-exports functions of
 # the same names)
@@ -416,7 +417,8 @@ def _trajectory(kw, steps=10):
     jparams = JT.init_params(JAX_CFG, jax.random.PRNGKey(0))
     jstate = JS.TrainState(jnp.zeros((), jnp.int32), jparams,
                            jopt.init(jparams))
-    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams))
+    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams),
+                                      device="cpu")
     tstate = TS.TrainState(0, tparams, topt.init(tparams))
     jstep = jax.jit(JS.make_train_step(JAX_CFG, jopt))
     tstep = TS.make_train_step(CFG, topt)

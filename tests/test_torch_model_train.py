@@ -50,7 +50,8 @@ def test_logits_loss_grads_match_jax(remat, layers):
     jcfg = dataclasses.replace(JAX_CFG, remat=remat, schedule=sched)
     tcfg = dataclasses.replace(CFG, remat=remat, schedule=sched)
     jparams = JT.init_params(jcfg, jax.random.PRNGKey(0))
-    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams))
+    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams),
+                                      device="cpu")
     assert set(tparams) == {
         "embed/kernel", "unembed/kernel", "final_norm/scale",
         *(f"segments/0/p0/{k}" for k in (
@@ -72,7 +73,8 @@ def test_logits_loss_grads_match_jax(remat, layers):
     tgrads, tmetrics = TS.grad_fn(tparams, {k: torch.from_numpy(v)
                                             for k, v in batch.items()}, tcfg)
     np.testing.assert_allclose(float(tmetrics["loss"]), float(jloss), rtol=1e-5)
-    jflat = convert.params_from_jax(jax.tree.map(np.asarray, jgrads))
+    jflat = convert.params_from_jax(jax.tree.map(np.asarray, jgrads),
+                                    device="cpu")
     for path, g in tgrads.items():
         want = jflat[path].numpy()
         np.testing.assert_allclose(g.numpy(), want, rtol=1e-4,
@@ -98,7 +100,8 @@ def test_ten_step_loss_trajectory_matches_jax(fused, rank, rtol):
     jparams = _jax_params()
     jstate = JS.TrainState(jnp.zeros((), jnp.int32), jparams,
                            jopt.init(jparams))
-    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams))
+    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams),
+                                      device="cpu")
     tstate = TS.TrainState(0, tparams, topt.init(tparams))
     jstep = jax.jit(JS.make_train_step(JAX_CFG, jopt))
     tstep = TS.make_train_step(CFG, topt)
@@ -118,7 +121,7 @@ def test_ten_step_loss_trajectory_matches_jax(fused, rank, rtol):
 
 def test_train_step_leaves_its_input_state_unchanged():
     opt = get_optimizer("dct_adamw", lr=0.01, rank=16)
-    state = TS.init_state(CFG, opt, seed=0)
+    state = TS.init_state(CFG, opt, seed=0, device="cpu")
     before = {k: v.clone() for k, v in state.params.items()}
     new, _ = TS.make_train_step(CFG, opt)(
         state, {k: torch.from_numpy(v) for k, v in _batch(1).items()})
@@ -168,7 +171,8 @@ def test_trion_ten_step_loss_trajectory_matches_jax(fused, rank):
     jparams = _jax_params()
     jstate = JS.TrainState(jnp.zeros((), jnp.int32), jparams,
                            jopt.init(jparams))
-    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams))
+    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams),
+                                      device="cpu")
     tstate = TS.TrainState(0, tparams, topt.init(tparams))
     jstep = jax.jit(JS.make_train_step(JAX_CFG, jopt))
     tstep = TS.make_train_step(CFG, topt)
@@ -234,3 +238,4 @@ def test_cli_builds_the_families(monkeypatch, argv, want):
     assert train_cli.main(["--smoke", "--device", "cpu", "--steps", "1",
                            "--batch", "2", "--seq-len", "16", *argv]) == 0
     assert seen["built"] == [want]
+

@@ -140,15 +140,16 @@ def test_updates_match_jax(monkeypatch, case, name):
     # Dion's projection) that is not the initial one
     _, jstate = jopt.update(jax.tree.map(jnp.asarray, _grads(shape, 10)),
                             jstate, jparams)
-    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate))
-    tparams = convert.params_from_jax(params_np)
+    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate),
+                                        device="cpu")
+    tparams = convert.params_from_jax(params_np, device="cpu")
     seen = _spy_selection(monkeypatch)
     for step in range(3):
         g_np = _grads(shape, 20 + step)
         ju, jstate = jopt.update(jax.tree.map(jnp.asarray, g_np), jstate,
                                  jparams)
-        tu, tstate = topt.update(convert.params_from_jax(g_np), tstate,
-                                 tparams)
+        tu, tstate = topt.update(convert.params_from_jax(g_np, device="cpu"),
+                                 tstate, tparams)
         _close(tu["block/w/kernel"].numpy(),
                np.asarray(ju["block"]["w"]["kernel"]), f"update {step}")
         # the full-rank Adam leaf at test_torch_optim.py's tolerance: its
@@ -180,11 +181,12 @@ def test_dion_qr_column_signs_do_not_reach_the_update(monkeypatch):
     XLA's may) flips the signs of q_t and leaves M_t and O_t as they are."""
     shape = (3, 40, 24)
     opt = get_optimizer("dion", lr=0.01, rank=R, fused="off")
-    params = convert.params_from_jax(_params(shape))
+    params = convert.params_from_jax(_params(shape), device="cpu")
     state = opt.init(params)
-    _, state = opt.update(convert.params_from_jax(_grads(shape, 1)), state,
+    _, state = opt.update(convert.params_from_jax(_grads(shape, 1),
+                                                  device="cpu"), state,
                           params)
-    g = convert.params_from_jax(_grads(shape, 2))
+    g = convert.params_from_jax(_grads(shape, 2), device="cpu")
     u, s = opt.update(g, state, params)
     flip = torch.tensor([(-1.0) ** k for k in range(R)])
     qr = torch.linalg.qr
@@ -212,8 +214,9 @@ def test_init_state_layout_matches_jax(preset, kw):
     jstate = jax_get_optimizer(preset, lr=0.01, **kw).init(
         jax.tree.map(jnp.asarray, params_np))
     tstate = get_optimizer(preset, lr=0.01, **kw).init(
-        convert.params_from_jax(params_np))
-    conv = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate))
+        convert.params_from_jax(params_np, device="cpu"))
+    conv = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate),
+                                      device="cpu")
     assert tstate.bases.keys() == conv.bases.keys()
     a = tstate.leaves[0]["lowrank"]["block/w/kernel"]
     b = conv.leaves[0]["lowrank"]["block/w/kernel"]
@@ -231,7 +234,8 @@ def test_bf16_trion_momentum_carries_across():
     jparams = jax.tree.map(jnp.asarray, params_np)
     _, jstate = jopt.update(jax.tree.map(jnp.asarray, _grads(shape, 10)),
                             jopt.init(jparams), jparams)
-    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate))
+    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate),
+                                        device="cpu")
     m = tstate.leaves[0]["lowrank"]["block/w/kernel"].m
     assert m.dtype == torch.bfloat16
     jm = jstate.leaves[0]["lowrank"]["block"]["w"]["kernel"].m

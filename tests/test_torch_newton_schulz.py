@@ -9,6 +9,7 @@ properties of that file (Gram near identity, singular-value band,
 near-singular inputs) are checked on the port's own results. The CUDA
 kernels against these plain versions are in ``test_torch_cuda.py``.
 """
+import importlib
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -25,9 +26,10 @@ from repro.kernels.newton_schulz import ns_iteration as jax_ns_iteration
 from repro_torch.core import fused_step
 from repro_torch.core.dct import dct2_matrix
 from repro_torch.core.newton_schulz import NS_COEFFS, newton_schulz
-from repro_torch.kernels import colgather_matmul as cg
 from repro_torch.kernels import newton_schulz as ns
 from repro_torch.kernels import ops
+# the modules: ``repro_torch.kernels`` exports wrappers of the same names
+cg = importlib.import_module("repro_torch.kernels.colgather_matmul")
 
 # tall factors (the trion / subspace-muon case), wide, layer-stacked, odd
 # dims, tall with rows no block multiple, and r > rows

@@ -163,7 +163,7 @@ def engine_setup():
     from repro_torch.models import transformer as T
 
     cfg = get_config("llama-350m", smoke=True)
-    return cfg, T.init_params(cfg, seed=0)
+    return cfg, T.init_params(cfg, seed=0, device="cpu")
 
 
 def _churn(cfg, params, *, cancel_one=False):

@@ -69,8 +69,9 @@ def test_dct_adamw_steps_match_jax(mode, name):
     # filled EF buffer, refreshed indices and inner_step 1
     _, jstate = jopt.update(jax.tree.map(jnp.asarray, _grads(shape, 10)),
                             jstate, jparams)
-    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate))
-    tparams = convert.params_from_jax(params_np)
+    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate),
+                                        device="cpu")
+    tparams = convert.params_from_jax(params_np, device="cpu")
     assert tstate.step == 1 and set(tparams) == {"block/w/kernel",
                                                  "final_norm/scale"}
 
@@ -78,8 +79,8 @@ def test_dct_adamw_steps_match_jax(mode, name):
         g_np = _grads(shape, 20 + step)
         ju, jstate = jopt.update(jax.tree.map(jnp.asarray, g_np), jstate,
                                  jparams)
-        tu, tstate = topt.update(convert.params_from_jax(g_np), tstate,
-                                 tparams)
+        tu, tstate = topt.update(convert.params_from_jax(g_np, device="cpu"),
+                                 tstate, tparams)
         jleaf = jstate.leaves[0]["lowrank"]["block"]["w"]["kernel"]
         tleaf = tstate.leaves[0]["lowrank"]["block/w/kernel"]
         assert isinstance(tleaf, ProjAdamLeaf)
@@ -121,14 +122,15 @@ def test_update_interval_keep_steps_match_jax(interval):
     topt = get_optimizer("dct_adamw", lr=0.01, **kw)
     jparams = jax.tree.map(jnp.asarray, params_np)
     jstate = jopt.init(jparams)
-    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate))
-    tparams = convert.params_from_jax(params_np)
+    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate),
+                                        device="cpu")
+    tparams = convert.params_from_jax(params_np, device="cpu")
     for step in range(5):
         g_np = _grads(shape, 30 + step)
         ju, jstate = jopt.update(jax.tree.map(jnp.asarray, g_np), jstate,
                                  jparams)
-        tu, tstate = topt.update(convert.params_from_jax(g_np), tstate,
-                                 tparams)
+        tu, tstate = topt.update(convert.params_from_jax(g_np, device="cpu"),
+                                 tstate, tparams)
         _close(tu["block/w/kernel"].numpy(),
                np.asarray(ju["block"]["w"]["kernel"]), f"step {step}")
 
@@ -143,13 +145,14 @@ def test_fp32_ef_state_carries_across():
     jparams = jax.tree.map(jnp.asarray, params_np)
     _, jstate = jopt.update(jax.tree.map(jnp.asarray, _grads(shape, 40)),
                             jopt.init(jparams), jparams)
-    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate))
+    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate),
+                                        device="cpu")
     tleaf = tstate.leaves[0]["lowrank"]["block/w/kernel"]
     assert isinstance(tleaf.ef, torch.Tensor) and tleaf.ef.dtype == torch.float32
     g_np = _grads(shape, 41)
     ju, _ = jopt.update(jax.tree.map(jnp.asarray, g_np), jstate, jparams)
-    tu, _ = topt.update(convert.params_from_jax(g_np), tstate,
-                        convert.params_from_jax(params_np))
+    tu, _ = topt.update(convert.params_from_jax(g_np, device="cpu"), tstate,
+                        convert.params_from_jax(params_np, device="cpu"))
     _close(tu["block/w/kernel"].numpy(), np.asarray(ju["block"]["w"]["kernel"]))
 
 
@@ -159,8 +162,9 @@ def test_init_state_layout_matches_jax():
     jstate = jax_get_optimizer("dct_adamw", lr=0.01, rank=R).init(
         jax.tree.map(jnp.asarray, params_np))
     tstate = get_optimizer("dct_adamw", lr=0.01, rank=R).init(
-        convert.params_from_jax(params_np))
-    conv = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate))
+        convert.params_from_jax(params_np, device="cpu"))
+    conv = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate),
+                                      device="cpu")
     assert tstate.bases.keys() == conv.bases.keys() == {"16"}
     np.testing.assert_allclose(tstate.bases["16"].numpy(),
                                conv.bases["16"].numpy(), atol=1e-6)
@@ -189,17 +193,19 @@ def lr_scale_cut_matches_jax(name, **kw):
     jparams = jax.tree.map(jnp.asarray, params_np)
     jopt = jax_get_optimizer(name, lr=0.01, lr_scale=True, **kw)
     jstate = jopt.init(jparams)
-    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate))
+    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate),
+                                        device="cpu")
     jstate, jhits = jax_scale(jstate, "lr_scale", 0.5)
     tstate, thits = scale_hyperparam(tstate, "lr_scale", 0.5)
     assert jhits == thits == 1
     ju, _ = jopt.update(jax.tree.map(jnp.asarray, g_np), jstate, jparams)
     tu, _ = get_optimizer(name, lr=0.01, lr_scale=True, **kw).update(
-        convert.params_from_jax(g_np), tstate,
-        convert.params_from_jax(params_np))
+        convert.params_from_jax(g_np, device="cpu"), tstate,
+        convert.params_from_jax(params_np, device="cpu"))
     for path in ("block/w/kernel", "final_norm/scale"):
         _close(tu[path].numpy(), np.asarray(
-            convert.params_from_jax(jax.tree.map(np.asarray, ju))[path]))
+            convert.params_from_jax(jax.tree.map(np.asarray, ju),
+                                    device="cpu")[path]))
 
 
 @pytest.mark.parametrize("name", ["dct_adamw", "ldadamw", "galore",

@@ -100,7 +100,7 @@ def test_init_params_and_convert_carry_the_biases(smoke):
         want = np.asarray(jparams["segments"][0]["p0"]["attn"][f"w{n}"]["bias"])
         assert np.array_equal(tparams[pre + f"w{n}/bias"].numpy(), want)
         assert np.abs(want).max() > 0.1
-    own = TT.init_params(CFG, seed=0)
+    own = TT.init_params(CFG, seed=0, device="cpu")
     assert all(torch.count_nonzero(own[pre + f"w{n}/bias"]) == 0
                for n in "qkv")
 
@@ -159,7 +159,7 @@ def _step_batch(vocab, b=2, s=P.SEQ):
 
 
 @pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
-def test_dct_adamw_step_matches_jax(param_dtype):
+def test_dct_adamw_step_matches_jax(smoke, param_dtype):
     """One DCT-AdamW step (rank 16: a top-16 selection on every matrix
     leaf): the port on its kernel path (``fused="on"``: the kernels' plain
     versions on the CPU) against the JAX reference path. Adam's first step
@@ -170,7 +170,8 @@ def test_dct_adamw_step_matches_jax(param_dtype):
     within 2 lr, the rest at the stated tolerance."""
     jcfg = dataclasses.replace(JCFG, param_dtype=param_dtype)
     tcfg = dataclasses.replace(CFG, param_dtype=param_dtype)
-    jparams, tparams = P.pair(jcfg)
+    # the smoke config's own dtype: the module's parameters, drawn once
+    jparams, tparams = smoke if jcfg == JCFG else P.pair(jcfg)
     jopt = jax_get_optimizer("dct_adamw", lr=LR, rank=16, fused="off")
     topt = get_optimizer("dct_adamw", lr=LR, rank=16, fused="on")
     batch = _step_batch(jcfg.vocab_size)
@@ -181,7 +182,8 @@ def test_dct_adamw_step_matches_jax(param_dtype):
     tstate, tm = TS.make_train_step(tcfg, topt)(
         TS.TrainState(0, tparams, topt.init(tparams)), tbatch)
     grads, _ = TS.grad_fn(tparams, tbatch, tcfg)
-    want = convert.params_from_jax(jax.tree.map(np.asarray, jstate.params))
+    want = convert.params_from_jax(jax.tree.map(np.asarray, jstate.params),
+                                   device="cpu")
     bf16 = param_dtype == "bfloat16"
     np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
                                rtol=1e-5)

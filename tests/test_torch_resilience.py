@@ -146,7 +146,8 @@ def test_scale_hyperparam_matches_jax_bit_for_bit(name):
     kw = {} if name == "adamw" else {"rank": 8}
     jst = jax_get_optimizer(name, lr=0.01, lr_scale=True, **kw).init(
         jax.tree.map(jnp.asarray, params))
-    tst = convert.opt_state_from_jax(jax.tree.map(np.asarray, jst))
+    tst = convert.opt_state_from_jax(jax.tree.map(np.asarray, jst),
+                                     device="cpu")
     for factor in (0.5, 0.3, 0.1 ** 3):
         jst, jh = JR.scale_hyperparam(jst, "lr_scale", factor)
         tst, th = TR.scale_hyperparam(tst, "lr_scale", factor)
@@ -343,8 +344,10 @@ def _start(lr_scale=True):
 
     def tinit():
         host = jax.tree.map(np.asarray, jstate)
-        return TS.TrainState(0, convert.params_from_jax(host.params),
-                             convert.opt_state_from_jax(host.opt_state))
+        return TS.TrainState(0, convert.params_from_jax(host.params,
+                                                        device="cpu"),
+                             convert.opt_state_from_jax(host.opt_state,
+                                                        device="cpu"))
     return jopt, topt, jstate, tinit
 
 
@@ -385,7 +388,8 @@ def test_guarded_step_flags_params_and_refusal_match_jax():
     assert tflags == jflags == [True, True, True, False, True]
     assert int(jstate.step) == tstate.step == 4
     np.testing.assert_allclose(tl, jl, rtol=LOSS_RTOL)
-    want = convert.params_from_jax(jax.tree.map(np.asarray, jstate.params))
+    want = convert.params_from_jax(jax.tree.map(np.asarray, jstate.params),
+                                   device="cpu")
     for k, p in tstate.params.items():
         moved = want[k] - p0[k]
         err = float((p - want[k]).norm() / moved.norm())

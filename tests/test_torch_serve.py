@@ -51,14 +51,15 @@ def pair(request):
     jcfg = dataclasses.replace(jax_llama.SMOKE, **over)
     tcfg = dataclasses.replace(CFG, **over)
     jparams = JT.init_params(jcfg, jax.random.PRNGKey(0))
-    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams))
+    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams),
+                                      device="cpu")
     return jcfg, tcfg, jparams, tparams
 
 
 @pytest.fixture(scope="module")
 def gqa(request):
     tcfg = dataclasses.replace(CFG, n_kv_heads=2)
-    return tcfg, TT.init_params(tcfg, seed=0), None
+    return tcfg, TT.init_params(tcfg, seed=0, device="cpu"), None
 
 
 def _np(tree):
@@ -84,7 +85,7 @@ def test_prefill_chunks_and_pool_scatter_match_jax(pair):
     rng = np.random.default_rng(0)
     prompt = rng.integers(0, tcfg.vocab_size, 11).astype(np.int32)
     chunks, jscratch = _jax_prefill(jcfg, jparams, prompt, 8, 16)
-    scratch = TT.init_prefill_scratch(tcfg, 16)
+    scratch = TT.init_prefill_scratch(tcfg, 16, device="cpu")
     padded = torch.zeros((1, 16), dtype=torch.long)
     padded[0, :11] = torch.from_numpy(prompt)
     for (jlogits, jscr), start in zip(chunks, (0, 8)):
@@ -93,7 +94,7 @@ def test_prefill_chunks_and_pool_scatter_match_jax(pair):
                                            padded[:, start:start + 8], start,
                                            take, tcfg)
         np.testing.assert_allclose(logits.numpy(), jlogits, **TOL)
-        for key, want in convert.pools_from_jax(jscr).items():
+        for key, want in convert.pools_from_jax(jscr, device="cpu").items():
             np.testing.assert_allclose(scratch[key].numpy(), want.numpy(),
                                        **TOL, err_msg=key)
     # the scatter of the same scratch into the pools is exact
@@ -101,9 +102,9 @@ def test_prefill_chunks_and_pool_scatter_match_jax(pair):
     jpools = JT.write_prefill_to_pools(JT.init_paged_pools(jcfg, 16, 4),
                                        jscratch, jnp.asarray(ids), 11, 4)
     tpools = TT.write_prefill_to_pools(
-        TT.init_paged_pools(tcfg, 16, 4),
-        convert.pools_from_jax(_np(jscratch)), ids, 11, 4)
-    want = convert.pools_from_jax(_np(jpools))
+        TT.init_paged_pools(tcfg, 16, 4, device="cpu"),
+        convert.pools_from_jax(_np(jscratch), device="cpu"), ids, 11, 4)
+    want = convert.pools_from_jax(_np(jpools), device="cpu")
     assert set(tpools) == set(want) == {"segments/0/p0/k", "segments/0/p0/v"}
     for key in want:
         assert torch.equal(tpools[key], want[key]), key
@@ -126,7 +127,7 @@ def test_decode_step_paged_matches_jax(pair):
         jpools = JT.write_prefill_to_pools(jpools, scr, jnp.asarray(table[i]),
                                            len(p), 4)
         tokens.append(int(np.argmax(chunks[-1][0][0])))
-    tpools = convert.pools_from_jax(_np(jpools))
+    tpools = convert.pools_from_jax(_np(jpools), device="cpu")
     pos = np.array([11, 6], np.int32)
     token = np.array(tokens, np.int32)
     for step, active in enumerate(([True, True], [True, True],
@@ -140,7 +141,8 @@ def test_decode_step_paged_matches_jax(pair):
             tcfg, num_splits=2)
         np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits),
                                    **TOL, err_msg=f"step {step}")
-        for key, want in convert.pools_from_jax(_np(jpools)).items():
+        for key, want in convert.pools_from_jax(_np(jpools),
+                                                device="cpu").items():
             np.testing.assert_allclose(tpools[key].numpy(), want.numpy(),
                                        **TOL, err_msg=key)
         token = np.argmax(np.asarray(jlogits), axis=-1).astype(np.int32)
@@ -157,11 +159,11 @@ def test_dense_prefill_and_decode_match_jax(pair):
         prompt).long()}, tcfg, max_len=16)
     assert n == m == 9
     np.testing.assert_allclose(tlast.numpy(), np.asarray(jlast), **TOL)
-    for key, want in convert.pools_from_jax(_np(jcache)).items():
+    for key, want in convert.pools_from_jax(_np(jcache), device="cpu").items():
         assert tcache[key].shape == want.shape == (1, 2, 16, tcfg.n_kv_heads,
                                                    tcfg.hd)
         np.testing.assert_allclose(tcache[key].numpy(), want.numpy(), **TOL)
-    zero = TT.init_cache(tcfg, 2, 16)
+    zero = TT.init_cache(tcfg, 2, 16, device="cpu")
     assert {k: v.shape for k, v in zero.items()} == \
         {k: v.shape for k, v in tcache.items()}
     token = np.argmax(np.asarray(jlast), axis=-1).astype(np.int32)
@@ -220,7 +222,7 @@ def _dense_solo(dense, prompt, new, eos_id=None):
 @pytest.mark.parametrize("over", list(VARIANTS))
 def test_churn_matches_dense_solo(over):
     cfg = dataclasses.replace(CFG, **VARIANTS[over])
-    params = TT.init_params(cfg, seed=0)
+    params = TT.init_params(cfg, seed=0, device="cpu")
     dense = ServeEngine(cfg, params, max_len=48)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in CHURN_LENS]

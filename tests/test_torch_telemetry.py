@@ -149,7 +149,8 @@ def test_stats_match_jax(case):
     params_np = _params_np()
     jparams = jax.tree.map(jnp.asarray, _nest(params_np))
     jstate = jopt.init(jparams)
-    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate))
+    tstate = convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate),
+                                        device="cpu")
     tparams = {k: torch.from_numpy(v) for k, v in params_np.items()}
     jupd = _jax_update_with_stats(jopt)
     for step in range(1, steps + 1):
@@ -296,7 +297,8 @@ def _smoke_pair(rank=16, **kw):
     jopt = jax_get_optimizer("dct_adamw", lr=0.01, rank=rank, **kw)
     topt = get_optimizer("dct_adamw", lr=0.01, rank=rank, **kw)
     jparams = JT.init_params(JAX_CFG, jax.random.PRNGKey(0))
-    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams))
+    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams),
+                                      device="cpu")
     return jopt, topt, jparams, tparams
 
 
@@ -370,8 +372,9 @@ def test_summarize_matches_jax():
 def _trainer(opt, **kw):
     from repro_torch.data.synthetic import make_batch_fn
     return Trainer(train_step=TS.make_train_step(CFG, opt, telemetry=True),
-                   init_state_fn=lambda: TS.init_state(CFG, opt, seed=0),
-                   batch_fn=make_batch_fn(CFG, 16, 2, seed=0),
+                   init_state_fn=lambda: TS.init_state(CFG, opt, seed=0,
+                                                       device="cpu"),
+                   batch_fn=make_batch_fn(CFG, 16, 2, seed=0, device="cpu"),
                    log_every=100, log_fn=QUIET, **kw)
 
 

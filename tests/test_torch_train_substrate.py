@@ -69,7 +69,7 @@ def test_pipeline_prefetches_in_order():
 
 
 def test_pipeline_straggler_recomputed_inline_bit_equal():
-    batch_fn = make_batch_fn(CFG, 16, 2, seed=1)
+    batch_fn = make_batch_fn(CFG, 16, 2, seed=1, device="cpu")
     slow = threading.Event()
 
     def fn(step):
@@ -222,8 +222,9 @@ def _trainer(name, ckpt_dir=None, **kw):
     opt = get_optimizer(name, lr=cosine_warmup(0.01, 2, 6), rank=16,
                         weight_decay=0.01)
     return Trainer(train_step=TS.make_train_step(CFG, opt),
-                   init_state_fn=lambda: TS.init_state(CFG, opt, seed=0),
-                   batch_fn=make_batch_fn(CFG, 16, 2, seed=0),
+                   init_state_fn=lambda: TS.init_state(CFG, opt, seed=0,
+                                                       device="cpu"),
+                   batch_fn=make_batch_fn(CFG, 16, 2, seed=0, device="cpu"),
                    ckpt_dir=ckpt_dir, log_every=100, log_fn=QUIET, **kw)
 
 
@@ -365,12 +366,13 @@ def test_accumulated_gradients_match_jax(accum_dtype):
                                            accum_dtype=accum_dtype))(
         JS.TrainState(jnp.zeros((), jnp.int32), jparams, jopt.init(jparams)),
         jax.tree.map(jnp.asarray, batch))
-    tparams = convert.params_from_jax(host)
+    tparams = convert.params_from_jax(host, device="cpu")
     tstate, _ = TS.make_train_step(tcfg, topt, accum_dtype=accum_dtype)(
         TS.TrainState(0, tparams, topt.init(tparams)),
         {k: torch.from_numpy(v) for k, v in batch.items()})
     want = convert.params_from_jax(
-        jax.tree.map(lambda x: np.asarray(x, np.float32), jstate.opt_state))
+        jax.tree.map(lambda x: np.asarray(x, np.float32), jstate.opt_state),
+        device="cpu")
     rtol = 2.0 ** -7 if accum_dtype == "bfloat16" else 1e-4
     for k, g in tstate.opt_state.items():
         w = want[k].numpy()
@@ -387,11 +389,11 @@ def test_accum_dtype_rejects_unknown_and_telemetry_is_unported():
     # adamw has no low-rank leaf: nothing to record, no telemetry entry
     batch = {k: torch.from_numpy(v) for k, v in _np_batch(2).items()}
     _, m = TS.make_train_step(CFG, opt, telemetry=True)(
-        TS.init_state(CFG, opt, seed=0), batch)
+        TS.init_state(CFG, opt, seed=0, device="cpu"), batch)
     assert "telemetry" not in m
     opt = get_optimizer("dct_adamw", lr=0.01, rank=16)
     _, m = TS.make_train_step(CFG, opt, telemetry=True)(
-        TS.init_state(CFG, opt, seed=0), batch)
+        TS.init_state(CFG, opt, seed=0, device="cpu"), batch)
     assert len(m["telemetry"]) == 7
 
 
@@ -401,7 +403,8 @@ def test_eval_step_matches_jax():
     jm = jax.jit(JS.make_eval_step(JAX_CFG))(
         jparams, jax.tree.map(jnp.asarray, batch))
     tm = make_eval_step(CFG)(
-        convert.params_from_jax(jax.tree.map(np.asarray, jparams)),
+        convert.params_from_jax(jax.tree.map(np.asarray, jparams),
+                                device="cpu"),
         {k: torch.from_numpy(v) for k, v in batch.items()})
     assert set(tm) == set(jm) == {"ce", "loss"}
     for k in tm:

@@ -60,7 +60,8 @@ def pair(jax_cfg, bias_std: float = 0.5, seed: int = 0):
 
     jparams = jax.tree_util.tree_map_with_path(draw, jax.eval_shape(
         lambda: JT.init_params(jax_cfg, jax.random.PRNGKey(seed))))
-    return jparams, convert.params_from_jax(jax.tree.map(np.asarray, jparams))
+    return jparams, convert.params_from_jax(jax.tree.map(np.asarray, jparams),
+                                            device="cpu")
 
 
 def configs_match(arch: str, jax_module) -> None:
@@ -92,7 +93,7 @@ def full_config_matches_eval_shape(arch: str, jax_module) -> int:
 def smoke_leaves_match(jparams, tcfg) -> None:
     """The port's own ``init_params`` at smoke size: JAX's leaves, shapes
     and dtypes."""
-    own = TT.init_params(tcfg, seed=0)
+    own = TT.init_params(tcfg, seed=0, device="cpu")
     want = {_path(kp): (tuple(x.shape), _DTYPES[str(x.dtype)])
             for kp, x in jax.tree_util.tree_flatten_with_path(jparams)[0]}
     assert {k: (tuple(v.shape), v.dtype) for k, v in own.items()} == want
@@ -163,7 +164,7 @@ def paged_chunks_and_decode(jparams, tparams, jcfg, tcfg, tol=TOL) -> None:
     padded = np.zeros((1, 96), np.int32)
     padded[0, :75] = prompt
     jscr = JT.init_prefill_scratch(jcfg, 96)
-    tscr = TT.init_prefill_scratch(tcfg, 96)
+    tscr = TT.init_prefill_scratch(tcfg, 96, device="cpu")
     jchunk = jax.jit(lambda p, scr, toks, start, take: JT.prefill_chunk(
         p, scr, toks, start, take, jcfg))
     for start in (0, 48):
@@ -177,7 +178,8 @@ def paged_chunks_and_decode(jparams, tparams, jcfg, tcfg, tol=TOL) -> None:
     table = np.array([[2, 5, 1, 7, 0, 0]], np.int32)
     jpools = JT.write_prefill_to_pools(JT.init_paged_pools(jcfg, 8, 16),
                                        jscr, jnp.asarray(table[0]), 75, 16)
-    tpools = convert.pools_from_jax(jax.tree.map(np.asarray, jpools))
+    tpools = convert.pools_from_jax(jax.tree.map(np.asarray, jpools),
+                                    device="cpu")
     token = np.argmax(np.asarray(jl.astype(jnp.float32)), -1).astype(np.int32)
     pos, active = np.array([75], np.int32), np.array([True])
     jdecode = jax.jit(lambda p, pools, token, pos: JT.decode_step_paged(
