@@ -277,7 +277,33 @@ device or without the port beside it. Any failure raises. Phases:
    token, ``trace.json`` with its decode-step spans, TTFT / ITL p50 / p99
    printed. Files under ``build/chip_smoke_runtime``, deleted at the end.
    The phase's wall time is printed.
-19. The ``kernels`` line, the card's line, and last:
+19. The DeepSeek MoE family (``MOE_*`` below; random weights, bf16
+   compute, the registry's configs at full width, depth cut): (a) the
+   kernels at its new shapes against their plain versions, each launched
+   twice (bit-identical): ``flash_decode`` at deepseek-moe-16b's decode
+   (16 / 16 heads of 128) at phase 5's bar, ``flash_attention_blockwise``
+   at its prefill and at deepseek-v3-671b's MLA prefill (2 x 2048, 128
+   heads, q / k head dim 192, v 128) at the model's bar, each timed per
+   call beside its bound and SDPA (with the backends that take v of its
+   own head dim), and the four DCT-AdamW kernels at phase 2's bars on the
+   4-D expert leaf (4, 64, 2048, 1408), the router (r = n = 64) and
+   deepseek-v3-671b's wkv_a / wkv_b / wo (n = 576, 512, 7168); (b)
+   serving through phase 13's runs and checks, the counters zeroed just
+   before each: deepseek-moe-16b cut from 28 layers to 14 (1 dense + 13
+   MoE, fp32 parameters) on the dense engine (14 blockwise launches per
+   prefill) and the paged engine (14 ``flash_decode`` launches per decode
+   step), deepseek-v3-671b cut from 61 to 2 (1 ``mla_dense`` + 1
+   ``mla_moe``) on the dense engine: its MLA prefill through the extended
+   blockwise kernel (2 launches), then 16 tokens of latent-cache decode;
+   an MoE prefill's last logits within ``MOE_LOGITS_FLOOR_FACTOR`` of their
+   floor (routing is discrete), each layer's kernel output at phase 13's
+   bar; (c) DCT-AdamW rank 128 through the training CLI, 3 steps:
+   deepseek-moe-16b at depth 5 (1 dense + 4 MoE), batch 8 x 512, and
+   deepseek-v3-671b at 1 ``mla_dense`` layer with the MTP head, batch 8 x
+   512: one launch of each of the four kernels per projected leaf and step
+   (18 and 9 leaves), finite losses and MTP terms, step time and peak
+   memory. The phase's wall time is printed.
+20. The ``kernels`` line, the card's line, and last:
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -534,6 +560,51 @@ CONFIG_DECODE_SHAPES = {"qwen2.5-32b": (40, 8, 128),
                         "phi3-mini-3.8b": (32, 32, 96),
                         "command-r-plus-104b": (96, 8, 128)}
 CONFIG_DECODE_LENS = [512, 1034, 1557, 2080]
+
+# the DeepSeek MoE family (phase 19): random weights, bf16 compute, the
+# registry's configs at full width, cut in depth only, as (layers of the
+# first schedule segment, layers of the second). Served: deepseek-moe-16b
+# 28 -> 14 (1 dense + 13 attn_moe: 8.15 B fp32 parameters, 32.6 GB, beside
+# their bf16 copy of 16.3 GB while the engine casts them), deepseek-v3-671b
+# 61 -> 2 (1 mla_dense + 1 mla_moe, and the MTP head: 14.05 B bf16
+# parameters, 28.1 GB; the mla_moe layer alone 11.27 B)
+MOE_SERVE_LAYERS = {"deepseek-moe-16b": (1, 13), "deepseek-v3-671b": (1, 1)}
+# trained through the CLI, DCT-AdamW rank 128, MOE_TRAIN_STEPS steps of seq
+# 512: (arch, layers, batch). deepseek-moe-16b 28 -> 5 (1 dense + 4
+# attn_moe, 2.85 B fp32: 63.7 GB peak alone; at 6 layers, 3.44 B, 75.8 GB,
+# too close to the card's 79.2 GiB after the other phases);
+# deepseek-v3-671b 61 -> 1 mla_dense layer and the MTP head (2.54 B bf16:
+# 68.4 GB peak alone). At 2 mla_dense layers (3.12 B) the update ran out
+# of the card's 79.2 GiB (67.1 GB allocated, 8.5 reserved free, at its
+# weight decay: the functional step holds the old and the new full-rank
+# Adam moments of the two 926.7 M-element embeddings, 29.6 GB, and two
+# fp32 update trees of 12.5 GB; scripts/deepseek_probe.py, NVIDIA H100
+# 80GB HBM3, 700 W; so are the peaks above). One mla_moe layer does not
+# train on one card either
+# (11.27 B bf16 parameters, as many gradients, 11.3 GB of int8 EF and a
+# 45 GB fp32 G + EF transient of its expert leaves)
+MOE_TRAIN_RUNS = (("deepseek-moe-16b", (1, 4), 8),
+                  ("deepseek-v3-671b", (1, 0), 8))
+MOE_TRAIN_STEPS = 3
+# deepseek-v3-671b's latent-cache decode after its dense prefill
+MLA_DECODE_NEW = 16
+# the last logits of an MoE prefill through the kernels against the plain
+# route: an ulp that moves a router's top-k sends a token to other experts,
+# so the bar is this factor times the larger of the run's floor and
+# PREFILL_LOGITS_RTOL; each layer's kernel output keeps phase 13's bar
+MOE_LOGITS_FLOOR_FACTOR = 3.0
+# the four DCT-AdamW kernels at the family's new leaf shapes (oriented
+# (..., m, n), r = min(128, n)), held to their plain versions as phase 2
+# holds them: (shape, launches per step). deepseek-moe-16b's expert leaves
+# (wg, wu, wd of MOE_TRAIN_RUNS's 4 MoE layers, 64 experts: 256 matrices a
+# launch; the kernel table's row), its router (r = n = 64: every column),
+# and deepseek-v3-671b's wkv_a (n = 576), wkv_b (n = 512) and wo (n = 7168:
+# a 205 MB fp32 basis) at 2 layers
+MOE_LEAF_SHAPES = {"deepseek-moe-16b experts": ((4, 64, 2048, 1408), 3),
+                   "deepseek-moe-16b router": ((4, 2048, 64), 1),
+                   "deepseek-v3-671b wkv_a": ((2, 7168, 576), 1),
+                   "deepseek-v3-671b wkv_b": ((2, 32768, 512), 1),
+                   "deepseek-v3-671b wo": ((2, 16384, 7168), 1)}
 
 
 def _device_line() -> str:
@@ -1892,6 +1963,32 @@ def _sdpa(torch, q, k, v, window):
     return lambda: sdpa(qt, kt, vt, attn_mask=keep, enable_gqa=True)
 
 
+def _sdpa_backends(torch, q, k, v) -> dict:
+    """Which of ``scaled_dot_product_attention``'s backends take these
+    tensors (causal), and the one its dispatcher picks for them
+    (``torch._fused_sdp_choice``; None where this torch lacks it)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    call = _sdpa(torch, q, k, v, None)
+    takes = {}
+    for backend in (getattr(SDPBackend, n) for n in (
+            "FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION",
+            "MATH") if hasattr(SDPBackend, n)):
+        try:
+            with sdpa_kernel(backend):
+                call()
+            takes[backend.name] = True
+        except RuntimeError:
+            takes[backend.name] = False
+    picked = None
+    with contextlib.suppress(AttributeError, TypeError):
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        picked = SDPBackend(torch._fused_sdp_choice(
+            qt, kt, vt, is_causal=True, enable_gqa=True)).name
+    torch.cuda.synchronize()
+    return {"takes": takes, "picked": picked}
+
+
 def check_flash_attention(torch, dev) -> dict:
     """Phase 12. Returns the kernels-line row of ``flash_attention`` (its
     ``launches`` come from phase 13)."""
@@ -1979,7 +2076,8 @@ def _blockwise_compare(torch, fa, q, k, v, causal, window, chunk) -> dict:
     again = fa.flash_attention_blockwise(q, k, v, **kw)
     want = fa.blockwise_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert got.dtype == q.dtype and got.shape == q.shape \
+    assert got.dtype == q.dtype \
+        and got.shape == (*q.shape[:3], v.shape[3]) \
         and torch.isfinite(got).all(), "flash_attention_blockwise output"
     assert torch.equal(got, again), "flash_attention_blockwise: relaunch differs"
     d = (got.float() - want.float()).abs()
@@ -2058,13 +2156,19 @@ def _gemma3_depth8():
 
 
 def _plain_route_last_logits(torch, T, params, tokens, cfg):
-    """The same forward with grad enabled on the parameters: the model's
-    attention runs the plain chunked loop, not the kernel."""
-    with torch.enable_grad():
-        leaves = {k: v.detach().requires_grad_(v.is_floating_point())
-                  for k, v in params.items()}
-        logits, _ = T.forward(leaves, {"tokens": tokens}, cfg)
-    return logits[:, -1].detach().float()
+    """The same forward with the route's device test saying "not the card":
+    the model's attention runs the plain chunked loop, not the kernel (the
+    same values as a forward with grad, without its saved activations)."""
+    from repro_torch.models import layers as L
+
+    on_card = L._on_card
+    L._on_card = lambda t: False
+    try:
+        with torch.inference_mode():
+            logits, _ = T.forward(params, {"tokens": tokens}, cfg)
+    finally:
+        L._on_card = on_card
+    return logits[:, -1].float()
 
 
 # phase 13's dense runs: the kernel each prefill launches once per layer
@@ -2121,11 +2225,15 @@ def _prefill_attention_probe(torch, T, params, tokens, cfg, mode: str):
     return gaps if mode == "gaps" else logits[:, -1].float()
 
 
-def run_dense_prefill(torch, dev, name: str, cfg=None) -> dict:
+def run_dense_prefill(torch, dev, name: str, cfg=None, new=None) -> dict:
     """Phase 13, dense engine: ``ServeEngine.generate`` of llama-350m (bf16,
     or fp32 compute) or gemma3-27b at depth 8, counters zeroed just before;
-    phase 17: of ``cfg`` (a dense configuration, bf16 compute, 2 prompts x
-    2048). Returns the counts."""
+    phases 17 and 19: of ``cfg`` (bf16 compute, 2 prompts x 2048, ``new``
+    new tokens, GEMMA_NEW by default). With MoE blocks the last logits'
+    bar is ``MOE_LOGITS_FLOOR_FACTOR`` times the larger of their floor and
+    PREFILL_LOGITS_RTOL, and the top-1 agreement is printed, not asserted:
+    an ulp that moves a router's top-k sends a token to other experts.
+    Returns the counts."""
     import dataclasses
 
     import numpy as np
@@ -2137,7 +2245,7 @@ def run_dense_prefill(torch, dev, name: str, cfg=None) -> dict:
     from repro_torch.serve import ServeEngine
 
     if cfg is not None:
-        (b, s), new = GEMMA_PROMPTS, GEMMA_NEW
+        (b, s), new = GEMMA_PROMPTS, new or GEMMA_NEW
     elif name == "llama-350m":
         cfg, (b, s), new = get_config(name), LLAMA_PROMPTS, LLAMA_NEW
     elif name == "llama-350m fp32":
@@ -2188,11 +2296,24 @@ def run_dense_prefill(torch, dev, name: str, cfg=None) -> dict:
     assert torch.isfinite(last).all() and last.shape == (b, cfg.vocab_size)
     rel = ((last - plain).norm() / plain.norm()).item()
     top1 = (last.argmax(-1) == plain.argmax(-1)).float().mean().item()
-    assert rel <= PREFILL_LOGITS_RTOL and top1 == 1.0, \
-        f"{name}: prefill logits {rel} from the plain route, top-1 {top1}"
     # each layer's kernel output against the loop on the same inputs
     gaps = _prefill_attention_probe(torch, T, eng.params, tokens, cfg,
                                     "gaps")
+    floor_logits = _prefill_attention_probe(torch, T, eng.params, tokens, cfg,
+                                            "floor")
+    floor = ((floor_logits - plain).norm() / plain.norm()).item()
+    moe = any(k in T.MOE_KINDS for k in cfg.block_kinds())
+    print(json.dumps({"dense_prefill_checks": name, "moe": moe,
+                      "last_logits_rel_to_plain_route": rel,
+                      "plain_route_floor_rel": floor, "top1": top1,
+                      "per_layer_gaps": gaps}), flush=True)
+    if moe:
+        bar = MOE_LOGITS_FLOOR_FACTOR * max(floor, PREFILL_LOGITS_RTOL)
+        assert rel <= bar, f"{name}: prefill logits {rel} from the plain " \
+            f"route, bar {bar} (floor {floor})"
+    else:
+        assert rel <= PREFILL_LOGITS_RTOL and top1 == 1.0, \
+            f"{name}: prefill logits {rel} from the plain route, top-1 {top1}"
     for i, (share, gap, ulps) in enumerate(gaps):
         if cfg.compute_dtype == "bfloat16":
             assert ulps <= LAYER_MAX_ULPS \
@@ -2200,9 +2321,6 @@ def run_dense_prefill(torch, dev, name: str, cfg=None) -> dict:
                 f"{name} layer {i}: {share} differ, by up to {ulps} ulps"
         else:
             assert gap <= FA_TOL_F32, f"{name} layer {i}: max |d| {gap}"
-    floor_logits = _prefill_attention_probe(torch, T, eng.params, tokens, cfg,
-                                            "floor")
-    floor = ((floor_logits - plain).norm() / plain.norm()).item()
     kernels, busy_ms = _device_kernels(prof)
     fa_ms = sum(_dev_us(e) for e in kernels
                 if f"{kernel}_fwd" in e.key) / 1e3
@@ -2544,11 +2662,13 @@ def check_dense_refresh(torch, dev, seed: int) -> None:
 # ---------------------------------------------------------------------------
 # phase 15: the training substrate
 # ---------------------------------------------------------------------------
-def _cli_run(torch, argv, stop_at=None, steps=STEPS):
+def _cli_run(torch, argv, stop_at=None, steps=STEPS,
+             per_step=LAUNCHES_PER_STEP):
     """One in-process run of the training CLI's path (``launch.train.run``),
     the counters zeroed just before it and read just after; each kernel of
-    the step must have run 7 times per step. Returns the history, the
-    counts and the peak device memory."""
+    the step must have run ``per_step`` times per step (7: llama-350m's
+    matrix leaves). Returns the history, the counts and the peak device
+    memory."""
     from repro_torch.kernels import ops
     from repro_torch.launch import train as train_cli
 
@@ -2563,9 +2683,9 @@ def _cli_run(torch, argv, stop_at=None, steps=STEPS):
     hist = trainer.metrics_history
     assert len(hist) == steps, (argv, len(hist))
     for name, n in counts.items():
-        assert n == LAUNCHES_PER_STEP * steps, \
+        assert n == per_step * steps, \
             f"{argv}: {name} ran {n} times in {steps} steps, expected " \
-            f"{LAUNCHES_PER_STEP * steps}"
+            f"{per_step * steps}"
     return hist, counts, peak
 
 
@@ -3254,6 +3374,78 @@ def _config(arch: str, depth=None):
     return dataclasses.replace(cfg, schedule=((pattern, depth),))
 
 
+def _decode_case(torch, dev, fd, seed, hq, hkv, hd, launches) -> dict:
+    """``flash_decode`` at (hq, hkv, hd) on the paged engine's slots (4,
+    block 16, lengths ``CONFIG_DECODE_LENS``: up to a 2048-token prompt and
+    32 new tokens, bf16 pools) against its plain version (q in fp32 and
+    bf16, 1 and 2 splits, each launched twice), timed per call beside its
+    bound and SDPA on the densified K/V (graph replays of ``launches``
+    calls)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    maxb = -(-(GEMMA_PROMPT_LENS[1] + GEMMA_NEW) // BLOCK)
+    run_blocks = sum(-(-n // BLOCK) for n in CONFIG_DECODE_LENS)
+    args = _fd_case(torch, dev, seed, b=GEMMA_SLOTS, hq=hq, hkv=hkv, hd=hd,
+                    bs=BLOCK, maxb=maxb, lengths=CONFIG_DECODE_LENS,
+                    kv_dtype=bf16)
+    assert fd.vector_path(args[1], args[2]), (hq, hkv, hd)
+    errs = [_fd_compare(torch, fd, args, qd, sp)
+            for qd in (f32, bf16) for sp in (1, NUM_SPLITS)]
+    q, k, v, table, ln = args
+    q = q.to(bf16)
+
+    def call():
+        return fd.flash_decode(q, k, v, table, ln, num_splits=NUM_SPLITS)
+
+    tokens = int(ln.sum())
+    nbytes = (tokens * hkv * hd * 2 * 2 + 2 * q.numel() * 2
+              + run_blocks * 4 + GEMMA_SLOTS * 4)
+    flops = 4.0 * tokens * hq * hd
+    bound, by = _bound_ms(nbytes, flops)
+    return {
+        "shape": [GEMMA_SLOTS, hq, hkv, hd], "lengths": CONFIG_DECODE_LENS,
+        "splits": NUM_SPLITS, "max_abs_err": max(errs),
+        "ms": _graph_ms(call, launches), "wrapper_ms": _time_ms(call),
+        "plain_ms": _time_ms(lambda: fd.flash_decode_plain(
+            q, k, v, table, ln, num_splits=NUM_SPLITS), 3),
+        "library_ms": _graph_ms(_fd_sdpa(torch, q, k, v, table, ln),
+                                launches),
+        "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": flops}
+
+
+def _prefill_case(torch, dev, fa, seed, hq, hkv, hd, chunk,
+                  vd=None) -> dict:
+    """``flash_attention_blockwise`` at a prefill of ``GEMMA_PROMPTS`` (2 x
+    2048, causal, kv chunk ``chunk``; v of head dim ``vd``, hd by default)
+    against its plain version at the model's bar, timed per call beside its
+    bound and SDPA on the same tensors."""
+    b, s = GEMMA_PROMPTS
+    vd = vd or hd
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qa, ka, va = (torch.randn((b, s, h, w), generator=gen, device=dev)
+                  .to(torch.bfloat16) for h, w in ((hq, hd), (hkv, hd),
+                                                   (hkv, vd)))
+    gaps = _blockwise_compare(torch, fa, qa, ka, va, True, None, chunk)
+    pairs = b * hq * _fa_pairs(s, True, None)
+    flops = 2.0 * pairs * (hd + vd)
+    nbytes = 2 * (b * s * hq * (hd + vd) + b * s * hkv * (hd + vd))
+    bound, by = _bound_ms(nbytes, flops, PEAK_BF16_PER_S)
+    ms = _time_ms(lambda: fa.flash_attention_blockwise(
+        qa, ka, va, kv_chunk=chunk))
+    sdpa = _sdpa(torch, qa, ka, va, None)
+    out = {
+        "shape": [b, s, hq, hkv, hd], "v_head_dim": vd, "kv_chunk": chunk,
+        **gaps, "ms": ms, "tflop_per_s": flops / ms / 1e9,
+        "plain_ms": _time_ms(lambda: fa.blockwise_attention_ref(
+            qa, ka, va, causal=True, kv_chunk=chunk), 3),
+        "library_ms": _library_ms(sdpa), "bound_ms": bound, "bound_by": by,
+        "bytes": nbytes, "flops": flops}
+    if vd != hd:
+        out["library_backends"] = _sdpa_backends(torch, qa, ka, va)
+    del qa, ka, va, sdpa
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_config_kernels(torch, dev) -> dict:
     """Phase 17 (a): ``flash_decode`` and ``flash_attention_blockwise`` at
     the dense configurations' decode and prefill shapes against their plain
@@ -3262,65 +3454,15 @@ def check_config_kernels(torch, dev) -> dict:
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     fd = importlib.import_module("repro_torch.kernels.flash_decode")
 
-    f32, bf16 = torch.float32, torch.bfloat16
-    maxb = -(-(GEMMA_PROMPT_LENS[1] + GEMMA_NEW) // BLOCK)
-    run_blocks = sum(-(-n // BLOCK) for n in CONFIG_DECODE_LENS)
-    b, s = GEMMA_PROMPTS
     out = {}
     for i, (arch, (hq, hkv, hd)) in enumerate(CONFIG_DECODE_SHAPES.items()):
         cfg = _config(arch)
         assert (cfg.n_heads, cfg.n_kv_heads, cfg.hd) == (hq, hkv, hd), arch
-        # decode: the paged engine's slots, lengths up to a 2048-token
-        # prompt and 32 new tokens
-        args = _fd_case(torch, dev, 40 + i, b=GEMMA_SLOTS, hq=hq, hkv=hkv,
-                        hd=hd, bs=BLOCK, maxb=maxb,
-                        lengths=CONFIG_DECODE_LENS, kv_dtype=bf16)
-        assert fd.vector_path(args[1], args[2]), arch
-        errs = [_fd_compare(torch, fd, args, qd, sp)
-                for qd in (f32, bf16) for sp in (1, NUM_SPLITS)]
-        q, k, v, table, ln = args
-        q = q.to(bf16)
-
-        def call():
-            return fd.flash_decode(q, k, v, table, ln, num_splits=NUM_SPLITS)
-
-        tokens = int(ln.sum())
-        nbytes = (tokens * hkv * hd * 2 * 2 + 2 * q.numel() * 2
-                  + run_blocks * 4 + GEMMA_SLOTS * 4)
-        flops = 4.0 * tokens * hq * hd
-        bound, by = _bound_ms(nbytes, flops)
-        decode = {
-            "shape": [GEMMA_SLOTS, hq, hkv, hd], "lengths": CONFIG_DECODE_LENS,
-            "splits": NUM_SPLITS, "max_abs_err": max(errs),
-            "ms": _graph_ms(call, CONFIG_SERVE_DEPTHS[arch]),
-            "wrapper_ms": _time_ms(call),
-            "plain_ms": _time_ms(lambda: fd.flash_decode_plain(
-                q, k, v, table, ln, num_splits=NUM_SPLITS), 3),
-            "library_ms": _graph_ms(_fd_sdpa(torch, q, k, v, table, ln),
-                                    CONFIG_SERVE_DEPTHS[arch]),
-            "bound_ms": bound, "bound_by": by, "bytes": nbytes,
-            "flops": flops}
-        del q, k, v, table, ln, args
-        # prefill: 2 x 2048, causal, the model's kv chunk
-        qa, ka, va = _fa_inputs(torch, dev, 50 + i, b, s, hq, hkv, hd, bf16)
-        chunk = cfg.kv_chunk
-        gaps = _blockwise_compare(torch, fa, qa, ka, va, True, None, chunk)
-        lib = _sdpa(torch, qa, ka, va, None)
-        pairs = b * hq * _fa_pairs(s, True, None)
-        flops = 4.0 * pairs * hd
-        nbytes = 2 * (2 * b * s * hq * hd + 2 * b * s * hkv * hd)
-        bound, by = _bound_ms(nbytes, flops, PEAK_BF16_PER_S)
-        ms = _time_ms(lambda: fa.flash_attention_blockwise(
-            qa, ka, va, kv_chunk=chunk))
-        prefill = {
-            "shape": [b, s, hq, hkv, hd], "kv_chunk": chunk, **gaps,
-            "ms": ms, "tflop_per_s": flops / ms / 1e9,
-            "plain_ms": _time_ms(lambda: fa.blockwise_attention_ref(
-                qa, ka, va, causal=True, kv_chunk=chunk), 3),
-            "library_ms": _time_ms(lib), "bound_ms": bound, "bound_by": by,
-            "bytes": nbytes, "flops": flops}
-        del qa, ka, va, lib
+        decode = _decode_case(torch, dev, fd, 40 + i, hq, hkv, hd,
+                              CONFIG_SERVE_DEPTHS[arch])
         torch.cuda.empty_cache()
+        prefill = _prefill_case(torch, dev, fa, 50 + i, hq, hkv, hd,
+                                cfg.kv_chunk)
         out[arch] = {"flash_decode": decode,
                      "flash_attention_blockwise": prefill}
         print(json.dumps({"config_kernels": arch, **out[arch],
@@ -3352,13 +3494,14 @@ def run_config_serving(torch, dev) -> dict:
 
 
 @contextlib.contextmanager
-def _registry_depth(arch: str, depth):
-    """The registry's ``arch`` cut to ``depth`` layers while the training
-    CLI builds and runs (the CLI has no depth flag)."""
+def _registry_depth(arch: str, depth, cfg=None):
+    """The registry's ``arch`` cut to ``depth`` layers (or replaced by
+    ``cfg``) while the training CLI builds and runs (the CLI has no depth
+    flag)."""
     from repro_torch.configs import registry
 
     full = registry.ARCHS[arch]
-    registry.ARCHS[arch] = _config(arch, depth)
+    registry.ARCHS[arch] = cfg or _config(arch, depth)
     try:
         yield registry.ARCHS[arch]
     finally:
@@ -3710,6 +3853,246 @@ def run_runtime(torch, dev, main_losses) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the DeepSeek MoE family
+# ---------------------------------------------------------------------------
+def _moe_config(arch: str, layers):
+    """``arch`` at full width, its two schedule segments cut to ``layers``
+    (a segment of 0 layers left out)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, schedule=tuple(
+        (pattern, n) for (pattern, _), n in zip(cfg.schedule, layers) if n))
+
+
+def _lowrank_shapes(cfg) -> dict:
+    """``{path: oriented (..., m, n)}`` of the leaves DCT-AdamW projects:
+    one launch of each training kernel per leaf and step."""
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.common import default_label_fn, oriented_dims
+
+    return {k: (*p.shape[:-2], *oriented_dims(p.shape))
+            for k, p in T.init_params(cfg, 0, "meta").items()
+            if default_label_fn(k, p) == "lowrank"}
+
+
+def _leaf_case(torch, dev, shape, per_step: int) -> dict:
+    """The four DCT-AdamW kernels on one oriented leaf shape against their
+    plain versions at phase 2's bars (``dct_project`` S within 1e-5 of max
+    |S| and norms within 1e-5, the same top-r, relaunch bit-identical; the
+    dual colgather within 1e-5 of max |out|, relaunch bit-identical; the
+    quantizer's scales equal and codes within 1; ``dequant_add_ef``
+    exact), r = min(128, n). Returns per-step times (``per_step``
+    launches), bytes and flops of each kernel."""
+    from repro_torch.core.dct import dct2_matrix
+    from repro_torch.core.selection import select_top_r, take_columns
+    cg = importlib.import_module("repro_torch.kernels.colgather_matmul")
+    dp = importlib.import_module("repro_torch.kernels.dct_project")
+    from repro_torch.kernels import quant_ef as qe
+
+    *batch, m, n = shape
+    nb, r = math.prod(batch), min(RANK, n)
+    e = nb * m * n
+    gen = torch.Generator(device=dev).manual_seed(19)
+    q = dct2_matrix(n, device=dev)
+    qt = q.T.contiguous()
+    g = _planted(shape, q, gen, r)
+    out = {}
+
+    def row(name, err, kernel_ms, plain_ms, library_ms, nbytes, flops):
+        bound, by = _bound_ms(per_step * nbytes, per_step * flops)
+        out[name] = {"max_abs_err": err, "ms": per_step * kernel_ms,
+                     "plain_ms": per_step * plain_ms,
+                     "library_ms": None if library_ms is None
+                     else per_step * library_ms,
+                     "bound_ms": bound, "bound_by": by,
+                     "launches_per_step": per_step}
+
+    s_k, n_k = dp.dct_project(g, q)
+    s_p, n_p = dp.dct_project_plain(g, q)
+    again = dp.dct_project(g, q)
+    torch.cuda.synchronize()
+    err = (s_k - s_p).abs().max().item()
+    norm_rel = ((n_k - n_p).abs() / n_p.clamp_min(1e-30)).max().item()
+    idx_k = select_top_r(n_k, r)
+    assert err <= 1e-5 * s_p.abs().max().item() and norm_rel <= 1e-5 \
+        and torch.equal(idx_k, select_top_r(n_p, r)) \
+        and torch.equal(again[0], s_k) and torch.equal(again[1], n_k), \
+        f"dct_project {shape}: max |dS| {err}, norms {norm_rel}"
+    del again, s_p
+    row("dct_project", err, _time_ms(lambda: dp.dct_project(g, q), 3),
+        _time_ms(lambda: dp.dct_project_plain(g, q), 3),
+        _time_ms(lambda: torch.matmul(g, q), 3),
+        4.0 * (2 * e + n * n + nb * n), 2.0 * e * n + 2.0 * e)
+
+    b1 = take_columns(s_k, idx_k).contiguous()
+    del s_k
+    b2 = torch.randn(b1.shape, generator=gen, device=dev)
+    o_k = cg.colgather_matmul_dual(b1, b2, qt, idx_k)
+    o_p = cg.colgather_matmul_dual_plain(b1, b2, qt, idx_k)
+    again = cg.colgather_matmul_dual(b1, b2, qt, idx_k)
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item() for a, b in zip(o_k, o_p))
+    ref = max(b.abs().max().item() for b in o_p)
+    assert err <= 1e-5 * ref and all(map(torch.equal, again, o_k)), \
+        f"colgather_matmul_dual {shape}: {err} of {ref}"
+    del again, o_p
+    rows_needed = torch.unique(idx_k).numel()
+    row("colgather_matmul_dual", err,
+        _time_ms(lambda: cg.colgather_matmul_dual(b1, b2, qt, idx_k), 3),
+        _time_ms(lambda: cg.colgather_matmul_dual_plain(b1, b2, qt, idx_k),
+                 3), None,
+        4.0 * (2 * nb * m * r + rows_needed * n + nb * r + 2 * e),
+        2 * 2.0 * nb * m * n * r)
+
+    resid = g - o_k[1]
+    del o_k
+    q_k, sc_k = qe.quantize_ef(resid)
+    q_p, sc_p = qe.quantize_ef_plain(resid)
+    torch.cuda.synchronize()
+    dq = (q_k.int() - q_p.int()).abs().max().item()
+    assert torch.equal(sc_k, sc_p) and dq <= 1, f"quantize_ef {shape}: {dq}"
+    del q_p
+    row("quantize_ef", float(dq), _time_ms(lambda: qe.quantize_ef(resid), 3),
+        _time_ms(lambda: qe.quantize_ef_plain(resid), 3), None,
+        5.0 * e + 4.0 * nb * m, 5.0 * e)
+    out_k = qe.dequant_add_ef(g, q_k, sc_k)
+    out_p = qe.dequant_add_ef_plain(g, q_k, sc_k)
+    torch.cuda.synchronize()
+    err = (out_k - out_p).abs().max().item()
+    assert err == 0.0, f"dequant_add_ef {shape}: {err}"
+    del out_k, out_p
+    qf = q_k.float()
+    row("dequant_add_ef", err,
+        _time_ms(lambda: qe.dequant_add_ef(g, q_k, sc_k), 3),
+        _time_ms(lambda: qe.dequant_add_ef_plain(g, q_k, sc_k), 3),
+        _time_ms(lambda: torch.addcmul(g, qf, sc_k), 3),
+        9.0 * e + 4.0 * nb * m, 2.0 * e)
+    del g, b1, b2, resid, q_k, qf
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_moe_kernels(torch, dev) -> dict:
+    """Phase 19 (a): ``flash_decode`` at deepseek-moe-16b's decode (16 / 16
+    heads of 128: group 1), ``flash_attention_blockwise`` at its prefill and
+    at deepseek-v3-671b's MLA prefill (128 heads, q / k head dim 192, v 128)
+    and the four DCT-AdamW kernels at ``MOE_LEAF_SHAPES``, each against its
+    plain version. Returns ``{kernel: {case: row}}``."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
+
+    dsm = _moe_config("deepseek-moe-16b", MOE_SERVE_LAYERS["deepseek-moe-16b"])
+    v3 = _moe_config("deepseek-v3-671b", MOE_SERVE_LAYERS["deepseek-v3-671b"])
+    out = {"flash_decode": {}, "flash_attention_blockwise": {}}
+    out["flash_decode"]["deepseek-moe-16b"] = _decode_case(
+        torch, dev, fd, 60, dsm.n_heads, dsm.n_kv_heads, dsm.hd,
+        dsm.n_layers)
+    out["flash_attention_blockwise"]["deepseek-moe-16b"] = _prefill_case(
+        torch, dev, fa, 61, dsm.n_heads, dsm.n_kv_heads, dsm.hd,
+        dsm.kv_chunk)
+    out["flash_attention_blockwise"]["deepseek-v3-671b"] = _prefill_case(
+        torch, dev, fa, 62, v3.n_heads, v3.n_heads,
+        v3.qk_nope_dim + v3.qk_rope_dim, v3.kv_chunk, vd=v3.v_head_dim)
+    for name, (shape, per_step) in MOE_LEAF_SHAPES.items():
+        for kernel, case in _leaf_case(torch, dev, shape, per_step).items():
+            out.setdefault(kernel, {})[name] = {"shape": list(shape), **case}
+    print(json.dumps({"moe_kernels": out,
+                      "tolerance": "flash_decode: phase 5's; blockwise: "
+                                   "phase 12's; the training kernels: "
+                                   "phase 2's; each launched twice, "
+                                   "bit-identical"}), flush=True)
+    return out
+
+
+def run_moe_serving(torch, dev) -> dict:
+    """Phase 19 (b): deepseek-moe-16b on the dense and the paged engine and
+    deepseek-v3-671b on the dense engine (its latent-cache decode) at
+    ``MOE_SERVE_LAYERS``, through phase 13's runs (their launch counts
+    asserted there: one blockwise launch per layer and prefill, one
+    ``flash_decode`` per layer and decode step). Returns the launches."""
+    out = {}
+    for arch, layers in MOE_SERVE_LAYERS.items():
+        cfg = _moe_config(arch, layers)
+        name = f"{arch} depth {cfg.n_layers}"
+        new = MLA_DECODE_NEW if cfg.kv_lora_rank else None
+        dense = run_dense_prefill(torch, dev, name, cfg, new)
+        out[arch] = {"flash_attention_blockwise_per_prefill":
+                     dense["flash_attention_blockwise"]}
+        if arch == "deepseek-moe-16b":
+            paged = run_paged(torch, dev, cfg, f"{name} bf16 "
+                              "PagedServeEngine, flash_decode")
+            out[arch].update(flash_decode_per_decode_step=cfg.n_layers,
+                             flash_decode_in_paged_run=paged["flash_decode"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_moe_training(torch, dev, runs=None) -> dict:
+    """Phase 19 (c): DCT-AdamW through the training CLI at
+    ``MOE_TRAIN_RUNS``, counters zeroed just before each run and read just
+    after: each of the four kernels once per projected leaf and step (the
+    4-D expert leaves among them), no attention kernel (training runs the
+    plain loop), finite losses (and MTP term). Returns ``{arch: launches
+    per step}``. ``runs``: in place of ``MOE_TRAIN_RUNS``."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    out = {}
+    for arch, layers, batch in runs or MOE_TRAIN_RUNS:
+        cfg = _moe_config(arch, layers)
+        leaves = _lowrank_shapes(cfg)
+        argv = ["--arch", arch, "--optimizer", "dct_adamw", "--rank",
+                str(RANK), "--steps", str(MOE_TRAIN_STEPS), "--warmup", "2",
+                "--batch", str(batch), "--seq-len", str(SEQ),
+                "--log-every", "1"]
+        with _registry_depth(arch, None, cfg):
+            t0 = time.perf_counter()
+            hist, counts, peak = _cli_run(torch, argv, steps=MOE_TRAIN_STEPS,
+                                          per_step=len(leaves))
+            wall = time.perf_counter() - t0
+        assert not any(ops.launch_counts(ops.ATTENTION).values()), arch
+        losses = [h["loss"] for h in hist]
+        mtp = [h["mtp_ce"] for h in hist if "mtp_ce" in h]
+        assert all(math.isfinite(x) for x in losses + mtp), (arch, losses)
+        assert len(mtp) == (MOE_TRAIN_STEPS if cfg.mtp else 0), (arch, mtp)
+        ms = _ms_after_first(hist)
+        gc.collect()
+        torch.cuda.empty_cache()
+        summary = {
+            "moe_training": f"{arch} {dict(zip(cfg.block_kinds(), layers))} "
+                            f"dct_adamw rank {RANK} fused auto->on",
+            "param_dtype": cfg.param_dtype,
+            "params": T.param_count(T.init_params(cfg, 0, "meta")),
+            "projected_leaves": {k: list(v) for k, v in leaves.items()},
+            "steps": MOE_TRAIN_STEPS, "batch": batch, "seq_len": SEQ,
+            "losses": losses, "mtp_ce": mtp,
+            "first_step_ms": hist[0]["s_per_step"] * 1e3,
+            "ms_per_step_after_first": ms,
+            "tokens_per_s": batch * SEQ / (ms / 1e3),
+            "max_memory_allocated_bytes": peak, "wall_s": wall,
+            "launches_per_step": {k: v / MOE_TRAIN_STEPS
+                                  for k, v in counts.items()}}
+        print(json.dumps(summary), flush=True)
+        out[arch] = summary["launches_per_step"]
+    return out
+
+
+def run_moe_family(torch, dev) -> dict:
+    """Phase 19: (a) the kernels at the family's shapes, (b) serving, (c)
+    training. Returns the kernels line's additions."""
+    t0 = time.perf_counter()
+    cases = check_moe_kernels(torch, dev)
+    serving = run_moe_serving(torch, dev)
+    training = run_moe_training(torch, dev)
+    print(json.dumps({"moe_phase_wall_s": time.perf_counter() - t0}),
+          flush=True)
+    return {"cases": cases, "serving": serving, "training": training}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3797,6 +4180,9 @@ def main(argv=None) -> int:
     dense_configs = run_dense_configs(torch, dev)
     torch.cuda.empty_cache()
     run_runtime(torch, dev, main_losses)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = run_moe_family(torch, dev)
     for arch, case in dense_configs["cases"].items():
         for kernel, row in case.items():
             row["launches"] = dense_configs["serving"][arch][
@@ -3918,6 +4304,26 @@ def main(argv=None) -> int:
         extra = {}
         if "dense_configs" in row:
             extra["dense_configs"] = row["dense_configs"]
+        # phase 19: the DeepSeek MoE family's shapes (attention: per call,
+        # launches per decode step or prefill; training kernels: per
+        # training step of the leaves of each shape) and training launches
+        if name in moe["cases"]:
+            extra["deepseek"] = moe["cases"][name]
+            extra["deepseek_times_are"] = (
+                "phase 19: attention kernels per call (flash_decode: graph "
+                "replays), launches per decode step or prefill of the depth "
+                "served; training kernels per DCT-AdamW step of the leaves "
+                "of each shape (launches_per_step of them)")
+            for arch, case in moe["cases"][name].items():
+                if arch in moe["serving"]:
+                    case["launches"] = moe["serving"][arch][
+                        "flash_attention_blockwise_per_prefill"
+                        if name == "flash_attention_blockwise"
+                        else "flash_decode_per_decode_step"]
+        if name in moe["training"].get("deepseek-moe-16b", {}):
+            extra["deepseek_launches_per_step"] = {
+                arch: per_step[name]
+                for arch, per_step in moe["training"].items()}
         if name in dense_configs["training"].get("phi3-mini-3.8b", {}):
             extra["dense_configs_launches_per_step"] = {
                 arch: per_step[name]

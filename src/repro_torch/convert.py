@@ -5,10 +5,14 @@ numpy arrays (``jax.tree.map(np.asarray, tree)``) and import nothing of JAX
 or ``repro``: the JAX state's containers are recognised by their fields.
 
 * ``params_from_jax`` flattens a nested parameter tree (dicts and lists) into
-  the port's ``{leaf path: tensor}`` dict, with the same paths and layouts.
+  the port's ``{leaf path: tensor}`` dict, with the same paths and layouts
+  (the MoE blocks' ``moe/router/kernel``, ``moe/experts/w{g,u,d}``,
+  ``moe/shared/w{g,u,d}``; MLA's ``attn/w{q,kv}_{a,b}/kernel`` and norm
+  scales; the MTP head's ``mtp/proj/kernel`` and ``mtp/norm/scale``).
 * ``pools_from_jax`` does the same for a serving cache (the paged pools, the
   prefill scratch or the dense decode cache: a list of segments), under
-  ``segments/{i}/p{j}/k`` and ``/v``.
+  ``segments/{i}/p{j}/k`` and ``/v``, or an MLA layer's latent cache
+  ``segments/{i}/p{j}/ckv`` and ``/krope``.
 * ``opt_state_from_jax`` turns the ``ChainState`` of one of ``repro``'s
   presets into the port's ``ChainState``. The matrix-optimizer presets
   (``dct_adamw``, ``ldadamw``, ``galore``, ``frugal``, ``fira``, ``trion``,

@@ -55,6 +55,13 @@
 //     order, so two launches are bit-identical.
 //   * Any hd that is a multiple of 16 up to 256, padded to a multiple of 32
 //     in shared memory (zero dims add exact zeros).
+//   * Values of their own head dim vd (MLA: q and k of 192, v of 128), also
+//     a multiple of 16 up to 256: the tiles are laid out at the wider of
+//     the two (HDP = max(hd, vd) rounded up to 32), Q and K rows filled to
+//     hd and V rows to vd, the rest zero. The k-steps of Q K^T past hd and
+//     the 16-wide dim tiles of P V past vd are skipped (a warp-uniform
+//     test), so a narrower side costs no tensor-core work; the output is
+//     (B, S, Hq, vd).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -142,12 +149,13 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long 
 }
 
 // One warp's scores of a 64-key tile, scaled and masked: sc[j][e] is row
-// rows[e / 2], key key0 + 8 j + 2 t + e % 2 (the m16n8 C layout).
+// rows[e / 2], key key0 + 8 j + 2 t + e % 2 (the m16n8 C layout). The
+// k-steps past hd hold zeros in both operands and are skipped.
 template <int HDP>
 __device__ __forceinline__ void tile_scores(float (&sc)[8][4], const unsigned (*qf)[4],
                                             const bf16* q_frag, const bf16* ks, int key0,
                                             int kstop, int row_w, const int (&rows)[2],
-                                            int causal, int window, float scale) {
+                                            int causal, int window, float scale, int hd) {
   using T = Tile<HDP>;
   constexpr int kLd = T::kLd;
   const int lane = threadIdx.x & 31, t = lane & 3;
@@ -157,6 +165,7 @@ __device__ __forceinline__ void tile_scores(float (&sc)[8][4], const unsigned (*
     for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < T::kKSteps; ++kk) {
+    if (kk * 16 >= hd) continue;
     unsigned a[4];
     if constexpr (T::kQRegs) {
 #pragma unroll
@@ -197,7 +206,7 @@ template <int HDP>
 __global__ void __launch_bounds__(kThreads, Tile<HDP>::kMinBlocks)
 flash_attention_blockwise_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               const bf16* __restrict__ v, bf16* __restrict__ out, int s, int hq,
-                              int group, int hd, Strides qst, Strides kst, Strides vst,
+                              int group, int hd, int vd, Strides qst, Strides kst, Strides vst,
                               int causal, int window, int chunk, float scale) {
   using T = Tile<HDP>;
   constexpr int kLd = T::kLd;
@@ -230,7 +239,7 @@ flash_attention_blockwise_fwd(const bf16* __restrict__ q, const bf16* __restrict
     bf16* ks = ring + slot * 2 * kBK * kLd;
     load_rows<HDP>(ks, kp, kst.s, w.key0(), s, hd);
     if (w.pass == 1)
-      load_rows<HDP>(ks + kBK * kLd, vp, vst.s, w.key0(), s, hd);
+      load_rows<HDP>(ks + kBK * kLd, vp, vst.s, w.key0(), s, vd);
     else if (w.pair())
       load_rows<HDP>(ks + kBK * kLd, kp, kst.s, w.key0() + kBK, s, hd);
   };
@@ -281,7 +290,7 @@ flash_attention_blockwise_fwd(const bf16* __restrict__ q, const bf16* __restrict
       for (int half = 0; half < 2; ++half) {
         if (half == 1 && !cons.pair()) break;
         tile_scores<HDP>(sc, qf, q_frag, ks + half * kBK * kLd, key0 + half * kBK, kstop,
-                         row_w, rows, causal, window, scale);
+                         row_w, rows, causal, window, scale, hd);
 #pragma unroll
         for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -305,7 +314,7 @@ flash_attention_blockwise_fwd(const bf16* __restrict__ q, const bf16* __restrict
     } else {
       // recompute S; p in fp32 into l, P rounded to bf16 into the A
       // fragments of P . V
-      tile_scores<HDP>(sc, qf, q_frag, ks, key0, kstop, row_w, rows, causal, window, scale);
+      tile_scores<HDP>(sc, qf, q_frag, ks, key0, kstop, row_w, rows, causal, window, scale, hd);
       const bf16* vs = ks + kBK * kLd;
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
@@ -322,6 +331,7 @@ flash_attention_blockwise_fwd(const bf16* __restrict__ q, const bf16* __restrict
         }
 #pragma unroll
         for (int dp = 0; dp < T::kDTiles / 2; ++dp) {
+          if (dp * 16 >= vd) continue;
           unsigned vb[4];
           mma::ldmatrix_x4_trans(vb, vs + (kk * 16 + (lane & 15)) * kLd + dp * 16 + (lane >> 4) * 8);
           mma::mma_bf16(acc[2 * dp], a, vb[0], vb[1]);
@@ -336,11 +346,11 @@ flash_attention_blockwise_fwd(const bf16* __restrict__ q, const bf16* __restrict
   for (int i = 0; i < 2; ++i) {
     const float den = fmaxf(quad_sum(l[i]), 1e-30f);
     if (rows[i] >= s) continue;
-    bf16* o = out + ((static_cast<long long>(b) * s + rows[i]) * hq + h) * hd;
+    bf16* o = out + ((static_cast<long long>(b) * s + rows[i]) * hq + h) * vd;
 #pragma unroll
     for (int j = 0; j < T::kDTiles; ++j) {
       const int d = 8 * j + 2 * t;
-      if (d < hd)
+      if (d < vd)
         *reinterpret_cast<unsigned*>(o + d) =
             mma::pack_bf16(acc[j][2 * i] / den, acc[j][2 * i + 1] / den);
     }
@@ -349,7 +359,7 @@ flash_attention_blockwise_fwd(const bf16* __restrict__ q, const bf16* __restrict
 
 template <int HDP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b, int s, int hq,
-                   int hkv, int hd, Strides qst, Strides kst, Strides vst, int causal,
+                   int hkv, int hd, int vd, Strides qst, Strides kst, Strides vst, int causal,
                    int window, int chunk, float scale, cudaStream_t stream) {
   constexpr size_t smem = Tile<HDP>::kSmem;
   static_assert(smem <= 227 * 1024, "tiles exceed shared memory");
@@ -363,34 +373,37 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
                   static_cast<unsigned>(b));
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), s, hq, hq / hkv, hd, qst, kst, vst, causal, window, chunk, scale);
+      static_cast<bf16*>(out), s, hq, hq / hkv, hd, vd, qst, kst, vst, causal, window, chunk,
+      scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q (B, S, Hq, hd), k / v (B, S, Hkv, hd) bf16 with the given element
-// strides of the batch, sequence and head axes (the head dim contiguous,
-// every row on 16 bytes); out (B, S, Hq, hd) contiguous bf16. hd a multiple
-// of 16 up to 256; window <= 0 means none; chunk: the model's effective kv
-// chunk (>= 1); sqrt_hd: sqrt(hd) rounded to fp32, whose fp32 reciprocal
-// scales the scores. The caller checks the grid limits (Hq, B < 65536).
+// q (B, S, Hq, hd), k (B, S, Hkv, hd), v (B, S, Hkv, vd) bf16 with the
+// given element strides of the batch, sequence and head axes (the head dim
+// contiguous, every row on 16 bytes); out (B, S, Hq, vd) contiguous bf16.
+// hd and vd multiples of 16 up to 256; window <= 0 means none; chunk: the
+// model's effective kv chunk (>= 1); sqrt_hd: sqrt(hd) rounded to fp32,
+// whose fp32 reciprocal scales the scores. The caller checks the grid
+// limits (Hq, B < 65536).
 extern "C" int repro_flash_attention_blockwise(
     const void* q, const void* k, const void* v, void* out, int b, int s, int hq, int hkv,
-    int hd, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh, int causal, int window,
-    int chunk, float sqrt_hd, void* stream) {
+    int hd, int vd, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh, int causal,
+    int window, int chunk, float sqrt_hd, void* stream) {
   if (b <= 0 || s <= 0 || hq <= 0) return static_cast<int>(cudaSuccess);
-  if (hkv <= 0 || hq % hkv || hd <= 0 || hd % 16 || hd > 256 || chunk <= 0)
+  if (hkv <= 0 || hq % hkv || hd <= 0 || hd % 16 || hd > 256 || vd <= 0 || vd % 16 ||
+      vd > 256 || chunk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qst{q_sb, q_ss, q_sh}, kst{k_sb, k_ss, k_sh}, vst{v_sb, v_ss, v_sh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale = 1.0f / sqrt_hd;
 #define REPRO_FA_CASE(n)                                                                   \
   case n:                                                                                  \
-    return static_cast<int>(launch<32 * n>(q, k, v, out, b, s, hq, hkv, hd, qst, kst, vst, \
+    return static_cast<int>(launch<32 * n>(q, k, v, out, b, s, hq, hkv, hd, vd, qst, kst, vst, \
                                            causal, window, chunk, scale, st));
-  switch ((hd + 31) / 32) {
+  switch (((hd > vd ? hd : vd) + 31) / 32) {
     REPRO_FA_CASE(1)
     REPRO_FA_CASE(2)
     REPRO_FA_CASE(3)
@@ -399,7 +412,7 @@ extern "C" int repro_flash_attention_blockwise(
     REPRO_FA_CASE(6)
     REPRO_FA_CASE(7)
     default:
-      return static_cast<int>(launch<256>(q, k, v, out, b, s, hq, hkv, hd, qst, kst, vst,
+      return static_cast<int>(launch<256>(q, k, v, out, b, s, hq, hkv, hd, vd, qst, kst, vst,
                                           causal, window, chunk, scale, st));
   }
 #undef REPRO_FA_CASE

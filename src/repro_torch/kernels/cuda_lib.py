@@ -63,9 +63,9 @@ SIGNATURES = {
                            _P),
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
                               _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _P),
-    "repro_flash_attention_blockwise": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L,
-                                        _L, _L, _L, _L, _L, _L, _L, _L, _I, _I,
-                                        _I, _F, _P),
+    "repro_flash_attention_blockwise": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                        _L, _L, _L, _L, _L, _L, _L, _L, _L, _I,
+                                        _I, _I, _F, _P),
 }
 
 

@@ -31,6 +31,9 @@ Its plain version ``blockwise_attention_ref`` is that chunked loop, which
 the model runs for CPU tensors and for every call that takes a gradient.
 For bf16 CUDA tensors it launches the tensor-core kernel of
 ``csrc/flash_attention_blockwise.cu`` (see its source note), or raises.
+Unlike ``flash_attention`` (the TPU kernel's contract: k and v of one
+shape), it takes values of their own head dim ``vd`` beside q and k's
+``hd``, as MLA's (qk 192, v 128) and the model's loop do.
 In fp32 the rounding to v's dtype is a no-op and the chunk max changes
 only the order of fp32 sums, so the model sends fp32 calls to
 ``flash_attention``.
@@ -46,13 +49,20 @@ from . import cuda_lib
 NEG_INF = -1e30
 
 
-def _check_shapes(q, k, v, window):
-    if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape) \
+def _check_shapes(q, k, v, window, *, own_vd: bool = False):
+    """(B, S, Hq, hd) / (B, S, Hkv, hd) / (B, S, Hkv, hd) with Hq % Hkv ==
+    0; with ``own_vd`` v's last dim may differ."""
+    vshape = tuple(v.shape[:3]) + ((k.shape[3],) if own_vd else
+                                   tuple(v.shape[3:]))
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or tuple(k.shape) != vshape \
             or k.shape[0] != q.shape[0] or k.shape[1] != q.shape[1] \
             or k.shape[3] != q.shape[3] or q.shape[2] % k.shape[2]:
+        vd = "vd" if own_vd else "hd"
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)} do not fit "
-                         f"(B, S, Hq, hd) / (B, S, Hkv, hd), Hq % Hkv == 0")
+                         f"(B, S, Hq, hd) / (B, S, Hkv, hd) / (B, S, Hkv, "
+                         f"{vd}), Hq % Hkv == 0")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
 
@@ -216,13 +226,13 @@ def flash_attention_blockwise(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = True,
                               window: int | None = None, kv_chunk: int = 512
                               ) -> torch.Tensor:
-    """The model's attention (module docstring): q (B, S, Hq, hd); k, v (B,
-    S, Hkv, hd) with ``Hq % Hkv == 0``, any S >= 1. On the card: bf16, hd a
-    multiple of 16 up to 256, a contiguous head dim and rows on 16 bytes
-    (other strides are read as they are). ``window``: the sliding window,
-    None for none; ``kv_chunk``: the model's ``cfg.kv_chunk``. Returns (B,
-    S, Hq, hd) contiguous in q's dtype."""
-    _check_shapes(q, k, v, window)
+    """The model's attention (module docstring): q, k (B, S, Hq | Hkv, hd);
+    v (B, S, Hkv, vd), with ``Hq % Hkv == 0``, any S >= 1. On the card:
+    bf16, hd and vd multiples of 16 up to 256, a contiguous head dim and
+    rows on 16 bytes (other strides are read as they are). ``window``: the
+    sliding window, None for none; ``kv_chunk``: the model's
+    ``cfg.kv_chunk``. Returns (B, S, Hq, vd) contiguous in q's dtype."""
+    _check_shapes(q, k, v, window, own_vd=True)
     if kv_chunk < 1:
         raise ValueError(f"flash_attention_blockwise: kv_chunk {kv_chunk} < 1")
     dev = cuda_lib.same_device(q, k, v)
@@ -233,19 +243,21 @@ def flash_attention_blockwise(q: torch.Tensor, k: torch.Tensor,
         raise TypeError(f"flash_attention_blockwise: q {q.dtype}, k "
                         f"{k.dtype}, v {v.dtype} must all be bfloat16")
     b, s, hq, hd = q.shape
-    if hd % 16 or hd > 256 or hq >= 2**16 or b >= 2**16 or s >= 2**30:
-        raise ValueError(f"flash_attention_blockwise: head dim {hd} is not a "
-                         f"multiple of 16 up to 256, or shape "
-                         f"{tuple(q.shape)} exceeds the grid")
+    vd = v.shape[3]
+    if hd % 16 or hd > 256 or vd % 16 or vd > 256 or hq >= 2**16 \
+            or b >= 2**16 or s >= 2**30:
+        raise ValueError(f"flash_attention_blockwise: head dim {hd} or value "
+                         f"dim {vd} is not a multiple of 16 up to 256, or "
+                         f"shape {tuple(q.shape)} exceeds the grid")
     _check_heads("flash_attention_blockwise", q, k, v, aligned=True)
-    out = torch.empty((b, s, hq, hd), dtype=q.dtype, device=dev)
+    out = torch.empty((b, s, hq, vd), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
     rc = cuda_lib.library().repro_flash_attention_blockwise(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, hq,
-        k.shape[2], hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        int(causal), window or 0, effective_kv_chunk(s, kv_chunk),
-        math.sqrt(hd), cuda_lib.stream(q))
+        k.shape[2], hd, vd, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], int(causal), window or 0,
+        effective_kv_chunk(s, kv_chunk), math.sqrt(hd), cuda_lib.stream(q))
     cuda_lib.check(rc, "flash_attention_blockwise")
     flash_attention_blockwise.launches += 1
     return out

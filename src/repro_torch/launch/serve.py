@@ -26,7 +26,9 @@ writes a Prometheus text snapshot ``metrics.prom`` and a Chrome trace
 of the checkout).
 
 ``--engine dense``: one prefill and decode steps over a dense cache for a
-batch of prompts.
+batch of prompts. It serves every ported architecture; ``--engine paged``
+refuses the ones with blocks of no paged layout (deepseek-v3-671b's MLA
+latents), with the JAX package's message, before any weight is made.
 """
 from __future__ import annotations
 
@@ -50,7 +52,9 @@ def build(argv=None) -> argparse.Namespace:
     ap.add_argument("--arch", default="llama-350m",
                     help="one of repro_torch.configs.registry.list_archs(): "
                          "the llamas, gemma3-27b, qwen2.5-32b, "
-                         "phi3-mini-3.8b, command-r-plus-104b")
+                         "phi3-mini-3.8b, command-r-plus-104b, "
+                         "deepseek-moe-16b, deepseek-v3-671b (MLA: dense "
+                         "engine only)")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-sized)")
     ap.add_argument("--engine", choices=["paged", "dense"], default="paged")
@@ -201,6 +205,11 @@ def run(args: argparse.Namespace) -> dict:
         obs.enable()
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.engine == "paged" and not T.paged_supported(cfg):
+        try:
+            T._check_paged(cfg)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
     params = T.init_params(cfg, seed=args.seed, device=dev)
     rng = np.random.default_rng(args.seed)
     if args.engine == "paged":

@@ -78,7 +78,8 @@ def build(argv=None) -> argparse.Namespace:
     ap.add_argument("--arch", default="llama-350m",
                     help="one of repro_torch.configs.registry.list_archs(): "
                          "the llamas, gemma3-27b, qwen2.5-32b, "
-                         "phi3-mini-3.8b, command-r-plus-104b")
+                         "phi3-mini-3.8b, command-r-plus-104b, "
+                         "deepseek-moe-16b, deepseek-v3-671b")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-sized)")
     ap.add_argument("--optimizer", default="trion")

@@ -1,7 +1,8 @@
 """ModelConfig: one dataclass describing every architecture of ``repro``.
 
 A copy of ``repro/models/config.py`` (the port imports nothing of ``repro``).
-Only the dense ``("attn",)`` llama family is built by this package so far;
+This package builds the dense family and the DeepSeek MoE family (the
+``attn_moe`` and MLA blocks) so far (``models.transformer.PORTED_KINDS``);
 the other fields are kept so configurations read the same in both.
 
 ``schedule`` expresses the layer layout as segments of repeating

@@ -13,15 +13,16 @@ product of the rounded operands runs in fp32, never rounded to bf16.
 ``blockwise_attention`` is the JAX package's chunked online softmax
 (``kernels.flash_attention.blockwise_attention_ref``). A call on CUDA
 tensors that takes no gradient (grad mode off, or no input requiring
-grad), with ``q_offset == 0``, as many queries as keys and a value dim
-equal to the head dim -- the dense prefill's forward under
-``torch.inference_mode()`` -- launches a kernel or raises: in bf16
-``flash_attention_blockwise``, the same function on tensor cores with the
-model's ``kv_chunk``; in fp32 ``flash_attention``, which equals it to
-within fp32 sums in another order (P's rounding to v's dtype is a no-op
-there). Every other call -- CPU tensors, every training forward and
-backward -- runs the plain loop: the JAX package has no backward for a
-kernel.
+grad), with ``q_offset == 0`` and as many queries as keys -- the dense
+prefill's forward under ``torch.inference_mode()`` -- launches a kernel or
+raises: in bf16 ``flash_attention_blockwise``, the same function on tensor
+cores with the model's ``kv_chunk``, also with a value dim of its own
+(MLA's qk 192 beside v 128); in fp32 ``flash_attention``, which equals it
+to within fp32 sums in another order (P's rounding to v's dtype is a no-op
+there), and whose contract (the TPU kernel's) wants the value dim equal to
+the head dim: an fp32 call with another value dim raises. Every other
+call -- CPU tensors, every training forward and backward -- runs the plain
+loop: the JAX package has no backward for a kernel.
 """
 from __future__ import annotations
 
@@ -37,10 +38,12 @@ from repro_torch.kernels.ops import (flash_attention_blockwise,
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
                scale: float | None = None, *, batch=(), device=None):
-    """Normal ``(*batch, d_in, d_out)`` scaled by ``1/sqrt(d_in)``."""
+    """Normal ``(*batch, d_in, d_out)`` scaled by ``1/sqrt(d_in)``, drawn in
+    fp32 and scaled in place (one fp32 transient: a stacked expert leaf of
+    deepseek-v3-671b is 3.8 B elements)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     w = torch.randn((*batch, d_in, d_out), generator=gen, device=device)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype, *,
@@ -114,12 +117,17 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int | None = None,
     q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, vd). ``q_offset`` is the
     absolute position of q[0]. Returns (B, Sq, Hq, vd)."""
     if _on_card(q) and q_offset == 0 and q.shape[1] == k.shape[1] \
-            and v.shape[-1] == q.shape[-1] \
             and not (torch.is_grad_enabled()
                      and any(t.requires_grad for t in (q, k, v))):
         if q.dtype == torch.bfloat16:
             return flash_attention_blockwise(q, k, v, causal=causal,
                                              window=window, kv_chunk=kv_chunk)
+        if v.shape[-1] != q.shape[-1]:
+            raise ValueError(
+                f"blockwise_attention: a {q.dtype} prefill on the card with "
+                f"value dim {v.shape[-1]} != head dim {q.shape[-1]} has no "
+                f"kernel (flash_attention takes v of k's shape); run the "
+                f"model in bfloat16")
         return flash_attention_op(q, k, v, causal=causal, window=window)
     return blockwise_attention_ref(q, k, v, causal=causal, window=window,
                                    q_chunk=q_chunk, kv_chunk=kv_chunk,

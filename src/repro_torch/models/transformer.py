@@ -1,5 +1,6 @@
 """The schedule-driven transformer: the dense GQA models (the paper's
-llamas, gemma3-27b, qwen2.5-32b, phi3-mini-3.8b, command-r-plus-104b).
+llamas, gemma3-27b, qwen2.5-32b, phi3-mini-3.8b, command-r-plus-104b) and
+the DeepSeek MoE family (deepseek-moe-16b, deepseek-v3-671b).
 
 Parameters are a flat dict keyed by the JAX tree's leaf paths, with the same
 layouts: segment ``i``, pattern position ``j`` lives under
@@ -8,29 +9,43 @@ e.g. ``segments/0/p0/attn/wq/kernel`` of shape ``(layers, d, hq * hd)``
 applied as ``x @ w``. ``convert.params_from_jax`` carries a JAX parameter
 tree across unchanged.
 
-Ported for ``family="dense"`` with the ``attn`` and ``local`` (sliding
-window of ``cfg.sliding_window``) blocks, optional qk-norm, optional qkv
-bias (``attn/w{q,k,v}/bias``, added after each projection's product) and
+Ported for ``family="dense"`` and ``"moe"`` with the blocks of
+``PORTED_KINDS``: ``attn`` and ``local`` (sliding window of
+``cfg.sliding_window``), with optional qk-norm, optional qkv bias
+(``attn/w{q,k,v}/bias``, added after each projection's product) and
 ``attn_sp`` (``layers.sp_blockwise_attention``, plain blockwise attention
-on one device): ``init_params``, ``param_count``, ``cast_params``, the
-per-block API (``ATTN_KINDS``, ``init_block``, ``block_apply``: the one
-place a block's math lives) and ``forward`` (training, and the dense
-prefill, whose no-grad attention is the ``flash_attention`` kernel on the
-card); the dense decode path (``init_cache``, ``prefill``, ``decode_step``;
-a ``local`` layer keeps a ring of its last ``window`` positions); the paged
-serving path (``init_paged_pools``, ``init_prefill_scratch``,
-``prefill_chunk``, ``write_prefill_to_pools``, ``decode_step_paged``),
-whose attention is the ``flash_decode`` kernel. Not yet ported: the other
-block kinds and families (``attn_moe``, MoE, MLA, Mamba, RWKV,
-encoder-decoder, VLM, with ``MLA_KINDS``, ``MOE_KINDS`` and ``encode``),
-and the mesh of sequence-parallel attention.
+on one device); ``attn_moe`` (GQA attention and the MoE FFN of
+``models/moe.py``: its leaves under ``moe/``); ``mla_dense`` and ``mla_moe``
+(DeepSeek's multi-head latent attention, ``MLA_KINDS``: the queries and
+the keys / values through low-rank latents, a shared roped key part, a
+query / key head dim of ``qk_nope_dim + qk_rope_dim`` beside a value head
+dim ``v_head_dim``) with a SwiGLU or the MoE FFN; and the multi-token
+prediction head (``cfg.mtp``: ``mtp/proj`` and ``mtp/norm``, whose logits
+predict the token after next). The entry points: ``init_params``,
+``param_count``, ``cast_params``, the per-block API (``ATTN_KINDS``,
+``MLA_KINDS``, ``MOE_KINDS``, ``init_block``, ``block_apply``: the one place
+a block's math lives) and ``forward`` (training, and the dense prefill,
+whose no-grad attention is a kernel on the card); the dense decode path
+(``init_cache``, ``prefill``, ``decode_step``; a ``local`` layer keeps a
+ring of its last ``window`` positions, an MLA layer its latent and roped
+key part, decoded in the absorbed form); the paged serving path
+(``init_paged_pools``, ``init_prefill_scratch``, ``prefill_chunk``,
+``write_prefill_to_pools``, ``decode_step_paged``; ``PAGED_KINDS``: not
+MLA, as in the JAX package), whose attention is the ``flash_decode``
+kernel. The MoE blocks sum their load-balance losses into
+``aux["moe_aux"]``. Not yet ported: the other block kinds and families
+(Mamba, RWKV, encoder-decoder, VLM, with ``encode``), and the mesh of
+sequence-parallel attention and of expert parallelism.
 
 Caches and pools are flat dicts too, keyed like the JAX trees:
-``segments/{i}/p{j}/k`` and ``.../v``. Unlike the JAX package, whose
-arrays are immutable, the serving entry points write K/V into them in
-place and return them.
+``segments/{i}/p{j}/k`` and ``.../v``, or an MLA layer's
+``segments/{i}/p{j}/ckv`` (R, B, S, kv_lora_rank) and ``.../krope`` (R, B,
+S, qk_rope_dim). Unlike the JAX package, whose arrays are immutable, the
+serving entry points write into them in place and return them.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -39,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.devices import resolve_device
 
 from .layers import (
+    NEG_INF,
     apply_rope,
     blockwise_attention,
     chunk_attention,
@@ -53,20 +69,25 @@ from .layers import (
     sp_blockwise_attention,
     swiglu,
 )
-
+from .moe import init_moe, moe_ffn
 
 #: the reference's attention block kinds
 ATTN_KINDS = ("attn", "local", "attn_moe", "enc", "dec", "cross")
-#: the block kinds this package builds
-PORTED_KINDS = ("attn", "local")
+MLA_KINDS = ("mla_dense", "mla_moe")
+MOE_KINDS = ("attn_moe", "mla_moe", "mamba_moe")
+#: the block kinds and model families this package builds
+PORTED_KINDS = ("attn", "local", "attn_moe", "mla_dense", "mla_moe")
+PORTED_FAMILIES = ("dense", "moe")
 
 
 def _check_ported(cfg) -> None:
     kinds = cfg.block_kinds()
-    if cfg.family != "dense" or not set(kinds) <= set(PORTED_KINDS):
+    if cfg.family not in PORTED_FAMILIES \
+            or not set(kinds) <= set(PORTED_KINDS):
         raise NotImplementedError(
-            f"{cfg.name}: only dense models of {PORTED_KINDS} blocks are "
-            f"ported to repro_torch (family={cfg.family!r}, blocks={kinds})")
+            f"{cfg.name}: only {PORTED_FAMILIES} models of {PORTED_KINDS} "
+            f"blocks are ported to repro_torch (family={cfg.family!r}, "
+            f"blocks={kinds})")
 
 
 def _check_kind(kind: str) -> None:
@@ -100,17 +121,24 @@ def init_params(cfg, seed: int = 0, device=None) -> dict[str, torch.Tensor]:
     params["final_norm/scale"] = torch.zeros(d, dtype=torch.float32,
                                              device=dev)
     for i, (pattern, repeats) in enumerate(cfg.schedule):
-        for j, _ in enumerate(pattern):
-            block = _block_leaves(gen, cfg, (repeats,), dev)
+        for j, kind in enumerate(pattern):
+            block = _block_leaves(gen, kind, cfg, (repeats,), dev)
             params.update({f"segments/{i}/p{j}/{k}": v
                            for k, v in block.items()})
+    if cfg.mtp:
+        params["mtp/norm/scale"] = torch.zeros(d, dtype=torch.float32,
+                                               device=dev)
+        params["mtp/proj/kernel"] = dense_init(
+            gen, 2 * d, d, getattr(torch, cfg.param_dtype), device=dev)
     return params
 
 
-def _block_leaves(gen, cfg, batch: tuple, dev) -> dict[str, torch.Tensor]:
-    """One ``attn`` / ``local`` block's leaves with leading ``batch`` axes
-    (the stacked layers of a schedule position, or none), the weights drawn
-    from ``gen`` in a fixed order: wq, wk, wv, wo, wg, wu, wd."""
+def _block_leaves(gen, kind: str, cfg, batch: tuple,
+                  dev) -> dict[str, torch.Tensor]:
+    """One block's leaves with leading ``batch`` axes (the stacked layers
+    of a schedule position, or none), the weights drawn from ``gen`` in a
+    fixed order: the attention's (GQA: wq, wk, wv, wo; MLA: wq_a, wq_b,
+    wkv_a, wkv_b, wo), then the FFN's (wg, wu, wd; or ``moe.init_moe``'s)."""
     dt = getattr(torch, cfg.param_dtype)
     d, hq, hkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                          cfg.d_ff)
@@ -118,25 +146,44 @@ def _block_leaves(gen, cfg, batch: tuple, dev) -> dict[str, torch.Tensor]:
     def w(d_in, d_out):
         return dense_init(gen, d_in, d_out, dt, batch=batch, device=dev)
 
-    p = {
-        "ln1/scale": torch.zeros((*batch, d), device=dev),
-        "attn/wq/kernel": w(d, hq * hd),
-        "attn/wk/kernel": w(d, hkv * hd),
-        "attn/wv/kernel": w(d, hkv * hd),
-        "attn/wo/kernel": w(hq * hd, d),
-        "ln2/scale": torch.zeros((*batch, d), device=dev),
-        "mlp/wg/kernel": w(d, f),
-        "mlp/wu/kernel": w(d, f),
-        "mlp/wd/kernel": w(f, d),
-    }
-    if cfg.qkv_bias:
+    def norm(width):
+        return torch.zeros((*batch, width), dtype=torch.float32, device=dev)
+
+    p = {"ln1/scale": norm(d)}
+    if kind in MLA_KINDS:
+        qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+        kvr = cfg.kv_lora_rank
+        p.update({
+            "attn/wq_a/kernel": w(d, cfg.q_lora_rank),
+            "attn/q_norm_scale": norm(cfg.q_lora_rank),
+            "attn/wq_b/kernel": w(cfg.q_lora_rank, hq * qk),
+            "attn/wkv_a/kernel": w(d, kvr + cfg.qk_rope_dim),
+            "attn/kv_norm_scale": norm(kvr),
+            "attn/wkv_b/kernel": w(kvr, hq * (cfg.qk_nope_dim
+                                              + cfg.v_head_dim)),
+            "attn/wo/kernel": w(hq * cfg.v_head_dim, d),
+        })
+    else:
+        p.update({
+            "attn/wq/kernel": w(d, hq * hd),
+            "attn/wk/kernel": w(d, hkv * hd),
+            "attn/wv/kernel": w(d, hkv * hd),
+            "attn/wo/kernel": w(hq * hd, d),
+        })
+    p["ln2/scale"] = norm(d)
+    if kind in MOE_KINDS:
+        p.update({f"moe/{k}": v for k, v in init_moe(
+            gen, cfg, batch=batch, device=dev).items()})
+    else:
+        p.update({"mlp/wg/kernel": w(d, f), "mlp/wu/kernel": w(d, f),
+                  "mlp/wd/kernel": w(f, d)})
+    if kind not in MLA_KINDS and cfg.qkv_bias:
         for n, width in (("q", hq * hd), ("k", hkv * hd), ("v", hkv * hd)):
             p[f"attn/w{n}/bias"] = torch.zeros((*batch, width), dtype=dt,
                                                device=dev)
-    if cfg.use_qk_norm:
+    if kind not in MLA_KINDS and cfg.use_qk_norm:
         for n in ("q", "k"):
-            p[f"attn/{n}_norm_scale"] = torch.zeros(
-                (*batch, hd), dtype=torch.float32, device=dev)
+            p[f"attn/{n}_norm_scale"] = norm(hd)
     return p
 
 
@@ -148,7 +195,7 @@ def init_block(gen, kind: str, cfg, device=None) -> dict[str, torch.Tensor]:
     the generator's by default; ``"meta"`` (with ``gen=None``) gives shapes
     only."""
     _check_kind(kind)
-    return _block_leaves(gen, cfg, (),
+    return _block_leaves(gen, kind, cfg, (),
                          torch.device(device) if device is not None
                          else gen.device)
 
@@ -196,36 +243,102 @@ def _proj(p: dict, h, n: str):
     return y if bias is None else y + bias
 
 
-def block_apply(kind: str, p: dict, x, cfg, ctx=None, *,
-                return_kv: bool = False):
-    """One block of the schedule on ``x`` (B, S, d): pre-norm GQA
-    self-attention (a sliding window for ``local``) and a SwiGLU MLP, each
-    added to the residual. ``p``: the block's leaves (one layer's, keyed as
-    ``init_block``'s); ``ctx``: the cross-attention inputs of the
-    reference's other kinds (the ported kinds read none). Returns ``(x,
-    aux, kv)``: ``aux`` the block's auxiliary loss (a 0-d fp32 zero: no
-    MoE), ``kv`` the block's roped ``(k, v)`` with ``return_kv``, else
-    None."""
-    _check_kind(kind)
-    b, s, _ = x.shape
+def _sub(p: dict, prefix: str) -> dict:
+    """The leaves of ``p`` under ``prefix``, keyed without it."""
+    n = len(prefix)
+    return {k[n:]: v for k, v in p.items() if k.startswith(prefix)}
+
+
+def _gqa_apply(kind: str, p: dict, h, cfg):
+    """GQA self-attention of an ``attn`` / ``local`` / ``attn_moe`` block on
+    normed h (B, S, d). Returns (the output projected by wo, the roped
+    (k, v))."""
+    b, s, _ = h.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    h = rms_norm(x, p["ln1/scale"], cfg.norm_eps)
     q = _proj(p, h, "q").reshape(b, s, hq, hd)
     k = _proj(p, h, "k").reshape(b, s, hkv, hd)
     v = _proj(p, h, "v").reshape(b, s, hkv, hd)
     q, k = _qk_norm(p, q, k, cfg)
-    cos, sin = rope_table(s, hd, cfg.rope_theta, device=x.device)
+    cos, sin = rope_table(s, hd, cfg.rope_theta, device=h.device)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attend = sp_blockwise_attention if cfg.attn_sp else blockwise_attention
     a = attend(q, k, v, causal=True, window=_window(kind, cfg),
                q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    x = x + matmul(a.reshape(b, s, hq * hd), p["attn/wo/kernel"])
+    return matmul(a.reshape(b, s, hq * hd), p["attn/wo/kernel"]), (k, v)
+
+
+def _mla_apply(p: dict, h, cfg):
+    """DeepSeek MLA in the non-absorbed (train / prefill) form on normed h
+    (B, S, d): q through the ``q_lora_rank`` latent (RMS-normed), k and v
+    through the ``kv_lora_rank`` latent c_kv (RMS-normed), a roped key part
+    of ``qk_rope_dim`` shared by every head; attention of query / key head
+    dim ``qk_nope_dim + qk_rope_dim`` over values of ``v_head_dim``.
+    Returns (the output projected by wo, (c_kv (B, S, kv_lora_rank), the
+    roped shared key part (B, S, qk_rope_dim))): the decode cache holds
+    the latent, not K / V."""
+    b, s, _ = h.shape
+    heads = cfg.n_heads
+    nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    cq = rms_norm(matmul(h, p["attn/wq_a/kernel"]), p["attn/q_norm_scale"])
+    q = matmul(cq, p["attn/wq_b/kernel"]).reshape(b, s, heads, nope + rope_d)
+    ckv = matmul(h, p["attn/wkv_a/kernel"])
+    c_kv = rms_norm(ckv[..., :kvr], p["attn/kv_norm_scale"])
+    kv = matmul(c_kv, p["attn/wkv_b/kernel"]).reshape(b, s, heads, nope + vd)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    cos, sin = rope_table(s, rope_d, cfg.rope_theta, device=h.device)
+    q_rope = apply_rope(q[..., nope:], cos, sin)
+    k_rope = apply_rope(ckv[..., kvr:][:, :, None, :], cos, sin)  # (B,S,1,r)
+    k = torch.cat([k_nope, k_rope.expand(b, s, heads, rope_d)], dim=-1)
+    q = torch.cat([q[..., :nope], q_rope], dim=-1)
+    attend = sp_blockwise_attention if cfg.attn_sp else blockwise_attention
+    a = attend(q, k, v, causal=True, q_chunk=cfg.q_chunk,
+               kv_chunk=cfg.kv_chunk)
+    y = matmul(a.reshape(b, s, heads * vd), p["attn/wo/kernel"])
+    return y, (c_kv, k_rope[:, :, 0, :])
+
+
+def _mlp(kind: str, p: dict, h, cfg):
+    """The FFN half of a block on normed h (..., d): the SwiGLU, or the MoE
+    FFN for ``MOE_KINDS`` (h of (B, d), one token a row as in decode, is
+    routed as the (B, 1, d) batch). Returns (out, the MoE's weighted
+    load-balance loss, or None)."""
+    if kind in MOE_KINDS:
+        moe = _sub(p, "moe/")
+        if h.dim() == 2:
+            m, aux = moe_ffn(moe, h[:, None, :], cfg)
+            return m[:, 0], aux
+        return moe_ffn(moe, h, cfg)
+    return swiglu(h, p["mlp/wg/kernel"], p["mlp/wu/kernel"],
+                  p["mlp/wd/kernel"]), None
+
+
+def block_apply(kind: str, p: dict, x, cfg, ctx=None, *,
+                return_kv: bool = False):
+    """One block of the schedule on ``x`` (B, S, d): pre-norm causal
+    self-attention (GQA, a sliding window for ``local``; MLA for
+    ``MLA_KINDS``) and an FFN (a SwiGLU; the MoE for ``MOE_KINDS``), each
+    added to the residual. ``p``: the block's leaves (one layer's, keyed as
+    ``init_block``'s); ``ctx``: the cross-attention inputs of the
+    reference's other kinds (the ported kinds read none). Returns ``(x,
+    aux, kv)``: ``aux`` the block's auxiliary loss (a 0-d fp32 tensor: the
+    MoE's load-balance loss, else zero), ``kv`` with ``return_kv`` the
+    block's cache entry (GQA: the roped ``(k, v)``; MLA: ``(c_kv,
+    k_rope)``), else None."""
+    _check_kind(kind)
+    h = rms_norm(x, p["ln1/scale"], cfg.norm_eps)
+    if kind in MLA_KINDS:
+        a, kv = _mla_apply(p, h, cfg)
+    else:
+        a, kv = _gqa_apply(kind, p, h, cfg)
+    x = x + a
     h = rms_norm(x, p["ln2/scale"], cfg.norm_eps)
-    x = x + swiglu(h, p["mlp/wg/kernel"], p["mlp/wu/kernel"],
-                   p["mlp/wd/kernel"])
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, aux, ((k, v) if return_kv else None)
+    m, aux = _mlp(kind, p, h, cfg)
+    x = x + m
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux, (kv if return_kv else None)
 
 
 def _layers(p: dict, cfg):
@@ -244,10 +357,16 @@ def _layers(p: dict, cfg):
 def forward(params: dict, batch: dict, cfg, *, return_cache: bool = False):
     """batch: ``{'tokens': (B, S) int}``. Returns ``(logits, aux)`` with
     logits (B, S, vocab) in the compute dtype or, with ``return_cache``,
-    ``(logits, aux, kv)``: ``kv[segment prefix]`` the per-layer roped
-    ``(k, v)``, each (B, S, Hkv, hd). ``cfg.remat`` recomputes each layer in
-    the backward pass (``torch.utils.checkpoint``); it is off with
-    ``return_cache`` (inference)."""
+    ``(logits, aux, kv)``: ``kv[segment prefix]`` the per-layer cache
+    entries (``block_apply``'s: GQA's roped ``(k, v)``, each (B, S, Hkv,
+    hd); MLA's ``(c_kv, k_rope)``). ``aux``: ``{"moe_aux": the blocks'
+    load-balance losses summed, "mtp_logits": None}``; with ``cfg.mtp``,
+    ``mtp_logits`` (B, S, vocab) of the multi-token prediction head, which
+    predicts the token after next from the final hidden state and the next
+    token's embedding (the last position wraps around: the loss masks it;
+    inference, ``return_cache``, skips the head). ``cfg.remat`` recomputes
+    each layer in the backward pass (``torch.utils.checkpoint``); it is off
+    with ``return_cache``."""
     _check_ported(cfg)
     tokens = batch["tokens"]
     cdt = getattr(torch, cfg.compute_dtype)
@@ -270,6 +389,14 @@ def forward(params: dict, batch: dict, cfg, *, return_cache: bool = False):
     unemb = p["embed/kernel"] if cfg.tie_embeddings else p["unembed/kernel"]
     logits = x @ unemb.to(cdt).T
     aux = {"moe_aux": aux_total, "mtp_logits": None}
+    if cfg.mtp and "mtp/proj/kernel" in p and not return_cache:
+        # predict token t+2 from [h_t ; embed(token t+1)], full length with
+        # a roll, as the JAX package (position S-1 is masked in the loss)
+        emb_next = p["embed/kernel"][torch.roll(tokens, -1, dims=1)]
+        h_mtp = matmul(torch.cat([x, emb_next], dim=-1),
+                       p["mtp/proj/kernel"].to(cdt))
+        h_mtp = rms_norm(h_mtp, p["mtp/norm/scale"], cfg.norm_eps)
+        aux["mtp_logits"] = h_mtp @ unemb.to(cdt).T
     if return_cache:
         return logits, aux, kv
     return logits, aux
@@ -291,18 +418,30 @@ def _cache_len(kind: str, cfg, max_len: int) -> int:
     return min(cfg.sliding_window, max_len) if kind == "local" else max_len
 
 
+def _cache_shapes(kind: str, cfg) -> dict:
+    """A layer's cache entries and their shapes past (B, S): GQA's ``k``
+    and ``v`` (Hkv, hd); MLA's latent ``ckv`` (kv_lora_rank,) and roped
+    shared key part ``krope`` (qk_rope_dim,)."""
+    if kind in MLA_KINDS:
+        return {"ckv": (cfg.kv_lora_rank,), "krope": (cfg.qk_rope_dim,)}
+    return {n: (cfg.n_kv_heads, cfg.hd) for n in "kv"}
+
+
 def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
     """Zeroed dense decode cache: ``segments/{i}/p{j}/k`` and ``/v`` of
-    (repeats, B, max_len, Hkv, hd) in the compute dtype; ``max_len`` is
-    ``min(window, max_len)`` for a ``local`` layer (position p at ring slot
-    p % that length), on ``device`` (None: the card)."""
+    (repeats, B, max_len, Hkv, hd) in the compute dtype (an MLA layer's
+    ``ckv`` (repeats, B, max_len, kv_lora_rank) and ``krope`` (repeats, B,
+    max_len, qk_rope_dim)); ``max_len`` is ``min(window, max_len)`` for a
+    ``local`` layer (position p at ring slot p % that length), on
+    ``device`` (None: the card)."""
     _check_ported(cfg)
     cdt = getattr(torch, cfg.compute_dtype)
     dev = resolve_device(device)
     return {pre + n: torch.zeros(
-                (repeats, batch, _cache_len(kind, cfg, max_len),
-                 cfg.n_kv_heads, cfg.hd), dtype=cdt, device=dev)
-            for pre, kind, repeats in _kv_keys(cfg) for n in "kv"}
+                (repeats, batch, _cache_len(kind, cfg, max_len), *shape),
+                dtype=cdt, device=dev)
+            for pre, kind, repeats in _kv_keys(cfg)
+            for n, shape in _cache_shapes(kind, cfg).items()}
 
 
 def _rope_decode(x, cos, sin):
@@ -348,20 +487,71 @@ def _gqa_decode(p, x_t, k_cache, v_cache, pos, cfg, *, window=None):
     return matmul(out.reshape(b, cfg.n_heads * cfg.hd), p["attn/wo/kernel"])
 
 
-def _ffn(p, x_t, cfg):
-    """Post-attention half of an ``attn`` block: norm + SwiGLU, residual."""
+def _mla_decode(p, x_t, cache, pos, cfg):
+    """Absorbed-form MLA decode (the DeepSeek-V3 inference form): the
+    per-head key up-projection is folded into q and the value one into the
+    output, so attention runs in the latent space against the (B, S,
+    kv_lora_rank) latent cache and the (B, S, qk_rope_dim) roped key part.
+    x_t: (B, d); ``cache`` {"ckv", "krope"} of one layer, written in place
+    at each row's ``pos``. Products of the cache's dtype sum in fp32 (the
+    JAX package's ``preferred_element_type``: q and the softmax weights
+    rounded to the cache dtype first). Returns the output projected by
+    wo."""
+    b = x_t.shape[0]
+    heads = cfg.n_heads
+    nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    cq = rms_norm(matmul(x_t, p["attn/wq_a/kernel"]), p["attn/q_norm_scale"])
+    q = matmul(cq, p["attn/wq_b/kernel"]).reshape(b, heads, nope + rope_d)
+    ckv = matmul(x_t, p["attn/wkv_a/kernel"])
+    c_kv = rms_norm(ckv[..., :kvr], p["attn/kv_norm_scale"])
+    cos, sin = rope_at(pos, rope_d, cfg.rope_theta)
+    q_rope = _rope_decode(q[..., nope:], cos, sin)
+    k_rope = _rope_decode(ckv[..., kvr:][:, None, :], cos, sin)[:, 0]
+
+    wkv_b = p["attn/wkv_b/kernel"].reshape(kvr, heads, nope + vd)
+    w_uk, w_uv = wkv_b[..., :nope], wkv_b[..., nope:]
+    # W_uk absorbed into q: q_lat (B, H, kv_lora_rank)
+    q_lat = torch.einsum("bhn,khn->bhk", q[..., :nope].float(), w_uk.float())
+
+    ckv_cache, kr_cache = cache["ckv"], cache["krope"]
+    rows = torch.arange(b, device=x_t.device)
+    ckv_cache[rows, pos] = c_kv.to(ckv_cache.dtype)
+    kr_cache[rows, pos] = k_rope.to(kr_cache.dtype)
+    cdt = ckv_cache.dtype
+    s = ckv_cache.shape[1]
+    ckv_f = ckv_cache.float()
+    scores = (torch.einsum("bhk,bsk->bhs", q_lat.to(cdt).float(), ckv_f)
+              + torch.einsum("bhr,bsr->bhs", q_rope.to(cdt).float(),
+                             kr_cache.float()))
+    scores = scores / math.sqrt(nope + rope_d)
+    mask = torch.arange(s, device=x_t.device)[None] <= pos[:, None]
+    scores = torch.where(mask[:, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(cdt)
+    ctx_lat = torch.einsum("bhs,bsk->bhk", probs.float(), ckv_f)
+    v = torch.einsum("bhk,khv->bhv", ctx_lat, w_uv.float())
+    return matmul(v.reshape(b, heads * vd).to(x_t.dtype), p["attn/wo/kernel"])
+
+
+def _ffn(kind: str, p, x_t, cfg):
+    """Post-attention half of a block: norm + SwiGLU or MoE, residual.
+    x_t: (B, d) (decode) or (B, C, d) (a prefill chunk)."""
     h = rms_norm(x_t, p["ln2/scale"], cfg.norm_eps)
-    return x_t + swiglu(h, p["mlp/wg/kernel"], p["mlp/wu/kernel"],
-                        p["mlp/wd/kernel"])
+    return x_t + _mlp(kind, p, h, cfg)[0]
 
 
-def block_decode(kind: str, p, x_t, k_cache, v_cache, pos, cfg):
-    """One layer of the dense decode step. x_t: (B, d); pos: (B,)."""
+def block_decode(kind: str, p, x_t, cache: dict, pos, cfg):
+    """One layer of the dense decode step. x_t: (B, d); ``cache``: the
+    layer's entries (``k`` / ``v``, or MLA's ``ckv`` / ``krope``), written
+    in place; pos: (B,). Returns ``(x_t, cache)``."""
     _check_kind(kind)
     h = rms_norm(x_t, p["ln1/scale"], cfg.norm_eps)
-    x_t = x_t + _gqa_decode(p, h, k_cache, v_cache, pos, cfg,
-                            window=_window(kind, cfg))
-    return _ffn(p, x_t, cfg)
+    if kind in MLA_KINDS:
+        a = _mla_decode(p, h, cache, pos, cfg)
+    else:
+        a = _gqa_decode(p, h, cache["k"], cache["v"], pos, cfg,
+                        window=_window(kind, cfg))
+    return _ffn(kind, p, x_t + a, cfg), cache
 
 
 def _lm_head(x_t, params, cfg):
@@ -389,15 +579,16 @@ def decode_step(params, cache, token, pos, cfg):
     x_t = p["embed/kernel"][token]
     pos = _positions(pos, x_t.shape[0], x_t.device)
     for pre, kind, layer, lp in _layers(p, cfg):
-        x_t = block_decode(kind, lp, x_t, cache[pre + "k"][layer],
-                           cache[pre + "v"][layer], pos, cfg).to(cdt)
+        entry = {n: cache[pre + n][layer] for n in _cache_shapes(kind, cfg)}
+        x_t = block_decode(kind, lp, x_t, entry, pos, cfg)[0].to(cdt)
     return _lm_head(x_t, p, cfg), cache
 
 
 def prefill(params, batch, cfg, max_len: int | None = None):
     """Run the full prompt and build the decode cache. Returns
-    ``(last_logits (B, vocab), cache, n_prompt)``; the per-layer K/V are
-    zero-padded to ``max_len``, a ``local`` layer's laid out as its ring."""
+    ``(last_logits (B, vocab), cache, n_prompt)``; the per-layer entries
+    (K/V, or MLA's latent and roped key part) are zero-padded to
+    ``max_len``, a ``local`` layer's laid out as its ring."""
     s = batch["tokens"].shape[1]
     max_len = max_len or s
     logits, _, kv = forward(params, batch, cfg, return_cache=True)
@@ -406,16 +597,16 @@ def prefill(params, batch, cfg, max_len: int | None = None):
     cache = {}
     for pre, pairs in kv.items():
         w = _cache_len(kinds[pre], cfg, max_len)
-        for n, t in zip("kv", zip(*pairs)):
+        for n, t in zip(_cache_shapes(kinds[pre], cfg), zip(*pairs)):
             cache[pre + n] = _prefill_entry(torch.stack(t), w, cdt,
                                             ring=kinds[pre] == "local")
     return logits[:, -1], cache, s
 
 
 def _prefill_entry(x, w: int, cdt, *, ring: bool):
-    """(R, B, S, Hkv, hd) -> (R, B, w, Hkv, hd), zero-padded. With ``ring``
-    and S > w, the last ``w`` positions laid out ring-style (position p at
-    slot p % w), as a ``local`` layer's decode cache holds them."""
+    """(R, B, S, ...) -> (R, B, w, ...), zero-padded. With ``ring`` and S >
+    w, the last ``w`` positions laid out ring-style (position p at slot p %
+    w), as a ``local`` layer's decode cache holds them."""
     s = x.shape[2]
     x = x.to(cdt)
     if ring and s > w:
@@ -423,7 +614,7 @@ def _prefill_entry(x, w: int, cdt, *, ring: bool):
         return x[:, :, -w:][:, :, torch.argsort(slots)]
     if s >= w:
         return x
-    return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, w - s))
+    return torch.nn.functional.pad(x, (0, 0) * (x.dim() - 3) + (0, w - s))
 
 
 # ===========================================================================
@@ -456,11 +647,6 @@ def _check_paged(cfg):
         raise ValueError(
             f"paged serving supports kinds {PAGED_KINDS}; {cfg.name!r} "
             f"has {bad} — use the dense ServeEngine for this family")
-    missing = sorted({k for pattern, _ in cfg.schedule for k in pattern
-                      if k not in PORTED_KINDS})
-    if missing:
-        raise NotImplementedError(f"paged block kinds {missing} are not yet "
-                                  f"ported to repro_torch")
     _check_ported(cfg)
 
 
@@ -556,7 +742,7 @@ def decode_step_paged(params, pools, token, pos, block_table, active, cfg,
                               pools[pre + "v"][layer], block_table, pos_d,
                               lengths, write, cfg, window=_window(kind, cfg),
                               num_splits=num_splits)
-        x_t = _ffn(lp, x_t + a, cfg).to(cdt)
+        x_t = _ffn(kind, lp, x_t + a, cfg).to(cdt)
     return _lm_head(x_t, p, cfg), pools
 
 
@@ -593,7 +779,7 @@ def prefill_chunk(params, scratch, tokens, start: int, take_idx: int, cfg):
         out = chunk_attention(q, sk[:, :end], sv[:, :end],
                               local if kind == "local" else causal)
         x = x + matmul(out.reshape(b, c, hq * hd), lp["attn/wo/kernel"])
-        x = _ffn(lp, x, cfg).to(cdt)
+        x = _ffn(kind, lp, x, cfg).to(cdt)
     return _lm_head(x[:, take_idx], p, cfg), scratch
 
 

@@ -18,7 +18,12 @@ continuous-batching scheduler (serve/scheduler.py) admitting and retiring
 requests between decode steps, per-sequence sampling lanes
 (serve/session.py), and the ``flash_decode`` CUDA kernel reading K/V
 through the block table. A sequence's output depends only on its own
-prompt, seed and budget, never on its neighbours.
+prompt, seed and budget, never on its neighbours -- in an MoE block as long
+as no expert overflows its capacity: each decode step routes every slot
+lane together (inactive ones too, as the JAX engine does), each prefill
+chunk its padded tokens, and an overflow drops tokens by their order in
+that batch. ``ServeEngine`` serves every ported family,
+``PagedServeEngine`` the blocks of ``transformer.PAGED_KINDS`` (not MLA).
 
 Both engines cast the weights to the compute dtype once, when built, and
 run on the device the parameters lie on.

@@ -45,6 +45,17 @@ def loss_fn(params: dict, batch: dict, cfg):
     loss = _cross_entropy(logits, batch["targets"])
     metrics = {"ce": loss.detach()}
     loss = loss + aux["moe_aux"]
+    if aux.get("mtp_logits") is not None:
+        # the MTP head predicts target t+1 from position t (DeepSeek-V3):
+        # full-length logits, the last position masked (rolled target)
+        mtp_tgt = torch.roll(batch["targets"], -1, dims=1)
+        logp = torch.log_softmax(aux["mtp_logits"].float(), dim=-1)
+        nll = -torch.gather(logp, -1, mtp_tgt[..., None].long())[..., 0]
+        s = nll.shape[1]
+        w = (torch.arange(s, device=nll.device) < s - 1).float()[None, :]
+        mtp = (nll * w).sum() / w.sum() / nll.shape[0]
+        loss = loss + 0.3 * mtp
+        metrics["mtp_ce"] = mtp.detach()
     metrics["loss"] = loss.detach()
     return loss, metrics
 

@@ -85,9 +85,10 @@ def test_block_apply_matches_jax(kind, return_kv):
 
 def test_block_api_kinds_and_refusals():
     assert TT.ATTN_KINDS == JT.ATTN_KINDS
-    assert set(TT.PORTED_KINDS) <= set(TT.ATTN_KINDS)
+    assert (TT.MLA_KINDS, TT.MOE_KINDS) == (JT.MLA_KINDS, JT.MOE_KINDS)
+    assert set(TT.PORTED_KINDS) <= set(TT.ATTN_KINDS) | set(TT.MLA_KINDS)
     x = torch.zeros(1, 4, CFG.d_model)
-    for kind in ("attn_moe", "enc", "mla_dense", "rwkv"):
+    for kind in ("mamba_moe", "enc", "cross", "rwkv"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             TT.init_block(torch.Generator(), kind, CFG)
         with pytest.raises(NotImplementedError, match="not yet ported"):

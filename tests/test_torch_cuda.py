@@ -1089,3 +1089,59 @@ def test_cuda_baseline_update_matches_cpu(cuda, monkeypatch, case):
     for k, want in out["cpu"].items():
         torch.testing.assert_close(out[str(cuda)][k].cpu(), want, rtol=1e-4,
                                    atol=1e-4 * want.abs().max().item())
+
+
+# the DeepSeek MoE family's new shapes: (q / k head dim, v head dim) of the
+# blockwise kernel (MLA's 192 / 128; a small pair each way), and the
+# optimizer kernels on a 4-D expert leaf (layers, experts, m, n) with n =
+# 1408 (deepseek-moe-16b's expert hidden) and at r = n = 64 (its router:
+# every column kept)
+BLOCKWISE_VD = {"mla": (192, 128), "narrow v": (48, 32), "wide v": (64, 128)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(BLOCKWISE_VD))
+def test_cuda_blockwise_kernel_own_value_dim(cuda, name):
+    """``flash_attention_blockwise`` with v of its own head dim against the
+    plain loop at the model's bar (tests/test_torch_layers.py's: max |d| <=
+    4e-3 max |out|, >= 99% bit-equal), relaunched bit-identical; MLA's
+    shapes at 8 heads, causal, two kv chunks."""
+    hd, vd = BLOCKWISE_VD[name]
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k = (torch.randn(2, 256, 8, hd, device=cuda, generator=gen).bfloat16()
+            for _ in range(2))
+    v = torch.randn(2, 256, 8, vd, device=cuda, generator=gen).bfloat16()
+    kw = dict(causal=True, kv_chunk=128)
+    before = fa.flash_attention_blockwise.launches
+    got = fa.flash_attention_blockwise(q, k, v, **kw)
+    again = fa.flash_attention_blockwise(q, k, v, **kw)
+    want = fa.blockwise_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_blockwise.launches == before + 2
+    assert got.shape == (2, 256, 8, vd) and torch.equal(got, again)
+    d = (got.float() - want.float()).abs()
+    assert d.max().item() <= 4e-3 * want.float().abs().max().item()
+    assert (d == 0).float().mean().item() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,r", [((2, 3, 1536, 1408), 128),
+                                     ((2, 3, 200, 64), 64)])
+def test_cuda_projection_kernels_on_expert_leaves(cuda, shape, r):
+    """``dct_project`` and ``colgather_matmul_dual`` on a 4-D (layers,
+    experts, m, n) leaf against their plain versions (fp32 sums in another
+    order: rtol 1e-5), n = 1408 and r = n = 64 (every column)."""
+    *batch, m, n = shape
+    g = torch.from_numpy(_rand(shape, 12)).to(cuda)
+    q = dct2_matrix(n, device=cuda)
+    s, norms = dp.dct_project(g, q)
+    s_p, norms_p = dp.dct_project_plain(g, q)
+    torch.testing.assert_close(s, s_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(norms, norms_p, rtol=1e-5, atol=0)
+    idx = torch.from_numpy(_idx(batch, n, r, 13)).to(cuda)
+    b1 = torch.from_numpy(_rand((*batch, m, r), 14)).to(cuda)
+    b2 = torch.from_numpy(_rand((*batch, m, r), 15)).to(cuda)
+    qt = q.T.contiguous()
+    for a, b in zip(cg.colgather_matmul_dual(b1, b2, qt, idx),
+                    cg.colgather_matmul_dual_plain(b1, b2, qt, idx)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

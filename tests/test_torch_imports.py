@@ -126,6 +126,16 @@ def test_runtime_modules_import_without_jax_or_repro(probe, name):
     assert name in probe[1].split()
 
 
+# the modules of the DeepSeek MoE slice
+MOE_MODULES = ("repro_torch.models.moe", "repro_torch.configs.deepseek_moe_16b",
+               "repro_torch.configs.deepseek_v3_671b")
+
+
+@pytest.mark.parametrize("name", MOE_MODULES)
+def test_moe_modules_import_without_jax_or_repro(probe, name):
+    assert name in probe[1].split()
+
+
 def _reference_all(pkg: str) -> list[str]:
     """``__all__`` of ``repro/<pkg>/__init__.py``, read without importing
     it (this file imports no JAX)."""
@@ -169,7 +179,9 @@ RUNTIME_NAMES = {
         "flash_decode_op", "quantize_ef_op", "dequant_add_ef_op"),
     "repro_torch.kernels.newton_schulz": ("newton_schulz_pallas",),
     "repro_torch.models.transformer": ("ATTN_KINDS", "init_block",
-                                       "block_apply"),
+                                       "block_apply", "MLA_KINDS",
+                                       "MOE_KINDS", "block_decode"),
+    "repro_torch.models.moe": ("MoEParams", "init_moe", "moe_ffn"),
 }
 
 
@@ -205,7 +217,7 @@ def _imported_roots(path: Path) -> set[str]:
 # machine with the card has no JAX)
 CARD_SCRIPTS = ("attention_kernels_probe.py", "backproject_probe.py",
                 "dct_project_probe.py", "ns_apply_tiles_probe.py",
-                "runtime_probe.py", "sanitize_kernels.py",
+                "runtime_probe.py", "sanitize_kernels.py", "deepseek_probe.py",
                 "substrate_probe.py", "telemetry_probe.py",
                 "tf32_mma_probe.py")
 

@@ -187,5 +187,9 @@ def test_paged_cache_rejects_unpaged_and_unported_kinds():
         "segments/0/p0/k", "segments/0/p0/v"}
     moe = cfg.__class__(**{**cfg.__dict__, "schedule": ((("attn_moe",), 1),)})
     assert paged_supported(moe)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        PagedKVCache(moe, cc, num_slots=1, device="cpu")
+    assert set(PagedKVCache(moe, cc, num_slots=1, device="cpu").pools) == {
+        "segments/0/p0/k", "segments/0/p0/v"}
+    rwkv = cfg.__class__(**{**cfg.__dict__, "schedule": ((("rwkv",), 1),)})
+    assert not paged_supported(rwkv)
+    with pytest.raises(ValueError, match="paged"):
+        PagedKVCache(rwkv, cc, num_slots=1, device="cpu")
