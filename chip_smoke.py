@@ -303,7 +303,27 @@ device or without the port beside it. Any failure raises. Phases:
    512: one launch of each of the four kernels per projected leaf and step
    (18 and 9 leaves), finite losses and MTP terms, step time and peak
    memory. The phase's wall time is printed.
-20. The ``kernels`` line, the card's line, and last:
+20. The recurrent families (``RECURRENT_*`` below; random weights, bf16
+   compute, the registry's configs at full width, depth cut): (a) the
+   kernels at their new shapes against their plain versions:
+   ``flash_attention_blockwise`` at jamba-1.5-large-398b's prefill (64 / 8
+   heads of 128, 2 x 2048) and the four DCT-AdamW kernels at phase 2's
+   bars on rwkv6-1.6b's stacked mixes (n = 24) and ``bonus_u`` (n = 32),
+   jamba's router (r = n = 16), its full-depth ``d_skip`` (n = 9, odd),
+   ``x_proj`` (n = 544) and ``in_proj`` (n = 8192, m = 32768), with the
+   "fft" route's S at each; at n = 24, 16 and 9 also int8 (bit-equal) and
+   bf16; (b)
+   serving through phase 13's run on the dense engine: jamba cut from 72
+   layers to its first 5 (2 ``mamba_dense``, 2 ``mamba_moe``, the
+   attention layer: one blockwise launch per prefill) and rwkv6-1.6b at
+   its 24 layers (no kernel: the WKV scan is a loop over the positions),
+   prefills of 2 x 2048 (jamba) and 2 x 512 (rwkv6), then 16 tokens of
+   recurrent-state decode; (c) DCT-AdamW rank 128 through the training
+   CLI, 3 steps: rwkv6-1.6b at 24 layers and jamba at its first layer (one
+   ``mamba_dense``), batch 8 x 512: one launch of each of the four kernels
+   per projected leaf and step (15 and 6 leaves), finite losses, step time
+   and peak memory. The phase's wall time is printed.
+21. The ``kernels`` line, the card's line, and last:
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -605,6 +625,48 @@ MOE_LEAF_SHAPES = {"deepseek-moe-16b experts": ((4, 64, 2048, 1408), 3),
                    "deepseek-v3-671b wkv_a": ((2, 7168, 576), 1),
                    "deepseek-v3-671b wkv_b": ((2, 32768, 512), 1),
                    "deepseek-v3-671b wo": ((2, 16384, 7168), 1)}
+# the recurrent families (phase 20): random weights, bf16 compute, the
+# registry's configs at full width, cut in depth only. Served on the dense
+# engine (the paged one refuses them, as the JAX package's):
+# jamba-1.5-large-398b 72 -> its first 5 layers, positions p0-p4 of its
+# pattern (2 mamba_dense, 2 mamba_moe and the attn layer: every kind;
+# 24.05 B bf16 parameters, 48.1 GB; the sixth layer is a mamba_moe of
+# 10.08 B: 6 layers would hold 68.3 GB beside the 12.9 GB fp32 draw of an
+# expert leaf at init), and
+# rwkv6-1.6b at its full 24 layers (1.58 B fp32 parameters)
+RECURRENT_SERVE = {"jamba-1.5-large-398b": 5, "rwkv6-1.6b": 24}
+# their prompts (batch, length); new tokens of the recurrent-state decode.
+# rwkv6's exact WKV scan is a loop over the positions: a 2 x 2048 prefill
+# is 248 k kernel launches and 3.5-4.7 s, and phase 13's run prefills 6
+# times, so it serves 2 x 512 (1.0 s a prefill; scripts/recurrent_probe.py
+# --prefill-once times both; NVIDIA H100 80GB HBM3, 700 W)
+RECURRENT_PROMPTS = {"jamba-1.5-large-398b": (2, 2048),
+                     "rwkv6-1.6b": (2, 512)}
+RECURRENT_NEW = 16
+# trained through the CLI, DCT-AdamW rank 128, MOE_TRAIN_STEPS steps of seq
+# 512: (arch, layers, batch). rwkv6-1.6b at full depth; jamba cut to its
+# first layer (p0, one mamba_dense: 2.10 B bf16 parameters, the Mamba
+# backward at full width; batch 8 peaked at 57.7 GB alone, NVIDIA H100 80GB
+# HBM3, 700 W). One mamba_moe layer does not train on one card (10.08 B
+# bf16 parameters, as many gradients, 9.7 GB of int8 EF and a ~26 GB fp32
+# G + EF transient of its expert leaves): it waits for the mesh
+RECURRENT_TRAIN_RUNS = (("rwkv6-1.6b", 24, 8),
+                        ("jamba-1.5-large-398b", 1, 8))
+# the four DCT-AdamW kernels at the families' new leaf shapes (oriented
+# (..., m, n), r = min(128, n)): (shape, launches per step of the training
+# runs above; 1 for a shape held standalone). rwkv6-1.6b's six stacked
+# mixes mu_* (24, 2048): n = 24; its bonus_u (24, 32, 64): 24 matrices with
+# n = 32; jamba's router (8192, 16) of one layer (r = n = 16) and its
+# (9, 16384) d_skip at full depth (n = 9, odd), both standalone; its x_proj
+# (n = 544) and in_proj (n = 8192 with m = 32768) of the trained layer
+RECURRENT_LEAF_SHAPES = {"rwkv6-1.6b mu": ((2048, 24), 6),
+                         "rwkv6-1.6b bonus_u": ((24, 64, 32), 1),
+                         "jamba router": ((1, 8192, 16), 1),
+                         "jamba d_skip": ((16384, 9), 1),
+                         "jamba x_proj": ((1, 16384, 544), 1),
+                         "jamba in_proj": ((1, 32768, 8192), 1)}
+# the shapes held in int8 and bf16 too, and the fft route's S: n = 24, 16, 9
+RECURRENT_LOWP_LEAVES = ("rwkv6-1.6b mu", "jamba router", "jamba d_skip")
 
 
 def _device_line() -> str:
@@ -2225,15 +2287,19 @@ def _prefill_attention_probe(torch, T, params, tokens, cfg, mode: str):
     return gaps if mode == "gaps" else logits[:, -1].float()
 
 
-def run_dense_prefill(torch, dev, name: str, cfg=None, new=None) -> dict:
+def run_dense_prefill(torch, dev, name: str, cfg=None, new=None,
+                      prompts=None) -> dict:
     """Phase 13, dense engine: ``ServeEngine.generate`` of llama-350m (bf16,
     or fp32 compute) or gemma3-27b at depth 8, counters zeroed just before;
-    phases 17 and 19: of ``cfg`` (bf16 compute, 2 prompts x 2048, ``new``
-    new tokens, GEMMA_NEW by default). With MoE blocks the last logits'
-    bar is ``MOE_LOGITS_FLOOR_FACTOR`` times the larger of their floor and
-    PREFILL_LOGITS_RTOL, and the top-1 agreement is printed, not asserted:
-    an ulp that moves a router's top-k sends a token to other experts.
-    Returns the counts."""
+    phases 17, 19 and 20: of ``cfg`` (bf16 compute, ``prompts`` (batch,
+    length), 2 x 2048 by default, ``new`` new tokens, GEMMA_NEW by
+    default). The prefill launches its attention kernel once per attention
+    layer (none in a recurrent layer: an attention-free model runs no
+    kernel and skips the per-layer probes). With MoE blocks the last
+    logits' bar is ``MOE_LOGITS_FLOOR_FACTOR`` times the larger of their
+    floor and PREFILL_LOGITS_RTOL, and the top-1 agreement is printed, not
+    asserted: an ulp that moves a router's top-k sends a token to other
+    experts. Returns the counts."""
     import dataclasses
 
     import numpy as np
@@ -2245,7 +2311,7 @@ def run_dense_prefill(torch, dev, name: str, cfg=None, new=None) -> dict:
     from repro_torch.serve import ServeEngine
 
     if cfg is not None:
-        (b, s), new = GEMMA_PROMPTS, new or GEMMA_NEW
+        (b, s), new = prompts or GEMMA_PROMPTS, new or GEMMA_NEW
     elif name == "llama-350m":
         cfg, (b, s), new = get_config(name), LLAMA_PROMPTS, LLAMA_NEW
     elif name == "llama-350m fp32":
@@ -2255,6 +2321,8 @@ def run_dense_prefill(torch, dev, name: str, cfg=None, new=None) -> dict:
     else:
         cfg, (b, s), new = _gemma3_depth8(), GEMMA_PROMPTS, GEMMA_NEW
     kernel = DENSE_RUNS.get(name, "flash_attention_blockwise")
+    attn_layers = sum(r for pattern, r in cfg.schedule for k in pattern
+                      if k not in T.RECURRENT_KINDS)
     params = T.init_params(cfg, seed=0, device=dev)
     eng = ServeEngine(cfg, params, max_len=s + new)
     del params
@@ -2268,8 +2336,8 @@ def run_dense_prefill(torch, dev, name: str, cfg=None, new=None) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
-    assert counts[kernel] == cfg.n_layers, counts
-    assert sum(counts.values()) == cfg.n_layers, counts
+    assert counts[kernel] == attn_layers, counts
+    assert sum(counts.values()) == attn_layers, counts
     assert out.shape == (b, new), out.shape
     again = eng.generate({"tokens": tokens}, max_new_tokens=new)
     assert torch.equal(out, again), f"{name}: a rerun gave other tokens"
@@ -2284,12 +2352,18 @@ def run_dense_prefill(torch, dev, name: str, cfg=None, new=None) -> dict:
                                max_len=s + new)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            T.prefill(eng.params, {"tokens": tokens}, cfg, max_len=s + new)
-            torch.cuda.synchronize()
-            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        # an attention-free prefill (rwkv6's per-position scan) launches
+        # tens of thousands of kernels, whose trace takes the profiler
+        # minutes to digest: it is profiled by scripts/recurrent_probe.py
+        prof = None
+        if attn_layers:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                T.prefill(eng.params, {"tokens": tokens}, cfg,
+                          max_len=s + new)
+                torch.cuda.synchronize()
+                prof_wall_ms = (time.perf_counter() - t0) * 1e3
     prefill_peak = torch.cuda.max_memory_allocated()
     plain = _plain_route_last_logits(torch, T, eng.params, tokens, cfg)
     last = last.float()
@@ -2297,11 +2371,13 @@ def run_dense_prefill(torch, dev, name: str, cfg=None, new=None) -> dict:
     rel = ((last - plain).norm() / plain.norm()).item()
     top1 = (last.argmax(-1) == plain.argmax(-1)).float().mean().item()
     # each layer's kernel output against the loop on the same inputs
-    gaps = _prefill_attention_probe(torch, T, eng.params, tokens, cfg,
-                                    "gaps")
-    floor_logits = _prefill_attention_probe(torch, T, eng.params, tokens, cfg,
-                                            "floor")
-    floor = ((floor_logits - plain).norm() / plain.norm()).item()
+    gaps, floor = [], 0.0
+    if attn_layers:
+        gaps = _prefill_attention_probe(torch, T, eng.params, tokens, cfg,
+                                        "gaps")
+        floor_logits = _prefill_attention_probe(torch, T, eng.params, tokens,
+                                                cfg, "floor")
+        floor = ((floor_logits - plain).norm() / plain.norm()).item()
     moe = any(k in T.MOE_KINDS for k in cfg.block_kinds())
     print(json.dumps({"dense_prefill_checks": name, "moe": moe,
                       "last_logits_rel_to_plain_route": rel,
@@ -2321,9 +2397,19 @@ def run_dense_prefill(torch, dev, name: str, cfg=None, new=None) -> dict:
                 f"{name} layer {i}: {share} differ, by up to {ulps} ulps"
         else:
             assert gap <= FA_TOL_F32, f"{name} layer {i}: max |d| {gap}"
-    kernels, busy_ms = _device_kernels(prof)
-    fa_ms = sum(_dev_us(e) for e in kernels
-                if f"{kernel}_fwd" in e.key) / 1e3
+    profiled = {"prefill_device_time": "not measured here (no attention "
+                                       "layer): scripts/recurrent_probe.py "
+                                       "--prefill-once"}
+    if prof is not None:
+        kernels, busy_ms = _device_kernels(prof)
+        profiled = {
+            "profiled_prefill_wall_ms": prof_wall_ms,
+            "prefill_device_busy_ms": busy_ms,
+            "prefill_device_idle_share": 1.0 - busy_ms / prof_wall_ms,
+            f"{kernel}_device_ms": sum(_dev_us(e) for e in kernels
+                                       if f"{kernel}_fwd" in e.key) / 1e3,
+            "prefill_kernel_launches": sum(e.count for e in kernels),
+            "top_device_kernels": _top(kernels, 8)}
     print(json.dumps({
         "dense_prefill_path": f"{name} ({cfg.compute_dtype}) ServeEngine, "
                               f"{kernel}",
@@ -2343,13 +2429,7 @@ def run_dense_prefill(torch, dev, name: str, cfg=None, new=None) -> dict:
         "decode_ms_per_step_est": (wall * 1e3 - prefill_ms) / new,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "serving_max_memory_allocated_bytes": prefill_peak,
-        "params": T.param_count(eng.params),
-        "profiled_prefill_wall_ms": prof_wall_ms,
-        "prefill_device_busy_ms": busy_ms,
-        "prefill_device_idle_share": 1.0 - busy_ms / prof_wall_ms,
-        f"{kernel}_device_ms": fa_ms,
-        "prefill_kernel_launches": sum(e.count for e in kernels),
-        "top_device_kernels": _top(kernels, 8)}), flush=True)
+        "params": T.param_count(eng.params), **profiled}), flush=True)
     del eng
     torch.cuda.empty_cache()
     return counts
@@ -3363,7 +3443,9 @@ def run_telemetry(torch, dev, main_losses) -> None:
 
 def _config(arch: str, depth=None):
     """``arch`` at full width, its one schedule segment cut to ``depth``
-    layers (``None``: the configuration's own depth)."""
+    layers (``None``: the configuration's own depth): ``depth`` repeats of a
+    one-kind pattern, or the first ``depth`` positions of a longer one
+    (jamba's), once."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
@@ -3371,6 +3453,9 @@ def _config(arch: str, depth=None):
     if depth is None or depth == cfg.n_layers:
         return cfg
     (pattern, _), = cfg.schedule
+    if len(pattern) > 1:
+        assert depth <= len(pattern), (arch, depth)
+        return dataclasses.replace(cfg, schedule=((pattern[:depth], 1),))
     return dataclasses.replace(cfg, schedule=((pattern, depth),))
 
 
@@ -4093,6 +4178,184 @@ def run_moe_family(torch, dev) -> dict:
     return {"cases": cases, "serving": serving, "training": training}
 
 
+def _fft_bf16_leaf_case(torch, dev, shape, bf16: bool) -> dict:
+    """On one oriented leaf shape: the "fft" route's S (the Makhoul
+    transform, at odd n too) within 1e-5 of max |S| of the fp32 kernel's;
+    with ``bf16`` the bf16 ``dct_project`` and dual colgather (r = n)
+    against their plain versions at ``LOWP_TC_RTOL`` of max |out|, each
+    relaunched bit-identical."""
+    from repro_torch.core.dct import dct2_matrix, makhoul_dct2
+    from repro_torch.core.selection import select_top_r, take_columns
+    cg = importlib.import_module("repro_torch.kernels.colgather_matmul")
+    dp = importlib.import_module("repro_torch.kernels.dct_project")
+
+    n = shape[-1]
+    gen = torch.Generator(device=dev).manual_seed(20)
+    q = dct2_matrix(n, device=dev)
+    qt = q.T.contiguous()
+    g = _planted(shape, q, gen, min(RANK, n))
+    s32, _ = dp.dct_project(g, q)
+    s_fft = makhoul_dct2(g)
+    torch.cuda.synchronize()
+    out = {"shape": list(shape), "fft_vs_kernel_rel": _rel(s_fft, s32)}
+    assert out["fft_vs_kernel_rel"] <= 1e-5, out
+    del s_fft, s32
+    if not bf16:
+        del g
+        torch.cuda.empty_cache()
+        return out
+    s_bf, n_bf = dp.dct_project(g, q, compute_dtype="bf16")
+    sp_bf, np_bf = dp.dct_project_plain(g, q, compute_dtype="bf16")
+    again = dp.dct_project_bf16(g, q)
+    torch.cuda.synchronize()
+    out.update(rank=n, dct_project_bf16_rel_err=_rel(s_bf, sp_bf))
+    assert out["dct_project_bf16_rel_err"] <= LOWP_TC_RTOL, out
+    assert torch.equal(again[0], s_bf) and torch.equal(again[1], n_bf), \
+        f"dct_project_bf16 {shape}: a relaunch differs"
+    idx = select_top_r(n_bf, n)
+    b1 = take_columns(s_bf, idx).contiguous()
+    b2 = torch.randn(b1.shape, generator=gen, device=dev)
+    o_k = cg.colgather_matmul_dual(b1, b2, qt, idx, compute_dtype="bf16")
+    o_p = cg.colgather_matmul_dual_plain(b1, b2, qt, idx,
+                                         compute_dtype="bf16")
+    again = cg.colgather_matmul_dual_bf16(b1, b2, qt, idx)
+    torch.cuda.synchronize()
+    out["colgather_matmul_dual_bf16_rel_err"] = max(
+        _rel(a, b) for a, b in zip(o_k, o_p))
+    assert out["colgather_matmul_dual_bf16_rel_err"] <= LOWP_TC_RTOL, out
+    assert all(map(torch.equal, again, o_k)), \
+        f"colgather_matmul_dual_bf16 {shape}: a relaunch differs"
+    del g, s_bf, sp_bf, b1, b2, o_k, o_p, again
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_recurrent_kernels(torch, dev) -> dict:
+    """Phase 20 (a): ``flash_attention_blockwise`` at jamba's prefill (64 /
+    8 heads of 128, 2 x 2048, its kv chunk) and the four DCT-AdamW kernels
+    in fp32 at ``RECURRENT_LEAF_SHAPES`` (r = min(128, n)) against their
+    plain versions, and the "fft" route's S against the kernel's; at n =
+    24, 16 and 9 (r = n) also int8 (phase 16's ``check_kernels_at_rank``)
+    and bf16. Returns ``{kernel: {case: row}}``."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+
+    jamba = _config("jamba-1.5-large-398b",
+                              RECURRENT_SERVE["jamba-1.5-large-398b"])
+    out = {"flash_attention_blockwise": {
+        "jamba-1.5-large-398b": _prefill_case(
+            torch, dev, fa, 63, jamba.n_heads, jamba.n_kv_heads, jamba.hd,
+            jamba.kv_chunk)}}
+    for name, (shape, per_step) in RECURRENT_LEAF_SHAPES.items():
+        for kernel, case in _leaf_case(torch, dev, shape, per_step).items():
+            out.setdefault(kernel, {})[name] = {"shape": list(shape), **case}
+    lowp_cases = {}
+    for name, (shape, _) in RECURRENT_LEAF_SHAPES.items():
+        lowp = name in RECURRENT_LOWP_LEAVES
+        lowp_cases[name] = {"fft_bf16": _fft_bf16_leaf_case(torch, dev,
+                                                             shape, lowp)}
+        if lowp:
+            lowp_cases[name]["fp32_int8"] = check_kernels_at_rank(
+                torch, dev, shape[-1], shape)
+    print(json.dumps({"recurrent_kernels": out,
+                      "recurrent_lowp_cases": lowp_cases,
+                      "tolerance": "blockwise: phase 12's; the training "
+                                   "kernels: phase 2's (fp32), phase 10's "
+                                   "(bf16 LOWP_TC_RTOL, int8 bit-equal); "
+                                   "fft S within 1e-5 of max |S|"}),
+          flush=True)
+    return out
+
+
+def run_recurrent_serving(torch, dev) -> dict:
+    """Phase 20 (b): jamba-1.5-large-398b and rwkv6-1.6b on the dense
+    engine at ``RECURRENT_SERVE`` depths through phase 13's run (its
+    checks: one blockwise launch per attention layer and prefill, none in a
+    recurrent layer; the MoE bar for jamba's last logits; per-layer ulps at
+    the attention layer), ``RECURRENT_NEW`` decode steps of the recurrent
+    state. Returns the blockwise launches per prefill."""
+    out = {}
+    for arch, layers in RECURRENT_SERVE.items():
+        cfg = _config(arch, layers)
+        name = f"{arch} depth {cfg.n_layers}"
+        counts = run_dense_prefill(torch, dev, name, cfg, RECURRENT_NEW,
+                                   RECURRENT_PROMPTS[arch])
+        out[arch] = {"flash_attention_blockwise_per_prefill":
+                     counts["flash_attention_blockwise"]}
+        gc.collect()
+        torch.cuda.empty_cache()
+    assert out["jamba-1.5-large-398b"][
+        "flash_attention_blockwise_per_prefill"] >= 1, out
+    return out
+
+
+def run_recurrent_training(torch, dev, runs=None) -> dict:
+    """Phase 20 (c): DCT-AdamW through the training CLI at
+    ``RECURRENT_TRAIN_RUNS``, counters zeroed just before each run and read
+    just after: each of the four kernels once per projected leaf and step
+    (rwkv6's stacked mixes at n = 24 and ``bonus_u`` at n = 32 among them),
+    no attention kernel, finite losses. Returns ``{arch: launches per
+    step}``. ``runs``: in place of ``RECURRENT_TRAIN_RUNS``."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    out = {}
+    for arch, layers, batch in runs or RECURRENT_TRAIN_RUNS:
+        cfg = _config(arch, layers)
+        leaves = _lowrank_shapes(cfg)
+        argv = ["--arch", arch, "--optimizer", "dct_adamw", "--rank",
+                str(RANK), "--steps", str(MOE_TRAIN_STEPS), "--warmup", "2",
+                "--batch", str(batch), "--seq-len", str(SEQ),
+                "--log-every", "1"]
+        with _registry_depth(arch, None, cfg):
+            t0 = time.perf_counter()
+            hist, counts, peak = _cli_run(torch, argv, steps=MOE_TRAIN_STEPS,
+                                          per_step=len(leaves))
+            wall = time.perf_counter() - t0
+        assert not any(ops.launch_counts(ops.ATTENTION).values()), arch
+        assert all(counts.values()), (arch, counts)
+        losses = [h["loss"] for h in hist]
+        assert all(math.isfinite(x) for x in losses), (arch, losses)
+        ms = _ms_after_first(hist)
+        gc.collect()
+        torch.cuda.empty_cache()
+        summary = {
+            "recurrent_training": f"{arch} {cfg.n_layers} layers "
+                                  f"{list(cfg.block_kinds())} dct_adamw "
+                                  f"rank {RANK} fused auto->on",
+            "param_dtype": cfg.param_dtype,
+            "params": T.param_count(T.init_params(cfg, 0, "meta")),
+            "projected_leaves": {k: list(v) for k, v in leaves.items()},
+            "steps": MOE_TRAIN_STEPS, "batch": batch, "seq_len": SEQ,
+            "losses": losses,
+            "first_step_ms": hist[0]["s_per_step"] * 1e3,
+            "ms_per_step_after_first": ms,
+            "tokens_per_s": batch * SEQ / (ms / 1e3),
+            "max_memory_allocated_bytes": peak, "wall_s": wall,
+            "launches_per_step": {k: v / MOE_TRAIN_STEPS
+                                  for k, v in counts.items()},
+            "device": _device_line()}
+        print(json.dumps(summary), flush=True)
+        out[arch] = summary["launches_per_step"]
+    return out
+
+
+def run_recurrent_family(torch, dev) -> dict:
+    """Phase 20: (a) the kernels at the recurrent families' shapes, (b)
+    serving, (c) training. Returns the kernels line's additions."""
+    walls = [time.perf_counter()]
+    cases = check_recurrent_kernels(torch, dev)
+    walls.append(time.perf_counter())
+    serving = run_recurrent_serving(torch, dev)
+    walls.append(time.perf_counter())
+    training = run_recurrent_training(torch, dev)
+    walls.append(time.perf_counter())
+    print(json.dumps({"recurrent_phase_wall_s": walls[-1] - walls[0],
+                      "parts_wall_s": dict(zip("abc", (
+                          b - a for a, b in zip(walls, walls[1:])))),
+                      "device": _device_line()}), flush=True)
+    return {"cases": cases, "serving": serving, "training": training}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -4183,6 +4446,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     moe = run_moe_family(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    recurrent = run_recurrent_family(torch, dev)
     for arch, case in dense_configs["cases"].items():
         for kernel, row in case.items():
             row["launches"] = dense_configs["serving"][arch][
@@ -4324,6 +4590,24 @@ def main(argv=None) -> int:
             extra["deepseek_launches_per_step"] = {
                 arch: per_step[name]
                 for arch, per_step in moe["training"].items()}
+        # phase 20: the recurrent families' shapes (as phase 19's) and
+        # training launches per step
+        if name in recurrent["cases"]:
+            extra["recurrent"] = recurrent["cases"][name]
+            extra["recurrent_times_are"] = (
+                "phase 20: flash_attention_blockwise per call at jamba's "
+                "prefill, launches per prefill of the depth served; "
+                "training kernels per DCT-AdamW step of the leaves of each "
+                "shape (launches_per_step of them; 1 for a shape held "
+                "standalone)")
+            for arch, case in recurrent["cases"][name].items():
+                if arch in recurrent["serving"]:
+                    case["launches"] = recurrent["serving"][arch][
+                        "flash_attention_blockwise_per_prefill"]
+        if name in recurrent["training"].get("rwkv6-1.6b", {}):
+            extra["recurrent_launches_per_step"] = {
+                arch: per_step[name]
+                for arch, per_step in recurrent["training"].items()}
         if name in dense_configs["training"].get("phi3-mini-3.8b", {}):
             extra["dense_configs_launches_per_step"] = {
                 arch: per_step[name]

@@ -8,11 +8,16 @@ or ``repro``: the JAX state's containers are recognised by their fields.
   the port's ``{leaf path: tensor}`` dict, with the same paths and layouts
   (the MoE blocks' ``moe/router/kernel``, ``moe/experts/w{g,u,d}``,
   ``moe/shared/w{g,u,d}``; MLA's ``attn/w{q,kv}_{a,b}/kernel`` and norm
-  scales; the MTP head's ``mtp/proj/kernel`` and ``mtp/norm/scale``).
+  scales; the MTP head's ``mtp/proj/kernel`` and ``mtp/norm/scale``; a
+  Mamba block's ``mamba/{in_proj,x_proj,out_proj}/kernel``,
+  ``mamba/conv/{kernel,bias}``, ``mamba/dt_proj/{kernel,bias}``,
+  ``mamba/a_log`` and ``mamba/d_skip``; an RWKV block's ``tm/*`` and
+  ``cm/*`` leaves and its layer norms' ``ln{1,2}/{scale,bias}``).
 * ``pools_from_jax`` does the same for a serving cache (the paged pools, the
   prefill scratch or the dense decode cache: a list of segments), under
-  ``segments/{i}/p{j}/k`` and ``/v``, or an MLA layer's latent cache
-  ``segments/{i}/p{j}/ckv`` and ``/krope``.
+  ``segments/{i}/p{j}/k`` and ``/v``, an MLA layer's latent cache
+  ``segments/{i}/p{j}/ckv`` and ``/krope``, a Mamba layer's ``conv`` and
+  ``ssm`` or an RWKV layer's ``x_prev_tm``, ``x_prev_cm`` and ``wkv``.
 * ``opt_state_from_jax`` turns the ``ChainState`` of one of ``repro``'s
   presets into the port's ``ChainState``. The matrix-optimizer presets
   (``dct_adamw``, ``ldadamw``, ``galore``, ``frugal``, ``fira``, ``trion``,
@@ -80,8 +85,8 @@ def params_from_jax(tree, device=None) -> dict[str, torch.Tensor]:
 
 
 def pools_from_jax(tree, device=None) -> dict[str, torch.Tensor]:
-    """JAX cache tree ``[{'p{j}': {'k', 'v'}}, ...]`` of numpy arrays ->
-    ``{'segments/{i}/p{j}/k': tensor, ...}``."""
+    """JAX cache tree ``[{'p{j}': {'k', 'v'}}, ...]`` (or a layer's other
+    entries) of numpy arrays -> ``{'segments/{i}/p{j}/k': tensor, ...}``."""
     return params_from_jax({"segments": tree}, device)
 
 

@@ -28,7 +28,11 @@ of the checkout).
 ``--engine dense``: one prefill and decode steps over a dense cache for a
 batch of prompts. It serves every ported architecture; ``--engine paged``
 refuses the ones with blocks of no paged layout (deepseek-v3-671b's MLA
-latents), with the JAX package's message, before any weight is made.
+latents, the recurrent state of jamba-1.5-large-398b's Mamba layers and of
+rwkv6-1.6b), with the JAX package's message, before any weight is made.
+Every prompt is ``--prompt-len`` tokens; a model with Mamba layers prefills
+it in one chunked scan, whose rule (the reference's) is a length of at
+most 128 or a multiple of 128: another length raises with that rule.
 """
 from __future__ import annotations
 
@@ -53,14 +57,17 @@ def build(argv=None) -> argparse.Namespace:
                     help="one of repro_torch.configs.registry.list_archs(): "
                          "the llamas, gemma3-27b, qwen2.5-32b, "
                          "phi3-mini-3.8b, command-r-plus-104b, "
-                         "deepseek-moe-16b, deepseek-v3-671b (MLA: dense "
-                         "engine only)")
+                         "deepseek-moe-16b; dense engine only: "
+                         "deepseek-v3-671b (MLA), jamba-1.5-large-398b "
+                         "(Mamba), rwkv6-1.6b (RWKV)")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-sized)")
     ap.add_argument("--engine", choices=["paged", "dense"], default="paged")
     ap.add_argument("--batch", type=int, default=4,
                     help="decode slots (paged) or batch rows (dense)")
-    ap.add_argument("--prompt-len", type=int, default=12)
+    ap.add_argument("--prompt-len", type=int, default=12,
+                    help="prompt tokens; with Mamba layers (jamba) at most "
+                         "128 or a multiple of 128, the scan's chunk rule")
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--block-size", type=int, default=8)
     ap.add_argument("--prefill-chunk", type=int, default=8)

@@ -79,7 +79,9 @@ def build(argv=None) -> argparse.Namespace:
                     help="one of repro_torch.configs.registry.list_archs(): "
                          "the llamas, gemma3-27b, qwen2.5-32b, "
                          "phi3-mini-3.8b, command-r-plus-104b, "
-                         "deepseek-moe-16b, deepseek-v3-671b")
+                         "deepseek-moe-16b, deepseek-v3-671b, "
+                         "jamba-1.5-large-398b (--seq-len at most 128 or a "
+                         "multiple of 128), rwkv6-1.6b")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-sized)")
     ap.add_argument("--optimizer", default="trion")

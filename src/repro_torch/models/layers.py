@@ -1,4 +1,4 @@
-"""Model primitives: init helpers, RMS norm, RoPE, blockwise (and its
+"""Model primitives: init helpers, RMS and layer norm, RoPE, blockwise (and its
 sequence-parallel entry), decode and chunk attention, SwiGLU.
 
 Plain functions on tensors, mirroring ``repro/models/layers.py``. Weights are
@@ -58,6 +58,16 @@ def rms_norm(x, scale, eps=1e-6):
     var = (xf * xf).mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.float())).to(x.dtype)
+
+
+def layer_norm(x, scale, bias, eps=1e-5):
+    """Layer norm with fp32 statistics (population variance) and an affine
+    ``scale`` / ``bias`` in their own dtype; output in x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale + bias).to(x.dtype)
 
 
 def rope_table(seq_len: int, head_dim: int, theta: float = 1e4,

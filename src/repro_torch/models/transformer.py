@@ -1,6 +1,7 @@
 """The schedule-driven transformer: the dense GQA models (the paper's
-llamas, gemma3-27b, qwen2.5-32b, phi3-mini-3.8b, command-r-plus-104b) and
-the DeepSeek MoE family (deepseek-moe-16b, deepseek-v3-671b).
+llamas, gemma3-27b, qwen2.5-32b, phi3-mini-3.8b, command-r-plus-104b), the
+DeepSeek MoE family (deepseek-moe-16b, deepseek-v3-671b) and the recurrent
+families (jamba-1.5-large-398b, rwkv6-1.6b).
 
 Parameters are a flat dict keyed by the JAX tree's leaf paths, with the same
 layouts: segment ``i``, pattern position ``j`` lives under
@@ -9,39 +10,49 @@ e.g. ``segments/0/p0/attn/wq/kernel`` of shape ``(layers, d, hq * hd)``
 applied as ``x @ w``. ``convert.params_from_jax`` carries a JAX parameter
 tree across unchanged.
 
-Ported for ``family="dense"`` and ``"moe"`` with the blocks of
-``PORTED_KINDS``: ``attn`` and ``local`` (sliding window of
-``cfg.sliding_window``), with optional qk-norm, optional qkv bias
-(``attn/w{q,k,v}/bias``, added after each projection's product) and
-``attn_sp`` (``layers.sp_blockwise_attention``, plain blockwise attention
-on one device); ``attn_moe`` (GQA attention and the MoE FFN of
+Ported for the families of ``PORTED_FAMILIES`` (``dense``, ``moe``,
+``hybrid``, ``ssm``) with the blocks of ``PORTED_KINDS``: ``attn`` and
+``local`` (sliding window of ``cfg.sliding_window``), with optional qk-norm,
+optional qkv bias (``attn/w{q,k,v}/bias``, added after each projection's
+product) and ``attn_sp`` (``layers.sp_blockwise_attention``, plain blockwise
+attention on one device); ``attn_moe`` (GQA attention and the MoE FFN of
 ``models/moe.py``: its leaves under ``moe/``); ``mla_dense`` and ``mla_moe``
-(DeepSeek's multi-head latent attention, ``MLA_KINDS``: the queries and
-the keys / values through low-rank latents, a shared roped key part, a
-query / key head dim of ``qk_nope_dim + qk_rope_dim`` beside a value head
-dim ``v_head_dim``) with a SwiGLU or the MoE FFN; and the multi-token
-prediction head (``cfg.mtp``: ``mtp/proj`` and ``mtp/norm``, whose logits
-predict the token after next). The entry points: ``init_params``,
-``param_count``, ``cast_params``, the per-block API (``ATTN_KINDS``,
-``MLA_KINDS``, ``MOE_KINDS``, ``init_block``, ``block_apply``: the one place
-a block's math lives) and ``forward`` (training, and the dense prefill,
-whose no-grad attention is a kernel on the card); the dense decode path
-(``init_cache``, ``prefill``, ``decode_step``; a ``local`` layer keeps a
-ring of its last ``window`` positions, an MLA layer its latent and roped
-key part, decoded in the absorbed form); the paged serving path
-(``init_paged_pools``, ``init_prefill_scratch``, ``prefill_chunk``,
-``write_prefill_to_pools``, ``decode_step_paged``; ``PAGED_KINDS``: not
-MLA, as in the JAX package), whose attention is the ``flash_decode``
-kernel. The MoE blocks sum their load-balance losses into
-``aux["moe_aux"]``. Not yet ported: the other block kinds and families
-(Mamba, RWKV, encoder-decoder, VLM, with ``encode``), and the mesh of
-sequence-parallel attention and of expert parallelism.
+(DeepSeek's multi-head latent attention, ``MLA_KINDS``: the queries and the
+keys / values through low-rank latents, a shared roped key part, a query /
+key head dim of ``qk_nope_dim + qk_rope_dim`` beside a value head dim
+``v_head_dim``) with a SwiGLU or the MoE FFN; the multi-token prediction
+head (``cfg.mtp``: ``mtp/proj`` and ``mtp/norm``, whose logits predict the
+token after next); and the recurrent blocks of ``RECURRENT_KINDS``:
+``mamba_dense`` and ``mamba_moe`` (RMS norm, the Mamba mixer of
+``models/mamba.py``: its leaves under ``mamba/``, then a SwiGLU or the MoE
+FFN) and ``rwkv`` (layer norm with a bias, RWKV-6's time mix, layer norm,
+its channel mix: ``models/rwkv.py``, leaves under ``tm/`` and ``cm/``), each
+a sequence mixer with a constant-size decode state. The entry points:
+``init_params``, ``param_count``, ``cast_params``, the per-block API
+(``ATTN_KINDS``, ``MLA_KINDS``, ``MOE_KINDS``, ``init_block``,
+``block_apply``: the one place a block's math lives) and ``forward``
+(training, and the dense prefill, whose no-grad attention is a kernel on the
+card); the dense decode path (``init_cache``, ``prefill``, ``decode_step``;
+a ``local`` layer keeps a ring of its last ``window`` positions, an MLA
+layer its latent and roped key part, decoded in the absorbed form, a Mamba
+layer its conv tail and SSM state, an RWKV layer its last tokens and WKV
+state); the paged serving path (``init_paged_pools``,
+``init_prefill_scratch``, ``prefill_chunk``, ``write_prefill_to_pools``,
+``decode_step_paged``; ``PAGED_KINDS``: not MLA and no recurrent block, as
+in the JAX package), whose attention is the ``flash_decode`` kernel. The MoE
+blocks sum their load-balance losses into ``aux["moe_aux"]``. Not yet
+ported: the other block kinds and families (encoder-decoder, VLM, with
+``encode``), and the mesh of sequence-parallel attention and of expert
+parallelism.
 
 Caches and pools are flat dicts too, keyed like the JAX trees:
 ``segments/{i}/p{j}/k`` and ``.../v``, or an MLA layer's
 ``segments/{i}/p{j}/ckv`` (R, B, S, kv_lora_rank) and ``.../krope`` (R, B,
-S, qk_rope_dim). Unlike the JAX package, whose arrays are immutable, the
-serving entry points write into them in place and return them.
+S, qk_rope_dim); a Mamba layer's ``conv`` (R, B, K-1, d_inner) and ``ssm``
+(R, B, d_inner, state) fp32; an RWKV layer's ``x_prev_tm`` and ``x_prev_cm``
+(R, B, d) and ``wkv`` (R, B, H, K, V) fp32. Unlike the JAX package, whose
+arrays are immutable, the serving entry points write into them in place and
+return them.
 """
 from __future__ import annotations
 
@@ -61,6 +72,7 @@ from .layers import (
     decode_attention,
     dense_init,
     embed_init,
+    layer_norm,
     matmul,
     rms_norm,
     rope_at,
@@ -69,15 +81,22 @@ from .layers import (
     sp_blockwise_attention,
     swiglu,
 )
+from .mamba import init_mamba, mamba_mix, mamba_step
 from .moe import init_moe, moe_ffn
+from .rwkv import (channel_mix, channel_mix_step, init_rwkv, time_mix,
+                   time_mix_step)
 
 #: the reference's attention block kinds
 ATTN_KINDS = ("attn", "local", "attn_moe", "enc", "dec", "cross")
 MLA_KINDS = ("mla_dense", "mla_moe")
 MOE_KINDS = ("attn_moe", "mla_moe", "mamba_moe")
+MAMBA_KINDS = ("mamba_dense", "mamba_moe")
+#: the sequence mixers with a constant-size decode state
+RECURRENT_KINDS = (*MAMBA_KINDS, "rwkv")
 #: the block kinds and model families this package builds
-PORTED_KINDS = ("attn", "local", "attn_moe", "mla_dense", "mla_moe")
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_KINDS = ("attn", "local", "attn_moe", "mla_dense", "mla_moe",
+                *RECURRENT_KINDS)
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 def _check_ported(cfg) -> None:
@@ -137,8 +156,10 @@ def _block_leaves(gen, kind: str, cfg, batch: tuple,
                   dev) -> dict[str, torch.Tensor]:
     """One block's leaves with leading ``batch`` axes (the stacked layers
     of a schedule position, or none), the weights drawn from ``gen`` in a
-    fixed order: the attention's (GQA: wq, wk, wv, wo; MLA: wq_a, wq_b,
-    wkv_a, wkv_b, wo), then the FFN's (wg, wu, wd; or ``moe.init_moe``'s)."""
+    fixed order: the mixer's (GQA: wq, wk, wv, wo; MLA: wq_a, wq_b,
+    wkv_a, wkv_b, wo; ``mamba.init_mamba``'s; ``rwkv.init_rwkv``'s), then
+    the FFN's (wg, wu, wd; or ``moe.init_moe``'s). An ``rwkv`` block's
+    layer norms carry a bias (scale ones, bias zeros)."""
     dt = getattr(torch, cfg.param_dtype)
     d, hq, hkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                          cfg.d_ff)
@@ -149,8 +170,18 @@ def _block_leaves(gen, kind: str, cfg, batch: tuple,
     def norm(width):
         return torch.zeros((*batch, width), dtype=torch.float32, device=dev)
 
+    if kind == "rwkv":
+        p = init_rwkv(gen, cfg, batch=batch, device=dev)
+        for ln in ("ln1", "ln2"):
+            p[f"{ln}/scale"] = torch.ones((*batch, d), dtype=torch.float32,
+                                          device=dev)
+            p[f"{ln}/bias"] = norm(d)
+        return p
     p = {"ln1/scale": norm(d)}
-    if kind in MLA_KINDS:
+    if kind in MAMBA_KINDS:
+        p.update({f"mamba/{k}": v for k, v in init_mamba(
+            gen, cfg, batch=batch, device=dev).items()})
+    elif kind in MLA_KINDS:
         qk = cfg.qk_nope_dim + cfg.qk_rope_dim
         kvr = cfg.kv_lora_rank
         p.update({
@@ -177,11 +208,11 @@ def _block_leaves(gen, kind: str, cfg, batch: tuple,
     else:
         p.update({"mlp/wg/kernel": w(d, f), "mlp/wu/kernel": w(d, f),
                   "mlp/wd/kernel": w(f, d)})
-    if kind not in MLA_KINDS and cfg.qkv_bias:
+    if kind in ATTN_KINDS and cfg.qkv_bias:
         for n, width in (("q", hq * hd), ("k", hkv * hd), ("v", hkv * hd)):
             p[f"attn/w{n}/bias"] = torch.zeros((*batch, width), dtype=dt,
                                                device=dev)
-    if kind not in MLA_KINDS and cfg.use_qk_norm:
+    if kind in ATTN_KINDS and cfg.use_qk_norm:
         for n in ("q", "k"):
             p[f"attn/{n}_norm_scale"] = norm(hd)
     return p
@@ -314,21 +345,48 @@ def _mlp(kind: str, p: dict, h, cfg):
                   p["mlp/wd/kernel"]), None
 
 
+def _rwkv_apply(p: dict, x, cfg):
+    """An ``rwkv`` block on x (B, S, d) from a zero state: layer norm, the
+    time mix (from a zero previous token and WKV state), layer norm, the
+    channel mix, each added to the residual. Returns (x, its decode cache
+    entry: the last normed tokens of each mix and the WKV state)."""
+    b, _, d = x.shape
+    hh, hs = cfg.rwkv_n_heads, cfg.rwkv_head_size
+    h = layer_norm(x, p["ln1/scale"], p["ln1/bias"], cfg.norm_eps)
+    st0 = torch.zeros((b, hh, hs, hs), dtype=torch.float32, device=x.device)
+    tm_out, last_x, st = time_mix(_sub(p, "tm/"), h, h.new_zeros((b, d)),
+                                  st0, cfg)
+    x = x + tm_out
+    h2 = layer_norm(x, p["ln2/scale"], p["ln2/bias"], cfg.norm_eps)
+    cm_out, last_cm = channel_mix(_sub(p, "cm/"), h2, h2.new_zeros((b, d)))
+    return x + cm_out, {"x_prev_tm": last_x, "x_prev_cm": last_cm,
+                        "wkv": st}
+
+
 def block_apply(kind: str, p: dict, x, cfg, ctx=None, *,
                 return_kv: bool = False):
-    """One block of the schedule on ``x`` (B, S, d): pre-norm causal
-    self-attention (GQA, a sliding window for ``local``; MLA for
-    ``MLA_KINDS``) and an FFN (a SwiGLU; the MoE for ``MOE_KINDS``), each
-    added to the residual. ``p``: the block's leaves (one layer's, keyed as
-    ``init_block``'s); ``ctx``: the cross-attention inputs of the
-    reference's other kinds (the ported kinds read none). Returns ``(x,
-    aux, kv)``: ``aux`` the block's auxiliary loss (a 0-d fp32 tensor: the
-    MoE's load-balance loss, else zero), ``kv`` with ``return_kv`` the
-    block's cache entry (GQA: the roped ``(k, v)``; MLA: ``(c_kv,
-    k_rope)``), else None."""
+    """One block of the schedule on ``x`` (B, S, d): a pre-norm sequence
+    mixer (causal GQA self-attention, a sliding window for ``local``; MLA
+    for ``MLA_KINDS``; the Mamba mixer for ``MAMBA_KINDS``) and an FFN (a
+    SwiGLU; the MoE for ``MOE_KINDS``), each added to the residual; or an
+    ``rwkv`` block (``_rwkv_apply``). ``p``: the block's leaves (one
+    layer's, keyed as ``init_block``'s); ``ctx``: the cross-attention
+    inputs of the reference's other kinds (the ported kinds read none).
+    Returns ``(x, aux, kv)``: ``aux`` the block's auxiliary loss (a 0-d
+    fp32 tensor: the MoE's load-balance loss, else zero), ``kv`` with
+    ``return_kv`` the block's cache entry (GQA: the roped ``(k, v)``; MLA:
+    ``(c_kv, k_rope)``; Mamba: ``{"conv", "ssm"}``; RWKV: ``{"x_prev_tm",
+    "x_prev_cm", "wkv"}``), else None."""
     _check_kind(kind)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "rwkv":
+        x, kv = _rwkv_apply(p, x, cfg)
+        return x, zero, (kv if return_kv else None)
     h = rms_norm(x, p["ln1/scale"], cfg.norm_eps)
-    if kind in MLA_KINDS:
+    if kind in MAMBA_KINDS:
+        a = mamba_mix(_sub(p, "mamba/"), h, cfg, return_state=return_kv)
+        a, kv = a if return_kv else (a, None)
+    elif kind in MLA_KINDS:
         a, kv = _mla_apply(p, h, cfg)
     else:
         a, kv = _gqa_apply(kind, p, h, cfg)
@@ -336,9 +394,7 @@ def block_apply(kind: str, p: dict, x, cfg, ctx=None, *,
     h = rms_norm(x, p["ln2/scale"], cfg.norm_eps)
     m, aux = _mlp(kind, p, h, cfg)
     x = x + m
-    if aux is None:
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, aux, (kv if return_kv else None)
+    return x, (zero if aux is None else aux), (kv if return_kv else None)
 
 
 def _layers(p: dict, cfg):
@@ -406,7 +462,7 @@ def forward(params: dict, batch: dict, cfg, *, return_cache: bool = False):
 # Dense decode cache and decode step
 # ===========================================================================
 def _kv_keys(cfg):
-    """``(segment prefix, block kind, repeats)`` of every attention
+    """``(segment prefix, block kind, repeats)`` of every schedule
     position."""
     for i, (pattern, repeats) in enumerate(cfg.schedule):
         for j, kind in enumerate(pattern):
@@ -418,30 +474,43 @@ def _cache_len(kind: str, cfg, max_len: int) -> int:
     return min(cfg.sliding_window, max_len) if kind == "local" else max_len
 
 
-def _cache_shapes(kind: str, cfg) -> dict:
-    """A layer's cache entries and their shapes past (B, S): GQA's ``k``
-    and ``v`` (Hkv, hd); MLA's latent ``ckv`` (kv_lora_rank,) and roped
-    shared key part ``krope`` (qk_rope_dim,)."""
+def _cache_entries(kind: str, cfg, max_len: int = 1) -> dict:
+    """A layer's cache entries: ``{name: (shape past the batch axis,
+    dtype; None for the compute dtype)}``. GQA's ``k`` and ``v`` (S, Hkv,
+    hd); MLA's latent ``ckv`` (S, kv_lora_rank) and roped shared key part
+    ``krope`` (S, qk_rope_dim), S = ``_cache_len``; Mamba's ``conv`` (K-1,
+    d_inner) and fp32 ``ssm`` (d_inner, state); RWKV's ``x_prev_tm`` and
+    ``x_prev_cm`` (d,) and fp32 ``wkv`` (H, K, V)."""
+    if kind in MAMBA_KINDS:
+        return {"conv": ((cfg.mamba_conv - 1, cfg.mamba_d_inner), None),
+                "ssm": ((cfg.mamba_d_inner, cfg.mamba_state), torch.float32)}
+    if kind == "rwkv":
+        hh, hs = cfg.rwkv_n_heads, cfg.rwkv_head_size
+        return {"x_prev_tm": ((cfg.d_model,), None),
+                "x_prev_cm": ((cfg.d_model,), None),
+                "wkv": ((hh, hs, hs), torch.float32)}
+    s = _cache_len(kind, cfg, max_len)
     if kind in MLA_KINDS:
-        return {"ckv": (cfg.kv_lora_rank,), "krope": (cfg.qk_rope_dim,)}
-    return {n: (cfg.n_kv_heads, cfg.hd) for n in "kv"}
+        return {"ckv": ((s, cfg.kv_lora_rank), None),
+                "krope": ((s, cfg.qk_rope_dim), None)}
+    return {n: ((s, cfg.n_kv_heads, cfg.hd), None) for n in "kv"}
 
 
 def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
     """Zeroed dense decode cache: ``segments/{i}/p{j}/k`` and ``/v`` of
     (repeats, B, max_len, Hkv, hd) in the compute dtype (an MLA layer's
     ``ckv`` (repeats, B, max_len, kv_lora_rank) and ``krope`` (repeats, B,
-    max_len, qk_rope_dim)); ``max_len`` is ``min(window, max_len)`` for a
-    ``local`` layer (position p at ring slot p % that length), on
-    ``device`` (None: the card)."""
+    max_len, qk_rope_dim); a recurrent layer's state, ``_cache_entries``);
+    ``max_len`` is ``min(window, max_len)`` for a ``local`` layer
+    (position p at ring slot p % that length), on ``device`` (None: the
+    card)."""
     _check_ported(cfg)
     cdt = getattr(torch, cfg.compute_dtype)
     dev = resolve_device(device)
-    return {pre + n: torch.zeros(
-                (repeats, batch, _cache_len(kind, cfg, max_len), *shape),
-                dtype=cdt, device=dev)
+    return {pre + n: torch.zeros((repeats, batch, *shape), dtype=dt or cdt,
+                                 device=dev)
             for pre, kind, repeats in _kv_keys(cfg)
-            for n, shape in _cache_shapes(kind, cfg).items()}
+            for n, (shape, dt) in _cache_entries(kind, cfg, max_len).items()}
 
 
 def _rope_decode(x, cos, sin):
@@ -540,13 +609,40 @@ def _ffn(kind: str, p, x_t, cfg):
     return x_t + _mlp(kind, p, h, cfg)[0]
 
 
+def _rwkv_decode(p, x_t, cache: dict, cfg):
+    """One token of an ``rwkv`` block from its cache entry, written in
+    place (the new states cast to the entry's dtype)."""
+    h = layer_norm(x_t, p["ln1/scale"], p["ln1/bias"], cfg.norm_eps)
+    tm_out, new_xp, new_st = time_mix_step(
+        _sub(p, "tm/"), h, cache["x_prev_tm"].to(h.dtype), cache["wkv"], cfg)
+    x_t = x_t + tm_out
+    h2 = layer_norm(x_t, p["ln2/scale"], p["ln2/bias"], cfg.norm_eps)
+    cm_out, new_xp_cm = channel_mix_step(_sub(p, "cm/"), h2,
+                                         cache["x_prev_cm"].to(h2.dtype))
+    _write(cache, {"x_prev_tm": new_xp, "x_prev_cm": new_xp_cm,
+                   "wkv": new_st})
+    return x_t + cm_out
+
+
+def _write(cache: dict, new: dict) -> None:
+    """A recurrent layer's new state into its cache entries, in place."""
+    for n, t in new.items():
+        cache[n].copy_(t)
+
+
 def block_decode(kind: str, p, x_t, cache: dict, pos, cfg):
     """One layer of the dense decode step. x_t: (B, d); ``cache``: the
-    layer's entries (``k`` / ``v``, or MLA's ``ckv`` / ``krope``), written
-    in place; pos: (B,). Returns ``(x_t, cache)``."""
+    layer's entries (``k`` / ``v``, MLA's ``ckv`` / ``krope``, or a
+    recurrent layer's state), written in place; pos: (B,). Returns ``(x_t,
+    cache)``."""
     _check_kind(kind)
+    if kind == "rwkv":
+        return _rwkv_decode(p, x_t, cache, cfg), cache
     h = rms_norm(x_t, p["ln1/scale"], cfg.norm_eps)
-    if kind in MLA_KINDS:
+    if kind in MAMBA_KINDS:
+        a, new = mamba_step(_sub(p, "mamba/"), h, cache, cfg)
+        _write(cache, new)
+    elif kind in MLA_KINDS:
         a = _mla_decode(p, h, cache, pos, cfg)
     else:
         a = _gqa_decode(p, h, cache["k"], cache["v"], pos, cfg,
@@ -579,7 +675,7 @@ def decode_step(params, cache, token, pos, cfg):
     x_t = p["embed/kernel"][token]
     pos = _positions(pos, x_t.shape[0], x_t.device)
     for pre, kind, layer, lp in _layers(p, cfg):
-        entry = {n: cache[pre + n][layer] for n in _cache_shapes(kind, cfg)}
+        entry = {n: cache[pre + n][layer] for n in _cache_entries(kind, cfg)}
         x_t = block_decode(kind, lp, x_t, entry, pos, cfg)[0].to(cdt)
     return _lm_head(x_t, p, cfg), cache
 
@@ -588,18 +684,26 @@ def prefill(params, batch, cfg, max_len: int | None = None):
     """Run the full prompt and build the decode cache. Returns
     ``(last_logits (B, vocab), cache, n_prompt)``; the per-layer entries
     (K/V, or MLA's latent and roped key part) are zero-padded to
-    ``max_len``, a ``local`` layer's laid out as its ring."""
+    ``max_len``, a ``local`` layer's laid out as its ring; a recurrent
+    layer's state is its state after the prompt (``conv`` and the last
+    tokens in the compute dtype, ``ssm`` / ``wkv`` fp32)."""
     s = batch["tokens"].shape[1]
     max_len = max_len or s
     logits, _, kv = forward(params, batch, cfg, return_cache=True)
     cdt = getattr(torch, cfg.compute_dtype)
     kinds = {pre: kind for pre, kind, _ in _kv_keys(cfg)}
     cache = {}
-    for pre, pairs in kv.items():
-        w = _cache_len(kinds[pre], cfg, max_len)
-        for n, t in zip(_cache_shapes(kinds[pre], cfg), zip(*pairs)):
+    for pre, entries in kv.items():
+        kind = kinds[pre]
+        if kind in RECURRENT_KINDS:
+            for n, (_, dt) in _cache_entries(kind, cfg).items():
+                cache[pre + n] = torch.stack([e[n] for e in entries]).to(
+                    dt or cdt)
+            continue
+        w = _cache_len(kind, cfg, max_len)
+        for n, t in zip(_cache_entries(kind, cfg), zip(*entries)):
             cache[pre + n] = _prefill_entry(torch.stack(t), w, cdt,
-                                            ring=kinds[pre] == "local")
+                                            ring=kind == "local")
     return logits[:, -1], cache, s
 
 

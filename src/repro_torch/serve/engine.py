@@ -23,7 +23,8 @@ as no expert overflows its capacity: each decode step routes every slot
 lane together (inactive ones too, as the JAX engine does), each prefill
 chunk its padded tokens, and an overflow drops tokens by their order in
 that batch. ``ServeEngine`` serves every ported family,
-``PagedServeEngine`` the blocks of ``transformer.PAGED_KINDS`` (not MLA).
+``PagedServeEngine`` the blocks of ``transformer.PAGED_KINDS`` (not MLA,
+not the recurrent Mamba and RWKV blocks).
 
 Both engines cast the weights to the compute dtype once, when built, and
 run on the device the parameters lie on.

@@ -482,6 +482,25 @@ CLI_RTOL = {"ldadamw": 1e-3, "galore": 5e-4, "frugal": 1e-2, "fira": 1e-3,
 _CLI = ["--smoke", "--device", "cpu", "--batch", "2", "--seq-len", "16"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The module's port calls on one intra-op thread (restored after):
+    with the suite's parallel workers, each process's pool of threads
+    spinning on these small tensors stalls every op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    """The smoke llama's JAX parameters (``_jax_params``), drawn once for
+    the module's trajectories (immutable arrays: every case starts from
+    the same values, as each drew them before)."""
+    return _jax_params()
+
+
 def _cli_optimizer(monkeypatch, argv):
     """The (name, keywords) the port's CLI builds for ``argv``."""
     seen = []
@@ -500,14 +519,15 @@ def _cli_optimizer(monkeypatch, argv):
     ["--optimizer", "fira", "--rank", "16"],
     ["--optimizer", "adamw"],
 ])
-def test_cli_ten_step_loss_trajectory_matches_jax(monkeypatch, argv):
+def test_cli_ten_step_loss_trajectory_matches_jax(monkeypatch, jax_params,
+                                                  argv):
     name, kw = _cli_optimizer(monkeypatch, argv)
     assert name == argv[1]
     assert ("rank" in kw) == (name != "adamw")
     assert kw.get("projector") == ("dct" if "--basis" in argv else None)
     jopt = jax_get_optimizer(name, lr=jax_cosine(0.01, 2, 10), **kw)
     topt = get_optimizer(name, lr=cosine_warmup(0.01, 2, 10), **kw)
-    jparams = _jax_params()
+    jparams = jax_params
     jstate = JS.TrainState(jnp.zeros((), jnp.int32), jparams,
                            jopt.init(jparams))
     tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams),

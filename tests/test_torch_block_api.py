@@ -2,7 +2,8 @@
 ``ATTN_KINDS``, ``init_block`` (its leaves' shapes and dtypes against
 ``jax.eval_shape`` of JAX's) and ``block_apply`` (one block on the same
 numpy-drawn parameters, rtol 1e-5), the refusals of the kinds not ported
-yet, and ``forward`` running every layer through ``block_apply``."""
+yet (the encoder-decoder and cross-attention blocks), and ``forward``
+running every layer through ``block_apply``."""
 import dataclasses
 
 import jax
@@ -39,7 +40,10 @@ def _jax_block_shapes(kind, jcfg):
 @pytest.mark.parametrize("arch,kind", [("gemma3-27b", "attn"),
                                        ("gemma3-27b", "local"),
                                        ("qwen2.5-32b", "attn"),
-                                       ("phi3-mini-3.8b", "attn")])
+                                       ("phi3-mini-3.8b", "attn"),
+                                       ("jamba-1.5-large-398b", "mamba_dense"),
+                                       ("jamba-1.5-large-398b", "mamba_moe"),
+                                       ("rwkv6-1.6b", "rwkv")])
 def test_init_block_shapes_match_jax(arch, kind):
     jcfg, tcfg = _block_cfgs(arch)
     want = _jax_block_shapes(kind, jcfg)
@@ -86,9 +90,11 @@ def test_block_apply_matches_jax(kind, return_kv):
 def test_block_api_kinds_and_refusals():
     assert TT.ATTN_KINDS == JT.ATTN_KINDS
     assert (TT.MLA_KINDS, TT.MOE_KINDS) == (JT.MLA_KINDS, JT.MOE_KINDS)
-    assert set(TT.PORTED_KINDS) <= set(TT.ATTN_KINDS) | set(TT.MLA_KINDS)
+    assert set(TT.PORTED_KINDS) <= set(TT.ATTN_KINDS) | set(TT.MLA_KINDS) \
+        | set(TT.RECURRENT_KINDS)
+    assert TT.RECURRENT_KINDS == ("mamba_dense", "mamba_moe", "rwkv")
     x = torch.zeros(1, 4, CFG.d_model)
-    for kind in ("mamba_moe", "enc", "cross", "rwkv"):
+    for kind in ("enc", "dec", "cross"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             TT.init_block(torch.Generator(), kind, CFG)
         with pytest.raises(NotImplementedError, match="not yet ported"):

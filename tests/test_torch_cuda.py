@@ -1145,3 +1145,57 @@ def test_cuda_projection_kernels_on_expert_leaves(cuda, shape, r):
     for a, b in zip(cg.colgather_matmul_dual(b1, b2, qt, idx),
                     cg.colgather_matmul_dual_plain(b1, b2, qt, idx)):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2048, 24), (24, 64, 32), (8192, 16),
+                                   (16384, 9)])
+def test_cuda_kernels_on_stacked_vector_leaves(cuda, shape):
+    """The four DCT-AdamW kernels at the narrow leaves of the recurrent
+    families (rwkv6's stacked mixes, n = 24, and ``bonus_u``, n = 32;
+    jamba's router, n = 16, and full-depth ``d_skip``, n = 9: off the bf16
+    K step of 16 and odd), every column selected (r = n), against their
+    plain versions: fp32 at 1e-5, bf16 ``dct_project`` at LOWP_RTOL and the
+    bf16 colgather at LOWP_TC_RTOL of max |out|, int8 bit for bit; and the
+    "fft" route's S (the Makhoul transform, at odd n too) within 1e-5 of
+    the kernel's."""
+    from repro_torch.core.dct import makhoul_dct2
+    from repro_torch.kernels import lowp
+    *batch, m, n = shape
+    g = torch.from_numpy(_rand(shape, 16)).to(cuda)
+    q = dct2_matrix(n, device=cuda)
+    qt = q.T.contiguous()
+    s, norms = dp.dct_project(g, q)
+    s_p, norms_p = dp.dct_project_plain(g, q)
+    torch.testing.assert_close(s, s_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(norms, norms_p, rtol=1e-5, atol=0)
+    _assert_rel_max(makhoul_dct2(g), s_p, 1e-5)
+    idx = torch.arange(n, dtype=torch.int32, device=cuda).expand(
+        *batch, n).contiguous()
+    b1 = torch.from_numpy(_rand((*batch, m, n), 17)).to(cuda)
+    b2 = torch.from_numpy(_rand((*batch, m, n), 18)).to(cuda)
+    for a, b in zip(cg.colgather_matmul_dual(b1, b2, qt, idx),
+                    cg.colgather_matmul_dual_plain(b1, b2, qt, idx)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    qk, sk = qe.quantize_ef(g)
+    qp, sp = qe.quantize_ef_plain(g)
+    assert torch.equal(sk, sp) and (qk.int() - qp.int()).abs().max() <= 1
+    assert torch.equal(qe.dequant_add_ef(g, qk, sk),
+                       qe.dequant_add_ef_plain(g, qk, sk))
+    s, _ = dp.dct_project(g, q, compute_dtype="bf16")
+    _assert_rel_max(s, dp.dct_project_plain(g, q, compute_dtype="bf16")[0],
+                    LOWP_RTOL)
+    gq, sg = lowp.quant_rows(g)
+    qq, sq = lowp.quant_cols(q)
+    assert torch.equal(dp.dct_project(g, q, compute_dtype="int8")[0],
+                       dp.dct_project_q8_plain(gq, sg, qq, sq)[0])
+    for a, b in zip(cg.colgather_matmul_dual(b1, b2, qt, idx,
+                                             compute_dtype="bf16"),
+                    cg.colgather_matmul_dual_plain(b1, b2, qt, idx,
+                                                   compute_dtype="bf16")):
+        _assert_rel_max(a, b, LOWP_TC_RTOL)
+    for a, b in zip(cg.colgather_matmul_dual(b1, b2, qt, idx,
+                                             compute_dtype="int8"),
+                    cg.colgather_matmul_dual_plain(b1, b2, qt, idx,
+                                                   compute_dtype="int8")):
+        assert torch.equal(a, b)

@@ -136,6 +136,17 @@ def test_moe_modules_import_without_jax_or_repro(probe, name):
     assert name in probe[1].split()
 
 
+# the modules of the recurrent-families slice
+RECURRENT_MODULES = ("repro_torch.models.mamba", "repro_torch.models.rwkv",
+                     "repro_torch.configs.jamba15_large_398b",
+                     "repro_torch.configs.rwkv6_1p6b")
+
+
+@pytest.mark.parametrize("name", RECURRENT_MODULES)
+def test_recurrent_modules_import_without_jax_or_repro(probe, name):
+    assert name in probe[1].split()
+
+
 def _reference_all(pkg: str) -> list[str]:
     """``__all__`` of ``repro/<pkg>/__init__.py``, read without importing
     it (this file imports no JAX)."""
@@ -182,6 +193,10 @@ RUNTIME_NAMES = {
                                        "block_apply", "MLA_KINDS",
                                        "MOE_KINDS", "block_decode"),
     "repro_torch.models.moe": ("MoEParams", "init_moe", "moe_ffn"),
+    "repro_torch.models.mamba": ("init_mamba", "mamba_mix",
+                                 "init_mamba_cache", "mamba_step"),
+    "repro_torch.models.rwkv": ("init_rwkv", "time_mix", "channel_mix",
+                                "time_mix_step", "channel_mix_step"),
 }
 
 
@@ -219,7 +234,7 @@ CARD_SCRIPTS = ("attention_kernels_probe.py", "backproject_probe.py",
                 "dct_project_probe.py", "ns_apply_tiles_probe.py",
                 "runtime_probe.py", "sanitize_kernels.py", "deepseek_probe.py",
                 "substrate_probe.py", "telemetry_probe.py",
-                "tf32_mma_probe.py")
+                "tf32_mma_probe.py", "recurrent_probe.py")
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -411,10 +411,28 @@ TRAJECTORY_CASES = [
 ]
 
 
-def _trajectory(kw, steps=10):
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The module's port calls on one intra-op thread (restored after):
+    with the suite's parallel workers, each process's pool of threads
+    spinning on these small tensors stalls every op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    """The smoke llama's JAX parameters, drawn once for the module's
+    trajectories (immutable arrays: every case starts from the same
+    values, as each drew them before)."""
+    return JT.init_params(JAX_CFG, jax.random.PRNGKey(0))
+
+
+def _trajectory(kw, jparams, steps=10):
     jopt = jax_get_optimizer("dct_adamw", lr=jax_cosine(0.01, 2, steps), **kw)
     topt = get_optimizer("dct_adamw", lr=cosine_warmup(0.01, 2, steps), **kw)
-    jparams = JT.init_params(JAX_CFG, jax.random.PRNGKey(0))
     jstate = JS.TrainState(jnp.zeros((), jnp.int32), jparams,
                            jopt.init(jparams))
     tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams),
@@ -437,9 +455,10 @@ def _trajectory(kw, steps=10):
 @pytest.mark.parametrize("fused", ["on", "fft"])
 @pytest.mark.parametrize("case", TRAJECTORY_CASES,
                          ids=lambda kw: "-".join(f"{v}" for v in kw.values()))
-def test_ten_step_lowp_trajectory_matches_jax(case, fused):
+def test_ten_step_lowp_trajectory_matches_jax(jax_params, case, fused):
     tls, jls, tstate = _trajectory(dict(rank=16, fused=fused,
-                                        weight_decay=0.01, **case))
+                                        weight_decay=0.01, **case),
+                                   jax_params)
     np.testing.assert_allclose(tls, jls, rtol=LOWP_TRAJECTORY_RTOL)
     assert tls[-1] < tls[0] - 0.5
     if case.get("error_feedback") is False:

@@ -149,7 +149,7 @@ def test_cli_default_device_raises_without_cuda():
 
 @pytest.mark.parametrize("argv", [["--zero", "1"], ["--tune-cache", "x"],
                                   ["--optimizer", "adamw", "--fused", "on"],
-                                  ["--arch", "rwkv6-1.6b"]])
+                                  ["--arch", "whisper-large-v3"]])
 def test_cli_unported_choices_fail(argv):
     with pytest.raises((SystemExit, NotImplementedError)):
         train_cli.main(["--smoke", "--device", "cpu", "--steps", "1", *argv])

@@ -41,13 +41,18 @@ def _path(kp) -> str:
     return "/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in kp)
 
 
-def pair(jax_cfg, bias_std: float = 0.5, seed: int = 0):
+def pair(jax_cfg, bias_std: float = 0.5, seed: int = 0, special=None):
     """JAX parameters of ``jax_cfg`` drawn by numpy (qkv biases from N(0,
-    bias_std)) and the port's copy of them."""
+    bias_std)) and the port's copy of them. ``special(path, shape, rng)``,
+    where given, draws the leaves it returns an array for (None: the rule
+    above)."""
     rng = np.random.default_rng(seed)
 
     def draw(kp, x):
         path = _path(kp)
+        value = special(path, x.shape, rng) if special else None
+        if value is not None:
+            return jnp.asarray(value.astype(np.float32)).astype(x.dtype)
         if "norm" in path or "ln" in path:
             value = np.zeros(x.shape, np.float32)
         elif path.endswith("bias"):
