@@ -12,12 +12,19 @@ or ``repro``: the JAX state's containers are recognised by their fields.
   Mamba block's ``mamba/{in_proj,x_proj,out_proj}/kernel``,
   ``mamba/conv/{kernel,bias}``, ``mamba/dt_proj/{kernel,bias}``,
   ``mamba/a_log`` and ``mamba/d_skip``; an RWKV block's ``tm/*`` and
-  ``cm/*`` leaves and its layer norms' ``ln{1,2}/{scale,bias}``).
+  ``cm/*`` leaves and its layer norms' ``ln{1,2}/{scale,bias}``; the
+  encoder-decoder's ``encoder/blocks/*`` (stacked over the encoder's
+  layers), ``encoder/ln_post/{scale,bias}`` and ``final_norm/bias``, its
+  blocks' biases ``attn/w{q,k,v,o}/bias``, ``xattn/*``, ``mlp/w{i,o}/*`` and
+  ``ln3``; a ``cross`` block's ``xattn/*`` and its fp32 gates
+  ``gate_attn`` / ``gate_mlp`` of shape (repeats,)).
 * ``pools_from_jax`` does the same for a serving cache (the paged pools, the
   prefill scratch or the dense decode cache: a list of segments), under
   ``segments/{i}/p{j}/k`` and ``/v``, an MLA layer's latent cache
   ``segments/{i}/p{j}/ckv`` and ``/krope``, a Mamba layer's ``conv`` and
-  ``ssm`` or an RWKV layer's ``x_prev_tm``, ``x_prev_cm`` and ``wkv``.
+  ``ssm``, an RWKV layer's ``x_prev_tm``, ``x_prev_cm`` and ``wkv``, or a
+  ``dec`` layer's ``k``, ``v``, ``xk`` and ``xv`` (a ``cross`` layer's
+  ``xk`` and ``xv``).
 * ``opt_state_from_jax`` turns the ``ChainState`` of one of ``repro``'s
   presets into the port's ``ChainState``. The matrix-optimizer presets
   (``dct_adamw``, ``ldadamw``, ``galore``, ``frugal``, ``fira``, ``trion``,

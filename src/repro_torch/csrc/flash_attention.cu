@@ -1,15 +1,19 @@
 // Dense online-softmax attention (flash attention forward) for Hopper, in
 // fp32 on the tensor cores by 3xTF32: the fp32 prefill's route.
 //
-// Replaces repro/kernels/flash_attention.py::_kernel. q (B, S, Hq, hd) and
-// k, v (B, S, Hkv, hd) are read in the model's layout through their
+// Replaces repro/kernels/flash_attention.py::_kernel. q (B, Sq, Hq, hd) and
+// k, v (B, Skv, Hkv, hd) are read in the model's layout through their
 // strides; query head h reads kv head h / (Hq / Hkv), so GQA needs no
-// K/V expansion in memory. Out (B, S, Hq, hd) is contiguous, in q's dtype.
+// K/V expansion in memory. Out (B, Sq, Hq, hd) is contiguous, in q's dtype.
+// Keys of their own length (Skv != Sq) come without a mask: an encoder's
+// bidirectional attention, a decoder's cross-attention over the encoder's
+// frames (the wrapper refuses them under a causal or window mask, where
+// the TPU kernel's contract wants one length).
 //
 // What it computes is the TPU kernel's function: q, k, v upcast to fp32;
 // s = (q . k) * scale with scale = 1 / sqrt(hd) (a multiply, as there);
 // masked entries (causal: key > query; window: query - key >= window; a
-// key past S) set to -1e30; the running max m, sum l and the accumulator
+// key past Skv) set to -1e30; the running max m, sum l and the accumulator
 // in fp32, P not rounded before P.V; O = acc / max(l, 1e-30). Both
 // products run as 3xTF32: each fp32 operand x is split into hi = x
 // truncated to TF32 and lo = x - hi (mma.cuh's split_tf32), and a.b is
@@ -31,7 +35,7 @@
 //   * One CTA of 4 warps per (block of 64 query rows, q head, batch row),
 //     blocks with the longest walks issued first; each warp owns 16 rows.
 //     It walks the key tiles that hold an unmasked pair for some row of
-//     its block: [lo, hi) with hi the causal diagonal (or S) and lo the
+//     its block: [lo, hi) with hi the causal diagonal (or Skv) and lo the
 //     window's first key of the block's first row, as the TPU kernel's
 //     `pl.when` skip. Masking runs only on tiles that may hold a masked
 //     pair for some row of the warp.
@@ -58,8 +62,9 @@
 //     into hi/lo, unrounded otherwise. The accumulator stays in registers
 //     for the walk; the row max and sum across the 4 lanes that share a
 //     row by shuffles, l kept per lane and summed once at the end.
-//   * Rows past S and dims past hd are zero-filled, so any S >= 1 and any
-//     hd <= 256 work (padded to 32, 64, 96, 128, 192 or 256).
+//   * Rows past Sq (Q) or Skv (K, V) and dims past hd are zero-filled, so
+//     any Sq, Skv >= 1 and any hd <= 256 work (padded to 32, 64, 96, 128,
+//     192 or 256); keys past Skv in the last tile are masked.
 //   * No atomics; every sum runs in a fixed order and each output row is
 //     written by one CTA, so two launches are bit-identical.
 #include <cstdint>
@@ -175,7 +180,7 @@ __device__ __forceinline__ void parts4(const float* p, unsigned (&hi)[4], unsign
 template <typename T, int HDP, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    T* __restrict__ out, int s, int hq, int group, int hd, Strides qst,
+                    T* __restrict__ out, int s, int skv, int hq, int group, int hd, Strides qst,
                     Strides kst, Strides vst, int causal, int window, float scale) {
   using TL = Tile<HDP>;
   constexpr int kBK = TL::kBK, kLdk = TL::kLdk, kLdv = TL::kLdv;
@@ -200,15 +205,15 @@ flash_attention_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   // the K/V tiles with an unmasked pair for some row of this block
   const int q_last = min(q0 + kBQ, s) - 1;
-  const int k_end = causal ? q_last + 1 : s;
+  const int k_end = causal ? q_last + 1 : skv;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
   const int n_tiles = (k_end - k_begin + kBK - 1) / kBK;
 
   auto issue = [&](int it) {
     float* ks = ring + (it & 1) * TL::kSlot;
     const int k0 = k_begin + it * kBK;
-    load_rows<T, HDP, kVec, kBK>(ks, kLdk, kp, kst.s, k0, s, hd);
-    load_rows<T, HDP, kVec, kBK>(ks + TL::kK, kLdv, vp, vst.s, k0, s, hd);
+    load_rows<T, HDP, kVec, kBK>(ks, kLdk, kp, kst.s, k0, skv, hd);
+    load_rows<T, HDP, kVec, kBK>(ks + TL::kK, kLdv, vp, vst.s, k0, skv, hd);
   };
   load_rows<T, HDP, kVec, kBQ>(qs, kLdk, qp, qst.s, q0, s, hd);
   mma::cp_async_commit();
@@ -304,7 +309,7 @@ flash_attention_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
     // scale and mask, only where some key of the tile may be masked for
     // some row of the warp (a warp-uniform test)
-    const bool need_mask = k0 + kBK > s || (causal && k0 + kBK - 1 > row_w) ||
+    const bool need_mask = k0 + kBK > skv || (causal && k0 + kBK - 1 > row_w) ||
                            (window > 0 && k0 <= row_w + 15 - window);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -314,7 +319,7 @@ flash_attention_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* _
         float x = sc[n][e] * scale;
         if (need_mask) {
           const int row = rows[e >> 1], key = k0 + 8 * n + 2 * t + (e & 1);
-          bool ok = key < s;
+          bool ok = key < skv;
           if (causal) ok = ok && key <= row;
           if (window > 0) ok = ok && row - key < window;
           x = ok ? x : kNegInf;
@@ -394,8 +399,8 @@ flash_attention_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* _
 }
 
 template <typename T, int HDP, bool kVec>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b, int s, int hq,
-                   int hkv, int hd, Strides qst, Strides kst, Strides vst, int causal,
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b, int s, int skv,
+                   int hq, int hkv, int hd, Strides qst, Strides kst, Strides vst, int causal,
                    int window, float scale, cudaStream_t stream) {
   constexpr size_t smem = Tile<HDP>::kSmem;
   static_assert(smem <= 227 * 1024, "tiles exceed shared memory");
@@ -409,17 +414,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
                   static_cast<unsigned>(b));
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), s, hq, hq / hkv, hd, qst, kst, vst, causal, window, scale);
+      static_cast<T*>(out), s, skv, hq, hq / hkv, hd, qst, kst, vst, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T, bool kVec>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int b, int s,
-                     int hq, int hkv, int hd, Strides qst, Strides kst, Strides vst, int causal,
-                     int window, float scale, cudaStream_t stream) {
+                     int skv, int hq, int hkv, int hd, Strides qst, Strides kst, Strides vst,
+                     int causal, int window, float scale, cudaStream_t stream) {
 #define REPRO_FA_CASE(HDP)                                                                   \
-  return launch<T, HDP, kVec>(q, k, v, out, b, s, hq, hkv, hd, qst, kst, vst, causal, window, \
-                              scale, stream)
+  return launch<T, HDP, kVec>(q, k, v, out, b, s, skv, hq, hkv, hd, qst, kst, vst, causal,    \
+                              window, scale, stream)
   if (hd <= 32) REPRO_FA_CASE(32);
   if (hd <= 64) REPRO_FA_CASE(64);
   if (hd <= 96) REPRO_FA_CASE(96);
@@ -431,34 +436,36 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int
 
 }  // namespace
 
-// q (B, S, Hq, hd), k / v (B, S, Hkv, hd) with the given element strides of
-// the batch, sequence and head axes (the head dim contiguous), all three
+// q (B, S, Hq, hd), k / v (B, Skv, Hkv, hd) with the given element strides
+// of the batch, sequence and head axes (the head dim contiguous), all three
 // of one dtype (fp32, or bf16 with is_bf16, upcast); out (B, S, Hq, hd)
-// contiguous in that dtype. window <= 0 means no window. The caller checks
-// the grid limits (Hq, B < 65536).
+// contiguous in that dtype. window <= 0 means no window; Skv != S only
+// without a mask (the caller checks). The caller checks the grid limits
+// (Hq, B < 65536).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                     int b, int s, int hq, int hkv, int hd, long long q_sb,
+                                     int b, int s, int skv, int hq, int hkv, int hd, long long q_sb,
                                      long long q_ss, long long q_sh, long long k_sb,
                                      long long k_ss, long long k_sh, long long v_sb,
                                      long long v_ss, long long v_sh, int causal, int window,
                                      float scale, int is_bf16, void* stream) {
   if (b <= 0 || s <= 0 || hq <= 0) return static_cast<int>(cudaSuccess);
-  if (hkv <= 0 || hq % hkv || hd <= 0 || hd > 256)
+  if (skv <= 0 || hkv <= 0 || hq % hkv || hd <= 0 || hd > 256 ||
+      (skv != s && (causal || window > 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qst{q_sb, q_ss, q_sh}, kst{k_sb, k_ss, k_sh}, vst{v_sb, v_ss, v_sh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return static_cast<int>(dispatch<bf16, false>(q, k, v, out, b, s, hq, hkv, hd, qst, kst,
-                                                  vst, causal, window, scale, st));
+    return static_cast<int>(dispatch<bf16, false>(q, k, v, out, b, s, skv, hq, hkv, hd, qst,
+                                                  kst, vst, causal, window, scale, st));
   // 16-byte copies need every row of q, k and v on 16 bytes and hd % 4 == 0
   bool vec = hd % 4 == 0;
   for (const void* p : {q, k, v}) vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
   for (long long st4 : {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh})
     vec = vec && st4 % 4 == 0;
   const cudaError_t rc =
-      vec ? dispatch<float, true>(q, k, v, out, b, s, hq, hkv, hd, qst, kst, vst, causal,
-                                  window, scale, st)
-          : dispatch<float, false>(q, k, v, out, b, s, hq, hkv, hd, qst, kst, vst, causal,
-                                   window, scale, st);
+      vec ? dispatch<float, true>(q, k, v, out, b, s, skv, hq, hkv, hd, qst, kst, vst,
+                                  causal, window, scale, st)
+          : dispatch<float, false>(q, k, v, out, b, s, skv, hq, hkv, hd, qst, kst, vst,
+                                   causal, window, scale, st);
   return static_cast<int>(rc);
 }

@@ -7,11 +7,11 @@
 //   * s = (q . k) with bf16 products summed in fp32 (mma.sync), times
 //     scale = 1 / sqrt(hd) rounded to fp32 (PyTorch's division by a scalar
 //     on the card); masked scores (causal: key > query; window: query -
-//     key >= window; a key past S or past the chunk) are -1e30;
+//     key >= window; a key past Skv or past the chunk) are -1e30;
 //   * the running max m is taken once per kv chunk of `chunk` keys (the
-//     wrapper resolves the model's rule: min(kv_chunk, S), or S when S is
-//     not a multiple of it), not per tile: m_new = max(m, max of the
-//     chunk's scores);
+//     wrapper resolves the model's rule on the keys' length: min(kv_chunk,
+//     Skv), or Skv when Skv is not a multiple of it), not per tile: m_new =
+//     max(m, max of the chunk's scores);
 //   * p = expf(s - m_new) in fp32 (the accurate expf); l sums the fp32 p;
 //     P is rounded to bf16 before P . V, which sums in fp32;
 //   * the accumulator and l are rescaled by expf(m - m_new) once per chunk;
@@ -22,6 +22,10 @@
 // always holds its diagonal), and the garbage of a skipped tile in a
 // fully masked chunk is wiped all the same. Skipping a tile inside a chunk
 // leaves the chunk's max unchanged.
+//
+// Keys of their own length (Skv != Sq: a cross-attention's queries against
+// an image's 6400 patch embeddings, one chunk of 6400) come without a mask
+// (the wrapper refuses them under a causal or window mask).
 //
 // Bound: operations. 4 * hd flops per unmasked (query, key) pair against
 // 2 * hd K/V bytes that a tile shares among 64 queries.
@@ -35,7 +39,7 @@
 //     fragments in registers (ldmatrix); above, registers go to the
 //     accumulator and Q fragments are read from shared memory per step.
 //   * K/V tiles of 64 keys arrive by cp.async (16 bytes a thread, rows past
-//     S and dims past hd zero-filled) into a ring of slots of two tiles, 3
+//     Skv and dims past hd zero-filled) into a ring of slots of two tiles, 3
 //     slots for hd <= 64 (three CTAs still fit an SM) and 2 above: the next
 //     steps load while this one computes. Rows are padded by 16 bytes so
 //     ldmatrix reads them without bank conflicts.
@@ -205,8 +209,9 @@ __device__ __forceinline__ void tile_scores(float (&sc)[8][4], const unsigned (*
 template <int HDP>
 __global__ void __launch_bounds__(kThreads, Tile<HDP>::kMinBlocks)
 flash_attention_blockwise_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                              const bf16* __restrict__ v, bf16* __restrict__ out, int s, int hq,
-                              int group, int hd, int vd, Strides qst, Strides kst, Strides vst,
+                              const bf16* __restrict__ v, bf16* __restrict__ out, int s, int skv,
+                              int hq, int group, int hd, int vd, Strides qst, Strides kst,
+                              Strides vst,
                               int causal, int window, int chunk, float scale) {
   using T = Tile<HDP>;
   constexpr int kLd = T::kLd;
@@ -228,7 +233,7 @@ flash_attention_blockwise_fwd(const bf16* __restrict__ q, const bf16* __restrict
   const bf16* vp = v + b * vst.b + hk * vst.h;
 
   const int q_last = min(q0 + kBQ, s) - 1;
-  const int hi = causal ? q_last + 1 : s;
+  const int hi = causal ? q_last + 1 : skv;
   const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int last_chunk = (hi - 1) / chunk;
   Walk prod{lo / chunk, 0, 0, lo, hi, chunk};
@@ -237,11 +242,11 @@ flash_attention_blockwise_fwd(const bf16* __restrict__ q, const bf16* __restrict
   // a step's slot: K tile, then the second K tile (pass 0) or the V tile
   auto issue = [&](const Walk& w, int slot) {
     bf16* ks = ring + slot * 2 * kBK * kLd;
-    load_rows<HDP>(ks, kp, kst.s, w.key0(), s, hd);
+    load_rows<HDP>(ks, kp, kst.s, w.key0(), skv, hd);
     if (w.pass == 1)
-      load_rows<HDP>(ks + kBK * kLd, vp, vst.s, w.key0(), s, vd);
+      load_rows<HDP>(ks + kBK * kLd, vp, vst.s, w.key0(), skv, vd);
     else if (w.pair())
-      load_rows<HDP>(ks + kBK * kLd, kp, kst.s, w.key0() + kBK, s, hd);
+      load_rows<HDP>(ks + kBK * kLd, kp, kst.s, w.key0() + kBK, skv, hd);
   };
 
   load_rows<HDP>(qs, qp, qst.s, q0, s, hd);
@@ -280,7 +285,7 @@ flash_attention_blockwise_fwd(const bf16* __restrict__ q, const bf16* __restrict
     }
     const bf16* ks = ring + (step % kStages) * 2 * kBK * kLd;
     const int key0 = cons.key0();
-    const int kstop = min((cons.chunk + 1) * chunk, s);
+    const int kstop = min((cons.chunk + 1) * chunk, skv);
     float sc[8][4];
 
     if (cons.pass == 0) {
@@ -358,9 +363,9 @@ flash_attention_blockwise_fwd(const bf16* __restrict__ q, const bf16* __restrict
 }
 
 template <int HDP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b, int s, int hq,
-                   int hkv, int hd, int vd, Strides qst, Strides kst, Strides vst, int causal,
-                   int window, int chunk, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b, int s, int skv,
+                   int hq, int hkv, int hd, int vd, Strides qst, Strides kst, Strides vst,
+                   int causal, int window, int chunk, float scale, cudaStream_t stream) {
   constexpr size_t smem = Tile<HDP>::kSmem;
   static_assert(smem <= 227 * 1024, "tiles exceed shared memory");
   auto kernel = flash_attention_blockwise_fwd<HDP>;
@@ -373,36 +378,37 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
                   static_cast<unsigned>(b));
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), s, hq, hq / hkv, hd, vd, qst, kst, vst, causal, window, chunk,
-      scale);
+      static_cast<bf16*>(out), s, skv, hq, hq / hkv, hd, vd, qst, kst, vst, causal, window,
+      chunk, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q (B, S, Hq, hd), k (B, S, Hkv, hd), v (B, S, Hkv, vd) bf16 with the
+// q (B, S, Hq, hd), k (B, Skv, Hkv, hd), v (B, Skv, Hkv, vd) bf16 with the
 // given element strides of the batch, sequence and head axes (the head dim
 // contiguous, every row on 16 bytes); out (B, S, Hq, vd) contiguous bf16.
-// hd and vd multiples of 16 up to 256; window <= 0 means none; chunk: the
-// model's effective kv chunk (>= 1); sqrt_hd: sqrt(hd) rounded to fp32,
+// hd and vd multiples of 16 up to 256; window <= 0 means none; Skv != S
+// only without a mask; chunk: the model's effective kv chunk of Skv keys
+// (>= 1); sqrt_hd: sqrt(hd) rounded to fp32,
 // whose fp32 reciprocal scales the scores. The caller checks the grid
 // limits (Hq, B < 65536).
 extern "C" int repro_flash_attention_blockwise(
-    const void* q, const void* k, const void* v, void* out, int b, int s, int hq, int hkv,
-    int hd, int vd, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    const void* q, const void* k, const void* v, void* out, int b, int s, int skv, int hq,
+    int hkv, int hd, int vd, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh, int causal,
     int window, int chunk, float sqrt_hd, void* stream) {
   if (b <= 0 || s <= 0 || hq <= 0) return static_cast<int>(cudaSuccess);
-  if (hkv <= 0 || hq % hkv || hd <= 0 || hd % 16 || hd > 256 || vd <= 0 || vd % 16 ||
-      vd > 256 || chunk <= 0)
+  if (skv <= 0 || hkv <= 0 || hq % hkv || hd <= 0 || hd % 16 || hd > 256 || vd <= 0 ||
+      vd % 16 || vd > 256 || chunk <= 0 || (skv != s && (causal || window > 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qst{q_sb, q_ss, q_sh}, kst{k_sb, k_ss, k_sh}, vst{v_sb, v_ss, v_sh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale = 1.0f / sqrt_hd;
 #define REPRO_FA_CASE(n)                                                                   \
   case n:                                                                                  \
-    return static_cast<int>(launch<32 * n>(q, k, v, out, b, s, hq, hkv, hd, vd, qst, kst, vst, \
-                                           causal, window, chunk, scale, st));
+    return static_cast<int>(launch<32 * n>(q, k, v, out, b, s, skv, hq, hkv, hd, vd, qst, kst, \
+                                           vst, causal, window, chunk, scale, st));
   switch (((hd > vd ? hd : vd) + 31) / 32) {
     REPRO_FA_CASE(1)
     REPRO_FA_CASE(2)
@@ -412,8 +418,8 @@ extern "C" int repro_flash_attention_blockwise(
     REPRO_FA_CASE(6)
     REPRO_FA_CASE(7)
     default:
-      return static_cast<int>(launch<256>(q, k, v, out, b, s, hq, hkv, hd, vd, qst, kst, vst,
-                                          causal, window, chunk, scale, st));
+      return static_cast<int>(launch<256>(q, k, v, out, b, s, skv, hq, hkv, hd, vd, qst, kst,
+                                          vst, causal, window, chunk, scale, st));
   }
 #undef REPRO_FA_CASE
 }

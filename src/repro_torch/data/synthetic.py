@@ -58,18 +58,35 @@ class SyntheticLM:
         return {"tokens": mixed[:, :-1], "targets": mixed[:, 1:]}
 
 
+def stub_inputs(cfg, batch: int, gen: torch.Generator, device) -> dict:
+    """The stub modality frontends' inputs of ``batch`` rows where the
+    config has them, as the JAX package makes them: ``frames`` (batch,
+    encoder_seq, d) for an encoder-decoder and ``image_embeds`` (batch,
+    n_image_tokens, d) for a VLM, each 0.02 * N(0, 1) drawn from ``gen``
+    and cast to the compute dtype."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    lengths = {"frames": cfg.encoder_seq if cfg.encoder_layers else 0,
+               "image_embeds": cfg.n_image_tokens}
+    return {name: 0.02 * torch.randn((batch, n, cfg.d_model), generator=gen,
+                                     device=device).to(cdt)
+            for name, n in lengths.items() if n}
+
+
 def make_batch_fn(cfg, seq_len: int, global_batch: int, seed: int = 0,
                   device=None):
-    """``step -> batch`` on ``device`` (None: the card). Only token inputs
-    are ported (no audio-frame or image-embedding stubs)."""
-    if cfg.encoder_layers or cfg.n_image_tokens:
-        raise NotImplementedError("synthetic frames / image embeddings are "
-                                  "not yet ported to repro_torch")
+    """``step -> batch`` on ``device`` (None: the card), with
+    ``stub_inputs`` where the config has them, deterministic in (seed,
+    step). The stubs come from another stream than the tokens: a
+    ``torch.Generator`` seeded with ``(seed + 1, step)`` (the JAX package
+    folds the step into ``PRNGKey(seed + 1)``; the numbers differ)."""
     device = resolve_device(device)
     ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq_len,
                      global_batch=global_batch, seed=seed)
 
     def fn(step: int) -> dict:
-        return ds.batch(step, device)
+        gen = torch.Generator(device=device).manual_seed(
+            (seed + 1) * 1_000_003 + step)
+        return {**ds.batch(step, device),
+                **stub_inputs(cfg, global_batch, gen, device)}
 
     return fn

@@ -61,11 +61,11 @@ SIGNATURES = {
     "repro_flash_decode": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
                            _P),
-    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
-                              _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _P),
+    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L,
+                              _L, _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _P),
     "repro_flash_attention_blockwise": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                        _L, _L, _L, _L, _L, _L, _L, _L, _L, _I,
-                                        _I, _I, _F, _P),
+                                        _I, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                                        _I, _I, _I, _F, _P),
 }
 
 

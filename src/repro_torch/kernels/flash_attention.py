@@ -1,10 +1,15 @@
 """Dense flash attention: online-softmax GQA attention over a whole sequence.
 
-Queries, keys and values share one sequence axis: q (B, S, Hq, hd), k and v
-(B, S, Hkv, hd), query head ``h`` reading kv head ``h // (Hq / Hkv)``. The
-mask is causal (key <= query) and/or a sliding window (query - key <
-``window``). The function is the JAX package's ``flash_attention``: q, k,
-v upcast to fp32, scores times 1/sqrt(hd), masked scores -1e30, softmax in
+q (B, Sq, Hq, hd), k and v (B, Skv, Hkv, hd), query head ``h`` reading kv
+head ``h // (Hq / Hkv)``. The mask is causal (key <= query) and/or a
+sliding window (query - key < ``window``); a masked call wants one length
+(Sq == Skv). A call with no mask takes keys of their own length, as the
+JAX model's ``blockwise_attention`` does: an encoder's bidirectional
+attention, or a cross-attention's queries against an encoder's frames or
+an image's patch embeddings.
+
+The function is the JAX package's ``flash_attention``: q, k, v upcast to
+fp32, scores times 1/sqrt(hd), masked scores -1e30, softmax in
 fp32 with P unrounded, the output in q's dtype. It equals the model's
 ``blockwise_attention`` with ``q_offset = 0`` to within fp32 sums taken in
 another order.
@@ -25,7 +30,8 @@ masked fp32 softmax over the whole sequence.
 ``models/layers.py::blockwise_attention``, which its prefill runs: scores
 from q rounded to k's dtype times k with fp32 sums, divided by sqrt(hd);
 the running max taken once per kv chunk of ``kv_chunk`` keys (``min(
-kv_chunk, S)``, or S when S is not a multiple of it); the denominator
+kv_chunk, Skv)``, or Skv when Skv is not a multiple of it: the rule reads
+the keys' length, not the queries'); the denominator
 summed over the fp32 p; P rounded to v's dtype before P.V, with fp32 sums.
 Its plain version ``blockwise_attention_ref`` is that chunked loop, which
 the model runs for CPU tensors and for every call that takes a gradient.
@@ -49,20 +55,24 @@ from . import cuda_lib
 NEG_INF = -1e30
 
 
-def _check_shapes(q, k, v, window, *, own_vd: bool = False):
-    """(B, S, Hq, hd) / (B, S, Hkv, hd) / (B, S, Hkv, hd) with Hq % Hkv ==
-    0; with ``own_vd`` v's last dim may differ."""
+def _check_shapes(q, k, v, causal, window, *, own_vd: bool = False):
+    """(B, Sq, Hq, hd) / (B, Skv, Hkv, hd) / (B, Skv, Hkv, hd) with Hq % Hkv
+    == 0, and Sq == Skv unless the call has no mask (not causal, no
+    window); with ``own_vd`` v's last dim may differ."""
     vshape = tuple(v.shape[:3]) + ((k.shape[3],) if own_vd else
                                    tuple(v.shape[3:]))
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
-            or tuple(k.shape) != vshape \
-            or k.shape[0] != q.shape[0] or k.shape[1] != q.shape[1] \
+            or tuple(k.shape) != vshape or k.shape[0] != q.shape[0] \
             or k.shape[3] != q.shape[3] or q.shape[2] % k.shape[2]:
         vd = "vd" if own_vd else "hd"
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)} do not fit "
-                         f"(B, S, Hq, hd) / (B, S, Hkv, hd) / (B, S, Hkv, "
-                         f"{vd}), Hq % Hkv == 0")
+                         f"(B, Sq, Hq, hd) / (B, Skv, Hkv, hd) / (B, Skv, "
+                         f"Hkv, {vd}), Hq % Hkv == 0")
+    if k.shape[1] != q.shape[1] and (causal or window is not None):
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)}: keys of their own length take "
+                         f"no causal or window mask")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
 
@@ -71,17 +81,18 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int | None = None
                         ) -> torch.Tensor:
     """Plain version: masked fp32 softmax attention over the whole sequence.
-    q: (B, S, Hq, hd); k, v: (B, S, Hkv, hd). Returns (B, S, Hq, hd) in q's
-    dtype."""
-    _check_shapes(q, k, v, window)
-    s, hq, hd = q.shape[1], q.shape[2], q.shape[3]
+    q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd) (Skv != Sq without a mask).
+    Returns (B, Sq, Hq, hd) in q's dtype."""
+    _check_shapes(q, k, v, causal, window)
+    sq, hq, hd = q.shape[1], q.shape[2], q.shape[3]
+    skv = k.shape[1]
     group = hq // k.shape[2]
     kx = k.repeat_interleave(group, dim=2).float()
     vx = v.repeat_interleave(group, dim=2).float()
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kx) / math.sqrt(hd)
-    qp = torch.arange(s, device=q.device)[:, None]
-    kp = torch.arange(s, device=q.device)[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
     if causal:
         mask &= qp >= kp
     if window is not None:
@@ -112,11 +123,12 @@ def _check_heads(fn: str, q, k, v, *, aligned: bool = False) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None
                     ) -> torch.Tensor:
-    """q: (B, S, Hq, hd); k, v: (B, S, Hkv, hd) with ``Hq % Hkv == 0``, any
-    S >= 1, hd <= 256 on the card, each with a contiguous head dim (other
-    strides are read as they are). ``window``: the sliding window, None for
-    none. Returns (B, S, Hq, hd) contiguous in q's dtype."""
-    _check_shapes(q, k, v, window)
+    """q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd) with ``Hq % Hkv == 0``,
+    any Sq, Skv >= 1 (Skv == Sq under a mask), hd <= 256 on the card, each
+    with a contiguous head dim (other strides are read as they are).
+    ``window``: the sliding window, None for none. Returns (B, Sq, Hq, hd)
+    contiguous in q's dtype."""
+    _check_shapes(q, k, v, causal, window)
     dev = cuda_lib.same_device(q, k, v)
     if dev.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -126,16 +138,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"{v.dtype} must all be float32 or all bfloat16")
     _check_heads("flash_attention", q, k, v)
     b, s, hq, hd = q.shape
-    hkv = k.shape[2]
-    if hd > 256 or hq >= 2**16 or b >= 2**16 or s >= 2**31:
-        raise ValueError(f"flash_attention: head dim {hd} > 256 or shape "
-                         f"{tuple(q.shape)} exceeds the grid")
+    skv, hkv = k.shape[1], k.shape[2]
+    if hd > 256 or hq >= 2**16 or b >= 2**16 or max(s, skv) >= 2**31:
+        raise ValueError(f"flash_attention: head dim {hd} > 256 or shapes "
+                         f"{tuple(q.shape)}, {tuple(k.shape)} exceed the "
+                         f"grid")
     out = torch.empty((b, s, hq, hd), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
     rc = cuda_lib.library().repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, hq,
-        hkv, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, skv,
+        hq, hkv, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         int(causal), window or 0, 1.0 / math.sqrt(hd),
         int(q.dtype == torch.bfloat16), cuda_lib.stream(q))
     cuda_lib.check(rc, "flash_attention")
@@ -147,8 +160,9 @@ flash_attention.launches = 0
 
 
 def effective_kv_chunk(s: int, kv_chunk: int) -> int:
-    """The kv chunk the model's loop takes for S keys: ``min(kv_chunk, S)``,
-    or S when S is not a multiple of it."""
+    """The kv chunk the model's loop takes for S keys (the keys' length,
+    whatever the queries'): ``min(kv_chunk, S)``, or S when S is not a
+    multiple of it."""
     chunk = min(kv_chunk, s)
     return s if s % chunk else chunk
 
@@ -226,13 +240,15 @@ def flash_attention_blockwise(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = True,
                               window: int | None = None, kv_chunk: int = 512
                               ) -> torch.Tensor:
-    """The model's attention (module docstring): q, k (B, S, Hq | Hkv, hd);
-    v (B, S, Hkv, vd), with ``Hq % Hkv == 0``, any S >= 1. On the card:
-    bf16, hd and vd multiples of 16 up to 256, a contiguous head dim and
-    rows on 16 bytes (other strides are read as they are). ``window``: the
-    sliding window, None for none; ``kv_chunk``: the model's
-    ``cfg.kv_chunk``. Returns (B, S, Hq, vd) contiguous in q's dtype."""
-    _check_shapes(q, k, v, window, own_vd=True)
+    """The model's attention (module docstring): q (B, Sq, Hq, hd), k (B,
+    Skv, Hkv, hd), v (B, Skv, Hkv, vd), with ``Hq % Hkv == 0``, any Sq, Skv
+    >= 1 (Skv == Sq under a mask). On the card: bf16, hd and vd multiples
+    of 16 up to 256, a contiguous head dim and rows on 16 bytes (other
+    strides are read as they are). ``window``: the sliding window, None for
+    none; ``kv_chunk``: the model's ``cfg.kv_chunk``, resolved against Skv
+    (``effective_kv_chunk``). Returns (B, Sq, Hq, vd) contiguous in q's
+    dtype."""
+    _check_shapes(q, k, v, causal, window, own_vd=True)
     if kv_chunk < 1:
         raise ValueError(f"flash_attention_blockwise: kv_chunk {kv_chunk} < 1")
     dev = cuda_lib.same_device(q, k, v)
@@ -243,21 +259,22 @@ def flash_attention_blockwise(q: torch.Tensor, k: torch.Tensor,
         raise TypeError(f"flash_attention_blockwise: q {q.dtype}, k "
                         f"{k.dtype}, v {v.dtype} must all be bfloat16")
     b, s, hq, hd = q.shape
-    vd = v.shape[3]
+    skv, vd = k.shape[1], v.shape[3]
     if hd % 16 or hd > 256 or vd % 16 or vd > 256 or hq >= 2**16 \
-            or b >= 2**16 or s >= 2**30:
+            or b >= 2**16 or max(s, skv) >= 2**30:
         raise ValueError(f"flash_attention_blockwise: head dim {hd} or value "
                          f"dim {vd} is not a multiple of 16 up to 256, or "
-                         f"shape {tuple(q.shape)} exceeds the grid")
+                         f"shapes {tuple(q.shape)}, {tuple(k.shape)} exceed "
+                         f"the grid")
     _check_heads("flash_attention_blockwise", q, k, v, aligned=True)
     out = torch.empty((b, s, hq, vd), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
     rc = cuda_lib.library().repro_flash_attention_blockwise(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, hq,
-        k.shape[2], hd, vd, *q.stride()[:3], *k.stride()[:3],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, skv,
+        hq, k.shape[2], hd, vd, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], int(causal), window or 0,
-        effective_kv_chunk(s, kv_chunk), math.sqrt(hd), cuda_lib.stream(q))
+        effective_kv_chunk(skv, kv_chunk), math.sqrt(hd), cuda_lib.stream(q))
     cuda_lib.check(rc, "flash_attention_blockwise")
     flash_attention_blockwise.launches += 1
     return out

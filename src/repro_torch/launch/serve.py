@@ -26,10 +26,16 @@ writes a Prometheus text snapshot ``metrics.prom`` and a Chrome trace
 of the checkout).
 
 ``--engine dense``: one prefill and decode steps over a dense cache for a
-batch of prompts. It serves every ported architecture; ``--engine paged``
-refuses the ones with blocks of no paged layout (deepseek-v3-671b's MLA
-latents, the recurrent state of jamba-1.5-large-398b's Mamba layers and of
-rwkv6-1.6b), with the JAX package's message, before any weight is made.
+batch of prompts. It serves every architecture; ``--engine paged`` refuses
+the ones with blocks of no paged layout (deepseek-v3-671b's MLA latents,
+the recurrent state of jamba-1.5-large-398b's Mamba layers and of
+rwkv6-1.6b, whisper-large-v3's encoder-decoder and llama-3.2-vision-90b's
+cross-attention), with the JAX package's message, before any weight is
+made. whisper-large-v3's prompts come with stub audio frames and
+llama-3.2-vision-90b's with stub image embeddings (0.02 * N(0, 1) in the
+compute dtype, from a ``torch.Generator`` seeded with ``--seed + 1``), the
+precomputed inputs of the frontends that are stubs in both packages
+(``data.synthetic.stub_inputs``).
 Every prompt is ``--prompt-len`` tokens; a model with Mamba layers prefills
 it in one chunked scan, whose rule (the reference's) is a length of at
 most 128 or a multiple of 128: another length raises with that rule.
@@ -59,7 +65,9 @@ def build(argv=None) -> argparse.Namespace:
                          "phi3-mini-3.8b, command-r-plus-104b, "
                          "deepseek-moe-16b; dense engine only: "
                          "deepseek-v3-671b (MLA), jamba-1.5-large-398b "
-                         "(Mamba), rwkv6-1.6b (RWKV)")
+                         "(Mamba), rwkv6-1.6b (RWKV), whisper-large-v3 "
+                         "(encoder-decoder), llama-3.2-vision-90b "
+                         "(cross-attention)")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-sized)")
     ap.add_argument("--engine", choices=["paged", "dense"], default="paged")
@@ -85,14 +93,17 @@ def build(argv=None) -> argparse.Namespace:
 
 
 def run_dense(cfg, params, args, rng, dev) -> dict:
+    from repro_torch.data.synthetic import stub_inputs
     from repro_torch.serve import ServeEngine
 
     eng = ServeEngine(cfg, params, max_len=args.prompt_len + args.new_tokens,
                       temperature=args.temperature, seed=args.seed)
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len))).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    batch = {"tokens": prompts, **stub_inputs(cfg, args.batch, gen, dev)}
     t0 = time.perf_counter()
-    out = eng.generate({"tokens": prompts}, max_new_tokens=args.new_tokens)
+    out = eng.generate(batch, max_new_tokens=args.new_tokens)
     dt = time.perf_counter() - t0
     print(f"arch={args.arch} dense batch={args.batch} device={dev}")
     for i, row in enumerate(out.tolist()):

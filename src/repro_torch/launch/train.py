@@ -81,7 +81,9 @@ def build(argv=None) -> argparse.Namespace:
                          "phi3-mini-3.8b, command-r-plus-104b, "
                          "deepseek-moe-16b, deepseek-v3-671b, "
                          "jamba-1.5-large-398b (--seq-len at most 128 or a "
-                         "multiple of 128), rwkv6-1.6b")
+                         "multiple of 128), rwkv6-1.6b, whisper-large-v3 "
+                         "and llama-3.2-vision-90b (their batches carry "
+                         "stub frames / image embeddings)")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-sized)")
     ap.add_argument("--optimizer", default="trion")

@@ -1,10 +1,9 @@
 """ModelConfig: one dataclass describing every architecture of ``repro``.
 
 A copy of ``repro/models/config.py`` (the port imports nothing of ``repro``).
-This package builds the dense family, the DeepSeek MoE family (the
-``attn_moe`` and MLA blocks) and the recurrent families (the Mamba and
-RWKV blocks) so far (``models.transformer.PORTED_KINDS``); the other fields
-are kept so configurations read the same in both.
+This package builds every block kind and family of it
+(``models.transformer.PORTED_KINDS``); the fields of the JAX package's
+meshes and layouts are kept so configurations read the same in both.
 
 ``schedule`` expresses the layer layout as segments of repeating
 "super-blocks": ``((pattern, repeats), ...)`` where ``pattern`` is a tuple of

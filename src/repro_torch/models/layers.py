@@ -1,5 +1,5 @@
 """Model primitives: init helpers, RMS and layer norm, RoPE, blockwise (and its
-sequence-parallel entry), decode and chunk attention, SwiGLU.
+sequence-parallel entry), decode and chunk attention, SwiGLU and the GELU MLP.
 
 Plain functions on tensors, mirroring ``repro/models/layers.py``. Weights are
 ``(d_in, d_out)`` matrices applied as ``x @ w`` (the JAX layout, not
@@ -13,14 +13,18 @@ product of the rounded operands runs in fp32, never rounded to bf16.
 ``blockwise_attention`` is the JAX package's chunked online softmax
 (``kernels.flash_attention.blockwise_attention_ref``). A call on CUDA
 tensors that takes no gradient (grad mode off, or no input requiring
-grad), with ``q_offset == 0`` and as many queries as keys -- the dense
-prefill's forward under ``torch.inference_mode()`` -- launches a kernel or
-raises: in bf16 ``flash_attention_blockwise``, the same function on tensor
-cores with the model's ``kv_chunk``, also with a value dim of its own
-(MLA's qk 192 beside v 128); in fp32 ``flash_attention``, which equals it
-to within fp32 sums in another order (P's rounding to v's dtype is a no-op
-there), and whose contract (the TPU kernel's) wants the value dim equal to
-the head dim: an fp32 call with another value dim raises. Every other
+grad), with ``q_offset == 0`` -- the dense prefill's forward under
+``torch.inference_mode()`` -- launches a kernel when the queries and keys
+have one length, or when the call is non-causal with no window and the
+keys a length of their own (an encoder's or a cross-attention's keys):
+in bf16 ``flash_attention_blockwise``, the same function on tensor cores
+with the model's ``kv_chunk``, also with a value dim of its own (MLA's qk
+192 beside v 128); in fp32 ``flash_attention``, which equals it to within
+fp32 sums in another order (P's rounding to v's dtype is a no-op there),
+and whose contract (the TPU kernel's) wants the value dim equal to the
+head dim: an fp32 call with another value dim raises. Any other no-grad
+call on the card (a causal or windowed one with keys of another length, a
+``q_offset``) raises, naming the shapes: no kernel takes it. Every other
 call -- CPU tensors, every training forward and backward -- runs the plain
 loop: the JAX package has no backward for a kernel.
 """
@@ -126,9 +130,15 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int | None = None,
     where the module docstring's route sends the call, else the plain loop.
     q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, vd). ``q_offset`` is the
     absolute position of q[0]. Returns (B, Sq, Hq, vd)."""
-    if _on_card(q) and q_offset == 0 and q.shape[1] == k.shape[1] \
-            and not (torch.is_grad_enabled()
-                     and any(t.requires_grad for t in (q, k, v))):
+    if _on_card(q) and not (torch.is_grad_enabled()
+                            and any(t.requires_grad for t in (q, k, v))):
+        if q_offset or (q.shape[1] != k.shape[1]
+                        and (causal or window is not None)):
+            raise ValueError(
+                f"blockwise_attention: no kernel takes a prefill on the card "
+                f"with q {tuple(q.shape)}, k {tuple(k.shape)}, causal="
+                f"{causal}, window={window}, q_offset={q_offset} (keys of "
+                f"their own length only without a mask or an offset)")
         if q.dtype == torch.bfloat16:
             return flash_attention_blockwise(q, k, v, causal=causal,
                                              window=window, kv_chunk=kv_chunk)
@@ -165,6 +175,15 @@ def matmul(x, w):
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
     return x @ w
+
+
+def gelu_mlp(x, wi, bi, wo, bo):
+    """``gelu(x @ wi + bi) @ wo + bo``, GELU by its tanh approximation (the
+    JAX package's ``approximate=True``). The products promote as JAX's do
+    (``matmul``): an fp32 bias beside bf16 weights widens what follows it to
+    fp32."""
+    h = F.gelu(matmul(x, wi) + bi, approximate="tanh")
+    return matmul(h, wo) + bo
 
 
 def decode_attention(q, k_cache, v_cache, *, length=None, window=None,

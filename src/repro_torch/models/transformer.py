@@ -1,52 +1,71 @@
 """The schedule-driven transformer: the dense GQA models (the paper's
 llamas, gemma3-27b, qwen2.5-32b, phi3-mini-3.8b, command-r-plus-104b), the
-DeepSeek MoE family (deepseek-moe-16b, deepseek-v3-671b) and the recurrent
-families (jamba-1.5-large-398b, rwkv6-1.6b).
+DeepSeek MoE family (deepseek-moe-16b, deepseek-v3-671b), the recurrent
+families (jamba-1.5-large-398b, rwkv6-1.6b), the encoder-decoder
+(whisper-large-v3) and the cross-attention VLM (llama-3.2-vision-90b).
 
 Parameters are a flat dict keyed by the JAX tree's leaf paths, with the same
 layouts: segment ``i``, pattern position ``j`` lives under
 ``segments/{i}/p{j}/...`` with a leading stacked axis of ``repeats`` layers,
 e.g. ``segments/0/p0/attn/wq/kernel`` of shape ``(layers, d, hq * hd)``
-applied as ``x @ w``. ``convert.params_from_jax`` carries a JAX parameter
-tree across unchanged.
+applied as ``x @ w``; an encoder's under ``encoder/blocks/...`` (stacked
+``(encoder_layers, ...)``) and ``encoder/ln_post/...``.
+``convert.params_from_jax`` carries a JAX parameter tree across unchanged.
 
-Ported for the families of ``PORTED_FAMILIES`` (``dense``, ``moe``,
-``hybrid``, ``ssm``) with the blocks of ``PORTED_KINDS``: ``attn`` and
-``local`` (sliding window of ``cfg.sliding_window``), with optional qk-norm,
-optional qkv bias (``attn/w{q,k,v}/bias``, added after each projection's
-product) and ``attn_sp`` (``layers.sp_blockwise_attention``, plain blockwise
-attention on one device); ``attn_moe`` (GQA attention and the MoE FFN of
+Every family (``PORTED_FAMILIES``) and block kind (``PORTED_KINDS``) of the
+JAX package: ``attn`` and ``local`` (sliding window of
+``cfg.sliding_window``), with optional qk-norm, optional qkv bias
+(``attn/w{q,k,v}/bias``, added after each projection's product) and
+``attn_sp`` (``layers.sp_blockwise_attention``, plain blockwise attention
+on one device); ``attn_moe`` (GQA attention and the MoE FFN of
 ``models/moe.py``: its leaves under ``moe/``); ``mla_dense`` and ``mla_moe``
 (DeepSeek's multi-head latent attention, ``MLA_KINDS``: the queries and the
 keys / values through low-rank latents, a shared roped key part, a query /
 key head dim of ``qk_nope_dim + qk_rope_dim`` beside a value head dim
 ``v_head_dim``) with a SwiGLU or the MoE FFN; the multi-token prediction
 head (``cfg.mtp``: ``mtp/proj`` and ``mtp/norm``, whose logits predict the
-token after next); and the recurrent blocks of ``RECURRENT_KINDS``:
+token after next); the recurrent blocks of ``RECURRENT_KINDS``:
 ``mamba_dense`` and ``mamba_moe`` (RMS norm, the Mamba mixer of
 ``models/mamba.py``: its leaves under ``mamba/``, then a SwiGLU or the MoE
 FFN) and ``rwkv`` (layer norm with a bias, RWKV-6's time mix, layer norm,
 its channel mix: ``models/rwkv.py``, leaves under ``tm/`` and ``cm/``), each
-a sequence mixer with a constant-size decode state. The entry points:
-``init_params``, ``param_count``, ``cast_params``, the per-block API
-(``ATTN_KINDS``, ``MLA_KINDS``, ``MOE_KINDS``, ``init_block``,
-``block_apply``: the one place a block's math lives) and ``forward``
-(training, and the dense prefill, whose no-grad attention is a kernel on the
-card); the dense decode path (``init_cache``, ``prefill``, ``decode_step``;
-a ``local`` layer keeps a ring of its last ``window`` positions, an MLA
-layer its latent and roped key part, decoded in the absorbed form, a Mamba
-layer its conv tail and SSM state, an RWKV layer its last tokens and WKV
-state); the paged serving path (``init_paged_pools``,
-``init_prefill_scratch``, ``prefill_chunk``, ``write_prefill_to_pools``,
-``decode_step_paged``; ``PAGED_KINDS``: not MLA and no recurrent block, as
-in the JAX package), whose attention is the ``flash_decode`` kernel. The MoE
+a sequence mixer with a constant-size decode state; and the blocks of the
+modality families: ``enc`` (whisper's encoder: layer norms with biases,
+bidirectional attention and a GELU MLP, all with biases), ``dec`` (its
+decoder: causal roped self-attention, cross-attention (``xattn/``) over the
+encoder's output, the GELU MLP) and ``cross`` (llama-3.2-vision's gated
+cross-attention over the image embeddings and a SwiGLU, each scaled by the
+tanh of an fp32 gate). The audio and vision frontends are stubs, as in the
+JAX package: the batch carries precomputed ``frames`` and
+``image_embeds``. The entry points: ``init_params``, ``param_count``,
+``cast_params``, the per-block API (``ATTN_KINDS``, ``MLA_KINDS``,
+``MOE_KINDS``, ``init_block``, ``block_apply``: the one place a block's
+math lives; ``encode``, the encoder) and ``forward`` (training, and the
+dense prefill, whose no-grad attention is a kernel on the card, at the
+encoder's and the cross-attentions' keys too); the dense decode path
+(``init_cache``, ``prefill``, ``decode_step``; a ``local`` layer keeps a
+ring of its last ``window`` positions, a ``dec`` / ``cross`` layer the
+keys and values of its cross-attention, an MLA layer its latent and roped
+key part, decoded in the absorbed form, a Mamba layer its conv tail and
+SSM state, an RWKV layer its last tokens and WKV state); the paged serving
+path (``init_paged_pools``, ``init_prefill_scratch``, ``prefill_chunk``,
+``write_prefill_to_pools``, ``decode_step_paged``; ``PAGED_KINDS``: not
+MLA, no recurrent block and no encoder-decoder or cross-attention, as in
+the JAX package), whose attention is the ``flash_decode`` kernel. The MoE
 blocks sum their load-balance losses into ``aux["moe_aux"]``. Not yet
-ported: the other block kinds and families (encoder-decoder, VLM, with
-``encode``), and the mesh of sequence-parallel attention and of expert
+ported: the mesh of sequence-parallel attention and of expert
 parallelism.
 
+As in the JAX package, an fp32 leaf beside bf16 activations widens what
+follows it: whisper's fp32 biases make its attention and MLPs run in fp32
+under bf16 compute, and the fp32 gates of a ``cross`` block make its output
+fp32 (``_gated``: torch would keep bf16 beside a 0-d tensor). The
+residual stream is pinned to the compute dtype after every block.
+
 Caches and pools are flat dicts too, keyed like the JAX trees:
-``segments/{i}/p{j}/k`` and ``.../v``, or an MLA layer's
+``segments/{i}/p{j}/k`` and ``.../v``, a ``dec`` layer's also ``.../xk``
+and ``.../xv`` (R, B, encoder_seq, Hkv, hd), a ``cross`` layer's ``xk`` and
+``xv`` (R, B, n_image_tokens, Hkv, hd) alone, or an MLA layer's
 ``segments/{i}/p{j}/ckv`` (R, B, S, kv_lora_rank) and ``.../krope`` (R, B,
 S, qk_rope_dim); a Mamba layer's ``conv`` (R, B, K-1, d_inner) and ``ssm``
 (R, B, d_inner, state) fp32; an RWKV layer's ``x_prev_tm`` and ``x_prev_cm``
@@ -72,6 +91,7 @@ from .layers import (
     decode_attention,
     dense_init,
     embed_init,
+    gelu_mlp,
     layer_norm,
     matmul,
     rms_norm,
@@ -93,10 +113,13 @@ MOE_KINDS = ("attn_moe", "mla_moe", "mamba_moe")
 MAMBA_KINDS = ("mamba_dense", "mamba_moe")
 #: the sequence mixers with a constant-size decode state
 RECURRENT_KINDS = (*MAMBA_KINDS, "rwkv")
-#: the block kinds and model families this package builds
-PORTED_KINDS = ("attn", "local", "attn_moe", "mla_dense", "mla_moe",
-                *RECURRENT_KINDS)
-PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
+#: the block kinds and model families this package builds: all of the
+#: reference's
+PORTED_KINDS = (*ATTN_KINDS, *MLA_KINDS, *RECURRENT_KINDS)
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec", "vlm")
+#: the kinds whose norms are layer norms with a bias (scale ones, bias
+#: zeros), not RMS norms
+LAYER_NORM_KINDS = ("rwkv", "enc", "dec")
 
 
 def _check_ported(cfg) -> None:
@@ -111,8 +134,8 @@ def _check_ported(cfg) -> None:
 
 def _check_kind(kind: str) -> None:
     if kind not in PORTED_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is not yet ported to "
-                                  f"repro_torch (ported: {PORTED_KINDS})")
+        raise ValueError(f"unknown block kind {kind!r} (the kinds: "
+                         f"{PORTED_KINDS})")
 
 
 def _window(kind: str, cfg) -> int | None:
@@ -137,13 +160,17 @@ def init_params(cfg, seed: int = 0, device=None) -> dict[str, torch.Tensor]:
     if not cfg.tie_embeddings:
         params["unembed/kernel"] = embed_init(gen, cfg.vocab_size, d, dt,
                                               device=dev)
-    params["final_norm/scale"] = torch.zeros(d, dtype=torch.float32,
-                                             device=dev)
+    params.update(_norm_leaves("final_norm", d, (), dev,
+                               bias=cfg.family == "encdec"))
     for i, (pattern, repeats) in enumerate(cfg.schedule):
         for j, kind in enumerate(pattern):
             block = _block_leaves(gen, kind, cfg, (repeats,), dev)
             params.update({f"segments/{i}/p{j}/{k}": v
                            for k, v in block.items()})
+    if cfg.encoder_layers:
+        block = _block_leaves(gen, "enc", cfg, (cfg.encoder_layers,), dev)
+        params.update({f"encoder/blocks/{k}": v for k, v in block.items()})
+        params.update(_norm_leaves("encoder/ln_post", d, (), dev, bias=True))
     if cfg.mtp:
         params["mtp/norm/scale"] = torch.zeros(d, dtype=torch.float32,
                                                device=dev)
@@ -152,14 +179,32 @@ def init_params(cfg, seed: int = 0, device=None) -> dict[str, torch.Tensor]:
     return params
 
 
+def _norm_leaves(name: str, d: int, batch: tuple, dev, *,
+                 bias: bool) -> dict[str, torch.Tensor]:
+    """A norm's fp32 leaves: an RMS norm's ``scale`` of zeros (its gain is
+    ``1 + scale``), or a layer norm's ``scale`` of ones and ``bias`` of
+    zeros."""
+    if not bias:
+        return {f"{name}/scale": torch.zeros((*batch, d), dtype=torch.float32,
+                                             device=dev)}
+    return {f"{name}/scale": torch.ones((*batch, d), dtype=torch.float32,
+                                        device=dev),
+            f"{name}/bias": torch.zeros((*batch, d), dtype=torch.float32,
+                                        device=dev)}
+
+
 def _block_leaves(gen, kind: str, cfg, batch: tuple,
                   dev) -> dict[str, torch.Tensor]:
     """One block's leaves with leading ``batch`` axes (the stacked layers
     of a schedule position, or none), the weights drawn from ``gen`` in a
-    fixed order: the mixer's (GQA: wq, wk, wv, wo; MLA: wq_a, wq_b,
-    wkv_a, wkv_b, wo; ``mamba.init_mamba``'s; ``rwkv.init_rwkv``'s), then
-    the FFN's (wg, wu, wd; or ``moe.init_moe``'s). An ``rwkv`` block's
-    layer norms carry a bias (scale ones, bias zeros)."""
+    fixed order: the mixers' (GQA: wq, wk, wv, wo, a ``dec`` block's self-
+    then its cross-attention; MLA: wq_a, wq_b, wkv_a, wkv_b, wo;
+    ``mamba.init_mamba``'s; ``rwkv.init_rwkv``'s), then the FFN's (wg, wu,
+    wd; the GELU MLP's wi, wo; or ``moe.init_moe``'s). The norms of
+    ``LAYER_NORM_KINDS`` are layer norms with a bias. An ``enc`` / ``dec``
+    block's attention and MLP carry biases in the parameter dtype (the
+    reference's zeros); a ``cross`` block's attention lives under
+    ``xattn/``, and its two gates are fp32 zeros of the stacked shape."""
     dt = getattr(torch, cfg.param_dtype)
     d, hq, hkv, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                          cfg.d_ff)
@@ -167,17 +212,45 @@ def _block_leaves(gen, kind: str, cfg, batch: tuple,
     def w(d_in, d_out):
         return dense_init(gen, d_in, d_out, dt, batch=batch, device=dev)
 
-    def norm(width):
-        return torch.zeros((*batch, width), dtype=torch.float32, device=dev)
+    def zeros(width, dtype=torch.float32):
+        return torch.zeros((*batch, width), dtype=dtype, device=dev)
+
+    def norm(name):
+        return _norm_leaves(name, d, batch, dev,
+                            bias=kind in LAYER_NORM_KINDS)
+
+    def gqa(pre, bias=False):
+        """The reference's ``_init_gqa``: (the four kernels, the rest: with
+        ``bias`` or the config's qkv bias the q / k / v biases, with
+        ``bias`` wo's too; the qk-norm scales)."""
+        kernels = {f"{pre}w{n}/kernel": w(*shape) for n, shape in (
+            ("q", (d, hq * hd)), ("k", (d, hkv * hd)), ("v", (d, hkv * hd)),
+            ("o", (hq * hd, d)))}
+        rest = {}
+        if bias or cfg.qkv_bias:
+            for n, width in (("q", hq * hd), ("k", hkv * hd),
+                             ("v", hkv * hd)):
+                rest[f"{pre}w{n}/bias"] = zeros(width, dt)
+        if bias:
+            rest[f"{pre}wo/bias"] = zeros(d, dt)
+        if cfg.use_qk_norm:
+            for n in ("q", "k"):
+                rest[f"{pre}{n}_norm_scale"] = zeros(hd)
+        return kernels, rest
 
     if kind == "rwkv":
         p = init_rwkv(gen, cfg, batch=batch, device=dev)
-        for ln in ("ln1", "ln2"):
-            p[f"{ln}/scale"] = torch.ones((*batch, d), dtype=torch.float32,
-                                          device=dev)
-            p[f"{ln}/bias"] = norm(d)
+        return {**p, **norm("ln1"), **norm("ln2")}
+    if kind in ("enc", "dec"):
+        p = norm("ln1")
+        for pre, ln in (("attn/", "ln2"), ("xattn/", "ln3"))[
+                :2 if kind == "dec" else 1]:
+            kernels, rest = gqa(pre, bias=True)
+            p.update({**kernels, **rest, **norm(ln)})
+        p.update({"mlp/wi/kernel": w(d, f), "mlp/wi/bias": zeros(f, dt),
+                  "mlp/wo/kernel": w(f, d), "mlp/wo/bias": zeros(d, dt)})
         return p
-    p = {"ln1/scale": norm(d)}
+    p, rest = norm("ln1"), {}
     if kind in MAMBA_KINDS:
         p.update({f"mamba/{k}": v for k, v in init_mamba(
             gen, cfg, batch=batch, device=dev).items()})
@@ -186,36 +259,31 @@ def _block_leaves(gen, kind: str, cfg, batch: tuple,
         kvr = cfg.kv_lora_rank
         p.update({
             "attn/wq_a/kernel": w(d, cfg.q_lora_rank),
-            "attn/q_norm_scale": norm(cfg.q_lora_rank),
+            "attn/q_norm_scale": zeros(cfg.q_lora_rank),
             "attn/wq_b/kernel": w(cfg.q_lora_rank, hq * qk),
             "attn/wkv_a/kernel": w(d, kvr + cfg.qk_rope_dim),
-            "attn/kv_norm_scale": norm(kvr),
+            "attn/kv_norm_scale": zeros(kvr),
             "attn/wkv_b/kernel": w(kvr, hq * (cfg.qk_nope_dim
                                               + cfg.v_head_dim)),
             "attn/wo/kernel": w(hq * cfg.v_head_dim, d),
         })
+    elif kind == "cross":
+        kernels, rest = gqa("xattn/")
+        p.update(kernels)
+        p["gate_attn"] = torch.zeros(batch, dtype=torch.float32, device=dev)
     else:
-        p.update({
-            "attn/wq/kernel": w(d, hq * hd),
-            "attn/wk/kernel": w(d, hkv * hd),
-            "attn/wv/kernel": w(d, hkv * hd),
-            "attn/wo/kernel": w(hq * hd, d),
-        })
-    p["ln2/scale"] = norm(d)
+        kernels, rest = gqa("attn/")
+        p.update(kernels)
+    p.update(norm("ln2"))
     if kind in MOE_KINDS:
         p.update({f"moe/{k}": v for k, v in init_moe(
             gen, cfg, batch=batch, device=dev).items()})
     else:
         p.update({"mlp/wg/kernel": w(d, f), "mlp/wu/kernel": w(d, f),
                   "mlp/wd/kernel": w(f, d)})
-    if kind in ATTN_KINDS and cfg.qkv_bias:
-        for n, width in (("q", hq * hd), ("k", hkv * hd), ("v", hkv * hd)):
-            p[f"attn/w{n}/bias"] = torch.zeros((*batch, width), dtype=dt,
-                                               device=dev)
-    if kind in ATTN_KINDS and cfg.use_qk_norm:
-        for n in ("q", "k"):
-            p[f"attn/{n}_norm_scale"] = norm(hd)
-    return p
+    if kind == "cross":
+        p["gate_mlp"] = torch.zeros(batch, dtype=torch.float32, device=dev)
+    return {**p, **rest}
 
 
 def init_block(gen, kind: str, cfg, device=None) -> dict[str, torch.Tensor]:
@@ -255,22 +323,23 @@ def cast_params(params: dict, cfg) -> dict:
     return out
 
 
-def _qk_norm(p: dict, q, k, cfg):
+def _qk_norm(p: dict, q, k, cfg, pre: str = "attn/"):
     """qk-norm (an RMS norm over the head dim, eps 1e-6, as the JAX
     package's ``_qk_norm``) where the config has it; before the rope."""
     if not cfg.use_qk_norm:
         return q, k
-    return (rms_norm(q, p["attn/q_norm_scale"]),
-            rms_norm(k, p["attn/k_norm_scale"]))
+    return (rms_norm(q, p[f"{pre}q_norm_scale"]),
+            rms_norm(k, p[f"{pre}k_norm_scale"]))
 
 
-def _proj(p: dict, h, n: str):
-    """``h @ attn/w{n}/kernel``, then its bias where the config has one: a
+def _proj(p: dict, h, n: str, pre: str = "attn/"):
+    """``h @ {pre}w{n}/kernel``, then its bias where the block has one: a
     separate add after the product, as the JAX package's (one rounding
     more than a fused ``addmm`` in bf16). A bias kept in fp32 beside bf16
-    products widens the result to fp32, as JAX's promotion does."""
-    y = h @ p[f"attn/w{n}/kernel"]
-    bias = p.get(f"attn/w{n}/bias")
+    products widens the result to fp32, as JAX's promotion does, and the
+    products after it promote in ``matmul``."""
+    y = matmul(h, p[f"{pre}w{n}/kernel"])
+    bias = p.get(f"{pre}w{n}/bias")
     return y if bias is None else y + bias
 
 
@@ -280,23 +349,45 @@ def _sub(p: dict, prefix: str) -> dict:
     return {k[n:]: v for k, v in p.items() if k.startswith(prefix)}
 
 
-def _gqa_apply(kind: str, p: dict, h, cfg):
-    """GQA self-attention of an ``attn`` / ``local`` / ``attn_moe`` block on
-    normed h (B, S, d). Returns (the output projected by wo, the roped
-    (k, v))."""
+def _gqa_apply(p: dict, h, cfg, *, pre: str = "attn/", causal: bool = True,
+               window: int | None = None, kv_src=None, rope: bool = True):
+    """GQA attention of a block on normed h (B, S, d), its leaves under
+    ``pre``: self-attention, or with ``kv_src`` (B, Skv, d) a
+    cross-attention whose keys and values are projected from it (no rope
+    on them, as the JAX package's). Returns (the output projected by wo,
+    with wo's bias where the block has one; the (roped) (k, v))."""
     b, s, _ = h.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = _proj(p, h, "q").reshape(b, s, hq, hd)
-    k = _proj(p, h, "k").reshape(b, s, hkv, hd)
-    v = _proj(p, h, "v").reshape(b, s, hkv, hd)
-    q, k = _qk_norm(p, q, k, cfg)
-    cos, sin = rope_table(s, hd, cfg.rope_theta, device=h.device)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    src = h if kv_src is None else kv_src
+    q = _proj(p, h, "q", pre).reshape(b, s, hq, hd)
+    k = _proj(p, src, "k", pre).reshape(b, src.shape[1], hkv, hd)
+    v = _proj(p, src, "v", pre).reshape(b, src.shape[1], hkv, hd)
+    q, k = _qk_norm(p, q, k, cfg, pre)
+    if rope and kv_src is None:
+        cos, sin = rope_table(s, hd, cfg.rope_theta, device=h.device)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     attend = sp_blockwise_attention if cfg.attn_sp else blockwise_attention
-    a = attend(q, k, v, causal=True, window=_window(kind, cfg),
-               q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    return matmul(a.reshape(b, s, hq * hd), p["attn/wo/kernel"]), (k, v)
+    a = attend(q, k, v, causal=causal, window=window, q_chunk=cfg.q_chunk,
+               kv_chunk=cfg.kv_chunk)
+    return _out(p, a.reshape(b, s, hq * hd), pre), (k, v)
+
+
+def _out(p: dict, a, pre: str = "attn/"):
+    """The attention output projection ``a @ {pre}wo/kernel`` and its
+    bias where the block has one."""
+    y = matmul(a, p[f"{pre}wo/kernel"])
+    bias = p.get(f"{pre}wo/bias")
+    return y if bias is None else y + bias
+
+
+def _gated(x, gate, y):
+    """``x + tanh(gate) * y`` with JAX's promotion: the fp32 0-d gate
+    widens bf16 ``x`` and ``y`` to fp32, where torch would treat a 0-d
+    tensor as a scalar and keep bf16."""
+    dt = torch.promote_types(torch.promote_types(x.dtype, y.dtype),
+                             gate.dtype)
+    return x.to(dt) + torch.tanh(gate).to(dt) * y.to(dt)
 
 
 def _mla_apply(p: dict, h, cfg):
@@ -363,24 +454,63 @@ def _rwkv_apply(p: dict, x, cfg):
                         "wkv": st}
 
 
+def _encdec_apply(kind: str, p: dict, x, cfg, ctx):
+    """An ``enc`` block (layer norm, bidirectional self-attention with
+    biases and no rope, layer norm, the GELU MLP), a ``dec`` block (layer
+    norm, causal roped self-attention, layer norm, cross-attention over
+    ``ctx["enc_out"]``, layer norm, the GELU MLP) or a ``cross`` block (RMS
+    norm, cross-attention over ``ctx["image_embeds"]`` scaled by
+    ``tanh(gate_attn)``, RMS norm, the SwiGLU scaled by ``tanh(gate_mlp)``),
+    each added to the residual. Returns (x, the cache entry: ``dec``'s
+    ``((k, v), (xk, xv))``, ``cross``'s ``(xk, xv)``, ``enc``'s None)."""
+    eps = cfg.norm_eps
+    if kind == "cross":
+        h = rms_norm(x, p["ln1/scale"], eps)
+        a, kv = _gqa_apply(p, h, cfg, pre="xattn/", causal=False,
+                           kv_src=ctx["image_embeds"], rope=False)
+        x = _gated(x, p["gate_attn"], a)
+        h = rms_norm(x, p["ln2/scale"], eps)
+        return _gated(x, p["gate_mlp"], _mlp(kind, p, h, cfg)[0]), kv
+    h = layer_norm(x, p["ln1/scale"], p["ln1/bias"], eps)
+    a, kv = _gqa_apply(p, h, cfg, causal=kind == "dec", rope=kind == "dec")
+    x = x + a
+    ln = "ln2"
+    if kind == "dec":
+        h = layer_norm(x, p["ln2/scale"], p["ln2/bias"], eps)
+        a, xkv = _gqa_apply(p, h, cfg, pre="xattn/", causal=False,
+                            kv_src=ctx["enc_out"], rope=False)
+        x, kv, ln = x + a, (kv, xkv), "ln3"
+    h = layer_norm(x, p[f"{ln}/scale"], p[f"{ln}/bias"], eps)
+    x = x + gelu_mlp(h, p["mlp/wi/kernel"], p["mlp/wi/bias"],
+                     p["mlp/wo/kernel"], p["mlp/wo/bias"])
+    return x, (kv if kind == "dec" else None)
+
+
 def block_apply(kind: str, p: dict, x, cfg, ctx=None, *,
                 return_kv: bool = False):
     """One block of the schedule on ``x`` (B, S, d): a pre-norm sequence
     mixer (causal GQA self-attention, a sliding window for ``local``; MLA
     for ``MLA_KINDS``; the Mamba mixer for ``MAMBA_KINDS``) and an FFN (a
-    SwiGLU; the MoE for ``MOE_KINDS``), each added to the residual; or an
-    ``rwkv`` block (``_rwkv_apply``). ``p``: the block's leaves (one
-    layer's, keyed as ``init_block``'s); ``ctx``: the cross-attention
-    inputs of the reference's other kinds (the ported kinds read none).
-    Returns ``(x, aux, kv)``: ``aux`` the block's auxiliary loss (a 0-d
-    fp32 tensor: the MoE's load-balance loss, else zero), ``kv`` with
-    ``return_kv`` the block's cache entry (GQA: the roped ``(k, v)``; MLA:
-    ``(c_kv, k_rope)``; Mamba: ``{"conv", "ssm"}``; RWKV: ``{"x_prev_tm",
-    "x_prev_cm", "wkv"}``), else None."""
+    SwiGLU; the MoE for ``MOE_KINDS``), each added to the residual; an
+    ``rwkv`` block (``_rwkv_apply``); or an ``enc``, ``dec`` or ``cross``
+    block (``_encdec_apply``). ``p``: the block's leaves (one layer's,
+    keyed as ``init_block``'s); ``ctx``: the cross-attention inputs
+    (``{"enc_out"}`` for ``dec``, ``{"image_embeds"}`` for ``cross``; the
+    other kinds read none). Returns ``(x, aux, kv)``: ``aux`` the block's
+    auxiliary loss (a 0-d fp32 tensor: the MoE's load-balance loss, else
+    zero), ``kv`` with ``return_kv`` the block's cache entry (GQA: the
+    roped ``(k, v)``; ``dec``: ``((k, v), (xk, xv))``; ``cross``: ``(xk,
+    xv)``; MLA: ``(c_kv, k_rope)``; Mamba: ``{"conv", "ssm"}``; RWKV:
+    ``{"x_prev_tm", "x_prev_cm", "wkv"}``), else None. As in the JAX
+    package, an fp32 bias or gate beside bf16 activations widens the
+    block's output to fp32; the caller pins the residual stream."""
     _check_kind(kind)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "rwkv":
         x, kv = _rwkv_apply(p, x, cfg)
+        return x, zero, (kv if return_kv else None)
+    if kind in ("enc", "dec", "cross"):
+        x, kv = _encdec_apply(kind, p, x, cfg, ctx)
         return x, zero, (kv if return_kv else None)
     h = rms_norm(x, p["ln1/scale"], cfg.norm_eps)
     if kind in MAMBA_KINDS:
@@ -389,7 +519,7 @@ def block_apply(kind: str, p: dict, x, cfg, ctx=None, *,
     elif kind in MLA_KINDS:
         a, kv = _mla_apply(p, h, cfg)
     else:
-        a, kv = _gqa_apply(kind, p, h, cfg)
+        a, kv = _gqa_apply(p, h, cfg, window=_window(kind, cfg))
     x = x + a
     h = rms_norm(x, p["ln2/scale"], cfg.norm_eps)
     m, aux = _mlp(kind, p, h, cfg)
@@ -397,51 +527,112 @@ def block_apply(kind: str, p: dict, x, cfg, ctx=None, *,
     return x, (zero if aux is None else aux), (kv if return_kv else None)
 
 
+def _unstacked(p: dict, pre: str, repeats: int):
+    """Yield each of ``repeats`` stacked layers' parameter views under
+    ``pre``, keyed without it. One ``unbind`` per stacked leaf: its
+    backward stacks the per-layer gradients in one pass, where indexing the
+    stack per layer would make autograd build and add a full-stack gradient
+    buffer for every layer."""
+    stacked = {k[len(pre):]: v.unbind(0) for k, v in p.items()
+               if k.startswith(pre)}
+    for layer in range(repeats):
+        yield {k: v[layer] for k, v in stacked.items()}
+
+
 def _layers(p: dict, cfg):
     """Yield ``(segment prefix, block kind, layer index, that layer's
-    parameter views)`` in schedule order. One ``unbind`` per stacked leaf:
-    its backward stacks the per-layer gradients in one pass, where indexing
-    the stack per layer would make autograd build and add a full-stack
-    gradient buffer for every layer."""
+    parameter views)`` in schedule order."""
     for pre, kind, repeats in _kv_keys(cfg):
-        stacked = {k[len(pre):]: v.unbind(0) for k, v in p.items()
-                   if k.startswith(pre)}
-        for layer in range(repeats):
-            yield pre, kind, layer, {k: v[layer] for k, v in stacked.items()}
+        for layer, lp in enumerate(_unstacked(p, pre, repeats)):
+            yield pre, kind, layer, lp
+
+
+def _remat(fn, cfg, *args):
+    """``fn(*args)``, recomputed in the backward pass under ``cfg.remat``
+    (``torch.utils.checkpoint``) when the call takes a gradient."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _sinusoid(seq: int, d: int, dtype, device):
+    """Whisper's sinusoidal position table (seq, d), computed in fp32 and
+    cast to ``dtype`` (the JAX package's ``_sinusoid``; its divisor a
+    tensor, since a division by a Python number on the card is a multiply
+    by its reciprocal)."""
+    half = d // 2
+    steps = torch.arange(half, dtype=torch.float32, device=device)
+    freqs = torch.exp(-math.log(10000.0) * steps / torch.tensor(
+        float(half - 1), device=device))
+    ang = torch.arange(seq, dtype=torch.float32, device=device)[:, None] \
+        * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def encode(params: dict, frames, cfg):
+    """Whisper's encoder over ``frames`` (B, encoder_seq, d): the
+    precomputed frame embeddings of the audio frontend's stub, cast to the
+    compute dtype, plus the sinusoid; the ``cfg.encoder_layers`` ``enc``
+    blocks of ``encoder/blocks/`` (the residual pinned to the compute
+    dtype after each, each recomputed in the backward pass under
+    ``cfg.remat``); then the layer norm ``encoder/ln_post``. ``params``:
+    the parameter dict (``forward`` passes it cast). Returns (B,
+    encoder_seq, d) in the norm's output dtype, the compute dtype."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    x = frames.to(cdt)
+    x = x + _sinusoid(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
+    for lp in _unstacked(params, "encoder/blocks/", cfg.encoder_layers):
+        x = _remat(block_apply, cfg, "enc", lp, x, cfg, {})[0].to(cdt)
+    return layer_norm(x, params["encoder/ln_post/scale"],
+                      params["encoder/ln_post/bias"], cfg.norm_eps)
+
+
+def _final_norm(x, p: dict, cfg):
+    """The final norm: a layer norm with a bias for ``encdec``, else an RMS
+    norm."""
+    if cfg.family == "encdec":
+        return layer_norm(x, p["final_norm/scale"], p["final_norm/bias"],
+                          cfg.norm_eps)
+    return rms_norm(x, p["final_norm/scale"], cfg.norm_eps)
 
 
 def forward(params: dict, batch: dict, cfg, *, return_cache: bool = False):
-    """batch: ``{'tokens': (B, S) int}``. Returns ``(logits, aux)`` with
-    logits (B, S, vocab) in the compute dtype or, with ``return_cache``,
-    ``(logits, aux, kv)``: ``kv[segment prefix]`` the per-layer cache
-    entries (``block_apply``'s: GQA's roped ``(k, v)``, each (B, S, Hkv,
-    hd); MLA's ``(c_kv, k_rope)``). ``aux``: ``{"moe_aux": the blocks'
-    load-balance losses summed, "mtp_logits": None}``; with ``cfg.mtp``,
-    ``mtp_logits`` (B, S, vocab) of the multi-token prediction head, which
-    predicts the token after next from the final hidden state and the next
-    token's embedding (the last position wraps around: the loss masks it;
-    inference, ``return_cache``, skips the head). ``cfg.remat`` recomputes
-    each layer in the backward pass (``torch.utils.checkpoint``); it is off
-    with ``return_cache``."""
+    """batch: ``{'tokens': (B, S) int}``, with ``'frames'`` (B,
+    encoder_seq, d) for an encoder-decoder (``encode``'s input) and
+    ``'image_embeds'`` (B, n_image_tokens, d) for a VLM (cast to the
+    compute dtype): the modality frontends' stubs. Returns ``(logits,
+    aux)`` with logits (B, S, vocab) in the compute dtype or, with
+    ``return_cache``, ``(logits, aux, kv)``: ``kv[segment prefix]`` the
+    per-layer cache entries (``block_apply``'s: GQA's roped ``(k, v)``,
+    each (B, S, Hkv, hd); MLA's ``(c_kv, k_rope)``). ``aux``:
+    ``{"moe_aux": the blocks' load-balance losses summed, "mtp_logits":
+    None}``; with ``cfg.mtp``, ``mtp_logits`` (B, S, vocab) of the
+    multi-token prediction head, which predicts the token after next from
+    the final hidden state and the next token's embedding (the last
+    position wraps around: the loss masks it; inference, ``return_cache``,
+    skips the head). ``cfg.remat`` recomputes each layer in the backward
+    pass (``torch.utils.checkpoint``); it is off with ``return_cache``."""
     _check_ported(cfg)
     tokens = batch["tokens"]
     cdt = getattr(torch, cfg.compute_dtype)
     p = cast_params(params, cfg)
     x = p["embed/kernel"][tokens]
+    ctx = {}
+    if cfg.encoder_layers:
+        ctx["enc_out"] = encode(p, batch["frames"], cfg)
+    if cfg.n_image_tokens:
+        ctx["image_embeds"] = batch["image_embeds"].to(cdt)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     kv: dict[str, list] = {}
     for pre, kind, _, lp in _layers(p, cfg):
-        if cfg.remat and not return_cache:
-            x, a, _ = checkpoint(block_apply, kind, lp, x, cfg, {},
-                                 use_reentrant=False)
+        if return_cache:
+            x, a, pair = block_apply(kind, lp, x, cfg, ctx, return_kv=True)
+            kv.setdefault(pre, []).append(pair)
         else:
-            x, a, pair = block_apply(kind, lp, x, cfg, {},
-                                     return_kv=return_cache)
-            if return_cache:
-                kv.setdefault(pre, []).append(pair)
+            x, a, _ = _remat(block_apply, cfg, kind, lp, x, cfg, ctx)
         x = x.to(cdt)                      # pin the residual-stream dtype
         aux_total = aux_total + a
-    x = rms_norm(x, p["final_norm/scale"], cfg.norm_eps)
+    x = _final_norm(x, p, cfg)
     unemb = p["embed/kernel"] if cfg.tie_embeddings else p["unembed/kernel"]
     logits = x @ unemb.to(cdt).T
     aux = {"moe_aux": aux_total, "mtp_logits": None}
@@ -477,10 +668,13 @@ def _cache_len(kind: str, cfg, max_len: int) -> int:
 def _cache_entries(kind: str, cfg, max_len: int = 1) -> dict:
     """A layer's cache entries: ``{name: (shape past the batch axis,
     dtype; None for the compute dtype)}``. GQA's ``k`` and ``v`` (S, Hkv,
-    hd); MLA's latent ``ckv`` (S, kv_lora_rank) and roped shared key part
-    ``krope`` (S, qk_rope_dim), S = ``_cache_len``; Mamba's ``conv`` (K-1,
-    d_inner) and fp32 ``ssm`` (d_inner, state); RWKV's ``x_prev_tm`` and
-    ``x_prev_cm`` (d,) and fp32 ``wkv`` (H, K, V)."""
+    hd); a ``dec`` layer's also ``xk`` and ``xv`` (encoder_seq, Hkv, hd),
+    its cross-attention's keys and values; a ``cross`` layer's ``xk`` and
+    ``xv`` (n_image_tokens, Hkv, hd) alone; MLA's latent ``ckv`` (S,
+    kv_lora_rank) and roped shared key part ``krope`` (S, qk_rope_dim), S =
+    ``_cache_len``; Mamba's ``conv`` (K-1, d_inner) and fp32 ``ssm``
+    (d_inner, state); RWKV's ``x_prev_tm`` and ``x_prev_cm`` (d,) and fp32
+    ``wkv`` (H, K, V)."""
     if kind in MAMBA_KINDS:
         return {"conv": ((cfg.mamba_conv - 1, cfg.mamba_d_inner), None),
                 "ssm": ((cfg.mamba_d_inner, cfg.mamba_state), torch.float32)}
@@ -493,14 +687,22 @@ def _cache_entries(kind: str, cfg, max_len: int = 1) -> dict:
     if kind in MLA_KINDS:
         return {"ckv": ((s, cfg.kv_lora_rank), None),
                 "krope": ((s, cfg.qk_rope_dim), None)}
-    return {n: ((s, cfg.n_kv_heads, cfg.hd), None) for n in "kv"}
+    lengths = {"k": s, "v": s}
+    if kind == "cross":
+        lengths = {"xk": cfg.n_image_tokens, "xv": cfg.n_image_tokens}
+    elif kind == "dec":
+        lengths.update(xk=cfg.encoder_seq, xv=cfg.encoder_seq)
+    return {n: ((length, cfg.n_kv_heads, cfg.hd), None)
+            for n, length in lengths.items()}
 
 
 def init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
     """Zeroed dense decode cache: ``segments/{i}/p{j}/k`` and ``/v`` of
-    (repeats, B, max_len, Hkv, hd) in the compute dtype (an MLA layer's
-    ``ckv`` (repeats, B, max_len, kv_lora_rank) and ``krope`` (repeats, B,
-    max_len, qk_rope_dim); a recurrent layer's state, ``_cache_entries``);
+    (repeats, B, max_len, Hkv, hd) in the compute dtype (a ``dec`` layer's
+    ``xk`` and ``xv`` of the encoder's length beside them, a ``cross``
+    layer's of the image tokens' alone; an MLA layer's ``ckv`` (repeats,
+    B, max_len, kv_lora_rank) and ``krope`` (repeats, B, max_len,
+    qk_rope_dim); a recurrent layer's state, ``_cache_entries``);
     ``max_len`` is ``min(window, max_len)`` for a ``local`` layer
     (position p at ring slot p % that length), on ``device`` (None: the
     card)."""
@@ -553,7 +755,39 @@ def _gqa_decode(p, x_t, k_cache, v_cache, pos, cfg, *, window=None):
         out = decode_attention(q, k_cache, v_cache, mask=mask)
     else:
         out = decode_attention(q, k_cache, v_cache, length=pos + 1)
-    return matmul(out.reshape(b, cfg.n_heads * cfg.hd), p["attn/wo/kernel"])
+    return _out(p, out.reshape(b, cfg.n_heads * cfg.hd))
+
+
+def _cross_decode(p, x_t, xk, xv, cfg):
+    """One token's cross-attention (``xattn/``) against the whole (B, Skv,
+    Hkv, hd) cross cache ``xk`` / ``xv`` (no rope, no mask; the plain
+    ``decode_attention``, as the JAX package's). Returns the output
+    projected by wo, with its bias where the block has one."""
+    b = x_t.shape[0]
+    q = _proj(p, x_t, "q", "xattn/").reshape(b, cfg.n_heads, cfg.hd)
+    out = decode_attention(q, xk, xv)
+    return _out(p, out.reshape(b, cfg.n_heads * cfg.hd), "xattn/")
+
+
+def _encdec_decode(kind: str, p, x_t, cache: dict, pos, cfg):
+    """One token of a ``dec`` block (layer norms; self-attention against
+    its ``k`` / ``v``, written in place; cross-attention against ``xk`` /
+    ``xv``; the GELU MLP) or a ``cross`` block (the gated cross-attention
+    and SwiGLU of ``_encdec_apply``)."""
+    eps = cfg.norm_eps
+    if kind == "cross":
+        h = rms_norm(x_t, p["ln1/scale"], eps)
+        x_t = _gated(x_t, p["gate_attn"],
+                     _cross_decode(p, h, cache["xk"], cache["xv"], cfg))
+        h = rms_norm(x_t, p["ln2/scale"], eps)
+        return _gated(x_t, p["gate_mlp"], _mlp(kind, p, h, cfg)[0])
+    h = layer_norm(x_t, p["ln1/scale"], p["ln1/bias"], eps)
+    x_t = x_t + _gqa_decode(p, h, cache["k"], cache["v"], pos, cfg)
+    h = layer_norm(x_t, p["ln2/scale"], p["ln2/bias"], eps)
+    x_t = x_t + _cross_decode(p, h, cache["xk"], cache["xv"], cfg)
+    h = layer_norm(x_t, p["ln3/scale"], p["ln3/bias"], eps)
+    return x_t + gelu_mlp(h, p["mlp/wi/kernel"], p["mlp/wi/bias"],
+                          p["mlp/wo/kernel"], p["mlp/wo/bias"])
 
 
 def _mla_decode(p, x_t, cache, pos, cfg):
@@ -632,12 +866,15 @@ def _write(cache: dict, new: dict) -> None:
 
 def block_decode(kind: str, p, x_t, cache: dict, pos, cfg):
     """One layer of the dense decode step. x_t: (B, d); ``cache``: the
-    layer's entries (``k`` / ``v``, MLA's ``ckv`` / ``krope``, or a
-    recurrent layer's state), written in place; pos: (B,). Returns ``(x_t,
-    cache)``."""
+    layer's entries (``k`` / ``v``, with a ``dec`` layer's ``xk`` / ``xv``;
+    a ``cross`` layer's ``xk`` / ``xv``; MLA's ``ckv`` / ``krope``; or a
+    recurrent layer's state), written in place (the cross entries only
+    read); pos: (B,). Returns ``(x_t, cache)``."""
     _check_kind(kind)
     if kind == "rwkv":
         return _rwkv_decode(p, x_t, cache, cfg), cache
+    if kind in ("dec", "cross"):
+        return _encdec_decode(kind, p, x_t, cache, pos, cfg), cache
     h = rms_norm(x_t, p["ln1/scale"], cfg.norm_eps)
     if kind in MAMBA_KINDS:
         a, new = mamba_step(_sub(p, "mamba/"), h, cache, cfg)
@@ -654,7 +891,7 @@ def _lm_head(x_t, params, cfg):
     """Final norm + unembedding of every decode entry point.
     x_t: (..., d) -> logits (..., vocab)."""
     cdt = getattr(torch, cfg.compute_dtype)
-    x_t = rms_norm(x_t, params["final_norm/scale"], cfg.norm_eps)
+    x_t = _final_norm(x_t, params, cfg)
     unemb = params["embed/kernel"] if cfg.tie_embeddings \
         else params["unembed/kernel"]
     return x_t @ unemb.to(cdt).T
@@ -681,10 +918,13 @@ def decode_step(params, cache, token, pos, cfg):
 
 
 def prefill(params, batch, cfg, max_len: int | None = None):
-    """Run the full prompt and build the decode cache. Returns
-    ``(last_logits (B, vocab), cache, n_prompt)``; the per-layer entries
-    (K/V, or MLA's latent and roped key part) are zero-padded to
-    ``max_len``, a ``local`` layer's laid out as its ring; a recurrent
+    """Run the full prompt and build the decode cache. ``batch``: the
+    forward's (the tokens and the modality stubs). Returns ``(last_logits
+    (B, vocab), cache, n_prompt)``; the per-layer entries (K/V, or MLA's
+    latent and roped key part) are zero-padded to ``max_len``, a ``local``
+    layer's laid out as its ring; a ``dec`` / ``cross`` layer's ``xk`` and
+    ``xv`` are its cross-attention's keys and values of the encoder's
+    output or the image embeddings, in the compute dtype; a recurrent
     layer's state is its state after the prompt (``conv`` and the last
     tokens in the compute dtype, ``ssm`` / ``wkv`` fp32)."""
     s = batch["tokens"].shape[1]
@@ -700,9 +940,11 @@ def prefill(params, batch, cfg, max_len: int | None = None):
                 cache[pre + n] = torch.stack([e[n] for e in entries]).to(
                     dt or cdt)
             continue
-        w = _cache_len(kind, cfg, max_len)
-        for n, t in zip(_cache_entries(kind, cfg), zip(*entries)):
-            cache[pre + n] = _prefill_entry(torch.stack(t), w, cdt,
+        if kind == "dec":                  # ((k, v), (xk, xv)) a layer
+            entries = [(*self_kv, *cross_kv) for self_kv, cross_kv in entries]
+        shapes = _cache_entries(kind, cfg, max_len)
+        for (n, (shape, _)), t in zip(shapes.items(), zip(*entries)):
+            cache[pre + n] = _prefill_entry(torch.stack(t), shape[0], cdt,
                                             ring=kind == "local")
     return logits[:, -1], cache, s
 

@@ -22,9 +22,11 @@ prompt, seed and budget, never on its neighbours -- in an MoE block as long
 as no expert overflows its capacity: each decode step routes every slot
 lane together (inactive ones too, as the JAX engine does), each prefill
 chunk its padded tokens, and an overflow drops tokens by their order in
-that batch. ``ServeEngine`` serves every ported family,
+that batch. ``ServeEngine`` serves every family (an encoder-decoder's or a
+VLM's prompts with their stub frames or image embeddings),
 ``PagedServeEngine`` the blocks of ``transformer.PAGED_KINDS`` (not MLA,
-not the recurrent Mamba and RWKV blocks).
+not the recurrent Mamba and RWKV blocks, not the encoder-decoder and
+cross-attention blocks).
 
 Both engines cast the weights to the compute dtype once, when built, and
 run on the device the parameters lie on.
@@ -133,8 +135,10 @@ class ServeEngine:
     @torch.inference_mode()
     def generate(self, batch: dict, *, max_new_tokens: int = 32,
                  eos_id: int | None = None) -> torch.Tensor:
-        """batch: ``{'tokens': (B, S) prompt}``. Returns (B, <=
-        max_new_tokens) int64 generations. Rows that hit ``eos_id`` keep
+        """batch: ``{'tokens': (B, S) prompt}``, with the modality stubs
+        ``'frames'`` / ``'image_embeds'`` where the config has them (passed
+        to ``prefill``, whose cache then holds their cross-attention keys
+        and values). Returns (B, <= max_new_tokens) int64 generations. Rows that hit ``eos_id`` keep
         emitting it; the loop stops early once every row has."""
         prompt = batch["tokens"]
         b, s = prompt.shape

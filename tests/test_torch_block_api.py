@@ -1,9 +1,11 @@
 """The per-block API of the port's model against the JAX package's:
 ``ATTN_KINDS``, ``init_block`` (its leaves' shapes and dtypes against
 ``jax.eval_shape`` of JAX's) and ``block_apply`` (one block on the same
-numpy-drawn parameters, rtol 1e-5), the refusals of the kinds not ported
-yet (the encoder-decoder and cross-attention blocks), and ``forward``
-running every layer through ``block_apply``."""
+numpy-drawn parameters, rtol 1e-5), every kind of the reference built and
+applied (the encoder-decoder and cross-attention blocks too; their parity
+with JAX's is in ``test_torch_whisper.py`` and ``test_torch_vision.py``),
+an unknown kind refused, and ``forward`` running every layer through
+``block_apply``."""
 import dataclasses
 
 import jax
@@ -43,7 +45,10 @@ def _jax_block_shapes(kind, jcfg):
                                        ("phi3-mini-3.8b", "attn"),
                                        ("jamba-1.5-large-398b", "mamba_dense"),
                                        ("jamba-1.5-large-398b", "mamba_moe"),
-                                       ("rwkv6-1.6b", "rwkv")])
+                                       ("rwkv6-1.6b", "rwkv"),
+                                       ("whisper-large-v3", "enc"),
+                                       ("whisper-large-v3", "dec"),
+                                       ("llama-3.2-vision-90b", "cross")])
 def test_init_block_shapes_match_jax(arch, kind):
     jcfg, tcfg = _block_cfgs(arch)
     want = _jax_block_shapes(kind, jcfg)
@@ -88,17 +93,26 @@ def test_block_apply_matches_jax(kind, return_kv):
 
 
 def test_block_api_kinds_and_refusals():
+    """Every block kind of the reference builds and applies: ``enc``,
+    ``dec`` and ``cross`` too (the last two with their cross-attention
+    context), each output of x's shape; an unknown kind raises."""
     assert TT.ATTN_KINDS == JT.ATTN_KINDS
     assert (TT.MLA_KINDS, TT.MOE_KINDS) == (JT.MLA_KINDS, JT.MOE_KINDS)
-    assert set(TT.PORTED_KINDS) <= set(TT.ATTN_KINDS) | set(TT.MLA_KINDS) \
+    assert set(TT.PORTED_KINDS) == set(TT.ATTN_KINDS) | set(TT.MLA_KINDS) \
         | set(TT.RECURRENT_KINDS)
     assert TT.RECURRENT_KINDS == ("mamba_dense", "mamba_moe", "rwkv")
-    x = torch.zeros(1, 4, CFG.d_model)
+    x = torch.randn(1, 4, CFG.d_model)
+    ctx = {"enc_out": torch.randn(1, 6, CFG.d_model),
+           "image_embeds": torch.randn(1, 5, CFG.d_model)}
     for kind in ("enc", "dec", "cross"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            TT.init_block(torch.Generator(), kind, CFG)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            TT.block_apply(kind, {}, x, CFG, {})
+        p = TT.init_block(torch.Generator().manual_seed(0), kind, CFG)
+        out, aux, kv = TT.block_apply(kind, p, x, CFG, ctx, return_kv=True)
+        assert out.shape == x.shape and torch.isfinite(out).all()
+        assert float(aux) == 0.0 and (kv is None) == (kind == "enc")
+    with pytest.raises(ValueError, match="unknown block kind"):
+        TT.init_block(torch.Generator(), "bogus", CFG)
+    with pytest.raises(ValueError, match="unknown block kind"):
+        TT.block_apply("bogus", {}, x, CFG, {})
 
 
 @pytest.mark.parametrize("remat", [False, True])

@@ -1199,3 +1199,58 @@ def test_cuda_kernels_on_stacked_vector_leaves(cuda, shape):
                     cg.colgather_matmul_dual_plain(b1, b2, qt, idx,
                                                    compute_dtype="int8")):
         assert torch.equal(a, b)
+
+
+# the encoder-decoder and cross-attention families: both prefill kernels at
+# keys of their own length, without a mask (b, sq, skv, hq, hkv, hd, kv
+# chunk): whisper-large-v3's cross-attention (448 queries against its 1500
+# frames; 1500 is no multiple of the kernels' 64-key tiles), its encoder
+# (1500 against 1500, bidirectional), llama-3.2-vision-90b's cross-attention
+# (2048 queries against 6400 image tokens, GQA 8, one chunk of 6400), each
+# cut to 4 query heads; fewer keys than queries; one query
+SKV_CASES = {"whisper cross": (2, 448, 1500, 4, 4, 64, 1024),
+             "whisper encoder": (1, 1500, 1500, 4, 4, 64, 1024),
+             "vision cross": (1, 2048, 6400, 8, 1, 128, 1024),
+             "short keys": (2, 300, 70, 4, 2, 64, 512),
+             "one query": (3, 1, 777, 4, 2, 64, 256)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SKV_CASES))
+def test_cuda_attention_kernels_keys_of_their_own_length(cuda, name):
+    """``flash_attention`` (fp32, within 3e-5 of its plain version) and
+    ``flash_attention_blockwise`` (bf16: max |d| <= 2 bf16 ulps of max
+    |out|, the bar of ``chip_smoke.py``'s per-layer prefill check, and >=
+    98% bit-equal) with Skv != Sq and no mask, each relaunched
+    bit-identical; a causal call with keys of another length is refused.
+    The ulps and 98%, not 4e-3 of max |out| and 99%: over 6400 keys the
+    outputs are small averages, more of their last roundings land near a
+    bf16 boundary, and max |out| may sit low in its binade, where one
+    output that rounds to its neighbour is more than 4e-3 of it (measured
+    at 2048 x 6400: one ulp, 4.9e-4 of 0.116; 98.6% bit-equal)."""
+    b, sq, skv, hq, hkv, hd, chunk = SKV_CASES[name]
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    q = torch.randn(b, sq, hq, hd, device=cuda, generator=gen)
+    k, v = (torch.randn(b, skv, hkv, hd, device=cuda, generator=gen)
+            for _ in range(2))
+    got = fa.flash_attention(q, k, v, causal=False)
+    again = fa.flash_attention(q, k, v, causal=False)
+    want = fa.flash_attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and torch.equal(got, again)
+    assert (got - want).abs().max().item() <= 3e-5
+    q16, k16, v16 = (t.bfloat16() for t in (q, k, v))
+    kw = dict(causal=False, kv_chunk=chunk)
+    got = fa.flash_attention_blockwise(q16, k16, v16, **kw)
+    again = fa.flash_attention_blockwise(q16, k16, v16, **kw)
+    want = fa.blockwise_attention_ref(q16, k16, v16, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and torch.equal(got, again)
+    d = (got.float() - want.float()).abs()
+    top = want.float().abs().max()
+    ulp = torch.ldexp(torch.ones_like(top), torch.frexp(top)[1] - 8)
+    assert d.max().item() <= 2 * ulp.item()
+    assert (d == 0).float().mean().item() >= 0.98
+    if sq != skv:
+        with pytest.raises(ValueError, match="keys of their own length"):
+            fa.flash_attention_blockwise(q16, k16, v16, causal=True)

@@ -62,6 +62,10 @@ ENTRY_POINTS = {
     "SyntheticLM.batch": lambda **d: SyntheticLM(
         vocab_size=CFG.vocab_size, seq_len=8, global_batch=2).batch(0, **d),
     "make_batch_fn": lambda **d: make_batch_fn(CFG, 8, 2, **d)(0),
+    "make_batch_fn frames": lambda **d: make_batch_fn(
+        get_config("whisper-large-v3", smoke=True), 8, 2, **d)(0),
+    "make_batch_fn image_embeds": lambda **d: make_batch_fn(
+        get_config("llama-3.2-vision-90b", smoke=True), 8, 2, **d)(0),
     "params_from_jax": lambda **d: convert.params_from_jax(TREE, **d),
     "pools_from_jax": lambda **d: convert.pools_from_jax(POOLS, **d),
     "opt_state_from_jax": lambda **d: convert.opt_state_from_jax(

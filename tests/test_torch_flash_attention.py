@@ -11,17 +11,24 @@ version, ``blockwise_attention_ref``, is held to JAX's in bf16 in
 ``tests/test_torch_layers.py``; here its chunk rule, the route of the
 model's ``blockwise_attention`` (by launch counter on the CPU, and with
 spies in place of the launchers: bf16 to ``flash_attention_blockwise`` with
-the model's ``kv_chunk``, fp32 to ``flash_attention``, grad and
-``q_offset`` calls to neither) and smoke-size prefill logits over several
-kv chunks against JAX's.
+the model's ``kv_chunk``, fp32 to ``flash_attention``, grad calls to
+neither, a ``q_offset`` call refused) and smoke-size prefill logits over
+several kv chunks against JAX's. Keys of their own length (Skv != Sq, no
+mask: an encoder's or a cross-attention's): both plain versions against
+JAX's ``blockwise_attention`` at odd lengths and lengths off a multiple of
+64, the route of such a call to the kernels (the blockwise chunk taken
+from Skv, as each wrapper hands it to its C entry point), and the refusal
+of a masked call with keys of another length.
 
 The ``cuda``-marked tests hold each CUDA kernel to its plain version on the
 card: for ``flash_attention`` the serving shapes, fp32, group 5, hd 96 and
 17, S = 1 and 777, a window of 1; for ``flash_attention_blockwise`` hd 64,
 96 and 128 (and 16, 256), odd S, chunks that are no tile multiple, fully
 masked first chunks and strided views at the model's bar (max |d| <= 4e-3
-max |out|, >= 99% bit-equal); relaunches bit-identical, and the route (a
-launch without grad, none under grad or with ``q_offset``). JAX is
+max |out|, >= 99% bit-equal), both at keys of their own length (the
+cross-attention shapes of whisper-large-v3 and llama-3.2-vision-90b, cut
+in heads); relaunches bit-identical, and the route (a launch without grad,
+none under grad, a ``q_offset`` refused). JAX is
 imported inside the CPU tests only, so on a machine without JAX
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_flash_attention.py
@@ -159,8 +166,8 @@ def _spy(calls, name, plain):
 def test_model_route_by_dtype_and_grad(monkeypatch):
     """With the device test patched to say "card", the route calls the
     bf16 kernel with the model's kv_chunk and the fp32 one without, and
-    neither for a grad call or a call with q_offset; each result is the
-    plain loop's."""
+    neither for a grad call; a no-grad call with q_offset, which no kernel
+    takes, raises; each result is the plain loop's."""
     calls = []
     monkeypatch.setattr(TL, "_on_card", lambda t: True)
     monkeypatch.setattr(TL, "flash_attention_blockwise", _spy(
@@ -174,8 +181,9 @@ def test_model_route_by_dtype_and_grad(monkeypatch):
         out16 = TL.blockwise_attention(q.bfloat16(), k.bfloat16(),
                                        v.bfloat16(), **kw)
         out32 = TL.blockwise_attention(q, k, v, **kw)
-        TL.blockwise_attention(q[:, 16:].bfloat16(), k.bfloat16(),
-                               v.bfloat16(), q_offset=16, **kw)
+        with pytest.raises(ValueError, match="no kernel"):
+            TL.blockwise_attention(q[:, 16:].bfloat16(), k.bfloat16(),
+                                   v.bfloat16(), q_offset=16, **kw)
     TL.blockwise_attention(q.bfloat16().requires_grad_(), k.bfloat16(),
                            v.bfloat16(), **kw)
     assert calls == [
@@ -241,6 +249,149 @@ def test_wrapper_rejects_bad_inputs():
         fa.flash_attention(q, torch.zeros(1, 7, 2, 16), torch.zeros(1, 7, 2, 16))
     with pytest.raises(ValueError, match="window"):
         fa.flash_attention(q, q, q, window=0)
+
+
+# (b, sq, skv, hq, hkv, hd, kv_chunk): keys of their own length, no mask;
+# odd lengths, lengths off a multiple of 64, one query, a kv chunk that
+# divides Skv (three chunks) and one that does not (one chunk of Skv)
+SKV_CASES = [
+    (2, 37, 150, 4, 2, 32, 1024),
+    (1, 1, 77, 4, 4, 16, 8),
+    (1, 100, 9, 6, 3, 64, 512),
+    (2, 48, 96, 8, 2, 32, 32),
+    (1, 20, 150, 4, 1, 32, 64),
+]
+
+
+def _skv_inputs(b, sq, skv, hq, hkv, hd, dtype, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for s, h in ((sq, hq), (skv, hkv), (skv, hkv)):
+        x = torch.from_numpy(rng.standard_normal((b, s, h, hd))
+                             .astype(np.float32))
+        out.append(x.to(getattr(torch, dtype)).float().numpy())
+    return out
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,hd,kv_chunk", SKV_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_versions_take_keys_of_their_own_length(b, sq, skv, hq, hkv, hd,
+                                                      kv_chunk, dtype):
+    """Sq != Skv without a mask: ``blockwise_attention_ref`` (the blockwise
+    kernel's plain version) against JAX's ``blockwise_attention`` on the
+    same values at the bars of ``test_torch_layers.py`` (fp32 3e-5; bf16
+    max |d| <= 4e-3 max |out|), and in fp32 ``flash_attention_ref`` too."""
+    from repro.models.layers import blockwise_attention
+    arrs = _skv_inputs(b, sq, skv, hq, hkv, hd, dtype, seed=sq + skv)
+    want = np.asarray(blockwise_attention(
+        *_jax_arrays(arrs, dtype), causal=False, q_chunk=512,
+        kv_chunk=kv_chunk), np.float32)
+    ts = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+    got = fa.blockwise_attention_ref(*ts, causal=False, kv_chunk=kv_chunk)
+    assert got.shape == (b, sq, hq, hd) and got.dtype == ts[0].dtype
+    tol = 3e-5 if dtype == "float32" else 4e-3 * np.abs(want).max()
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=0)
+    if dtype == "float32":
+        got = fa.flash_attention(*ts, causal=False)
+        np.testing.assert_allclose(got.numpy(), want, atol=3e-5, rtol=0)
+
+
+def test_masked_call_with_keys_of_another_length_is_refused(monkeypatch):
+    """Both wrappers refuse a causal or windowed call whose keys have
+    another length, and so does the route on the card (spies in place of
+    the launchers: none is called)."""
+    q, k = torch.zeros(1, 8, 4, 16), torch.zeros(1, 12, 2, 16)
+    for kw in (dict(causal=True), dict(causal=False, window=4)):
+        with pytest.raises(ValueError, match="keys of their own length"):
+            fa.flash_attention(q, k, k, **kw)
+        with pytest.raises(ValueError, match="keys of their own length"):
+            fa.flash_attention_blockwise(q, k, k, **kw)
+    calls = []
+    monkeypatch.setattr(TL, "_on_card", lambda t: True)
+    monkeypatch.setattr(TL, "flash_attention_blockwise", _spy(
+        calls, "blockwise", fa.flash_attention_blockwise))
+    monkeypatch.setattr(TL, "flash_attention_op", _spy(
+        calls, "flash", fa.flash_attention))
+    with torch.inference_mode():
+        for dt in (torch.float32, torch.bfloat16):
+            with pytest.raises(ValueError, match="no kernel"):
+                TL.blockwise_attention(q.to(dt), k.to(dt), k.to(dt),
+                                       causal=True, kv_chunk=4)
+    assert calls == []
+
+
+def test_model_route_sends_cross_attention_to_the_kernels(monkeypatch):
+    """A no-grad non-causal call with keys of their own length (a
+    cross-attention's) goes to the bf16 kernel with the model's kv_chunk
+    and to the fp32 one; under grad to neither; each result the loop's."""
+    calls = []
+    monkeypatch.setattr(TL, "_on_card", lambda t: True)
+    monkeypatch.setattr(TL, "flash_attention_blockwise", _spy(
+        calls, "blockwise", fa.flash_attention_blockwise))
+    monkeypatch.setattr(TL, "flash_attention_op", _spy(
+        calls, "flash", fa.flash_attention))
+    q, k, v = (torch.from_numpy(a) for a in _skv_inputs(
+        2, 21, 150, 4, 2, 32, "bfloat16", seed=8))
+    kw = dict(causal=False, q_chunk=8, kv_chunk=64)
+    with torch.inference_mode():
+        out16 = TL.blockwise_attention(q.bfloat16(), k.bfloat16(),
+                                       v.bfloat16(), **kw)
+        out32 = TL.blockwise_attention(q, k, v, **kw)
+    TL.blockwise_attention(q.requires_grad_(), k, v, **kw)
+    assert calls == [
+        ("blockwise", torch.bfloat16,
+         dict(causal=False, window=None, kv_chunk=64)),
+        ("flash", torch.float32, dict(causal=False, window=None))]
+    assert out16.shape == (2, 21, 4, 32)
+    assert torch.equal(out16, fa.blockwise_attention_ref(
+        q.detach().bfloat16(), k.bfloat16(), v.bfloat16(), **kw))
+    torch.testing.assert_close(out32, fa.blockwise_attention_ref(
+        q.detach(), k, v, **kw), atol=3e-5, rtol=0)
+
+
+@pytest.mark.parametrize("sq,skv,kv_chunk,chunk", [
+    (448, 1500, 1024, 1500), (2048, 6400, 1024, 6400),
+    (64, 4096, 1024, 1024), (512, 512, 512, 512)])
+def test_wrappers_hand_skv_and_its_chunk_to_the_kernel(monkeypatch, sq, skv,
+                                                       kv_chunk, chunk):
+    """What each wrapper passes its C entry point for keys of their own
+    length, with the library replaced by a recorder (meta tensors: no
+    memory, no card): Sq and Skv, and the blockwise kernel's chunk resolved
+    from Skv by the model's rule (whisper's 1500 keys and vision's 6400,
+    each one chunk), as many arguments as the entry point's signature;
+    each launch counted."""
+    from repro_torch.kernels import cuda_lib
+    got = {}
+
+    class Lib:
+        def __getattr__(self, name):
+            def entry(*args):
+                got[name] = args
+                return 0
+            return entry
+
+    monkeypatch.setattr(fa, "_check_heads", lambda *a, **kw: None)
+    monkeypatch.setattr(cuda_lib, "library", lambda: Lib())
+    monkeypatch.setattr(cuda_lib, "stream", lambda t: 0)
+    q = torch.empty(2, sq, 8, 64, device="meta")
+    k = torch.empty(2, skv, 2, 64, device="meta")
+    n32 = fa.flash_attention.launches
+    n16 = fa.flash_attention_blockwise.launches
+    out = fa.flash_attention(q, k, k, causal=False)
+    out16 = fa.flash_attention_blockwise(q.bfloat16(), k.bfloat16(),
+                                         k.bfloat16(), causal=False,
+                                         kv_chunk=kv_chunk)
+    assert out.shape == out16.shape == (2, sq, 8, 64)
+    assert fa.flash_attention.launches == n32 + 1
+    assert fa.flash_attention_blockwise.launches == n16 + 1
+    a32 = got["repro_flash_attention"]
+    a16 = got["repro_flash_attention_blockwise"]
+    assert len(a32) == len(cuda_lib.SIGNATURES["repro_flash_attention"])
+    assert len(a16) == len(cuda_lib.SIGNATURES[
+        "repro_flash_attention_blockwise"])
+    assert a32[4:10] == (2, sq, skv, 8, 2, 64)      # b, s, skv, hq, hkv, hd
+    assert a16[4:11] == (2, sq, skv, 8, 2, 64, 64)  # ..., hd, vd
+    assert a16[-3] == chunk
 
 
 # ---------------------------------------------------------------------------
@@ -309,7 +460,8 @@ def test_cuda_kernel_reads_strided_views(cuda):
 @pytest.mark.cuda
 def test_cuda_route_launches_only_without_grad(cuda):
     """The model's attention launches the kernel for a no-grad call with
-    q_offset 0 and Sq == Skv, and runs the chunked loop otherwise."""
+    q_offset 0 and Sq == Skv, runs the chunked loop under grad, and refuses
+    a no-grad call with a q_offset."""
     q, k, v = (torch.from_numpy(a).to(cuda)
                for a in _inputs(1, 64, 4, 2, 32, "float32", seed=3))
     ops.reset_launch_counts(ops.ATTENTION)
@@ -319,7 +471,7 @@ def test_cuda_route_launches_only_without_grad(cuda):
     assert fa.flash_attention.launches == 1
     b = TL.blockwise_attention(q.clone().requires_grad_(), k, v, causal=True,
                                window=16, q_chunk=16, kv_chunk=16)
-    with torch.inference_mode():
+    with torch.inference_mode(), pytest.raises(ValueError, match="no kernel"):
         TL.blockwise_attention(q[:, 32:], k, v, causal=True, q_offset=32,
                                q_chunk=16, kv_chunk=16)
     torch.cuda.synchronize()

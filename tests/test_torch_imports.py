@@ -147,6 +147,19 @@ def test_recurrent_modules_import_without_jax_or_repro(probe, name):
     assert name in probe[1].split()
 
 
+# the modules of the encoder-decoder and cross-attention slice
+ENCDEC_MODULES = ("repro_torch.configs.whisper_large_v3",
+                  "repro_torch.configs.llama32_vision_90b",
+                  "repro_torch.models.transformer",
+                  "repro_torch.models.layers",
+                  "repro_torch.data.synthetic")
+
+
+@pytest.mark.parametrize("name", ENCDEC_MODULES)
+def test_encdec_modules_import_without_jax_or_repro(probe, name):
+    assert name in probe[1].split()
+
+
 def _reference_all(pkg: str) -> list[str]:
     """``__all__`` of ``repro/<pkg>/__init__.py``, read without importing
     it (this file imports no JAX)."""

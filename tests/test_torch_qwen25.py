@@ -74,14 +74,13 @@ def test_configs_match_jax():
 
 
 def test_registry_leaves_six_archs_unported():
-    assert set(registry.NOT_YET_PORTED) == {
-        "whisper-large-v3", "llama-3.2-vision-90b"}
-    for arch in registry.NOT_YET_PORTED:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            get_config(arch)
-    assert {"qwen2.5-32b", "phi3-mini-3.8b", "command-r-plus-104b",
-            "jamba-1.5-large-398b", "rwkv6-1.6b"} <= \
-        set(registry.list_archs())
+    """Every architecture of the JAX registry is ported: ``list_archs()``
+    equals JAX's and ``NOT_YET_PORTED`` is empty."""
+    from repro.configs import registry as jax_registry
+    assert registry.NOT_YET_PORTED == ()
+    assert registry.list_archs() == jax_registry.list_archs()
+    for arch in registry.list_archs():
+        assert get_config(arch).name == jax_registry.get_config(arch).name
 
 
 def test_full_config_on_meta_matches_jax_eval_shape():

@@ -129,11 +129,13 @@ def port_losses(tcfg, tp, *, steps: int = 5) -> list:
     return out
 
 
-def trajectory(jcfg, tcfg, jp, tp, *, steps: int = 5, on_step=None):
+def trajectory(jcfg, tcfg, jp, tp, *, steps: int = 5, on_step=None,
+               batches=None):
     """``steps`` DCT-AdamW steps of both packages from the same parameters
     on the same batches (rank 16, lr 0.01, cosine warmup 2, weight decay
-    0.01). ``on_step(port params, JAX params)`` after each step. Returns
-    (the port's losses, JAX's)."""
+    0.01): the JAX package's synthetic token batches, or ``batches`` (numpy
+    dicts, one a step). ``on_step(port params, JAX params)`` after each
+    step. Returns (the port's losses, JAX's)."""
     jopt = jax_get_optimizer("dct_adamw", lr=jax_cosine(_LR, _WARMUP, steps),
                              **_OPT)
     topt = get_optimizer("dct_adamw", lr=cosine_warmup(_LR, _WARMUP, steps),
@@ -143,7 +145,7 @@ def trajectory(jcfg, tcfg, jp, tp, *, steps: int = 5, on_step=None):
     jstep = jax.jit(JS.make_train_step(jcfg, jopt))
     tstep = TS.make_train_step(tcfg, topt)
     jl, tl = [], []
-    for b in _batches(tcfg, steps):
+    for b in batches or _batches(tcfg, steps):
         jstate, jm = jstep(jstate, jax.tree.map(jnp.asarray, b))
         tstate, tm = tstep(tstate, {k: torch.from_numpy(v)
                                     for k, v in b.items()})
