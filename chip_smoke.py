@@ -353,7 +353,36 @@ device or without the port beside it. Any failure raises. Phases:
    launch of each of the four kernels per projected leaf and step, no
    attention kernel, finite losses, step time and peak memory. The phase's
    wall time is printed.
-22. The ``kernels`` line, the card's line, and last:
+22. ZeRO-1 at world 2 over ``("data",)`` on the one card: ``gloo`` with
+   CUDA tensors (NCCL refuses two ranks on one device), the ranks spawned
+   after the kernels are built, a file store for the process group. (a)
+   Through the API: llama-350m's projected leaves ((24, 1024 | 2816,
+   1024), rank 128) with the same N(0, 1) gradients on two ranks and, in
+   rank 0, replicated: DCT-AdamW in fp32 (q8 EF, ``update_interval=2``: a
+   keep step between two refreshes) for 3 updates, one in bf16, one in
+   int8, and Trion for 3 (``ZERO_API_RUNS``); every selection equal
+   (``select_top_r`` spied in both), the gathered updates and state bit
+   for bit; each rank's launches of each kernel, exactly
+   ``ZERO_API_LAUNCHES``, its G block shapes and optimizer-state bytes
+   beside the replicated state's; the fp32 state saved whole and restored
+   at 2 ranks (each its blocks, bit for bit) and at 1 (the gathered state,
+   bit for bit). (b) Through the CLI: ``python -m torch.distributed.run
+   --standalone --nproc-per-node 2 -m repro_torch.launch.train`` with
+   phase 3's configuration (6 steps, batch 8 x 512 global, 4 x 512 a
+   rank) and ``--zero 1 --dist-backend gloo``, a checkpoint every 2 steps:
+   each rank's line (7 launches of each of the four kernels per step, its
+   state bytes, peak memory), losses equal bit for bit to a world-1 run
+   of the same configuration in microbatches of one rank's rows
+   (``ZERO_MICROBATCH``) and within ``ZERO_LOSS_BARS`` of phase 3's, step
+   time and each rank's mean data wait, dispatch and host sync from
+   ``--obs-dir``. (c) (b)'s step-2 checkpoint restored at 2 ranks and at
+   1: the whole moments and EF equal the concatenation of the blocks
+   (CRC32 of each block); a world-1 run in those microbatches resumes
+   from it and runs steps 3-6, its losses equal to (b)'s bit for bit.
+   Files under ``build/chip_smoke_zero``, deleted at the end; the phase's
+   wall time is printed. Order: (b), then one spawn of the two ranks for
+   (a) and their half of (c), then (c)'s world-1 half.
+23. The ``kernels`` line, the card's line, and last:
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -755,6 +784,58 @@ ENCDEC_LEAF_SHAPES = {"whisper d x d": ((32, 1280, 1280), 12),
 ENCDEC_TRAIN_RUNS = (("whisper-large-v3", None, 8, 448),
                      ("llama-3.2-vision-90b", ("cross",), 8, 512))
 ENCDEC_TRAIN_STEPS = 3
+
+# phase 22: ZeRO-1 at world 2 over ("data",) on the one card: gloo with
+# CUDA tensors (NCCL refuses two ranks on one device)
+ZERO_WORLD = 2
+ZERO_DIR = ROOT / "build" / "chip_smoke_zero"
+# (a): (label, preset, keywords, updates) on llama-350m's projected leaves
+# with N(0, 1) gradients from a seeded generator on the card (the same in
+# every process); fused auto -> on
+ZERO_API_RUNS = (
+    ("fp32", "dct_adamw", dict(rank=RANK, update_interval=2), 3),
+    ("bf16", "dct_adamw", dict(rank=RANK, compute_dtype="bf16"), 1),
+    ("int8", "dct_adamw", dict(rank=RANK, compute_dtype="int8"), 1),
+    ("trion", "trion", dict(rank=RANK), 3))
+# each rank's launches of each run, exactly (one a leaf: 7 a step): the
+# fp32 run refreshes at updates 1 and 3 (dct_project twice) and
+# back-projects at all three; Trion refreshes every step and runs NS_STEPS
+# Gram / apply pairs a leaf and step on the gathered factor
+ZERO_API_LAUNCHES = {
+    "fp32": {"dct_project": 2 * LAUNCHES_PER_STEP,
+             **{k: 3 * LAUNCHES_PER_STEP for k in (
+                 "colgather_matmul_dual", "quantize_ef", "dequant_add_ef")}},
+    "bf16": {k: LAUNCHES_PER_STEP for k in (
+        "dct_project_bf16", "colgather_matmul_dual_bf16", "quantize_ef",
+        "dequant_add_ef")},
+    "int8": {k: LAUNCHES_PER_STEP for k in (
+        "dct_project_q8", "quant_rows_q8", "quant_cols_q8t",
+        "colgather_matmul_dual_q8", "quant_qt_q8", "quant_fold_q8",
+        "quantize_ef", "dequant_add_ef")},
+    "trion": {"dct_project": 3 * LAUNCHES_PER_STEP,
+              "colgather_matmul_dual": 3 * LAUNCHES_PER_STEP,
+              "ns_gram": 3 * NS_PER_STEP, "ns_apply": 3 * NS_PER_STEP}}
+# every run is held bit for bit (updates, the gathered state) and every
+# selection equal: the column statistic is the replicated kernel's own sum
+# of the same row-block partials, everything else row-local or computed on
+# the gathered whole (Trion's momentum sum, NS)
+# (b): phase 3's configuration and schedule (6 steps), a checkpoint every 2
+ZERO_CLI_ARGV = TRAIN_ARGV
+ZERO_CLI_STEPS = STEPS
+ZERO_CKPT_STEP = 2
+# the witness of (b) and (c): one process runs phase 3's configuration in
+# microbatches of one rank's rows, the function the ranks compute (their
+# averaged gradients equal its accumulated ones: g0 / 2 + g1 / 2 ==
+# (g0 + g1) / 2 in fp32), so (b)'s losses and (c)'s resumed ones are held
+# to its losses bit for bit
+ZERO_MICROBATCH = BATCH // ZERO_WORLD
+# |loss - phase 3's| at steps 1-6 (measured on an H100 80GB HBM3 at 700 W,
+# scripts/zero_probe.py: 9.5e-7, 4.4e-3, 6.2e-3, 1.5e-3, 3.03e-2, 9.4e-3):
+# step 1 averages the two half-batch means; the later steps follow
+# updates at phase 3's LRs from gradients summed in another order (Adam's
+# first steps move each weight by ~lr, whatever the gradient's size, so an
+# element near zero that changes sign moves the loss)
+ZERO_LOSS_BARS = (1e-5,) + (5e-2,) * (ZERO_CLI_STEPS - 1)
 
 
 def _device_line() -> str:
@@ -4684,6 +4765,451 @@ def run_encdec_family(torch, dev) -> dict:
     return {"cases": cases, "serving": serving, "training": training}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: ZeRO-1 at world 2 on the one card
+# ---------------------------------------------------------------------------
+def _zero_select_spy(calls: list):
+    """Record every ``select_top_r`` of the fused step (the selections of
+    both the sharded and the replicated updates); returns the restorer."""
+    from repro_torch.core import fused_step
+
+    orig = fused_step.select_top_r
+
+    def spy(norms, r, sort=True):
+        calls.append(orig(norms, r, sort))
+        return calls[-1]
+
+    fused_step.select_top_r = spy
+    return lambda: setattr(fused_step, "select_top_r", orig)
+
+
+def _zero_api(torch, mesh) -> dict:
+    """Part (a) on one rank: each of ``ZERO_API_RUNS`` sharded over the mesh
+    and (rank 0) replicated on the same gradients, the gathered updates,
+    selections and state held to the replicated ones; the fp32 run's state
+    saved whole and restored at 2 ranks and at 1."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.api import get_optimizer
+    from repro_torch.optim.common import default_label_fn, oriented_dims
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.zero import ZeroConfig, gather_updates
+    from repro_torch.train.checkpoint import CheckpointManager, tree_items
+
+    dev = torch.device("cuda")
+    rank = mesh.rank
+    meta = T.init_params(get_config("llama-350m"), 0, "meta")
+    shapes = {k: tuple(p.shape) for k, p in meta.items()
+              if default_label_fn(k, p) == "lowrank"}
+    params = {k: torch.zeros(s, device=dev) for k, s in shapes.items()}
+    zero = ZeroConfig("1")
+    calls: list = []
+    restore = _zero_select_spy(calls)
+    out = {"g_block_shapes": sorted({str([*s[:-2], oriented_dims(s)[0]
+                                           // ZERO_WORLD, oriented_dims(s)[1]])
+                                     for s in shapes.values()})}
+    try:
+        for label, name, kw, steps in ZERO_API_RUNS:
+            zopt = get_optimizer(name, lr=0.01, zero=zero, **kw)
+            ropt = get_optimizer(name, lr=0.01, **kw)
+            with sharding.set_mesh(mesh):
+                zs = zopt.init(params)
+            rs = ropt.init(params) if rank == 0 else None
+            rec = {"updates": steps, "max_abs_diff": [], "max_abs_update": [],
+                   "updates_bit_equal": [], "selections": [],
+                   "selections_differing": [], "launches": {}}
+            for t in range(steps):
+                gen = torch.Generator(device=dev).manual_seed(7000 + t)
+                g = {k: torch.randn(s, generator=gen, device=dev)
+                     for k, s in shapes.items()}
+                torch.cuda.synchronize()
+                ops.reset_launch_counts()
+                calls.clear()
+                with sharding.set_mesh(mesh):
+                    u, zs = zopt.update(g, zs, params)
+                torch.cuda.synchronize()
+                for k, n in ops.launch_counts().items():
+                    if n:
+                        rec["launches"][k] = rec["launches"].get(k, 0) + n
+                zsel = list(calls)
+                with sharding.set_mesh(mesh):
+                    uz = gather_updates(u)
+                del u
+                if rank == 0:
+                    calls.clear()
+                    ur, rs = ropt.update(g, rs, params)
+                    rsel = list(calls)
+                    assert len(zsel) == len(rsel), (len(zsel), len(rsel))
+                    rec["selections"].append(sum(int(a[..., 0].numel())
+                                                 for a in rsel))
+                    rec["selections_differing"].append(sum(
+                        int((a != b).any(dim=-1).sum())
+                        for a, b in zip(zsel, rsel)))
+                    rec["max_abs_diff"].append(max(
+                        float((uz[k] - ur[k]).abs().max()) for k in shapes))
+                    rec["max_abs_update"].append(max(
+                        float(ur[k].abs().max()) for k in shapes))
+                    rec["updates_bit_equal"].append(all(
+                        _same_bits(uz[k], ur[k]) for k in shapes))
+                    del ur
+                del uz, g
+            with sharding.set_mesh(mesh):
+                specs = sharding.opt_state_specs(zs, params, zero=zero,
+                                                 mesh=mesh)
+                held, whole = sharding.state_bytes(zs, specs, mesh)
+                zfull = sharding.gather_tree(zs, specs, mesh)
+            rec["opt_state_bytes"], rec["opt_state_whole_bytes"] = held, whole
+            if rank == 0:
+                rec["replicated_opt_state_bytes"] = sum(
+                    t.numel() * t.element_size() for _, t in tree_items(rs)
+                    if isinstance(t, torch.Tensor))
+                pairs = list(zip(tree_items(zfull), tree_items(rs)))
+                rec["state_bit_equal"] = all(
+                    pa == pb and (_same_bits(a, b) if isinstance(
+                        a, torch.Tensor) else a == b)
+                    for (pa, a), (pb, b) in pairs)
+                rec["state_max_abs_diff"] = max(
+                    float((a.float() - b.float()).abs().max())
+                    for (_, a), (_, b) in pairs
+                    if isinstance(a, torch.Tensor) and a.numel())
+            if label == "fp32":
+                # saved whole from the blocks, restored at 2 ranks (each
+                # its blocks) and at 1 (the whole state)
+                ck = ZERO_DIR / "api_ckpt"
+                if rank == 0:
+                    shutil.rmtree(ck, ignore_errors=True)
+                    CheckpointManager(str(ck)).save(steps, zfull)
+                dist.barrier()
+                mgr = CheckpointManager(str(ck))
+                with sharding.set_mesh(mesh):
+                    target = zopt.init(params)
+                    back = mgr.restore(steps, target, sharding.opt_state_specs(
+                        target, params, zero=zero, mesh=mesh))
+                rec["restored_blocks_bit_equal"] = all(
+                    _same_bits(a, b) if isinstance(a, torch.Tensor)
+                    else a == b for (_, a), (_, b) in zip(tree_items(back),
+                                                          tree_items(zs)))
+                if rank == 0:
+                    whole_back = mgr.restore(steps, ropt.init(params))
+                    rec["restored_whole_bit_equal"] = all(
+                        _same_bits(a, b) if isinstance(a, torch.Tensor)
+                        else a == b for (_, a), (_, b) in zip(
+                            tree_items(whole_back), tree_items(zfull)))
+                dist.barrier()
+                if rank == 0:
+                    shutil.rmtree(ck, ignore_errors=True)
+            del zs, rs, zfull
+            gc.collect()
+            torch.cuda.empty_cache()
+            out[label] = rec
+    finally:
+        restore()
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def _zero_restore(torch, mesh) -> dict:
+    """Part (c) on one rank: the CLI run's step-2 checkpoint restored at 2
+    ranks; the CRC32 of this rank's block of each split array."""
+    import zlib
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.optim.api import get_optimizer
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.zero import ZeroConfig
+    from repro_torch.train.checkpoint import CheckpointManager, tree_items
+    from repro_torch.train.steps import init_state
+
+    zero = ZeroConfig("1")
+    opt = get_optimizer("dct_adamw", lr=0.01, rank=RANK, zero=zero)
+    with sharding.set_mesh(mesh):
+        target = init_state(get_config("llama-350m"), opt, 0, "cuda")
+        specs = sharding.train_state_specs(target, zero=zero, mesh=mesh)
+        st = CheckpointManager(str(ZERO_DIR / "ckpt")).restore(
+            ZERO_CKPT_STEP, target, specs)
+    placed = sharding.placements_by_path(specs)
+    crcs = {}
+    for path, leaf in tree_items(st):
+        if placed[path].split:
+            arr = leaf.detach().cpu().contiguous().numpy()
+            crcs["||".join(path)] = zlib.crc32(arr) & 0xFFFFFFFF
+    return {"block_crc32": crcs}
+
+
+def zero_rank(rank: int, task: str, restore: bool = False) -> None:
+    """One spawned rank of phase 22: ``gloo`` from a file store under
+    ``ZERO_DIR``, CUDA tensors on card 0 (the library the parent built is
+    loaded, not rebuilt); part (a), then with ``restore`` (c)'s restore of
+    (b)'s checkpoint; writes its result to ``<task>.rank<r>.json``, or its
+    traceback to ``<task>.rank<r>.err``."""
+    import traceback
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group(
+            "gloo", init_method=f"file://{ZERO_DIR / (task + '.pg')}",
+            rank=rank, world_size=ZERO_WORLD)
+        from repro_torch.launch.mesh import make_mesh
+
+        mesh = make_mesh((ZERO_WORLD,), ("data",))
+        out = {"rank": rank, "backend": mesh.backend,
+               **_zero_api(torch, mesh)}
+        if restore:
+            out.update(_zero_restore(torch, mesh))
+        (ZERO_DIR / f"{task}.rank{rank}.json").write_text(json.dumps(out))
+        dist.destroy_process_group()
+    except BaseException:
+        (ZERO_DIR / f"{task}.rank{rank}.err").write_text(
+            traceback.format_exc())
+        raise
+
+
+def spawn_zero_ranks(task: str, restore: bool = False, target=None,
+                     timeout: float = 600.0) -> list[dict]:
+    """Run ``target`` (``zero_rank``, or a probe's function of the same
+    arguments) on ``ZERO_WORLD`` spawned processes (CUDA is initialised
+    here already: ``spawn``, not ``fork``); their results by rank. A rank
+    that fails fails the phase with its traceback."""
+    import multiprocessing
+
+    ZERO_DIR.mkdir(parents=True, exist_ok=True)
+    for f in ZERO_DIR.glob(f"{task}.*"):
+        f.unlink()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target or zero_rank, args=(r, task, restore))
+             for r in range(ZERO_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.time()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    errs = "".join(f.read_text() for f in sorted(ZERO_DIR.glob(
+        f"{task}.rank*.err")))
+    assert not errs and all(p.exitcode == 0 for p in procs), \
+        f"phase 22 {task}: exit codes {[p.exitcode for p in procs]}\n{errs}"
+    return [json.loads((ZERO_DIR / f"{task}.rank{r}.json").read_text())
+            for r in range(ZERO_WORLD)]
+
+
+def run_zero_api(torch, check: bool = True, restore: bool = False,
+                 target=None) -> tuple[dict, list]:
+    """Phase 22 (a), and with ``restore`` the ranks' half of (c). Returns
+    the ranks' launches of each run and the ranks' results. ``check=
+    False`` with a probe's ``target`` (its A/B) prints without
+    asserting."""
+    task = "api" if target is None else f"api_{target.__name__}"
+    t0 = time.perf_counter()
+    ranks = spawn_zero_ranks(task, restore, target)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    for label, name, kw, steps in ZERO_API_RUNS if check else ():
+        rec = r0[label]
+        assert not any(rec["selections_differing"]), (label, rec)
+        assert all(rec["updates_bit_equal"]) and rec["state_bit_equal"], \
+            (label, rec)
+        for r in ranks:
+            assert r[label]["launches"] == ZERO_API_LAUNCHES[label], \
+                (label, r[label]["launches"], ZERO_API_LAUNCHES[label])
+            assert r[label]["opt_state_bytes"] < \
+                r[label]["opt_state_whole_bytes"], (label, r)
+        if label == "fp32":
+            assert rec["restored_whole_bit_equal"], rec
+            assert all(r[label]["restored_blocks_bit_equal"] for r in ranks)
+    summary = {
+        "zero_api": f"llama-350m's projected leaves, world {ZERO_WORLD} over "
+                    f"('data',), {r0['backend']} with CUDA tensors on one "
+                    f"card, ranks {task}",
+        "g_block_shapes": r0["g_block_shapes"],
+        "runs": {label: {
+            **{k: r0[label][k] for k in (
+                "updates", "updates_bit_equal", "max_abs_diff",
+                "max_abs_update", "selections", "selections_differing",
+                "state_bit_equal", "state_max_abs_diff",
+                "replicated_opt_state_bytes")},
+            "bar": "bit-equal",
+            "rank_opt_state_bytes": [r[label]["opt_state_bytes"]
+                                     for r in ranks],
+            "rank_launches": [r[label]["launches"] for r in ranks],
+            **({k: r0[label][k] for k in ("restored_whole_bit_equal",)}
+               if label == "fp32" else {})}
+            for label, *_ in ZERO_API_RUNS},
+        "rank_peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks],
+        "wall_s": wall, "device": _device_line()}
+    print(json.dumps(summary), flush=True)
+    return {label: [r[label]["launches"] for r in ranks]
+            for label, *_ in ZERO_API_RUNS}, ranks
+
+
+@contextlib.contextmanager
+def _zero_microbatched():
+    """llama-350m in microbatches of one rank's rows (``ZERO_MICROBATCH``)
+    while the training CLI builds and runs in this process."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("llama-350m")
+    with _registry_depth("llama-350m", None, dataclasses.replace(
+            cfg, train_microbatch=ZERO_MICROBATCH)):
+        yield
+
+
+def run_zero_cli(torch, main_losses) -> dict:
+    """Phase 22 (b): the training CLI under torchrun at 2 ranks with
+    ``--zero 1 --dist-backend gloo``, a checkpoint every 2 steps, and its
+    world-1 witness in microbatches. Returns the ranks' lines."""
+    shutil.rmtree(ZERO_DIR / "ckpt", ignore_errors=True)
+    shutil.rmtree(ZERO_DIR / "obs", ignore_errors=True)
+    argv = [*ZERO_CLI_ARGV, "--zero", "1", "--dist-backend", "gloo",
+            "--ckpt-dir", str(ZERO_DIR / "ckpt"), "--ckpt-every",
+            str(ZERO_CKPT_STEP), "--obs-dir", str(ZERO_DIR / "obs")]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(ZERO_WORLD), "-m",
+         "repro_torch.launch.train", *argv], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    assert run.returncode == 0, (run.stdout[-3000:], run.stderr[-6000:])
+    ranks = sorted((json.loads(line.split("[train] rank ", 1)[1])
+                    for line in run.stdout.splitlines()
+                    if line.startswith("[train] rank ")),
+                   key=lambda r: r["rank"])
+    assert [r["rank"] for r in ranks] == list(range(ZERO_WORLD)), \
+        run.stdout[-3000:]
+    losses = ranks[0]["losses"]
+    diffs = [abs(a - b) for a, b in zip(losses, main_losses)]
+    with _zero_microbatched():
+        whist, _, _ = _cli_run(torch, ZERO_CLI_ARGV)
+    witness = [h["loss"] for h in whist]
+    gc.collect()
+    torch.cuda.empty_cache()
+    obs = [_prom_means(ZERO_DIR / "obs" / "metrics.prom"),
+           _prom_means(ZERO_DIR / "obs" / "rank1" / "metrics.prom")]
+    summary = {
+        "zero_cli": f"torchrun --nproc-per-node {ZERO_WORLD} "
+                    f"repro_torch.launch.train {' '.join(argv)}",
+        "losses": losses, "phase3_losses": main_losses[:ZERO_CLI_STEPS],
+        "abs_diff_vs_phase3": diffs, "bars": list(ZERO_LOSS_BARS),
+        "world1_microbatched_losses": witness,
+        "abs_diff_vs_world1_microbatched": [
+            abs(a - b) for a, b in zip(losses, witness)],
+        "ms_per_step_after_first": sum(ranks[0]["s_per_step"][1:])
+        / (ZERO_CLI_STEPS - 1) * 1e3,
+        "first_step_ms": ranks[0]["s_per_step"][0] * 1e3,
+        "rank_peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks],
+        "rank_opt_state_bytes": [r["opt_state_bytes"] for r in ranks],
+        "opt_state_whole_bytes": ranks[0]["opt_state_whole_bytes"],
+        "rank_launches": [r["launches"] for r in ranks],
+        "rank_mean_s": [{k: m.get(f"train_{k}_seconds_mean") for k in (
+            "data_wait", "dispatch", "host_sync", "step")} for m in obs],
+        "subprocess_wall_s": wall, "device": _device_line()}
+    print(json.dumps(summary), flush=True)
+    assert len(losses) == ZERO_CLI_STEPS and \
+        all(math.isfinite(x) for x in losses), losses
+    assert all(r["losses"] == losses for r in ranks), ranks
+    assert losses == witness, (losses, witness)
+    assert all(d <= bar for d, bar in zip(diffs, ZERO_LOSS_BARS)), \
+        (diffs, ZERO_LOSS_BARS)
+    for r in ranks:
+        assert r["backend"] == "gloo" and r["world"] == ZERO_WORLD, r
+        assert r["opt_state_bytes"] < r["opt_state_whole_bytes"], r
+        for name in ("dct_project", "colgather_matmul_dual", "quantize_ef",
+                     "dequant_add_ef"):
+            assert r["launches"].get(name, 0) == \
+                LAUNCHES_PER_STEP * ZERO_CLI_STEPS, (name, r["launches"])
+    return {"ranks": ranks, "losses": losses}
+
+
+def run_zero_restore(torch, cli: dict, ranks: list) -> None:
+    """Phase 22 (c): (b)'s step-2 checkpoint restored at 2 ranks (each its
+    blocks: ``ranks``, (a)'s spawn) and at 1, the whole moments and EF
+    equal to the concatenation of the blocks (CRC32 of each block); then a
+    world-1 run resumes from it and runs steps 3-6."""
+    import zlib
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.optim.api import get_optimizer
+    from repro_torch.train.checkpoint import CheckpointManager, tree_items
+    from repro_torch.train.steps import init_state
+
+    t0 = time.perf_counter()
+    opt = get_optimizer("dct_adamw", lr=0.01, rank=RANK)
+    st = CheckpointManager(str(ZERO_DIR / "ckpt")).restore(
+        ZERO_CKPT_STEP, init_state(get_config("llama-350m"), opt, 0, "cuda"))
+    whole = {"||".join(p): t for p, t in tree_items(st)
+             if isinstance(t, torch.Tensor)}
+    keys = ranks[0]["block_crc32"]
+    assert keys and all(".m" in k or ".v" in k or ".ef" in k for k in keys)
+    for key in keys:
+        t = whole[key]
+        block = t.shape[-2] // ZERO_WORLD
+        for r, rk in enumerate(ranks):
+            part = t.narrow(t.dim() - 2, r * block, block)
+            crc = zlib.crc32(part.cpu().contiguous().numpy()) & 0xFFFFFFFF
+            assert crc == rk["block_crc32"][key], (key, r)
+    del st, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    for step in range(ZERO_CKPT_STEP + 1, ZERO_CLI_STEPS + 1):
+        shutil.rmtree(ZERO_DIR / "ckpt" / f"step_{step}", ignore_errors=True)
+    with _zero_microbatched():
+        hist, counts, peak = _cli_run(
+            torch, [*ZERO_CLI_ARGV, "--ckpt-dir", str(ZERO_DIR / "ckpt"),
+                    "--ckpt-every", str(ZERO_CKPT_STEP)],
+            steps=ZERO_CLI_STEPS - ZERO_CKPT_STEP)
+    losses = [h["loss"] for h in hist]
+    resume_diffs = [abs(a - b) for a, b in zip(
+        losses, cli["losses"][ZERO_CKPT_STEP:])]
+    print(json.dumps({
+        "zero_restore": f"step {ZERO_CKPT_STEP} of (b) restored at "
+                        f"{ZERO_WORLD} ranks and at 1: the whole moments "
+                        "and EF = the concatenation of the blocks (CRC32 "
+                        "of each)",
+        "arrays_checked": len(keys),
+        "world1_resume_losses": losses,
+        "world2_losses": cli["losses"][ZERO_CKPT_STEP:],
+        "abs_diff": resume_diffs, "bar": "bit-equal",
+        "world1_resume_launches": counts,
+        "max_memory_allocated_bytes": peak,
+        "wall_s": time.perf_counter() - t0, "device": _device_line()}),
+        flush=True)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses == cli["losses"][ZERO_CKPT_STEP:], (losses, cli["losses"])
+
+
+def run_zero(torch, main_losses) -> dict:
+    """Phase 22: (b) the CLI under torchrun, then one spawn of two ranks
+    for (a) the API and the ranks' half of (c), then (c)'s world-1 half.
+    Returns the kernels line's additions."""
+    walls = [time.perf_counter()]
+    cli = run_zero_cli(torch, main_losses)
+    walls.append(time.perf_counter())
+    api, ranks = run_zero_api(torch, restore=True)
+    walls.append(time.perf_counter())
+    run_zero_restore(torch, cli, ranks)
+    walls.append(time.perf_counter())
+    shutil.rmtree(ZERO_DIR, ignore_errors=True)
+    print(json.dumps({"zero_phase_wall_s": walls[-1] - walls[0],
+                      "parts_wall_s": dict(zip(("b", "a + c ranks", "c"), (
+                          b - a for a, b in zip(walls, walls[1:])))),
+                      "device": _device_line()}), flush=True)
+    return {"api": api, "cli": [r["launches"] for r in cli["ranks"]]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -4780,6 +5306,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     encdec = run_encdec_family(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero = run_zero(torch, main_losses)
     for arch, case in dense_configs["cases"].items():
         for kernel, row in case.items():
             row["launches"] = dense_configs["serving"][arch][
@@ -4961,6 +5490,16 @@ def main(argv=None) -> int:
             extra["encdec_launches_per_step"] = {
                 arch: per_step[name]
                 for arch, per_step in encdec["training"].items()}
+        # phase 22: each rank's launches through the CLI (b) and the API
+        # (a) at world 2
+        if any(name in r for r in zero["cli"]):
+            extra["zero_cli_rank_launches"] = [r.get(name, 0)
+                                               for r in zero["cli"]]
+        api = {label: [r.get(name, 0) for r in ranks]
+               for label, ranks in zero["api"].items()
+               if any(name in r for r in ranks)}
+        if api:
+            extra["zero_api_rank_launches"] = api
         if name in dense_configs["training"].get("phi3-mini-3.8b", {}):
             extra["dense_configs_launches_per_step"] = {
                 arch: per_step[name]

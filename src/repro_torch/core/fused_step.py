@@ -35,6 +35,7 @@ from repro_torch.core.newton_schulz import newton_schulz
 from repro_torch.core.selection import (
     allgather_rows,
     allsum,
+    allsum_row_blocks,
     back_project,
     column_norms,
     dual_back_project,
@@ -96,11 +97,23 @@ def select_and_project(gf: torch.Tensor, q: torch.Tensor, r: int, *,
     to ``dct_project``; the off/fft paths run the mirror
     ``lowp.lowp_matmul`` instead of the fast transform (there is no int8
     FFT, and the mirror's exact integer sum keeps the modes in lockstep).
+
+    ``psum_axes``: the mesh axes the rows of ``gf`` are split over (ZeRO-1,
+    ``parallel/zero.py``): the column statistic is completed across them,
+    so every shard selects the same indices. On the kernel path it is the
+    fixed-order sum of every shard's ``dct_project`` row-block partials
+    (the replicated kernel's own sum when the shards' rows are whole
+    blocks); off it, the shards' column totals summed in shard order.
     """
     lowp.check_compute_dtype(compute_dtype)
     if mode == "on":
-        s, norms_sq = ops.dct_project(gf, q, compute_dtype=compute_dtype)
-        norms_sq = allsum(norms_sq, psum_axes)
+        if psum_axes:
+            s, _, partial = ops.dct_project(gf, q, compute_dtype=compute_dtype,
+                                            partials=True)
+            norms_sq = allsum_row_blocks(partial, psum_axes)
+        else:
+            s, norms_sq = ops.dct_project(gf, q, compute_dtype=compute_dtype)
+            norms_sq = allsum(norms_sq, psum_axes)
         rank_norms = (norms_sq if norm == "l2"
                       else allsum(column_norms(s, norm), psum_axes))
         idx = select_top_r(rank_norms, r)
@@ -196,9 +209,12 @@ def fused_newton_schulz(b: torch.Tensor, *, steps: int, mode: str,
     for factors whose short side exceeds ``NS_KERNEL_MAX_RANK``.
 
     ``b`` is the (..., m, r) low-rank factor on the subspace path, or the
-    full (..., m, n) moment of full-space Muon. ``gather_axes``: the ZeRO-1
-    row-shard axes of the reference (all-gather, whole-matrix iteration,
-    keep the local rows); identities here that raise on a shard axis.
+    full (..., m, n) moment of full-space Muon. ``gather_axes``: the mesh
+    axes the rows are split over under ZeRO-1. NS mixes rows through its
+    Gram matrix, so the factor is all-gathered, every shard runs the same
+    whole-matrix iteration and keeps its own rows: the same bits as the
+    replicated step, and only a rank-sized factor crosses the shards on the
+    subspace path.
     """
     block = b.shape[-2]
     bf = allgather_rows(b, gather_axes)

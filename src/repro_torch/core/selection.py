@@ -9,37 +9,78 @@ a contractive compressor: ``||G - Q_r Q_r^T G||_F^2 <= (1 - r/n) ||G||_F^2``.
 Every function broadcasts over leading (stacked-layer) axes; the matrix
 lives in the last two dims.
 
-``allsum`` / ``allgather_rows`` / ``local_row_block`` are the ZeRO-1
-collectives of ``repro.core.selection``; ZeRO is not yet ported, so they are
-identities here and raise if asked for a shard axis.
+``allsum`` / ``allgather_rows`` / ``shard_index`` / ``local_row_block`` are
+the ZeRO-1 collectives (``parallel/zero.py``) over the active mesh's process
+groups (``parallel.sharding.set_mesh``), with the blocks in the order of the
+reference's ``P(axes)`` layout: row-major over ``axes``. Each is an
+identity when ``axes`` is empty, so the replicated step is untouched. Every
+cross-shard sum is an all-gather followed by one fixed-order sum, so all
+ranks get the same bits.
 """
 from __future__ import annotations
 
 import torch
 
 
-def _no_shards(axes) -> None:
-    if axes:
-        raise NotImplementedError("ZeRO-1 sharding is not yet ported to "
-                                  "repro_torch")
+def _mesh(axes):
+    from repro_torch.parallel.sharding import active_mesh
+
+    mesh = active_mesh()
+    if mesh is None:
+        raise RuntimeError(f"a collective over {tuple(axes)} needs an "
+                           "active mesh (parallel.sharding.set_mesh)")
+    return mesh
+
+
+def _ordered_sum(parts: list[torch.Tensor]) -> torch.Tensor:
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
 
 
 def allsum(x: torch.Tensor, axes) -> torch.Tensor:
-    """Cross-shard sum of a row-block-local reduction (identity unsharded)."""
-    _no_shards(axes)
-    return x
+    """Cross-shard sum of a row-block-local reduction: every shard's ``x``
+    gathered and summed in shard order. Identity when ``axes`` is empty."""
+    if not axes:
+        return x
+    return _ordered_sum(_mesh(axes).all_gather(x, axes))
+
+
+def allsum_row_blocks(partial: torch.Tensor, axes) -> torch.Tensor:
+    """Column totals from per-row-block partial sums ``(..., blocks, n)``:
+    every shard's blocks gathered in shard order (the row order) and
+    summed one block after another, from the first, as
+    ``csrc/dct_project.cu``'s second stage sums the partials of a whole
+    leaf. Without ``axes``, the same sum of this tensor's blocks."""
+    p = allgather_rows(partial, axes)
+    return _ordered_sum([p[..., t, :] for t in range(p.shape[-2])])
 
 
 def allgather_rows(x: torch.Tensor, axes) -> torch.Tensor:
-    """Row blocks of ``x`` gathered across shards (identity unsharded)."""
-    _no_shards(axes)
-    return x
+    """The row blocks (dim -2) of ``x`` across the shards, concatenated in
+    the whole array's row order: the inverse of :func:`local_row_block`.
+    Identity when ``axes`` is empty."""
+    if not axes:
+        return x
+    return torch.cat(_mesh(axes).all_gather(x, axes), dim=-2)
+
+
+def shard_index(axes) -> int:
+    """This rank's position along ``axes`` (row-major, the ``P(axes)``
+    block order); 0 when ``axes`` is empty."""
+    if not axes:
+        return 0
+    return _mesh(axes).shard_index(axes)
 
 
 def local_row_block(x: torch.Tensor, axes, block: int) -> torch.Tensor:
-    """This shard's ``block`` rows of ``x`` (identity unsharded)."""
-    _no_shards(axes)
-    return x
+    """This shard's ``block`` rows (dim -2) of a whole-row array, a view:
+    the inverse of :func:`allgather_rows`. Identity when ``axes`` is
+    empty."""
+    if not axes:
+        return x
+    return x.narrow(x.dim() - 2, shard_index(axes) * block, block)
 
 
 def column_norms(s: torch.Tensor, ord: str = "l2") -> torch.Tensor:

@@ -26,6 +26,14 @@ version's arguments) and transposes them first. On CPU tensors every entry
 point runs its plain version. Leading stacked-layer axes of ``G`` become
 the kernel's batch grid dimension: every layer is projected in one launch
 against the one shared basis.
+
+``partials=True`` also returns the norms' per-row-block partial sums
+``(..., blocks, n)``, block ``b`` summing the squares of rows
+``[BLOCK_ROWS * b, BLOCK_ROWS * (b + 1))``: on the card the kernel's own
+first-stage buffer, whose fixed-order sum (block 0, 1, ...) is the norms;
+on the CPU the plain version's per-block sums. ZeRO-1 gathers them across
+the row shards to complete the selection statistic
+(``core.selection.allsum_row_blocks``).
 """
 from __future__ import annotations
 
@@ -37,8 +45,25 @@ from .lowp import (check_compute_dtype, check_q8_depth, int_matmul,
 from .quant_ef import quant_cols_q8t, quant_rows_q8
 
 
+# rows of G per CTA of csrc/dct_project.cu (its BM): the row blocks of the
+# partial-norm buffer; the wrapper checks the library's value
+BLOCK_ROWS = 128
+
+
 def _with_norms(s32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return s32, (s32 * s32).sum(dim=-2)
+
+
+def row_block_partials(s32: torch.Tensor) -> torch.Tensor:
+    """The plain per-row-block partial norms of ``S`` (..., m, n):
+    (..., ceil(m / BLOCK_ROWS), n)."""
+    *batch, m, n = s32.shape
+    blocks = -(-m // BLOCK_ROWS)
+    sq = s32 * s32
+    if blocks * BLOCK_ROWS != m:
+        sq = torch.cat([sq, sq.new_zeros((*batch, blocks * BLOCK_ROWS - m,
+                                          n))], dim=-2)
+    return sq.view(*batch, blocks, BLOCK_ROWS, n).sum(dim=-2)
 
 
 def dct_project_q8_plain(gq: torch.Tensor, sg: torch.Tensor,
@@ -78,18 +103,23 @@ def _launch_shape(name: str, g: torch.Tensor) -> tuple[list[int], int, int, int]
 
 
 def _outputs(g: torch.Tensor, batch, nb: int, m: int, n: int):
-    """S, the norms and the partial-norm buffer of a launch."""
-    row_blocks = -(-m // cuda_lib.library().repro_dct_project_block_rows())
+    """S, the norms and the partial-norm buffer ``(*batch, blocks, n)`` of
+    a launch."""
+    if cuda_lib.library().repro_dct_project_block_rows() != BLOCK_ROWS:
+        raise RuntimeError("dct_project: the library's row block is not "
+                           f"BLOCK_ROWS = {BLOCK_ROWS}")
+    row_blocks = -(-m // BLOCK_ROWS)
     s = torch.empty((*batch, m, n), dtype=torch.float32, device=g.device)
     norms = torch.empty((*batch, n), dtype=torch.float32, device=g.device)
-    partial = torch.empty((nb, row_blocks, n), dtype=torch.float32,
+    partial = torch.empty((*batch, row_blocks, n), dtype=torch.float32,
                           device=g.device)
     return s, norms, partial
 
 
 def _launch_f32(name: str, g: torch.Tensor, q: torch.Tensor
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The fp32 kernel, or its bf16 operand variant (``name``)."""
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fp32 kernel, or its bf16 operand variant (``name``): S, the
+    norms and the partials."""
     cuda_lib.require_cuda(f"{name} g", g, torch.float32)
     cuda_lib.require_cuda(f"{name} q", q, torch.float32)
     batch, nb, m, n = _launch_shape(name, g)
@@ -98,7 +128,7 @@ def _launch_f32(name: str, g: torch.Tensor, q: torch.Tensor
         g.data_ptr(), q.data_ptr(), s.data_ptr(), partial.data_ptr(),
         norms.data_ptr(), nb, m, n, cuda_lib.stream(g))
     cuda_lib.check(rc, name)
-    return s, norms
+    return s, norms, partial
 
 
 def dct_project_bf16(g: torch.Tensor, q: torch.Tensor
@@ -107,6 +137,10 @@ def dct_project_bf16(g: torch.Tensor, q: torch.Tensor
     norms)``."""
     if cuda_lib.same_device(g, q).type == "cpu":
         return dct_project_plain(g, q, torch.float32, "bf16")
+    return _dct_project_bf16(g, q)[:2]
+
+
+def _dct_project_bf16(g: torch.Tensor, q: torch.Tensor):
     out = _launch_f32("dct_project_bf16", g, q)
     dct_project_bf16.launches += 1
     return out
@@ -132,6 +166,11 @@ def dct_project_q8t(gq: torch.Tensor, sg: torch.Tensor, qtq: torch.Tensor,
     to the plain version's bit for bit. Counted as ``dct_project_q8``."""
     if _check_q8("dct_project_q8t", gq, sg, qtq, sq).type == "cpu":
         return dct_project_q8t_plain(gq, sg, qtq, sq)
+    return _dct_project_q8t(gq, sg, qtq, sq)[:2]
+
+
+def _dct_project_q8t(gq, sg, qtq, sq):
+    """The int8 launch: S, the norms and the partials."""
     cuda_lib.require_cuda("dct_project_q8t gq", gq, torch.int8)
     cuda_lib.require_cuda("dct_project_q8t sg", sg, torch.float32)
     cuda_lib.require_cuda("dct_project_q8t qtq", qtq, torch.int8)
@@ -144,7 +183,7 @@ def dct_project_q8t(gq: torch.Tensor, sg: torch.Tensor, qtq: torch.Tensor,
         cuda_lib.stream(gq))
     cuda_lib.check(rc, "dct_project_q8t")
     dct_project_q8.launches += 1
-    return s, norms
+    return s, norms, partial
 
 
 def dct_project_q8(gq: torch.Tensor, sg: torch.Tensor, qq: torch.Tensor,
@@ -160,27 +199,31 @@ def dct_project_q8(gq: torch.Tensor, sg: torch.Tensor, qq: torch.Tensor,
 
 
 def dct_project(g: torch.Tensor, q: torch.Tensor, *, out_dtype=None,
-                compute_dtype: str = "fp32"
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+                compute_dtype: str = "fp32", partials: bool = False):
     """Returns ``(S, norms)``: ``S = G @ Q`` (..., m, n) and fp32
-    squared-l2 column norms (..., n). ``g``: (..., m, n); ``q``: (n, n)."""
+    squared-l2 column norms (..., n); with ``partials`` also the partial
+    norms (..., blocks, n). ``g``: (..., m, n); ``q``: (n, n)."""
     check_compute_dtype(compute_dtype)
     *_, m, n = g.shape
     if tuple(q.shape) != (n, n):
         raise ValueError(f"dct_project: basis {tuple(q.shape)} does not fit "
                          f"G {tuple(g.shape)}")
     if cuda_lib.same_device(g, q).type == "cpu":
-        return dct_project_plain(g, q, out_dtype, compute_dtype)
+        out = dct_project_plain(g, q, out_dtype, compute_dtype)
+        return (*out, row_block_partials(out[0].float())) if partials \
+            else out
     if out_dtype not in (None, torch.float32):
         raise NotImplementedError("dct_project: only fp32 S is ported")
     if compute_dtype == "int8":
         cuda_lib.require_cuda("dct_project g", g, torch.float32)
-        return dct_project_q8t(*quant_rows_q8(g), *quant_cols_q8t(q))
-    if compute_dtype == "bf16":
-        return dct_project_bf16(g, q)
-    out = _launch_f32("dct_project", g, q)
-    dct_project.launches += 1
-    return out
+        check_q8_depth(n)
+        out = _dct_project_q8t(*quant_rows_q8(g), *quant_cols_q8t(q))
+    elif compute_dtype == "bf16":
+        out = _dct_project_bf16(g, q)
+    else:
+        out = _launch_f32("dct_project", g, q)
+        dct_project.launches += 1
+    return out if partials else out[:2]
 
 
 dct_project.launches = 0

@@ -45,16 +45,35 @@ stretches or shrinks each leaf's refresh interval by index drift, each
 every ``--control-every`` steps: the optimizer is rebuilt with per-leaf
 overrides and its state migrated (``telemetry/adaptive.py``).
 
+Data parallelism and ZeRO-1: under ``torchrun`` (``python -m
+torch.distributed.run --nproc-per-node N -m repro_torch.launch.train ...``)
+the process group comes from the environment it sets, the ranks form a
+``("data",)`` mesh, each runs the model on its slice of the global
+``--batch`` and the gradients are averaged; ``--zero 1`` also partitions
+the low-rank optimizer state by rows (``parallel/zero.py``: dct_adamw /
+muon / trion / dion, or galore / frugal with ``--basis``; not with the
+adaptive controllers). ``--dist-backend`` (the port's own flag) is
+``nccl`` on the card (one card a rank) and ``gloo`` on the CPU by default;
+``gloo`` also lets several ranks share one card. Rank 0 logs, writes the
+checkpoints (whole arrays: a run resumes at another width) and the
+telemetry; ``--obs-dir`` gets rank r's files under ``DIR/rank<r>`` (rank 0's
+in ``DIR``). At the end each rank prints one ``[train] rank {...}`` JSON
+line: its optimizer-state bytes (held, and of the whole arrays), peak
+device memory, losses, step times and kernel launches. One process with
+``--zero 1`` runs replicated and says so.
+
 Flags of the JAX CLI that this port does not support yet exit with
 "not yet ported".
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.devices import resolve_device
 
@@ -63,9 +82,12 @@ PROJECTED_ADAM_FAMILY = ("dct_adamw", "ldadamw", "galore", "frugal", "fira")
 # presets with a fused-step dispatch field: the projected-Adam family plus
 # the momentum-orthogonalization rules
 FUSED_FAMILY = PROJECTED_ADAM_FAMILY + ("muon", "trion", "dion")
+# presets whose rule is always zero_shardable; galore / frugal join when
+# --basis swaps their dense svd projector for a registered basis backend
+ZERO_ALWAYS = ("dct_adamw", "muon", "trion", "dion")
 
 # flags of ``python -m repro.launch.train`` not ported yet
-NOT_YET_PORTED = ("--tune-cache", "--zero")
+NOT_YET_PORTED = ("--tune-cache",)
 
 
 def build(argv=None) -> argparse.Namespace:
@@ -108,6 +130,16 @@ def build(argv=None) -> argparse.Namespace:
                     help="projection-matmul precision of dct_adamw: int8 = "
                          "quantized operands with exact integer "
                          "accumulation; needs a fused mode")
+    ap.add_argument("--zero", default="off", choices=["off", "1"],
+                    help="ZeRO-1 partitioning of the low-rank optimizer "
+                         "state across the data-parallel ranks (torchrun); "
+                         "each rank runs the fused step on its row block "
+                         "and the updates are all-gathered (dct_adamw/muon/"
+                         "trion/dion, or galore/frugal with --basis)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="process-group backend under torchrun: nccl (the "
+                         "default on the card, one card a rank) or gloo "
+                         "(the default on the CPU; ranks may share a card)")
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--seq-len", type=int, default=512)
@@ -211,20 +243,69 @@ def _optimizer_kwargs(args: argparse.Namespace, dev: torch.device) -> dict:
     return kw
 
 
+def _zero_config(args: argparse.Namespace):
+    """The ZeroConfig of ``--zero`` (None when off), with the JAX CLI's
+    refusals and messages."""
+    if args.zero == "off":
+        return None
+    zero_ok = (args.optimizer in ZERO_ALWAYS
+               or (args.optimizer in ("galore", "frugal")
+                   and args.basis is not None))
+    if not zero_ok:
+        # the other presets keep dense projector state (power / svd) whose
+        # refresh is not row-decomposable, or (fira) sum norms over every
+        # row in the update: every leaf would silently stay replicated
+        raise SystemExit(
+            "--zero needs a ZeRO-shardable optimizer: "
+            f"{'/'.join(ZERO_ALWAYS)} (always), or galore/frugal with "
+            "--basis <dct|dst|hadamard|randortho>; "
+            f"{args.optimizer!r} would silently stay replicated")
+    if args.adaptive_rank or args.adaptive_refresh:
+        # a controller rebuild re-inits and migrates the state; with
+        # partitioned state that composition is untested
+        raise SystemExit("--zero cannot be combined with "
+                         "--adaptive-rank/--adaptive-refresh yet")
+    from repro_torch.parallel.zero import ZeroConfig
+    return ZeroConfig(mode=args.zero)
+
+
+def _data_parallel(args: argparse.Namespace, dev: torch.device, world: int):
+    """The process group from torchrun's environment and the ``("data",)``
+    mesh over it; on the card each rank takes card ``LOCAL_RANK`` modulo
+    the cards there are. ``nccl`` needs one card for each of this node's
+    ranks (torchrun's ``LOCAL_WORLD_SIZE``)."""
+    from repro_torch.launch.mesh import make_mesh
+
+    backend = args.dist_backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if backend == "nccl":
+        if dev.type != "cuda":
+            raise SystemExit("--dist-backend nccl runs on the card; pass "
+                             "--dist-backend gloo with --device cpu")
+        cards = torch.cuda.device_count()
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        if local > cards:
+            raise SystemExit(f"--dist-backend nccl needs one card a rank: "
+                             f"{local} ranks on this node, {cards} card(s); "
+                             "pass --dist-backend gloo to share cards")
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0"))
+                              % torch.cuda.device_count())
+    dist.init_process_group(backend)
+    return make_mesh((world,), ("data",))
+
+
 def run(args: argparse.Namespace, stop_at: int | None = None):
     """Train as ``args`` say; returns the finished ``Trainer`` (its
     ``metrics_history`` holds one record per committed step). A halted run
     raises :class:`~repro_torch.train.resilience.TrainingHalted`.
     ``stop_at``: end after that step, as a preemption would; the LR
-    schedule still spans ``--steps``, so a later run resumes on it."""
-    from repro_torch import obs
+    schedule still spans ``--steps``, so a later run resumes on it. Under
+    torchrun the process group lives for the run and is destroyed after
+    it."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.data.synthetic import make_batch_fn
-    from repro_torch.optim.api import get_optimizer
-    from repro_torch.train.loop import Trainer
     from repro_torch.train.schedule import cosine_warmup
-    from repro_torch.train.steps import init_state, make_train_step
 
+    zero_cfg = _zero_config(args)
     adaptive = args.adaptive_rank or args.adaptive_refresh
     if adaptive and args.optimizer not in PROJECTED_ADAM_FAMILY:
         raise SystemExit("--adaptive-rank/--adaptive-refresh apply to the "
@@ -241,6 +322,34 @@ def run(args: argparse.Namespace, stop_at: int | None = None):
     lr = cosine_warmup(args.lr, args.warmup, args.steps)
     opt_kw = _optimizer_kwargs(args, dev)
     telemetry_on = args.telemetry != "off" or adaptive
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    mesh, rank = None, 0
+    if world > 1:
+        mesh = _data_parallel(args, dev, world)
+        rank = dist.get_rank()
+    elif zero_cfg is not None:
+        print("[train] --zero requested with a single process; state stays "
+              "replicated (run under torchrun with --nproc-per-node N to "
+              "shard)")
+    if zero_cfg is not None:
+        opt_kw["zero"] = zero_cfg
+    try:
+        return _run(args, stop_at, cfg, lr, opt_kw, dev, telemetry_on,
+                    adaptive, zero_cfg, mesh, rank)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+
+
+def _run(args, stop_at, cfg, lr, opt_kw, dev, telemetry_on, adaptive,
+         zero_cfg, mesh, rank):
+    """``run`` past the flags' checks, on ``mesh`` (None: one process)."""
+    from repro_torch import obs
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.optim.api import get_optimizer
+    from repro_torch.parallel import sharding
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.steps import init_state, make_train_step
 
     def make_optimizer(overrides=None):
         kw = dict(opt_kw)
@@ -275,7 +384,7 @@ def run(args: argparse.Namespace, stop_at: int | None = None):
                                guard=args.resilient, chaos=chaos_plan)
 
     sink = None
-    if args.telemetry != "off":
+    if args.telemetry != "off" and rank == 0:
         from repro_torch.telemetry.sink import TelemetrySink
         from repro_torch.train.checkpoint import CheckpointManager
         path = args.telemetry_path or (
@@ -327,30 +436,56 @@ def run(args: argparse.Namespace, stop_at: int | None = None):
         trainer_kw.update(train_step=make_step(opt),
                           init_state_fn=lambda: init_state(cfg, opt,
                                                            args.seed, dev))
+    if mesh is not None:
+        trainer_kw["state_shardings"] = lambda st: sharding.train_state_specs(
+            st, zero=zero_cfg, mesh=mesh)
+        if rank:
+            trainer_kw["log_fn"] = lambda line: None
     trainer = Trainer(
         batch_fn=batch_fn, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, log_every=args.log_every,
         resilience=resilience, sync_sample_every=args.obs_sync_every,
         **trainer_kw)
-    if args.obs_dir:
+    obs_dir = args.obs_dir
+    if obs_dir and rank:
+        obs_dir = os.path.join(obs_dir, f"rank{rank}")
+    if obs_dir:
         obs.enable()
     try:
-        state = trainer.run(total_steps=args.steps if stop_at is None
-                            else stop_at)
+        with sharding.set_mesh(mesh):
+            state = trainer.run(total_steps=args.steps if stop_at is None
+                                else stop_at)
     finally:
         if sink is not None:
             sink.close()
-        if args.obs_dir:
+        if obs_dir:
             # halted runs included
-            os.makedirs(args.obs_dir, exist_ok=True)
-            prom = obs.write_prometheus(
-                os.path.join(args.obs_dir, "metrics.prom"))
-            trace = obs.write_chrome_trace(
-                os.path.join(args.obs_dir, "trace.json"))
+            os.makedirs(obs_dir, exist_ok=True)
+            prom = obs.write_prometheus(os.path.join(obs_dir, "metrics.prom"))
+            trace = obs.write_chrome_trace(os.path.join(obs_dir,
+                                                        "trace.json"))
             print(f"[train] obs artifacts: {prom}, {trace}")
-    if trainer.metrics_history:
+    if trainer.metrics_history and rank == 0:
         print(f"[train] done at step {state.step}: "
               f"loss {trainer.metrics_history[-1]['loss']:.4f}")
+    if mesh is not None:
+        from repro_torch.kernels import ops
+
+        held, whole = sharding.state_bytes(
+            state.opt_state, sharding.opt_state_specs(
+                state.opt_state, state.params, zero=zero_cfg, mesh=mesh),
+            mesh)
+        hist = trainer.metrics_history
+        print("[train] rank " + json.dumps({
+            "rank": rank, "world": mesh.size(mesh.axis_names),
+            "backend": mesh.backend, "opt_state_bytes": held,
+            "opt_state_whole_bytes": whole,
+            "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                                  if dev.type == "cuda" else None),
+            "losses": [h["loss"] for h in hist],
+            "s_per_step": [h["s_per_step"] for h in hist],
+            "launches": {k: n for k, n in ops.launch_counts().items()
+                         if n}}), flush=True)
     if allocator is not None:
         print(f"[train] final rank allocation: {allocator.alloc}")
     return trainer

@@ -46,16 +46,10 @@ class Optimizer(NamedTuple):
 
 @torch.no_grad()
 def apply_updates(params: dict, updates: dict) -> dict:
-    """New parameters ``p + u`` (new tensors: nothing is updated in place)."""
+    """New parameters ``p + u`` (new tensors: nothing is updated in place).
+    A row-sharded ZeRO-1 update is all-gathered before this
+    (``parallel.zero.gather_updates``)."""
     return {k: p + updates[k].to(p.dtype) for k, p in params.items()}
-
-
-def reject_unported(*, zero=None) -> None:
-    """Raise on the preset option of the JAX package the port does not have
-    yet: ZeRO-1 sharding."""
-    if zero is not None:
-        raise NotImplementedError("zero= (ZeRO-1 sharding) is not yet ported "
-                                  "to repro_torch")
 
 
 def sched_value(lr: Schedule, step: int) -> float:
@@ -146,6 +140,13 @@ class MatrixRule:
         orders ``n`` (the DCT basis). Default: DCT at the min oriented dim."""
         return (oriented_dims(shape)[1],)
 
+    @property
+    def zero_shardable(self) -> bool:
+        """Whether this rule's update is row-parallel given cross-shard
+        column statistics: the precondition for running it on ZeRO-1 row
+        blocks (``repro_torch.parallel.zero``). Rules opt in explicitly."""
+        return False
+
     needs_shared_basis: bool = False
 
 
@@ -172,6 +173,24 @@ class Context:
     # then build no stat, and the step launches what it launches without
     # telemetry.
     stats: Any = None
+    # ZeRO-1 (``repro_torch.parallel.zero``): ``zero`` carries the
+    # ZeroConfig installed by ``as_optimizer``; ``lowrank_project`` resolves
+    # it against the active mesh. ``axis`` is set for a sharded leaf to the
+    # mesh axes its oriented rows are split over, so row reductions span
+    # the shards; ``oriented`` with it: the gradient block is already
+    # right-oriented (a block's aspect ratio can differ from the leaf's,
+    # so rules must not re-decide orientation on it).
+    zero: Any = None
+    axis: tuple[str, ...] | None = None
+    oriented: bool = False
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum a row-block-local reduction across the ZeRO shards: the
+        shared ``core.selection.allsum``, an identity when ``axis`` is
+        unset."""
+        from repro_torch.core.selection import allsum
+
+        return allsum(x, self.axis)
 
     def record_stats(self, stats) -> None:
         """Emit this leaf's SubspaceStats into the active collector (no-op

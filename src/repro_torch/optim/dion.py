@@ -28,7 +28,11 @@ per-column energies of ``R_t`` play the part the selected column norms play
 for Muon and Trion, ``ef_norm`` is ``||M_t||_F``, and margin and overlap
 are the -1 sentinel (Dion ranks no columns).
 
-Not yet ported: ZeRO-1 (``zero=``).
+ZeRO-1 (``zero=``, ``repro_torch.parallel.zero``): the rule is
+``zero_shardable`` by gather - compute - slice: a rank all-gathers the
+momentum sum (its ``B^T P`` contraction spans every row), runs the
+whole-matrix step and keeps its rows of M_t and O_t; ``q`` comes out the
+same on every rank and is held whole.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import fused_step
+from repro_torch.core.selection import allgather_rows, local_row_block
 from repro_torch.telemetry import stats as tstats
 
 from .common import (
@@ -47,7 +52,6 @@ from .common import (
     deorient,
     orient_right,
     oriented_dims,
-    reject_unported,
 )
 from .transform import (
     GradientTransform,
@@ -81,6 +85,11 @@ class DionRule(MatrixRule):
         if self.rank < 1:
             raise ValueError(f"rank must be >= 1, got {self.rank}")
 
+    @property
+    def zero_shardable(self) -> bool:
+        """Row-shardable by gather - compute - slice (module docstring)."""
+        return True
+
     def init(self, shape, dtype, device=None):
         *batch, _, _ = shape
         rows, cols = oriented_dims(shape)
@@ -92,12 +101,19 @@ class DionRule(MatrixRule):
             q=eye.expand(*batch, cols, r).contiguous())
 
     def update(self, g, state: DionLeaf, param, ctx):
-        gf, transposed = orient_right(g.float())
-        g_rows, g_cols = oriented_dims(g.shape)
+        if ctx.oriented:        # a ZeRO row block: right-oriented already
+            gf, transposed = g.float(), False
+        else:
+            gf, transposed = orient_right(g.float())
+        # the aspect ratio of the whole leaf (a ZeRO row block's differs)
+        g_rows, g_cols = oriented_dims(param.shape)
         scale = max(1.0, (g_rows / g_cols) ** 0.5)
         mode = fused_step.resolve(self.fused, gf.device)
 
-        b_full = (gf + state.m).contiguous()
+        # ZeRO: the whole momentum sum (identity when replicated); this
+        # rank's rows are cut out at the end
+        block = gf.shape[-2]
+        b_full = allgather_rows(gf + state.m, ctx.axis).contiguous()
         z = b_full @ state.q
         if mode == "off":
             p, _ = torch.linalg.qr(z)                    # R x r orthonormal
@@ -121,6 +137,8 @@ class DionRule(MatrixRule):
                 index_overlap=tstats.sentinel(batch, b_full.device),
                 ef_norm=torch.linalg.vector_norm(new_m, dim=(-2, -1)),
                 rank_utilization=tstats.rank_utilization(col_e)))
+        new_m = local_row_block(new_m, ctx.axis, block)
+        out = local_row_block(out, ctx.axis, block)
         d = deorient(scale * out, transposed)
         return d, DionLeaf(m=new_m, q=q_t)
 
@@ -138,10 +156,10 @@ def dion(lr: Schedule, *, rank: int = 128, mu: float = 0.95,
          weight_decay: float = 0.01, ns_steps: int = 5, fused: str = "auto",
          b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, label_fn=None,
          zero=None, lr_scale: bool = False) -> Optimizer:
-    """Dion on the matrix leaves, full-rank Adam on the rest."""
-    reject_unported(zero=zero)
+    """Dion on the matrix leaves, full-rank Adam on the rest. ``zero``: a
+    ``parallel.zero.ZeroConfig`` (ZeRO-1 on the active mesh)."""
     rule = DionRule(rank=rank, mu=mu, ns_steps=ns_steps, fused=fused)
-    kw = dict(weight_decay=weight_decay, b1=b1, b2=b2, eps=eps,
+    kw = dict(weight_decay=weight_decay, b1=b1, b2=b2, eps=eps, zero=zero,
               lr_scale=lr_scale)
     if label_fn is not None:
         kw["label_fn"] = label_fn

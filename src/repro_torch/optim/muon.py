@@ -20,7 +20,11 @@ variant records the captured energy and top-r margin of its selection from
 the column norms of S; it keeps no EF (``ef_norm`` 0) and no indices
 (overlap -1). Full-space Muon selects nothing and records nothing.
 
-Not yet ported: ZeRO-1 (``zero=``).
+ZeRO-1 (``zero=``, ``repro_torch.parallel.zero``): the rule is
+``zero_shardable``. On a row block the subspace variant completes its
+column statistic across the shards and all-gathers the rank-sized factor
+for Newton–Schulz (full-space NS all-gathers the moment); every rank keeps
+its own rows of the result.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import fused_step
-from repro_torch.core.selection import (column_norms, select_top_r,
+from repro_torch.core.selection import (allsum, column_norms, select_top_r,
                                         take_columns, topr_margin)
 from repro_torch.telemetry import stats as tstats
 
@@ -41,7 +45,6 @@ from .common import (
     deorient,
     orient_right,
     oriented_dims,
-    reject_unported,
 )
 from .transform import (
     GradientTransform,
@@ -80,6 +83,12 @@ class MuonRule(MatrixRule):
         if self.rank is not None and self.rank < 1:
             raise ValueError(f"rank must be >= 1 or None, got {self.rank}")
 
+    @property
+    def zero_shardable(self) -> bool:
+        """Row-parallel given the cross-shard column statistic and the
+        gathered factor (module docstring)."""
+        return True
+
     def basis_sizes(self, shape) -> tuple:
         return () if self.rank is None else (oriented_dims(shape)[1],)
 
@@ -90,18 +99,22 @@ class MuonRule(MatrixRule):
                                       dtype=torch.float32, device=device))
 
     def update(self, g, state: MuonLeaf, param, ctx):
-        gf, transposed = orient_right(g.float())
+        if ctx.oriented:        # a ZeRO row block: right-oriented already
+            gf, transposed = g.float(), False
+        else:
+            gf, transposed = orient_right(g.float())
         new_m = (self.mu * state.m + gf).contiguous()
         ns_in = (gf + self.mu * new_m if self.nesterov else new_m).contiguous()
-        # Muon's shape-aware step scale from the leaf's shape (the reference
-        # reads the global shape off the parameter for ZeRO row blocks)
-        rows, cols = sorted(g.shape[-2:], reverse=True)
+        # Muon's shape-aware step scale from the whole leaf's shape (a ZeRO
+        # row block's aspect ratio differs)
+        rows, cols = sorted(param.shape[-2:], reverse=True)
         scale = max(1.0, (rows / cols) ** 0.5)
         mode = fused_step.resolve(self.fused, gf.device)
 
         if self.rank is None:
             o = fused_step.fused_newton_schulz(ns_in, steps=self.ns_steps,
-                                               mode=mode)
+                                               mode=mode,
+                                               gather_axes=ctx.axis)
             return scale * deorient(o, transposed), MuonLeaf(m=new_m)
 
         n = ns_in.shape[-1]
@@ -111,15 +124,16 @@ class MuonRule(MatrixRule):
         if mode != "off":
             sp = fused_step.select_and_project(
                 ns_in, q, r, norm=self.ranking_norm, mode=mode,
-                return_norms=want_stats)
+                return_norms=want_stats, psum_axes=ctx.axis)
             idx, b_low = sp[0], sp[1]
             norms_sq = sp[2] if want_stats else None
         else:
             s = ns_in @ q
-            norms_sq = (column_norms(s, "l2")
+            norms_sq = (allsum(column_norms(s, "l2"), ctx.axis)
                         if want_stats or self.ranking_norm == "l2" else None)
             rank_norms = (norms_sq if self.ranking_norm == "l2"
-                          else column_norms(s, self.ranking_norm))
+                          else allsum(column_norms(s, self.ranking_norm),
+                                      ctx.axis))
             idx = select_top_r(rank_norms, r)
             b_low = take_columns(s, idx)
         if want_stats:
@@ -135,7 +149,7 @@ class MuonRule(MatrixRule):
                                     device=ns_in.device),
                 rank_utilization=tstats.rank_utilization(col_e)))
         o = fused_step.fused_newton_schulz(b_low, steps=self.ns_steps,
-                                           mode=mode)
+                                           mode=mode, gather_axes=ctx.axis)
         d = fused_step.fused_backproject(o, q, idx, mode=mode,
                                          qt=ctx.basis_t(n))
         return scale * deorient(d, transposed), MuonLeaf(m=new_m)
@@ -160,12 +174,12 @@ def muon(lr: Schedule, *, rank: int | None = None, mu: float = 0.95,
          eps: float = 1e-8, label_fn=None, zero=None,
          lr_scale: bool = False) -> Optimizer:
     """Muon on the matrix leaves (full space, or the rank-r subspace),
-    full-rank Adam on the rest."""
-    reject_unported(zero=zero)
+    full-rank Adam on the rest. ``zero``: a ``parallel.zero.ZeroConfig``
+    (ZeRO-1 on the active mesh)."""
     rule = MuonRule(rank=rank, mu=mu, ns_steps=ns_steps, nesterov=nesterov,
                     ranking_norm=ranking_norm, fused=fused)
     kw = dict(weight_decay=weight_decay, basis_mode=basis_mode, b1=b1, b2=b2,
-              eps=eps, lr_scale=lr_scale)
+              eps=eps, zero=zero, lr_scale=lr_scale)
     if label_fn is not None:
         kw["label_fn"] = label_fn
     return matrix_optimizer(rule, lr, **kw)

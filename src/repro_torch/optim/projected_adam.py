@@ -40,7 +40,10 @@ them; on a keep step margin and overlap are the -1 sentinel and the total
 is one reduction over ``G``; ``ef_norm`` is the orthogonal split
 ``sqrt(||G||^2 - ||g_low||^2)``, never a reduction over the residual.
 
-Not yet ported: ZeRO-1 (``zero_shardable`` is kept as a property).
+ZeRO-1 (``zero=``, ``repro_torch.parallel.zero``): the index-basis rules
+are ``zero_shardable``. On a row block (``ctx.oriented``) the column
+statistic of a refresh, and the keep step's telemetry totals, are completed
+across the shards (``ctx.axis``); everything else is row-local.
 """
 from __future__ import annotations
 
@@ -52,13 +55,13 @@ import torch
 from repro_torch.core import fused_step
 from repro_torch.core.error_feedback import zeros_q8
 from repro_torch.core.projectors import Projector, projector_kinds, rotation_matrix
-from repro_torch.core.selection import allsum, index_overlap, topr_margin
+from repro_torch.core.selection import index_overlap, topr_margin
 from repro_torch.core.transforms import backend_kinds, get_backend, is_backend
 from repro_torch.kernels.lowp import COMPUTE_DTYPES
 from repro_torch.telemetry import stats as tstats
 
 from .common import (MatrixRule, Optimizer, Schedule, deorient, orient_right,
-                     oriented_dims, reject_unported)
+                     oriented_dims)
 from .transform import (
     GradientTransform,
     add_decayed_weights,
@@ -132,8 +135,8 @@ class ProjectedAdamRule(MatrixRule):
         """Index-into-shared-basis projectors (a backend with a
         row-decomposable statistic, or randperm) keep r integers of state
         and a row-parallel step: the ZeRO-1 precondition. The dense-basis
-        refreshes and the FIRA residual (psum'd norms in the update
-        arithmetic) are not. ZeRO-1 itself is not ported."""
+        refreshes and the FIRA residual (norms summed over the shards in
+        the update arithmetic) are not."""
         if self.residual == "fira":
             return False
         if is_backend(self.projector):
@@ -175,7 +178,10 @@ class ProjectedAdamRule(MatrixRule):
         # g.float() of an fp32 gradient is the gradient itself, and the
         # oriented view of it is contiguous only when not transposed; every
         # step below makes new tensors, none writes into gf or g
-        gf, transposed = orient_right(g.float())
+        if ctx.oriented:        # a ZeRO row block: right-oriented already
+            gf, transposed = g.float(), False
+        else:
+            gf, transposed = orient_right(g.float())
         gf = gf.contiguous()
         cols = gf.shape[-1]
         r = min(self.rank, cols)
@@ -210,12 +216,13 @@ class ProjectedAdamRule(MatrixRule):
             if fused:
                 sp = fused_step.select_and_project(
                     gf, q, r, norm=self.ranking_norm, mode=mode,
-                    return_norms=want_stats, backend=backend,
-                    compute_dtype=self.compute_dtype)
+                    return_norms=want_stats, psum_axes=ctx.axis,
+                    backend=backend, compute_dtype=self.compute_dtype)
                 proj_state, g_low = sp[0], sp[1]
                 norms_sq = sp[2] if want_stats else None
             else:
-                proj_state = p.update(gf, state.proj, shared_q=q, key=ctx.key)
+                proj_state = p.update(gf, state.proj, shared_q=q, key=ctx.key,
+                                      psum_axes=ctx.axis)
                 g_low = p.project(gf, proj_state, shared_q=q)
             if self.rotate:
                 rot = rotation_matrix(state.proj, proj_state, p, cols,
@@ -229,9 +236,9 @@ class ProjectedAdamRule(MatrixRule):
                      if fused else p.project(gf, proj_state, shared_q=q))
         if want_stats:
             # no later op of the step writes into any tensor read here
-            ctx.record_stats(self._stats(gf, g_low, norms_sq, state.proj,
-                                         proj_state, refresh, p.index_based,
-                                         r))
+            ctx.record_stats(self._stats(ctx, gf, g_low, norms_sq,
+                                         state.proj, proj_state, refresh,
+                                         p.index_based, r))
 
         if rot is not None:
             m_prev = state.m @ rot
@@ -272,18 +279,18 @@ class ProjectedAdamRule(MatrixRule):
             else:
                 # FIRA scaling: norms over the last two axes per stacked
                 # layer, summed over the ZeRO axes (none: identity)
-                u_n = torch.sqrt(allsum(
-                    (u_low * u_low).sum(dim=(-2, -1), keepdim=True), None))
-                g_n = torch.sqrt(allsum(
-                    (g_low * g_low).sum(dim=(-2, -1), keepdim=True), None))
+                u_n = torch.sqrt(ctx.psum(
+                    (u_low * u_low).sum(dim=(-2, -1), keepdim=True)))
+                g_n = torch.sqrt(ctx.psum(
+                    (g_low * g_low).sum(dim=(-2, -1), keepdim=True)))
                 d = d + (u_n / (g_n + self.eps)) * resid
 
         d = deorient(d, transposed)
         return d, ProjAdamLeaf(m=m, v=v, proj=proj_state, ef=new_ef,
                                inner_step=inner)
 
-    def _stats(self, gf, g_low, norms_sq, prev_proj, proj_state, refresh,
-               idx_based, r) -> "tstats.SubspaceStats":
+    def _stats(self, ctx, gf, g_low, norms_sq, prev_proj, proj_state,
+               refresh, idx_based, r) -> "tstats.SubspaceStats":
         """The leaf's SubspaceStats, from what the update already holds.
 
         A fused refresh has the squared column norms of ``S = G Q``
@@ -292,15 +299,16 @@ class ProjectedAdamRule(MatrixRule):
         the new indices. Elsewhere the total is one reduction over ``gf``
         and the selected energies one over the skinny ``g_low``. A keep
         step ran no selection: margin and overlap are the -1 sentinel, as
-        is the overlap of a projector that keeps no indices."""
+        is the overlap of a projector that keeps no indices. On a ZeRO row
+        block both reductions are summed over the shards (``ctx.psum``)."""
         batch = gf.shape[:-2]
         if norms_sq is not None:
             total_sq = norms_sq.sum(dim=-1)
             col_e = torch.gather(norms_sq, -1, proj_state.long())
             margin = topr_margin(norms_sq, r)
         else:
-            total_sq = (gf * gf).sum(dim=(-2, -1))
-            col_e = (g_low * g_low).sum(dim=-2)
+            total_sq = ctx.psum((gf * gf).sum(dim=(-2, -1)))
+            col_e = ctx.psum((g_low * g_low).sum(dim=-2))
             margin = tstats.sentinel(batch, gf.device)
         overlap = (index_overlap(prev_proj, proj_state)
                    if refresh and idx_based
@@ -331,8 +339,8 @@ def _build(lr, rule_kw, harness_kw) -> Optimizer:
 
 
 def _harness(weight_decay, overrides, label_fn, zero, **kw) -> dict:
-    reject_unported(zero=zero)
-    hk = dict(weight_decay=weight_decay, overrides=overrides, **kw)
+    hk = dict(weight_decay=weight_decay, overrides=overrides, zero=zero,
+              **kw)
     if label_fn is not None:
         hk["label_fn"] = label_fn
     return hk
@@ -381,8 +389,9 @@ def dct_adamw(lr: Schedule, *, rank: int = 128, update_interval: int = 1,
     ``error_feedback=False`` discards the residual (no EF state).
     ``compute_dtype``: the projection precision, fp32 | bf16 | int8, on the
     fused modes only. ``overrides``: per-leaf-path rule field
-    replacements. ``lr_scale=True`` appends the resilience ladder's LR-cut
-    seam (``transform.lr_scale_transform``); ``zero=`` is not ported."""
+    replacements. ``zero``: a ``parallel.zero.ZeroConfig`` (ZeRO-1 on the
+    active mesh). ``lr_scale=True`` appends the resilience ladder's LR-cut
+    seam (``transform.lr_scale_transform``)."""
     if not is_backend(basis):
         raise ValueError(f"unknown basis {basis!r}; registered backends: "
                          f"{backend_kinds()}")

@@ -36,7 +36,16 @@ tree with ``MASKED`` in the other labels' places. On flat dicts the port's
 ``partition`` drops those paths instead, so no tree of the port holds a
 ``MaskedNode``; the class is the port's name for the JAX holes that
 ``convert`` meets in a carried partition state, and ``merge_by_label``
-accepts per-label trees either way. ZeRO-1 (``zero=``) is not ported yet.
+accepts per-label trees either way.
+
+ZeRO-1: ``as_optimizer(zero=ZeroConfig("1"))`` under an active mesh
+(``parallel.sharding.set_mesh``) keeps each rank's row block of the state
+of every leaf ``parallel.zero.partitioned`` claims; ``lowrank_project``
+runs a ``zero_shardable`` rule on those rows (``zero.sharded_leaf_update``)
+and emits its update as a ``zero.RowBlock``, which the elementwise
+transforms here act on row by row and the caller all-gathers
+(``zero.gather_updates``, as the train step does) before
+``apply_updates``.
 """
 from __future__ import annotations
 
@@ -47,11 +56,15 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.core.selection import allsum
 from repro_torch.core.transforms import (
     basis_store_key,
     normalize_basis_request,
     shared_basis,
 )
+from repro_torch.parallel import sharding
+from repro_torch.parallel import zero as zero_mod
+from repro_torch.parallel.zero import RowBlock
 from repro_torch.telemetry.stats import active_collector
 
 from .common import (
@@ -288,9 +301,13 @@ def clip_global_norm(max_norm: float) -> GradientTransform:
     fp32 tensor (a bf16 update is widened to fp32 by it, as JAX's
     promotion does)."""
 
+    def sq(u):
+        if isinstance(u, RowBlock):     # this rank's rows: sum the shards'
+            return allsum(torch.sum(torch.square(u.local.float())), u.axes)
+        return torch.sum(torch.square(u.float()))
+
     def upd(updates, params, ctx):
-        norm = torch.sqrt(sum(torch.sum(torch.square(u.float()))
-                              for u in updates.values()))
+        norm = torch.sqrt(sum(sq(u) for u in updates.values()))
         # a tensor quotient: torch divides a Python scalar by a tensor as a
         # multiply by the reciprocal, an ulp off IEEE
         scale = torch.clamp(torch.full_like(norm, max_norm)
@@ -372,7 +389,12 @@ def lowrank_project(rule: MatrixRule, *,
     the adaptive rank / refresh controllers drive (``telemetry.adaptive``
     rebuilds the optimizer and migrates its state when they move). The
     telemetry collector, if one is installed, is narrowed to the same path,
-    so a leaf's stats land under its override key."""
+    so a leaf's stats land under its override key.
+
+    Under ZeRO-1 (``ctx.zero`` resolving against the active mesh) a leaf
+    whose state is held by rows (``zero.partitioned``) runs on this rank's
+    rows when its rule is ``zero_shardable`` and whole otherwise; every
+    other leaf runs replicated."""
 
     def rule_for(path: str) -> MatrixRule:
         if overrides and path in overrides:
@@ -384,13 +406,20 @@ def lowrank_project(rule: MatrixRule, *,
                 for k, p in params.items()}
 
     def update(updates, state, params, ctx):
+        zctx = zero_mod.resolve(ctx.zero)
         d, new_state = {}, {}
         for k, g in updates.items():
+            r, s, p = rule_for(k), state[k], params[k]
             leaf_ctx = dataclasses.replace(
                 ctx, key=leaf_key(ctx.key, k),
                 stats=ctx.stats.scope(k) if ctx.stats is not None else None)
-            d[k], new_state[k] = rule_for(k).update(g, state[k], params[k],
-                                                    leaf_ctx)
+            if zctx is not None and zero_mod.partitioned(s, p.shape,
+                                                         zctx.n_shards):
+                fn = (zero_mod.sharded_leaf_update if r.zero_shardable
+                      else zero_mod.replicated_leaf_update)
+                d[k], new_state[k] = fn(r, g, s, p, leaf_ctx, zctx)
+            else:
+                d[k], new_state[k] = r.update(g, s, p, leaf_ctx)
         return d, new_state
 
     def basis_sizes(params):
@@ -417,7 +446,7 @@ class ChainState(NamedTuple):
 
 
 def as_optimizer(transform: GradientTransform, *, seed: int = 0,
-                 basis_mode: str = "stored", lr_scale: bool = False
+                 basis_mode: str = "stored", zero=None, lr_scale: bool = False
                  ) -> Optimizer:
     """Close a transform into the ``Optimizer(init, update)`` interface.
 
@@ -427,6 +456,13 @@ def as_optimizer(transform: GradientTransform, *, seed: int = 0,
     contiguous transpose of each; ``"onthefly"`` stores nothing and lets
     ``Context.basis`` rebuild it inside the step.
 
+    ``zero``: a :class:`repro_torch.parallel.zero.ZeroConfig` enabling
+    ZeRO-1 on the active mesh: ``init`` (called under the mesh) keeps this
+    rank's row blocks of the claimed leaves' state
+    (``sharding.opt_state_specs``), and every update runs them by rows
+    (``lowrank_project``). Without a mesh, or at one shard, the state and
+    the update are the replicated ones.
+
     ``lr_scale=True`` appends :func:`lr_scale_transform`, the resilience
     ladder's LR-cut seam (off by default: the chain and its state are then
     those of a build without the option).
@@ -434,6 +470,9 @@ def as_optimizer(transform: GradientTransform, *, seed: int = 0,
     if basis_mode not in ("stored", "onthefly"):
         raise ValueError(f"unknown basis_mode {basis_mode!r}; expected "
                          f"'stored' or 'onthefly'")
+    if zero is not None and not isinstance(zero, zero_mod.ZeroConfig):
+        raise TypeError(f"zero= takes a parallel.zero.ZeroConfig, not "
+                        f"{zero!r}")
     if lr_scale:
         transform = chain(transform, lr_scale_transform())
 
@@ -443,9 +482,15 @@ def as_optimizer(transform: GradientTransform, *, seed: int = 0,
         device = next(iter(params.values())).device if params else None
         bases = {basis_store_key(k, n): shared_basis(k, n, torch.float32, device)
                  for k, n in reqs}
-        return ChainState(step=0, seed=seed, bases=bases,
-                          bases_t=transposed(bases),
-                          leaves=transform.init(params))
+        state = ChainState(step=0, seed=seed, bases=bases,
+                           bases_t=transposed(bases),
+                           leaves=transform.init(params))
+        zctx = zero_mod.resolve(zero)
+        if zctx is None:
+            return state
+        specs = sharding.opt_state_specs(state, params, zero=zero,
+                                         mesh=zctx.mesh)
+        return sharding.shard_tree(state, specs, zctx.mesh)
 
     def update(grads, state: ChainState, params):
         step = state.step + 1
@@ -453,7 +498,7 @@ def as_optimizer(transform: GradientTransform, *, seed: int = 0,
         # collect``), if any, rides the ctx; rules record into it
         ctx = Context(step=step, bases=state.bases, bases_t=state.bases_t,
                       key=fold_in(state.seed, step),
-                      stats=active_collector())
+                      stats=active_collector(), zero=zero)
         updates, leaves = transform.update(grads, state.leaves, params, ctx)
         return updates, state._replace(step=step, leaves=leaves)
 
@@ -472,7 +517,7 @@ def matrix_optimizer(rule: MatrixRule, lr: Schedule, *,
                      basis_mode: str = "stored", seed: int = 0,
                      fullrank_weight_decay: bool = True,
                      overrides: dict[str, dict] | None = None,
-                     lr_scale: bool = False) -> Optimizer:
+                     zero=None, lr_scale: bool = False) -> Optimizer:
     """The matrix-optimizer preset as a chain: matrix leaves to ``rule``
     (with the per-leaf ``overrides``), everything else to full-rank Adam,
     then lr scaling and decoupled weight decay — the same chain, and state
@@ -480,7 +525,8 @@ def matrix_optimizer(rule: MatrixRule, lr: Schedule, *,
     ``common.make_matrix_optimizer``. With ``fullrank_weight_decay=False``
     the decay applies to the matrix leaves only: the partition then holds
     ``(rule, lr, decay)`` under ``"lowrank"`` and ``(adam, lr)`` under
-    ``"full"``. ``lr_scale`` is forwarded to :func:`as_optimizer`."""
+    ``"full"``. ``zero`` and ``lr_scale`` are forwarded to
+    :func:`as_optimizer`."""
     routes = {"lowrank": lowrank_project(rule, overrides=overrides),
               "full": scale_by_adam(b1, b2, eps)}
     if fullrank_weight_decay:
@@ -493,5 +539,5 @@ def matrix_optimizer(rule: MatrixRule, lr: Schedule, *,
                              add_decayed_weights(weight_decay, schedule=lr)),
             "full": chain(routes["full"], scale_by_learning_rate(lr)),
         }, label_fn)
-    return as_optimizer(t, seed=seed, basis_mode=basis_mode,
+    return as_optimizer(t, seed=seed, basis_mode=basis_mode, zero=zero,
                         lr_scale=lr_scale)

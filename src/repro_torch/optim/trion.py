@@ -36,7 +36,11 @@ captured energy of the selected columns, the top-r margin, and the EF mass
 ``sqrt(||B||^2 - ||b||^2)``; the indices are recomputed every step, so the
 overlap is the -1 sentinel.
 
-Not yet ported: ZeRO-1 (``zero=``).
+ZeRO-1 (``zero=``, ``repro_torch.parallel.zero``): the rule is
+``zero_shardable`` by gather - compute - slice. A rank all-gathers the
+momentum sum of its row block, runs the whole-matrix step on it as the
+replicated step does, and keeps its rows of M_t and O_t: the same bits as
+the replicated update.
 """
 from __future__ import annotations
 
@@ -47,9 +51,9 @@ import torch
 
 from repro_torch.core import fused_step
 from repro_torch.core.dct import makhoul_dct2
-from repro_torch.core.selection import (column_norms,
+from repro_torch.core.selection import (allgather_rows, column_norms,
                                         dynamic_column_selection,
-                                        topr_margin)
+                                        local_row_block, topr_margin)
 from repro_torch.telemetry import stats as tstats
 
 from .common import (
@@ -59,7 +63,6 @@ from .common import (
     deorient,
     orient_right,
     oriented_dims,
-    reject_unported,
 )
 from .transform import (
     GradientTransform,
@@ -103,6 +106,11 @@ class TrionRule(MatrixRule):
         if self.rank < 1:
             raise ValueError(f"rank must be >= 1, got {self.rank}")
 
+    @property
+    def zero_shardable(self) -> bool:
+        """Row-shardable by gather - compute - slice (module docstring)."""
+        return True
+
     def init(self, shape, dtype, device=None):
         *batch, _, _ = shape
         rows, cols = oriented_dims(shape)
@@ -111,18 +119,24 @@ class TrionRule(MatrixRule):
                                        device=device))
 
     def update(self, g, state: TrionLeaf, param, ctx):
-        gf, transposed = orient_right(g.float())
+        if ctx.oriented:        # a ZeRO row block: right-oriented already
+            gf, transposed = g.float(), False
+        else:
+            gf, transposed = orient_right(g.float())
         cols = gf.shape[-1]
         r = min(self.rank, cols)
-        # the reference takes the aspect ratio from the global leaf shape
-        # (a ZeRO row block's differs); unsharded, g has that shape
-        g_rows, g_cols = oriented_dims(g.shape)
+        # the aspect ratio of the whole leaf (a ZeRO row block's differs)
+        g_rows, g_cols = oriented_dims(param.shape)
         scale = max(1.0, (g_rows / g_cols) ** 0.5)
         mode = fused_step.resolve(self.fused, gf.device)
 
         want_stats = ctx.wants_stats and self.emit_stats
 
-        b_full = (state.m.float() + gf).contiguous()            # B_t
+        # ZeRO: the whole momentum sum from every shard's rows (identity
+        # when replicated); this rank's rows are cut out at the end
+        block = gf.shape[-2]
+        b_full = allgather_rows(state.m.float() + gf,
+                                ctx.axis).contiguous()          # B_t
         q = ctx.basis(cols, torch.float32, device=gf.device)
         if mode != "off":
             sp = fused_step.select_and_project(
@@ -151,6 +165,8 @@ class TrionRule(MatrixRule):
         out, low_rank_part = fused_step.fused_dual_backproject(
             o, b, q, idx, mode=mode, qt=ctx.basis_t(cols))
         new_m = b_full - (1.0 - self.mu) * low_rank_part        # Alg. 1 l. 10
+        new_m = local_row_block(new_m, ctx.axis, block)
+        out = local_row_block(out, ctx.axis, block)
         d = deorient(scale * out, transposed)
         return d, TrionLeaf(m=new_m.to(state.m.dtype))
 
@@ -177,13 +193,13 @@ def trion(lr: Schedule, *, rank: int = 128, mu: float = 0.95,
           lr_scale: bool = False) -> Optimizer:
     """Trion on the matrix leaves, full-rank Adam on the rest. ``fused``:
     "auto" (the CUDA kernels for CUDA tensors, the reference path for CPU
-    tensors) | "on" | "fft" | "off"."""
-    reject_unported(zero=zero)
+    tensors) | "on" | "fft" | "off". ``zero``: a ``parallel.zero.
+    ZeroConfig`` (ZeRO-1 on the active mesh)."""
     rule = TrionRule(rank=rank, mu=mu, ns_steps=ns_steps,
                      ranking_norm=ranking_norm, dct_method=dct_method,
                      momentum_dtype=momentum_dtype, fused=fused)
     kw = dict(weight_decay=weight_decay, basis_mode=basis_mode, b1=b1, b2=b2,
-              eps=eps, lr_scale=lr_scale)
+              eps=eps, zero=zero, lr_scale=lr_scale)
     if label_fn is not None:
         kw["label_fn"] = label_fn
     return matrix_optimizer(rule, lr, **kw)

@@ -1,0 +1,313 @@
+"""ZeRO-1 partitioning of the low-rank optimizer state: the counterpart of
+``repro/parallel/zero.py`` over ``torch.distributed``.
+
+The projected-Adam state (Adam moments in R^{rows x r}, the int8 or fp32
+error-feedback buffer in R^{rows x cols}, per-row EF scales) is
+row-parallel, so each rank of the data axes keeps only its row block of
+every eligible leaf's state and runs the select + project + update step on
+those rows. Per-rank optimizer-state bytes drop by the data-parallel width
+on top of the paper's low-rank reduction. Every rank holds the whole
+parameters and the whole (averaged) gradient.
+
+Why the row-block step computes the replicated step's function: every row
+of ``S = G @ Q``, the Adam update, the back-projections ``u @ Q_r^T`` and
+the per-row q8 EF quantization are row-local. The one cross-shard quantity
+is the column statistic ``||S[:, j]||^2`` of the dynamic selection, one
+``(n,)`` vector per leaf, completed across the shards so that every rank
+selects the same indices. On the kernel path ``dct_project`` returns its
+per-row-block partial norms (``BLOCK_ROWS`` rows a block); the ranks
+all-gather them and sum all of them in the replicated kernel's fixed order
+(``selection.allsum_row_blocks``). When a rank's rows are a whole number of
+blocks this is the replicated statistic bit for bit. Off the kernel path
+(fused "off" / "fft", the l1 ranking norm) each rank's column totals are
+summed across the ranks in rank order (``selection.allsum``, the
+reference's ``psum``), which can part from the replicated sum by rounding.
+Either way the sum runs in one fixed order on every rank, so the ranks
+agree bit for bit.
+
+Muon / Trion / Dion (``zero_shardable`` rules) shard by gather - compute -
+slice: Muon all-gathers the rank-sized factor for Newton-Schulz (and its
+full moment for full-space NS), Trion and Dion the momentum sum; every rank
+runs the same whole-matrix step and keeps its own rows. Dion's per-layer
+``q`` comes out of that identical on every rank and replicates.
+
+There is no ``shard_map`` here: ``sharded_leaf_update`` cuts this rank's
+rows out of the right-oriented gradient, runs the rule on them with
+``ctx.axis`` set (the collectives of ``core.selection`` go over those mesh
+axes) and ``ctx.oriented`` (orientation is decided on the whole leaf), and
+returns the update as a :class:`RowBlock`. The chain's elementwise
+transforms act on its rows (weight decay reads this rank's rows of the
+parameter); the caller all-gathers it (:func:`gather_updates`) before
+``apply_updates``, as the train step does. A sharded leaf's rule records
+its telemetry into the leaf's scope directly: every term it records is completed across the
+shards, so each rank records the same values (the reference re-records
+them out of its ``shard_map``).
+
+The placement of a leaf's state follows its type, as in the reference
+(:func:`partitioned`): the index-basis ``ProjAdamLeaf`` and the Muon /
+Trion / Dion leaves whose oriented rows split evenly. A rule that is not
+``zero_shardable`` on such a state (FIRA with an index basis: its residual
+scaling sums norms over every row) keeps its state partitioned and computes
+replicated (:func:`replicated_leaf_update`: the state is gathered, updated
+whole and cut again), where the reference lets XLA gather it.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.optim.common import deorient, orient_right
+from repro_torch.parallel import sharding
+from repro_torch.parallel.sharding import REPLICATED, Placement
+
+ZERO_MODES = ("off", "1")
+
+
+@dataclasses.dataclass(frozen=True)
+class ZeroConfig:
+    """Optimizer-state partitioning config.
+
+    ``mode``: "off" (replicated state) or "1" (ZeRO-1: state and update
+    step partitioned, updates all-gathered). ``axes``: the mesh axes to
+    partition over; the present subset of the active mesh is used.
+    """
+
+    mode: str = "off"
+    axes: tuple[str, ...] = ("pod", "data")
+
+    def __post_init__(self):
+        if self.mode not in ZERO_MODES:
+            raise ValueError(f"unknown zero mode {self.mode!r}; "
+                             f"allowed: {ZERO_MODES}")
+        if isinstance(self.axes, list):
+            object.__setattr__(self, "axes", tuple(self.axes))
+
+    @property
+    def active(self) -> bool:
+        return self.mode != "off"
+
+
+ZERO_OFF = ZeroConfig()
+
+
+def parse_zero(flag: str) -> ZeroConfig:
+    """CLI helper: ``--zero {off,1}`` -> :class:`ZeroConfig`."""
+    return ZeroConfig(mode=flag)
+
+
+@dataclasses.dataclass(frozen=True)
+class ZeroContext:
+    """A config resolved against the active mesh."""
+
+    mesh: object
+    axes: tuple[str, ...]
+    n_shards: int
+
+
+def present_axes(mesh, cfg: ZeroConfig) -> tuple[str, ...]:
+    if mesh is None:
+        return ()
+    return tuple(a for a in cfg.axes if a in mesh.axis_names)
+
+
+def resolve(cfg: ZeroConfig | None) -> ZeroContext | None:
+    """Resolve a config against the active mesh; None when inactive (mode
+    off, no mesh, the configured axes absent, or one shard)."""
+    if cfg is None or not cfg.active:
+        return None
+    mesh = sharding.active_mesh()
+    axes = present_axes(mesh, cfg)
+    if not axes:
+        return None
+    n = mesh.size(axes)
+    if n <= 1:
+        return None
+    return ZeroContext(mesh=mesh, axes=axes, n_shards=n)
+
+
+# ---------------------------------------------------------------------------
+# placement
+# ---------------------------------------------------------------------------
+def _oriented_rows(param_shape) -> int:
+    """Rules orient a matrix so the projected dim is last: rows = the
+    larger of the trailing two dims."""
+    return max(param_shape[-2], param_shape[-1])
+
+
+def eligible(param_shape, n_shards: int) -> bool:
+    """A leaf's state partitions iff its oriented row dim splits evenly."""
+    if len(param_shape) < 2 or n_shards <= 1:
+        return False
+    return _oriented_rows(param_shape) % n_shards == 0
+
+
+def grad_spec(param_shape, axes: tuple[str, ...]) -> Placement:
+    """The placement splitting an oriented (rows at dim -2) array's rows."""
+    return Placement(len(param_shape) - 2, tuple(axes))
+
+
+def state_array_spec(param_shape, state_shape, axes: tuple[str, ...],
+                     n_shards: int = 1) -> Placement:
+    """The placement of one state array of an eligible leaf. Arrays stored
+    oriented with the rows first of the trailing two dims (moments
+    ``(..., rows, r)``, EF payload ``(..., rows, cols)``, per-row EF scales
+    ``(..., rows, 1)``) split their rows; index sets, scalars and anything
+    else replicate. ``state_shape`` may be the whole array's or, given
+    ``n_shards``, one shard's block of it."""
+    rows = _oriented_rows(param_shape)
+    if (len(state_shape) == len(param_shape) and len(state_shape) >= 2
+            and state_shape[-2] in (rows, rows // n_shards)):
+        return Placement(len(state_shape) - 2, tuple(axes))
+    return REPLICATED
+
+
+def state_specs(param_shape, state_tree, axes: tuple[str, ...],
+                n_shards: int = 1):
+    """Placements of a whole per-leaf state (``ProjAdamLeaf`` with its q8
+    ``QuantizedBuffer``, ``MuonLeaf`` / ``TrionLeaf`` / ``DionLeaf``).
+    Dion's per-layer basis ``q (..., cols, r)`` replicates: it comes out of
+    the gathered momentum sum identical on every rank, and on a square leaf
+    its ``cols`` dim would pass for a row dim."""
+    from repro_torch.optim.dion import DionLeaf
+
+    def spec(s):
+        if isinstance(s, int):
+            return REPLICATED
+        return state_array_spec(param_shape, s.shape, axes, n_shards)
+
+    if isinstance(state_tree, DionLeaf):
+        return DionLeaf(m=spec(state_tree.m), q=REPLICATED)
+    return sharding.map_leaves(spec, state_tree)
+
+
+def partitioned(leaf_state, param_shape, n_shards: int) -> bool:
+    """Whether ZeRO-1 holds this leaf's state by rows: an eligible leaf of
+    the index-basis projected-Adam rules (integer projector state) or of
+    the momentum families."""
+    from repro_torch.optim.dion import DionLeaf
+    from repro_torch.optim.muon import MuonLeaf
+    from repro_torch.optim.projected_adam import ProjAdamLeaf
+    from repro_torch.optim.trion import TrionLeaf
+
+    if not eligible(param_shape, n_shards):
+        return False
+    if isinstance(leaf_state, (MuonLeaf, TrionLeaf, DionLeaf)):
+        return True
+    return (isinstance(leaf_state, ProjAdamLeaf)
+            and not leaf_state.proj.is_floating_point())
+
+
+# ---------------------------------------------------------------------------
+# the sharded leaf update
+# ---------------------------------------------------------------------------
+class RowBlock:
+    """This rank's rows of a row-sharded update: ``local`` is the oriented
+    ``(..., rows / n, cols)`` block, ``transposed`` whether the parameter
+    is the transpose of the oriented matrix. Arithmetic with a number, a
+    0-d tensor, another RowBlock or a parameter-shaped tensor (cut to this
+    rank's rows) gives a RowBlock; :meth:`gather` gives the whole update in
+    the parameter's layout."""
+
+    __slots__ = ("local", "axes", "transposed")
+
+    def __init__(self, local: torch.Tensor, axes, transposed: bool):
+        self.local = local
+        self.axes = tuple(axes)
+        self.transposed = transposed
+
+    def _like(self, local: torch.Tensor) -> "RowBlock":
+        return RowBlock(local, self.axes, self.transposed)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.local.dtype
+
+    def float(self) -> "RowBlock":
+        return self._like(self.local.float())
+
+    def to(self, *args, **kwargs) -> "RowBlock":
+        return self._like(self.local.to(*args, **kwargs))
+
+    def _rows(self, x):
+        from repro_torch.core.selection import local_row_block
+
+        if isinstance(x, RowBlock):
+            return x.local
+        if isinstance(x, torch.Tensor) and x.dim() >= 2:
+            xo = x.transpose(-1, -2) if self.transposed else x
+            return local_row_block(xo, self.axes, self.local.shape[-2])
+        return x
+
+    def __mul__(self, x):
+        return self._like(self.local * self._rows(x))
+
+    def __rmul__(self, x):
+        return self._like(self._rows(x) * self.local)
+
+    def __add__(self, x):
+        return self._like(self.local + self._rows(x))
+
+    def __radd__(self, x):
+        return self._like(self._rows(x) + self.local)
+
+    def __sub__(self, x):
+        return self._like(self.local - self._rows(x))
+
+    def __rsub__(self, x):
+        return self._like(self._rows(x) - self.local)
+
+    def __neg__(self):
+        return self._like(-self.local)
+
+    def gather(self) -> torch.Tensor:
+        """The whole update (an all-gather over ``axes``)."""
+        from repro_torch.core.selection import allgather_rows
+
+        return deorient(allgather_rows(self.local, self.axes),
+                        self.transposed)
+
+
+def gather_updates(updates: dict) -> dict:
+    """``updates`` with every :class:`RowBlock` all-gathered (the others as
+    they are)."""
+    return {k: u.gather() if isinstance(u, RowBlock) else u
+            for k, u in updates.items()}
+
+
+def _check_held(state, param_shape, block: int) -> None:
+    rows = state.m.shape[-2]
+    if rows != block:
+        raise ValueError(
+            f"ZeRO-1: the optimizer state of a {tuple(param_shape)} leaf "
+            f"holds {rows} rows, not this rank's block of {block}; "
+            "initialize it (opt.init) under the active mesh")
+
+
+def sharded_leaf_update(rule, g, state, param, ctx, zctx: ZeroContext):
+    """``rule.update`` on this rank's rows of the leaf.
+
+    Orientation is decided on the whole leaf (a row block's aspect ratio
+    can differ); this rank's rows of the right-oriented gradient go to the
+    rule with ``ctx.axis`` set, so its row reductions span the shards, and
+    ``ctx.oriented``. Returns the update as a :class:`RowBlock` and the
+    new (row-sharded) state."""
+    from repro_torch.core.selection import local_row_block
+
+    gf, transposed = orient_right(g)
+    block = gf.shape[-2] // zctx.n_shards
+    _check_held(state, param.shape, block)
+    g_blk = local_row_block(gf, zctx.axes, block).contiguous()
+    inner = dataclasses.replace(ctx, axis=zctx.axes, oriented=True)
+    d, new_state = rule.update(g_blk, state, param, inner)
+    return RowBlock(d, zctx.axes, transposed), new_state
+
+
+def replicated_leaf_update(rule, g, state, param, ctx, zctx: ZeroContext):
+    """A partitioned state under a rule that is not ``zero_shardable``:
+    the state is gathered, the rule runs on the whole leaf, and the new
+    state is cut to this rank's rows again."""
+    specs = state_specs(param.shape, state, zctx.axes, zctx.n_shards)
+    whole = sharding.gather_tree(state, specs, zctx.mesh)
+    d, new_state = rule.update(g, whole, param, ctx)
+    return d, sharding.shard_tree(new_state, specs, zctx.mesh)

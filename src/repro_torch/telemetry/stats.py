@@ -26,6 +26,14 @@ step writes into, so the update is bit-equal either way.
 On the card the stats stay on the device until the Trainer copies a step's
 whole tree at once (:func:`to_host`: one flat buffer, one device -> host
 copy); :func:`summarize` then works on host numpy.
+
+Under ZeRO-1 (``repro_torch.parallel.zero``) a sharded leaf's rule records
+into the leaf's scope directly, as a replicated one does: every term it
+records is completed across the shards first (the column statistic, the
+keep step's totals, or the gathered momentum of Trion and Dion), so each
+rank records the same stats, those of the whole leaf. (The reference
+records into a scope inside its ``shard_map`` and re-records the result
+outside it.)
 """
 from __future__ import annotations
 

@@ -29,6 +29,13 @@ step can start (span ``ckpt/snapshot``, histogram ``ckpt_snapshot_seconds``:
 the port's own, beside the reference's instruments); only the disk IO goes
 to the writer thread.
 
+Checkpoints are saved whole ("unsharded-logical", as the reference's):
+under data parallelism the Trainer all-gathers the ZeRO-1 row blocks
+(``parallel.sharding.gather_tree``) and rank 0 writes. ``restore(step,
+target, shardings)`` cuts this rank's block of each split leaf out of the
+whole array on the host (``sharding.local_block``) before it moves to the
+device, so a run saved at one data-parallel width resumes at another.
+
 ``fault_hook(stage, step)`` is the chaos seam (train/chaos.py), called at
 ``"pre_write"`` / ``"mid_write"`` (after state.npz, before OK) /
 ``"pre_publish"`` / ``"published"``.
@@ -183,23 +190,39 @@ def _check_integrity(step: int, flat: dict[str, np.ndarray],
                 f"(got {crc:#010x}, manifest {rec['crc32']:#010x})")
 
 
-def _leaf_from(arr: np.ndarray, target):
+def _leaf_from(arr: np.ndarray, target, placement=None):
     """One restored leaf shaped like ``target``: an int, or a tensor on the
-    target's device in its dtype."""
+    target's device in its dtype (with a split ``placement``, this rank's
+    block of ``arr``)."""
     if isinstance(target, torch.Tensor):
         arr = np.asarray(arr, order="C")   # keeps 0-d (ascontiguousarray won't)
         if target.dtype == torch.bfloat16:
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
+        if placement is not None and placement.split:
+            from repro_torch.parallel.sharding import local_block
+
+            t = local_block(t, placement)
+            if t.shape != target.shape:
+                raise ValueError(f"restore: this rank's block is "
+                                 f"{tuple(t.shape)}, the target's "
+                                 f"{tuple(target.shape)}")
         return t.to(device=target.device, dtype=target.dtype)
     return int(arr)
 
 
-def _unflatten_into(tree, flat: dict[str, np.ndarray]):
-    """``tree``'s structure with every leaf replaced from ``flat``."""
+def _unflatten_into(tree, flat: dict[str, np.ndarray], shardings=None):
+    """``tree``'s structure with every leaf replaced from ``flat`` (cut to
+    this rank's blocks by ``shardings``, a placement tree of ``tree``)."""
+    placed = {}
+    if shardings is not None:
+        from repro_torch.parallel.sharding import placements_by_path
+
+        placed = placements_by_path(shardings)
     return tree_map_with_path(
-        lambda path, leaf: _leaf_from(flat[_SEP.join(path)], leaf), tree)
+        lambda path, leaf: _leaf_from(flat[_SEP.join(path)], leaf,
+                                      placed.get(path)), tree)
 
 
 class CheckpointManager:
@@ -391,15 +414,14 @@ class CheckpointManager:
         """Restore into the structure of ``target`` (a state tree of
         tensors and ints), on its devices and in its dtypes,
         verifying the loaded bytes against the manifest
-        (:class:`CheckpointCorruptError` on mismatch). ``shardings`` (the
-        reference's re-partitioning onto a mesh) is not ported."""
-        if shardings is not None:
-            raise NotImplementedError("restore(shardings=...) is not yet "
-                                      "ported to repro_torch")
+        (:class:`CheckpointCorruptError` on mismatch). ``shardings``: a
+        placement tree of ``target`` (``parallel.sharding.
+        train_state_specs``) re-partitioning the whole saved arrays onto
+        the active mesh: each split leaf restores as this rank's block."""
         t0 = time.perf_counter()
         with self._tracer.span("ckpt/restore", step=step):
             flat = self._load_verified(step)
-            tree = _unflatten_into(target, flat)
+            tree = _unflatten_into(target, flat, shardings)
         self._m["restore_s"].observe(time.perf_counter() - t0)
         self._m["bytes_read"].inc(_nbytes(flat))
         self._m["restores"].inc()

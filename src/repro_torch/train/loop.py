@@ -38,8 +38,13 @@ dispatch span holds that wait and the loss sync costs nothing.
 ``sync_sample_every=K`` synchronizes the card every K steps and records
 data-ready -> whole-step-done in ``train_full_sync_seconds``.
 
-``state_shardings`` (the reference's ZeRO re-partitioning on restore) is
-not ported.
+``state_shardings``: the placements of the train state under data
+parallelism (``parallel.sharding.train_state_specs``), a tree or a function
+of the state giving one. Saves all-gather the split leaves and only rank 0
+writes; restores cut each rank's blocks out of the whole saved arrays, so
+the data-parallel width may change between runs. Only rank 0 quarantines a
+corrupt checkpoint, and a rollback waits at a barrier for rank 0's pending
+write.
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ import time
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.data.pipeline import DataPipeline
@@ -103,9 +109,10 @@ class Trainer:
                  control_hook=None, extra_state=None,
                  state_shardings=None, resilience=None,
                  ckpt_fault_hook=None, sync_sample_every: int = 0):
-        if state_shardings is not None:
-            raise NotImplementedError("state_shardings (ZeRO) is not yet "
-                                      "ported to repro_torch")
+        self.state_shardings = state_shardings
+        # under data parallelism rank 0 writes the checkpoints
+        self._writes = (state_shardings is None or not dist.is_initialized()
+                        or dist.get_rank() == 0)
         self.train_step = train_step
         self.init_state_fn = init_state_fn
         self.batch_fn = batch_fn
@@ -163,6 +170,19 @@ class Trainer:
             extra["resilience"] = self.resilience.state_dict()
         return extra or None
 
+    def _specs(self, state):
+        s = self.state_shardings
+        return s(state) if callable(s) else s
+
+    def _save(self, step: int, state: TrainState) -> None:
+        if self.state_shardings is not None:
+            # a collective: every rank gathers, rank 0 writes
+            from repro_torch.parallel.sharding import gather_tree
+
+            state = gather_tree(state, self._specs(state))
+        if self._writes:
+            self.ckpt.async_save(step, state, extra=self._ckpt_extra())
+
     def _load_checkpoint(self, step: int, *,
                          load_resilience: bool) -> TrainState:
         """Restore ``step``: manifest-carried state first (controller state
@@ -179,7 +199,10 @@ class Trainer:
             rs = manifest.get("resilience")
             if rs:
                 self.resilience.load_state_dict(rs)
-        state = self.ckpt.restore(step, self.init_state_fn())
+        target = self.init_state_fn()
+        state = self.ckpt.restore(
+            step, target, None if self.state_shardings is None
+            else self._specs(target))
         if self.resilience is not None:
             state = state._replace(
                 opt_state=self.resilience.apply_lr_scale(state.opt_state))
@@ -200,7 +223,8 @@ class Trainer:
         if resume and self.ckpt is not None:
             # newest checkpoint that passes CRC verification — corrupt ones
             # are quarantined and the next-older candidate is tried
-            resume_step = self.ckpt.latest_verified_step()
+            resume_step = self.ckpt.latest_verified_step(
+                quarantine=self._writes)
             if resume_step is not None:
                 state = self._load_checkpoint(resume_step,
                                               load_resilience=True)
@@ -292,8 +316,7 @@ class Trainer:
                 if self.ckpt is not None and (
                         (committed and step % self.ckpt_every == 0)
                         or self._preempted):
-                    self.ckpt.async_save(step, state,
-                                         extra=self._ckpt_extra())
+                    self._save(step, state)
                 if self._preempted:
                     self.log("[trainer] SIGTERM -> checkpointed, exiting")
                     break
@@ -311,7 +334,10 @@ class Trainer:
         the shifted stream."""
         if self.ckpt is not None:
             self.ckpt.wait()            # never read under a pending writer
-            to_step = self.ckpt.latest_verified_step()
+            if self.state_shardings is not None and dist.is_initialized():
+                dist.barrier()          # ... nor under rank 0's
+            to_step = self.ckpt.latest_verified_step(
+                quarantine=self._writes)
         else:
             to_step = None
         if to_step is not None:

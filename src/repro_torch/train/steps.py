@@ -12,6 +12,16 @@ installs a stats collector around the optimizer update and returns the
 rules' per-leaf :class:`~repro_torch.telemetry.stats.SubspaceStats` under
 ``metrics["telemetry"]``, on the device (the Trainer copies them to the
 host in one piece).
+
+Data parallelism: under an active mesh with data axes
+(``parallel.sharding.set_mesh``) the step takes the global batch, runs the
+model on this rank's slice of it (``sharding.batch_specs_tree``), and
+averages the loss metrics and the gradients over the data axes (one
+all-reduce of a flat buffer per dtype) before clipping, so clipping sees
+the global norm. The
+averaged half-batch means are the whole batch's mean up to rounding. A
+ZeRO-1 optimizer returns row-sharded updates, all-gathered here before the
+guard and ``apply_updates``.
 """
 from __future__ import annotations
 
@@ -21,6 +31,8 @@ import torch
 
 from repro_torch.models import transformer as T
 from repro_torch.optim import apply_updates
+from repro_torch.parallel import sharding
+from repro_torch.parallel.zero import gather_updates
 from repro_torch.telemetry.stats import collect
 from repro_torch.train.chaos import strip_chaos_key
 from repro_torch.train.resilience import all_finite_tree, select_tree
@@ -120,6 +132,10 @@ def make_train_step(cfg, optimizer, *, grad_clip: float = 1.0,
         chaos_step = None
         if chaos is not None:
             batch, chaos_step = strip_chaos_key(batch)
+        dp = sharding.dp_axes()
+        if dp:
+            batch = sharding.shard_tree(batch,
+                                        sharding.batch_specs_tree(batch))
         b = batch["tokens"].shape[0]
         mb = cfg.train_microbatch or b
         n_micro = max(1, b // mb)
@@ -137,6 +153,13 @@ def make_train_step(cfg, optimizer, *, grad_clip: float = 1.0,
                 ms.append(m)
             metrics = {k: torch.stack([m[k] for m in ms]).mean()
                        for k in ms[0]}
+
+        if dp:
+            names, mnames = list(grads), list(metrics)
+            avg = sharding.all_reduce_mean(
+                [grads[k] for k in names] + [metrics[k] for k in mnames], dp)
+            grads = dict(zip(names, avg[:len(names)]))
+            metrics = dict(zip(mnames, avg[len(names):]))
 
         if chaos_step is not None:
             grads = chaos.tamper_grads(chaos_step, grads)
@@ -157,6 +180,7 @@ def make_train_step(cfg, optimizer, *, grad_clip: float = 1.0,
         else:
             updates, new_opt = optimizer.update(grads, state.opt_state,
                                                 state.params)
+        updates = gather_updates(updates)
         new_params = apply_updates(state.params, updates)
         metrics["grad_norm"] = gnorm
         new_state = TrainState(state.step + 1, new_params, new_opt)

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 from repro.data.synthetic import SyntheticLM
 from repro.models import transformer as JT
@@ -32,6 +33,7 @@ from repro_torch.train.schedule import cosine_warmup
 
 from test_torch_model_train import CFG, JAX_CFG
 from test_torch_telemetry import _grads_np, _nest, _params_np
+
 
 QUIET = lambda *a, **k: None  # noqa: E731
 

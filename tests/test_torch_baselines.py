@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 from repro.core import projectors as jproj
 from repro.data.synthetic import SyntheticLM
@@ -480,17 +481,6 @@ def test_dense_projector_refuses_low_precision():
 CLI_RTOL = {"ldadamw": 1e-3, "galore": 5e-4, "frugal": 1e-2, "fira": 1e-3,
             "adamw": 1e-5}
 _CLI = ["--smoke", "--device", "cpu", "--batch", "2", "--seq-len", "16"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """The module's port calls on one intra-op thread (restored after):
-    with the suite's parallel workers, each process's pool of threads
-    spinning on these small tensors stalls every op."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

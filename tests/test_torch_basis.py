@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 from repro.configs import llama_paper as jax_llama
 from repro.core import transforms as jtr
@@ -31,6 +32,7 @@ from repro_torch.launch import train as train_cli
 from repro_torch.optim.api import get_optimizer
 from repro_torch.train import steps as TS
 from repro_torch.train.schedule import cosine_warmup
+
 
 KINDS = ("dct", "dst", "hadamard", "randortho")
 # the matrices: fp32 sin/cos of the same exactly reduced phase in two

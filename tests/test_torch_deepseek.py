@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 import torch_dense_parity as P
 
 from repro.configs import deepseek_moe_16b as jax_dsm
@@ -39,6 +40,7 @@ from repro_torch.optim.api import get_optimizer
 from repro_torch.serve import PagedServeEngine, ServeEngine, Session
 from repro_torch.train import steps as TS
 from repro_torch.train.schedule import cosine_warmup
+
 
 MODULES = {"deepseek-moe-16b": jax_dsm, "deepseek-v3-671b": jax_dsv3}
 ARCHS = list(MODULES)

@@ -160,6 +160,17 @@ def test_encdec_modules_import_without_jax_or_repro(probe, name):
     assert name in probe[1].split()
 
 
+# the modules of the ZeRO-1 slice
+ZERO_MODULES = ("repro_torch.parallel", "repro_torch.parallel.sharding",
+                "repro_torch.parallel.zero", "repro_torch.launch.mesh",
+                "repro_torch.core.selection", "repro_torch.train.loop")
+
+
+@pytest.mark.parametrize("name", ZERO_MODULES)
+def test_zero_modules_import_without_jax_or_repro(probe, name):
+    assert name in probe[1].split()
+
+
 def _reference_all(pkg: str) -> list[str]:
     """``__all__`` of ``repro/<pkg>/__init__.py``, read without importing
     it (this file imports no JAX)."""
@@ -210,6 +221,18 @@ RUNTIME_NAMES = {
                                  "init_mamba_cache", "mamba_step"),
     "repro_torch.models.rwkv": ("init_rwkv", "time_mix", "channel_mix",
                                 "time_mix_step", "channel_mix_step"),
+    "repro_torch.parallel.zero": (
+        "ZERO_MODES", "ZeroConfig", "ZERO_OFF", "parse_zero", "ZeroContext",
+        "present_axes", "resolve", "eligible", "grad_spec",
+        "state_array_spec", "state_specs", "sharded_leaf_update"),
+    "repro_torch.parallel.sharding": (
+        "DP_AXES", "TP_AXIS", "LAYOUTS", "ShardingPolicy", "current_policy",
+        "use_policy", "layout_policy", "active_mesh", "dp_axes", "tp_axis",
+        "batch_specs_tree", "opt_state_specs", "set_mesh",
+        "get_active_mesh"),
+    "repro_torch.launch.mesh": ("make_mesh", "make_production_mesh"),
+    "repro_torch.core.selection": ("allsum", "allgather_rows",
+                                   "shard_index", "local_row_block"),
 }
 
 

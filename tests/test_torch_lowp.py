@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 from repro.configs import llama_paper as jax_llama
 from repro.core import fused_step as jfs
@@ -409,17 +410,6 @@ TRAJECTORY_CASES = [
     dict(error_feedback=False),
     dict(error_feedback=False, compute_dtype="int8"),
 ]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """The module's port calls on one intra-op thread (restored after):
-    with the suite's parallel workers, each process's pool of threads
-    spinning on these small tensors stalls every op."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 from repro.configs import llama_paper as jax_llama
 from repro.data.synthetic import SyntheticLM
@@ -23,6 +24,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.optim.api import get_optimizer
 from repro_torch.train import steps as TS
 from repro_torch.train.schedule import cosine_warmup
+
 
 # the reduced llama-350m: d=128, 4 heads of 32, d_ff 256, one layer, vocab
 # 512, fp32 compute, 8-token attention chunks (so 16 tokens take two)
@@ -150,16 +152,21 @@ def test_cli_default_device_raises_without_cuda():
 @pytest.mark.parametrize("argv", [["--zero", "1"], ["--tune-cache", "x"],
                                   ["--optimizer", "adamw", "--fused", "on"],
                                   ["--arch", "whisper-large-v3"]])
-def test_cli_unported_choices_fail(argv):
+def test_cli_unported_choices_fail(argv, capsys):
     """The CLI's choices without a port fail; ``--arch whisper-large-v3``
     was one until the encoder-decoder family was ported, and now trains
-    (its batches carry the stub frames)."""
+    (its batches carry the stub frames); ``--zero 1`` was one until ZeRO-1
+    was ported, and in one process now trains replicated and says so."""
     def run(*extra):
         return train_cli.main(["--smoke", "--device", "cpu", "--steps", "1",
                                *extra, *argv])
 
     if argv[:1] == ["--arch"]:
         assert run("--batch", "2", "--seq-len", "16") == 0
+        return
+    if argv[:1] == ["--zero"]:
+        assert run("--batch", "2", "--seq-len", "16") == 0
+        assert "state stays replicated" in capsys.readouterr().out
         return
     with pytest.raises((SystemExit, NotImplementedError)):
         run()

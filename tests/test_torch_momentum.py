@@ -400,9 +400,10 @@ def test_cpu_tensors_launch_nothing():
 
 @pytest.mark.parametrize("name", ["trion", "muon", "dion"])
 def test_unported_options_raise(name):
-    """ZeRO-1 stays unported; ``lr_scale=True`` is ported and matches JAX
-    under a cut of 0.5."""
-    with pytest.raises(NotImplementedError):
+    """``zero=`` takes a ``parallel.zero.ZeroConfig`` (ZeRO-1 is ported:
+    ``test_torch_zero.py``) and refuses anything else; ``lr_scale=True`` is
+    ported and matches JAX under a cut of 0.5."""
+    with pytest.raises(TypeError, match="ZeroConfig"):
         get_optimizer(name, lr=0.01, zero=("data",))
     lr_scale_cut_matches_jax(name, rank=8)
     with pytest.raises(ValueError):

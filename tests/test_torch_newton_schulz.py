@@ -293,7 +293,8 @@ def test_near_singular_inputs_stay_finite(kind):
 
 def test_fused_newton_schulz_modes():
     """"off" and "fft" are the core iteration; "on" is the kernel path;
-    both identities without ZeRO gather axes, which raise."""
+    ZeRO gather axes need an active mesh (``test_torch_zero.py`` runs
+    them), and raise without one."""
     x = torch.from_numpy(_rand((3, 64, 16), seed=11))
     core = newton_schulz(x, steps=5)
     for mode in ("off", "fft"):
@@ -301,7 +302,7 @@ def test_fused_newton_schulz_modes():
             x, steps=5, mode=mode, gather_axes=None), core)
     assert torch.equal(fused_step.fused_newton_schulz(x, steps=5, mode="on"),
                        ns.newton_schulz_kernel(x, steps=5))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="active mesh"):
         fused_step.fused_newton_schulz(x, steps=5, mode="on",
                                        gather_axes=("data",))
 

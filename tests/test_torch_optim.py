@@ -211,14 +211,15 @@ def lr_scale_cut_matches_jax(name, **kw):
 @pytest.mark.parametrize("name", ["dct_adamw", "ldadamw", "galore",
                                   "frugal", "fira", "adamw"])
 def test_unported_options_raise(name):
-    """ZeRO-1 stays unported; the resilience ladder's ``lr_scale`` is ported
-    and matches JAX under a cut of 0.5."""
+    """``zero=`` takes a ``parallel.zero.ZeroConfig`` (ZeRO-1 is ported:
+    ``test_torch_zero.py``) and refuses anything else; the resilience
+    ladder's ``lr_scale`` is ported and matches JAX under a cut of 0.5."""
     from repro_torch.optim.projected_adam import ProjectedAdamRule
     if name == "adamw":                 # the JAX preset has no zero= either
         with pytest.raises(TypeError, match="unknown kwargs"):
             get_optimizer(name, lr=0.01, zero=None)
     else:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.raises(TypeError, match="ZeroConfig"):
             get_optimizer(name, lr=0.01, zero=("data",))
     lr_scale_cut_matches_jax(name, **({} if name == "adamw" else {"rank": R}))
     with pytest.raises(ValueError, match="unknown residual"):

@@ -564,7 +564,7 @@ def test_cli_flags_and_resilient_optimizer(monkeypatch):
                  "--max-skips", "--max-rollbacks", "--lr-cut", "--chaos",
                  "--obs-dir", "--obs-sync-every"):
         assert flag not in train_cli.NOT_YET_PORTED
-    assert set(train_cli.NOT_YET_PORTED) == {"--tune-cache", "--zero"}
+    assert set(train_cli.NOT_YET_PORTED) == {"--tune-cache"}
     args = train_cli.build(CLI + ["--resilient"])
     assert (args.max_skips, args.max_rollbacks, args.lr_cut,
             args.ckpt_every, args.obs_sync_every) == (2, 3, 0.5, 50, 0)

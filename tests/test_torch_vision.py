@@ -34,6 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 import torch_dense_parity as P
 import torch_encdec_parity as E
 import torch_recurrent_parity as R
@@ -59,17 +60,6 @@ SEQ = 20
 BLOCK_RTOL = 1e-5
 #: the bf16 model's bar (``test_torch_layers.py``)
 BF16_REL = 4e-3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """The module's port calls on one intra-op thread (restored after):
-    with the suite's parallel workers, each process's pool of threads
-    spinning on these small tensors stalls every op."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 - autouse
 import torch_dense_parity as P
 import torch_encdec_parity as E
 import torch_recurrent_parity as R
@@ -58,17 +59,6 @@ BLOCK_RTOL = 1e-5
 BF16_REL = 1e-2
 #: bf16 compute: the losses of the 5-step trajectories
 BF16_TRAJECTORY_RTOL = 1e-3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """The module's port calls on one intra-op thread (restored after):
-    with the suite's parallel workers, each process's pool of threads
-    spinning on these small tensors stalls every op."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

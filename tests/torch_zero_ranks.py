@@ -1,0 +1,272 @@
+"""The ranks of the ZeRO-1 tests (``test_torch_zero.py``): cases, inputs and
+the work each spawned rank does. No JAX here, so a rank imports torch and
+the port only.
+
+Each world is spawned processes on ``gloo`` with CPU tensors, the process
+group started from a file in the test's directory (no port: the suite's
+workers cannot collide), one intra-op thread a rank. Rank 0 writes what
+the world computed to ``<dir>/results.pt`` (tensors only, loadable with
+``weights_only``); every rank writes its traceback to ``<dir>/rank<r>.err``
+if it fails.
+"""
+import os
+import time
+import traceback
+
+import numpy as np
+import torch
+
+# the reference's leaves (tests/test_zero_parity.py): stacked, odd rows
+# first, transposed orientation, a 1-D full-rank leaf, and one whose 38
+# rows split in two but not in four
+SHAPES = {"w": (3, 64, 48), "odd": (80, 33), "wide": (33, 80),
+          "bad": (38, 20), "norm": (64,)}
+STEPS = 6
+CASES = {
+    "dct_adamw-off": ("dct_adamw", dict(rank=8, fused="off")),
+    "dct_adamw-on": ("dct_adamw", dict(rank=8, fused="on")),
+    "dct_adamw-fft": ("dct_adamw", dict(rank=8, fused="fft")),
+    "dct_adamw-fp32ef": ("dct_adamw", dict(rank=8, fused="off",
+                                           ef_dtype="fp32")),
+    "dct_adamw-noef": ("dct_adamw", dict(rank=8, fused="off",
+                                         error_feedback=False)),
+    "dct_adamw-interval2": ("dct_adamw", dict(rank=8, fused="off",
+                                              update_interval=2)),
+    "muon-full": ("muon", dict(fused="on")),
+    "muon-rank16": ("muon", dict(rank=16, fused="on")),
+    "trion": ("trion", dict(rank=16, fused="on")),
+    "dion": ("dion", dict(rank=16, fused="on")),
+    # not zero_shardable: its state is held by rows, its update whole
+    "fira": ("fira", dict(rank=8, projector="dct", fused="on")),
+}
+TELEMETRY = {"dct_adamw-interval2": CASES["dct_adamw-interval2"],
+             "trion": CASES["trion"]}
+TELEMETRY_STEPS = 3
+CKPT_CASE = "dct_adamw-on"
+CKPT_STEP = 2
+TRAIN = dict(arch="llama-350m", batch=4, seq=32, steps=2)
+
+
+def planted(shape, seed, r):
+    """G (oriented, n last) whose S = G @ Q has r planted columns 8x larger
+    than the rest (``test_torch_fused_step.planted`` with the port's DCT
+    basis): the top-r cut has a clear margin."""
+    from repro_torch.core.dct import dct_basis_np
+
+    rng = np.random.default_rng(seed)
+    *batch, m, n = shape
+    s = rng.standard_normal(shape)
+    scale = np.full((*batch, n), 0.125)
+    for b in np.ndindex(*batch):
+        scale[b][rng.permutation(n)[:r]] = 1.0
+    q = np.asarray(dct_basis_np(n), np.float64)
+    return ((s * scale[..., None, :]) @ q.T).astype(np.float32)
+
+
+def grads_np(step: int, r: int) -> dict:
+    """Step ``step``'s gradients: planted in the oriented layout, handed
+    over in the parameter's."""
+    out = {}
+    for i, (k, shape) in enumerate(SHAPES.items()):
+        seed = 1000 * step + i
+        if len(shape) < 2:
+            out[k] = np.random.default_rng(seed).standard_normal(
+                shape).astype(np.float32)
+            continue
+        m, n = shape[-2:]
+        if n <= m:
+            out[k] = planted(shape, seed, r)
+        else:
+            out[k] = np.swapaxes(planted((*shape[:-2], n, m), seed, r),
+                                 -1, -2).copy()
+    return out
+
+
+def case_rank(kw: dict) -> int:
+    return kw.get("rank") or 16
+
+
+def params_t() -> dict:
+    return {k: torch.zeros(s) for k, s in SHAPES.items()}
+
+
+def flat_tensors(tree) -> dict:
+    """``{checkpoint key: tensor}`` of a state tree (ints as 0-d int64)."""
+    from repro_torch.train.checkpoint import tree_items
+
+    return {"||".join(p): (v if isinstance(v, torch.Tensor)
+                           else torch.tensor(v))
+            for p, v in tree_items(tree)}
+
+
+def run_case(name: str, kw: dict, steps: int = STEPS, zero=None):
+    """``steps`` updates of preset ``name`` (with ``zero``, on the active
+    mesh) on ``grads_np``: the (whole) updates of each step, the last state
+    (whole) and, on a mesh, the state's ``(held, whole)`` bytes."""
+    from repro_torch.optim.api import get_optimizer
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.zero import gather_updates
+
+    opt = get_optimizer(name, lr=0.01, zero=zero, **kw)
+    params = params_t()
+    state = opt.init(params)
+    ups = []
+    for t in range(steps):
+        g = {k: torch.from_numpy(v) for k, v in
+             grads_np(t, case_rank(kw)).items()}
+        u, state = opt.update(g, state, params)
+        ups.append(gather_updates(u))
+    mesh = sharding.active_mesh()
+    if mesh is not None:
+        specs = sharding.opt_state_specs(state, params, zero=zero,
+                                         mesh=mesh)
+        held = sharding.state_bytes(state, specs, mesh)
+        state = sharding.gather_tree(state, specs, mesh)
+    else:
+        held = None
+    return ups, state, held
+
+
+def train_run(zero):
+    """``TRAIN["steps"]`` train steps of the smoke llama with DCT-AdamW
+    (rank 128 = n: every column is selected) on the whole batch: losses,
+    parameters and the (whole) optimizer state."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.optim.api import get_optimizer
+    from repro_torch.parallel import sharding
+    from repro_torch.train.steps import init_state, make_train_step
+
+    cfg = get_config(TRAIN["arch"], smoke=True)
+    opt = get_optimizer("dct_adamw", lr=0.01, zero=zero)
+    step = make_train_step(cfg, opt)
+    batch_fn = make_batch_fn(cfg, TRAIN["seq"], TRAIN["batch"], seed=0,
+                             device="cpu")
+    state = init_state(cfg, opt, 0, "cpu")
+    losses = []
+    for t in range(TRAIN["steps"]):
+        state, metrics = step(state, batch_fn(t))
+        losses.append(float(metrics["loss"]))
+    mesh = sharding.active_mesh()
+    opt_state = state.opt_state
+    if mesh is not None:
+        opt_state = sharding.gather_tree(opt_state, sharding.opt_state_specs(
+            opt_state, state.params, zero=zero, mesh=mesh), mesh)
+    return losses, state.params, opt_state
+
+
+def _results(world: int, shape, axes, tmp: str) -> dict:
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.api import get_optimizer
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.zero import ZeroConfig, gather_updates
+    from repro_torch.telemetry.stats import collect
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    zero = ZeroConfig("1")
+    mesh = make_mesh(shape, axes)
+    out = {}
+    ckpt = os.path.join(os.path.dirname(tmp), "ckpt")
+    with sharding.set_mesh(mesh):
+        if world == 4:
+            # the checkpoint first: the world of 2 restores it
+            name, kw = CASES[CKPT_CASE]
+            _, st, _ = run_case(name, kw, CKPT_STEP, zero)
+            if mesh.rank == 0:
+                CheckpointManager(ckpt).save(CKPT_STEP, st)
+            out["ckpt/state"] = flat_tensors(st)
+        for cid, (name, kw) in CASES.items():
+            ups, st, held = run_case(name, kw, zero=zero)
+            out[f"case/{cid}"] = {"updates": ups, "state": flat_tensors(st),
+                                  "held": torch.tensor(held)}
+        for cid, (name, kw) in TELEMETRY.items():
+            opt = get_optimizer(name, lr=0.01, zero=zero, **kw)
+            params = params_t()
+            st = opt.init(params)
+            stats = []
+            for t in range(TELEMETRY_STEPS):
+                g = {k: torch.from_numpy(v) for k, v in
+                     grads_np(t, case_rank(kw)).items()}
+                with collect() as col:
+                    _, st = opt.update(g, st, params)
+                stats.append({f"{p}/{f}": getattr(s, f)
+                              for p, s in col.tree().items()
+                              for f in s._fields})
+            out[f"telemetry/{cid}"] = stats
+        if world == 2:
+            losses, params, opt_state = train_run(zero)
+            out["train"] = {"losses": torch.tensor(losses), "params": params,
+                            "opt_state": flat_tensors(opt_state)}
+            # restore the world of 4's checkpoint, one more update
+            ok = os.path.join(ckpt, f"step_{CKPT_STEP}", "OK")
+            t0 = time.time()
+            while not os.path.exists(ok):
+                if time.time() - t0 > 240:
+                    raise TimeoutError("no checkpoint from the world of 4")
+                time.sleep(0.1)
+            name, kw = CASES[CKPT_CASE]
+            opt = get_optimizer(name, lr=0.01, zero=zero, **kw)
+            params = params_t()
+            target = opt.init(params)
+            st = CheckpointManager(ckpt).restore(
+                CKPT_STEP, target, sharding.opt_state_specs(
+                    target, params, zero=zero, mesh=mesh))
+            g = {k: torch.from_numpy(v) for k, v in
+                 grads_np(CKPT_STEP, case_rank(kw)).items()}
+            u, _ = opt.update(g, st, params)
+            out["ckpt/update"] = gather_updates(u)
+            out["ckpt/held_rows"] = torch.tensor(
+                st.leaves[0]["lowrank"]["w"].m.shape[-2])
+    return out
+
+
+def worker(rank: int, world: int, shape, axes, tmp: str) -> None:
+    """One rank: the process group from ``tmp``'s file store, the world's
+    results, rank 0 writing them."""
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/pg",
+                                rank=rank, world_size=world)
+        out = _results(world, shape, axes, tmp)
+        if rank == 0:
+            torch.save(out, os.path.join(tmp, "results.pt.tmp"))
+            os.replace(os.path.join(tmp, "results.pt.tmp"),
+                       os.path.join(tmp, "results.pt"))
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def spawn(world: int, shape, axes, tmp: str) -> list:
+    """Start the world's ranks (``spawn``: fresh interpreters)."""
+    import multiprocessing
+
+    os.makedirs(tmp, exist_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=worker, args=(r, world, shape, axes, tmp))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def join(procs: list, tmp: str, timeout: float = 300.0) -> dict:
+    """Wait for the ranks (killing them past ``timeout``) and load rank
+    0's results; raise with the ranks' tracebacks if one failed."""
+    deadline = time.time() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.time()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join(10)
+    errs = "".join(open(os.path.join(tmp, f)).read()
+                   for f in sorted(os.listdir(tmp)) if f.endswith(".err"))
+    if alive or any(p.exitcode for p in procs) or errs:
+        raise RuntimeError(f"ranks failed (exit codes "
+                           f"{[p.exitcode for p in procs]}):\n{errs}")
+    return torch.load(os.path.join(tmp, "results.pt"))
