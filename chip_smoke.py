@@ -366,18 +366,27 @@ device or without the port beside it. Any failure raises. Phases:
    ``ZERO_API_LAUNCHES``, its G block shapes and optimizer-state bytes
    beside the replicated state's; the fp32 state saved whole and restored
    at 2 ranks (each its blocks, bit for bit) and at 1 (the gathered state,
-   bit for bit). (b) Through the CLI: ``python -m torch.distributed.run
+   bit for bit). The same two ranks then build a (data 1, model 2) mesh
+   (``PLACED_MESH``): one llama-350m DCT-AdamW step on phase 3's first
+   batch with the train state held as ``fsdp_tp`` blocks (each split
+   parameter gathered at the step's start), every parameter and state
+   block bit-equal to the replicated step's cut, 7 launches of each of the
+   four kernels a rank, the held and whole parameter and state bytes, and
+   the bytes a rank would hold under ``decode_tp``. (b) Through the CLI:
+   ``python -m torch.distributed.run
    --standalone --nproc-per-node 2 -m repro_torch.launch.train`` with
    phase 3's configuration (6 steps, batch 8 x 512 global, 4 x 512 a
    rank) and ``--zero 1 --dist-backend gloo``, a checkpoint every 2 steps:
    each rank's line (7 launches of each of the four kernels per step, its
-   state bytes, peak memory), losses equal bit for bit to a world-1 run
+   parameter and state bytes: the state held as ``fsdp_tp`` blocks over
+   ``("data",)``, every matrix and embedding halved; peak memory), losses
+   equal bit for bit to a world-1 run
    of the same configuration in microbatches of one rank's rows
    (``ZERO_MICROBATCH``) and within ``ZERO_LOSS_BARS`` of phase 3's, step
    time and each rank's mean data wait, dispatch and host sync from
    ``--obs-dir``. (c) (b)'s step-2 checkpoint restored at 2 ranks and at
-   1: the whole moments and EF equal the concatenation of the blocks
-   (CRC32 of each block); a world-1 run in those microbatches resumes
+   1: the whole parameters, moments and EF equal the concatenation of the
+   blocks (CRC32 of each block); a world-1 run in those microbatches resumes
    from it and runs steps 3-6, its losses equal to (b)'s bit for bit.
    Files under ``build/chip_smoke_zero``, deleted at the end; the phase's
    wall time is printed. Order: (b), then one spawn of the two ranks for
@@ -785,8 +794,9 @@ ENCDEC_TRAIN_RUNS = (("whisper-large-v3", None, 8, 448),
                      ("llama-3.2-vision-90b", ("cross",), 8, 512))
 ENCDEC_TRAIN_STEPS = 3
 
-# phase 22: ZeRO-1 at world 2 over ("data",) on the one card: gloo with
-# CUDA tensors (NCCL refuses two ranks on one device)
+# phase 22: ZeRO-1 and the train state held as fsdp_tp blocks at world 2
+# over ("data",) on the one card: gloo with CUDA tensors (NCCL refuses two
+# ranks on one device)
 ZERO_WORLD = 2
 ZERO_DIR = ROOT / "build" / "chip_smoke_zero"
 # (a): (label, preset, keywords, updates) on llama-350m's projected leaves
@@ -836,6 +846,11 @@ ZERO_MICROBATCH = BATCH // ZERO_WORLD
 # first steps move each weight by ~lr, whatever the gradient's size, so an
 # element near zero that changes sign moves the loss)
 ZERO_LOSS_BARS = (1e-5,) + (5e-2,) * (ZERO_CLI_STEPS - 1)
+# (a)'s ranks also build a (data 1, model 2) mesh: one llama-350m DCT-AdamW
+# step on phase 3's first batch with the state held as fsdp_tp blocks,
+# against the replicated step cut to each rank's blocks, bit for bit; and
+# the decode_tp placement's bytes a rank
+PLACED_MESH = (1, 2)
 
 
 def _device_line() -> str:
@@ -4857,8 +4872,8 @@ def _zero_api(torch, mesh) -> dict:
                     del ur
                 del uz, g
             with sharding.set_mesh(mesh):
-                specs = sharding.opt_state_specs(zs, params, zero=zero,
-                                                 mesh=mesh)
+                specs = sharding.optimizer_state_specs(zopt, params,
+                                                       zero=zero)
                 held, whole = sharding.state_bytes(zs, specs, mesh)
                 zfull = sharding.gather_tree(zs, specs, mesh)
             rec["opt_state_bytes"], rec["opt_state_whole_bytes"] = held, whole
@@ -4886,8 +4901,7 @@ def _zero_api(torch, mesh) -> dict:
                 mgr = CheckpointManager(str(ck))
                 with sharding.set_mesh(mesh):
                     target = zopt.init(params)
-                    back = mgr.restore(steps, target, sharding.opt_state_specs(
-                        target, params, zero=zero, mesh=mesh))
+                    back = mgr.restore(steps, target, specs)
                 rec["restored_blocks_bit_equal"] = all(
                     _same_bits(a, b) if isinstance(a, torch.Tensor)
                     else a == b for (_, a), (_, b) in zip(tree_items(back),
@@ -4924,27 +4938,97 @@ def _zero_restore(torch, mesh) -> dict:
     from repro_torch.train.steps import init_state
 
     zero = ZeroConfig("1")
+    cfg = get_config("llama-350m")
     opt = get_optimizer("dct_adamw", lr=0.01, rank=RANK, zero=zero)
+    specs = sharding.train_state_specs(init_state(cfg, opt, 0, "meta"),
+                                       zero=zero, mesh=mesh)
     with sharding.set_mesh(mesh):
-        target = init_state(get_config("llama-350m"), opt, 0, "cuda")
-        specs = sharding.train_state_specs(target, zero=zero, mesh=mesh)
+        target = init_state(cfg, opt, 0, "cuda")
         st = CheckpointManager(str(ZERO_DIR / "ckpt")).restore(
             ZERO_CKPT_STEP, target, specs)
     placed = sharding.placements_by_path(specs)
-    crcs = {}
+    crcs, dims = {}, {}
     for path, leaf in tree_items(st):
         if placed[path].split:
             arr = leaf.detach().cpu().contiguous().numpy()
             crcs["||".join(path)] = zlib.crc32(arr) & 0xFFFFFFFF
-    return {"block_crc32": crcs}
+            # the ("data",) mesh: one split dim, block = this rank's index
+            dims["||".join(path)] = [d for d, e in enumerate(
+                placed[path].entries) if e is not None]
+    return {"block_crc32": crcs, "block_dims": dims}
+
+
+def _placed_step(torch) -> dict:
+    """(a)'s ranks on a (data 1, model 2) mesh: one llama-350m DCT-AdamW
+    step (phase 3's configuration, its first batch) with the state held
+    as ``fsdp_tp`` blocks, then the replicated step on one process's terms
+    cut to this rank's blocks; the held bytes of both layouts and the
+    launches of the placed step."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.api import get_optimizer
+    from repro_torch.parallel import sharding
+    from repro_torch.train.checkpoint import tree_items
+    from repro_torch.train.steps import init_state, make_train_step
+
+    mesh = make_mesh(PLACED_MESH, ("data", "model"))
+    cfg = get_config("llama-350m")
+    opt = get_optimizer("dct_adamw", lr=0.01, rank=RANK)
+    step = make_train_step(cfg, opt)
+    batch = make_batch_fn(cfg, SEQ, BATCH, seed=0, device="cuda")(0)
+    abstract = init_state(cfg, opt, 0, "meta")
+    specs = sharding.train_state_specs(abstract, mesh=mesh)
+    with sharding.use_policy(layout="decode_tp"):
+        dspecs = sharding.params_specs(abstract.params, mesh)
+    decode_held = sum(
+        math.prod(sharding.block_shape(p.shape, dspecs[k], mesh))
+        * p.element_size() for k, p in abstract.params.items())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with sharding.set_mesh(mesh):
+        state = init_state(cfg, opt, 0, "cuda")
+        out = {"param_bytes": sharding.state_bytes(state.params,
+                                                   specs.params, mesh),
+               "decode_tp_param_bytes": [decode_held, sharding.state_bytes(
+                   state.params, specs.params, mesh)[1]]}
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        out["loss"] = float(m["loss"])
+        torch.cuda.synchronize()
+        out["step_s"] = time.perf_counter() - t0
+        out["launches"] = {k: n for k, n in ops.launch_counts().items() if n}
+        out["opt_state_bytes"] = sharding.state_bytes(state.opt_state,
+                                                      specs.opt_state, mesh)
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    rstate, rm = step(init_state(cfg, opt, 0, "cuda"), batch)
+    out["replicated_loss"] = float(rm["loss"])
+    with sharding.set_mesh(mesh):
+        cut = sharding.shard_tree(rstate, specs, mesh)
+    del rstate
+    pairs = list(zip(tree_items(state), tree_items(cut)))
+    out["blocks_bit_equal"] = all(
+        pa == pb and (_same_bits(a, b) if isinstance(a, torch.Tensor)
+                      else a == b) for (pa, a), (pb, b) in pairs)
+    out["params_bit_equal"] = all(
+        _same_bits(a, b) for (pa, a), (_, b) in pairs
+        if pa[0] == ".params")
+    del state, cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def zero_rank(rank: int, task: str, restore: bool = False) -> None:
     """One spawned rank of phase 22: ``gloo`` from a file store under
     ``ZERO_DIR``, CUDA tensors on card 0 (the library the parent built is
     loaded, not rebuilt); part (a), then with ``restore`` (c)'s restore of
-    (b)'s checkpoint; writes its result to ``<task>.rank<r>.json``, or its
-    traceback to ``<task>.rank<r>.err``."""
+    (b)'s checkpoint, then (the phase's own spawn) the placed step on a
+    (data 1, model 2) mesh; writes its result to ``<task>.rank<r>.json``,
+    or its traceback to ``<task>.rank<r>.err``."""
     import traceback
 
     sys.path.insert(0, str(ROOT / "src"))
@@ -4964,6 +5048,8 @@ def zero_rank(rank: int, task: str, restore: bool = False) -> None:
                **_zero_api(torch, mesh)}
         if restore:
             out.update(_zero_restore(torch, mesh))
+        if task == "api":
+            out["placed"] = _placed_step(torch)
         (ZERO_DIR / f"{task}.rank{rank}.json").write_text(json.dumps(out))
         dist.destroy_process_group()
     except BaseException:
@@ -5027,6 +5113,36 @@ def run_zero_api(torch, check: bool = True, restore: bool = False,
         if label == "fp32":
             assert rec["restored_whole_bit_equal"], rec
             assert all(r[label]["restored_blocks_bit_equal"] for r in ranks)
+    placed = [r["placed"] for r in ranks if "placed" in r]
+    for pr in placed if check else ():
+        assert pr["blocks_bit_equal"] and pr["params_bit_equal"], pr
+        assert pr["loss"] == pr["replicated_loss"], pr
+        held, whole = pr["param_bytes"]
+        assert held < 0.51 * whole, pr
+        assert pr["opt_state_bytes"][0] < pr["opt_state_bytes"][1], pr
+        for name in ("dct_project", "colgather_matmul_dual", "quantize_ef",
+                     "dequant_add_ef"):
+            assert pr["launches"].get(name, 0) == LAUNCHES_PER_STEP, \
+                (name, pr["launches"])
+    if placed:
+        print(json.dumps({
+            "placed_fsdp_tp": f"llama-350m DCT-AdamW, one step at {BATCH} "
+                              f"x {SEQ} on a (data, model) = {PLACED_MESH} "
+                              "mesh, the state held as fsdp_tp blocks, "
+                              "against the replicated step cut to each "
+                              "rank's blocks",
+            "blocks_bit_equal": [p["blocks_bit_equal"] for p in placed],
+            "loss": [p["loss"] for p in placed],
+            "replicated_loss": [p["replicated_loss"] for p in placed],
+            "rank_param_bytes": [p["param_bytes"] for p in placed],
+            "rank_opt_state_bytes": [p["opt_state_bytes"] for p in placed],
+            "rank_decode_tp_param_bytes": [p["decode_tp_param_bytes"]
+                                           for p in placed],
+            "rank_peak_memory_bytes": [p["peak_memory_bytes"]
+                                       for p in placed],
+            "rank_step_s": [p["step_s"] for p in placed],
+            "rank_launches": [p["launches"] for p in placed],
+            "device": _device_line()}), flush=True)
     summary = {
         "zero_api": f"llama-350m's projected leaves, world {ZERO_WORLD} over "
                     f"('data',), {r0['backend']} with CUDA tensors on one "
@@ -5113,6 +5229,8 @@ def run_zero_cli(torch, main_losses) -> dict:
         "rank_peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks],
         "rank_opt_state_bytes": [r["opt_state_bytes"] for r in ranks],
         "opt_state_whole_bytes": ranks[0]["opt_state_whole_bytes"],
+        "rank_param_bytes": [r["param_bytes"] for r in ranks],
+        "param_whole_bytes": ranks[0]["param_whole_bytes"],
         "rank_launches": [r["launches"] for r in ranks],
         "rank_mean_s": [{k: m.get(f"train_{k}_seconds_mean") for k in (
             "data_wait", "dispatch", "host_sync", "step")} for m in obs],
@@ -5127,6 +5245,8 @@ def run_zero_cli(torch, main_losses) -> dict:
     for r in ranks:
         assert r["backend"] == "gloo" and r["world"] == ZERO_WORLD, r
         assert r["opt_state_bytes"] < r["opt_state_whole_bytes"], r
+        # fsdp_tp over ("data",): every matrix and embedding halves
+        assert r["param_bytes"] < 0.51 * r["param_whole_bytes"], r
         for name in ("dct_project", "colgather_matmul_dual", "quantize_ef",
                      "dequant_add_ef"):
             assert r["launches"].get(name, 0) == \
@@ -5153,12 +5273,15 @@ def run_zero_restore(torch, cli: dict, ranks: list) -> None:
     whole = {"||".join(p): t for p, t in tree_items(st)
              if isinstance(t, torch.Tensor)}
     keys = ranks[0]["block_crc32"]
-    assert keys and all(".m" in k or ".v" in k or ".ef" in k for k in keys)
+    assert keys and all(".m" in k or ".v" in k or ".ef" in k
+                        or k.startswith(".params") for k in keys)
+    assert any(k.startswith(".params") for k in keys), keys
     for key in keys:
         t = whole[key]
-        block = t.shape[-2] // ZERO_WORLD
+        (dim,) = ranks[0]["block_dims"][key]
+        block = t.shape[dim] // ZERO_WORLD
         for r, rk in enumerate(ranks):
-            part = t.narrow(t.dim() - 2, r * block, block)
+            part = t.narrow(dim, r * block, block)
             crc = zlib.crc32(part.cpu().contiguous().numpy()) & 0xFFFFFFFF
             assert crc == rk["block_crc32"][key], (key, r)
     del st, whole
@@ -5176,9 +5299,9 @@ def run_zero_restore(torch, cli: dict, ranks: list) -> None:
         losses, cli["losses"][ZERO_CKPT_STEP:])]
     print(json.dumps({
         "zero_restore": f"step {ZERO_CKPT_STEP} of (b) restored at "
-                        f"{ZERO_WORLD} ranks and at 1: the whole moments "
-                        "and EF = the concatenation of the blocks (CRC32 "
-                        "of each)",
+                        f"{ZERO_WORLD} ranks and at 1: the whole "
+                        "parameters, moments and EF = the concatenation of "
+                        "the blocks (CRC32 of each)",
         "arrays_checked": len(keys),
         "world1_resume_losses": losses,
         "world2_losses": cli["losses"][ZERO_CKPT_STEP:],

@@ -47,20 +47,27 @@ overrides and its state migrated (``telemetry/adaptive.py``).
 
 Data parallelism and ZeRO-1: under ``torchrun`` (``python -m
 torch.distributed.run --nproc-per-node N -m repro_torch.launch.train ...``)
-the process group comes from the environment it sets, the ranks form a
-``("data",)`` mesh, each runs the model on its slice of the global
-``--batch`` and the gradients are averaged; ``--zero 1`` also partitions
-the low-rank optimizer state by rows (``parallel/zero.py``: dct_adamw /
-muon / trion / dion, or galore / frugal with ``--basis``; not with the
-adaptive controllers). ``--dist-backend`` (the port's own flag) is
-``nccl`` on the card (one card a rank) and ``gloo`` on the CPU by default;
-``gloo`` also lets several ranks share one card. Rank 0 logs, writes the
-checkpoints (whole arrays: a run resumes at another width) and the
-telemetry; ``--obs-dir`` gets rank r's files under ``DIR/rank<r>`` (rank 0's
-in ``DIR``). At the end each rank prints one ``[train] rank {...}`` JSON
-line: its optimizer-state bytes (held, and of the whole arrays), peak
-device memory, losses, step times and kernel launches. One process with
-``--zero 1`` runs replicated and says so.
+the process group comes from the environment it sets and the ranks form a
+``("data",)`` mesh. The train state is held as blocks under the
+reference's default layout, ``fsdp_tp`` (``parallel/sharding.py``): each
+rank keeps its FSDP block of every matrix and embedding and of the
+optimizer state that follows them. Each step gathers the parameters whole,
+runs the model on this rank's slice of the global ``--batch``, averages
+the gradients and updates this rank's blocks; the whole parameters exist
+for the length of the step, so the peak memory is not lower. ``--zero 1``
+also partitions the low-rank optimizer state by rows (``parallel/zero.py``:
+dct_adamw / muon / trion / dion, or galore / frugal with ``--basis``). The
+adaptive controllers run on one process only. ``--dist-backend`` (the
+port's own flag) is ``nccl`` on the card (one card a rank) and ``gloo`` on
+the CPU by default; ``gloo`` also lets several ranks share one card. Rank 0
+logs, writes the checkpoints (whole arrays: a run resumes at another
+width, or on one process) and the telemetry; ``--obs-dir`` gets rank r's
+files under ``DIR/rank<r>`` (rank 0's in ``DIR``). At the end each rank
+prints one ``[train] rank {...}`` JSON line: its parameter and
+optimizer-state bytes (held, and of the whole arrays), peak device memory,
+losses, step times and kernel launches. One process with ``--zero 1``
+runs replicated and says so. A ``(data, model)`` mesh is the API's
+(``launch.mesh.make_mesh``, ``sharding.set_mesh``).
 
 Flags of the JAX CLI that this port does not support yet exit with
 "not yet ported".
@@ -323,6 +330,11 @@ def run(args: argparse.Namespace, stop_at: int | None = None):
     opt_kw = _optimizer_kwargs(args, dev)
     telemetry_on = args.telemetry != "off" or adaptive
     world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and adaptive:
+        # the controllers rebuild and migrate a whole state on one process
+        raise SystemExit("--adaptive-rank/--adaptive-refresh run on one "
+                         "process; the state is placed as blocks under "
+                         "torchrun")
     mesh, rank = None, 0
     if world > 1:
         mesh = _data_parallel(args, dev, world)
@@ -436,9 +448,16 @@ def _run(args, stop_at, cfg, lr, opt_kw, dev, telemetry_on, adaptive,
         trainer_kw.update(train_step=make_step(opt),
                           init_state_fn=lambda: init_state(cfg, opt,
                                                            args.seed, dev))
+    specs = None
     if mesh is not None:
-        trainer_kw["state_shardings"] = lambda st: sharding.train_state_specs(
-            st, zero=zero_cfg, mesh=mesh)
+        # placements from the whole state's shapes (meta tensors, built
+        # outside the mesh: the port's jax.eval_shape), under the default
+        # policy, "fsdp_tp", as the reference's CLI; init_state cuts the
+        # blocks under the mesh (trainer.run)
+        specs = sharding.train_state_specs(
+            init_state(cfg, opt, args.seed, "meta"), zero=zero_cfg,
+            mesh=mesh)
+        trainer_kw["state_shardings"] = specs
         if rank:
             trainer_kw["log_fn"] = lambda line: None
     trainer = Trainer(
@@ -471,15 +490,16 @@ def _run(args, stop_at, cfg, lr, opt_kw, dev, telemetry_on, adaptive,
     if mesh is not None:
         from repro_torch.kernels import ops
 
-        held, whole = sharding.state_bytes(
-            state.opt_state, sharding.opt_state_specs(
-                state.opt_state, state.params, zero=zero_cfg, mesh=mesh),
-            mesh)
+        held, whole = sharding.state_bytes(state.opt_state, specs.opt_state,
+                                           mesh)
+        p_held, p_whole = sharding.state_bytes(state.params, specs.params,
+                                               mesh)
         hist = trainer.metrics_history
         print("[train] rank " + json.dumps({
             "rank": rank, "world": mesh.size(mesh.axis_names),
             "backend": mesh.backend, "opt_state_bytes": held,
-            "opt_state_whole_bytes": whole,
+            "opt_state_whole_bytes": whole, "param_bytes": p_held,
+            "param_whole_bytes": p_whole,
             "peak_memory_bytes": (torch.cuda.max_memory_allocated()
                                   if dev.type == "cuda" else None),
             "losses": [h["loss"] for h in hist],

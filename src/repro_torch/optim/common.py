@@ -229,6 +229,17 @@ class HarnessState(NamedTuple):
     bases_t: dict
 
 
+def _whole_state_only() -> None:
+    """The legacy harness holds its state whole: refuse an active mesh."""
+    from repro_torch.parallel.sharding import active_mesh
+
+    if active_mesh() is not None:
+        raise ValueError("the legacy harness (make_matrix_optimizer) holds "
+                         "its state whole; under a mesh use the chain "
+                         "presets (transform.matrix_optimizer), which place "
+                         "it")
+
+
 def make_matrix_optimizer(
     rule: MatrixRule,
     lr: Schedule,
@@ -250,6 +261,7 @@ def make_matrix_optimizer(
     from .transform import fold_in, leaf_key, transposed
 
     def init(params):
+        _whole_state_only()
         labels = labelled_tree(params, label_fn)
         sizes = set()
         if rule.needs_shared_basis and basis_mode == "stored":
@@ -274,6 +286,7 @@ def make_matrix_optimizer(
                             bases_t=transposed(bases))
 
     def update(grads, state: HarnessState, params):
+        _whole_state_only()
         step = state.step + 1
         lr_t = sched_value(lr, step)
         labels = labelled_tree(params, label_fn)

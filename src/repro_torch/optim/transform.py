@@ -38,13 +38,21 @@ tree with ``MASKED`` in the other labels' places. On flat dicts the port's
 ``convert`` meets in a carried partition state, and ``merge_by_label``
 accepts per-label trees either way.
 
-ZeRO-1: ``as_optimizer(zero=ZeroConfig("1"))`` under an active mesh
-(``parallel.sharding.set_mesh``) keeps each rank's row block of the state
-of every leaf ``parallel.zero.partitioned`` claims; ``lowrank_project``
-runs a ``zero_shardable`` rule on those rows (``zero.sharded_leaf_update``)
-and emits its update as a ``zero.RowBlock``, which the elementwise
-transforms here act on row by row and the caller all-gathers
-(``zero.gather_updates``, as the train step does) before
+Placed state: under an active mesh (``parallel.sharding.set_mesh``)
+``as_optimizer``'s ``init`` keeps each rank's blocks of the state
+(``sharding.opt_state_specs`` under the active policy), and ``update``
+takes the whole gradients and parameters. A leaf's state follows its
+parameter's placement: ``scale_by_adam`` (elementwise) updates its blocks
+from the gradient's block and emits a ``sharding.Block``;
+``lowrank_project`` gathers a split low-rank state, runs the rule on the
+whole leaf and cuts the new state again. With ``zero=ZeroConfig("1")``
+each rank keeps the row block of the state of every leaf
+``parallel.zero.partitioned`` claims instead; ``lowrank_project`` runs a
+``zero_shardable`` rule on those rows (``zero.sharded_leaf_update``) and
+emits its update as a ``zero.RowBlock``. The elementwise transforms here
+act on either block, and the caller all-gathers them
+(``zero.gather_updates``) or cuts each update to its parameter's block
+(``sharding.held_updates``, as the train step does) before
 ``apply_updates``.
 """
 from __future__ import annotations
@@ -64,7 +72,6 @@ from repro_torch.core.transforms import (
 )
 from repro_torch.parallel import sharding
 from repro_torch.parallel import zero as zero_mod
-from repro_torch.parallel.zero import RowBlock
 from repro_torch.telemetry.stats import active_collector
 
 from .common import (
@@ -302,8 +309,9 @@ def clip_global_norm(max_norm: float) -> GradientTransform:
     promotion does)."""
 
     def sq(u):
-        if isinstance(u, RowBlock):     # this rank's rows: sum the shards'
-            return allsum(torch.sum(torch.square(u.local.float())), u.axes)
+        if isinstance(u, sharding.UpdateBlock):  # sum the shards' blocks
+            return allsum(torch.sum(torch.square(u.local.float())),
+                          u.shard_axes)
         return torch.sum(torch.square(u.float()))
 
     def upd(updates, params, ctx):
@@ -367,9 +375,27 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
                 for k, p in params.items()}
 
     def update(updates, state, params, ctx):
+        mesh = sharding.active_mesh()
         d, new_state = {}, {}
         for k, g in updates.items():
-            d[k], mom = adam_update(g, state[k].mom, ctx.step, b1, b2, eps)
+            mom = state[k].mom
+            p_spec = (sharding.param_spec(k, tuple(g.shape), mesh)
+                      if mesh is not None else sharding.REPLICATED)
+            if p_spec.split and p_spec.splits(mesh):
+                # elementwise: the moments' block updates from the
+                # gradient's block, no gather (module docstring)
+                blk = sharding.block_shape(g.shape, p_spec, mesh)
+                if tuple(mom.m.shape) != blk:
+                    raise ValueError(
+                        f"the Adam moments of {k!r} are "
+                        f"{tuple(mom.m.shape)}, not this rank's block {blk}"
+                        "; initialize the state (opt.init) under the "
+                        "active mesh and policy")
+                u, mom = adam_update(sharding.local_block(g, p_spec, mesh),
+                                     mom, ctx.step, b1, b2, eps)
+                d[k] = sharding.Block(u, p_spec, mesh)
+            else:
+                d[k], mom = adam_update(g, mom, ctx.step, b1, b2, eps)
             new_state[k] = FullAdamLeaf(mom)
         return d, new_state
 
@@ -393,8 +419,10 @@ def lowrank_project(rule: MatrixRule, *,
 
     Under ZeRO-1 (``ctx.zero`` resolving against the active mesh) a leaf
     whose state is held by rows (``zero.partitioned``) runs on this rank's
-    rows when its rule is ``zero_shardable`` and whole otherwise; every
-    other leaf runs replicated."""
+    rows when its rule is ``zero_shardable`` and whole otherwise. Under
+    an active mesh every other leaf's state follows its parameter's
+    placement: gathered, updated whole and cut again
+    (``_placed_leaf_update``)."""
 
     def rule_for(path: str) -> MatrixRule:
         if overrides and path in overrides:
@@ -407,6 +435,7 @@ def lowrank_project(rule: MatrixRule, *,
 
     def update(updates, state, params, ctx):
         zctx = zero_mod.resolve(ctx.zero)
+        mesh = sharding.active_mesh()
         d, new_state = {}, {}
         for k, g in updates.items():
             r, s, p = rule_for(k), state[k], params[k]
@@ -418,6 +447,9 @@ def lowrank_project(rule: MatrixRule, *,
                 fn = (zero_mod.sharded_leaf_update if r.zero_shardable
                       else zero_mod.replicated_leaf_update)
                 d[k], new_state[k] = fn(r, g, s, p, leaf_ctx, zctx)
+            elif mesh is not None:
+                d[k], new_state[k] = _placed_leaf_update(r, k, g, s, p,
+                                                         leaf_ctx, mesh)
             else:
                 d[k], new_state[k] = r.update(g, s, p, leaf_ctx)
         return d, new_state
@@ -430,6 +462,24 @@ def lowrank_project(rule: MatrixRule, *,
         return sizes
 
     return GradientTransform(init, update, basis_sizes)
+
+
+def _placed_leaf_update(rule, path, g, state, param, ctx, mesh):
+    """A leaf whose state follows its parameter's placement on ``mesh``:
+    the state is gathered, the rule runs on the whole leaf and the new
+    state is cut again, so every element is computed as on one process
+    (the placements come from the rule's state of the whole leaf on
+    ``meta``)."""
+    p_spec = sharding.param_spec(path, tuple(param.shape), mesh)
+    if not p_spec.splits(mesh):
+        return rule.update(g, state, param, ctx)
+    whole = rule.init(param.shape, param.dtype, "meta")
+    specs = sharding.leaf_state_specs(param.shape, p_spec, whole)
+    sharding.check_blocks(state, whole, specs, mesh,
+                          what=f"optimizer state of {path!r}")
+    d, new_state = rule.update(g, sharding.gather_tree(state, specs, mesh),
+                               param, ctx)
+    return d, sharding.shard_tree(new_state, specs, mesh)
 
 
 class ChainState(NamedTuple):
@@ -456,12 +506,14 @@ def as_optimizer(transform: GradientTransform, *, seed: int = 0,
     contiguous transpose of each; ``"onthefly"`` stores nothing and lets
     ``Context.basis`` rebuild it inside the step.
 
-    ``zero``: a :class:`repro_torch.parallel.zero.ZeroConfig` enabling
-    ZeRO-1 on the active mesh: ``init`` (called under the mesh) keeps this
-    rank's row blocks of the claimed leaves' state
-    (``sharding.opt_state_specs``), and every update runs them by rows
-    (``lowrank_project``). Without a mesh, or at one shard, the state and
-    the update are the replicated ones.
+    Under an active mesh ``init`` keeps this rank's blocks of the state
+    (``sharding.opt_state_specs``: each leaf's state follows its
+    parameter's placement under the active policy) and ``update`` runs on
+    them (module docstring). ``zero``: a
+    :class:`repro_torch.parallel.zero.ZeroConfig` enabling ZeRO-1 on the
+    active mesh: the claimed leaves' state is held by rows instead, and
+    every update runs them by rows (``lowrank_project``). Without a mesh
+    the state and the update are the replicated ones.
 
     ``lr_scale=True`` appends :func:`lr_scale_transform`, the resilience
     ladder's LR-cut seam (off by default: the chain and its state are then
@@ -485,12 +537,13 @@ def as_optimizer(transform: GradientTransform, *, seed: int = 0,
         state = ChainState(step=0, seed=seed, bases=bases,
                            bases_t=transposed(bases),
                            leaves=transform.init(params))
-        zctx = zero_mod.resolve(zero)
-        if zctx is None:
+        mesh = sharding.active_mesh()
+        if mesh is None:
             return state
-        specs = sharding.opt_state_specs(state, params, zero=zero,
-                                         mesh=zctx.mesh)
-        return sharding.shard_tree(state, specs, zctx.mesh)
+        specs = sharding.opt_state_specs(
+            state, params, sharding.params_specs(params, mesh), zero=zero,
+            mesh=mesh)
+        return sharding.shard_tree(state, specs, mesh)
 
     def update(grads, state: ChainState, params):
         step = state.step + 1

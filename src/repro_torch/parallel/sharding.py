@@ -1,33 +1,56 @@
-"""Placements on the active mesh: the data-parallel and ZeRO-1 part of
-``repro/parallel/sharding.py``.
+"""Placements on the active mesh: the port of ``repro/parallel/sharding.py``.
 
-Every rank holds the whole parameters and runs the model on its slice of
-the global batch (:func:`batch_specs_tree`); the train step averages the
-loss and the gradients over the data axes (:func:`all_reduce_mean`). Under
-ZeRO-1 each rank keeps only its row block of every eligible leaf's
-optimizer state (:func:`opt_state_specs`, ``parallel.zero``).
+Data parallelism: every rank runs the model on its slice of the global
+batch (:func:`batch_specs_tree`) and the train step averages the loss and
+the gradients over the data axes (:func:`all_reduce_mean`).
 
-A :class:`Placement` stands where the reference has a ``PartitionSpec``: the
-dim an array is split on and the mesh axes it is split over (this rank
-holds block ``mesh.shard_index(axes)``), or replicated. ``Placement.spec``
-gives the PartitionSpec's entries as a tuple. Placement trees mirror the
+The train state is held as blocks. Under an active mesh the parameters
+follow the reference's MaxText FSDP x TP recipe (:func:`param_spec`, under
+the layout of the active :class:`ShardingPolicy`):
+
+  * 2-D weights  (d_in, d_out)          -> (fsdp, tp)   (fsdp = the data axes)
+  * stacked      (L, ..., d_in, d_out)  -> (None, ..., fsdp, tp)
+  * row-parallel ``wd`` / ``wo`` / ``out_proj`` -> (..., tp, fsdp)
+  * embeddings   (vocab, d_model)       -> (tp, fsdp)
+  * experts      (L, E, d, f)           -> (None, tp, fsdp, None)
+  * 1-D parameters and the small stacked ones (norms, biases, gates, ...)
+    replicate; a mesh axis that does not divide its dim drops (``_fit_spec``)
+
+``"pure_dp"`` replicates every parameter, ``"decode_tp"`` splits each
+matrix's d_out (d_in for the row-parallel ones) over all the mesh axes at
+once. The optimizer state follows its parameter (:func:`opt_state_specs`:
+full-size state as the parameter, transposed EF payloads transposed,
+low-rank ``(..., rows, r)`` state with the rank dim whole), except the
+leaves ZeRO-1 holds by rows (``parallel.zero``). Each rank keeps only its
+blocks between steps. A train step all-gathers each split parameter once
+at its start and runs forward, backward and the optimizer update on the
+whole parameters (``train.steps``), so the whole parameters exist on every
+rank for the length of a step: the resident bytes between steps fall, the
+peak does not. Gathering each layer's weights only while it runs, and
+Megatron column / row-parallel compute, are mesh paths of the models that
+this module does not give.
+
+A :class:`Placement` stands where the reference has a ``PartitionSpec``:
+one entry per dim, None (whole) or the mesh axes the dim is split over,
+written as the reference writes them (a name, or a tuple of names).
+``Placement.entries`` is the reference's spec tuple. The blocks follow the
+reference's order: along a dim split over several axes, row-major in the
+order given (``launch.mesh.Mesh.shard_index``). Placement trees mirror the
 state trees they describe; :func:`shard_tree` cuts a rank's blocks out of
-whole arrays, :func:`gather_tree` all-gathers them back (checkpoints are
-saved whole, ``train.checkpoint``).
+whole arrays, :func:`gather_tree` all-gathers them back (one collective a
+split array), :func:`state_bytes` counts them. Checkpoints are saved whole
+(``train.checkpoint``).
+
+Placements are derived from whole shapes, as the reference derives them
+from ``jax.eval_shape``: the port's abstract values are meta tensors
+(``init_params(cfg, seed, "meta")``, an optimizer's ``init`` of them).
 
 The active mesh (``launch.mesh.Mesh``) is a context variable:
 ``with set_mesh(mesh): ...`` installs it for the thread (the reference takes
 it from ``parallel/compat.py``, which the port does not need). Without one
 every function here is an identity and the step runs as on one device.
-
-The layout policy (:class:`ShardingPolicy`, ``use_policy``) is ported with
-its names. The port's parameters replicate under every layout: the FSDP x
-TP parameter placements (``logical_to_spec``, ``shard``, ``param_spec``,
-``params_specs``, ``named_shardings``, the ``fsdp_tp`` / ``decode_tp``
-layouts as DTensor placements), the sequence-parallel mesh path
-(``seq_parallel``), ``cache_specs_tree`` and ``telemetry_specs`` come with
-the next slice. So a non-ZeRO array of the optimizer state replicates
-here, where the reference shape-matches it to its parameter's spec.
+Activations are whole on every rank: :func:`shard` checks its logical axes
+and returns its input.
 """
 from __future__ import annotations
 
@@ -38,7 +61,7 @@ from typing import Any
 
 import torch
 
-DP_AXES = ("pod", "data")   # batch / data-parallel axes (present subset)
+DP_AXES = ("pod", "data")   # batch / FSDP axes (the present subset)
 TP_AXIS = "model"
 
 LAYOUTS = ("fsdp_tp", "pure_dp", "decode_tp")
@@ -46,10 +69,13 @@ LAYOUTS = ("fsdp_tp", "pure_dp", "decode_tp")
 
 @dataclasses.dataclass(frozen=True)
 class ShardingPolicy:
-    """The layout policy. ``layout``: "fsdp_tp" (default), "pure_dp"
-    (the batch over every mesh axis) or "decode_tp"; ``seq_parallel``:
-    the residual stream's sequence dim over ``model``. In this slice only
-    the batch placement reads them (see the module docstring)."""
+    """The layout policy. ``layout``: "fsdp_tp" (default: parameters FSDP
+    over the data axes x TP over ``model``), "pure_dp" (parameters
+    replicated, the batch over every mesh axis) or "decode_tp" (the
+    decode-time Megatron layout: every matrix split over all the mesh axes
+    at once). ``seq_parallel``: the residual stream's sequence dim over
+    ``model`` (``logical_to_spec``'s ``"sp"``); the models do not place
+    activations yet, so it reads as a spec only."""
 
     layout: str = "fsdp_tp"
     seq_parallel: bool = False
@@ -91,6 +117,10 @@ def layout_policy() -> str:
     return current_policy().layout
 
 
+def seq_parallel() -> bool:
+    return current_policy().seq_parallel
+
+
 @contextlib.contextmanager
 def set_mesh(mesh):
     """Install ``mesh`` as the active mesh for a ``with`` block."""
@@ -124,32 +154,64 @@ def tp_axis(mesh=None):
     return TP_AXIS
 
 
+def _axes(entry) -> tuple[str, ...]:
+    """A spec entry's mesh axes as a tuple (None: none)."""
+    if entry is None:
+        return ()
+    if isinstance(entry, str):
+        return (entry,)
+    return tuple(entry)
+
+
 def _axis_size(mesh, axes) -> int:
     n = 1
-    for a in axes or ():
+    for a in _axes(axes):
         n *= mesh.shape[a]
     return n
 
 
 @dataclasses.dataclass(frozen=True)
 class Placement:
-    """An array split on ``dim`` over the mesh ``axes``, or replicated
-    (``dim`` None)."""
+    """An array's placement: ``entries[i]`` None (dim i whole) or the mesh
+    axes dim i is split over (a name, or a tuple of two or more); dims
+    past the entries are whole. The empty placement (:data:`REPLICATED`)
+    is the reference's ``P()``."""
 
-    dim: int | None = None
-    axes: tuple[str, ...] = ()
+    entries: tuple = ()
+
+    def __post_init__(self):
+        # the PartitionSpec's own normalization: a one-name tuple is the
+        # name, an empty one None
+        object.__setattr__(self, "entries", tuple(
+            None if e is None or e == () else
+            e if isinstance(e, str) else
+            e[0] if len(e) == 1 else tuple(e) for e in self.entries))
+
+    @classmethod
+    def on(cls, dim: int, axes, ndim: int) -> "Placement":
+        """Dim ``dim`` of an ``ndim``-dim array split over ``axes``."""
+        return cls(tuple(axes if i == dim else None for i in range(ndim)))
 
     @property
     def split(self) -> bool:
-        return self.dim is not None
+        return any(e is not None for e in self.entries)
 
     def spec(self, ndim: int) -> tuple:
-        """The reference's PartitionSpec entries: ``()`` replicated, else
-        ``axes`` at ``dim`` and None elsewhere."""
+        """The entries as a PartitionSpec tuple of ``ndim`` entries, ``()``
+        when nothing is split."""
         if not self.split:
             return ()
-        return tuple(self.axes if i == self.dim else None
-                     for i in range(ndim))
+        return tuple(self.entries) + (None,) * (ndim - len(self.entries))
+
+    def splits(self, mesh) -> list[tuple[int, tuple[str, ...], int]]:
+        """``(dim, axes, blocks)`` of every dim cut into more than one
+        block on ``mesh``."""
+        out = []
+        for d, e in enumerate(self.entries):
+            n = _axis_size(mesh, e)
+            if n > 1:
+                out.append((d, _axes(e), n))
+        return out
 
 
 REPLICATED = Placement()
@@ -162,6 +224,20 @@ def map_leaves(fn, tree):
     from repro_torch.train.checkpoint import tree_map_with_path
 
     return tree_map_with_path(lambda path, leaf: fn(leaf), tree)
+
+
+def map_specs(fn, specs):
+    """A placement tree with every :class:`Placement` replaced by
+    ``fn(placement)``."""
+    if isinstance(specs, Placement):
+        return fn(specs)
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, v) for k, v in specs.items()}
+    if hasattr(specs, "_fields"):
+        return type(specs)(*(map_specs(fn, v) for v in specs))
+    if isinstance(specs, (tuple, list)):
+        return type(specs)(map_specs(fn, v) for v in specs)
+    return specs
 
 
 def _map_placed(fn, tree, specs):
@@ -202,22 +278,51 @@ def _mesh_for(mesh):
     return mesh
 
 
+def block_shape(shape, placement: Placement, mesh=None) -> tuple[int, ...]:
+    """The shape of one rank's block of a whole ``shape`` array."""
+    out = list(shape)
+    if placement.split:
+        for d, _, n in placement.splits(_mesh_for(mesh)):
+            if out[d] % n:
+                raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                                 f"into {n} blocks")
+            out[d] //= n
+    return tuple(out)
+
+
 def local_block(t: torch.Tensor, placement: Placement, mesh=None
                 ) -> torch.Tensor:
     """This rank's block of the whole array ``t`` (a new contiguous
-    tensor), or ``t`` itself when it is replicated."""
+    tensor), or ``t`` itself when nothing is cut."""
     if not placement.split:
         return t
     mesh = _mesh_for(mesh)
-    n = mesh.size(placement.axes)
-    size = t.shape[placement.dim]
-    if size % n:
-        raise ValueError(f"dim {placement.dim} of {tuple(t.shape)} does not "
-                         f"split into {n} blocks")
-    block = size // n
-    start = mesh.shard_index(placement.axes) * block
-    return t.narrow(placement.dim, start, block).clone(
-        memory_format=torch.contiguous_format)
+    splits = placement.splits(mesh)
+    if not splits:
+        return t
+    shape = block_shape(t.shape, placement, mesh)
+    for d, axes, _ in splits:
+        t = t.narrow(d, mesh.shard_index(axes) * shape[d], shape[d])
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def gather(t: torch.Tensor, placement: Placement, mesh=None) -> torch.Tensor:
+    """The whole array of this rank's block ``t``: one all-gather over the
+    split dims' axes together (a collective: every rank of the mesh calls
+    it), the blocks put back in the reference's order."""
+    if not placement.split:
+        return t
+    mesh = _mesh_for(mesh)
+    splits = placement.splits(mesh)
+    if not splits:
+        return t
+    parts = mesh.all_gather(t, tuple(a for _, axes, _ in splits
+                                     for a in axes))
+    # the parts run row-major over the split dims: fold the last dim first
+    for d, _, n in reversed(splits):
+        parts = [torch.cat(parts[i:i + n], dim=d)
+                 for i in range(0, len(parts), n)]
+    return parts[0]
 
 
 def shard_tree(tree, specs, mesh=None):
@@ -229,13 +334,30 @@ def shard_tree(tree, specs, mesh=None):
 
 def gather_tree(tree, specs, mesh=None):
     """The whole arrays of a tree of this rank's blocks: one all-gather per
-    split array (a collective: every rank of the mesh calls it)."""
-    def gather(t, p):
-        if not isinstance(t, torch.Tensor) or not p.split:
-            return t
-        return torch.cat(_mesh_for(mesh).all_gather(t, p.axes), dim=p.dim)
+    split array, in the tree's order."""
+    return _map_placed(
+        lambda t, p: gather(t, p, mesh) if isinstance(t, torch.Tensor)
+        else t, tree, specs)
 
-    return _map_placed(gather, tree, specs)
+
+def check_blocks(tree, whole, specs, mesh=None, what: str = "state") -> None:
+    """Raise unless every tensor of ``tree`` has the shape of this rank's
+    block of the same tensor of ``whole`` (whole arrays or meta tensors of
+    their shapes)."""
+    from repro_torch.train.checkpoint import tree_items
+
+    placed = placements_by_path(specs)
+    shapes = dict(tree_items(whole))
+    for path, t in tree_items(tree):
+        if not isinstance(t, torch.Tensor):
+            continue
+        want = block_shape(shapes[path].shape, placed[path], mesh)
+        if tuple(t.shape) != want:
+            raise ValueError(
+                f"the {what} at {'/'.join(path)!r} is {tuple(t.shape)}, not "
+                f"this rank's block {want} of {tuple(shapes[path].shape)}; "
+                "build it under the active mesh and policy (init_state, "
+                "opt.init)")
 
 
 def state_bytes(tree, specs, mesh=None) -> tuple[int, int]:
@@ -248,11 +370,117 @@ def state_bytes(tree, specs, mesh=None) -> tuple[int, int]:
         if isinstance(t, torch.Tensor):
             b = t.numel() * t.element_size()
             held += b
-            whole += b * (_mesh_for(mesh).size(p.axes) if p.split else 1)
+            if p.split:
+                for _, _, n in p.splits(_mesh_for(mesh)):
+                    b *= n
+            whole += b
         return t
 
     _map_placed(count, tree, specs)
     return held, whole
+
+
+class UpdateBlock:
+    """This rank's block of a whole update. Arithmetic with a number, a 0-d
+    tensor, another block or a whole tensor (cut to this rank's block by
+    ``_cut``) gives a block of the same kind, so the chain's elementwise
+    transforms act on it; :meth:`gather` gives the whole update. Kinds:
+    :class:`Block` and ``parallel.zero.RowBlock``."""
+
+    __slots__ = ("local",)
+
+    def _like(self, local: torch.Tensor) -> "UpdateBlock":
+        raise NotImplementedError
+
+    def _cut(self, x):
+        raise NotImplementedError
+
+    def gather(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    @property
+    def shard_axes(self) -> tuple[str, ...]:
+        """The mesh axes the whole update is cut over."""
+        raise NotImplementedError
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.local.dtype
+
+    def float(self) -> "UpdateBlock":
+        return self._like(self.local.float())
+
+    def to(self, *args, **kwargs) -> "UpdateBlock":
+        return self._like(self.local.to(*args, **kwargs))
+
+    def __mul__(self, x):
+        return self._like(self.local * self._cut(x))
+
+    def __rmul__(self, x):
+        return self._like(self._cut(x) * self.local)
+
+    def __add__(self, x):
+        return self._like(self.local + self._cut(x))
+
+    def __radd__(self, x):
+        return self._like(self._cut(x) + self.local)
+
+    def __sub__(self, x):
+        return self._like(self.local - self._cut(x))
+
+    def __rsub__(self, x):
+        return self._like(self._cut(x) - self.local)
+
+    def __neg__(self):
+        return self._like(-self.local)
+
+
+class Block(UpdateBlock):
+    """This rank's block of a whole update under ``placement``: what the
+    elementwise optimizer transforms produce for a leaf whose state is
+    held as blocks (``optim.transform.scale_by_adam``)."""
+
+    __slots__ = ("placement", "mesh")
+
+    def __init__(self, local: torch.Tensor, placement: Placement, mesh):
+        self.local = local
+        self.placement = placement
+        self.mesh = mesh
+
+    def _like(self, local: torch.Tensor) -> "Block":
+        return Block(local, self.placement, self.mesh)
+
+    def _cut(self, x):
+        if isinstance(x, Block):
+            return x.local
+        if isinstance(x, torch.Tensor) and x.dim():
+            return local_block(x, self.placement, self.mesh)
+        return x
+
+    def gather(self) -> torch.Tensor:
+        """The whole update (an all-gather)."""
+        return gather(self.local, self.placement, self.mesh)
+
+    @property
+    def shard_axes(self) -> tuple[str, ...]:
+        return tuple(a for _, axes, _ in self.placement.splits(self.mesh)
+                     for a in axes)
+
+
+def held_updates(updates: dict, specs: dict, mesh=None) -> dict:
+    """Each leaf's update cut to the block of its parameter's placement in
+    ``specs``: a :class:`Block` of that placement as it is, another
+    :class:`UpdateBlock` gathered first, a whole update cut."""
+    out = {}
+    for k, u in updates.items():
+        p = specs[k]
+        if isinstance(u, Block) and u.placement == p:
+            out[k] = u.local
+            continue
+        if isinstance(u, UpdateBlock):
+            u = u.gather()
+        out[k] = local_block(u, p, mesh)
+    return out
 
 
 def all_reduce_mean(tensors: list[torch.Tensor], axes, mesh=None
@@ -272,6 +500,192 @@ def all_reduce_mean(tensors: list[torch.Tensor], axes, mesh=None
                                              for i in idxs])):
             out[i] = part.view(tensors[i].shape)
     return out
+
+
+# ---------------------------------------------------------------------------
+# logical activation axes
+# ---------------------------------------------------------------------------
+def logical_to_spec(axes: tuple, mesh=None) -> Placement:
+    """Map logical names to a placement on the active mesh.
+
+    Logical names: 'batch' (the data axes), 'tp' (the model axis), 'seq'
+    (over the data axes: long-context KV), 'sp' (``model`` under
+    ``seq_parallel``), None (whole). Under the 'pure_dp' layout, 'batch'
+    spans every mesh axis and 'tp' replicates."""
+    mesh = mesh or active_mesh()
+    policy = current_policy()
+    dp = dp_axes(mesh)
+    tp = tp_axis(mesh)
+    if policy.layout == "pure_dp":
+        batch_axes = tuple(a for a in (*dp, tp) if a) or None
+        tp = None
+    else:
+        batch_axes = dp if dp else None
+    out = []
+    for a in axes:
+        if a == "batch" or a == "seq":
+            out.append(batch_axes)
+        elif a == "tp":
+            out.append(tp)
+        elif a == "sp":
+            out.append(tp if policy.seq_parallel else None)
+        elif a is None:
+            out.append(None)
+        else:
+            raise ValueError(f"unknown logical axis {a!r}")
+    return Placement(tuple(out))
+
+
+def shard(x: torch.Tensor, *axes) -> torch.Tensor:
+    """The reference's ``with_sharding_constraint`` by logical axes. Eager
+    PyTorch has no constraint to hand a compiler, and a step's activations
+    are whole on every rank, so this checks the names
+    (:func:`logical_to_spec`) and returns ``x``, with or without a mesh."""
+    logical_to_spec(axes)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# parameter placements (by path pattern + shape)
+# ---------------------------------------------------------------------------
+_REPLICATED_HINTS = ("norm", "scale", "bias", "gate", "mu_", "decay",
+                     "bonus", "a_log", "d_skip", "conv", "ln_")
+
+
+def _fit_spec(axes: tuple, shape: tuple[int, ...], mesh) -> Placement:
+    """Drop mesh axes that do not evenly divide their dim (whisper's vocab
+    51866 does not split 16 ways: that dim replicates)."""
+    out = []
+    for a, dim in zip(axes, shape):
+        if a is None:
+            out.append(None)
+        elif dim % _axis_size(mesh, a) == 0:
+            out.append(a)
+        else:
+            out.append(None)
+    return Placement(tuple(out))
+
+
+def param_spec(path: str, shape: tuple[int, ...], mesh=None,
+               policy: ShardingPolicy | None = None) -> Placement:
+    """A parameter's placement by its path and whole shape under
+    ``policy`` (the active one by default): the module docstring's
+    rules."""
+    mesh = mesh or active_mesh()
+    policy = policy or current_policy()
+    if policy.layout == "pure_dp":
+        return REPLICATED       # params replicated; batch over all axes
+    dp = dp_axes(mesh)
+    dp = dp if dp else None
+    tp = tp_axis(mesh)
+    nd = len(shape)
+    lpath = path.lower()
+    if nd == 0 or nd == 1:
+        return REPLICATED
+    if any(h in lpath for h in _REPLICATED_HINTS):
+        # stacked small params (norm scales, biases, ssm constants): the
+        # leading dim is layers, the rest are tiny
+        return REPLICATED
+    is_row = any(seg in ("wd", "wo", "out_proj")
+                 for seg in lpath.split("/"))
+    if policy.layout == "decode_tp":
+        # the decode-time Megatron layout over the combined (dp x tp)
+        # axes: every matrix column-parallel (d_out over all ranks),
+        # down / out projections row-parallel
+        allax = tuple(a for a in (*(dp or ()), tp) if a) or None
+        lead = (None,) * (nd - 2)
+        if "embed" in lpath or "unembed" in lpath or "lm_head" in lpath:
+            return _fit_spec((*lead, allax, None), shape, mesh)
+        if "expert" in lpath and nd >= 3:
+            # experts on tp; expert hidden column / row-parallel on dp
+            lead3 = (None,) * (nd - 3)
+            if is_row:   # (L, E, f, d)
+                return _fit_spec((*lead3, tp, dp, None), shape, mesh)
+            return _fit_spec((*lead3, tp, None, dp), shape, mesh)
+        if is_row:
+            return _fit_spec((*lead, allax, None), shape, mesh)
+        return _fit_spec((*lead, None, allax), shape, mesh)
+    if "embed" in lpath or "unembed" in lpath or "lm_head" in lpath:
+        # (vocab, d) or (L?, vocab, d): vocab on tp, d on fsdp
+        lead = (None,) * (nd - 2)
+        return _fit_spec((*lead, tp, dp), shape, mesh)
+    if "expert" in lpath and nd >= 3:
+        # (L, E, d_in, d_out): experts on tp (EP), d_in on fsdp
+        lead = (None,) * (nd - 3)
+        return _fit_spec((*lead, tp, dp, None), shape, mesh)
+    lead = (None,) * (nd - 2)
+    if is_row:
+        # down / out projections row-parallel (the contraction dim on
+        # `model`): the Megatron column -> row pair
+        return _fit_spec((*lead, tp, dp), shape, mesh)
+    # (L?, d_in, d_out): fsdp x tp
+    return _fit_spec((*lead, dp, tp), shape, mesh)
+
+
+def params_specs(params: dict, mesh=None,
+                 policy: ShardingPolicy | None = None) -> dict:
+    """``{path: Placement}`` of a flat parameter dict (whole tensors or
+    meta tensors of their shapes; the keys are the reference's
+    ``path_str``)."""
+    policy = policy or current_policy()
+    return {k: param_spec(k, tuple(p.shape), mesh, policy)
+            for k, p in params.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A placement on a mesh: what cuts an array into this rank's block
+    and gathers it back (the reference's ``NamedSharding``)."""
+
+    mesh: Any
+    spec: Placement
+
+    def local_block(self, t: torch.Tensor) -> torch.Tensor:
+        return local_block(t, self.spec, self.mesh)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        return gather(t, self.spec, self.mesh)
+
+
+def named_shardings(tree_of_specs: Any, mesh) -> Any:
+    return map_specs(lambda s: NamedSharding(mesh, s), tree_of_specs)
+
+
+# ---------------------------------------------------------------------------
+# optimizer-state placements: derived from the parameters' by shape
+# matching. Full-size state follows the parameter; low-rank (..., r) keeps
+# the row entries and replicates the rank dim; indices and scalars
+# replicate.
+# ---------------------------------------------------------------------------
+def _match_state_spec(p_shape, p_spec: Placement, s_shape) -> Placement:
+    if tuple(s_shape) == tuple(p_shape):
+        return p_spec
+    sp = list(p_spec.entries) + [None] * (len(p_shape)
+                                          - len(p_spec.entries))
+    # transpose-oriented full-size state (EF buffers are stored oriented)
+    if (len(s_shape) == len(p_shape)
+            and tuple(s_shape[:-2]) == tuple(p_shape[:-2])
+            and (s_shape[-2], s_shape[-1]) == (p_shape[-1], p_shape[-2])):
+        sp[-2], sp[-1] = sp[-1], sp[-2]
+        return Placement(tuple(sp))
+    # low-rank (..., rows, r): keep leading / row entries, replicate rank
+    if len(s_shape) == len(p_shape):
+        return Placement(tuple(sp[i] if ss == ps else None
+                               for i, (ss, ps) in enumerate(zip(s_shape,
+                                                                p_shape))))
+    if len(s_shape) == len(p_shape) + 1 \
+            and tuple(s_shape[:-1]) == tuple(p_shape):
+        return Placement((*sp, None))
+    # anything else (indices, scales, scalars): replicate
+    return REPLICATED
+
+
+def leaf_state_specs(p_shape, p_spec: Placement, leaf_state):
+    """Placements of one parameter's (whole) state tree by shape matching;
+    ints replicate."""
+    return map_leaves(
+        lambda s: _match_state_spec(p_shape, p_spec, s.shape)
+        if isinstance(s, torch.Tensor) else REPLICATED, leaf_state)
 
 
 def batch_specs_tree(batch, mesh=None,
@@ -294,23 +708,82 @@ def batch_specs_tree(batch, mesh=None,
         for axes in candidates:
             if axes and isinstance(x, torch.Tensor) and x.dim() \
                     and x.shape[0] % _axis_size(mesh, axes) == 0:
-                return Placement(0, axes)
+                return Placement.on(0, axes, x.dim())
         return REPLICATED
 
     return map_leaves(spec, batch)
 
 
-def opt_state_specs(opt_state, params, *, zero=None, mesh=None):
+def cache_specs_tree(cache: dict, mesh=None) -> dict:
+    """Placements of a flat decode cache (``models.transformer.init_cache``
+    and the recurrent entries; leaves ``(repeats, B, ...)``), by the last
+    segment of each key: the batch over the data axes where it divides,
+    else (long-context B = 1) the sequence of an attention cache over
+    them; KV heads and channel dims on ``model`` where they divide;
+    everything else whole."""
+    mesh = mesh or active_mesh()
+    dp = dp_axes(mesh) or None
+    tp = tp_axis(mesh)
+    dp_n = _axis_size(mesh, dp)
+    tp_n = _axis_size(mesh, tp) if tp else 1
+
+    def leaf_spec(key, x):
+        name = key.rsplit("/", 1)[-1]
+        shp = x.shape
+        out = [None] * len(shp)
+        b_ok = len(shp) >= 2 and shp[1] % dp_n == 0 and dp is not None
+        if b_ok:
+            out[1] = dp
+        if name in ("k", "v", "xk", "xv"):            # (R,B,S,H,hd)
+            if not b_ok and dp is not None and shp[2] % dp_n == 0:
+                out[2] = dp                           # sequence-sharded KV
+            if tp and shp[3] % tp_n == 0:
+                out[3] = tp
+        elif name in ("ckv", "krope"):                # (R,B,S,dim) MLA latent
+            if not b_ok and dp is not None and shp[2] % dp_n == 0:
+                out[2] = dp
+        elif name == "conv":                          # (R,B,K,din)
+            if tp and shp[3] % tp_n == 0:
+                out[3] = tp
+        elif name == "ssm":                           # (R,B,din,st)
+            if tp and shp[2] % tp_n == 0:
+                out[2] = tp
+        elif name == "wkv":                           # (R,B,H,K,V)
+            if tp and shp[2] % tp_n == 0:
+                out[2] = tp
+        return Placement(tuple(out))
+
+    return {k: leaf_spec(k, x) for k, x in cache.items()}
+
+
+def telemetry_specs(tree: Any) -> Any:
+    """Placements of telemetry trees (the per-leaf ``SubspaceStats`` under
+    ``metrics["telemetry"]``, controller state, sink records). The stats
+    are computed from whole operands, identical on every rank: every leaf
+    replicates."""
+    if isinstance(tree, dict):
+        return {k: telemetry_specs(v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(telemetry_specs(v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(telemetry_specs(v) for v in tree)
+    return None if tree is None else REPLICATED
+
+
+def opt_state_specs(opt_state, params, p_specs, *, zero=None, mesh=None):
     """Placements of an optimizer state (``ChainState`` or the legacy
-    ``HarnessState``; the whole arrays or this rank's blocks of them).
+    ``HarnessState``) of whole arrays: meta tensors do, as the reference
+    reads ``jax.eval_shape``'s.
 
     The walk descends the combinators' containers (chain tuples, partition
     dicts, inject-hyperparams records) to the ``{path: leaf state}`` dicts
     whose keys are parameter paths, and places each leaf state by its
-    parameter. ``zero`` (a ``parallel.zero.ZeroConfig``) puts the leaves
-    ZeRO-1 claims (``zero.partitioned``: eligible leaves of the index-basis
-    projected-Adam rules and of Muon / Trion / Dion) on their ZeRO
-    placement (``zero.state_specs``); everything else replicates."""
+    parameter's placement in ``p_specs`` (:func:`leaf_state_specs`).
+    ``zero`` (a ``parallel.zero.ZeroConfig``) puts the leaves ZeRO-1
+    claims (``zero.partitioned``: eligible leaves of the index-basis
+    projected-Adam rules and of Muon / Trion / Dion) on their row
+    placement (``zero.state_specs``) instead. Everything else (steps,
+    keys, bases, hyperparameters) replicates."""
     from repro_torch.parallel import zero as zero_mod
 
     zinfo = None
@@ -321,16 +794,17 @@ def opt_state_specs(opt_state, params, *, zero=None, mesh=None):
         if n > 1:
             zinfo = (axes, n)
 
-    def leaf_specs(p, s):
+    def leaf_specs(k, s):
+        p = params[k]
         if zinfo is not None and zero_mod.partitioned(s, p.shape, zinfo[1]):
             return zero_mod.state_specs(p.shape, s, *zinfo)
-        return map_leaves(lambda _: REPLICATED, s)
+        return leaf_state_specs(p.shape, p_specs[k], s)
 
     def walk(node):
         if (isinstance(node, dict) and node
                 and all(k in params and hasattr(v, "_fields")
                         for k, v in node.items())):
-            return {k: leaf_specs(params[k], v) for k, v in node.items()}
+            return {k: leaf_specs(k, v) for k, v in node.items()}
         if node is None:
             return None
         if hasattr(node, "_fields"):
@@ -344,11 +818,30 @@ def opt_state_specs(opt_state, params, *, zero=None, mesh=None):
     return walk(opt_state)
 
 
+def optimizer_state_specs(optimizer, params: dict, *, zero=None, mesh=None):
+    """Placements of ``optimizer``'s state of ``params`` (whole tensors or
+    meta tensors of their shapes) on ``mesh`` (the active one by
+    default): :func:`opt_state_specs` of its state of the shapes on
+    ``meta``, built outside any mesh. What describes the blocks that
+    ``optimizer.init`` keeps under that mesh."""
+    mesh = mesh or active_mesh()
+    meta = {k: torch.empty(p.shape, dtype=p.dtype, device="meta")
+            for k, p in params.items()}
+    with set_mesh(None):
+        abstract = optimizer.init(meta)
+    return opt_state_specs(abstract, meta, params_specs(meta, mesh),
+                           zero=zero, mesh=mesh)
+
+
 def train_state_specs(state, *, zero=None, mesh=None):
-    """Placements of a ``TrainState``: step and parameters replicated, the
-    optimizer state by :func:`opt_state_specs`. The Trainer's
-    ``state_shardings``."""
+    """Placements of a ``TrainState`` of whole arrays (meta tensors do:
+    ``train.steps.init_state(cfg, opt, seed, "meta")`` outside the mesh is
+    the port's ``jax.eval_shape``): the step replicated, the parameters by
+    :func:`params_specs` under the active policy, the optimizer state by
+    :func:`opt_state_specs`. The Trainer's ``state_shardings``."""
+    mesh = mesh or active_mesh()
+    p_specs = params_specs(state.params, mesh)
     return state._replace(
-        step=REPLICATED, params={k: REPLICATED for k in state.params},
-        opt_state=opt_state_specs(state.opt_state, state.params, zero=zero,
-                                  mesh=mesh))
+        step=REPLICATED, params=p_specs,
+        opt_state=opt_state_specs(state.opt_state, state.params, p_specs,
+                                  zero=zero, mesh=mesh))

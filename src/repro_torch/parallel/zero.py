@@ -6,8 +6,9 @@ error-feedback buffer in R^{rows x cols}, per-row EF scales) is
 row-parallel, so each rank of the data axes keeps only its row block of
 every eligible leaf's state and runs the select + project + update step on
 those rows. Per-rank optimizer-state bytes drop by the data-parallel width
-on top of the paper's low-rank reduction. Every rank holds the whole
-parameters and the whole (averaged) gradient.
+on top of the paper's low-rank reduction. Every rank sees the whole
+parameters (the train step gathers its blocks of them,
+``parallel.sharding``) and the whole (averaged) gradient.
 
 Why the row-block step computes the replicated step's function: every row
 of ``S = G @ Q``, the Adam update, the back-projections ``u @ Q_r^T`` and
@@ -57,7 +58,6 @@ import dataclasses
 
 import torch
 
-from repro_torch.optim.common import deorient, orient_right
 from repro_torch.parallel import sharding
 from repro_torch.parallel.sharding import REPLICATED, Placement
 
@@ -144,7 +144,7 @@ def eligible(param_shape, n_shards: int) -> bool:
 
 def grad_spec(param_shape, axes: tuple[str, ...]) -> Placement:
     """The placement splitting an oriented (rows at dim -2) array's rows."""
-    return Placement(len(param_shape) - 2, tuple(axes))
+    return Placement.on(len(param_shape) - 2, tuple(axes), len(param_shape))
 
 
 def state_array_spec(param_shape, state_shape, axes: tuple[str, ...],
@@ -158,7 +158,8 @@ def state_array_spec(param_shape, state_shape, axes: tuple[str, ...],
     rows = _oriented_rows(param_shape)
     if (len(state_shape) == len(param_shape) and len(state_shape) >= 2
             and state_shape[-2] in (rows, rows // n_shards)):
-        return Placement(len(state_shape) - 2, tuple(axes))
+        return Placement.on(len(state_shape) - 2, tuple(axes),
+                            len(state_shape))
     return REPLICATED
 
 
@@ -201,15 +202,14 @@ def partitioned(leaf_state, param_shape, n_shards: int) -> bool:
 # ---------------------------------------------------------------------------
 # the sharded leaf update
 # ---------------------------------------------------------------------------
-class RowBlock:
+class RowBlock(sharding.UpdateBlock):
     """This rank's rows of a row-sharded update: ``local`` is the oriented
     ``(..., rows / n, cols)`` block, ``transposed`` whether the parameter
-    is the transpose of the oriented matrix. Arithmetic with a number, a
-    0-d tensor, another RowBlock or a parameter-shaped tensor (cut to this
-    rank's rows) gives a RowBlock; :meth:`gather` gives the whole update in
-    the parameter's layout."""
+    is the transpose of the oriented matrix. A parameter-shaped tensor in
+    its arithmetic is cut to this rank's rows; :meth:`gather` gives the
+    whole update in the parameter's layout."""
 
-    __slots__ = ("local", "axes", "transposed")
+    __slots__ = ("axes", "transposed")
 
     def __init__(self, local: torch.Tensor, axes, transposed: bool):
         self.local = local
@@ -219,17 +219,7 @@ class RowBlock:
     def _like(self, local: torch.Tensor) -> "RowBlock":
         return RowBlock(local, self.axes, self.transposed)
 
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.local.dtype
-
-    def float(self) -> "RowBlock":
-        return self._like(self.local.float())
-
-    def to(self, *args, **kwargs) -> "RowBlock":
-        return self._like(self.local.to(*args, **kwargs))
-
-    def _rows(self, x):
+    def _cut(self, x):
         from repro_torch.core.selection import local_row_block
 
         if isinstance(x, RowBlock):
@@ -239,39 +229,23 @@ class RowBlock:
             return local_row_block(xo, self.axes, self.local.shape[-2])
         return x
 
-    def __mul__(self, x):
-        return self._like(self.local * self._rows(x))
-
-    def __rmul__(self, x):
-        return self._like(self._rows(x) * self.local)
-
-    def __add__(self, x):
-        return self._like(self.local + self._rows(x))
-
-    def __radd__(self, x):
-        return self._like(self._rows(x) + self.local)
-
-    def __sub__(self, x):
-        return self._like(self.local - self._rows(x))
-
-    def __rsub__(self, x):
-        return self._like(self._rows(x) - self.local)
-
-    def __neg__(self):
-        return self._like(-self.local)
+    @property
+    def shard_axes(self) -> tuple[str, ...]:
+        return self.axes
 
     def gather(self) -> torch.Tensor:
         """The whole update (an all-gather over ``axes``)."""
         from repro_torch.core.selection import allgather_rows
+        from repro_torch.optim.common import deorient
 
         return deorient(allgather_rows(self.local, self.axes),
                         self.transposed)
 
 
 def gather_updates(updates: dict) -> dict:
-    """``updates`` with every :class:`RowBlock` all-gathered (the others as
-    they are)."""
-    return {k: u.gather() if isinstance(u, RowBlock) else u
+    """``updates`` with every block (:class:`RowBlock`,
+    ``sharding.Block``) all-gathered (the others as they are)."""
+    return {k: u.gather() if isinstance(u, sharding.UpdateBlock) else u
             for k, u in updates.items()}
 
 
@@ -293,6 +267,7 @@ def sharded_leaf_update(rule, g, state, param, ctx, zctx: ZeroContext):
     ``ctx.oriented``. Returns the update as a :class:`RowBlock` and the
     new (row-sharded) state."""
     from repro_torch.core.selection import local_row_block
+    from repro_torch.optim.common import orient_right
 
     gf, transposed = orient_right(g)
     block = gf.shape[-2] // zctx.n_shards

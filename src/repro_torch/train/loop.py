@@ -38,13 +38,18 @@ dispatch span holds that wait and the loss sync costs nothing.
 ``sync_sample_every=K`` synchronizes the card every K steps and records
 data-ready -> whole-step-done in ``train_full_sync_seconds``.
 
-``state_shardings``: the placements of the train state under data
-parallelism (``parallel.sharding.train_state_specs``), a tree or a function
-of the state giving one. Saves all-gather the split leaves and only rank 0
-writes; restores cut each rank's blocks out of the whole saved arrays, so
-the data-parallel width may change between runs. Only rank 0 quarantines a
-corrupt checkpoint, and a rollback waits at a barrier for rank 0's pending
-write.
+``state_shardings``: the placements of the train state on a mesh
+(``parallel.sharding.train_state_specs`` of the whole state's shapes: the
+parameters by their FSDP x TP placements under the active policy, the
+optimizer state following them or held by rows under ZeRO-1), a tree or a
+function of the state giving one. ``init_state_fn`` gives the state as
+this rank's blocks (``train.steps.init_state`` under the mesh cuts them);
+the whole parameters exist only inside a step, so the resident bytes
+between steps fall and the peak does not. Saves all-gather the split
+leaves and only rank 0 writes; restores cut each rank's blocks out of the
+whole saved arrays, so the mesh's shape may change between runs (or the
+run may go on in one process). Only rank 0 quarantines a corrupt
+checkpoint, and a rollback waits at a barrier for rank 0's pending write.
 """
 from __future__ import annotations
 

@@ -13,15 +13,24 @@ rules' per-leaf :class:`~repro_torch.telemetry.stats.SubspaceStats` under
 ``metrics["telemetry"]``, on the device (the Trainer copies them to the
 host in one piece).
 
-Data parallelism: under an active mesh with data axes
-(``parallel.sharding.set_mesh``) the step takes the global batch, runs the
-model on this rank's slice of it (``sharding.batch_specs_tree``), and
-averages the loss metrics and the gradients over the data axes (one
-all-reduce of a flat buffer per dtype) before clipping, so clipping sees
-the global norm. The
-averaged half-batch means are the whole batch's mean up to rounding. A
-ZeRO-1 optimizer returns row-sharded updates, all-gathered here before the
-guard and ``apply_updates``.
+Data parallelism and placed state: under an active mesh
+(``parallel.sharding.set_mesh``) the state holds this rank's blocks of the
+parameters and of the optimizer state (``init_state``, by
+``sharding.params_specs`` / ``opt_state_specs`` under the active policy).
+The step all-gathers each split parameter whole once at its start (one
+collective a split leaf, in leaf order), takes the global batch, runs the
+model on this rank's slice of it (``sharding.batch_specs_tree``: over
+the data axes, over every axis under "pure_dp"), and averages the loss
+metrics and the gradients over those axes (one all-reduce of a flat
+buffer per dtype) before clipping, so clipping sees
+the global norm. The averaged half-batch means are the whole batch's mean
+up to rounding. The optimizer update reads the whole parameters and
+gradients and this rank's state blocks (``optim.transform``); each
+update is cut to its parameter's block (``sharding.held_updates``: a
+ZeRO-1 row block is all-gathered first) and added to it. Gathering and
+cutting only copy, so every element is computed as on one process. The
+whole parameters live for the length of the step: the resident bytes
+between steps fall, the peak does not.
 """
 from __future__ import annotations
 
@@ -127,26 +136,46 @@ def make_train_step(cfg, optimizer, *, grad_clip: float = 1.0,
         raise ValueError(f"accum_dtype {accum_dtype!r}: expected one of "
                          f"{sorted(_ACCUM_DTYPES)}")
     adt = _ACCUM_DTYPES[accum_dtype]
+    placements = {}
+
+    def param_placements(mesh):
+        """The parameters' placements on ``mesh`` under the active policy
+        and their whole shapes (meta tensors), derived once a pair."""
+        key = (mesh, sharding.current_policy())
+        if key not in placements:
+            whole = T.init_params(cfg, 0, "meta")
+            placements[key] = (sharding.params_specs(whole, mesh), whole)
+        return placements[key]
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         chaos_step = None
         if chaos is not None:
             batch, chaos_step = strip_chaos_key(batch)
-        dp = sharding.dp_axes()
-        if dp:
-            batch = sharding.shard_tree(batch,
-                                        sharding.batch_specs_tree(batch))
+        mesh = sharding.active_mesh()
+        params, p_specs, dp = state.params, None, ()
+        if mesh is not None:
+            p_specs, whole = param_placements(mesh)
+            sharding.check_blocks(params, whole, p_specs, mesh,
+                                  what="parameter")
+            params = sharding.gather_tree(params, p_specs, mesh)
+            # the axes this rank's slice of the batch is cut over (the data
+            # axes; every axis under "pure_dp"): the gradients average
+            # over them
+            b_specs = sharding.batch_specs_tree(batch)
+            batch = sharding.shard_tree(batch, b_specs)
+            dp = tuple(a for _, axes, _ in b_specs["tokens"].splits(mesh)
+                       for a in axes)
         b = batch["tokens"].shape[0]
         mb = cfg.train_microbatch or b
         n_micro = max(1, b // mb)
         if n_micro == 1:
-            grads, metrics = grad_fn(state.params, batch, cfg)
+            grads, metrics = grad_fn(params, batch, cfg)
             grads = {k: g.to(adt) for k, g in grads.items()}
         else:
             grads, ms = None, []
             for i in range(n_micro):
                 micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                g, m = grad_fn(state.params, micro, cfg)
+                g, m = grad_fn(params, micro, cfg)
                 part = {k: (gi / n_micro).to(adt) for k, gi in g.items()}
                 grads = part if grads is None else \
                     {k: grads[k] + part[k] for k in grads}
@@ -173,23 +202,32 @@ def make_train_step(cfg, optimizer, *, grad_clip: float = 1.0,
         if telemetry:
             with collect() as col:
                 updates, new_opt = optimizer.update(grads, state.opt_state,
-                                                    state.params)
+                                                    params)
             tel = col.tree()
             if tel:
                 metrics["telemetry"] = tel
         else:
             updates, new_opt = optimizer.update(grads, state.opt_state,
-                                                state.params)
-        updates = gather_updates(updates)
+                                                params)
+        del params, grads               # the whole copies go
+        if p_specs is None:
+            updates = gather_updates(updates)
+        else:
+            updates = sharding.held_updates(updates, p_specs, mesh)
         new_params = apply_updates(state.params, updates)
         metrics["grad_norm"] = gnorm
         new_state = TrainState(state.step + 1, new_params, new_opt)
         if guard:
             # gnorm is a sum of squares over every gradient element, so a
             # NaN/Inf anywhere in the gradients poisons it; the updates
-            # cover the optimizer's own arithmetic
-            flag = (torch.isfinite(metrics["loss"]) & torch.isfinite(gnorm)
-                    & all_finite_tree(updates))
+            # cover the optimizer's own arithmetic (each rank's blocks of
+            # them, the ranks' flags combined)
+            ok = all_finite_tree(updates)
+            if mesh is not None:
+                bad = (~ok).to(torch.float32).reshape(1)
+                ok = mesh.all_reduce_sum_(bad, mesh.axis_names)[0] == 0
+            flag = torch.isfinite(metrics["loss"]) & torch.isfinite(gnorm) \
+                & ok
             new_state = select_tree(flag, new_state, state)
             metrics["all_finite"] = flag
         return new_state, metrics
@@ -210,6 +248,14 @@ def make_eval_step(cfg):
 
 def init_state(cfg, optimizer, seed: int = 0, device=None) -> TrainState:
     """Step 0: ``init_params(cfg, seed, device)`` (None: the card) and the
-    optimizer's state of them."""
+    optimizer's state of them. Under an active mesh the state holds this
+    rank's blocks: the optimizer's ``init`` cuts its own, and the
+    parameters are cut by ``sharding.params_specs`` under the active
+    policy (``sharding.shard_tree``)."""
     params = T.init_params(cfg, seed, device)
-    return TrainState(0, params, optimizer.init(params))
+    opt_state = optimizer.init(params)
+    mesh = sharding.active_mesh()
+    if mesh is not None:
+        params = sharding.shard_tree(
+            params, sharding.params_specs(params, mesh), mesh)
+    return TrainState(0, params, opt_state)

@@ -229,7 +229,9 @@ RUNTIME_NAMES = {
         "DP_AXES", "TP_AXIS", "LAYOUTS", "ShardingPolicy", "current_policy",
         "use_policy", "layout_policy", "active_mesh", "dp_axes", "tp_axis",
         "batch_specs_tree", "opt_state_specs", "set_mesh",
-        "get_active_mesh"),
+        "get_active_mesh", "seq_parallel", "logical_to_spec", "shard",
+        "param_spec", "params_specs", "named_shardings", "cache_specs_tree",
+        "telemetry_specs"),
     "repro_torch.launch.mesh": ("make_mesh", "make_production_mesh"),
     "repro_torch.core.selection": ("allsum", "allgather_rows",
                                    "shard_index", "local_row_block"),

@@ -5,8 +5,7 @@ The gates mirror the reference's: config validation, each rule's
 ``zero_shardable``, the training CLI's two refusals (the reference's
 messages), ``resolve`` giving None without a mesh or at one shard, and the
 placements against ``repro.parallel.zero`` / ``repro.parallel.sharding``
-on the same trees, as PartitionSpec tuples (the reference under
-``pure_dp``: the port's parameters replicate).
+on the same trees under each layout, as PartitionSpec tuples.
 
 Then two spawned worlds on ``gloo`` (``tests/torch_zero_ranks.py``): 2
 ranks over ``("data",)`` and 4 over ``("pod", "data")`` = (2, 2), started
@@ -204,16 +203,17 @@ def _spec_tuples(tree, kind) -> dict:
     return out
 
 
+@pytest.mark.parametrize("layout", sharding.LAYOUTS)
 @pytest.mark.parametrize("name,kw", [
     ("dct_adamw", dict(rank=8)), ("dct_adamw", dict(rank=8, ef_dtype="fp32")),
     ("muon", dict(rank=16)), ("trion", dict(rank=16)),
     ("dion", dict(rank=16)), ("galore", dict(rank=8, projector="dct"))],
     ids=["dct_adamw", "dct_adamw-fp32ef", "muon", "trion", "dion", "galore"])
-def test_placements_match_reference(name, kw):
+def test_placements_match_reference(name, kw, layout):
     """``opt_state_specs(zero=)`` of the port (on the state it holds whole,
-    and on one rank's blocks of it) against the reference's, every array of
-    every matrix leaf, as PartitionSpec tuples; ``eligible`` and
-    ``grad_spec`` beside."""
+    and on one rank's blocks of it) against the reference's under each
+    layout, every array of every matrix leaf, as PartitionSpec tuples;
+    ``eligible`` and ``grad_spec`` beside."""
     from jax.sharding import PartitionSpec as P
 
     mesh, cfg = FakeMesh(), zero.ZeroConfig("1")
@@ -221,13 +221,16 @@ def test_placements_match_reference(name, kw):
     jparams = {k: jnp.zeros(s, jnp.float32) for k, s in shapes.items()}
     jopt = jax_get_optimizer(name, lr=0.01, **kw)
     jstate = jax.eval_shape(jopt.init, jparams)
-    with jsh.use_policy(layout="pure_dp"):
+    with jsh.use_policy(layout=layout):
         jspecs = jsh.opt_state_specs(jstate, jparams,
                                      jsh.params_specs(jparams, mesh),
                                      zero=jzero.ZeroConfig("1"), mesh=mesh)
     params = {k: torch.zeros(s) for k, s in shapes.items()}
     state = get_optimizer(name, lr=0.01, **kw).init(params)
-    specs = sharding.opt_state_specs(state, params, zero=cfg, mesh=mesh)
+    with sharding.use_policy(layout=layout):
+        specs = sharding.opt_state_specs(
+            state, params, sharding.params_specs(params, mesh), zero=cfg,
+            mesh=mesh)
     for path in ("w", "odd", "wide", "bad"):
         want = {f: tuple(p) if any(x is not None for x in p) else ()
                 for f, p in _spec_tuples(jspecs.leaves[0]["lowrank"][path],
@@ -330,6 +333,7 @@ def worlds():
                 jax_get_optimizer, jax_collect, name, kw, jnp.asarray,
                 jparams)
         ref["train"] = zr.train_run(None)
+        ref["mesh"] = _mesh_references()
         out = {w: zr.join(p, os.path.join(tmp, f"w{w}"))
                for w, p in procs.items()}
         out["cli"] = (*cli.communicate(timeout=300), cli.returncode)
@@ -343,6 +347,161 @@ def worlds():
     out["ckpt"] = os.path.join(tmp, "ckpt")
     out["cli_ckpt"] = os.path.join(tmp, "cli_ckpt")
     return out
+
+
+def _mesh_references() -> dict:
+    """The one-process witnesses of the (data, model) mesh runs: the
+    smoke llama's steps in microbatches of one rank's rows, the checkpoint
+    case's continuation and the decode logits."""
+    out = {}
+    for shape in (s for ss in zr.MESHES.values() for s in ss):
+        for layout in ("fsdp_tp", "pure_dp"):
+            mb = zr.batch_rows(shape, layout)
+            mb = 0 if mb == zr.TRAIN["batch"] else mb
+            for opt_name in zr.MESH_OPTS:
+                if (opt_name, mb) not in out:
+                    out[opt_name, mb] = zr.run_record(
+                        zr.placed_run(opt_name, "off", microbatch=mb))
+    # saved after two steps at (2, 2) (data 2: microbatches of 2 rows),
+    # one more step on the whole batch at (1, 2)
+    first = zr.placed_run(zr.MESH_CKPT[0], "off", microbatch=2)
+    out["ckpt/saved"] = zr.flat_tensors(first["whole"])
+    out["ckpt/next"] = zr.run_record(zr.placed_run(
+        zr.MESH_CKPT[0], "off", steps=1, state=first["whole"],
+        start=zr.MESH_STEPS))
+    for arch in zr.DECODE_ARCHS:
+        out["decode", arch] = zr.decode_logits(arch, "fsdp_tp")["logits"]
+    out["clip"] = zr.clipped_adam_updates()
+    return out
+
+
+MESH_SHAPES = [s for ss in zr.MESHES.values() for s in ss]
+
+
+def _world_of(shape) -> int:
+    return shape[0] * shape[1]
+
+
+def _assert_equal_runs(got, want, what):
+    """Losses, parameters and optimizer state bit for bit."""
+    assert torch.equal(got["losses"], want["losses"]), \
+        (what, got["losses"], want["losses"])
+    assert set(got["params"]) == set(want["params"])
+    for k, v in want["params"].items():
+        assert torch.equal(got["params"][k], v), (what, k)
+    assert set(got["opt_state"]) == set(want["opt_state"])
+    for k, v in want["opt_state"].items():
+        assert torch.equal(got["opt_state"][k], v), (what, k)
+
+
+@pytest.mark.parametrize("zero_mode", ["off", "1"])
+@pytest.mark.parametrize("opt_name", list(zr.MESH_OPTS))
+@pytest.mark.parametrize("shape", MESH_SHAPES, ids=zr.mesh_key)
+def test_placed_train_step_matches_one_process(worlds, shape, opt_name,
+                                               zero_mode):
+    """The smoke llama's train step with the state held as ``fsdp_tp``
+    blocks on a (data, model) mesh: losses, gathered parameters and
+    gathered optimizer state bit-equal to one process running one rank's
+    rows a microbatch; every split parameter leaf held as whole / blocks,
+    every matrix and embedding split, less state held than whole."""
+    got = worlds[_world_of(shape)][
+        f"mesh/{zr.mesh_key(shape)}/{opt_name}/{zero_mode}/fsdp_tp"]
+    mb = zr.batch_rows(shape, "fsdp_tp")
+    want = worlds["ref"]["mesh"][opt_name,
+                                 0 if mb == zr.TRAIN["batch"] else mb]
+    _assert_equal_runs(got, want, (shape, opt_name, zero_mode))
+    split = set()
+    for k, (held, whole, n) in got["param_bytes"].items():
+        assert held * n == whole, (k, held, whole, n)
+        if n > 1:
+            split.add(k)
+    assert split == {k for k, v in got["params"].items() if v.dim() >= 2
+                     and "ln" not in k}, split
+    held, whole = got["opt_bytes"].tolist()
+    assert held < whole, (held, whole)
+
+
+@pytest.mark.parametrize("zero_mode", ["off", "1"])
+@pytest.mark.parametrize("shape", MESH_SHAPES, ids=zr.mesh_key)
+def test_pure_dp_matches_fsdp_tp(worlds, shape, zero_mode):
+    """``pure_dp`` (parameters replicated, the batch over every axis)
+    against ``fsdp_tp`` and against its one-process witness. Bit for bit
+    where the gradients average two shares. At (2, 2) pure_dp averages
+    four in gloo's order and the witness accumulates them in turn: the
+    gradients part by rounding, which Adam's first steps turn into moves
+    of up to ~lr on the few elements whose gradient is near zero (2 of
+    65536 at 4.5e-6), so the parameters are held at 1e-3 of their
+    largest entry there."""
+    key = zr.mesh_key(shape)
+    res = worlds[_world_of(shape)]
+    pure = res[f"mesh/{key}/dct_adamw/{zero_mode}/pure_dp"]
+    fsdp = res[f"mesh/{key}/dct_adamw/{zero_mode}/fsdp_tp"]
+    assert all(n == 1 for _, _, n in pure["param_bytes"].values())
+    mb = zr.batch_rows(shape, "pure_dp")
+    want = worlds["ref"]["mesh"]["dct_adamw", 0 if mb == zr.TRAIN["batch"]
+                                 else mb]
+    if shape[0] * shape[1] == 2:
+        _assert_equal_runs(pure, want, (shape, "pure_dp"))
+    else:
+        np.testing.assert_allclose(pure["losses"], want["losses"],
+                                   rtol=1e-6)
+        for k, v in want["params"].items():
+            _close(pure["params"][k], v, rtol=1e-3, msg=k)
+    if zr.batch_rows(shape, "pure_dp") == zr.batch_rows(shape, "fsdp_tp"):
+        _assert_equal_runs(pure, fsdp, (shape, "pure_dp vs fsdp_tp"))
+    np.testing.assert_allclose(pure["losses"], fsdp["losses"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", zr.DECODE_ARCHS)
+@pytest.mark.parametrize("shape", MESH_SHAPES, ids=zr.mesh_key)
+def test_decode_tp_logits(worlds, shape, arch):
+    """Parameters placed under ``decode_tp`` (every matrix over all the
+    mesh axes) and under ``fsdp_tp``, gathered: ``decode_step``'s logits
+    equal each other and one process's, bit for bit; each rank holds a
+    share of the bytes."""
+    res = worlds[_world_of(shape)]
+    want = worlds["ref"]["mesh"]["decode", arch]
+    for layout in ("fsdp_tp", "decode_tp"):
+        got = res[f"mesh/{zr.mesh_key(shape)}/decode/{arch}/{layout}"]
+        assert torch.equal(got["logits"], want), layout
+        held, whole = got["bytes"].tolist()
+        assert held < whole, (layout, held, whole)
+
+
+@pytest.mark.parametrize("shape", MESH_SHAPES, ids=zr.mesh_key)
+def test_clip_sums_the_blocks(worlds, shape):
+    """Full-rank Adam with its moments held as blocks, then
+    ``clip_global_norm``: the norm sums every rank's blocks, so the
+    gathered updates are one process's (the shards' squares summed in
+    another order: rtol 1e-6)."""
+    got = worlds[_world_of(shape)][f"mesh/{zr.mesh_key(shape)}/clip"]
+    for t, want in enumerate(worlds["ref"]["mesh"]["clip"]):
+        for k, v in want.items():
+            _close(got[t][k], v, rtol=1e-6, msg=f"step {t} {k}")
+
+
+@pytest.mark.parametrize("at", ["1x2", "1"])
+def test_placed_checkpoint_reshards(worlds, at):
+    """The placed state saved whole at (2, 2) after two steps, restored
+    at (1, 2) and at one process: the restored state is the saved one bit
+    for bit, and one more step equals one process's."""
+    saved = worlds["ref"]["mesh"]["ckpt/saved"]
+    want = worlds["ref"]["mesh"]["ckpt/next"]
+    if at == "1x2":
+        got = worlds[2]["mesh/restore"]
+        restored, nxt = got["restored"], got["next"]
+    else:
+        target = zr.placed_run(zr.MESH_CKPT[0], "off", steps=0)
+        st = CheckpointManager(os.path.join(os.path.dirname(worlds["ckpt"]),
+                                            "mesh_ckpt")).restore(
+            zr.MESH_STEPS, target["whole"])
+        restored = zr.flat_tensors(st)
+        nxt = zr.run_record(zr.placed_run(zr.MESH_CKPT[0], "off", steps=1,
+                                          state=st, start=zr.MESH_STEPS))
+    assert set(restored) == set(saved)
+    for k, v in saved.items():
+        assert torch.equal(restored[k], v), k
+    _assert_equal_runs(nxt, want, f"restored at {at}")
 
 
 @pytest.mark.parametrize("cid", list(zr.CASES))
@@ -442,7 +601,7 @@ def test_train_step_matches_whole_batch(worlds):
 
 def test_cli_torchrun_zero(worlds):
     """``--zero 1`` through torchrun at 2 gloo ranks: each rank holds
-    blocks of the state, the ranks' losses agree, step 1 equals the whole
+    blocks of the parameters and of the state, the ranks' losses agree, step 1 equals the whole
     batch's step (``train_run``'s), rank 0 writes the whole checkpoint and
     a one-process run resumes from it."""
     from repro_torch.launch import train as train_cli
@@ -456,6 +615,7 @@ def test_cli_torchrun_zero(worlds):
     for r in ranks:
         assert r["world"] == 2 and r["backend"] == "gloo"
         assert r["opt_state_bytes"] < r["opt_state_whole_bytes"]
+        assert r["param_bytes"] < r["param_whole_bytes"]
         assert r["losses"] == ranks[0]["losses"]
         assert len(r["losses"]) == CLI_STEPS
     np.testing.assert_allclose(ranks[0]["losses"][0],

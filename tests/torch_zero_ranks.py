@@ -118,8 +118,8 @@ def run_case(name: str, kw: dict, steps: int = STEPS, zero=None):
         ups.append(gather_updates(u))
     mesh = sharding.active_mesh()
     if mesh is not None:
-        specs = sharding.opt_state_specs(state, params, zero=zero,
-                                         mesh=mesh)
+        specs = sharding.optimizer_state_specs(opt, params, zero=zero,
+                                               mesh=mesh)
         held = sharding.state_bytes(state, specs, mesh)
         state = sharding.gather_tree(state, specs, mesh)
     else:
@@ -148,11 +148,208 @@ def train_run(zero):
         state, metrics = step(state, batch_fn(t))
         losses.append(float(metrics["loss"]))
     mesh = sharding.active_mesh()
-    opt_state = state.opt_state
     if mesh is not None:
-        opt_state = sharding.gather_tree(opt_state, sharding.opt_state_specs(
-            opt_state, state.params, zero=zero, mesh=mesh), mesh)
-    return losses, state.params, opt_state
+        with sharding.set_mesh(None):
+            abstract = init_state(cfg, opt, 0, "meta")
+        state = sharding.gather_tree(state, sharding.train_state_specs(
+            abstract, zero=zero, mesh=mesh), mesh)
+    return losses, state.params, state.opt_state
+
+
+# the (data, model) meshes each world adds for the placed train state
+# (``parallel/sharding.py``): the smoke llama's train step under each
+# layout, with DCT-AdamW (q8 EF) and Trion, ZeRO off and on
+MESHES = {2: ((1, 2), (2, 1)), 4: ((2, 2),)}
+MESH_OPTS = {"dct_adamw": ("dct_adamw", dict(rank=16)),
+             "trion": ("trion", dict(rank=16))}
+MESH_STEPS = 2
+# pure_dp beside fsdp_tp, for DCT-AdamW with ZeRO off and on
+PURE_DP = (("dct_adamw", "off"), ("dct_adamw", "1"))
+# saved after MESH_STEPS steps at (2, 2), restored at (1, 2) and at one
+# process for one more step
+MESH_CKPT = ("dct_adamw", "1")
+DECODE_ARCHS = ("llama-350m", "deepseek-moe-16b")
+
+
+def mesh_key(shape) -> str:
+    return "x".join(map(str, shape))
+
+
+def batch_rows(shape, layout: str) -> int:
+    """The rows of the global batch one rank runs on ``shape`` (data,
+    model) under ``layout``: the one-process witness's microbatch."""
+    n = shape[0] * (shape[1] if layout == "pure_dp" else 1)
+    return TRAIN["batch"] // n
+
+
+def placed_run(opt_name: str, zero_mode: str, steps: int = MESH_STEPS,
+               microbatch: int = 0, state=None, start: int = 0):
+    """``steps`` train steps of the smoke llama (``microbatch`` rows a
+    microbatch, 0: the whole batch) from step ``start`` of ``state`` (None:
+    ``init_state``), on the active mesh under the active policy or on one
+    process: losses, the last state (gathered whole), its placements and
+    the held state."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.optim.api import get_optimizer
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.zero import ZeroConfig
+    from repro_torch.train.steps import init_state, make_train_step
+
+    name, kw = MESH_OPTS[opt_name]
+    cfg = dataclasses.replace(get_config(TRAIN["arch"], smoke=True),
+                              train_microbatch=microbatch)
+    zero = ZeroConfig(zero_mode)
+    opt = get_optimizer(name, lr=0.01, zero=zero, **kw)
+    # guarded: on a mesh the ranks combine their blocks' finite flags
+    step = make_train_step(cfg, opt, guard=True)
+    batch_fn = make_batch_fn(cfg, TRAIN["seq"], TRAIN["batch"], seed=0,
+                             device="cpu")
+    if state is None:
+        state = init_state(cfg, opt, 0, "cpu")
+    losses = []
+    for t in range(start, start + steps):
+        state, metrics = step(state, batch_fn(t))
+        losses.append(float(metrics["loss"]))
+    mesh, specs, whole = sharding.active_mesh(), None, state
+    if mesh is not None:
+        with sharding.set_mesh(None):
+            abstract = init_state(cfg, opt, 0, "meta")
+        specs = sharding.train_state_specs(abstract, zero=zero, mesh=mesh)
+        whole = sharding.gather_tree(state, specs, mesh)
+    return {"losses": losses, "whole": whole, "specs": specs,
+            "held": state, "opt": opt, "cfg": cfg}
+
+
+def run_record(run) -> dict:
+    """What a placed run hands the test: losses, the whole parameters and
+    optimizer state, and the bytes each rank holds (per parameter leaf:
+    held, whole and the blocks it is cut into)."""
+    from repro_torch.parallel import sharding
+
+    out = {"losses": torch.tensor(run["losses"], dtype=torch.float64),
+           "params": dict(run["whole"].params),
+           "opt_state": flat_tensors(run["whole"].opt_state)}
+    specs, mesh = run["specs"], sharding.active_mesh()
+    if specs is not None:
+        leaves = {}
+        for k, t in run["held"].params.items():
+            n = 1
+            for _, _, b in specs.params[k].splits(mesh):
+                n *= b
+            held, whole = sharding.state_bytes({k: t}, {k: specs.params[k]},
+                                               mesh)
+            leaves[k] = torch.tensor([held, whole, n])
+        out["param_bytes"] = leaves
+        out["opt_bytes"] = torch.tensor(sharding.state_bytes(
+            run["held"].opt_state, specs.opt_state, mesh))
+    return out
+
+
+def decode_logits(arch: str, layout: str):
+    """One ``decode_step`` of ``arch``'s smoke model (batch 4, position
+    0) on parameters placed under ``layout`` on the active mesh and
+    gathered back: the logits and the held / whole parameter bytes."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding
+
+    cfg = get_config(arch, smoke=True)
+    params = T.init_params(cfg, 3, "cpu")
+    tok = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (4,)))
+    mesh = sharding.active_mesh()
+    nbytes = None
+    if mesh is not None:
+        with sharding.use_policy(layout=layout):
+            specs = sharding.params_specs(params, mesh)
+        held = sharding.shard_tree(params, specs, mesh)
+        nbytes = torch.tensor(sharding.state_bytes(held, specs, mesh))
+        params = sharding.gather_tree(held, specs, mesh)
+    with torch.no_grad():
+        logits, _ = T.decode_step(params, T.init_cache(cfg, 4, 16, "cpu"),
+                                  tok, 0, cfg)
+    return {"logits": logits, "bytes": nbytes}
+
+
+def clipped_adam_updates(steps: int = 2) -> list:
+    """Full-rank Adam on every leaf of the smoke llama, then the global-norm
+    clip (on the active mesh: the moments held as blocks, the clip's norm
+    summed across them): the whole updates of each step."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.transform import (as_optimizer, chain,
+                                             clip_global_norm, scale_by_adam)
+    from repro_torch.parallel.zero import gather_updates
+
+    params = T.init_params(get_config(TRAIN["arch"], smoke=True), 0, "cpu")
+    opt = as_optimizer(chain(scale_by_adam(), clip_global_norm(1e-3)))
+    state, out = opt.init(params), []
+    for t in range(steps):
+        rng = np.random.default_rng(50 + t)
+        g = {k: torch.from_numpy(rng.standard_normal(tuple(p.shape))
+                                 .astype(np.float32))
+             for k, p in params.items()}
+        u, state = opt.update(g, state, params)
+        out.append(gather_updates(u))
+    return out
+
+
+def _mesh_results(world: int, tmp: str) -> dict:
+    """The placed train state on this world's (data, model) meshes."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sharding
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    out = {}
+    ckpt = os.path.join(os.path.dirname(tmp), "mesh_ckpt")
+    for shape in MESHES[world]:
+        mesh = make_mesh(shape, ("data", "model"))
+        key = mesh_key(shape)
+        with sharding.set_mesh(mesh):
+            for opt_name in MESH_OPTS:
+                for zm in ("off", "1"):
+                    run = placed_run(opt_name, zm)
+                    out[f"mesh/{key}/{opt_name}/{zm}/fsdp_tp"] = \
+                        run_record(run)
+                    if shape == (2, 2) and (opt_name, zm) == MESH_CKPT:
+                        if mesh.rank == 0:
+                            CheckpointManager(ckpt).save(MESH_STEPS,
+                                                         run["whole"])
+            for opt_name, zm in PURE_DP:
+                with sharding.use_policy(layout="pure_dp"):
+                    out[f"mesh/{key}/{opt_name}/{zm}/pure_dp"] = \
+                        run_record(placed_run(opt_name, zm))
+            out[f"mesh/{key}/clip"] = clipped_adam_updates()
+            for arch in DECODE_ARCHS:
+                for layout in ("fsdp_tp", "decode_tp"):
+                    out[f"mesh/{key}/decode/{arch}/{layout}"] = \
+                        decode_logits(arch, layout)
+            if shape == (1, 2):
+                out["mesh/restore"] = _restore_at(mesh, ckpt)
+    return out
+
+
+def _restore_at(mesh, ckpt: str) -> dict:
+    """(2, 2)'s checkpoint restored on ``mesh``: the restored state
+    gathered whole, then one more step."""
+    from repro_torch.parallel import sharding
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    ok = os.path.join(ckpt, f"step_{MESH_STEPS}", "OK")
+    t0 = time.time()
+    while not os.path.exists(ok):
+        if time.time() - t0 > 240:
+            raise TimeoutError("no checkpoint from the world of 4")
+        time.sleep(0.1)
+    target = placed_run(*MESH_CKPT, steps=0)
+    state = CheckpointManager(ckpt).restore(MESH_STEPS, target["held"],
+                                            target["specs"])
+    restored = sharding.gather_tree(state, target["specs"], mesh)
+    run = placed_run(*MESH_CKPT, steps=1, state=state, start=MESH_STEPS)
+    return {"restored": flat_tensors(restored), "next": run_record(run)}
 
 
 def _results(world: int, shape, axes, tmp: str) -> dict:
@@ -209,14 +406,15 @@ def _results(world: int, shape, axes, tmp: str) -> dict:
             params = params_t()
             target = opt.init(params)
             st = CheckpointManager(ckpt).restore(
-                CKPT_STEP, target, sharding.opt_state_specs(
-                    target, params, zero=zero, mesh=mesh))
+                CKPT_STEP, target, sharding.optimizer_state_specs(
+                    opt, params, zero=zero, mesh=mesh))
             g = {k: torch.from_numpy(v) for k, v in
                  grads_np(CKPT_STEP, case_rank(kw)).items()}
             u, _ = opt.update(g, st, params)
             out["ckpt/update"] = gather_updates(u)
             out["ckpt/held_rows"] = torch.tensor(
                 st.leaves[0]["lowrank"]["w"].m.shape[-2])
+    out.update(_mesh_results(world, tmp))
     return out
 
 
