@@ -546,6 +546,27 @@ BLOCKWISE_LONG_MIN_EQUAL = 0.98
 FA_CASES = {"a: llama-350m": (8, 512, 16, 16, 64, None, 512),
             "b: gemma3 local": (2, 2048, 32, 16, 128, 1024, 1024),
             "c: gemma3 global": (2, 2048, 32, 16, 128, None, 1024)}
+# query slices at an offset (phase 12, sequence-parallel attention: one
+# model rank's rows of a prefill against all of its keys): (b, S, hq, hkv,
+# hd, vd, window, kv chunk, q_offset, rows). At an offset and a row count
+# that are multiples of the kernels' 64-row query tile each row of the
+# slice is the same row of the whole prefill's launch, bit for bit (the
+# same CTA walk over the same key tiles); the ragged case is held to the
+# plain version only. MLA's value dim runs on the blockwise kernel only
+# (flash_attention takes v of k's shape)
+OFFSET_CASES = {"causal, llama-350m": (2, 1024, 16, 16, 64, 64, None, 512,
+                                       512, 512),
+                "window, gemma3 local": (1, 2048, 32, 16, 128, 128, 1024,
+                                         1024, 1024, 1024),
+                "causal, MLA v 128": (1, 1024, 16, 16, 192, 128, None, 512,
+                                      512, 512),
+                "ragged, window 100": (1, 700, 8, 4, 64, 64, 100, 256, 300,
+                                       200)}
+# the sequence-parallel prefill's shape in phase 22 (qwen2.5-32b, 2 x 2048
+# at tp 2): rank 1's 1024 rows at q_offset 1024, the kernels' rows 13 and
+# 13b time it
+SP_PREFILL = (2, 2048, 2)            # batch, sequence, model ranks
+
 # the dense prefill path (phase 13)
 LLAMA_PROMPTS, LLAMA_NEW = (8, 512), 16
 LLAMA_F32_PROMPTS = (2, 512)
@@ -851,6 +872,32 @@ ZERO_LOSS_BARS = (1e-5,) + (5e-2,) * (ZERO_CLI_STEPS - 1)
 # against the replicated step cut to each rank's blocks, bit for bit; and
 # the decode_tp placement's bytes a rank
 PLACED_MESH = (1, 2)
+# ... and the models' mesh bodies (parts d-g), each held to one process on
+# the global batch: (d) deepseek-moe-16b at full width, cut to its dense
+# first layer and one attn_moe, one DCT-AdamW step under fsdp_tp with the
+# experts expert-parallel on (data 1, model 2) (32 of its 64 experts a
+# rank) and one on ("data",) (the whole batch routed as one: global
+# capacity, positions and aux; peak ~28 GB a rank); (e) its decode_step under decode_tp on (1, 2) and
+# (2, 1) (the experts' hidden dim cut over data, the f-partials summed)
+# in fp32 compute, at the reference's bar (tests/test_multidevice.py);
+# (f) qwen2.5-32b at full width, depth 2, its own attn_sp: a no-grad bf16
+# prefill of SP_PREFILL on (1, 2), each rank's flash_attention_blockwise
+# launch over its 1024 rows at q_offset 1024 r; (g) one llama-350m
+# DCT-AdamW step with attn_sp on (1, 2) (phase 3's first batch)
+MESH_MOE_LAYERS = (1, 1)
+MESH_MOE_BATCH = (2, 256)
+MESH_DECODE_BATCH = 4
+MESH_SP_DEPTH = 2
+# a mesh step's parameters against one process's: within this many of the
+# witness's largest update (a weight whose first Adam step changes sign
+# where its gradient, summed in another order, sits near zero moves by
+# two steps), the gradient norm at rtol 1e-3 and the loss at
+# MESH_STEP_LOSS_RTOL: deepseek-moe-16b computes in bf16, and the
+# expert-parallel step adds each token's six expert outputs in bf16 on two
+# ranks and then across them, another order than one process's (9.0e-6
+# measured, scripts/mesh_models_probe.py, NVIDIA H100 80GB HBM3, 700 W)
+MESH_STEP_UPDATE_BAR = 2.0
+MESH_STEP_LOSS_RTOL = 1e-4
 
 
 def _device_line() -> str:
@@ -2400,6 +2447,155 @@ def check_flash_attention_blockwise(torch, dev) -> dict:
                                    "launched twice, bit-identical"}),
           flush=True)
     return _per_prefill_row(cases, max(errs), PEAK_BF16_PER_S)
+
+
+def _offset_pairs(rows: int, off: int, window) -> int:
+    """Unmasked (query, key) pairs of a causal slice of ``rows`` queries at
+    absolute positions ``off ..`` (within ``window`` keys, if any)."""
+    return sum(min(i + 1, window or i + 1) for i in range(off, off + rows))
+
+
+def _offset_mask(torch, sq, skv, off, window, dev):
+    pos = off + torch.arange(sq, device=dev)[:, None]
+    key = torch.arange(skv, device=dev)[None, :]
+    keep = key <= pos
+    if window is not None:
+        keep &= pos - key < window
+    return keep
+
+
+def _offset_case(torch, dev, fa, seed, b, s, hq, hkv, hd, vd, window, chunk,
+                 off, rows, kernel: str) -> dict:
+    """One kernel on a query slice at ``off``: twice (bit-identical)
+    against its plain version at the offset (the blockwise kernel at the
+    model's bar, flash_attention at FA_TOL_F32), and each slice row
+    against the same row of the whole prefill's launch (bit-equal where
+    ``off`` and ``rows`` are multiples of 64)."""
+    dt = torch.bfloat16 if kernel == "blockwise" else torch.float32
+    gen = torch.Generator(device=dev).manual_seed(300 + seed)
+    q = torch.randn((b, s, hq, hd), generator=gen, device=dev).to(dt)
+    k = torch.randn((b, s, hkv, hd), generator=gen, device=dev).to(dt)
+    v = torch.randn((b, s, hkv, vd), generator=gen, device=dev).to(dt)
+    qs = q[:, off:off + rows]
+    if kernel == "blockwise":
+        kw = dict(causal=True, window=window, kv_chunk=chunk)
+        run = lambda qq, o: fa.flash_attention_blockwise(  # noqa: E731
+            qq, k, v, q_offset=o, **kw)
+        plain = fa.blockwise_attention_ref(qs, k, v, q_offset=off, **kw)
+    else:
+        kw = dict(causal=True, window=window)
+        run = lambda qq, o: fa.flash_attention(qq, k, v, q_offset=o,  # noqa
+                                               **kw)
+        plain = fa.flash_attention_ref(qs, k, v, q_offset=off, **kw)
+    got, again = run(qs, off), run(qs, off)
+    whole = run(q, 0)[:, off:off + rows]
+    torch.cuda.synchronize()
+    assert got.shape == (b, rows, hq, vd) and torch.isfinite(got).all()
+    assert torch.equal(got, again), f"{kernel} at q_offset: relaunch differs"
+    d = (got.float() - plain.float()).abs()
+    err = d.max().item()
+    out = {"shape": [b, s, hq, hkv, hd, vd], "window": window,
+           "q_offset": off, "rows": rows, "max_abs_err": err,
+           "bit_equal_share": (d == 0).float().mean().item(),
+           "rows_bit_equal_to_whole_prefill": torch.equal(got, whole),
+           "rows_share_equal_to_whole_prefill":
+               (got == whole).float().mean().item()}
+    if kernel == "blockwise":
+        # the per-layer bar of phase 13 (LAYER_MAX_ULPS): a window's outputs
+        # are averages of 100 keys, max |out| may sit low in its binade
+        top = plain.float().abs().max()
+        out["rel_err"] = err / top.item()
+        out["max_ulps_of_max_out"] = err / torch.ldexp(
+            torch.ones_like(top), torch.frexp(top)[1] - 8).item()
+        assert out["max_ulps_of_max_out"] <= LAYER_MAX_ULPS \
+            and out["bit_equal_share"] >= BLOCKWISE_MIN_EQUAL, out
+    else:
+        assert err <= FA_TOL_F32, out
+    if off % 64 == 0 and rows % 64 == 0:
+        assert out["rows_bit_equal_to_whole_prefill"], out
+    return out
+
+
+def _offset_timing(torch, dev, fa, kernel: str) -> dict:
+    """The kernel at phase 22's SP prefill shape (qwen2.5-32b, rank 1's
+    rows at q_offset S/2, its kv chunk) beside its plain version, one SDPA
+    call with the offset's causal mask, and its bound."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("qwen2.5-32b")
+    b, s, tp = SP_PREFILL
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    rows = off = s // tp
+    bf = kernel == "blockwise"
+    dt = torch.bfloat16 if bf else torch.float32
+    gen = torch.Generator(device=dev).manual_seed(400)
+    q = torch.randn((b, rows, hq, hd), generator=gen, device=dev).to(dt)
+    k = torch.randn((b, s, hkv, hd), generator=gen, device=dev).to(dt)
+    v = torch.randn((b, s, hkv, hd), generator=gen, device=dev).to(dt)
+    if bf:
+        call = lambda: fa.flash_attention_blockwise(  # noqa: E731
+            q, k, v, kv_chunk=cfg.kv_chunk, q_offset=off)
+        plain = lambda: fa.blockwise_attention_ref(  # noqa: E731
+            q, k, v, causal=True, kv_chunk=cfg.kv_chunk, q_offset=off)
+    else:
+        call = lambda: fa.flash_attention(q, k, v, q_offset=off)  # noqa
+        plain = lambda: fa.flash_attention_ref(q, k, v,  # noqa: E731
+                                               q_offset=off)
+    mask = _offset_mask(torch, rows, s, off, None, dev)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    lib_err = (lib().transpose(1, 2).float() - call().float()).abs().max()
+    assert lib_err.item() <= 2e-2, f"SDPA at the offset differs: {lib_err}"
+    pairs = b * hq * _offset_pairs(rows, off, None)
+    flops = 4.0 * pairs * hd
+    el = 2 if bf else 4
+    nbytes = el * (2 * b * rows * hq * hd + 2 * b * s * hkv * hd)
+    peak = PEAK_BF16_PER_S if bf else PEAK_TF32_PER_S / TF32_PASSES
+    bound, by = _bound_ms(nbytes, flops, peak)
+    ms = _time_ms(call)
+    out = {"shape": [b, rows, hq, hkv, hd], "keys": s, "q_offset": off,
+           "kv_chunk": cfg.kv_chunk if bf else None,
+           "dtype": "bf16" if bf else "fp32", "ms": ms,
+           "tflop_per_s": flops / ms / 1e9, "plain_ms": _time_ms(plain, 3),
+           "library_ms": _time_ms(lib), "library": "SDPA, boolean mask of "
+           "the offset's causal rows, enable_gqa", "bound_ms": bound,
+           "bound_by": by, "unmasked_pairs": pairs, "bytes": nbytes}
+    del q, k, v, qt, kt, vt, mask
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_attention_offsets(torch, dev) -> dict:
+    """Phase 12, query slices at an offset: both prefill kernels on
+    ``OFFSET_CASES`` (the fp32 kernel without MLA's value dim) and timed at
+    the SP prefill's shape. Returns ``{kernel: kernels-line addition}``."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+
+    out = {}
+    for kernel, name in (("blockwise", "flash_attention_blockwise"),
+                         ("flash", "flash_attention")):
+        cases = {}
+        for i, (case, shape) in enumerate(OFFSET_CASES.items()):
+            if kernel == "flash" and shape[4] != shape[5]:
+                continue
+            cases[case] = _offset_case(torch, dev, fa, i, *shape,
+                                       kernel=kernel)
+            torch.cuda.empty_cache()
+        timing = _offset_timing(torch, dev, fa, kernel)
+        out[name] = {"q_offset_cases": cases, "sp_prefill_shape": timing}
+        print(json.dumps({"kernel_at_q_offset": name, "cases": cases,
+                          "sp_prefill_shape": timing,
+                          "tolerance": "against the plain version at the "
+                                       "offset: fp32 FA_TOL_F32, bf16 "
+                                       "LAYER_MAX_ULPS of max |out| and "
+                                       "BLOCKWISE_MIN_EQUAL bit-equal; rows bit-"
+                                       "equal to the whole prefill's at "
+                                       "offsets and rows of a multiple of "
+                                       "64; each launched twice, "
+                                       "bit-identical",
+                          "device": _device_line()}), flush=True)
+    return out
 
 
 def _gemma3_depth8():
@@ -5022,6 +5218,234 @@ def _placed_step(torch) -> dict:
     return out
 
 
+def _moe_block_spy(calls: list):
+    """Record the experts each ``_local_moe`` call holds (E / tp) and their
+    hidden width; returns the restorer."""
+    from repro_torch.models import moe
+
+    orig = moe._local_moe
+
+    def spy(x, router_w, wg, wu, wd, **kw):
+        calls.append([int(wg.shape[0]), int(wg.shape[-1])])
+        return orig(x, router_w, wg, wu, wd, **kw)
+
+    moe._local_moe = spy
+    return lambda: setattr(moe, "_local_moe", orig)
+
+
+def _witness_step(torch, cfg, batch: dict) -> dict:
+    """The one-process DCT-AdamW step of ``cfg`` on the global batch (each
+    rank computes it, the two at once on the card): its parameters after
+    the step, loss, gradient norm, largest update and launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.api import get_optimizer
+    from repro_torch.train.steps import init_state, make_train_step
+
+    opt = get_optimizer("dct_adamw", lr=0.01, rank=RANK)
+    p0 = T.init_params(cfg, 0, "cuda")
+    ops.reset_launch_counts()
+    state, m = make_train_step(cfg, opt)(init_state(cfg, opt, 0, "cuda"),
+                                         batch)
+    torch.cuda.synchronize()
+    out = {"params": state.params, "loss": float(m["loss"]),
+           "grad_norm": float(m["grad_norm"]),
+           "launches": {k: n for k, n in ops.launch_counts().items() if n},
+           "max_update": max(float((state.params[k].float()
+                                    - p0[k].float()).abs().max())
+                             for k in p0)}
+    del state, p0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_step(torch, cfg, mesh, layout: str, batch: dict,
+               witness: dict) -> dict:
+    """One DCT-AdamW step of ``cfg`` on ``mesh`` under ``layout`` (the state
+    placed there): loss, gradient norm, this rank's parameter blocks
+    against the one-process ``witness``'s cut to them, its launches,
+    experts a ``_local_moe`` call, wall time and peak."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.api import get_optimizer
+    from repro_torch.parallel import sharding
+    from repro_torch.train.steps import init_state, make_train_step
+
+    opt = get_optimizer("dct_adamw", lr=0.01, rank=RANK)
+    step = make_train_step(cfg, opt)
+    calls: list = []
+    with sharding.use_policy(layout=layout), sharding.set_mesh(mesh):
+        specs = sharding.params_specs(T.init_params(cfg, 0, "meta"), mesh)
+        state = init_state(cfg, opt, 0, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        restore = _moe_block_spy(calls)
+        try:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            restore()
+        launches = {k: n for k, n in ops.launch_counts().items() if n}
+        want = {k: sharding.local_block(w, specs[k], mesh)
+                for k, w in witness["params"].items()}
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "launches": launches, "experts_a_call": calls, "step_s": wall,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "params_max_abs_diff": max(
+               float((state.params[k].float() - want[k].float()).abs().max())
+               for k in want),
+           "params_bit_equal": all(_same_bits(state.params[k], want[k])
+                                   for k in want),
+           **{f"witness_{k}": witness[k] for k in (
+               "loss", "grad_norm", "launches", "max_update")}}
+    del state, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _mesh_decode(torch, cfg, mesh) -> dict:
+    """``decode_step`` (position 0, MESH_DECODE_BATCH tokens) of ``cfg``
+    under decode_tp on ``mesh``, and on rank 0 on one process: the logits'
+    gap and the experts a call holds."""
+    import torch.distributed as dist
+
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding
+
+    params = T.init_params(cfg, 3, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tok = torch.randint(0, cfg.vocab_size, (MESH_DECODE_BATCH,),
+                        generator=gen, device="cuda")
+    calls: list = []
+    restore = _moe_block_spy(calls)
+    try:
+        with sharding.use_policy(layout="decode_tp"), \
+                sharding.set_mesh(mesh), torch.no_grad():
+            logits, _ = T.decode_step(params, T.init_cache(
+                cfg, MESH_DECODE_BATCH, 16, "cuda"), tok, 0, cfg)
+    finally:
+        restore()
+    out = {"experts_a_call": calls}
+    if mesh.rank == 0:
+        with torch.no_grad():
+            want, _ = T.decode_step(params, T.init_cache(
+                cfg, MESH_DECODE_BATCH, 16, "cuda"), tok, 0, cfg)
+        d = (logits.float() - want.float()).abs()
+        out.update(max_abs_diff=float(d.max()),
+                   max_abs_logit=float(want.abs().max()),
+                   within_bar=bool((d <= 2e-5 + 1e-4 * want.float().abs())
+                                   .all()),
+                   bit_equal=_same_bits(logits, want))
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _mesh_prefill(torch, mesh) -> dict:
+    """(f): qwen2.5-32b's no-grad prefill on ``mesh`` with its attn_sp, each
+    blockwise launch's rows and q_offset recorded (a spy around the
+    wrapper), and on rank 0 the one-process prefill's logits."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding
+
+    cfg = _config("qwen2.5-32b", MESH_SP_DEPTH)
+    assert cfg.attn_sp
+    b, s, _ = SP_PREFILL
+    params = T.init_params(cfg, 0, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device="cuda")
+    calls: list = []
+    orig = L.flash_attention_blockwise
+
+    def spy(q, k, v, **kw):
+        calls.append([int(q.shape[1]), int(k.shape[1]), kw["q_offset"]])
+        return orig(q, k, v, **kw)
+
+    L.flash_attention_blockwise = spy
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with sharding.set_mesh(mesh), torch.inference_mode():
+            logits, _ = T.forward(params, {"tokens": toks}, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        L.flash_attention_blockwise = orig
+    out = {"launches": {k: n for k, n in ops.launch_counts().items() if n},
+           "blockwise_calls": calls, "prefill_s": wall}
+    if mesh.rank == 0:
+        with torch.inference_mode():
+            want, _ = T.forward(params, {"tokens": toks}, cfg)
+        last, wlast = logits[:, -1].float(), want[:, -1].float()
+        out.update(bit_equal=_same_bits(logits, want),
+                   last_logits_rel=float(torch.linalg.norm(last - wlast)
+                                         / torch.linalg.norm(wlast)),
+                   max_abs_diff=float((logits.float() - want.float())
+                                      .abs().max()))
+        del want
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _mesh_models(torch, data_mesh) -> dict:
+    """Parts (d)-(g) on (a)'s ranks (module constants)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.launch.mesh import make_mesh
+
+    out, walls = {}, {}
+    tp_mesh = make_mesh((1, 2), ("data", "model"))
+    dp_mesh = make_mesh((2, 1), ("data", "model"))
+    t0 = time.perf_counter()
+    cfg = _moe_config("deepseek-moe-16b", MESH_MOE_LAYERS)
+    rows, seq = MESH_MOE_BATCH
+    batch = make_batch_fn(cfg, seq, rows, seed=0, device="cuda")(0)
+    witness = _witness_step(torch, cfg, batch)
+    out["ep_step"] = _mesh_step(torch, cfg, tp_mesh, "fsdp_tp", batch,
+                                witness)
+    out["data_step"] = _mesh_step(torch, cfg, data_mesh, "fsdp_tp", batch,
+                                  witness)
+    del witness
+    walls["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dcfg = dataclasses.replace(cfg, compute_dtype="float32")
+    out["decode"] = {"1x2": _mesh_decode(torch, dcfg, tp_mesh),
+                     "2x1": _mesh_decode(torch, dcfg, dp_mesh)}
+    walls["e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["sp_prefill"] = _mesh_prefill(torch, tp_mesh)
+    walls["f"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lcfg = dataclasses.replace(get_config("llama-350m"), attn_sp=True)
+    lbatch = make_batch_fn(lcfg, SEQ, BATCH, seed=0, device="cuda")(0)
+    out["sp_step"] = _mesh_step(torch, lcfg, tp_mesh, "fsdp_tp", lbatch,
+                                _witness_step(torch, lcfg, lbatch))
+    walls["g"] = time.perf_counter() - t0
+    out["walls"] = walls
+    return out
+
+
 def zero_rank(rank: int, task: str, restore: bool = False) -> None:
     """One spawned rank of phase 22: ``gloo`` from a file store under
     ``ZERO_DIR``, CUDA tensors on card 0 (the library the parent built is
@@ -5050,6 +5474,7 @@ def zero_rank(rank: int, task: str, restore: bool = False) -> None:
             out.update(_zero_restore(torch, mesh))
         if task == "api":
             out["placed"] = _placed_step(torch)
+            out["mesh_models"] = _mesh_models(torch, mesh)
         (ZERO_DIR / f"{task}.rank{rank}.json").write_text(json.dumps(out))
         dist.destroy_process_group()
     except BaseException:
@@ -5143,6 +5568,9 @@ def run_zero_api(torch, check: bool = True, restore: bool = False,
             "rank_step_s": [p["step_s"] for p in placed],
             "rank_launches": [p["launches"] for p in placed],
             "device": _device_line()}), flush=True)
+    mesh = [r["mesh_models"] for r in ranks if "mesh_models" in r]
+    if mesh:
+        _check_mesh_models(mesh, check)
     summary = {
         "zero_api": f"llama-350m's projected leaves, world {ZERO_WORLD} over "
                     f"('data',), {r0['backend']} with CUDA tensors on one "
@@ -5166,6 +5594,89 @@ def run_zero_api(torch, check: bool = True, restore: bool = False,
     print(json.dumps(summary), flush=True)
     return {label: [r[label]["launches"] for r in ranks]
             for label, *_ in ZERO_API_RUNS}, ranks
+
+
+def _check_mesh_models(mm: list, check: bool = True) -> None:
+    """Phase 22 (d)-(g) from the ranks' records: printed, then held to
+    their bars (module constants)."""
+    r0 = mm[0]
+    summary = {"mesh_models": "phase 22 (d)-(g) at world 2 on one card "
+                              "(gloo): the models' mesh bodies against one "
+                              "process on the global batch",
+               "walls_s": r0["walls"], "device": _device_line()}
+    for part in ("ep_step", "data_step", "sp_step"):
+        w = r0[part]
+        summary[part] = {
+            **{k: w[k] for k in (
+                "loss", "witness_loss", "grad_norm", "witness_grad_norm",
+                "witness_max_update", "witness_launches")},
+            "rank_params_max_abs_diff": [r[part]["params_max_abs_diff"]
+                                         for r in mm],
+            "rank_params_bit_equal": [r[part]["params_bit_equal"]
+                                      for r in mm],
+            "rank_losses": [r[part]["loss"] for r in mm],
+            "rank_launches": [r[part]["launches"] for r in mm],
+            "rank_experts_a_call": [r[part]["experts_a_call"] for r in mm],
+            "rank_step_s": [r[part]["step_s"] for r in mm],
+            "rank_peak_memory_bytes": [r[part]["peak_memory_bytes"]
+                                       for r in mm],
+            "bars": f"loss rtol {MESH_STEP_LOSS_RTOL}, grad norm rtol "
+                    f"1e-3, parameters "
+                    f"within {MESH_STEP_UPDATE_BAR} x the witness's largest "
+                    f"update"}
+    summary["decode_tp"] = {
+        k: {**{f: r0["decode"][k][f] for f in (
+            "max_abs_diff", "max_abs_logit", "within_bar", "bit_equal")},
+            "rank_experts_a_call": [r["decode"][k]["experts_a_call"]
+                                    for r in mm],
+            "bar": "atol 2e-5, rtol 1e-4 (tests/test_multidevice.py)"}
+        for k in r0["decode"]}
+    sp = r0["sp_prefill"]
+    summary["sp_prefill"] = {
+        **{f: sp[f] for f in ("bit_equal", "last_logits_rel",
+                              "max_abs_diff")},
+        "rank_blockwise_calls": [r["sp_prefill"]["blockwise_calls"]
+                                 for r in mm],
+        "rank_launches": [r["sp_prefill"]["launches"] for r in mm],
+        "rank_prefill_s": [r["sp_prefill"]["prefill_s"] for r in mm],
+        "calls_are": "[query rows, keys, q_offset] per launch",
+        "bar": f"last logits' relative norm <= {PREFILL_LOGITS_RTOL}"}
+    print(json.dumps(summary), flush=True)
+    if not check:
+        return
+    training = ("dct_project", "colgather_matmul_dual", "quantize_ef",
+                "dequant_add_ef")
+    for part in ("ep_step", "data_step", "sp_step"):
+        w = r0[part]
+        assert abs(w["loss"] - w["witness_loss"]) <= \
+            MESH_STEP_LOSS_RTOL * abs(w["witness_loss"]), (part, w)
+        assert abs(w["grad_norm"] - w["witness_grad_norm"]) <= \
+            1e-3 * w["witness_grad_norm"], (part, w)
+        for r in mm:
+            assert r[part]["params_max_abs_diff"] <= \
+                MESH_STEP_UPDATE_BAR * w["witness_max_update"], (part, r)
+            assert r[part]["loss"] == w["loss"], (part, r[part]["loss"])
+            for name in training:
+                assert r[part]["launches"].get(name) == \
+                    w["witness_launches"].get(name), (part, name, r[part])
+    for r in mm:
+        assert r["ep_step"]["experts_a_call"] and all(
+            e == [32, 1408] for e in r["ep_step"]["experts_a_call"]), r
+        assert r["data_step"]["experts_a_call"] and all(
+            e == [64, 1408] for e in r["data_step"]["experts_a_call"]), r
+        assert all(e == [32, 1408]
+                   for e in r["decode"]["1x2"]["experts_a_call"]), r
+        assert all(e == [64, 704]
+                   for e in r["decode"]["2x1"]["experts_a_call"]), r
+    for k in r0["decode"]:
+        assert r0["decode"][k]["within_bar"], (k, r0["decode"][k])
+    b, s, tp = SP_PREFILL
+    for rank, r in enumerate(mm):
+        want = [[s // tp, s, rank * s // tp]] * MESH_SP_DEPTH
+        assert r["sp_prefill"]["blockwise_calls"] == want, (rank, r)
+        assert r["sp_prefill"]["launches"].get(
+            "flash_attention_blockwise") == MESH_SP_DEPTH, r["sp_prefill"]
+    assert sp["last_logits_rel"] <= PREFILL_LOGITS_RTOL, sp
 
 
 @contextlib.contextmanager
@@ -5396,6 +5907,7 @@ def main(argv=None) -> int:
     rows["flash_attention"] = check_flash_attention(torch, dev)
     rows["flash_attention_blockwise"] = check_flash_attention_blockwise(
         torch, dev)
+    offsets = check_attention_offsets(torch, dev)
     prefill_launches = {name: run_dense_prefill(torch, dev, name)[kernel]
                         for name, kernel in DENSE_RUNS.items()}
     for kernel in ops.ATTENTION:
@@ -5623,6 +6135,10 @@ def main(argv=None) -> int:
                if any(name in r for r in ranks)}
         if api:
             extra["zero_api_rank_launches"] = api
+        # phase 12's query slices at an offset, and the kernel at phase
+        # 22's SP prefill shape
+        if name in offsets:
+            extra["q_offset"] = offsets[name]
         if name in dense_configs["training"].get("phi3-mini-3.8b", {}):
             extra["dense_configs_launches_per_step"] = {
                 arch: per_step[name]

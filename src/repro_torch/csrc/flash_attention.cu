@@ -7,8 +7,12 @@
 // K/V expansion in memory. Out (B, Sq, Hq, hd) is contiguous, in q's dtype.
 // Keys of their own length (Skv != Sq) come without a mask: an encoder's
 // bidirectional attention, a decoder's cross-attention over the encoder's
-// frames (the wrapper refuses them under a causal or window mask, where
-// the TPU kernel's contract wants one length).
+// frames. A query slice at an offset q_offset (sequence-parallel
+// attention: one rank's rows of a prefill against all of its keys) comes
+// with any mask: query row r is absolute position q_offset + r, the masks
+// and the walk's bounds compare absolute positions and the key tiles stay
+// aligned at key 0. Under a mask the keys cover the slice (Skv >= q_offset
+// + Sq).
 //
 // What it computes is the TPU kernel's function: q, k, v upcast to fp32;
 // s = (q . k) * scale with scale = 1 / sqrt(hd) (a multiply, as there);
@@ -181,7 +185,8 @@ template <typename T, int HDP, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     T* __restrict__ out, int s, int skv, int hq, int group, int hd, Strides qst,
-                    Strides kst, Strides vst, int causal, int window, float scale) {
+                    Strides kst, Strides vst, int causal, int window, int q_offset,
+                    float scale) {
   using TL = Tile<HDP>;
   constexpr int kBK = TL::kBK, kLdk = TL::kLdk, kLdv = TL::kLdv;
   constexpr bool kQRegs = TL::kQRegs;
@@ -196,7 +201,8 @@ flash_attention_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int q0 = qblock * kBQ;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int row_w = q0 + warp * 16;  // the warp's first row
+  // absolute positions: the masks and the walk's bounds compare these
+  const int row_w = q_offset + q0 + warp * 16;  // the warp's first row
   const int rows[2] = {row_w + g, row_w + g + 8};
   const int hk = h / group;
   const T* qp = q + b * qst.b + h * qst.h;
@@ -204,9 +210,9 @@ flash_attention_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const T* vp = v + b * vst.b + hk * vst.h;
 
   // the K/V tiles with an unmasked pair for some row of this block
-  const int q_last = min(q0 + kBQ, s) - 1;
+  const int q_last = q_offset + min(q0 + kBQ, s) - 1;
   const int k_end = causal ? q_last + 1 : skv;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
+  const int k_begin = window > 0 ? max(0, q_offset + q0 - window + 1) / kBK * kBK : 0;
   const int n_tiles = (k_end - k_begin + kBK - 1) / kBK;
 
   auto issue = [&](int it) {
@@ -384,8 +390,9 @@ flash_attention_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float den = fmaxf(quad_sum(l[r]), 1e-30f);
-    if (rows[r] >= s) continue;
-    T* o = out + ((static_cast<long long>(b) * s + rows[r]) * hq + h) * hd;
+    const int row = rows[r] - q_offset;  // the slice's own row
+    if (row >= s) continue;
+    T* o = out + ((static_cast<long long>(b) * s + row) * hq + h) * hd;
 #pragma unroll
     for (int i = 0; i < HDP / 32; ++i)
 #pragma unroll
@@ -401,7 +408,7 @@ flash_attention_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* _
 template <typename T, int HDP, bool kVec>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b, int s, int skv,
                    int hq, int hkv, int hd, Strides qst, Strides kst, Strides vst, int causal,
-                   int window, float scale, cudaStream_t stream) {
+                   int window, int q_offset, float scale, cudaStream_t stream) {
   constexpr size_t smem = Tile<HDP>::kSmem;
   static_assert(smem <= 227 * 1024, "tiles exceed shared memory");
   auto kernel = flash_attention_fwd<T, HDP, kVec>;
@@ -414,17 +421,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
                   static_cast<unsigned>(b));
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), s, skv, hq, hq / hkv, hd, qst, kst, vst, causal, window, scale);
+      static_cast<T*>(out), s, skv, hq, hq / hkv, hd, qst, kst, vst, causal, window, q_offset,
+      scale);
   return cudaGetLastError();
 }
 
 template <typename T, bool kVec>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int b, int s,
                      int skv, int hq, int hkv, int hd, Strides qst, Strides kst, Strides vst,
-                     int causal, int window, float scale, cudaStream_t stream) {
+                     int causal, int window, int q_offset, float scale,
+                     cudaStream_t stream) {
 #define REPRO_FA_CASE(HDP)                                                                   \
   return launch<T, HDP, kVec>(q, k, v, out, b, s, skv, hq, hkv, hd, qst, kst, vst, causal,    \
-                              window, scale, stream)
+                              window, q_offset, scale, stream)
   if (hd <= 32) REPRO_FA_CASE(32);
   if (hd <= 64) REPRO_FA_CASE(64);
   if (hd <= 96) REPRO_FA_CASE(96);
@@ -439,24 +448,26 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int
 // q (B, S, Hq, hd), k / v (B, Skv, Hkv, hd) with the given element strides
 // of the batch, sequence and head axes (the head dim contiguous), all three
 // of one dtype (fp32, or bf16 with is_bf16, upcast); out (B, S, Hq, hd)
-// contiguous in that dtype. window <= 0 means no window; Skv != S only
-// without a mask (the caller checks). The caller checks the grid limits
+// contiguous in that dtype. window <= 0 means no window; q_offset >= 0 the
+// absolute position of q's first row; under a mask the keys cover the
+// rows (Skv >= q_offset + S). The caller checks the grid limits
 // (Hq, B < 65536).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
                                      int b, int s, int skv, int hq, int hkv, int hd, long long q_sb,
                                      long long q_ss, long long q_sh, long long k_sb,
                                      long long k_ss, long long k_sh, long long v_sb,
                                      long long v_ss, long long v_sh, int causal, int window,
-                                     float scale, int is_bf16, void* stream) {
+                                     int q_offset, float scale, int is_bf16, void* stream) {
   if (b <= 0 || s <= 0 || hq <= 0) return static_cast<int>(cudaSuccess);
-  if (skv <= 0 || hkv <= 0 || hq % hkv || hd <= 0 || hd > 256 ||
-      (skv != s && (causal || window > 0)))
+  const bool masked = causal || window > 0;
+  if (skv <= 0 || hkv <= 0 || hq % hkv || hd <= 0 || hd > 256 || q_offset < 0 ||
+      (masked && skv < q_offset + s))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qst{q_sb, q_ss, q_sh}, kst{k_sb, k_ss, k_sh}, vst{v_sb, v_ss, v_sh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return static_cast<int>(dispatch<bf16, false>(q, k, v, out, b, s, skv, hq, hkv, hd, qst,
-                                                  kst, vst, causal, window, scale, st));
+                                                  kst, vst, causal, window, q_offset, scale, st));
   // 16-byte copies need every row of q, k and v on 16 bytes and hd % 4 == 0
   bool vec = hd % 4 == 0;
   for (const void* p : {q, k, v}) vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
@@ -464,8 +475,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
     vec = vec && st4 % 4 == 0;
   const cudaError_t rc =
       vec ? dispatch<float, true>(q, k, v, out, b, s, skv, hq, hkv, hd, qst, kst, vst,
-                                  causal, window, scale, st)
+                                  causal, window, q_offset, scale, st)
           : dispatch<float, false>(q, k, v, out, b, s, skv, hq, hkv, hd, qst, kst, vst,
-                                   causal, window, scale, st);
+                                   causal, window, q_offset, scale, st);
   return static_cast<int>(rc);
 }

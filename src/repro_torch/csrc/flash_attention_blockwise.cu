@@ -24,8 +24,14 @@
 // leaves the chunk's max unchanged.
 //
 // Keys of their own length (Skv != Sq: a cross-attention's queries against
-// an image's 6400 patch embeddings, one chunk of 6400) come without a mask
-// (the wrapper refuses them under a causal or window mask).
+// an image's 6400 patch embeddings, one chunk of 6400) come without a mask.
+// A query slice at an offset (sequence-parallel attention: rank i's rows
+// [q_offset, q_offset + Sq) of a prefill against all of its keys) comes
+// with any mask: query row r is absolute position q_offset + r, the masks,
+// the causal bound hi and the window's lo compare absolute positions, and
+// the kv chunks stay aligned at key 0, so a row sees the chunks it sees in
+// the whole prefill. Under a mask the keys cover the slice (Skv >= q_offset
+// + Sq).
 //
 // Bound: operations. 4 * hd flops per unmasked (query, key) pair against
 // 2 * hd K/V bytes that a tile shares among 64 queries.
@@ -211,8 +217,8 @@ __global__ void __launch_bounds__(kThreads, Tile<HDP>::kMinBlocks)
 flash_attention_blockwise_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               const bf16* __restrict__ v, bf16* __restrict__ out, int s, int skv,
                               int hq, int group, int hd, int vd, Strides qst, Strides kst,
-                              Strides vst,
-                              int causal, int window, int chunk, float scale) {
+                              Strides vst, int causal, int window, int chunk, int q_offset,
+                              float scale) {
   using T = Tile<HDP>;
   constexpr int kLd = T::kLd;
   constexpr int kStages = T::kStages;
@@ -225,16 +231,17 @@ flash_attention_blockwise_fwd(const bf16* __restrict__ q, const bf16* __restrict
   const int q0 = qblock * kBQ;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int t = lane & 3;
-  const int row_w = q0 + warp * 16;  // the warp's first row
+  // absolute positions: the masks and the walk's bounds compare these
+  const int row_w = q_offset + q0 + warp * 16;  // the warp's first row
   const int rows[2] = {row_w + (lane >> 2), row_w + (lane >> 2) + 8};
   const int hk = h / group;
   const bf16* qp = q + b * qst.b + h * qst.h;
   const bf16* kp = k + b * kst.b + hk * kst.h;
   const bf16* vp = v + b * vst.b + hk * vst.h;
 
-  const int q_last = min(q0 + kBQ, s) - 1;
+  const int q_last = q_offset + min(q0 + kBQ, s) - 1;
   const int hi = causal ? q_last + 1 : skv;
-  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int lo = window > 0 ? max(0, q_offset + q0 - window + 1) : 0;
   const int last_chunk = (hi - 1) / chunk;
   Walk prod{lo / chunk, 0, 0, lo, hi, chunk};
   Walk cons = prod;
@@ -350,8 +357,9 @@ flash_attention_blockwise_fwd(const bf16* __restrict__ q, const bf16* __restrict
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const float den = fmaxf(quad_sum(l[i]), 1e-30f);
-    if (rows[i] >= s) continue;
-    bf16* o = out + ((static_cast<long long>(b) * s + rows[i]) * hq + h) * vd;
+    const int row = rows[i] - q_offset;  // the slice's own row
+    if (row >= s) continue;
+    bf16* o = out + ((static_cast<long long>(b) * s + row) * hq + h) * vd;
 #pragma unroll
     for (int j = 0; j < T::kDTiles; ++j) {
       const int d = 8 * j + 2 * t;
@@ -365,7 +373,8 @@ flash_attention_blockwise_fwd(const bf16* __restrict__ q, const bf16* __restrict
 template <int HDP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b, int s, int skv,
                    int hq, int hkv, int hd, int vd, Strides qst, Strides kst, Strides vst,
-                   int causal, int window, int chunk, float scale, cudaStream_t stream) {
+                   int causal, int window, int chunk, int q_offset, float scale,
+                   cudaStream_t stream) {
   constexpr size_t smem = Tile<HDP>::kSmem;
   static_assert(smem <= 227 * 1024, "tiles exceed shared memory");
   auto kernel = flash_attention_blockwise_fwd<HDP>;
@@ -379,7 +388,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), s, skv, hq, hq / hkv, hd, vd, qst, kst, vst, causal, window,
-      chunk, scale);
+      chunk, q_offset, scale);
   return cudaGetLastError();
 }
 
@@ -388,19 +397,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
 // q (B, S, Hq, hd), k (B, Skv, Hkv, hd), v (B, Skv, Hkv, vd) bf16 with the
 // given element strides of the batch, sequence and head axes (the head dim
 // contiguous, every row on 16 bytes); out (B, S, Hq, vd) contiguous bf16.
-// hd and vd multiples of 16 up to 256; window <= 0 means none; Skv != S
-// only without a mask; chunk: the model's effective kv chunk of Skv keys
-// (>= 1); sqrt_hd: sqrt(hd) rounded to fp32,
+// hd and vd multiples of 16 up to 256; window <= 0 means none; q_offset
+// >= 0 the absolute position of q's first row; under a mask the keys
+// cover the rows (Skv >= q_offset + S); chunk: the model's effective
+// kv chunk of Skv keys (>= 1); sqrt_hd: sqrt(hd) rounded to fp32,
 // whose fp32 reciprocal scales the scores. The caller checks the grid
 // limits (Hq, B < 65536).
 extern "C" int repro_flash_attention_blockwise(
     const void* q, const void* k, const void* v, void* out, int b, int s, int skv, int hq,
     int hkv, int hd, int vd, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh, int causal,
-    int window, int chunk, float sqrt_hd, void* stream) {
+    int window, int q_offset, int chunk, float sqrt_hd, void* stream) {
   if (b <= 0 || s <= 0 || hq <= 0) return static_cast<int>(cudaSuccess);
+  const bool masked = causal || window > 0;
   if (skv <= 0 || hkv <= 0 || hq % hkv || hd <= 0 || hd % 16 || hd > 256 || vd <= 0 ||
-      vd % 16 || vd > 256 || chunk <= 0 || (skv != s && (causal || window > 0)))
+      vd % 16 || vd > 256 || chunk <= 0 || q_offset < 0 ||
+      (masked && skv < q_offset + s))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qst{q_sb, q_ss, q_sh}, kst{k_sb, k_ss, k_sh}, vst{v_sb, v_ss, v_sh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -408,7 +420,7 @@ extern "C" int repro_flash_attention_blockwise(
 #define REPRO_FA_CASE(n)                                                                   \
   case n:                                                                                  \
     return static_cast<int>(launch<32 * n>(q, k, v, out, b, s, skv, hq, hkv, hd, vd, qst, kst, \
-                                           vst, causal, window, chunk, scale, st));
+                                           vst, causal, window, chunk, q_offset, scale, st));
   switch (((hd > vd ? hd : vd) + 31) / 32) {
     REPRO_FA_CASE(1)
     REPRO_FA_CASE(2)
@@ -419,7 +431,7 @@ extern "C" int repro_flash_attention_blockwise(
     REPRO_FA_CASE(7)
     default:
       return static_cast<int>(launch<256>(q, k, v, out, b, s, skv, hq, hkv, hd, vd, qst, kst,
-                                          vst, causal, window, chunk, scale, st));
+                                          vst, causal, window, chunk, q_offset, scale, st));
   }
 #undef REPRO_FA_CASE
 }

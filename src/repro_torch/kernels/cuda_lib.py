@@ -62,10 +62,11 @@ SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
                            _P),
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L,
-                              _L, _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _P),
+                              _L, _L, _L, _L, _L, _L, _L, _I, _I, _I, _F, _I,
+                              _P),
     "repro_flash_attention_blockwise": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                         _I, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                                        _I, _I, _I, _F, _P),
+                                        _I, _I, _I, _I, _F, _P),
 }
 
 

@@ -2,11 +2,16 @@
 
 q (B, Sq, Hq, hd), k and v (B, Skv, Hkv, hd), query head ``h`` reading kv
 head ``h // (Hq / Hkv)``. The mask is causal (key <= query) and/or a
-sliding window (query - key < ``window``); a masked call wants one length
-(Sq == Skv). A call with no mask takes keys of their own length, as the
-JAX model's ``blockwise_attention`` does: an encoder's bidirectional
+sliding window (query - key < ``window``); a masked call wants keys that
+cover its rows (Skv >= q_offset + Sq; Skv == Sq for a whole prefill). A
+call with no mask takes keys of their own length, as the JAX model's ``blockwise_attention`` does: an encoder's bidirectional
 attention, or a cross-attention's queries against an encoder's frames or
-an image's patch embeddings.
+an image's patch embeddings. ``q_offset`` makes q a slice of a longer
+query sequence: row i is absolute position ``q_offset + i``, and the masks
+compare absolute positions against keys ``0 .. Skv-1`` (a masked slice
+wants ``Skv >= q_offset + Sq``). That is one rank's share of a
+sequence-parallel prefill (``models.layers.sp_blockwise_attention``): its
+rows of the whole prefill against all of the keys. Both kernels take it.
 
 The function is the JAX package's ``flash_attention``: q, k, v upcast to
 fp32, scores times 1/sqrt(hd), masked scores -1e30, softmax in
@@ -55,10 +60,12 @@ from . import cuda_lib
 NEG_INF = -1e30
 
 
-def _check_shapes(q, k, v, causal, window, *, own_vd: bool = False):
+def _check_shapes(q, k, v, causal, window, *, own_vd: bool = False,
+                  q_offset: int = 0):
     """(B, Sq, Hq, hd) / (B, Skv, Hkv, hd) / (B, Skv, Hkv, hd) with Hq % Hkv
-    == 0, and Sq == Skv unless the call has no mask (not causal, no
-    window); with ``own_vd`` v's last dim may differ."""
+    == 0; under a mask (causal or a window) keys that cover the rows at
+    ``q_offset`` (Skv >= q_offset + Sq); with ``own_vd`` v's last dim may
+    differ."""
     vshape = tuple(v.shape[:3]) + ((k.shape[3],) if own_vd else
                                    tuple(v.shape[3:]))
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
@@ -69,28 +76,33 @@ def _check_shapes(q, k, v, causal, window, *, own_vd: bool = False):
                          f"{tuple(k.shape)} v {tuple(v.shape)} do not fit "
                          f"(B, Sq, Hq, hd) / (B, Skv, Hkv, hd) / (B, Skv, "
                          f"Hkv, {vd}), Hq % Hkv == 0")
-    if k.shape[1] != q.shape[1] and (causal or window is not None):
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
+    if (causal or window is not None) and \
+            k.shape[1] < q_offset + q.shape[1]:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k "
-                         f"{tuple(k.shape)}: keys of their own length take "
-                         f"no causal or window mask")
+                         f"{tuple(k.shape)} at q_offset {q_offset}: keys of "
+                         f"their own length take no causal or window mask "
+                         f"(a query slice at an offset takes keys covering "
+                         f"it)")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window: int | None = None
-                        ) -> torch.Tensor:
+                        causal: bool = True, window: int | None = None,
+                        q_offset: int = 0) -> torch.Tensor:
     """Plain version: masked fp32 softmax attention over the whole sequence.
-    q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd) (Skv != Sq without a mask).
-    Returns (B, Sq, Hq, hd) in q's dtype."""
-    _check_shapes(q, k, v, causal, window)
+    q: (B, Sq, Hq, hd), rows at ``q_offset``; k, v: (B, Skv, Hkv, hd)
+    (module docstring). Returns (B, Sq, Hq, hd) in q's dtype."""
+    _check_shapes(q, k, v, causal, window, q_offset=q_offset)
     sq, hq, hd = q.shape[1], q.shape[2], q.shape[3]
     skv = k.shape[1]
     group = hq // k.shape[2]
     kx = k.repeat_interleave(group, dim=2).float()
     vx = v.repeat_interleave(group, dim=2).float()
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kx) / math.sqrt(hd)
-    qp = torch.arange(sq, device=q.device)[:, None]
+    qp = q_offset + torch.arange(sq, device=q.device)[:, None]
     kp = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
     if causal:
@@ -121,17 +133,18 @@ def _check_heads(fn: str, q, k, v, *, aligned: bool = False) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int | None = None
-                    ) -> torch.Tensor:
+                    causal: bool = True, window: int | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd) with ``Hq % Hkv == 0``,
-    any Sq, Skv >= 1 (Skv == Sq under a mask), hd <= 256 on the card, each
-    with a contiguous head dim (other strides are read as they are).
-    ``window``: the sliding window, None for none. Returns (B, Sq, Hq, hd)
-    contiguous in q's dtype."""
-    _check_shapes(q, k, v, causal, window)
+    any Sq, Skv >= 1 (under a mask Skv >= q_offset + Sq), hd <= 256 on the card, each with a contiguous head dim
+    (other strides are read as they are). ``window``: the sliding window,
+    None for none; ``q_offset``: the absolute position of q's first row.
+    Returns (B, Sq, Hq, hd) contiguous in q's dtype."""
+    _check_shapes(q, k, v, causal, window, q_offset=q_offset)
     dev = cuda_lib.same_device(q, k, v)
     if dev.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
     if q.dtype not in (torch.float32, torch.bfloat16) \
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q {q.dtype}, k {k.dtype}, v "
@@ -149,7 +162,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rc = cuda_lib.library().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, skv,
         hq, hkv, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        int(causal), window or 0, 1.0 / math.sqrt(hd),
+        int(causal), window or 0, q_offset, 1.0 / math.sqrt(hd),
         int(q.dtype == torch.bfloat16), cuda_lib.stream(q))
     cuda_lib.check(rc, "flash_attention")
     flash_attention.launches += 1
@@ -238,23 +251,24 @@ def blockwise_attention_ref(q, k, v, *, causal: bool,
 
 def flash_attention_blockwise(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = True,
-                              window: int | None = None, kv_chunk: int = 512
-                              ) -> torch.Tensor:
+                              window: int | None = None, kv_chunk: int = 512,
+                              q_offset: int = 0) -> torch.Tensor:
     """The model's attention (module docstring): q (B, Sq, Hq, hd), k (B,
     Skv, Hkv, hd), v (B, Skv, Hkv, vd), with ``Hq % Hkv == 0``, any Sq, Skv
-    >= 1 (Skv == Sq under a mask). On the card: bf16, hd and vd multiples
-    of 16 up to 256, a contiguous head dim and rows on 16 bytes (other
-    strides are read as they are). ``window``: the sliding window, None for
-    none; ``kv_chunk``: the model's ``cfg.kv_chunk``, resolved against Skv
-    (``effective_kv_chunk``). Returns (B, Sq, Hq, vd) contiguous in q's
-    dtype."""
-    _check_shapes(q, k, v, causal, window, own_vd=True)
+    >= 1 (under a mask Skv >= q_offset + Sq).
+    On the card: bf16, hd and vd multiples of 16 up to 256, a contiguous
+    head dim and rows on 16 bytes (other strides are read as they are).
+    ``window``: the sliding window, None for none; ``kv_chunk``: the
+    model's ``cfg.kv_chunk``, resolved against Skv (``effective_kv_chunk``);
+    ``q_offset``: the absolute position of q's first row. Returns (B, Sq,
+    Hq, vd) contiguous in q's dtype."""
+    _check_shapes(q, k, v, causal, window, own_vd=True, q_offset=q_offset)
     if kv_chunk < 1:
         raise ValueError(f"flash_attention_blockwise: kv_chunk {kv_chunk} < 1")
     dev = cuda_lib.same_device(q, k, v)
     if dev.type == "cpu":
         return blockwise_attention_ref(q, k, v, causal=causal, window=window,
-                                       kv_chunk=kv_chunk)
+                                       kv_chunk=kv_chunk, q_offset=q_offset)
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention_blockwise: q {q.dtype}, k "
                         f"{k.dtype}, v {v.dtype} must all be bfloat16")
@@ -273,7 +287,7 @@ def flash_attention_blockwise(q: torch.Tensor, k: torch.Tensor,
     rc = cuda_lib.library().repro_flash_attention_blockwise(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, skv,
         hq, k.shape[2], hd, vd, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], int(causal), window or 0,
+        *v.stride()[:3], int(causal), window or 0, q_offset,
         effective_kv_chunk(skv, kv_chunk), math.sqrt(hd), cuda_lib.stream(q))
     cuda_lib.check(rc, "flash_attention_blockwise")
     flash_attention_blockwise.launches += 1

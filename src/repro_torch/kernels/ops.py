@@ -27,7 +27,8 @@ precision ran) with the int8 projections' operand quantizers
 (``dct_project``'s ``quant_rows_q8`` and ``quant_cols_q8t``,
 ``colgather_matmul``'s ``quant_qt_q8`` and ``quant_fold_q8``),
 ``ATTENTION`` the dense attention
-kernels of the model's no-grad forward (the dense prefill:
+kernels of the model's no-grad forward (the dense prefill, and each
+rank's query slice of a sequence-parallel one at its ``q_offset``:
 ``flash_attention_blockwise`` in bf16, ``flash_attention`` in fp32),
 ``KERNELS`` all. ``launch_counts`` /
 ``reset_launch_counts`` read and zero the counters of a group (all by

@@ -1,5 +1,6 @@
-"""Model primitives: init helpers, RMS and layer norm, RoPE, blockwise (and its
-sequence-parallel entry), decode and chunk attention, SwiGLU and the GELU MLP.
+"""Model primitives: init helpers, RMS and layer norm, RoPE, blockwise
+attention and its sequence-parallel form over the mesh's ``model`` axis,
+decode and chunk attention, SwiGLU and the GELU MLP.
 
 Plain functions on tensors, mirroring ``repro/models/layers.py``. Weights are
 ``(d_in, d_out)`` matrices applied as ``x @ w`` (the JAX layout, not
@@ -13,20 +14,24 @@ product of the rounded operands runs in fp32, never rounded to bf16.
 ``blockwise_attention`` is the JAX package's chunked online softmax
 (``kernels.flash_attention.blockwise_attention_ref``). A call on CUDA
 tensors that takes no gradient (grad mode off, or no input requiring
-grad), with ``q_offset == 0`` -- the dense prefill's forward under
-``torch.inference_mode()`` -- launches a kernel when the queries and keys
-have one length, or when the call is non-causal with no window and the
-keys a length of their own (an encoder's or a cross-attention's keys):
-in bf16 ``flash_attention_blockwise``, the same function on tensor cores
-with the model's ``kv_chunk``, also with a value dim of its own (MLA's qk
-192 beside v 128); in fp32 ``flash_attention``, which equals it to within
-fp32 sums in another order (P's rounding to v's dtype is a no-op there),
-and whose contract (the TPU kernel's) wants the value dim equal to the
-head dim: an fp32 call with another value dim raises. Any other no-grad
-call on the card (a causal or windowed one with keys of another length, a
-``q_offset``) raises, naming the shapes: no kernel takes it. Every other
-call -- CPU tensors, every training forward and backward -- runs the plain
-loop: the JAX package has no backward for a kernel.
+grad) -- the dense prefill's forward under ``torch.inference_mode()`` --
+launches a kernel when its keys cover its queries under a causal or
+window mask (Skv >= q_offset + Sq: the whole prefill, or one rank's query
+slice at ``q_offset`` in a sequence-parallel prefill), or when the call
+has no mask and the keys a length of their own (an encoder's or a
+cross-attention's keys): in bf16 ``flash_attention_blockwise``, the same
+function on tensor cores with the model's ``kv_chunk``, also with a value
+dim of its own (MLA's qk 192 beside v 128); in fp32 ``flash_attention``,
+which equals it to within fp32 sums in another order (P's rounding to v's
+dtype is a no-op there), and whose contract (the TPU kernel's) wants the
+value dim equal to the head dim: an fp32 call with another value dim
+raises. A masked no-grad call on the card whose keys end before its last
+query raises, naming the shapes: no kernel takes it. Every other call --
+CPU tensors, every training forward and backward -- runs the plain loop:
+the JAX package has no backward for a kernel.
+
+``sp_blockwise_attention`` is the reference's sequence-parallel
+``shard_map`` over the mesh's ``model`` axis (its docstring).
 """
 from __future__ import annotations
 
@@ -38,6 +43,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.flash_attention import blockwise_attention_ref
 from repro_torch.kernels.ops import (flash_attention_blockwise,
                                      flash_attention_op)
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import sharding
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
@@ -132,23 +139,26 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int | None = None,
     absolute position of q[0]. Returns (B, Sq, Hq, vd)."""
     if _on_card(q) and not (torch.is_grad_enabled()
                             and any(t.requires_grad for t in (q, k, v))):
-        if q_offset or (q.shape[1] != k.shape[1]
-                        and (causal or window is not None)):
+        masked = causal or window is not None
+        if masked and k.shape[1] < q_offset + q.shape[1]:
             raise ValueError(
                 f"blockwise_attention: no kernel takes a prefill on the card "
                 f"with q {tuple(q.shape)}, k {tuple(k.shape)}, causal="
                 f"{causal}, window={window}, q_offset={q_offset} (keys of "
-                f"their own length only without a mask or an offset)")
+                f"their own length only without a mask; a query slice at "
+                f"an offset against keys covering it)")
         if q.dtype == torch.bfloat16:
             return flash_attention_blockwise(q, k, v, causal=causal,
-                                             window=window, kv_chunk=kv_chunk)
+                                             window=window, kv_chunk=kv_chunk,
+                                             q_offset=q_offset)
         if v.shape[-1] != q.shape[-1]:
             raise ValueError(
                 f"blockwise_attention: a {q.dtype} prefill on the card with "
                 f"value dim {v.shape[-1]} != head dim {q.shape[-1]} has no "
                 f"kernel (flash_attention takes v of k's shape); run the "
                 f"model in bfloat16")
-        return flash_attention_op(q, k, v, causal=causal, window=window)
+        return flash_attention_op(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset)
     return blockwise_attention_ref(q, k, v, causal=causal, window=window,
                                    q_chunk=q_chunk, kv_chunk=kv_chunk,
                                    q_offset=q_offset)
@@ -156,15 +166,56 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int | None = None,
 
 def sp_blockwise_attention(q, k, v, *, causal: bool, window=None,
                            q_chunk: int = 512, kv_chunk: int = 512):
-    """Sequence-parallel attention (``cfg.attn_sp``), on one device.
+    """Sequence-parallel attention (``cfg.attn_sp``): the reference's
+    ``shard_map`` over the mesh's ``model`` axis.
 
-    The JAX package shards the query sequence over the mesh's ``model`` axis
-    inside a ``shard_map`` and runs ``blockwise_attention`` on each slice;
-    with no mesh it runs plain ``blockwise_attention`` with no ``q_offset``.
-    This package has no mesh yet (``parallel/`` is not ported), so this is
-    that call, through the same route to the prefill's kernels."""
-    return blockwise_attention(q, k, v, causal=causal, window=window,
-                               q_chunk=q_chunk, kv_chunk=kv_chunk)
+    On a mesh with a ``model`` axis of tp ranks, when S % tp == 0 and S/tp
+    >= 64, rank i attends its query rows ``[i S/tp, (i+1) S/tp)`` with
+    ``q_offset = i S/tp`` and ``q_chunk = min(q_chunk, S/tp)`` against the
+    whole K/V (keys of their own length too: a cross-attention's), through
+    ``blockwise_attention`` (on the card without grad: a prefill kernel at
+    that offset), and the slices are all-gathered over ``model`` in shard
+    order, so the output is whole on every rank. Backward: dq stays on its
+    slice (all-gathered to the whole q's gradient), dk / dv are summed over
+    ``model`` (``parallel.collectives``).
+
+    The reference's third condition, B % dp == 0, reads the global batch:
+    where the step cut the batch over the data axes
+    (``sharding.batch_cut_axes``) it holds, and each rank's rows are its
+    data shard's; where every rank holds the whole batch this call cuts it
+    over the data axes too when it divides, and gathers the rows back.
+    Where the batch is cut over ``model`` as well (the ``pure_dp`` layout)
+    each rank's rows are already its share: it attends all of their
+    queries, the same function on as many rows as the reference's slice.
+    Otherwise (no mesh, no ``model`` axis, sizes that do not divide) this
+    is plain ``blockwise_attention``, as in the reference. The
+    parameters are still gathered whole for a step: the projections run
+    whole on every rank (``train.steps``)."""
+    mesh = sharding.active_mesh()
+    tp = sharding.tp_axis(mesh)
+    plain = dict(causal=causal, window=window, q_chunk=q_chunk,
+                 kv_chunk=kv_chunk)
+    if mesh is None or tp is None:
+        return blockwise_attention(q, k, v, **plain)
+    b, s = q.shape[:2]
+    tp_n = mesh.shape[tp]
+    dp = sharding.dp_axes(mesh)
+    cut = tuple(a for a in sharding.batch_cut_axes() if mesh.shape[a] > 1)
+    dp_n = mesh.size(dp) if dp else 1
+    cut_here = not cut and dp_n > 1
+    if s % tp_n or s // tp_n < 64 or (cut_here and b % dp_n) \
+            or tp in cut:
+        return blockwise_attention(q, k, v, **plain)
+    s_loc = s // tp_n
+    if cut_here:
+        q, k, v = (C.cut(t, 0, dp) for t in (q, k, v))
+    k, v = C.replicated(k, (tp,)), C.replicated(v, (tp,))
+    out = blockwise_attention(C.cut(q, 1, (tp,)), k, v, causal=causal,
+                              window=window, q_chunk=min(q_chunk, s_loc),
+                              kv_chunk=kv_chunk,
+                              q_offset=mesh.shard_index((tp,)) * s_loc)
+    out = C.gather(out, 1, (tp,))
+    return C.gather(out, 0, dp) if cut_here else out
 
 
 def matmul(x, w):

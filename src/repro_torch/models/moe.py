@@ -1,4 +1,5 @@
-"""Mixture-of-Experts FFN (``repro/models/moe.py``) on one device.
+"""Mixture-of-Experts FFN (``repro/models/moe.py``), on one device or
+expert-parallel over the active mesh.
 
 Every token is routed by an fp32 router (softmax over the experts, top-k,
 gate weights renormalised), dispatched into a capacity-bounded ``(E, C, d)``
@@ -8,10 +9,31 @@ combined back by its gate weights; the shared experts' SwiGLU is added on
 top. ``moe_ffn`` returns the output and the load-balance loss ``E * sum(me
 * ce)`` times ``cfg.router_aux_weight``.
 
-The reference runs the same body expert-parallel over its mesh's ``model``
-axis (``shard_map``, each device keeping its local expert shard, a psum
-combine). This package has no mesh yet (``parallel/`` is not ported), so
-``moe_ffn`` runs the body with ``tp_size=1``: every expert on this device.
+On a mesh ``moe_ffn`` computes the reference's function of the global
+batch, whatever block of it this rank holds (``sharding.batch_cut_axes``):
+
+* without a ``model`` axis the reference routes the global batch as one
+  (its ``_local_moe`` under jit): ``_local_moe`` with ``dp_cut`` routes
+  this rank's rows with the global token count and capacity, each pair's
+  position inside its expert offset by the pairs of the lower data ranks
+  (one all-gather of the (E,) counts), and the global ``me`` / ``ce`` (one
+  all-reduce of the router's column sums), so a pair is kept exactly when
+  the reference keeps it;
+* with a ``model`` axis (its ``shard_map``): each rank runs ``_local_moe``
+  on its E/tp experts, cut from the whole expert leaves, and the partial
+  outputs are summed over ``model``; the batch is cut over the data axes
+  when the global batch divides (``batch_sharded``: each data shard routes
+  its own rows, the aux averaged over the data axes), else the tokens are
+  replicated; under ``decode_tp`` the tokens are replicated and each
+  expert's hidden dim is cut over the data axes as well, the f-partials
+  summed there too. The shared experts run whole on every rank.
+
+The backward pairs each collective with its transpose
+(``parallel.collectives``): every rank ends with the whole gradient of
+every parameter, the expert leaves' gathered whole, equal on all
+``model`` ranks; the train step then averages over the axes it cut the
+batch over. The parameters are still gathered whole for a step
+(``train.steps``): the expert cut saves no memory yet.
 
 Parameters are the flat leaves of a block's ``moe/`` subtree, keyed as
 the reference's: ``router/kernel`` (d, E) (kept in fp32 at init; the
@@ -36,6 +58,9 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import sharding
 
 from .layers import dense_init, swiglu
 
@@ -92,47 +117,77 @@ def top_k(probs: torch.Tensor, k: int):
 
 
 def _local_moe(x, router_w, wg, wu, wd, *, cfg, tp_index: int = 0,
-               tp_size: int = 1):
-    """The MoE body on the experts ``wg`` / ``wu`` / ``wd`` of this device
-    (all of them: this package runs ``tp_size=1``). x: (B, S, d). Returns
-    ``(out (B, S, d) in x's dtype, aux)``, aux the unweighted load-balance
-    loss."""
+               tp_size: int = 1, dp_cut: tuple = (), spread: tuple = ()):
+    """The MoE body on the experts ``wg`` / ``wu`` / ``wd`` held here: the
+    ``tp_index``-th of ``tp_size`` blocks of E/tp experts (all of them at
+    ``tp_size=1``). x: (B, S, d). Returns ``(out (B, S, d) in x's dtype,
+    aux)``, aux the unweighted load-balance loss; with ``tp_size > 1`` out
+    is this block's part of the output, to be summed over the blocks.
+
+    ``dp_cut``: the mesh axes x is this rank's block of the batch over
+    (rows in shard order): the pairs are routed as those of the whole
+    batch (module docstring). ``spread``: the mesh axes over which other
+    ranks run other experts (or other slices of their hidden dim) on the
+    same tokens: the gates and the dispatched rows enter replicated over
+    them (``collectives.replicated``: their gradients summed), while the
+    aux, which every such rank computes whole, does not."""
     b, s, d = x.shape
     e_loc = wg.shape[0]
     e = e_loc * tp_size
     k = cfg.moe_top_k
-    t = b * s
+    t_loc = b * s
+    mesh = sharding.active_mesh()
+    t = t_loc * (mesh.size(dp_cut) if dp_cut else 1)
 
-    xf = x.reshape(t, d)
+    xf = x.reshape(t_loc, d)
     logits = xf.float() @ router_w.float()                        # (T, E)
     probs = torch.softmax(logits, dim=-1)
-    gate_w, gate_e = top_k(probs, k)                              # (T, k)
+    gprobs = C.replicated(probs, spread) if spread else probs
+    gate_w, gate_e = top_k(gprobs, k)                             # (T, k)
     gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
 
     # the load-balance loss: mean router probability times the share of
-    # the T k routed pairs, per expert
-    me = probs.mean(dim=0)
+    # the T k routed pairs, per expert (over the whole batch with dp_cut:
+    # the counts of every data rank, the router's column sums all-reduced)
     flat_e = gate_e.reshape(-1)                                   # (T k,)
-    ce = torch.bincount(flat_e, minlength=e).float() / (t * k)
+    counts = torch.bincount(flat_e, minlength=e)
+    prefix = None
+    if dp_cut:
+        parts = mesh.all_gather(counts, dp_cut)
+        prefix = sum(parts[:mesh.shard_index(dp_cut)],
+                     torch.zeros_like(counts))
+        counts = sum(parts[1:], parts[0])
+        me = C.all_reduce(probs.sum(dim=0), dp_cut, grad="same") / t
+    else:
+        me = probs.mean(dim=0)
+    ce = counts.float() / (t * k)
     aux = e * torch.sum(me * ce)
 
     # capacity-bounded dispatch in token-major (T k) slot order; the
     # position of a pair inside its expert: the one-hot's running count,
     # laid out (E, T k) so the scan runs along the inner axis (along the
-    # outer axis of (T k, E), CUDA scans each of the E columns alone)
+    # outer axis of (T k, E), CUDA scans each of the E columns alone), plus
+    # the lower data ranks' pairs with dp_cut; this rank's kept pairs fill
+    # the buffer's first slots of each expert in that order
     cap = capacity(t, cfg)
     first = tp_index * e_loc
     local = (flat_e >= first) & (flat_e < first + e_loc)
     leid = torch.where(local, flat_e - first, e_loc)              # drop
     onehot = F.one_hot(leid, e_loc + 1)[:, :e_loc].T.contiguous()  # (E, T k)
     pos = ((torch.cumsum(onehot, dim=1) - 1) * onehot).sum(dim=0)
-    keep = local & (pos < cap)
+    if prefix is None:
+        keep = local & (pos < cap)
+    else:
+        before = torch.cat([prefix[first:first + e_loc],
+                            prefix.new_zeros(1)])[leid]
+        keep = local & (pos + before < cap)
     slot = torch.where(keep, leid * cap + pos, e_loc * cap)       # overflow
 
     # each token's row once per slot (an expand: its backward sums the k
     # slots in order); each kept pair writes its own row of the buffer, the
     # dropped ones the overflow row, cut off after
-    rows = xf[:, None, :].expand(t, k, d).reshape(t * k, d)
+    xr = C.replicated(xf, spread) if spread else xf
+    rows = xr[:, None, :].expand(t_loc, k, d).reshape(t_loc * k, d)
     buf = xf.new_zeros((e_loc * cap + 1, d)).index_put((slot,), rows)
     buf = buf[:-1].reshape(e_loc, cap, d)
 
@@ -142,20 +197,94 @@ def _local_moe(x, router_w, wg, wu, wd, *, cfg, tp_index: int = 0,
     out_buf = torch.cat([out_buf, out_buf.new_zeros((1, d))])
 
     contrib = out_buf[slot] * gate_w.reshape(-1)[:, None].to(out_buf.dtype)
-    contrib = torch.where(keep[:, None], contrib, 0).reshape(t, k, d)
+    contrib = torch.where(keep[:, None], contrib, 0).reshape(t_loc, k, d)
     # the combine: the k slots of each token added in order, in x's dtype
-    out = x.new_zeros((t, d))
+    out = x.new_zeros((t_loc, d))
     for j in range(k):
         out = out + contrib[:, j].to(x.dtype)
     return out.reshape(b, s, d), aux
 
 
+def _expert_parallel(p: dict, x, cfg, mesh, tp: str, cut_axes: tuple):
+    """The reference's ``shard_map`` body over ``model`` (module
+    docstring) on this rank's activations ``x``, cut over ``cut_axes``
+    (() or the data axes). Returns (out, aux) for x's rows."""
+    dp = sharding.dp_axes(mesh)
+    decode_tp = sharding.layout_policy() == "decode_tp"
+    if cut_axes and (decode_tp or set(cut_axes) != {
+            a for a in dp if mesh.shape[a] > 1}):
+        raise ValueError(
+            f"moe_ffn: the batch is cut over {cut_axes} on the mesh "
+            f"{mesh.shape} under the {sharding.layout_policy()!r} layout, "
+            f"where the reference routes the tokens of "
+            f"{'every rank (decode_tp)' if decode_tp else 'each data shard'}"
+            f"; gathering them across ranks is not ported (run the step "
+            f"under 'fsdp_tp')")
+    n_dp = mesh.size(dp) if dp else 1
+    # the reference's rule on the global batch: cut over the data axes
+    # where it divides, tokens replicated under decode_tp
+    b_global = x.shape[0] * (n_dp if cut_axes else 1)
+    batch_sharded = bool(dp) and b_global % n_dp == 0 and not decode_tp
+    # the whole batch on every rank, cut here: the data ranks then hold
+    # equal losses, not shares, and each needs the whole gradient
+    cut_here = batch_sharded and not cut_axes
+    router = p["router/kernel"]
+    wg, wu, wd = p["experts/wg"], p["experts/wu"], p["experts/wd"]
+    if cut_here:
+        x = C.cut(x, 0, dp)
+        router, wg, wu, wd = (C.replicated(w, dp)
+                              for w in (router, wg, wu, wd))
+    wg, wu, wd = (C.cut(w, 0, (tp,)) for w in (wg, wu, wd))
+    spread = (tp,)
+    if decode_tp and dp:
+        # the experts' hidden dim over the data axes: wg / wu column-,
+        # wd row-parallel; the f-partials summed there too
+        wg, wu = C.cut(wg, 2, dp), C.cut(wu, 2, dp)
+        wd = C.cut(wd, 1, dp)
+        spread = (tp, *dp)
+    tp_size = mesh.shape[tp]
+    out, aux = _local_moe(x, router, wg, wu, wd, cfg=cfg,
+                          tp_index=mesh.shard_index((tp,)), tp_size=tp_size,
+                          spread=spread)
+    out = C.all_reduce(out, spread)
+    # every model rank computes the same aux: their mean, the cotangent
+    # handed to each whole
+    aux = C.all_reduce(aux, (tp,), mean=True)
+    if batch_sharded:
+        # the global load-balance loss: the data shards' mean; a share of
+        # the step's loss where the step cut the batch, else each data
+        # rank's router gradient sums the shards' (replicated above)
+        aux = C.all_reduce(aux, dp, mean=True,
+                           grad="scale" if cut_here else "same")
+    if cut_here:
+        out = C.gather(out, 0, dp)
+    return out, aux
+
+
 def moe_ffn(p: dict, x: torch.Tensor, cfg):
     """(B, S, d) -> ((B, S, d), aux-loss scalar times
     ``cfg.router_aux_weight``). ``p``: the block's ``moe/`` leaves (module
-    docstring), in the compute dtype or the stored one."""
-    out, aux = _local_moe(x, p["router/kernel"], p["experts/wg"],
-                          p["experts/wu"], p["experts/wd"], cfg=cfg)
+    docstring), whole, in the compute dtype or the stored one; x: this
+    rank's activations (``sharding.batch_cut_axes`` says which block of the
+    global batch they are)."""
+    mesh = sharding.active_mesh()
+    tp = sharding.tp_axis(mesh)
+    cut_axes = tuple(a for a in sharding.batch_cut_axes()
+                     if mesh is not None and mesh.shape.get(a, 1) > 1)
+    if mesh is not None and tp is not None:
+        if tp in cut_axes:
+            raise ValueError(
+                f"moe_ffn: the batch is cut over {cut_axes}, the model axis "
+                f"among them (the 'pure_dp' layout), where the reference "
+                f"routes each data shard's tokens expert-parallel over "
+                f"'model'; gathering the tokens over 'model' is not ported "
+                f"(run the step under 'fsdp_tp')")
+        out, aux = _expert_parallel(p, x, cfg, mesh, tp, cut_axes)
+    else:
+        # no model axis: the reference routes the global batch as one
+        out, aux = _local_moe(x, p["router/kernel"], p["experts/wg"],
+                              p["experts/wu"], p["experts/wd"], cfg=cfg,
+                              dp_cut=cut_axes)
     if "shared/wg" in p:
         out = out + swiglu(x, p["shared/wg"], p["shared/wu"], p["shared/wd"])
     return out, aux * cfg.router_aux_weight

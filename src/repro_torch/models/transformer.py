@@ -16,8 +16,9 @@ Every family (``PORTED_FAMILIES``) and block kind (``PORTED_KINDS``) of the
 JAX package: ``attn`` and ``local`` (sliding window of
 ``cfg.sliding_window``), with optional qk-norm, optional qkv bias
 (``attn/w{q,k,v}/bias``, added after each projection's product) and
-``attn_sp`` (``layers.sp_blockwise_attention``, plain blockwise attention
-on one device); ``attn_moe`` (GQA attention and the MoE FFN of
+``attn_sp`` (``layers.sp_blockwise_attention``: on a mesh with a
+``model`` axis each rank attends its slice of the queries, plain
+blockwise attention otherwise); ``attn_moe`` (GQA attention and the MoE FFN of
 ``models/moe.py``: its leaves under ``moe/``); ``mla_dense`` and ``mla_moe``
 (DeepSeek's multi-head latent attention, ``MLA_KINDS``: the queries and the
 keys / values through low-rank latents, a shared roped key part, a query /
@@ -52,9 +53,16 @@ path (``init_paged_pools``, ``init_prefill_scratch``, ``prefill_chunk``,
 ``write_prefill_to_pools``, ``decode_step_paged``; ``PAGED_KINDS``: not
 MLA, no recurrent block and no encoder-decoder or cross-attention, as in
 the JAX package), whose attention is the ``flash_decode`` kernel. The MoE
-blocks sum their load-balance losses into ``aux["moe_aux"]``. Not yet
-ported: the mesh of sequence-parallel attention and of expert
-parallelism.
+blocks sum their load-balance losses into ``aux["moe_aux"]``.
+
+On an active mesh (``parallel.sharding.set_mesh``) the two mesh bodies of
+the reference run over ``model``: ``attn_sp`` attention as query slices
+(``layers.sp_blockwise_attention``) and the MoE FFN expert-parallel
+(``moe.moe_ffn``, which also routes the whole batch as one where the batch
+is cut over the data axes without a ``model`` axis). Everything else runs
+whole on every rank, from parameters the train step gathers whole; the
+per-layer weight gathers and Megatron column / row compute that GSPMD
+derives from the reference's placements are not ported (ROADMAP 6d).
 
 As in the JAX package, an fp32 leaf beside bf16 activations widens what
 follows it: whisper's fp32 biases make its attention and MLPs run in fp32
@@ -75,6 +83,7 @@ return them.
 """
 from __future__ import annotations
 
+import contextvars
 import math
 
 import numpy as np
@@ -541,17 +550,27 @@ def _unstacked(p: dict, pre: str, repeats: int):
 
 def _layers(p: dict, cfg):
     """Yield ``(segment prefix, block kind, layer index, that layer's
-    parameter views)`` in schedule order."""
-    for pre, kind, repeats in _kv_keys(cfg):
-        for layer, lp in enumerate(_unstacked(p, pre, repeats)):
-            yield pre, kind, layer, lp
+    parameter views)`` in schedule order: each segment's pattern once per
+    repeat, its positions in turn (the reference's scan over the repeats
+    of a segment, whose body applies ``p0``, ``p1``, ...)."""
+    for i, (pattern, repeats) in enumerate(cfg.schedule):
+        pres = [f"segments/{i}/p{j}/" for j in range(len(pattern))]
+        views = [list(_unstacked(p, pre, repeats)) for pre in pres]
+        for layer in range(repeats):
+            for pre, kind, lps in zip(pres, pattern, views):
+                yield pre, kind, layer, lps[layer]
 
 
 def _remat(fn, cfg, *args):
     """``fn(*args)``, recomputed in the backward pass under ``cfg.remat``
-    (``torch.utils.checkpoint``) when the call takes a gradient."""
+    (``torch.utils.checkpoint``) when the call takes a gradient. The
+    recomputation runs in the forward's context variables (the active mesh,
+    policy and batch cut of ``parallel.sharding``): the backward of CUDA
+    tensors runs on autograd's device thread, which has its own."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        ctx = contextvars.copy_context()
+        return checkpoint(lambda *a: ctx.run(fn, *a), *args,
+                          use_reentrant=False)
     return fn(*args)
 
 

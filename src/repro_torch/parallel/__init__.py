@@ -1,3 +1,4 @@
 """Data parallelism and ZeRO-1 over ``torch.distributed``: the active mesh
-and the placements of state and batches (``sharding``), and the
-partitioned optimizer update (``zero``)."""
+and the placements of state and batches (``sharding``), the partitioned
+optimizer update (``zero``), and the collectives with their backward that
+the models' mesh bodies run (``collectives``)."""

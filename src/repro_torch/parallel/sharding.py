@@ -26,9 +26,13 @@ blocks between steps. A train step all-gathers each split parameter once
 at its start and runs forward, backward and the optimizer update on the
 whole parameters (``train.steps``), so the whole parameters exist on every
 rank for the length of a step: the resident bytes between steps fall, the
-peak does not. Gathering each layer's weights only while it runs, and
-Megatron column / row-parallel compute, are mesh paths of the models that
-this module does not give.
+peak does not. The models' two mesh bodies run over ``model`` inside the
+step (expert-parallel MoE, sequence-parallel attention: ``models.moe``,
+``models.layers``, their collectives in ``parallel.collectives``), reading
+which block of the global batch the activations are (:func:`batch_cut`).
+Gathering each layer's weights only while it runs, and Megatron column /
+row-parallel compute, are mesh paths of the models that this module does
+not give (what GSPMD derives from the reference's placements).
 
 A :class:`Placement` stands where the reference has a ``PartitionSpec``:
 one entry per dim, None (whole) or the mesh axes the dim is split over,
@@ -49,8 +53,9 @@ The active mesh (``launch.mesh.Mesh``) is a context variable:
 ``with set_mesh(mesh): ...`` installs it for the thread (the reference takes
 it from ``parallel/compat.py``, which the port does not need). Without one
 every function here is an identity and the step runs as on one device.
-Activations are whole on every rank: :func:`shard` checks its logical axes
-and returns its input.
+Outside the two mesh bodies the activations are whole on every rank (their
+batch rows the step's slice): :func:`shard` checks its logical axes and
+returns its input.
 """
 from __future__ import annotations
 
@@ -90,6 +95,8 @@ _POLICY: contextvars.ContextVar[ShardingPolicy] = contextvars.ContextVar(
     "repro_torch_sharding_policy", default=ShardingPolicy())
 _MESH: contextvars.ContextVar[Any] = contextvars.ContextVar(
     "repro_torch_active_mesh", default=None)
+_BATCH_CUT: contextvars.ContextVar[tuple] = contextvars.ContextVar(
+    "repro_torch_batch_cut", default=())
 
 
 def current_policy() -> ShardingPolicy:
@@ -138,6 +145,27 @@ def get_active_mesh():
 
 def active_mesh():
     return get_active_mesh()
+
+
+@contextlib.contextmanager
+def batch_cut(axes):
+    """Declare, for a ``with`` block, that the activations are this rank's
+    block of the global batch cut over ``axes`` (the train step's cut,
+    :func:`batch_specs_tree`); outside one, every rank holds the whole
+    batch. The models' mesh bodies read it (:func:`batch_cut_axes`) to
+    route MoE tokens and cut attention queries as the reference does on
+    the global batch."""
+    token = _BATCH_CUT.set(tuple(axes))
+    try:
+        yield
+    finally:
+        _BATCH_CUT.reset(token)
+
+
+def batch_cut_axes() -> tuple[str, ...]:
+    """The axes the activations' batch is cut over (:func:`batch_cut`), ()
+    when it is whole on every rank."""
+    return _BATCH_CUT.get()
 
 
 def dp_axes(mesh=None) -> tuple[str, ...]:
@@ -538,9 +566,13 @@ def logical_to_spec(axes: tuple, mesh=None) -> Placement:
 
 def shard(x: torch.Tensor, *axes) -> torch.Tensor:
     """The reference's ``with_sharding_constraint`` by logical axes. Eager
-    PyTorch has no constraint to hand a compiler, and a step's activations
-    are whole on every rank, so this checks the names
-    (:func:`logical_to_spec`) and returns ``x``, with or without a mesh."""
+    PyTorch has no constraint to hand a compiler: outside the models' mesh
+    bodies (which cut and gather their own activations over ``model``) a
+    step's activations are whole on every rank, so this checks the names
+    (:func:`logical_to_spec`) and returns ``x``, with or without a mesh.
+    Placing activations by these names (the ``seq_parallel`` residual
+    stream, the reference's ``shard(q, "batch", None, "tp", None)``) is
+    ROADMAP 6d."""
     logical_to_spec(axes)
     return x
 

@@ -24,13 +24,22 @@ the data axes, over every axis under "pure_dp"), and averages the loss
 metrics and the gradients over those axes (one all-reduce of a flat
 buffer per dtype) before clipping, so clipping sees
 the global norm. The averaged half-batch means are the whole batch's mean
-up to rounding. The optimizer update reads the whole parameters and
+up to rounding. The forward and backward run under ``sharding.batch_cut``
+of those axes: the MoE routes the global batch's tokens as the reference
+does (``models.moe``), and the models' mesh bodies run over ``model``
+(expert-parallel MoE, sequence-parallel attention), every rank ending with
+the whole gradient. For a model that routes tokens (an MoE block) with
+``cfg.train_microbatch`` on a cut batch, each rank takes its rows of each
+global microbatch (``_cut_global_microbatches``: the reference's
+microbatches are rows of the whole batch), so a microbatch's tokens are
+routed together; a dense model keeps the contiguous cut, its microbatches
+rows of the rank's slice (the same function up to rounding). The
+optimizer update reads the whole parameters and
 gradients and this rank's state blocks (``optim.transform``); each
 update is cut to its parameter's block (``sharding.held_updates``: a
 ZeRO-1 row block is all-gathered first) and added to it. Gathering and
-cutting only copy, so every element is computed as on one process. The
-whole parameters live for the length of the step: the resident bytes
-between steps fall, the peak does not.
+cutting only copy. The whole parameters live for the length of the step:
+the resident bytes between steps fall, the peak does not.
 """
 from __future__ import annotations
 
@@ -106,6 +115,44 @@ def _clip_by_global_norm(tree: dict, max_norm: float):
 _ACCUM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def _routes_tokens(cfg) -> bool:
+    """Whether a block of ``cfg`` routes tokens across the batch (an MoE
+    FFN: its capacity, positions and load-balance loss read every token of
+    the batch it is given)."""
+    return any(k in T.MOE_KINDS for k in cfg.block_kinds())
+
+
+def _cut_global_microbatches(batch: dict, cfg, mesh, dp: tuple):
+    """This rank's rows of each global microbatch, for a model that routes
+    tokens: the reference takes microbatch i as rows ``[i R, (i+1) R)`` of
+    the whole batch (R = B / n_micro, n_micro = B // train_microbatch) and
+    cuts each over the data axes, so each microbatch's tokens are routed
+    together. Returns (the rank's rows, microbatch i at ``[i R/n, (i+1)
+    R/n)``; R/n; n_micro). Raises where a microbatch does not cut evenly:
+    the reference then routes replicated tokens, which is not ported."""
+    b = batch["tokens"].shape[0]
+    n = mesh.size(dp)
+    n_micro = max(1, b // cfg.train_microbatch)
+    rows = b // n_micro
+    if b % n_micro or rows % n:
+        raise ValueError(
+            f"train step: a batch of {b} rows in {n_micro} microbatches of "
+            f"{rows} rows (train_microbatch {cfg.train_microbatch}) does "
+            f"not cut into {n} equal blocks over {dp}; the MoE routes each "
+            f"global microbatch's tokens together, which needs microbatches "
+            f"of a multiple of {n} rows")
+    idx, per = mesh.shard_index(dp), rows // n
+
+    def take(v):
+        if not isinstance(v, torch.Tensor) or not v.dim() or v.shape[0] != b:
+            return v
+        v = v.reshape(n_micro, rows, *v.shape[1:])
+        return v[:, idx * per:(idx + 1) * per].reshape(
+            n_micro * per, *v.shape[2:])
+
+    return {k: take(v) for k, v in batch.items()}, per, n_micro
+
+
 def make_train_step(cfg, optimizer, *, grad_clip: float = 1.0,
                     accum_dtype: str = "float32", telemetry: bool = False,
                     guard: bool = False, chaos=None):
@@ -153,6 +200,7 @@ def make_train_step(cfg, optimizer, *, grad_clip: float = 1.0,
             batch, chaos_step = strip_chaos_key(batch)
         mesh = sharding.active_mesh()
         params, p_specs, dp = state.params, None, ()
+        mb = n_micro = None
         if mesh is not None:
             p_specs, whole = param_placements(mesh)
             sharding.check_blocks(params, whole, p_specs, mesh,
@@ -162,20 +210,27 @@ def make_train_step(cfg, optimizer, *, grad_clip: float = 1.0,
             # axes; every axis under "pure_dp"): the gradients average
             # over them
             b_specs = sharding.batch_specs_tree(batch)
-            batch = sharding.shard_tree(batch, b_specs)
             dp = tuple(a for _, axes, _ in b_specs["tokens"].splits(mesh)
                        for a in axes)
+            if dp and _routes_tokens(cfg) and cfg.train_microbatch:
+                batch, mb, n_micro = _cut_global_microbatches(
+                    batch, cfg, mesh, dp)
+            else:
+                batch = sharding.shard_tree(batch, b_specs)
         b = batch["tokens"].shape[0]
-        mb = cfg.train_microbatch or b
-        n_micro = max(1, b // mb)
+        if mb is None:
+            mb = cfg.train_microbatch or b
+            n_micro = max(1, b // mb)
         if n_micro == 1:
-            grads, metrics = grad_fn(params, batch, cfg)
+            with sharding.batch_cut(dp):
+                grads, metrics = grad_fn(params, batch, cfg)
             grads = {k: g.to(adt) for k, g in grads.items()}
         else:
             grads, ms = None, []
             for i in range(n_micro):
                 micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                g, m = grad_fn(params, micro, cfg)
+                with sharding.batch_cut(dp):
+                    g, m = grad_fn(params, micro, cfg)
                 part = {k: (gi / n_micro).to(adt) for k, gi in g.items()}
                 grads = part if grads is None else \
                     {k: grads[k] + part[k] for k in grads}

@@ -12,7 +12,8 @@ version, ``blockwise_attention_ref``, is held to JAX's in bf16 in
 model's ``blockwise_attention`` (by launch counter on the CPU, and with
 spies in place of the launchers: bf16 to ``flash_attention_blockwise`` with
 the model's ``kv_chunk``, fp32 to ``flash_attention``, grad calls to
-neither, a ``q_offset`` call refused) and smoke-size prefill logits over
+neither, a query slice at a ``q_offset`` to the kernel with its offset)
+and smoke-size prefill logits over
 several kv chunks against JAX's. Keys of their own length (Skv != Sq, no
 mask: an encoder's or a cross-attention's): both plain versions against
 JAX's ``blockwise_attention`` at odd lengths and lengths off a multiple of
@@ -28,7 +29,8 @@ masked first chunks and strided views at the model's bar (max |d| <= 4e-3
 max |out|, >= 99% bit-equal), both at keys of their own length (the
 cross-attention shapes of whisper-large-v3 and llama-3.2-vision-90b, cut
 in heads); relaunches bit-identical, and the route (a launch without grad,
-none under grad, a ``q_offset`` refused). JAX is
+none under grad, a slice at a ``q_offset`` launched, keys that do not
+cover it refused). JAX is
 imported inside the CPU tests only, so on a machine without JAX
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_flash_attention.py
@@ -166,8 +168,10 @@ def _spy(calls, name, plain):
 def test_model_route_by_dtype_and_grad(monkeypatch):
     """With the device test patched to say "card", the route calls the
     bf16 kernel with the model's kv_chunk and the fp32 one without, and
-    neither for a grad call; a no-grad call with q_offset, which no kernel
-    takes, raises; each result is the plain loop's."""
+    neither for a grad call; a no-grad query slice at a q_offset goes to the
+    kernel with its offset, and a masked call whose keys do not cover its
+    slice, which no kernel takes, raises; each result is the plain
+    loop's."""
     calls = []
     monkeypatch.setattr(TL, "_on_card", lambda t: True)
     monkeypatch.setattr(TL, "flash_attention_blockwise", _spy(
@@ -181,15 +185,20 @@ def test_model_route_by_dtype_and_grad(monkeypatch):
         out16 = TL.blockwise_attention(q.bfloat16(), k.bfloat16(),
                                        v.bfloat16(), **kw)
         out32 = TL.blockwise_attention(q, k, v, **kw)
+        sl16 = TL.blockwise_attention(q[:, 16:].bfloat16(), k.bfloat16(),
+                                      v.bfloat16(), q_offset=16, **kw)
         with pytest.raises(ValueError, match="no kernel"):
-            TL.blockwise_attention(q[:, 16:].bfloat16(), k.bfloat16(),
-                                   v.bfloat16(), q_offset=16, **kw)
+            TL.blockwise_attention(q[:, 16:].bfloat16(), k[:, :24].bfloat16(),
+                                   v[:, :24].bfloat16(), q_offset=16, **kw)
     TL.blockwise_attention(q.bfloat16().requires_grad_(), k.bfloat16(),
                            v.bfloat16(), **kw)
     assert calls == [
         ("blockwise", torch.bfloat16,
-         dict(causal=True, window=12, kv_chunk=16)),
-        ("flash", torch.float32, dict(causal=True, window=12))]
+         dict(causal=True, window=12, kv_chunk=16, q_offset=0)),
+        ("flash", torch.float32, dict(causal=True, window=12, q_offset=0)),
+        ("blockwise", torch.bfloat16,
+         dict(causal=True, window=12, kv_chunk=16, q_offset=16))]
+    assert torch.equal(sl16, out16[:, 16:])
     assert torch.equal(out16, fa.blockwise_attention_ref(
         q.bfloat16(), k.bfloat16(), v.bfloat16(), **kw))
     torch.testing.assert_close(out32, fa.blockwise_attention_ref(
@@ -298,9 +307,10 @@ def test_plain_versions_take_keys_of_their_own_length(b, sq, skv, hq, hkv, hd,
 
 def test_masked_call_with_keys_of_another_length_is_refused(monkeypatch):
     """Both wrappers refuse a causal or windowed call whose keys have
-    another length, and so does the route on the card (spies in place of
-    the launchers: none is called)."""
-    q, k = torch.zeros(1, 8, 4, 16), torch.zeros(1, 12, 2, 16)
+    another length and do not cover its rows (fewer keys than queries:
+    longer keys are a query slice at offset 0), and so does the route on
+    the card (spies in place of the launchers: none is called)."""
+    q, k = torch.zeros(1, 12, 4, 16), torch.zeros(1, 8, 2, 16)
     for kw in (dict(causal=True), dict(causal=False, window=4)):
         with pytest.raises(ValueError, match="keys of their own length"):
             fa.flash_attention(q, k, k, **kw)
@@ -340,8 +350,8 @@ def test_model_route_sends_cross_attention_to_the_kernels(monkeypatch):
     TL.blockwise_attention(q.requires_grad_(), k, v, **kw)
     assert calls == [
         ("blockwise", torch.bfloat16,
-         dict(causal=False, window=None, kv_chunk=64)),
-        ("flash", torch.float32, dict(causal=False, window=None))]
+         dict(causal=False, window=None, kv_chunk=64, q_offset=0)),
+        ("flash", torch.float32, dict(causal=False, window=None, q_offset=0))]
     assert out16.shape == (2, 21, 4, 32)
     assert torch.equal(out16, fa.blockwise_attention_ref(
         q.detach().bfloat16(), k.bfloat16(), v.bfloat16(), **kw))
@@ -460,8 +470,9 @@ def test_cuda_kernel_reads_strided_views(cuda):
 @pytest.mark.cuda
 def test_cuda_route_launches_only_without_grad(cuda):
     """The model's attention launches the kernel for a no-grad call with
-    q_offset 0 and Sq == Skv, runs the chunked loop under grad, and refuses
-    a no-grad call with a q_offset."""
+    q_offset 0 and Sq == Skv and for a query slice at a q_offset against
+    keys covering it, runs the chunked loop under grad, and refuses a
+    masked no-grad call whose keys do not cover its slice."""
     q, k, v = (torch.from_numpy(a).to(cuda)
                for a in _inputs(1, 64, 4, 2, 32, "float32", seed=3))
     ops.reset_launch_counts(ops.ATTENTION)
@@ -471,12 +482,16 @@ def test_cuda_route_launches_only_without_grad(cuda):
     assert fa.flash_attention.launches == 1
     b = TL.blockwise_attention(q.clone().requires_grad_(), k, v, causal=True,
                                window=16, q_chunk=16, kv_chunk=16)
+    with torch.inference_mode():
+        c = TL.blockwise_attention(q[:, 32:], k, v, causal=True, window=16,
+                                   q_offset=32, q_chunk=16, kv_chunk=16)
     with torch.inference_mode(), pytest.raises(ValueError, match="no kernel"):
-        TL.blockwise_attention(q[:, 32:], k, v, causal=True, q_offset=32,
-                               q_chunk=16, kv_chunk=16)
+        TL.blockwise_attention(q[:, 32:], k[:, :48], v[:, :48], causal=True,
+                               q_offset=32, q_chunk=16, kv_chunk=16)
     torch.cuda.synchronize()
-    assert fa.flash_attention.launches == 1
+    assert fa.flash_attention.launches == 2
     torch.testing.assert_close(a, b.detach(), atol=3e-5, rtol=0)
+    torch.testing.assert_close(c, b.detach()[:, 32:], atol=3e-5, rtol=0)
 
 
 # (b, s, hq, hkv, hd, causal, window, kv_chunk) in bf16: the model's head

@@ -226,7 +226,8 @@ def test_prefill_route_sends_each_attention_layer_to_a_kernel(model,
     in place of the launchers: 5 calls of the blockwise kernel, 4 causal
     self-attentions (SEQ keys) and the cross-attention (8 image tokens, no
     mask), each with the model's kv_chunk (the wrapper resolves it against
-    the keys' length); the last logits equal the plain route's."""
+    the keys' length) and q_offset 0; the last logits equal the plain
+    route's."""
     cfg = dataclasses.replace(CFG, **BF16)
     _, tp = model
     calls = []
@@ -242,8 +243,10 @@ def test_prefill_route_sends_each_attention_layer_to_a_kernel(model,
     b = E.to_torch(E.batch(JCFG, 2, SEQ))
     with torch.inference_mode():
         last, cache, _ = TT.prefill(tp, b, cfg, max_len=SEQ)
-    self_kw = dict(causal=True, window=None, kv_chunk=cfg.kv_chunk)
-    cross_kw = dict(causal=False, window=None, kv_chunk=cfg.kv_chunk)
+    self_kw = dict(causal=True, window=None, kv_chunk=cfg.kv_chunk,
+                   q_offset=0)
+    cross_kw = dict(causal=False, window=None, kv_chunk=cfg.kv_chunk,
+                    q_offset=0)
     assert calls == [(torch.bfloat16, SEQ, SEQ, self_kw)] * 4 + \
         [(torch.bfloat16, SEQ, 8, cross_kw)]
     assert cache["segments/0/p4/xk"].shape == (1, 2, 8, 2, 32)

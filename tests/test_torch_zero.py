@@ -46,7 +46,7 @@ from repro_torch.parallel import sharding, zero
 from repro_torch.telemetry.stats import collect
 from repro_torch.train.checkpoint import CheckpointManager
 
-WORLDS = {2: ((2,), ("data",)), 4: ((2, 2), ("pod", "data"))}
+WORLDS = zr.WORLDS
 
 
 def _close(got, want, rtol=1e-4, msg=""):
@@ -305,13 +305,15 @@ CLI_STEPS = 2
 
 
 @pytest.fixture(scope="module")
-def worlds():
-    """Both worlds' results, the port's replicated runs and JAX's, and the
-    training CLI under torchrun at 2 ranks (``--standalone``: its
-    rendezvous port is the system's pick), all started at once."""
-    tmp = tempfile.mkdtemp(prefix="zero_worlds_")
-    procs = {w: zr.spawn(w, shape, axes, os.path.join(tmp, f"w{w}"))
-             for w, (shape, axes) in WORLDS.items()}
+def worlds(tmp_path_factory):
+    """Both worlds' results (spawned once a run, shared with
+    ``test_torch_mesh_models.py``: ``zr.start_worlds``), the port's
+    replicated runs and JAX's, and the training CLI under torchrun at 2
+    ranks (``--standalone``: its rendezvous port is the system's pick), all
+    started at once."""
+    root = zr.worlds_root(tmp_path_factory)
+    procs = zr.start_worlds(root)
+    tmp = tempfile.mkdtemp(prefix="zero_cli_")
     cli = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
@@ -334,17 +336,16 @@ def worlds():
                 jparams)
         ref["train"] = zr.train_run(None)
         ref["mesh"] = _mesh_references()
-        out = {w: zr.join(p, os.path.join(tmp, f"w{w}"))
-               for w, p in procs.items()}
+        out = zr.world_results(root, procs)
         out["cli"] = (*cli.communicate(timeout=300), cli.returncode)
     finally:
-        for p in (p for ps in procs.values() for p in ps):
+        for p in (p for ps in (procs or {}).values() for p in ps):
             if p.is_alive():
                 p.kill()
         if cli.poll() is None:
             cli.kill()
     out["ref"] = ref
-    out["ckpt"] = os.path.join(tmp, "ckpt")
+    out["ckpt"] = os.path.join(root, "ckpt")
     out["cli_ckpt"] = os.path.join(tmp, "cli_ckpt")
     return out
 
@@ -456,14 +457,23 @@ def test_pure_dp_matches_fsdp_tp(worlds, shape, zero_mode):
 @pytest.mark.parametrize("shape", MESH_SHAPES, ids=zr.mesh_key)
 def test_decode_tp_logits(worlds, shape, arch):
     """Parameters placed under ``decode_tp`` (every matrix over all the
-    mesh axes) and under ``fsdp_tp``, gathered: ``decode_step``'s logits
-    equal each other and one process's, bit for bit; each rank holds a
-    share of the bytes."""
+    mesh axes) and under ``fsdp_tp``, gathered, and ``decode_step`` run
+    under the layout: the logits equal one process's bit for bit, except
+    where ``decode_tp`` cuts the MoE experts' hidden dim over a data axis
+    of 2 and sums the f-partials (the reference's bar there, ``tests/
+    test_multidevice.py``: atol 2e-5, rtol 1e-4); each rank holds a share
+    of the bytes."""
     res = worlds[_world_of(shape)]
     want = worlds["ref"]["mesh"]["decode", arch]
     for layout in ("fsdp_tp", "decode_tp"):
         got = res[f"mesh/{zr.mesh_key(shape)}/decode/{arch}/{layout}"]
-        assert torch.equal(got["logits"], want), layout
+        if layout == "decode_tp" and shape[0] > 1 and arch in zr.MOE_ARCHS:
+            # the experts' hidden dim cut over data: the f-partials are
+            # summed there, in another order; the reference's own bar
+            np.testing.assert_allclose(got["logits"], want, atol=2e-5,
+                                       rtol=1e-4)
+        else:
+            assert torch.equal(got["logits"], want), layout
         held, whole = got["bytes"].tolist()
         assert held < whole, (layout, held, whole)
 

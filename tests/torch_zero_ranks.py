@@ -169,6 +169,7 @@ PURE_DP = (("dct_adamw", "off"), ("dct_adamw", "1"))
 # process for one more step
 MESH_CKPT = ("dct_adamw", "1")
 DECODE_ARCHS = ("llama-350m", "deepseek-moe-16b")
+MOE_ARCHS = ("deepseek-moe-16b",)
 
 
 def mesh_key(shape) -> str:
@@ -183,12 +184,13 @@ def batch_rows(shape, layout: str) -> int:
 
 
 def placed_run(opt_name: str, zero_mode: str, steps: int = MESH_STEPS,
-               microbatch: int = 0, state=None, start: int = 0):
-    """``steps`` train steps of the smoke llama (``microbatch`` rows a
-    microbatch, 0: the whole batch) from step ``start`` of ``state`` (None:
-    ``init_state``), on the active mesh under the active policy or on one
-    process: losses, the last state (gathered whole), its placements and
-    the held state."""
+               microbatch: int = 0, state=None, start: int = 0,
+               arch: str = TRAIN["arch"]):
+    """``steps`` train steps of ``arch``'s smoke model (the llama by
+    default; ``microbatch`` rows a microbatch, 0: the whole batch) from
+    step ``start`` of ``state`` (None: ``init_state``), on the active mesh
+    under the active policy or on one process: losses, the last state
+    (gathered whole), its placements and the held state."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
@@ -199,7 +201,7 @@ def placed_run(opt_name: str, zero_mode: str, steps: int = MESH_STEPS,
     from repro_torch.train.steps import init_state, make_train_step
 
     name, kw = MESH_OPTS[opt_name]
-    cfg = dataclasses.replace(get_config(TRAIN["arch"], smoke=True),
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
                               train_microbatch=microbatch)
     zero = ZeroConfig(zero_mode)
     opt = get_optimizer(name, lr=0.01, zero=zero, **kw)
@@ -256,21 +258,21 @@ def decode_logits(arch: str, layout: str):
     from repro_torch.models import transformer as T
     from repro_torch.parallel import sharding
 
-    cfg = get_config(arch, smoke=True)
+    cfg = get_config(arch, smoke=True) if isinstance(arch, str) else arch
     params = T.init_params(cfg, 3, "cpu")
     tok = torch.from_numpy(np.random.default_rng(5).integers(
         0, cfg.vocab_size, (4,)))
     mesh = sharding.active_mesh()
     nbytes = None
-    if mesh is not None:
-        with sharding.use_policy(layout=layout):
+    with sharding.use_policy(layout=layout):
+        if mesh is not None:
             specs = sharding.params_specs(params, mesh)
-        held = sharding.shard_tree(params, specs, mesh)
-        nbytes = torch.tensor(sharding.state_bytes(held, specs, mesh))
-        params = sharding.gather_tree(held, specs, mesh)
-    with torch.no_grad():
-        logits, _ = T.decode_step(params, T.init_cache(cfg, 4, 16, "cpu"),
-                                  tok, 0, cfg)
+            held = sharding.shard_tree(params, specs, mesh)
+            nbytes = torch.tensor(sharding.state_bytes(held, specs, mesh))
+            params = sharding.gather_tree(held, specs, mesh)
+        with torch.no_grad():
+            logits, _ = T.decode_step(params, T.init_cache(cfg, 4, 16, "cpu"),
+                                      tok, 0, cfg)
     return {"logits": logits, "bytes": nbytes}
 
 
@@ -294,6 +296,279 @@ def clipped_adam_updates(steps: int = 2) -> list:
              for k, p in params.items()}
         u, state = opt.update(g, state, params)
         out.append(gather_updates(u))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the models' mesh bodies (tests/test_torch_mesh_models.py): MoE routing on
+# a data mesh, expert-parallel moe_ffn, decode_tp's f-cut experts and
+# sequence-parallel attention, on the same worlds
+# ---------------------------------------------------------------------------
+# a tiny MoE (the reference's tests/test_multidevice.py case) whose
+# capacity factor 1.0 drops tokens
+TINY_MOE = dict(name="tinymoe", family="moe", d_model=32, n_heads=4,
+                n_kv_heads=2, d_ff=64, vocab_size=64,
+                schedule=((("attn", "attn_moe"), 2),), n_experts=4,
+                moe_top_k=2, moe_d_ff=16, capacity_factor=1.0,
+                param_dtype="float32", compute_dtype="float32", remat=False,
+                q_chunk=16, kv_chunk=16)
+ROUTE_BATCH, ROUTE_SEQ = 8, 16
+ROUTE_MICRO = 4             # two global microbatches of 4 rows
+# a tiny dense model with a sequence long enough for SP at tp 2 (S/tp >= 64)
+TINY_SP = dict(name="tiny", family="dense", d_model=32, n_heads=4,
+               n_kv_heads=2, d_ff=64, vocab_size=64,
+               schedule=((("attn",), 2),), param_dtype="float32",
+               compute_dtype="float32", remat=False, q_chunk=32,
+               kv_chunk=32)
+SP_BATCH, SP_SEQ = 4, 128
+# SP attention cases: (b, s, skv, hq, hkv, hd, vd, causal, window); the
+# reference's heads (6 / 3 of 16: neither divides tp) at S = 128, an
+# MLA-shaped one (v dim != qk dim) and a cross-attention (keys of their
+# own length)
+SP_CASES = {"causal": (2, 128, 128, 6, 3, 16, 16, True, None),
+            "window": (2, 128, 128, 6, 3, 16, 16, True, 40),
+            "mla": (2, 128, 128, 4, 4, 24, 16, True, None),
+            "cross": (2, 128, 40, 6, 3, 16, 16, False, None)}
+SP_CHUNKS = dict(q_chunk=32, kv_chunk=32)
+EP_SHAPE = (4, 8)           # moe_ffn's direct calls: B, S
+EP_ARCH = "deepseek-moe-16b"
+
+
+def tiny_cfg(fields: dict, **kw):
+    from repro_torch.models.config import ModelConfig
+
+    return ModelConfig(**{**fields, **kw})
+
+
+def route_batch() -> dict:
+    rng = np.random.default_rng(11)
+    toks = rng.integers(0, TINY_MOE["vocab_size"],
+                        (ROUTE_BATCH, ROUTE_SEQ + 1))
+    return {"tokens": torch.from_numpy(toks[:, :-1]).long(),
+            "targets": torch.from_numpy(toks[:, 1:]).long()}
+
+
+def sp_batch() -> dict:
+    rng = np.random.default_rng(12)
+    toks = rng.integers(0, TINY_SP["vocab_size"], (SP_BATCH, SP_SEQ + 1))
+    return {"tokens": torch.from_numpy(toks[:, :-1]).long(),
+            "targets": torch.from_numpy(toks[:, 1:]).long()}
+
+
+class GradCapture:
+    """An optimizer whose update is the negated gradient it is handed (the
+    step's averaged, unclipped gradient), kept in ``grads``."""
+
+    def __init__(self):
+        self.grads = None
+
+    def init(self, params):
+        return ()
+
+    def update(self, grads, state, params):
+        self.grads = {k: g.detach().clone() for k, g in grads.items()}
+        return {k: -g for k, g in grads.items()}, state
+
+
+def captured_step(cfg, params: dict, batch: dict) -> dict:
+    """One train step (no clipping) of ``cfg`` from ``params`` on the
+    active mesh (the parameters placed under the active policy) or on one
+    process: its loss, ce and the gradient it hands the optimizer."""
+    from repro_torch.parallel import sharding
+    from repro_torch.train.steps import TrainState, make_train_step
+
+    opt = GradCapture()
+    mesh = sharding.active_mesh()
+    held = params if mesh is None else sharding.shard_tree(
+        params, sharding.params_specs(params, mesh), mesh)
+    _, m = make_train_step(cfg, opt, grad_clip=0.0)(
+        TrainState(0, held, ()), batch)
+    return {"loss": m["loss"], "ce": m["ce"], "grads": opt.grads}
+
+
+def ranks_equal(tensors: list, axes) -> bool:
+    """Whether every rank over ``axes`` holds the same bits."""
+    from repro_torch.parallel import sharding
+
+    mesh = sharding.active_mesh()
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    parts = mesh.all_gather(flat, tuple(axes))
+    return all(torch.equal(p, parts[0]) for p in parts)
+
+
+def routing_run(mesh=None) -> dict:
+    """TINY_MOE's train step on the whole batch and in ROUTE_MICRO-row
+    global microbatches, on ``mesh`` (a data mesh) or one process; with
+    ``mesh`` also the forward's ``moe_aux`` on this rank's rows."""
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding
+
+    out = {}
+    batch = route_batch()
+    for mb in (0, ROUTE_MICRO):
+        cfg = tiny_cfg(TINY_MOE, train_microbatch=mb)
+        params = T.init_params(cfg, 0, "cpu")
+        with sharding.set_mesh(mesh):
+            out[f"mb{mb}"] = captured_step(cfg, params, batch)
+            if mb == 0:
+                axes = mesh.axis_names if mesh is not None else ()
+                rows = batch["tokens"]
+                if mesh is not None:
+                    n = mesh.size(axes)
+                    per = rows.shape[0] // n
+                    rows = rows[mesh.shard_index(axes) * per:][:per]
+                with sharding.batch_cut(axes), torch.no_grad():
+                    _, aux = T.forward(params, {"tokens": rows}, cfg)
+                out["aux"] = aux["moe_aux"]
+    return out
+
+
+def moe_inputs(dtype=torch.float32) -> tuple[dict, torch.Tensor,
+                                              torch.Tensor]:
+    """TINY_MOE's ``moe/`` leaves with two shared experts, x (EP_SHAPE) and
+    the loss weights, all drawn by numpy."""
+    from repro_torch.models.moe import init_moe
+
+    cfg = tiny_cfg(TINY_MOE, n_shared_experts=2, shared_d_ff=32)
+    rng = np.random.default_rng(21)
+    meta = init_moe(None, cfg, device="meta")
+    p = {k: torch.from_numpy(rng.normal(0.0, m.shape[-2] ** -0.5, m.shape)
+                             .astype(np.float32)).to(dtype)
+         for k, m in meta.items()}
+    x = torch.from_numpy(rng.standard_normal((*EP_SHAPE, cfg.d_model))
+                         .astype(np.float32)).to(dtype)
+    w = torch.from_numpy(rng.standard_normal((*EP_SHAPE, cfg.d_model))
+                         .astype(np.float32))
+    return p, x, w
+
+
+def moe_grads(p: dict, x, w) -> dict:
+    """``moe_ffn``'s output and aux on whole inputs (on the active mesh:
+    every rank its share, the results whole), and the gradients of
+    ``sum(out * w) + aux`` w.r.t. x and every leaf."""
+    from repro_torch.models.moe import moe_ffn
+
+    cfg = tiny_cfg(TINY_MOE, n_shared_experts=2, shared_d_ff=32)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    xg = x.clone().requires_grad_(True)
+    out, aux = moe_ffn(leaves, xg, cfg)
+    loss = (out.float() * w).sum() + aux
+    g = torch.autograd.grad(loss, [xg, *leaves.values()])
+    return {"out": out.detach(), "aux": aux.detach(),
+            "grads": dict(zip(["x", *leaves], g))}
+
+
+def sp_inputs(case: str) -> tuple:
+    b, s, skv, hq, hkv, hd, vd, causal, window = SP_CASES[case]
+    rng = np.random.default_rng(31)
+    q, k, v, w = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)) for shape in ((b, s, hq, hd), (b, skv, hkv, hd),
+                                   (b, skv, hkv, vd), (b, s, hq, vd)))
+    return q, k, v, w, dict(causal=causal, window=window)
+
+
+def sp_grads(case: str) -> dict:
+    """``sp_blockwise_attention`` on whole inputs (on the active mesh),
+    and the gradients of ``sum(out * w)`` w.r.t. q, k, v."""
+    from repro_torch.models.layers import sp_blockwise_attention
+
+    q, k, v, w, kw = sp_inputs(case)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    out = sp_blockwise_attention(q, k, v, **kw, **SP_CHUNKS)
+    g = torch.autograd.grad((out * w).sum(), [q, k, v])
+    return {"out": out.detach(), "grads": dict(zip("qkv", g))}
+
+
+def sp_route() -> dict:
+    """SP prefills (no grad) with the route's device test patched to say
+    "card" and recorders in place of the launchers: each call's (kernel,
+    rows, q_offset) and the outputs."""
+    import importlib
+
+    from repro_torch.models import layers as TL
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+
+    calls, saved = [], (TL._on_card, TL.flash_attention_blockwise,
+                        TL.flash_attention_op)
+
+    def rec(name, fn):
+        def launcher(q, k, v, **kw):
+            calls.append([name, q.shape[1], kw["q_offset"]])
+            return fn(q, k, v, **kw)
+        return launcher
+
+    TL._on_card = lambda t: True
+    TL.flash_attention_blockwise = rec("blockwise",
+                                       fa.flash_attention_blockwise)
+    TL.flash_attention_op = rec("flash", fa.flash_attention)
+    out = {}
+    try:
+        q, k, v, _, kw = sp_inputs("window")
+        with torch.inference_mode():
+            out["bf16"] = TL.sp_blockwise_attention(
+                q.bfloat16(), k.bfloat16(), v.bfloat16(), **kw, **SP_CHUNKS)
+            out["fp32"] = TL.sp_blockwise_attention(q, k, v, **kw,
+                                                    **SP_CHUNKS)
+    finally:
+        TL._on_card, TL.flash_attention_blockwise, TL.flash_attention_op = \
+            saved
+    # every model rank's calls, in shard order: (kernel 0 blockwise / 1
+    # flash, query rows, q_offset)
+    from repro_torch.parallel import sharding
+
+    mine = torch.tensor([[0 if c[0] == "blockwise" else 1, c[1], c[2]]
+                         for c in calls])
+    out["calls"] = torch.stack(sharding.active_mesh().all_gather(
+        mine, ("model",)))
+    return out
+
+
+def sp_step(attn_sp: bool) -> dict:
+    """TINY_SP's train step (attn_sp on or off) on the active mesh."""
+    from repro_torch.models import transformer as T
+
+    cfg = tiny_cfg(TINY_SP, attn_sp=attn_sp)
+    return captured_step(cfg, T.init_params(cfg, 0, "cpu"), sp_batch())
+
+
+def _model_mesh_results(mesh, key: str) -> dict:
+    """The mesh bodies on one (data, model) mesh."""
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding
+
+    out = {}
+    allax = mesh.axis_names
+    with sharding.set_mesh(mesh):
+        p, x, w = moe_inputs()
+        r = moe_grads(p, x, w)
+        r["ranks_equal"] = torch.tensor(ranks_equal(
+            [r["out"], r["aux"], *r["grads"].values()], allax))
+        out[f"ep/{key}"] = r
+        for case in SP_CASES:
+            r = sp_grads(case)
+            r["ranks_equal"] = torch.tensor(ranks_equal(
+                [r["out"], *r["grads"].values()], allax))
+            out[f"sp/{key}/{case}"] = r
+        out[f"sp_route/{key}"] = sp_route()
+        for on in (False, True):
+            r = sp_step(on)
+            r["ranks_equal"] = torch.tensor(ranks_equal(
+                list(r["grads"].values()), allax))
+            out[f"sp_step/{key}/{on}"] = r
+        for zm in ("off", "1"):
+            run = placed_run("dct_adamw", zm, arch=EP_ARCH)
+            out[f"ep_step/{key}/{zm}"] = run_record(run)
+        cfg = tiny_cfg(TINY_MOE, capacity_factor=8.0)
+        for layout in ("fsdp_tp", "decode_tp"):
+            out[f"decode/{key}/tinymoe/{layout}"] = decode_logits(cfg,
+                                                                  layout)
+        # with remat: the checkpointed blocks recompute their collectives
+        cfg = tiny_cfg(TINY_MOE, remat=True)
+        r = captured_step(cfg, T.init_params(cfg, 0, "cpu"), route_batch())
+        r["ranks_equal"] = torch.tensor(ranks_equal(
+            list(r["grads"].values()), ("model",)))
+        out[f"ep_grads/{key}"] = r
     return out
 
 
@@ -329,6 +604,9 @@ def _mesh_results(world: int, tmp: str) -> dict:
                         decode_logits(arch, layout)
             if shape == (1, 2):
                 out["mesh/restore"] = _restore_at(mesh, ckpt)
+        out.update(_model_mesh_results(mesh, key))
+    # the routing fault's case: a data-only mesh of the whole world
+    out["route"] = routing_run(make_mesh((world,), ("data",)))
     return out
 
 
@@ -437,6 +715,61 @@ def worker(rank: int, world: int, shape, axes, tmp: str) -> None:
         with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
             f.write(traceback.format_exc())
         raise
+
+
+# the two worlds: 2 ranks over ("data",), 4 over ("pod", "data")
+WORLDS = {2: ((2,), ("data",)), 4: ((2, 2), ("pod", "data"))}
+
+
+def worlds_root(tmp_path_factory) -> str:
+    """Where the run's one spawn of the worlds lives: the base temp shared
+    by the pytest-xdist workers of the run (the workers' own temps' parent),
+    else the run's base temp. ``test_torch_zero.py`` and
+    ``test_torch_mesh_models.py`` both read these worlds."""
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    return os.path.join(str(base), "torch_gloo_worlds")
+
+
+def start_worlds(root: str):
+    """Spawn both worlds once a run: the first caller (who creates
+    ``root/spawned``) starts them and gets ``{world: processes}``, later
+    callers None."""
+    os.makedirs(root, exist_ok=True)
+    try:
+        fd = os.open(os.path.join(root, "spawned"),
+                     os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+    except FileExistsError:
+        return None
+    os.close(fd)
+    return {w: spawn(w, shape, axes, os.path.join(root, f"w{w}"))
+            for w, (shape, axes) in WORLDS.items()}
+
+
+def world_results(root: str, procs, timeout: float = 600.0) -> dict:
+    """``{world: rank 0's results}``: joined here where this process
+    spawned them (``procs``), else waited for (rank 0's file, or any
+    rank's traceback)."""
+    if procs is not None:
+        return {w: join(p, os.path.join(root, f"w{w}"), timeout)
+                for w, p in procs.items()}
+    deadline = time.time() + timeout
+    out = {}
+    for w in WORLDS:
+        tmp = os.path.join(root, f"w{w}")
+        while not os.path.exists(os.path.join(tmp, "results.pt")):
+            errs = [f for f in (os.listdir(tmp) if os.path.isdir(tmp)
+                                else ()) if f.endswith(".err")]
+            if errs:
+                time.sleep(1.0)     # the tracebacks finish writing
+                raise RuntimeError("ranks failed:\n" + "".join(
+                    open(os.path.join(tmp, f)).read() for f in sorted(errs)))
+            if time.time() > deadline:
+                raise TimeoutError(f"no results from the world of {w}")
+            time.sleep(0.2)
+        out[w] = torch.load(os.path.join(tmp, "results.pt"))
+    return out
 
 
 def spawn(world: int, shape, axes, tmp: str) -> list:
