@@ -898,6 +898,12 @@ MESH_SP_DEPTH = 2
 # measured, scripts/mesh_models_probe.py, NVIDIA H100 80GB HBM3, 700 W)
 MESH_STEP_UPDATE_BAR = 2.0
 MESH_STEP_LOSS_RTOL = 1e-4
+# each rank's peak device memory in a step of (b) and of (d) (on (1, 2),
+# on ("data",)) when the step gathered the parameters whole (PERF.md §5:
+# chip_smoke.py on NVIDIA H100 80GB HBM3 at 700 W): the FSDP schedule
+# (parallel/fsdp.py) holds the blocks and one use site's weights whole, so
+# each peak must fall below these
+WHOLE_GATHER_PEAKS = {"cli": 8.24e9, "ep_step": 27.7e9, "data_step": 32.2e9}
 
 
 def _device_line() -> str:
@@ -5283,6 +5289,7 @@ def _mesh_step(torch, cfg, mesh, layout: str, batch: dict,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
+        mesh.reset_counts()
         restore = _moe_block_spy(calls)
         try:
             t0 = time.perf_counter()
@@ -5291,11 +5298,14 @@ def _mesh_step(torch, cfg, mesh, layout: str, batch: dict,
             wall = time.perf_counter() - t0
         finally:
             restore()
+        collectives = {k: list(v) for k, v in mesh.counts.items()}
         launches = {k: n for k, n in ops.launch_counts().items() if n}
         want = {k: sharding.local_block(w, specs[k], mesh)
                 for k, w in witness["params"].items()}
     out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
            "launches": launches, "experts_a_call": calls, "step_s": wall,
+           "collectives": collectives,
+           "routes": {"reduce_scatter": mesh.reduce_scatter},
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
            "params_max_abs_diff": max(
                float((state.params[k].float() - want[k].float()).abs().max())
@@ -5620,6 +5630,10 @@ def _check_mesh_models(mm: list, check: bool = True) -> None:
             "rank_step_s": [r[part]["step_s"] for r in mm],
             "rank_peak_memory_bytes": [r[part]["peak_memory_bytes"]
                                        for r in mm],
+            "whole_gather_peak_bytes": WHOLE_GATHER_PEAKS.get(part),
+            "rank_collectives": [r[part]["collectives"] for r in mm],
+            "gloo_routes": w["routes"],
+            "collectives_are": "[calls, bytes] of each kind in the step",
             "bars": f"loss rtol {MESH_STEP_LOSS_RTOL}, grad norm rtol "
                     f"1e-3, parameters "
                     f"within {MESH_STEP_UPDATE_BAR} x the witness's largest "
@@ -5659,6 +5673,10 @@ def _check_mesh_models(mm: list, check: bool = True) -> None:
             for name in training:
                 assert r[part]["launches"].get(name) == \
                     w["witness_launches"].get(name), (part, name, r[part])
+    for part in ("ep_step", "data_step"):
+        for r in mm:
+            assert r[part]["peak_memory_bytes"] < WHOLE_GATHER_PEAKS[part], \
+                (part, r[part]["peak_memory_bytes"])
     for r in mm:
         assert r["ep_step"]["experts_a_call"] and all(
             e == [32, 1408] for e in r["ep_step"]["experts_a_call"]), r
@@ -5738,6 +5756,11 @@ def run_zero_cli(torch, main_losses) -> dict:
         / (ZERO_CLI_STEPS - 1) * 1e3,
         "first_step_ms": ranks[0]["s_per_step"][0] * 1e3,
         "rank_peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks],
+        "rank_step_peak_memory_bytes": [r["step_peak_memory_bytes"]
+                                        for r in ranks],
+        "whole_gather_peak_bytes": WHOLE_GATHER_PEAKS["cli"],
+        "rank_step_collectives": [r["step_collectives"] for r in ranks],
+        "collectives_are": "[calls, bytes] of each kind in the last step",
         "rank_opt_state_bytes": [r["opt_state_bytes"] for r in ranks],
         "opt_state_whole_bytes": ranks[0]["opt_state_whole_bytes"],
         "rank_param_bytes": [r["param_bytes"] for r in ranks],
@@ -5754,6 +5777,8 @@ def run_zero_cli(torch, main_losses) -> dict:
     assert all(d <= bar for d, bar in zip(diffs, ZERO_LOSS_BARS)), \
         (diffs, ZERO_LOSS_BARS)
     for r in ranks:
+        assert r["step_peak_memory_bytes"] < WHOLE_GATHER_PEAKS["cli"], \
+            r["step_peak_memory_bytes"]
         assert r["backend"] == "gloo" and r["world"] == ZERO_WORLD, r
         assert r["opt_state_bytes"] < r["opt_state_whole_bytes"], r
         # fsdp_tp over ("data",): every matrix and embedding halves
@@ -5849,6 +5874,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of phase 14's planted dense-refresh leaf")
     opts = ap.parse_args(argv)
+    start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     import torch
 
@@ -6185,6 +6211,8 @@ def main(argv=None) -> int:
             **extra,
         })
     device_line = _device_line()
+    print(json.dumps({"chip_smoke_wall_s": time.perf_counter() - start,
+                      "device": device_line}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(device_line, flush=True)
     print(json.dumps({"ok": True, "device": {

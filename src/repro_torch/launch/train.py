@@ -51,12 +51,12 @@ the process group comes from the environment it sets and the ranks form a
 ``("data",)`` mesh. The train state is held as blocks under the
 reference's default layout, ``fsdp_tp`` (``parallel/sharding.py``): each
 rank keeps its FSDP block of every matrix and embedding and of the
-optimizer state that follows them. Each step gathers the parameters whole,
-runs the model on this rank's slice of the global ``--batch``, averages
-the gradients and updates this rank's blocks; the whole parameters exist
-for the length of the step, so the peak memory is not lower. ``--zero 1``
-also partitions the low-rank optimizer state by rows (``parallel/zero.py``:
-dct_adamw / muon / trion / dion, or galore / frugal with ``--basis``). The
+optimizer state that follows them. Each step runs the model on this
+rank's slice of the global ``--batch``, gathers each layer's weights as
+it runs (``parallel/fsdp.py``), reduces each gradient to this rank's
+block and updates this rank's blocks. ``--zero 1`` also partitions the
+low-rank optimizer state by rows (``parallel/zero.py``: dct_adamw / muon
+/ trion / dion, or galore / frugal with ``--basis``). The
 adaptive controllers run on one process only. ``--dist-backend`` (the
 port's own flag) is ``nccl`` on the card (one card a rank) and ``gloo`` on
 the CPU by default; ``gloo`` also lets several ranks share one card. Rank 0
@@ -64,10 +64,12 @@ logs, writes the checkpoints (whole arrays: a run resumes at another
 width, or on one process) and the telemetry; ``--obs-dir`` gets rank r's
 files under ``DIR/rank<r>`` (rank 0's in ``DIR``). At the end each rank
 prints one ``[train] rank {...}`` JSON line: its parameter and
-optimizer-state bytes (held, and of the whole arrays), peak device memory,
-losses, step times and kernel launches. One process with ``--zero 1``
-runs replicated and says so. A ``(data, model)`` mesh is the API's
-(``launch.mesh.make_mesh``, ``sharding.set_mesh``).
+optimizer-state bytes (held, and of the whole arrays), peak device memory
+(over the run, and the largest of a step's, each from a reset before
+its step), the last step's collectives (calls and bytes), losses, step times and kernel launches.
+One process with ``--zero 1`` runs replicated and says so. A ``(data,
+model)`` mesh is the API's (``launch.mesh.make_mesh``,
+``sharding.set_mesh``).
 
 Flags of the JAX CLI that this port does not support yet exit with
 "not yet ported".
@@ -412,6 +414,7 @@ def _run(args, stop_at, cfg, lr, opt_kw, dev, telemetry_on, adaptive,
         trainer_kw["log_metrics"] = sink.log_metrics
 
     allocator = None
+    per_step = {"step_peak": 0, "collectives": None, "run_peak": 0}
     if adaptive:
         from repro_torch.models import transformer as T
         from repro_torch.telemetry.adaptive import AdaptiveOptimizerManager
@@ -445,7 +448,10 @@ def _run(args, stop_at, cfg, lr, opt_kw, dev, telemetry_on, adaptive,
                           extra_state=manager)
     else:
         opt = make_optimizer()
-        trainer_kw.update(train_step=make_step(opt),
+        step_fn = make_step(opt)
+        if mesh is not None:
+            step_fn = _measured(step_fn, mesh, dev.type == "cuda", per_step)
+        trainer_kw.update(train_step=step_fn,
                           init_state_fn=lambda: init_state(cfg, opt,
                                                            args.seed, dev))
     specs = None
@@ -500,8 +506,12 @@ def _run(args, stop_at, cfg, lr, opt_kw, dev, telemetry_on, adaptive,
             "backend": mesh.backend, "opt_state_bytes": held,
             "opt_state_whole_bytes": whole, "param_bytes": p_held,
             "param_whole_bytes": p_whole,
-            "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+            "peak_memory_bytes": (max(torch.cuda.max_memory_allocated(),
+                                      per_step["run_peak"])
                                   if dev.type == "cuda" else None),
+            "step_peak_memory_bytes": (per_step["step_peak"]
+                                       if dev.type == "cuda" else None),
+            "step_collectives": per_step["collectives"],
             "losses": [h["loss"] for h in hist],
             "s_per_step": [h["s_per_step"] for h in hist],
             "launches": {k: n for k, n in ops.launch_counts().items()
@@ -509,6 +519,30 @@ def _run(args, stop_at, cfg, lr, opt_kw, dev, telemetry_on, adaptive,
     if allocator is not None:
         print(f"[train] final rank allocation: {allocator.alloc}")
     return trainer
+
+
+def _measured(step_fn, mesh, cuda: bool, rec: dict):
+    """``step_fn`` recording this rank's collectives in the last step
+    (``mesh.counts``, reset before each step) and, on the card, the largest
+    peak device memory of a step, each peak taken from a reset just before
+    its step (``rec["run_peak"]`` keeps the peak before each reset). The
+    allocator counts on the host as it allocates, so neither read waits
+    for the card."""
+
+    def step(state, batch):
+        if cuda:
+            rec["run_peak"] = max(rec["run_peak"],
+                                  torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+        mesh.reset_counts()
+        out = step_fn(state, batch)
+        if cuda:
+            rec["step_peak"] = max(rec["step_peak"],
+                                   torch.cuda.max_memory_allocated())
+        rec["collectives"] = {k: list(v) for k, v in mesh.counts.items()}
+        return out
+
+    return step
 
 
 def _supervise(args: argparse.Namespace, argv: list[str]) -> int:

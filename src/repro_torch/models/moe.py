@@ -20,8 +20,9 @@ batch, whatever block of it this rank holds (``sharding.batch_cut_axes``):
   all-reduce of the router's column sums), so a pair is kept exactly when
   the reference keeps it;
 * with a ``model`` axis (its ``shard_map``): each rank runs ``_local_moe``
-  on its E/tp experts, cut from the whole expert leaves, and the partial
-  outputs are summed over ``model``; the batch is cut over the data axes
+  on its E/tp experts (the block it is handed, or cut from whole expert
+  leaves), and the partial outputs are summed over ``model``; the batch
+  is cut over the data axes
   when the global batch divides (``batch_sharded``: each data shard routes
   its own rows, the aux averaged over the data axes), else the tokens are
   replicated; under ``decode_tp`` the tokens are replicated and each
@@ -30,10 +31,13 @@ batch, whatever block of it this rank holds (``sharding.batch_cut_axes``):
 
 The backward pairs each collective with its transpose
 (``parallel.collectives``): every rank ends with the whole gradient of
-every parameter, the expert leaves' gathered whole, equal on all
-``model`` ranks; the train step then averages over the axes it cut the
-batch over. The parameters are still gathered whole for a step
-(``train.steps``): the expert cut saves no memory yet.
+what it was handed whole, equal on all ``model`` ranks. In a train step
+under ``fsdp_tp`` the expert leaves arrive as this rank's E/tp experts
+(``parallel.fsdp`` gathers them over the data axes only), so no expert
+leaf is gathered over ``model`` and its gradient stays this rank's block;
+where ``_fit_spec`` replicates the expert dim the leaf arrives whole and
+is cut here, its gradient all-gathered back. The step then reduces each
+gradient to this rank's block over the axes it cut the batch over.
 
 Parameters are the flat leaves of a block's ``moe/`` subtree, keyed as
 the reference's: ``router/kernel`` (d, E) (kept in fp32 at init; the
@@ -234,7 +238,14 @@ def _expert_parallel(p: dict, x, cfg, mesh, tp: str, cut_axes: tuple):
         x = C.cut(x, 0, dp)
         router, wg, wu, wd = (C.replicated(w, dp)
                               for w in (router, wg, wu, wd))
-    wg, wu, wd = (C.cut(w, 0, (tp,)) for w in (wg, wu, wd))
+    if wg.shape[0] == cfg.n_experts:
+        # whole expert leaves (decode, one process's parameters, or an
+        # expert dim ``_fit_spec`` replicates): this rank's E/tp experts
+        wg, wu, wd = (C.cut(w, 0, (tp,)) for w in (wg, wu, wd))
+    elif wg.shape[0] * mesh.shape[tp] != cfg.n_experts:
+        raise ValueError(f"moe_ffn: {wg.shape[0]} experts held, neither "
+                         f"the {cfg.n_experts} of the model nor its block "
+                         f"over {tp!r}")
     spread = (tp,)
     if decode_tp and dp:
         # the experts' hidden dim over the data axes: wg / wu column-,

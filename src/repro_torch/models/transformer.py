@@ -318,18 +318,20 @@ _PRECISION_CRITICAL = ("norm", "ln", "scale", "bias", "a_log", "d_skip",
                        "decay", "bonus", "gate", "mu_")
 
 
+def cast_dtype(path: str, p: torch.Tensor, cfg) -> torch.dtype:
+    """The dtype a leaf is used in: the compute dtype for a floating
+    weight, its stored dtype for the small precision-critical leaves (norm
+    scales, biases, gates, ...) and integer leaves."""
+    if any(h in path.lower() for h in _PRECISION_CRITICAL) \
+            or not p.is_floating_point():
+        return p.dtype
+    return getattr(torch, cfg.compute_dtype)
+
+
 def cast_params(params: dict, cfg) -> dict:
     """Mixed precision: weights cast to the compute dtype at use; small
     precision-critical leaves (norm scales) stay in their stored dtype."""
-    cdt = getattr(torch, cfg.compute_dtype)
-    out = {}
-    for path, p in params.items():
-        if any(h in path.lower() for h in _PRECISION_CRITICAL) \
-                or not p.is_floating_point():
-            out[path] = p
-        else:
-            out[path] = p.to(cdt)
-    return out
+    return {path: p.to(cast_dtype(path, p, cfg)) for path, p in params.items()}
 
 
 def _qk_norm(p: dict, q, k, cfg, pre: str = "attn/"):
@@ -588,22 +590,41 @@ def _sinusoid(seq: int, d: int, dtype, device):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
-def encode(params: dict, frames, cfg):
+def _as_is(leaves: dict, prefix: str = "", tag=None) -> dict:
+    """The use of whole parameters: cast once by ``forward`` already."""
+    return leaves
+
+
+def _block(kind, lp, x, cfg, ctx, use, pre, layer):
+    """``block_apply`` on a layer's weights as ``use`` hands them: the
+    whole ones as they are, or (blocks) gathered here, inside the function
+    ``_remat`` recomputes."""
+    return block_apply(kind, use(lp, pre, f"{pre}{layer}"), x, cfg, ctx)
+
+
+def encode(params: dict, frames, cfg, use=_as_is):
     """Whisper's encoder over ``frames`` (B, encoder_seq, d): the
     precomputed frame embeddings of the audio frontend's stub, cast to the
     compute dtype, plus the sinusoid; the ``cfg.encoder_layers`` ``enc``
     blocks of ``encoder/blocks/`` (the residual pinned to the compute
     dtype after each, each recomputed in the backward pass under
     ``cfg.remat``); then the layer norm ``encoder/ln_post``. ``params``:
-    the parameter dict (``forward`` passes it cast). Returns (B,
-    encoder_seq, d) in the norm's output dtype, the compute dtype."""
+    the parameter dict (``forward`` passes it cast), or with ``use`` a
+    train step's blocks, each layer's weights gathered as it runs (as in
+    ``forward``). Returns (B, encoder_seq, d) in the norm's output dtype,
+    the compute dtype."""
     cdt = getattr(torch, cfg.compute_dtype)
     x = frames.to(cdt)
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
-    for lp in _unstacked(params, "encoder/blocks/", cfg.encoder_layers):
-        x = _remat(block_apply, cfg, "enc", lp, x, cfg, {})[0].to(cdt)
-    return layer_norm(x, params["encoder/ln_post/scale"],
-                      params["encoder/ln_post/bias"], cfg.norm_eps)
+    pre = "encoder/blocks/"
+    for layer, lp in enumerate(_unstacked(params, pre, cfg.encoder_layers)):
+        x = _remat(_block, cfg, "enc", lp, x, cfg, {}, use, pre,
+                   layer)[0].to(cdt)
+    ln = use({k: params[k] for k in ("encoder/ln_post/scale",
+                                     "encoder/ln_post/bias")},
+             tag="ln_post")
+    return layer_norm(x, ln["encoder/ln_post/scale"],
+                      ln["encoder/ln_post/bias"], cfg.norm_eps)
 
 
 def _final_norm(x, p: dict, cfg):
@@ -615,7 +636,8 @@ def _final_norm(x, p: dict, cfg):
     return rms_norm(x, p["final_norm/scale"], cfg.norm_eps)
 
 
-def forward(params: dict, batch: dict, cfg, *, return_cache: bool = False):
+def forward(params: dict, batch: dict, cfg, *, return_cache: bool = False,
+            use=None):
     """batch: ``{'tokens': (B, S) int}``, with ``'frames'`` (B,
     encoder_seq, d) for an encoder-decoder (``encode``'s input) and
     ``'image_embeds'`` (B, n_image_tokens, d) for a VLM (cast to the
@@ -630,38 +652,63 @@ def forward(params: dict, batch: dict, cfg, *, return_cache: bool = False):
     the final hidden state and the next token's embedding (the last
     position wraps around: the loss masks it; inference, ``return_cache``,
     skips the head). ``cfg.remat`` recomputes each layer in the backward
-    pass (``torch.utils.checkpoint``); it is off with ``return_cache``."""
+    pass (``torch.utils.checkpoint``); it is off with ``return_cache``.
+
+    ``params``: the whole parameters (decode, prefill, one process: cast
+    to the compute dtype once here), or, with ``use``, a train step's
+    blocks under a mesh. ``use(leaves, prefix, tag)`` hands a use site its
+    whole weights in the compute dtype (``parallel.fsdp.Held.use``
+    gathers them when the site runs): the embedding first,
+    each layer inside the function ``cfg.remat`` recomputes, the final
+    norm, the unembedding and the MTP head at the end; the embedding's
+    whole lives on only where a tied unembedding or the MTP head reads it
+    again."""
     _check_ported(cfg)
+    if use is not None and return_cache:
+        raise ValueError("forward: return_cache takes whole parameters")
     tokens = batch["tokens"]
     cdt = getattr(torch, cfg.compute_dtype)
-    p = cast_params(params, cfg)
-    x = p["embed/kernel"][tokens]
+    p, use = (params, use) if use is not None \
+        else (cast_params(params, cfg), _as_is)
+    mtp = cfg.mtp and "mtp/proj/kernel" in p and not return_cache
+    emb = use({"embed/kernel": p["embed/kernel"]},
+              tag="embed")["embed/kernel"]
+    x = emb[tokens]
+    if not (cfg.tie_embeddings or mtp):
+        del emb
     ctx = {}
     if cfg.encoder_layers:
-        ctx["enc_out"] = encode(p, batch["frames"], cfg)
+        ctx["enc_out"] = encode(p, batch["frames"], cfg, use)
     if cfg.n_image_tokens:
         ctx["image_embeds"] = batch["image_embeds"].to(cdt)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     kv: dict[str, list] = {}
-    for pre, kind, _, lp in _layers(p, cfg):
+    for pre, kind, layer, lp in _layers(p, cfg):
         if return_cache:
             x, a, pair = block_apply(kind, lp, x, cfg, ctx, return_kv=True)
             kv.setdefault(pre, []).append(pair)
         else:
-            x, a, _ = _remat(block_apply, cfg, kind, lp, x, cfg, ctx)
+            x, a, _ = _remat(_block, cfg, kind, lp, x, cfg, ctx, use, pre,
+                             layer)
         x = x.to(cdt)                      # pin the residual-stream dtype
         aux_total = aux_total + a
-    x = _final_norm(x, p, cfg)
-    unemb = p["embed/kernel"] if cfg.tie_embeddings else p["unembed/kernel"]
+    names = [k for k in p if k.startswith("final_norm/")]
+    if not cfg.tie_embeddings:
+        names.append("unembed/kernel")
+    if mtp:
+        names += ["mtp/proj/kernel", "mtp/norm/scale"]
+    head = use({k: p[k] for k in names}, tag="head")
+    x = _final_norm(x, head, cfg)
+    unemb = emb if cfg.tie_embeddings else head["unembed/kernel"]
     logits = x @ unemb.to(cdt).T
     aux = {"moe_aux": aux_total, "mtp_logits": None}
-    if cfg.mtp and "mtp/proj/kernel" in p and not return_cache:
+    if mtp:
         # predict token t+2 from [h_t ; embed(token t+1)], full length with
         # a roll, as the JAX package (position S-1 is masked in the loss)
-        emb_next = p["embed/kernel"][torch.roll(tokens, -1, dims=1)]
+        emb_next = emb[torch.roll(tokens, -1, dims=1)]
         h_mtp = matmul(torch.cat([x, emb_next], dim=-1),
-                       p["mtp/proj/kernel"].to(cdt))
-        h_mtp = rms_norm(h_mtp, p["mtp/norm/scale"], cfg.norm_eps)
+                       head["mtp/proj/kernel"].to(cdt))
+        h_mtp = rms_norm(h_mtp, head["mtp/norm/scale"], cfg.norm_eps)
         aux["mtp_logits"] = h_mtp @ unemb.to(cdt).T
     if return_cache:
         return logits, aux, kv

@@ -41,11 +41,14 @@ accepts per-label trees either way.
 Placed state: under an active mesh (``parallel.sharding.set_mesh``)
 ``as_optimizer``'s ``init`` keeps each rank's blocks of the state
 (``sharding.opt_state_specs`` under the active policy), and ``update``
-takes the whole gradients and parameters. A leaf's state follows its
-parameter's placement: ``scale_by_adam`` (elementwise) updates its blocks
-from the gradient's block and emits a ``sharding.Block``;
-``lowrank_project`` gathers a split low-rank state, runs the rule on the
-whole leaf and cuts the new state again. With ``zero=ZeroConfig("1")``
+takes the gradients and parameters whole, or a split leaf's as this
+rank's ``sharding.Block`` (the train step's; its ``shape`` is the whole
+one). A leaf's state follows its parameter's placement: ``scale_by_adam``
+(elementwise) updates its blocks from the gradient's block and emits a
+``sharding.Block``; ``lowrank_project`` gathers a split low-rank state
+(and a gradient handed as a block), runs the rule on the whole leaf, cuts
+the new state again and, for a block gradient, the update too, so one
+leaf is whole at a time. With ``zero=ZeroConfig("1")``
 each rank keeps the row block of the state of every leaf
 ``parallel.zero.partitioned`` claims instead; ``lowrank_project`` runs a
 ``zero_shardable`` rule on those rows (``zero.sharded_leaf_update``) and
@@ -383,7 +386,8 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
                       if mesh is not None else sharding.REPLICATED)
             if p_spec.split and p_spec.splits(mesh):
                 # elementwise: the moments' block updates from the
-                # gradient's block, no gather (module docstring)
+                # gradient's block (as the step hands it, or cut from a
+                # whole gradient), no gather (module docstring)
                 blk = sharding.block_shape(g.shape, p_spec, mesh)
                 if tuple(mom.m.shape) != blk:
                     raise ValueError(
@@ -391,8 +395,8 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
                         f"{tuple(mom.m.shape)}, not this rank's block {blk}"
                         "; initialize the state (opt.init) under the "
                         "active mesh and policy")
-                u, mom = adam_update(sharding.local_block(g, p_spec, mesh),
-                                     mom, ctx.step, b1, b2, eps)
+                u, mom = adam_update(_block_of(g, p_spec, mesh), mom,
+                                     ctx.step, b1, b2, eps)
                 d[k] = sharding.Block(u, p_spec, mesh)
             else:
                 d[k], mom = adam_update(g, mom, ctx.step, b1, b2, eps)
@@ -464,12 +468,25 @@ def lowrank_project(rule: MatrixRule, *,
     return GradientTransform(init, update, basis_sizes)
 
 
+def _block_of(g, spec, mesh) -> torch.Tensor:
+    """This rank's block under ``spec`` of ``g``: a ``sharding.Block`` of
+    that placement as it is, a whole tensor cut."""
+    if isinstance(g, sharding.Block):
+        if g.placement != spec:
+            raise ValueError(f"a block under {g.placement}, not {spec}")
+        return g.local
+    return sharding.local_block(g, spec, mesh)
+
+
 def _placed_leaf_update(rule, path, g, state, param, ctx, mesh):
     """A leaf whose state follows its parameter's placement on ``mesh``:
     the state is gathered, the rule runs on the whole leaf and the new
     state is cut again, so every element is computed as on one process
     (the placements come from the rule's state of the whole leaf on
-    ``meta``)."""
+    ``meta``). A gradient handed as a ``sharding.Block`` (the train step's)
+    is gathered for the rule and the update cut to this rank's block, so
+    the whole leaf lives only for this call; a whole gradient (the API's)
+    gives the whole update."""
     p_spec = sharding.param_spec(path, tuple(param.shape), mesh)
     if not p_spec.splits(mesh):
         return rule.update(g, state, param, ctx)
@@ -477,8 +494,13 @@ def _placed_leaf_update(rule, path, g, state, param, ctx, mesh):
     specs = sharding.leaf_state_specs(param.shape, p_spec, whole)
     sharding.check_blocks(state, whole, specs, mesh,
                           what=f"optimizer state of {path!r}")
-    d, new_state = rule.update(g, sharding.gather_tree(state, specs, mesh),
+    blocked = isinstance(g, sharding.Block)
+    d, new_state = rule.update(g.gather() if blocked else g,
+                               sharding.gather_tree(state, specs, mesh),
                                param, ctx)
+    if blocked:
+        d = sharding.Block(sharding.local_block(d, p_spec, mesh), p_spec,
+                           mesh)
     return d, sharding.shard_tree(new_state, specs, mesh)
 
 

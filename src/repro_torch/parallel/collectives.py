@@ -22,6 +22,10 @@ from the kind:
   all-gather forward, this rank's block of the cotangent backward
   (:func:`gather`).
 
+The weights of a train step under a mesh are gathered on use by
+``parallel.fsdp`` (one autograd function a use site, its backward this
+rank's block of the mean gradient), not here.
+
 Every function is the identity, with no collective, when its axes span
 one rank. Blocks follow ``launch.mesh.Mesh.shard_index`` (the reference's
 order). The all-reduces reduce each element once and hand every member the

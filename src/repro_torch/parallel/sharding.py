@@ -22,17 +22,18 @@ once. The optimizer state follows its parameter (:func:`opt_state_specs`:
 full-size state as the parameter, transposed EF payloads transposed,
 low-rank ``(..., rows, r)`` state with the rank dim whole), except the
 leaves ZeRO-1 holds by rows (``parallel.zero``). Each rank keeps only its
-blocks between steps. A train step all-gathers each split parameter once
-at its start and runs forward, backward and the optimizer update on the
-whole parameters (``train.steps``), so the whole parameters exist on every
-rank for the length of a step: the resident bytes between steps fall, the
-peak does not. The models' two mesh bodies run over ``model`` inside the
-step (expert-parallel MoE, sequence-parallel attention: ``models.moe``,
-``models.layers``, their collectives in ``parallel.collectives``), reading
-which block of the global batch the activations are (:func:`batch_cut`).
-Gathering each layer's weights only while it runs, and Megatron column /
-row-parallel compute, are mesh paths of the models that this module does
-not give (what GSPMD derives from the reference's placements).
+blocks, between steps and through them: a train step gathers each use
+site's weights when it runs and again in the backward, reduces each
+gradient to this rank's block and updates the blocks (``parallel.fsdp``,
+``train.steps``), so no rank holds the whole parameters or gradients at
+once. The models' two mesh bodies run over ``model`` inside the step
+(expert-parallel MoE on this rank's expert block, sequence-parallel
+attention: ``models.moe``, ``models.layers``, their collectives in
+``parallel.collectives``), reading which block of the global batch the
+activations are (:func:`batch_cut`). Megatron column / row-parallel
+compute of the dense products is what this module does not give (what
+GSPMD derives from the reference's placements; ROADMAP 6e): the dense
+layers run on whole gathered weights.
 
 A :class:`Placement` stands where the reference has a ``PartitionSpec``:
 one entry per dim, None (whole) or the mesh axes the dim is split over,
@@ -464,9 +465,12 @@ class UpdateBlock:
 
 
 class Block(UpdateBlock):
-    """This rank's block of a whole update under ``placement``: what the
+    """This rank's block of a whole array under ``placement``: what the
     elementwise optimizer transforms produce for a leaf whose state is
-    held as blocks (``optim.transform.scale_by_adam``)."""
+    held as blocks (``optim.transform.scale_by_adam``), and how a train
+    step under a mesh hands the optimizer its gradient and parameter
+    blocks. ``shape`` and ``ndim`` are the whole array's (what the rules
+    and the label functions read of a parameter)."""
 
     __slots__ = ("placement", "mesh")
 
@@ -484,6 +488,17 @@ class Block(UpdateBlock):
         if isinstance(x, torch.Tensor) and x.dim():
             return local_block(x, self.placement, self.mesh)
         return x
+
+    @property
+    def shape(self) -> torch.Size:
+        out = list(self.local.shape)
+        for d, _, n in self.placement.splits(self.mesh):
+            out[d] *= n
+        return torch.Size(out)
+
+    @property
+    def ndim(self) -> int:
+        return self.local.dim()
 
     def gather(self) -> torch.Tensor:
         """The whole update (an all-gather)."""
@@ -568,11 +583,12 @@ def shard(x: torch.Tensor, *axes) -> torch.Tensor:
     """The reference's ``with_sharding_constraint`` by logical axes. Eager
     PyTorch has no constraint to hand a compiler: outside the models' mesh
     bodies (which cut and gather their own activations over ``model``) a
-    step's activations are whole on every rank, so this checks the names
-    (:func:`logical_to_spec`) and returns ``x``, with or without a mesh.
-    Placing activations by these names (the ``seq_parallel`` residual
-    stream, the reference's ``shard(q, "batch", None, "tp", None)``) is
-    ROADMAP 6d."""
+    step's activations are whole on every rank (its batch rows), and the
+    weights a layer reads are gathered whole for it (``parallel.fsdp``),
+    so this checks the names (:func:`logical_to_spec`) and returns ``x``,
+    with or without a mesh. Placing activations by these names (the
+    ``seq_parallel`` residual stream, the reference's ``shard(q, "batch",
+    None, "tp", None)``: Megatron's column / row compute) is ROADMAP 6e."""
     logical_to_spec(axes)
     return x
 
@@ -596,6 +612,13 @@ def _fit_spec(axes: tuple, shape: tuple[int, ...], mesh) -> Placement:
         else:
             out.append(None)
     return Placement(tuple(out))
+
+
+def is_expert_leaf(path: str, ndim: int) -> bool:
+    """Whether :func:`param_spec` places ``path`` (a whole leaf of
+    ``ndim`` dims) by the expert rule: the experts' dim on ``model``, the
+    block the expert-parallel MoE body computes on."""
+    return "expert" in path.lower() and ndim >= 3
 
 
 def param_spec(path: str, shape: tuple[int, ...], mesh=None,
@@ -628,7 +651,7 @@ def param_spec(path: str, shape: tuple[int, ...], mesh=None,
         lead = (None,) * (nd - 2)
         if "embed" in lpath or "unembed" in lpath or "lm_head" in lpath:
             return _fit_spec((*lead, allax, None), shape, mesh)
-        if "expert" in lpath and nd >= 3:
+        if is_expert_leaf(path, nd):
             # experts on tp; expert hidden column / row-parallel on dp
             lead3 = (None,) * (nd - 3)
             if is_row:   # (L, E, f, d)
@@ -641,7 +664,7 @@ def param_spec(path: str, shape: tuple[int, ...], mesh=None,
         # (vocab, d) or (L?, vocab, d): vocab on tp, d on fsdp
         lead = (None,) * (nd - 2)
         return _fit_spec((*lead, tp, dp), shape, mesh)
-    if "expert" in lpath and nd >= 3:
+    if is_expert_leaf(path, nd):
         # (L, E, d_in, d_out): experts on tp (EP), d_in on fsdp
         lead = (None,) * (nd - 3)
         return _fit_spec((*lead, tp, dp, None), shape, mesh)

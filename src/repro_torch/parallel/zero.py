@@ -269,13 +269,24 @@ def sharded_leaf_update(rule, g, state, param, ctx, zctx: ZeroContext):
     from repro_torch.core.selection import local_row_block
     from repro_torch.optim.common import orient_right
 
-    gf, transposed = orient_right(g)
+    blocked = isinstance(g, sharding.Block)
+    gf, transposed = orient_right(g.gather() if blocked else g)
     block = gf.shape[-2] // zctx.n_shards
     _check_held(state, param.shape, block)
     g_blk = local_row_block(gf, zctx.axes, block).contiguous()
+    del gf
     inner = dataclasses.replace(ctx, axis=zctx.axes, oriented=True)
     d, new_state = rule.update(g_blk, state, param, inner)
-    return RowBlock(d, zctx.axes, transposed), new_state
+    d = RowBlock(d, zctx.axes, transposed)
+    return (_as_param_block(d, g) if blocked else d), new_state
+
+
+def _as_param_block(d: "RowBlock", g: "sharding.Block") -> "sharding.Block":
+    """A row-block update as the parameter's block ``g`` is placed: the
+    rows all-gathered (one leaf whole) and cut again, so the chain's
+    elementwise transforms meet the parameter's block."""
+    return sharding.Block(sharding.local_block(d.gather(), g.placement,
+                                               g.mesh), g.placement, g.mesh)
 
 
 def replicated_leaf_update(rule, g, state, param, ctx, zctx: ZeroContext):
@@ -284,5 +295,10 @@ def replicated_leaf_update(rule, g, state, param, ctx, zctx: ZeroContext):
     state is cut to this rank's rows again."""
     specs = state_specs(param.shape, state, zctx.axes, zctx.n_shards)
     whole = sharding.gather_tree(state, specs, zctx.mesh)
-    d, new_state = rule.update(g, whole, param, ctx)
+    blocked = isinstance(g, sharding.Block)
+    d, new_state = rule.update(g.gather() if blocked else g, whole, param,
+                               ctx)
+    if blocked:
+        d = sharding.Block(sharding.local_block(d, g.placement, g.mesh),
+                           g.placement, g.mesh)
     return d, sharding.shard_tree(new_state, specs, zctx.mesh)

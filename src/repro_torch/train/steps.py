@@ -16,30 +16,47 @@ host in one piece).
 Data parallelism and placed state: under an active mesh
 (``parallel.sharding.set_mesh``) the state holds this rank's blocks of the
 parameters and of the optimizer state (``init_state``, by
-``sharding.params_specs`` / ``opt_state_specs`` under the active policy).
-The step all-gathers each split parameter whole once at its start (one
-collective a split leaf, in leaf order), takes the global batch, runs the
-model on this rank's slice of it (``sharding.batch_specs_tree``: over
-the data axes, over every axis under "pure_dp"), and averages the loss
-metrics and the gradients over those axes (one all-reduce of a flat
-buffer per dtype) before clipping, so clipping sees
-the global norm. The averaged half-batch means are the whole batch's mean
-up to rounding. The forward and backward run under ``sharding.batch_cut``
-of those axes: the MoE routes the global batch's tokens as the reference
-does (``models.moe``), and the models' mesh bodies run over ``model``
-(expert-parallel MoE, sequence-parallel attention), every rank ending with
-the whole gradient. For a model that routes tokens (an MoE block) with
-``cfg.train_microbatch`` on a cut batch, each rank takes its rows of each
-global microbatch (``_cut_global_microbatches``: the reference's
-microbatches are rows of the whole batch), so a microbatch's tokens are
-routed together; a dense model keeps the contiguous cut, its microbatches
-rows of the rank's slice (the same function up to rounding). The
-optimizer update reads the whole parameters and
-gradients and this rank's state blocks (``optim.transform``); each
-update is cut to its parameter's block (``sharding.held_updates``: a
-ZeRO-1 row block is all-gathered first) and added to it. Gathering and
-cutting only copy. The whole parameters live for the length of the step:
-the resident bytes between steps fall, the peak does not.
+``sharding.params_specs`` / ``opt_state_specs`` under the active policy),
+and they stay blocks for the whole step (FSDP's schedule,
+``parallel.fsdp``). The step takes the global batch and runs the model on
+this rank's slice of it (``sharding.batch_specs_tree``: over the data
+axes, over every axis under "pure_dp") under ``sharding.batch_cut`` of
+those axes, so the MoE routes the global batch's tokens as the reference
+does (``models.moe``) and the models' mesh bodies run over ``model``
+(expert-parallel MoE, sequence-parallel attention). The forward is handed
+the blocks and a ``parallel.fsdp.Held``'s ``use``: each use site (the embedding, each
+layer, the head) gathers its split weights when it runs, cast to the
+compute dtype, and gathers them again in the backward (the recomputation
+under ``cfg.remat``, else saved-tensor hooks); an expert leaf comes as its
+``model`` block, gathered over the data axes only. What lives whole: one
+layer's weights at a time (the one that runs), the embedding while a tied
+unembedding or the MTP head still reads it, and in the backward one
+site's regathered weights. Each split leaf's gradient leaves the backward
+as this rank's block of its mean over the cut axes (a reduce-scatter a
+site); the leaves that are not split are averaged with the loss metrics
+(one all-reduce of a flat buffer per dtype). For a model that routes
+tokens (an MoE block) with ``cfg.train_microbatch`` on a cut batch, each
+rank takes its rows of each global microbatch
+(``_cut_global_microbatches``: the reference's microbatches are rows of
+the whole batch), so a microbatch's tokens are routed together; a dense
+model keeps the contiguous cut, its microbatches rows of the rank's slice.
+Microbatched, each microbatch's backward reduces its blocks and the step
+adds them (FSDP's order: the gradients part from one process's by
+rounding). Clipping reads the global norm of the whole gradients: each
+split leaf's gradient is gathered whole for its sum of squares, one leaf at
+a time, so the norm is the one-process step's sum. The optimizer is
+handed the blocks as ``sharding.Block`` (their ``shape`` the whole one)
+beside this rank's state blocks (``optim.transform``): the elementwise
+rules update from the blocks, a rule that needs a whole leaf gathers that
+leaf's gradient, runs and cuts its update and drops the whole before the
+next. Each update is cut to its parameter's block
+(``sharding.held_updates``) and added to it. Gathering, reducing and
+cutting only move bits: where the gradients average two shares the step
+is bit-equal to one process in microbatches of one rank's rows. Under
+"pure_dp" nothing is split: the step runs on the whole replicated
+parameters and averages every gradient. Left for ROADMAP 6e: Megatron
+column / row compute of the dense products and the ``seq_parallel``
+residual stream.
 """
 from __future__ import annotations
 
@@ -49,7 +66,7 @@ import torch
 
 from repro_torch.models import transformer as T
 from repro_torch.optim import apply_updates
-from repro_torch.parallel import sharding
+from repro_torch.parallel import fsdp, sharding
 from repro_torch.parallel.zero import gather_updates
 from repro_torch.telemetry.stats import collect
 from repro_torch.train.chaos import strip_chaos_key
@@ -69,9 +86,9 @@ def _cross_entropy(logits, targets):
     return nll.mean()
 
 
-def loss_fn(params: dict, batch: dict, cfg):
+def loss_fn(params: dict, batch: dict, cfg, use=None):
     inputs = {k: v for k, v in batch.items() if k != "targets"}
-    logits, aux = T.forward(params, inputs, cfg)
+    logits, aux = T.forward(params, inputs, cfg, use=use)
     loss = _cross_entropy(logits, batch["targets"])
     metrics = {"ce": loss.detach()}
     loss = loss + aux["moe_aux"]
@@ -99,17 +116,27 @@ def grad_fn(params: dict, batch: dict, cfg):
     return dict(zip(leaves, grads)), metrics
 
 
-def _global_norm(tree: dict):
+def _global_norm(leaves):
+    """The l2 norm of a tree's leaves (a dict, or the leaves one at a
+    time), summed leaf by leaf in order."""
+    if isinstance(leaves, dict):
+        leaves = leaves.values()
     return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree.values()))
+                          for g in leaves))
+
+
+def _clip(tree: dict, norm, max_norm: float) -> dict:
+    """``tree`` scaled so its global norm ``norm`` is at most
+    ``max_norm`` (each leaf, or each block of one, elementwise)."""
+    scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
+    # g.float(): a bf16 gradient times the fp32 scale is fp32, as JAX
+    # promotes it (a no-op for fp32 gradients)
+    return {k: g.float() * scale for k, g in tree.items()}
 
 
 def _clip_by_global_norm(tree: dict, max_norm: float):
     norm = _global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
-    # g.float(): a bf16 gradient times the fp32 scale is fp32, as JAX
-    # promotes it (a no-op for fp32 gradients)
-    return {k: g.float() * scale for k, g in tree.items()}, norm
+    return _clip(tree, norm, max_norm), norm
 
 
 _ACCUM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -199,13 +226,13 @@ def make_train_step(cfg, optimizer, *, grad_clip: float = 1.0,
         if chaos is not None:
             batch, chaos_step = strip_chaos_key(batch)
         mesh = sharding.active_mesh()
-        params, p_specs, dp = state.params, None, ()
+        params, p_specs, dp, split = state.params, None, (), set()
         mb = n_micro = None
         if mesh is not None:
             p_specs, whole = param_placements(mesh)
             sharding.check_blocks(params, whole, p_specs, mesh,
                                   what="parameter")
-            params = sharding.gather_tree(params, p_specs, mesh)
+            split = {k for k, s in p_specs.items() if s.splits(mesh)}
             # the axes this rank's slice of the batch is cut over (the data
             # axes; every axis under "pure_dp"): the gradients average
             # over them
@@ -217,20 +244,30 @@ def make_train_step(cfg, optimizer, *, grad_clip: float = 1.0,
                     batch, cfg, mesh, dp)
             else:
                 batch = sharding.shard_tree(batch, b_specs)
+
+        def grads_of(part):
+            """The gradients of one (micro)batch: the split leaves' as this
+            rank's blocks of the mean over ``dp`` (``parallel.fsdp``), the
+            others whole, this rank's share."""
+            with sharding.batch_cut(dp):
+                if not split:
+                    return grad_fn(params, part, cfg)
+                g, m, _ = fsdp.grad_fn(params, p_specs, whole, mesh, dp, adt,
+                                       loss_fn, part, cfg)
+                return g, m
+
         b = batch["tokens"].shape[0]
         if mb is None:
             mb = cfg.train_microbatch or b
             n_micro = max(1, b // mb)
         if n_micro == 1:
-            with sharding.batch_cut(dp):
-                grads, metrics = grad_fn(params, batch, cfg)
+            grads, metrics = grads_of(batch)
             grads = {k: g.to(adt) for k, g in grads.items()}
         else:
             grads, ms = None, []
             for i in range(n_micro):
-                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                with sharding.batch_cut(dp):
-                    g, m = grad_fn(params, micro, cfg)
+                g, m = grads_of({k: v[i * mb:(i + 1) * mb]
+                                 for k, v in batch.items()})
                 part = {k: (gi / n_micro).to(adt) for k, gi in g.items()}
                 grads = part if grads is None else \
                     {k: grads[k] + part[k] for k in grads}
@@ -239,19 +276,33 @@ def make_train_step(cfg, optimizer, *, grad_clip: float = 1.0,
                        for k in ms[0]}
 
         if dp:
-            names, mnames = list(grads), list(metrics)
+            names = [k for k in grads if k not in split]
+            mnames = list(metrics)
             avg = sharding.all_reduce_mean(
                 [grads[k] for k in names] + [metrics[k] for k in mnames], dp)
-            grads = dict(zip(names, avg[:len(names)]))
+            grads.update(zip(names, avg[:len(names)]))
             metrics = dict(zip(mnames, avg[len(names):]))
 
         if chaos_step is not None:
             grads = chaos.tamper_grads(chaos_step, grads)
 
+        # the global norm reads each split leaf's whole gradient, gathered
+        # one leaf at a time: the one-process step's sum of each leaf.
+        # This gather is paid only for those bits (one more all-gather of
+        # the split gradients a step); ROADMAP 6e replaces it by one
+        # all-reduce of the blocks' sums of squares
+        gnorm = _global_norm(sharding.gather(g, p_specs[k], mesh)
+                             if k in split else g for k, g in grads.items())
         if grad_clip:
-            grads, gnorm = _clip_by_global_norm(grads, grad_clip)
-        else:
-            gnorm = _global_norm(grads)
+            grads = _clip(grads, gnorm, grad_clip)
+        if split:
+            # the optimizer takes this rank's blocks (``sharding.Block``:
+            # the whole shape, the placement); a rule that needs a whole
+            # leaf gathers it for that leaf alone
+            grads = {k: sharding.Block(g, p_specs[k], mesh) if k in split
+                     else g for k, g in grads.items()}
+            params = {k: sharding.Block(p, p_specs[k], mesh) if k in split
+                      else p for k, p in params.items()}
 
         metrics = dict(metrics)
         if telemetry:
@@ -264,7 +315,7 @@ def make_train_step(cfg, optimizer, *, grad_clip: float = 1.0,
         else:
             updates, new_opt = optimizer.update(grads, state.opt_state,
                                                 params)
-        del params, grads               # the whole copies go
+        del params, grads
         if p_specs is None:
             updates = gather_updates(updates)
         else:

@@ -185,7 +185,7 @@ def batch_rows(shape, layout: str) -> int:
 
 def placed_run(opt_name: str, zero_mode: str, steps: int = MESH_STEPS,
                microbatch: int = 0, state=None, start: int = 0,
-               arch: str = TRAIN["arch"]):
+               arch: str = TRAIN["arch"], remat: bool | None = None):
     """``steps`` train steps of ``arch``'s smoke model (the llama by
     default; ``microbatch`` rows a microbatch, 0: the whole batch) from
     step ``start`` of ``state`` (None: ``init_state``), on the active mesh
@@ -203,6 +203,8 @@ def placed_run(opt_name: str, zero_mode: str, steps: int = MESH_STEPS,
     name, kw = MESH_OPTS[opt_name]
     cfg = dataclasses.replace(get_config(arch, smoke=True),
                               train_microbatch=microbatch)
+    if remat is not None:
+        cfg = dataclasses.replace(cfg, remat=remat)
     zero = ZeroConfig(zero_mode)
     opt = get_optimizer(name, lr=0.01, zero=zero, **kw)
     # guarded: on a mesh the ranks combine their blocks' finite flags
@@ -366,7 +368,12 @@ class GradCapture:
         return ()
 
     def update(self, grads, state, params):
-        self.grads = {k: g.detach().clone() for k, g in grads.items()}
+        from repro_torch.parallel import sharding
+
+        # a train step under a mesh hands the split leaves' gradients as
+        # this rank's blocks (``sharding.Block``): kept whole here
+        self.grads = {k: (g.gather() if isinstance(g, sharding.Block)
+                          else g).detach().clone() for k, g in grads.items()}
         return {k: -g for k, g in grads.items()}, state
 
 
@@ -605,9 +612,115 @@ def _mesh_results(world: int, tmp: str) -> dict:
             if shape == (1, 2):
                 out["mesh/restore"] = _restore_at(mesh, ckpt)
         out.update(_model_mesh_results(mesh, key))
+        out.update(_fsdp_results(mesh, key))
     # the routing fault's case: a data-only mesh of the whole world
-    out["route"] = routing_run(make_mesh((world,), ("data",)))
+    data_mesh = make_mesh((world,), ("data",))
+    out["route"] = routing_run(data_mesh)
+    if world == 2:
+        out.update(_fsdp_results(data_mesh, mesh_key((world,))))
     return out
+
+
+# ---------------------------------------------------------------------------
+# FSDP's schedule (tests/test_torch_fsdp.py): the gathers a step makes, the
+# whole bytes alive at once, remat, the microbatched step and both routes of
+# the gradients' reduction, on the same worlds
+# ---------------------------------------------------------------------------
+FSDP_MICRO = 1              # rows a microbatch of the microbatched step
+
+
+def fsdp_grads(cfg, mesh) -> dict:
+    """``parallel.fsdp.grad_fn`` of ``cfg``'s smoke-size parameters (seed
+    0) on the step's batch cut, with a spy on ``Mesh.all_gather_many``:
+    the Held's log of gathers, its live-byte peak, every all-gather's
+    bytes, the split leaves and their whole bytes, and whether each
+    gradient has its block's shape."""
+    from repro_torch.data.synthetic import make_batch_fn
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import fsdp, sharding
+    from repro_torch.train.steps import loss_fn
+
+    sizes, orig = [], type(mesh).all_gather_many
+
+    def spy(self, tensors, axes):
+        parts = orig(self, tensors, axes)
+        sizes.append(sum(t.numel() * t.element_size() for row in parts
+                         for t in row))
+        return parts
+
+    with sharding.set_mesh(mesh):
+        whole = T.init_params(cfg, 0, "meta")
+        specs = sharding.params_specs(whole, mesh)
+        params = sharding.shard_tree(T.init_params(cfg, 0, "cpu"), specs,
+                                     mesh)
+        batch = make_batch_fn(cfg, TRAIN["seq"], TRAIN["batch"], seed=0,
+                              device="cpu")(0)
+        b_specs = sharding.batch_specs_tree(batch)
+        dp = tuple(a for _, axes, _ in b_specs["tokens"].splits(mesh)
+                   for a in axes)
+        type(mesh).all_gather_many = spy
+        try:
+            with sharding.batch_cut(dp):
+                grads, _, held = fsdp.grad_fn(
+                    params, specs, whole, mesh, dp, torch.float32,
+                    loss_fn, sharding.shard_tree(batch, b_specs), cfg)
+        finally:
+            type(mesh).all_gather_many = orig
+    split = sorted(k for k, s in specs.items() if s.splits(mesh))
+    return {"log": [[e["phase"], e["tag"], list(e["axes"]), e["paths"],
+                     e["bytes"]] for e in held.log],
+            "peak_live": held.peak_live_bytes, "live_after": held.live_bytes,
+            "gather_bytes": sizes, "split": split,
+            "whole_bytes": {k: whole[k].numel() * whole[k].element_size()
+                            for k in whole},
+            "block_shapes": all(tuple(grads[k].shape) == tuple(p.shape)
+                                for k, p in params.items())}
+
+
+def _fsdp_results(mesh, key: str) -> dict:
+    """FSDP's schedule on one mesh (module constants)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding
+
+    out = {}
+    for remat in (False, True):
+        out[f"fsdp/{key}/spy/moe/{remat}"] = fsdp_grads(
+            tiny_cfg(TINY_MOE, remat=remat), mesh)
+    out[f"fsdp/{key}/spy/llama/True"] = fsdp_grads(
+        dataclasses.replace(get_config(TRAIN["arch"], smoke=True),
+                            remat=True), mesh)
+    with sharding.set_mesh(mesh):
+        for zm in ("off", "1"):
+            out[f"fsdp/{key}/remat/{zm}"] = run_record(
+                placed_run("dct_adamw", zm, remat=True))
+        if "model" in mesh.axis_names:
+            out[f"fsdp/{key}/ep_remat"] = run_record(
+                placed_run("dct_adamw", "off", arch=EP_ARCH, remat=True))
+        # the gradients' reduction as an all-reduce and a cut
+        mesh.reduce_scatter, saved = False, mesh.reduce_scatter
+        try:
+            out[f"fsdp/{key}/all_reduce_route"] = run_record(
+                placed_run("dct_adamw", "off"))
+        finally:
+            mesh.reduce_scatter = saved
+        cfg = get_config(TRAIN["arch"], smoke=True)
+        params = T.init_params(cfg, 0, "cpu")
+        batch = make_batch(cfg)
+        for mb in (0, FSDP_MICRO):
+            out[f"fsdp/{key}/micro/{mb}"] = captured_step(
+                dataclasses.replace(cfg, train_microbatch=mb), params, batch)
+    return out
+
+
+def make_batch(cfg) -> dict:
+    """The smoke llama's first batch of the placed runs."""
+    from repro_torch.data.synthetic import make_batch_fn
+
+    return make_batch_fn(cfg, TRAIN["seq"], TRAIN["batch"], seed=0,
+                         device="cpu")(0)
 
 
 def _restore_at(mesh, ckpt: str) -> dict:
