@@ -71,7 +71,7 @@ class Mesh:
         rank's collectives (an all-gather's bytes are the gathered
         buffer's, a reduction's its input's)."""
         self.counts = {"all_gather": [0, 0], "all_reduce": [0, 0],
-                       "reduce_scatter": [0, 0]}
+                       "reduce_scatter": [0, 0], "all_to_all": [0, 0]}
 
     def _count(self, name: str, t: torch.Tensor) -> None:
         self.counts[name][0] += 1
@@ -232,6 +232,39 @@ class Mesh:
             return out.to(t.device)
         out = torch.empty(chunk, dtype=flat.dtype, device=flat.device)
         dist.reduce_scatter_tensor(out, flat, group=self.group(axes))
+        return out
+
+    def all_to_all(self, parts: list[torch.Tensor], sizes: list[int], axes
+                   ) -> list[torch.Tensor]:
+        """Each shard's part for this rank along ``axes``: ``parts[s]`` is
+        what this rank sends shard ``s`` (one dtype; empty where it sends
+        nothing), ``sizes[s]`` the number of elements it receives from
+        shard ``s``. Returns the received parts, flat, in shard order: one
+        all-to-all of the flat parts (``all_to_all_single``: nccl's, and
+        gloo's, which takes the staged host buffers). Only bits move."""
+        n = self.size(axes)
+        order = self._group_order(axes) or list(range(n))
+        src = torch.cat([parts[s].detach().reshape(-1) for s in order])
+        dev = src.device
+        out_splits = [sizes[s] for s in order]
+        in_splits = [parts[s].numel() for s in order]
+        self._count("all_to_all", src)
+        group = self.group(tuple(axes))
+        if self._staged(src):
+            host = self._host("send", src.numel(), src.dtype)
+            host.copy_(src)
+            recv = self._host("recv", sum(out_splits), src.dtype)
+            dist.all_to_all_single(recv, host, out_splits, in_splits,
+                                   group=group)
+            recv = recv.to(dev)
+        else:
+            recv = torch.empty(sum(out_splits), dtype=src.dtype, device=dev)
+            dist.all_to_all_single(recv, src, out_splits, in_splits,
+                                   group=group)
+        got = recv.split(out_splits)
+        out = [None] * n
+        for g, s in enumerate(order):
+            out[s] = got[g]
         return out
 
 

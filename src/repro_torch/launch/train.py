@@ -66,7 +66,8 @@ files under ``DIR/rank<r>`` (rank 0's in ``DIR``). At the end each rank
 prints one ``[train] rank {...}`` JSON line: its parameter and
 optimizer-state bytes (held, and of the whole arrays), peak device memory
 (over the run, and the largest of a step's, each from a reset before
-its step), the last step's collectives (calls and bytes), losses, step times and kernel launches.
+its step), the last step's collectives (calls and bytes), losses,
+gradient norms, step times and kernel launches.
 One process with ``--zero 1`` runs replicated and says so. A ``(data,
 model)`` mesh is the API's (``launch.mesh.make_mesh``,
 ``sharding.set_mesh``).
@@ -513,6 +514,7 @@ def _run(args, stop_at, cfg, lr, opt_kw, dev, telemetry_on, adaptive,
                                        if dev.type == "cuda" else None),
             "step_collectives": per_step["collectives"],
             "losses": [h["loss"] for h in hist],
+            "grad_norms": [h["grad_norm"] for h in hist],
             "s_per_step": [h["s_per_step"] for h in hist],
             "launches": {k: n for k, n in ops.launch_counts().items()
                          if n}}), flush=True)

@@ -228,13 +228,19 @@ def matmul(x, w):
     return x @ w
 
 
-def gelu_mlp(x, wi, bi, wo, bo):
+def gelu_mlp(x, wi, bi, wo, bo, tp=None):
     """``gelu(x @ wi + bi) @ wo + bo``, GELU by its tanh approximation (the
     JAX package's ``approximate=True``). The products promote as JAX's do
     (``matmul``): an fp32 bias beside bf16 weights widens what follows it to
-    fp32."""
+    fp32. With ``tp`` (a mesh axis) ``wi`` / ``wo`` are this rank's column
+    / row blocks over it (Megatron, :func:`swiglu`): x enters replicated,
+    this rank's slice of ``bi`` is added, the output partials are summed
+    over ``tp`` and ``bo`` is added once after."""
+    if tp is not None:
+        x, bi = C.replicated(x, (tp,)), C.cut(bi, -1, (tp,))
     h = F.gelu(matmul(x, wi) + bi, approximate="tanh")
-    return matmul(h, wo) + bo
+    y = matmul(h, wo)
+    return (y if tp is None else C.all_reduce(y, (tp,))) + bo
 
 
 def decode_attention(q, k_cache, v_cache, *, length=None, window=None,
@@ -288,6 +294,16 @@ def chunk_attention(q, k_cache, v_cache, mask, *, scale=None):
     return out.reshape(b, c, hq, hd).to(q.dtype)
 
 
-def swiglu(x, wg, wu, wd):
+def swiglu(x, wg, wu, wd, tp=None):
+    """``(silu(x @ wg) * (x @ wu)) @ wd``. With ``tp`` (a mesh axis) the
+    weights are this rank's Megatron blocks over it, the reference's
+    ``_shard_hidden`` (the hidden units on ``model``): ``wg`` / ``wu``
+    column blocks, ``wd`` the row block; x enters through Megatron's ``f``
+    (``collectives.replicated``: its gradient summed over ``tp``) and the
+    output's partial products are summed over ``tp`` (``g``:
+    ``collectives.all_reduce``, the cotangent handed on as it is)."""
+    if tp is not None:
+        x = C.replicated(x, (tp,))
     h = F.silu(matmul(x, wg)) * matmul(x, wu)
-    return matmul(h, wd)
+    y = matmul(h, wd)
+    return y if tp is None else C.all_reduce(y, (tp,))

@@ -27,7 +27,16 @@ batch, whatever block of it this rank holds (``sharding.batch_cut_axes``):
   its own rows, the aux averaged over the data axes), else the tokens are
   replicated; under ``decode_tp`` the tokens are replicated and each
   expert's hidden dim is cut over the data axes as well, the f-partials
-  summed there too. The shared experts run whole on every rank.
+  summed there too. Where the step cut the batch over axes whose rows
+  the reference routes together (``model`` under ``pure_dp``: each data
+  shard's tokens; the data axes in a ``decode_tp`` train step: every
+  token), ``moe_ffn`` first gathers those rows and keeps its own rows of
+  the output; each rank's loss is then a share of the step's, so over
+  those axes the gathered rows' cotangents are summed before this rank's
+  block is taken and the experts' partial outputs hand every rank the
+  summed cotangent. The shared experts run on this rank's rows, as this
+  rank's Megatron blocks where the use site hands them so
+  (``models.layers.swiglu``).
 
 The backward pairs each collective with its transpose
 (``parallel.collectives``): every rank ends with the whole gradient of
@@ -209,10 +218,17 @@ def _local_moe(x, router_w, wg, wu, wd, *, cfg, tp_index: int = 0,
     return out.reshape(b, s, d), aux
 
 
-def _expert_parallel(p: dict, x, cfg, mesh, tp: str, cut_axes: tuple):
+def _expert_parallel(p: dict, x, cfg, mesh, tp: str, cut_axes: tuple,
+                     shares: tuple = ()):
     """The reference's ``shard_map`` body over ``model`` (module
     docstring) on this rank's activations ``x``, cut over ``cut_axes``
-    (() or the data axes). Returns (out, aux) for x's rows."""
+    (() or the data axes). ``shares``: the batch-cut axes whose rows
+    ``moe_ffn`` gathered into ``x`` (each rank's loss a share of the
+    step's): over them the experts (or their hidden dim) are sliced as
+    they are, the gates and the dispatched rows enter as they are, and the
+    partial outputs' sum hands each rank the summed cotangent
+    (``all_reduce`` with ``grad="same"``), so each rank's gradients are
+    its share. Returns (out, aux) for x's rows."""
     dp = sharding.dp_axes(mesh)
     decode_tp = sharding.layout_policy() == "decode_tp"
     if cut_axes and (decode_tp or set(cut_axes) != {
@@ -221,9 +237,7 @@ def _expert_parallel(p: dict, x, cfg, mesh, tp: str, cut_axes: tuple):
             f"moe_ffn: the batch is cut over {cut_axes} on the mesh "
             f"{mesh.shape} under the {sharding.layout_policy()!r} layout, "
             f"where the reference routes the tokens of "
-            f"{'every rank (decode_tp)' if decode_tp else 'each data shard'}"
-            f"; gathering them across ranks is not ported (run the step "
-            f"under 'fsdp_tp')")
+            f"{'every rank (decode_tp)' if decode_tp else 'each data shard'}")
     n_dp = mesh.size(dp) if dp else 1
     # the reference's rule on the global batch: cut over the data axes
     # where it divides, tokens replicated under decode_tp
@@ -238,26 +252,41 @@ def _expert_parallel(p: dict, x, cfg, mesh, tp: str, cut_axes: tuple):
         x = C.cut(x, 0, dp)
         router, wg, wu, wd = (C.replicated(w, dp)
                               for w in (router, wg, wu, wd))
+    tp_size = mesh.shape[tp]
+    tp_index = mesh.shard_index((tp,))
     if wg.shape[0] == cfg.n_experts:
-        # whole expert leaves (decode, one process's parameters, or an
-        # expert dim ``_fit_spec`` replicates): this rank's E/tp experts
-        wg, wu, wd = (C.cut(w, 0, (tp,)) for w in (wg, wu, wd))
-    elif wg.shape[0] * mesh.shape[tp] != cfg.n_experts:
+        # whole expert leaves (decode, one process's parameters, the
+        # pure_dp layout's, or an expert dim ``_fit_spec`` replicates):
+        # this rank's E/tp experts
+        if tp in shares:
+            e = cfg.n_experts // tp_size
+            wg, wu, wd = (w.narrow(0, tp_index * e, e) for w in (wg, wu, wd))
+        else:
+            wg, wu, wd = (C.cut(w, 0, (tp,)) for w in (wg, wu, wd))
+    elif wg.shape[0] * tp_size != cfg.n_experts:
         raise ValueError(f"moe_ffn: {wg.shape[0]} experts held, neither "
                          f"the {cfg.n_experts} of the model nor its block "
                          f"over {tp!r}")
-    spread = (tp,)
+    spread = (tp,) if tp not in shares else ()
     if decode_tp and dp:
         # the experts' hidden dim over the data axes: wg / wu column-,
         # wd row-parallel; the f-partials summed there too
-        wg, wu = C.cut(wg, 2, dp), C.cut(wu, 2, dp)
-        wd = C.cut(wd, 1, dp)
-        spread = (tp, *dp)
-    tp_size = mesh.shape[tp]
+        if shares:
+            f = wg.shape[2] // n_dp
+            i = mesh.shard_index(dp)
+            wg, wu = wg.narrow(2, i * f, f), wu.narrow(2, i * f, f)
+            wd = wd.narrow(1, i * f, f)
+        else:
+            wg, wu = C.cut(wg, 2, dp), C.cut(wu, 2, dp)
+            wd = C.cut(wd, 1, dp)
+            spread = (tp, *dp)
     out, aux = _local_moe(x, router, wg, wu, wd, cfg=cfg,
-                          tp_index=mesh.shard_index((tp,)), tp_size=tp_size,
-                          spread=spread)
+                          tp_index=tp_index, tp_size=tp_size, spread=spread)
     out = C.all_reduce(out, spread)
+    if shares:
+        # the partials over the gathered axes: each rank's experts (or
+        # hidden slice) feed every rank's rows
+        out = C.all_reduce(out, (tp,) if tp in shares else dp, grad="same")
     # every model rank computes the same aux: their mean, the cotangent
     # handed to each whole
     aux = C.all_reduce(aux, (tp,), mean=True)
@@ -283,19 +312,29 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg):
     cut_axes = tuple(a for a in sharding.batch_cut_axes()
                      if mesh is not None and mesh.shape.get(a, 1) > 1)
     if mesh is not None and tp is not None:
-        if tp in cut_axes:
-            raise ValueError(
-                f"moe_ffn: the batch is cut over {cut_axes}, the model axis "
-                f"among them (the 'pure_dp' layout), where the reference "
-                f"routes each data shard's tokens expert-parallel over "
-                f"'model'; gathering the tokens over 'model' is not ported "
-                f"(run the step under 'fsdp_tp')")
-        out, aux = _expert_parallel(p, x, cfg, mesh, tp, cut_axes)
+        # the rows the reference routes together that this rank lacks:
+        # under pure_dp (the batch cut over model too) its data shard's,
+        # gathered over model; in a decode_tp train step (the batch cut
+        # over the data axes) the global batch's, gathered over them
+        shares = (tp,) if tp in cut_axes else \
+            cut_axes if sharding.layout_policy() == "decode_tp" else ()
+        if shares:
+            rows = x.shape[0]
+            # the gathered rows' cotangents summed over the shares before
+            # this rank's block is taken: a reduce-scatter's transpose
+            xs = C.replicated(C.gather(x, 0, shares), shares)
+            out, aux = _expert_parallel(
+                p, xs, cfg, mesh, tp,
+                tuple(a for a in cut_axes if a not in shares), shares)
+            out = out.narrow(0, mesh.shard_index(shares) * rows, rows)
+        else:
+            out, aux = _expert_parallel(p, x, cfg, mesh, tp, cut_axes)
     else:
         # no model axis: the reference routes the global batch as one
         out, aux = _local_moe(x, p["router/kernel"], p["experts/wg"],
                               p["experts/wu"], p["experts/wd"], cfg=cfg,
                               dp_cut=cut_axes)
     if "shared/wg" in p:
-        out = out + swiglu(x, p["shared/wg"], p["shared/wu"], p["shared/wd"])
+        out = out + swiglu(x, p["shared/wg"], p["shared/wu"], p["shared/wd"],
+                           C.megatron_axis(p, "shared/"))
     return out, aux * cfg.router_aux_weight

@@ -91,6 +91,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.devices import resolve_device
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import sharding
 
 from .layers import (
     NEG_INF,
@@ -367,8 +369,13 @@ def _gqa_apply(p: dict, h, cfg, *, pre: str = "attn/", causal: bool = True,
     cross-attention whose keys and values are projected from it (no rope
     on them, as the JAX package's). Returns (the output projected by wo,
     with wo's bias where the block has one; the (roped) (k, v))."""
+    tp = C.megatron_axis(p, pre)
+    if tp is not None:
+        p, h, kv_src, heads = _megatron_heads(p, h, cfg, pre, kv_src, tp)
     b, s, _ = h.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    if tp is not None:
+        hq, hkv = heads
     src = h if kv_src is None else kv_src
     q = _proj(p, h, "q", pre).reshape(b, s, hq, hd)
     k = _proj(p, src, "k", pre).reshape(b, src.shape[1], hkv, hd)
@@ -381,7 +388,52 @@ def _gqa_apply(p: dict, h, cfg, *, pre: str = "attn/", causal: bool = True,
     attend = sp_blockwise_attention if cfg.attn_sp else blockwise_attention
     a = attend(q, k, v, causal=causal, window=window, q_chunk=cfg.q_chunk,
                kv_chunk=cfg.kv_chunk)
-    return _out(p, a.reshape(b, s, hq * hd), pre), (k, v)
+    if tp is None:
+        return _out(p, a.reshape(b, s, hq * hd), pre), (k, v)
+    y = C.all_reduce(matmul(a.reshape(b, s, hq * hd), p[f"{pre}wo/kernel"]),
+                     (tp,))
+    bias = p.get(f"{pre}wo/bias")
+    return (y if bias is None else y + bias), (k, v)
+
+
+def _megatron_heads(p: dict, h, cfg, pre: str, kv_src, tp: str):
+    """A GQA site's leaves as Megatron hands them (``Held.use``: ``wq`` /
+    ``wo`` this rank's column / row blocks of its ``hq/tp`` query heads;
+    ``wk`` / ``wv`` column blocks of its ``hkv/tp`` kv heads where hkv
+    divides, else whole) made this rank's heads: the q / k / v biases cut
+    to them, whole ``wk`` / ``wv`` cut to the kv heads the rank's query
+    heads read, and every leaf or input that this rank uses for a part of
+    the heads entered through ``collectives.replicated`` (its gradient
+    summed over ``tp``: the inputs, the qk-norm scales, whole ``wk`` /
+    ``wv``). Returns (the leaves, h, kv_src, (query heads, kv heads))."""
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    group = hq // hkv
+    q0, q1 = C.block_range(hq, tp)
+    p = dict(p)
+    h = C.replicated(h, (tp,))
+    kv_src = None if kv_src is None else C.replicated(kv_src, (tp,))
+    if f"{pre}wq/bias" in p:
+        p[f"{pre}wq/bias"] = C.cut(p[f"{pre}wq/bias"], -1, (tp,))
+    for n in ("q", "k"):
+        if f"{pre}{n}_norm_scale" in p:
+            p[f"{pre}{n}_norm_scale"] = C.replicated(
+                p[f"{pre}{n}_norm_scale"], (tp,))
+    if p[f"{pre}wk/kernel"].shape[-1] != hkv * hd:
+        # kv heads cut with the query heads: whole groups on the rank
+        for n in ("k", "v"):
+            if f"{pre}w{n}/bias" in p:
+                p[f"{pre}w{n}/bias"] = C.cut(p[f"{pre}w{n}/bias"], -1,
+                                             (tp,))
+        return p, h, kv_src, (q1 - q0, hkv * (q1 - q0) // hq)
+    # kv gathered whole: the kv heads this rank's query heads read (whole
+    # groups, or one kv head: ``megatron_sites``)
+    k0, k1 = q0 // group, (q1 - 1) // group + 1
+    for n in ("k", "v"):
+        for leaf in (f"{pre}w{n}/kernel", f"{pre}w{n}/bias"):
+            if leaf in p:
+                p[leaf] = C.replicated(p[leaf], (tp,))[
+                    ..., k0 * hd:k1 * hd]
+    return p, h, kv_src, (q1 - q0, k1 - k0)
 
 
 def _out(p: dict, a, pre: str = "attn/"):
@@ -444,7 +496,7 @@ def _mlp(kind: str, p: dict, h, cfg):
             return m[:, 0], aux
         return moe_ffn(moe, h, cfg)
     return swiglu(h, p["mlp/wg/kernel"], p["mlp/wu/kernel"],
-                  p["mlp/wd/kernel"]), None
+                  p["mlp/wd/kernel"], C.megatron_axis(p, "mlp/")), None
 
 
 def _rwkv_apply(p: dict, x, cfg):
@@ -493,7 +545,8 @@ def _encdec_apply(kind: str, p: dict, x, cfg, ctx):
         x, kv, ln = x + a, (kv, xkv), "ln3"
     h = layer_norm(x, p[f"{ln}/scale"], p[f"{ln}/bias"], eps)
     x = x + gelu_mlp(h, p["mlp/wi/kernel"], p["mlp/wi/bias"],
-                     p["mlp/wo/kernel"], p["mlp/wo/bias"])
+                     p["mlp/wo/kernel"], p["mlp/wo/bias"],
+                     C.megatron_axis(p, "mlp/"))
     return x, (kv if kind == "dec" else None)
 
 
@@ -590,16 +643,69 @@ def _sinusoid(seq: int, d: int, dtype, device):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
-def _as_is(leaves: dict, prefix: str = "", tag=None) -> dict:
+def _as_is(leaves: dict, prefix: str = "", tag=None,
+           tp_sites=None) -> dict:
     """The use of whole parameters: cast once by ``forward`` already."""
     return leaves
+
+
+def megatron_sites(kind: str, cfg) -> dict:
+    """What a block of ``kind`` declares to a use site for Megatron's
+    column / row compute on the active mesh's ``model`` axis (the
+    reference's ``shard(q, "batch", None, "tp", None)`` and
+    ``_shard_hidden``): ``{group: {leaf: "col" | "row"}}`` for each group
+    whose products split by head or by hidden unit, or ``{group: reason}``
+    where the reference computes it otherwise (its attention under
+    ``attn_sp`` cuts the queries by sequence; query heads that do not
+    divide over ``model``, or a rank's query heads that read parts of kv
+    groups). The GQA groups (``attn/``, ``xattn/``) declare wk / wv column
+    leaves only where the kv heads divide too (else they come whole and
+    each rank picks the kv heads its query heads read); the
+    FFN groups: the SwiGLU (``mlp/``), the GELU MLP, the MoE's shared
+    experts. MLA's latents, Mamba's and RWKV's mixes, the experts and the
+    embedding / head declare nothing: they keep the gather route. {}
+    without a ``model`` axis of more than one rank."""
+    mesh = sharding.active_mesh()
+    tp = sharding.tp_axis(mesh)
+    if tp is None or mesh.shape[tp] == 1:
+        return {}
+    n = mesh.shape[tp]
+    out = {}
+    attn = {"enc": ("attn/",), "dec": ("attn/", "xattn/"),
+            "cross": ("xattn/",)}.get(
+        kind, ("attn/",) if kind in ("attn", "local", "attn_moe") else ())
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    for pre in attn:
+        if cfg.attn_sp:
+            out[pre] = "attn_sp: the reference cuts the queries by sequence"
+        elif hq % n:
+            out[pre] = f"{hq} query heads do not split over {n} ranks"
+        elif hkv % n and (hq // n) % (hq // hkv) and (hq // hkv) % (hq // n):
+            out[pre] = (f"a rank's {hq // n} query heads read parts of "
+                        f"groups of {hq // hkv}")
+        else:
+            roles = {"wq/kernel": "col", "wo/kernel": "row"}
+            if cfg.n_kv_heads % n == 0:
+                roles.update({"wk/kernel": "col", "wv/kernel": "col"})
+            out[pre] = roles
+    if kind in ("enc", "dec"):
+        out["mlp/"] = {"wi/kernel": "col", "wo/kernel": "row"}
+    elif kind in MOE_KINDS:
+        if cfg.n_shared_experts:
+            out["moe/shared/"] = {"wg": "col", "wu": "col", "wd": "row"}
+    elif kind != "rwkv":
+        out["mlp/"] = {"wg/kernel": "col", "wu/kernel": "col",
+                       "wd/kernel": "row"}
+    return out
 
 
 def _block(kind, lp, x, cfg, ctx, use, pre, layer):
     """``block_apply`` on a layer's weights as ``use`` hands them: the
     whole ones as they are, or (blocks) gathered here, inside the function
-    ``_remat`` recomputes."""
-    return block_apply(kind, use(lp, pre, f"{pre}{layer}"), x, cfg, ctx)
+    ``_remat`` recomputes (the Megatron groups of ``megatron_sites`` as
+    this rank's blocks)."""
+    return block_apply(kind, use(lp, pre, f"{pre}{layer}",
+                                 megatron_sites(kind, cfg)), x, cfg, ctx)
 
 
 def encode(params: dict, frames, cfg, use=_as_is):

@@ -67,7 +67,6 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.core.selection import allsum
 from repro_torch.core.transforms import (
     basis_store_key,
     normalize_basis_request,
@@ -311,14 +310,9 @@ def clip_global_norm(max_norm: float) -> GradientTransform:
     fp32 tensor (a bf16 update is widened to fp32 by it, as JAX's
     promotion does)."""
 
-    def sq(u):
-        if isinstance(u, sharding.UpdateBlock):  # sum the shards' blocks
-            return allsum(torch.sum(torch.square(u.local.float())),
-                          u.shard_axes)
-        return torch.sum(torch.square(u.float()))
-
     def upd(updates, params, ctx):
-        norm = torch.sqrt(sum(sq(u) for u in updates.values()))
+        # a block's squares summed with the other ranks' blocks
+        norm = torch.sqrt(sharding.sum_squares(updates.values()))
         # a tensor quotient: torch divides a Python scalar by a tensor as a
         # multiply by the reciprocal, an ulp off IEEE
         scale = torch.clamp(torch.full_like(norm, max_norm)

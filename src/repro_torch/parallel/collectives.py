@@ -24,7 +24,12 @@ from the kind:
 
 The weights of a train step under a mesh are gathered on use by
 ``parallel.fsdp`` (one autograd function a use site, its backward this
-rank's block of the mean gradient), not here.
+rank's block of the mean gradient), not here. Where a use site hands the
+model code a group's Megatron leaves as this rank's ``model`` blocks
+(:func:`megatron_axis`), the model runs Megatron's pair around them:
+``f`` is :func:`replicated` on the group's input, ``g`` is
+:func:`all_reduce` of the row-parallel output with ``grad="identity"``;
+:func:`block_range` gives this rank's heads or hidden units.
 
 Every function is the identity, with no collective, when its axes span
 one rank. Blocks follow ``launch.mesh.Mesh.shard_index`` (the reference's
@@ -163,3 +168,21 @@ def gather(x: torch.Tensor, dim: int, axes) -> torch.Tensor:
         return x
     return _Gather.apply(x, dim, mesh, axes, n)
 
+
+def megatron_axis(p: dict, group: str):
+    """The mesh axis over which a use site handed ``group``'s (``attn/``,
+    ``mlp/``, ...) Megatron leaves of ``p`` as this rank's blocks
+    (``sharding.MEGATRON``), None where they are whole."""
+    return p.get(group + sharding.MEGATRON)
+
+
+def block_range(n: int, axis) -> tuple[int, int]:
+    """``[start, stop)`` of this rank's block of ``n`` units (heads, hidden
+    units) cut into equal blocks over ``axis``, in shard order."""
+    mesh, axes, size = _mesh_axes((axis,))
+    if n % size:
+        raise ValueError(f"block_range: {n} units do not split into {size} "
+                         f"blocks over {axes}")
+    per = n // size
+    i = mesh.shard_index(axes)
+    return i * per, (i + 1) * per

@@ -4,31 +4,52 @@ for the whole step, and each use site gathers the weights it reads.
 The reference holds each parameter as a block under ``fsdp_tp``
 (``sharding.param_spec``) and lets GSPMD gather a layer's weights inside the
 scan body, again in the backward under ``jax.checkpoint``, and hand each
-gradient back with its parameter's placement. Here a :class:`Held` wraps the
-blocks of one step; :func:`grad_fn` hands ``models.transformer.forward``
-and ``encode`` the blocks and :meth:`Held.use` (their ``use``), which they
+gradient back with its parameter's placement; the dense products it
+derives from the placements run on each rank's ``model`` block
+(Megatron's column / row pair). Here a :class:`Held` wraps the blocks of
+one step; :func:`grad_fn` hands ``models.transformer.forward`` and
+``encode`` the blocks and :meth:`Held.use` (their ``use``), which they
 call where a layer (or the embedding, the final norm and the unembedding,
 the MTP head) runs.
 
-:meth:`Held.use` returns the whole weights of one use site, cast to the
-compute dtype, through :class:`_GatherOnUse`, one autograd function a site:
+:meth:`Held.use` returns the weights of one use site, cast to the compute
+dtype, through :class:`_GatherOnUse`, one autograd function a site:
 
 * forward: the site's split leaves are cast to the compute dtype and
   all-gathered as one flat buffer per (dtype, mesh axes) group
-  (``Mesh.all_gather_many``), over each leaf's split axes; the whole views
-  are new contiguous tensors, one a leaf. An expert leaf under ``fsdp_tp``
-  (``P(tp, dp, None)`` past its stacked dim) is gathered over the data axes
-  only: ``models.moe`` then runs this rank's E/tp experts on it directly.
-* backward: each whole gradient goes back to the parameter's dtype, then to
-  the step's accumulation dtype, and this rank keeps its block of the mean
+  (``Mesh.all_gather_many``), over each leaf's split axes; the views are
+  new contiguous tensors, one a leaf. Two kinds of leaf keep their
+  ``model`` block and are gathered over the data axes only: an expert
+  leaf under ``fsdp_tp`` (``P(tp, dp, None)`` past its stacked dim:
+  ``models.moe`` runs this rank's E/tp experts on it), and a leaf of a
+  Megatron group (below).
+* backward: each gradient goes back to the parameter's dtype, then to the
+  step's accumulation dtype, and this rank keeps its block of the mean
   over the axes the batch was cut over (the step's ``dp``): over the axes
   that are both gathered and cut, one reduce-scatter
   (``Mesh.reduce_scatter_sum``: the backend's own, gloo's included, else
   an all-reduce and a cut); over gathered axes the batch was not cut over
-  (``model``, whose ranks compute the same whole gradient, the models'
-  mesh bodies included) a cut; over cut axes the leaf is not split over, an
-  all-reduce. The sum over the ranks and the division are the gather-whole
-  step's, so at two shares the blocks hold its bits.
+  (``model`` for a leaf gathered whole, whose ranks compute the same whole
+  gradient, the models' mesh bodies included) a cut; over cut axes the
+  leaf is not split over, an all-reduce. A leaf handed as its ``model``
+  block comes back as this rank's block's gradient already: it is reduced
+  over the batch-cut axes only. The sum over the ranks and the division
+  are the gather-whole step's, so at two shares the blocks hold its bits.
+
+Megatron groups: ``use``'s ``tp_sites`` (``models.transformer.
+megatron_sites``) declares, for each group of a layer's leaves whose
+products split by head or by hidden unit (``attn/``, ``xattn/``,
+``mlp/``, ``moe/shared/``), which leaves are column-parallel (d_out on
+``model``) and which row-parallel (d_in on ``model``), or the reason the
+reference computes the group otherwise. A declared group takes the
+Megatron route when each of its leaves is placed over ``model`` alone on
+its declared dim (``fsdp_tp``; not ``decode_tp``, whose matrices split
+over every axis at once, nor a dim ``_fit_spec`` left whole): its leaves
+come as this rank's blocks and the group's ``sharding.MEGATRON`` key
+names the axis, so the model code runs Megatron's ``f`` / ``g`` around
+them (``parallel.collectives``). Any other group, and every undeclared
+leaf, takes the gather route. :attr:`Held.log` records each group's
+route and why (entries with a ``route`` key) beside every gather.
 
 Between a site's forward and its backward no gathered weight stays alive.
 Under ``cfg.remat`` the layer's gather runs inside the checkpointed function
@@ -43,11 +64,12 @@ so they run on autograd's device thread as well.
 A weight used at two sites of one forward (tied embeddings, the MTP head's
 embedding) is gathered once and lives until its last use, so its gradients
 add up on the whole before one reduction, as in the gather-whole step.
-What lives whole at once in the forward: the weights of the site that
-runs, and that non-layer weight; in the backward one site's regathered
-weights. ``Held.live_bytes`` / ``peak_live_bytes`` count them;
-:attr:`Held.log` records every gather (``Mesh.counts`` every
-collective).
+What lives at once in the forward: the gathered weights (whole, or
+blocks) of the site that runs, and that non-layer weight; in the backward
+one site's regathered weights. ``Held.live_bytes`` / ``peak_live_bytes``
+count them; :attr:`Held.log` records every group a site hands out, its
+axes (none where a block is handed without a collective) and bytes
+(``Mesh.counts`` every collective).
 """
 from __future__ import annotations
 
@@ -116,12 +138,13 @@ class _Site:
                 for rank, row in zip(ranks, parts):
                     _narrow(whole, leaf, mesh, rank).copy_(row[j])
                 out[i] = whole
-            if axes:
-                held.log.append({
-                    "phase": phase, "tag": self.tag, "axes": axes,
-                    "paths": [self.leaves[i].path for i in idxs],
-                    "bytes": sum(out[i].numel() * out[i].element_size()
-                                 for i in idxs)})
+            # a group with no axes (a ``model`` block with one data
+            # block) is handed without a collective
+            held.log.append({
+                "phase": phase, "tag": self.tag, "axes": axes,
+                "paths": [self.leaves[i].path for i in idxs],
+                "bytes": sum(out[i].numel() * out[i].element_size()
+                             for i in idxs)})
         return out
 
     def regathered(self, i: int) -> torch.Tensor:
@@ -226,22 +249,31 @@ class Held:
         self._experts_by_block = (sharding.layout_policy() == "fsdp_tp"
                                   and sharding.tp_axis(mesh) is not None)
 
-    def _leaf(self, path: str, t: torch.Tensor) -> _Leaf | None:
-        key = (path, t.dim())
+    def _entries(self, path: str, t: torch.Tensor) -> list:
+        """The placement entries of the tensor the site is handed (a
+        stacked leaf's layer view drops the layers' dim)."""
+        whole = self.whole[path]
+        entries = list(self.specs[path].spec(len(whole)))
+        if entries and t.dim() == len(whole) - 1:
+            if entries[0] is not None:
+                raise ValueError(f"{path}: the layers' dim is split")
+            entries = entries[1:]
+        return entries
+
+    def _leaf(self, path: str, t: torch.Tensor,
+              by_block: bool = False) -> _Leaf | None:
+        key = (path, t.dim(), by_block)
         if key in self._leaves:
             return self._leaves[key]
-        spec, whole = self.specs[path], self.whole[path]
         leaf = None
-        if spec.splits(self.mesh):
-            entries = list(spec.spec(len(whole)))
-            if t.dim() == len(whole) - 1:       # a stacked leaf's layer view
-                if entries[0] is not None:
-                    raise ValueError(f"{path}: the layers' dim is split")
-                entries, whole = entries[1:], whole[1:]
+        if self.specs[path].splits(self.mesh):
+            entries = self._entries(path, t)
             tp = sharding.tp_axis(self.mesh)
-            if self._experts_by_block and sharding.is_expert_leaf(
-                    path, len(self.whole[path])):
-                # this rank's E/tp experts, gathered over the data axes
+            if by_block or (self._experts_by_block and
+                            sharding.is_expert_leaf(path,
+                                                    len(self.whole[path]))):
+                # this rank's ``model`` block (a Megatron leaf; an expert
+                # leaf's E/tp experts), gathered over the data axes
                 entries = [None if sharding._axes(e) == (tp,) else e
                            for e in entries]
             dims = tuple(sharding.Placement(tuple(entries)).splits(self.mesh))
@@ -255,14 +287,58 @@ class Held:
         self._leaves[key] = leaf
         return leaf
 
-    def use(self, leaves: dict, prefix: str = "", tag=None) -> dict:
-        """The whole weights of one use site, cast to the compute dtype:
+    def _megatron(self, leaves: dict, prefix: str, tag, tp_sites
+                  ) -> tuple[set, dict]:
+        """The Megatron route of a site's declared groups (module
+        docstring): the names handed as ``model`` blocks, and the markers
+        of the groups that take it. A group takes it when each of its
+        leaves is split over ``model`` alone on the declared dim (a
+        column leaf's d_out, a row leaf's d_in) and over nothing else on
+        ``model``; else (or where the model declared a reason) it takes
+        the gather route. Each group's route is logged."""
+        tp = sharding.tp_axis(self.mesh)
+        names, marks = set(), {}
+        for group, roles in (tp_sites or {}).items():
+            why = roles if isinstance(roles, str) else None
+            for leaf, role in ({} if why else roles).items():
+                name = group + leaf
+                if name not in leaves:
+                    why = f"{name} is not at the site"
+                    break
+                entries = self._entries(prefix + name, leaves[name])
+                dim = len(entries) - (1 if role == "col" else 2)
+                on = [d for d, e in enumerate(entries)
+                      if tp in sharding._axes(e)]
+                if on != [dim] or sharding._axes(entries[dim]) != (tp,) \
+                        or self.mesh.shape[tp] == 1:
+                    why = (f"{name} ({role}) is placed "
+                           f"{sharding.Placement(tuple(entries))}, not split "
+                           f"over {tp!r} alone on dim {dim}")
+                    break
+            if why is None:
+                names.update(group + leaf for leaf in roles)
+                marks[group + sharding.MEGATRON] = tp
+            self.log.append({
+                "phase": "forward" if self.in_forward else "backward",
+                "tag": prefix if tag is None else tag, "group": group,
+                "route": "gather" if why else "megatron", "why": why,
+                "paths": [] if isinstance(roles, str) else
+                [prefix + group + leaf for leaf in roles]})
+        return names, marks
+
+    def use(self, leaves: dict, prefix: str = "", tag=None,
+            tp_sites: dict | None = None) -> dict:
+        """The weights of one use site, cast to the compute dtype:
         ``leaves`` are blocks (or a stacked leaf's per-layer views of
         them) keyed under ``prefix``; the split ones come through one
-        :class:`_GatherOnUse`, the others are cast as they are."""
+        :class:`_GatherOnUse`, whole or, for the groups of ``tp_sites``
+        that take the Megatron route (:meth:`_megatron`), as this rank's
+        ``model`` block, the group's ``sharding.MEGATRON`` key naming the
+        axis; the others are cast as they are."""
+        by_block, marks = self._megatron(leaves, prefix, tag, tp_sites)
         out, names, split, blocks = {}, [], [], []
         for name, t in leaves.items():
-            leaf = self._leaf(prefix + name, t)
+            leaf = self._leaf(prefix + name, t, name in by_block)
             if leaf is None:
                 out[name] = t.to(self.cast(prefix + name, t))
             else:
@@ -274,7 +350,7 @@ class Held:
             wholes = _GatherOnUse.apply(site, *blocks)
             out.update(zip(names, wholes if isinstance(wholes, tuple)
                            else (wholes,)))
-        return {name: out[name] for name in leaves}
+        return {**{name: out[name] for name in leaves}, **marks}
 
     # -- the live whole weights and the saved-tensor hooks ------------------
     def _grow(self, nbytes: int) -> None:

@@ -26,14 +26,15 @@ blocks, between steps and through them: a train step gathers each use
 site's weights when it runs and again in the backward, reduces each
 gradient to this rank's block and updates the blocks (``parallel.fsdp``,
 ``train.steps``), so no rank holds the whole parameters or gradients at
-once. The models' two mesh bodies run over ``model`` inside the step
+once. The models' mesh bodies run over ``model`` inside the step
 (expert-parallel MoE on this rank's expert block, sequence-parallel
 attention: ``models.moe``, ``models.layers``, their collectives in
 ``parallel.collectives``), reading which block of the global batch the
-activations are (:func:`batch_cut`). Megatron column / row-parallel
-compute of the dense products is what this module does not give (what
-GSPMD derives from the reference's placements; ROADMAP 6e): the dense
-layers run on whole gathered weights.
+activations are (:func:`batch_cut`), and so do the dense attention and
+MLP products where the placements split them by head or hidden unit
+(Megatron's column / row pair, what GSPMD derives from the reference's
+placements: ``parallel.fsdp`` hands those leaves as this rank's ``model``
+blocks, :data:`MEGATRON`).
 
 A :class:`Placement` stands where the reference has a ``PartitionSpec``:
 one entry per dim, None (whole) or the mesh axes the dim is split over,
@@ -69,6 +70,10 @@ import torch
 
 DP_AXES = ("pod", "data")   # batch / FSDP axes (the present subset)
 TP_AXIS = "model"
+#: the key, after a group's prefix (``attn/``, ``mlp/``, ...), under which
+#: ``parallel.fsdp.Held.use`` tells the model code that it hands that
+#: group's Megatron leaves as this rank's blocks over the named axis
+MEGATRON = "megatron"
 
 LAYOUTS = ("fsdp_tp", "pure_dp", "decode_tp")
 
@@ -526,6 +531,33 @@ def held_updates(updates: dict, specs: dict, mesh=None) -> dict:
     return out
 
 
+def sum_squares(leaves) -> torch.Tensor:
+    """The sum of the squares of every element of ``leaves`` (tensors, or
+    :class:`UpdateBlock` s of whole arrays), in fp32: each leaf's own sum,
+    the leaves added in their order (a 0-d tensor; the global norm is its
+    root). A block's sum is this rank's partial: the partials of the
+    blocks cut over one set of mesh axes travel as one fp32 vector through
+    one all-reduce over those axes, so no leaf is gathered and every rank
+    of a group gets the same bits."""
+    sums, groups, mesh = [], {}, None
+    for u in leaves:
+        if isinstance(u, UpdateBlock):
+            mesh = getattr(u, "mesh", None) or _mesh_for(mesh)
+            axes = set(u.shard_axes)
+            key = tuple(a for a in mesh.axis_names if a in axes)
+            groups.setdefault(key, []).append(len(sums))
+            u = u.local
+        sums.append(torch.sum(torch.square(u.float())))
+    for axes, idxs in groups.items():
+        if not axes:
+            continue
+        part = mesh.all_reduce_sum_(torch.stack([sums[i] for i in idxs]),
+                                    axes)
+        for i, s in zip(idxs, part.unbind(0)):
+            sums[i] = s
+    return sum(sums)
+
+
 def all_reduce_mean(tensors: list[torch.Tensor], axes, mesh=None
                     ) -> list[torch.Tensor]:
     """The mean over ``axes`` of each tensor, as new tensors: the tensors
@@ -581,14 +613,16 @@ def logical_to_spec(axes: tuple, mesh=None) -> Placement:
 
 def shard(x: torch.Tensor, *axes) -> torch.Tensor:
     """The reference's ``with_sharding_constraint`` by logical axes. Eager
-    PyTorch has no constraint to hand a compiler: outside the models' mesh
-    bodies (which cut and gather their own activations over ``model``) a
-    step's activations are whole on every rank (its batch rows), and the
-    weights a layer reads are gathered whole for it (``parallel.fsdp``),
-    so this checks the names (:func:`logical_to_spec`) and returns ``x``,
-    with or without a mesh. Placing activations by these names (the
-    ``seq_parallel`` residual stream, the reference's ``shard(q, "batch",
-    None, "tp", None)``: Megatron's column / row compute) is ROADMAP 6e."""
+    PyTorch has no constraint to hand a compiler: the code that computes
+    an activation places it. The models' mesh bodies cut and gather their
+    own activations over ``model``; the reference's ``shard(q, "batch",
+    None, "tp", None)`` and ``_shard_hidden`` are the Megatron sites, where
+    each rank computes its heads and hidden units from its ``model``
+    blocks (``parallel.fsdp``, ``models.layers.swiglu``); elsewhere a
+    step's activations are whole on every rank (its batch rows). So this
+    checks the names (:func:`logical_to_spec`) and returns ``x``, with or
+    without a mesh. The ``seq_parallel`` residual stream, which no use in
+    the reference turns on, is ROADMAP 6f."""
     logical_to_spec(axes)
     return x
 

@@ -6,9 +6,13 @@ error-feedback buffer in R^{rows x cols}, per-row EF scales) is
 row-parallel, so each rank of the data axes keeps only its row block of
 every eligible leaf's state and runs the select + project + update step on
 those rows. Per-rank optimizer-state bytes drop by the data-parallel width
-on top of the paper's low-rank reduction. Every rank sees the whole
-parameters (the train step gathers its blocks of them,
-``parallel.sharding``) and the whole (averaged) gradient.
+on top of the paper's low-rank reduction. The API hands the rules whole
+(averaged) gradients and parameters; the train step hands its blocks
+(``sharding.Block``, ``parallel.fsdp``), and a sharded leaf's rows then
+come from them without the whole leaf: a view where the parameter's
+block is this rank's rows, else one all-to-all of the parts each rank
+lacks (``Mesh.all_to_all``), and the row update goes back to the
+parameter's block the same way.
 
 Why the row-block step computes the replicated step's function: every row
 of ``S = G @ Q``, the Adam update, the back-projections ``u @ Q_r^T`` and
@@ -264,29 +268,146 @@ def sharded_leaf_update(rule, g, state, param, ctx, zctx: ZeroContext):
     Orientation is decided on the whole leaf (a row block's aspect ratio
     can differ); this rank's rows of the right-oriented gradient go to the
     rule with ``ctx.axis`` set, so its row reductions span the shards, and
-    ``ctx.oriented``. Returns the update as a :class:`RowBlock` and the
-    new (row-sharded) state."""
+    ``ctx.oriented``. A gradient handed as a ``sharding.Block`` (the train
+    step's) gives its rows without the whole leaf (:func:`_rows_of`), and
+    the update comes back as the parameter's block; otherwise it is a
+    :class:`RowBlock`. Returns it and the new (row-sharded) state."""
     from repro_torch.core.selection import local_row_block
-    from repro_torch.optim.common import orient_right
+    from repro_torch.optim.common import oriented_dims, orient_right
 
-    blocked = isinstance(g, sharding.Block)
-    gf, transposed = orient_right(g.gather() if blocked else g)
-    block = gf.shape[-2] // zctx.n_shards
+    rows, _ = oriented_dims(g.shape)
+    transposed = g.shape[-1] > g.shape[-2]
+    block = rows // zctx.n_shards
     _check_held(state, param.shape, block)
-    g_blk = local_row_block(gf, zctx.axes, block).contiguous()
-    del gf
+    if isinstance(g, sharding.Block):
+        g_blk = _rows_of(g, transposed, zctx)
+    else:
+        gf, _ = orient_right(g)
+        g_blk = local_row_block(gf, zctx.axes, block).contiguous()
+        del gf
     inner = dataclasses.replace(ctx, axis=zctx.axes, oriented=True)
     d, new_state = rule.update(g_blk, state, param, inner)
     d = RowBlock(d, zctx.axes, transposed)
-    return (_as_param_block(d, g) if blocked else d), new_state
+    if isinstance(g, sharding.Block):
+        d = _as_param_block(d, g)
+    return d, new_state
+
+
+# -- moving rows between the ZeRO row cut and a parameter's block ----------
+# A box is one (start, stop) range per dim of the whole array: a rank's
+# block under a placement, or its ZeRO rows (the oriented row dim cut over
+# the ZeRO axes, every other dim whole). The boxes of a placement form a
+# grid, so two ranks' boxes are the same or disjoint.
+def _placement_box(shape, placement, mesh, rank) -> list[tuple[int, int]]:
+    box = [(0, n) for n in shape]
+    for d, axes, n in placement.splits(mesh):
+        size = shape[d] // n
+        i = mesh.shard_index(axes, rank)
+        box[d] = (i * size, (i + 1) * size)
+    return box
+
+
+def _rows_box(shape, dim: int, zctx: ZeroContext, rank
+              ) -> list[tuple[int, int]]:
+    size = shape[dim] // zctx.n_shards
+    i = zctx.mesh.shard_index(zctx.axes, rank)
+    return [(i * size, (i + 1) * size) if d == dim else (0, n)
+            for d, n in enumerate(shape)]
+
+
+def _meet(a, b):
+    box = [(max(lo, lo2), min(hi, hi2)) for (lo, hi), (lo2, hi2)
+           in zip(a, b)]
+    return None if any(lo >= hi for lo, hi in box) else box
+
+
+def _view(t: torch.Tensor, box, origin) -> torch.Tensor:
+    """The part ``box`` of ``t``, which holds the box ``origin``."""
+    for d, ((lo, hi), (o, _)) in enumerate(zip(box, origin)):
+        t = t.narrow(d, lo - o, hi - lo)
+    return t
+
+
+def _exchange(local: torch.Tensor, have, need, mesh, axes) -> torch.Tensor:
+    """This rank's ``need(rank)`` box of a whole array of which each rank
+    of the group over ``axes`` holds its ``have(rank)`` box (this rank:
+    ``local``). Each part comes from this rank where it holds it, else
+    from the first rank in shard order with that box; where every rank
+    holds what it needs, a view of ``local`` (no collective), else one
+    all-to-all of the parts (``Mesh.all_to_all``). Only bits move."""
+    ranks = mesh.members(axes)
+    me = mesh.rank
+    haves = {r: have(r) for r in ranks}
+    needs = {r: need(r) for r in ranks}
+
+    def sources(r):
+        """The ranks ``r`` takes its parts from, itself first."""
+        out = [r]
+        for q in ranks:
+            if all(haves[q] != haves[o] for o in out):
+                out.append(q)
+        return out
+
+    mine = needs[me]
+    if all(_meet(haves[r], needs[r]) == needs[r] for r in ranks):
+        return _view(local, mine, haves[me])
+    parts, sizes, boxes = [], [], []
+    for r in ranks:
+        send = _meet(haves[me], needs[r]) \
+            if r != me and me in sources(r)[1:] else None
+        parts.append(_view(local, send, haves[me]).reshape(-1) if send
+                     else local.new_empty(0))
+        recv = None
+        if r != me and r in sources(me)[1:]:
+            recv = _meet(haves[r], mine)
+        boxes.append(recv)
+        sizes.append(0 if recv is None else
+                     torch.Size([hi - lo for lo, hi in recv]).numel())
+    got = mesh.all_to_all(parts, sizes, axes)
+    out = local.new_empty([hi - lo for lo, hi in mine])
+    own = _meet(haves[me], mine)
+    if own:
+        _view(out, own, mine).copy_(_view(local, own, haves[me]))
+    for box, part in zip(boxes, got):
+        if box:
+            _view(out, box, mine).copy_(part.view([hi - lo for lo, hi
+                                                   in box]))
+    return out
+
+
+def _group_axes(g: "sharding.Block", zctx: ZeroContext) -> tuple:
+    axes = set(zctx.axes) | set(g.shard_axes)
+    return tuple(a for a in g.mesh.axis_names if a in axes)
+
+
+def _rows_of(g: "sharding.Block", transposed: bool, zctx: ZeroContext
+             ) -> torch.Tensor:
+    """This rank's ZeRO rows of the oriented whole gradient, from the
+    ranks' blocks ``g``: a view where the block is those rows (the ZeRO
+    cut and the placement cut the same dim over the same axes), else the
+    overlaps moved by one all-to-all; never the whole leaf."""
+    shape, mesh = tuple(g.shape), g.mesh
+    dim = len(shape) - (1 if transposed else 2)
+    rows = _exchange(
+        g.local, lambda r: _placement_box(shape, g.placement, mesh, r),
+        lambda r: _rows_box(shape, dim, zctx, r), mesh, _group_axes(g, zctx))
+    return (rows.transpose(-1, -2) if transposed else rows).contiguous()
 
 
 def _as_param_block(d: "RowBlock", g: "sharding.Block") -> "sharding.Block":
     """A row-block update as the parameter's block ``g`` is placed: the
-    rows all-gathered (one leaf whole) and cut again, so the chain's
-    elementwise transforms meet the parameter's block."""
-    return sharding.Block(sharding.local_block(d.gather(), g.placement,
-                                               g.mesh), g.placement, g.mesh)
+    inverse move of :func:`_rows_of` (each part of the block from a rank
+    whose rows hold it), so the chain's elementwise transforms meet the
+    parameter's block."""
+    zctx = ZeroContext(g.mesh, d.axes, g.mesh.size(d.axes))
+    shape, mesh = tuple(g.shape), g.mesh
+    dim = len(shape) - (1 if d.transposed else 2)
+    local = d.local.transpose(-1, -2) if d.transposed else d.local
+    blk = _exchange(
+        local, lambda r: _rows_box(shape, dim, zctx, r),
+        lambda r: _placement_box(shape, g.placement, mesh, r), mesh,
+        _group_axes(g, zctx))
+    return sharding.Block(blk.contiguous(), g.placement, mesh)
 
 
 def replicated_leaf_update(rule, g, state, param, ctx, zctx: ZeroContext):

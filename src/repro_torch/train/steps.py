@@ -28,35 +28,44 @@ the blocks and a ``parallel.fsdp.Held``'s ``use``: each use site (the embedding,
 layer, the head) gathers its split weights when it runs, cast to the
 compute dtype, and gathers them again in the backward (the recomputation
 under ``cfg.remat``, else saved-tensor hooks); an expert leaf comes as its
-``model`` block, gathered over the data axes only. What lives whole: one
-layer's weights at a time (the one that runs), the embedding while a tied
-unembedding or the MTP head still reads it, and in the backward one
-site's regathered weights. Each split leaf's gradient leaves the backward
-as this rank's block of its mean over the cut axes (a reduce-scatter a
-site); the leaves that are not split are averaged with the loss metrics
-(one all-reduce of a flat buffer per dtype). For a model that routes
-tokens (an MoE block) with ``cfg.train_microbatch`` on a cut batch, each
-rank takes its rows of each global microbatch
+``model`` block, gathered over the data axes only, and so do the
+attention heads' and the MLPs' matrices where Megatron's route applies
+(``models.transformer.megatron_sites``): each rank computes its heads and
+hidden units, one all-reduce over ``model`` after each row product. What
+lives at once: one layer's weights (the one that runs), the embedding
+while a tied unembedding or the MTP head still reads it, and in the
+backward one site's regathered weights. Each split leaf's gradient leaves
+the backward as this rank's block of its mean over the cut axes (a
+reduce-scatter a site); the leaves that are not split are averaged with
+the loss metrics (one all-reduce of a flat buffer per dtype). For a
+model that routes tokens (an MoE block) with ``cfg.train_microbatch`` on
+a cut batch, each rank takes its rows of each global microbatch
 (``_cut_global_microbatches``: the reference's microbatches are rows of
 the whole batch), so a microbatch's tokens are routed together; a dense
 model keeps the contiguous cut, its microbatches rows of the rank's slice.
 Microbatched, each microbatch's backward reduces its blocks and the step
 adds them (FSDP's order: the gradients part from one process's by
-rounding). Clipping reads the global norm of the whole gradients: each
-split leaf's gradient is gathered whole for its sum of squares, one leaf at
-a time, so the norm is the one-process step's sum. The optimizer is
-handed the blocks as ``sharding.Block`` (their ``shape`` the whole one)
-beside this rank's state blocks (``optim.transform``): the elementwise
-rules update from the blocks, a rule that needs a whole leaf gathers that
-leaf's gradient, runs and cuts its update and drops the whole before the
-next. Each update is cut to its parameter's block
-(``sharding.held_updates``) and added to it. Gathering, reducing and
-cutting only move bits: where the gradients average two shares the step
-is bit-equal to one process in microbatches of one rank's rows. Under
+rounding). Clipping reads the global norm from the blocks: each rank sums
+the squares of its blocks, one all-reduce completes the leaves' sums
+(``sharding.sum_squares``) and the leaves are added in order, so no
+gradient is gathered for it; the norm parts from the one-process sum by
+rounding and the clip factor by a few fp32 ulps. The optimizer is handed
+the blocks as ``sharding.Block`` (their ``shape`` the whole one) beside
+this rank's state blocks (``optim.transform``): the elementwise rules
+update from the blocks, ZeRO-1's row-sharded rules take their rows from
+the blocks (``parallel.zero``: a view, or an all-to-all of the overlaps),
+a rule that needs a whole leaf gathers that leaf's gradient, runs and
+cuts its update and drops the whole before the next. Each update is cut
+to its parameter's block (``sharding.held_updates``) and added to it.
+Gathering, reducing and cutting only move bits: where the gradients
+average two shares and no product is split over ``model``, the gradients
+the clip is handed are bit-equal to one process's in microbatches of one
+rank's rows. Megatron's row products sum ``model`` partials, so a step on
+a ``model`` axis holds one process's function within rounding. Under
 "pure_dp" nothing is split: the step runs on the whole replicated
-parameters and averages every gradient. Left for ROADMAP 6e: Megatron
-column / row compute of the dense products and the ``seq_parallel``
-residual stream.
+parameters and averages every gradient. Left for ROADMAP 6f: the
+``seq_parallel`` residual stream, MLA's, Mamba's and RWKV's matrices and
+the vocab-parallel head.
 """
 from __future__ import annotations
 
@@ -118,11 +127,11 @@ def grad_fn(params: dict, batch: dict, cfg):
 
 def _global_norm(leaves):
     """The l2 norm of a tree's leaves (a dict, or the leaves one at a
-    time), summed leaf by leaf in order."""
+    time), summed leaf by leaf in order; a ``sharding.Block``'s sum is
+    completed across the ranks' blocks (``sharding.sum_squares``)."""
     if isinstance(leaves, dict):
         leaves = leaves.values()
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in leaves))
+    return torch.sqrt(sharding.sum_squares(leaves))
 
 
 def _clip(tree: dict, norm, max_norm: float) -> dict:
@@ -286,15 +295,6 @@ def make_train_step(cfg, optimizer, *, grad_clip: float = 1.0,
         if chaos_step is not None:
             grads = chaos.tamper_grads(chaos_step, grads)
 
-        # the global norm reads each split leaf's whole gradient, gathered
-        # one leaf at a time: the one-process step's sum of each leaf.
-        # This gather is paid only for those bits (one more all-gather of
-        # the split gradients a step); ROADMAP 6e replaces it by one
-        # all-reduce of the blocks' sums of squares
-        gnorm = _global_norm(sharding.gather(g, p_specs[k], mesh)
-                             if k in split else g for k, g in grads.items())
-        if grad_clip:
-            grads = _clip(grads, gnorm, grad_clip)
         if split:
             # the optimizer takes this rank's blocks (``sharding.Block``:
             # the whole shape, the placement); a rule that needs a whole
@@ -303,6 +303,13 @@ def make_train_step(cfg, optimizer, *, grad_clip: float = 1.0,
                      else g for k, g in grads.items()}
             params = {k: sharding.Block(p, p_specs[k], mesh) if k in split
                       else p for k, p in params.items()}
+        # the global norm: each block's sum of squares completed by one
+        # all-reduce of the blocks' partial sums (no gradient gathered),
+        # the leaves added in order; it parts from the one-process sum by
+        # rounding, the clip scale by a few ulps
+        gnorm = _global_norm(grads)
+        if grad_clip:
+            grads = _clip(grads, gnorm, grad_clip)
 
         metrics = dict(metrics)
         if telemetry:

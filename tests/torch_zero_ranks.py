@@ -9,9 +9,11 @@ the world computed to ``<dir>/results.pt`` (tensors only, loadable with
 ``weights_only``); every rank writes its traceback to ``<dir>/rank<r>.err``
 if it fails.
 """
+import contextlib
 import os
 import time
 import traceback
+import zlib
 
 import numpy as np
 import torch
@@ -183,6 +185,36 @@ def batch_rows(shape, layout: str) -> int:
     return TRAIN["batch"] // n
 
 
+@contextlib.contextmanager
+def clip_spy(records: list):
+    """Record each train step's clip (``train.steps._clip``): the
+    gradients it is handed, whole (a block gathered), the norm the step
+    computed (from the blocks' sums of squares on a mesh) and the norm of
+    the whole gradients as one process sums them."""
+    from repro_torch.parallel import sharding
+    from repro_torch.train import steps
+
+    orig = steps._clip
+
+    def spy(tree, norm, max_norm):
+        whole = {k: (g.gather() if isinstance(g, sharding.UpdateBlock)
+                     else g).detach().clone() for k, g in tree.items()}
+        records.append({"grads": whole, "norm": norm.detach().clone(),
+                        "whole_norm": steps._global_norm(whole)})
+        return orig(tree, norm, max_norm)
+
+    steps._clip = spy
+    try:
+        yield records
+    finally:
+        steps._clip = orig
+
+
+def clip_scale(norm, max_norm: float = 1.0) -> torch.Tensor:
+    """The train step's clip factor of ``norm`` (``train.steps._clip``)."""
+    return torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
+
+
 def placed_run(opt_name: str, zero_mode: str, steps: int = MESH_STEPS,
                microbatch: int = 0, state=None, start: int = 0,
                arch: str = TRAIN["arch"], remat: bool | None = None):
@@ -213,10 +245,11 @@ def placed_run(opt_name: str, zero_mode: str, steps: int = MESH_STEPS,
                              device="cpu")
     if state is None:
         state = init_state(cfg, opt, 0, "cpu")
-    losses = []
-    for t in range(start, start + steps):
-        state, metrics = step(state, batch_fn(t))
-        losses.append(float(metrics["loss"]))
+    losses, clips = [], []
+    with clip_spy(clips):
+        for t in range(start, start + steps):
+            state, metrics = step(state, batch_fn(t))
+            losses.append(float(metrics["loss"]))
     mesh, specs, whole = sharding.active_mesh(), None, state
     if mesh is not None:
         with sharding.set_mesh(None):
@@ -224,18 +257,23 @@ def placed_run(opt_name: str, zero_mode: str, steps: int = MESH_STEPS,
         specs = sharding.train_state_specs(abstract, zero=zero, mesh=mesh)
         whole = sharding.gather_tree(state, specs, mesh)
     return {"losses": losses, "whole": whole, "specs": specs,
-            "held": state, "opt": opt, "cfg": cfg}
+            "held": state, "opt": opt, "cfg": cfg, "clips": clips}
 
 
 def run_record(run) -> dict:
     """What a placed run hands the test: losses, the whole parameters and
-    optimizer state, and the bytes each rank holds (per parameter leaf:
-    held, whole and the blocks it is cut into)."""
+    optimizer state, the bytes each rank holds (per parameter leaf: held,
+    whole and the blocks it is cut into), and each step's clip: the
+    whole gradients before it (``pre_clip``) and ``norms`` (the step's,
+    the whole gradients' one-process norm)."""
     from repro_torch.parallel import sharding
 
     out = {"losses": torch.tensor(run["losses"], dtype=torch.float64),
            "params": dict(run["whole"].params),
-           "opt_state": flat_tensors(run["whole"].opt_state)}
+           "opt_state": flat_tensors(run["whole"].opt_state),
+           "pre_clip": [c["grads"] for c in run["clips"]],
+           "norms": torch.tensor([[float(c["norm"]), float(c["whole_norm"])]
+                                  for c in run["clips"]])}
     specs, mesh = run["specs"], sharding.active_mesh()
     if specs is not None:
         leaves = {}
@@ -597,6 +635,7 @@ def _mesh_results(world: int, tmp: str) -> dict:
                     out[f"mesh/{key}/{opt_name}/{zm}/fsdp_tp"] = \
                         run_record(run)
                     if shape == (2, 2) and (opt_name, zm) == MESH_CKPT:
+                        out["mesh/ckpt_saved"] = flat_tensors(run["whole"])
                         if mesh.rank == 0:
                             CheckpointManager(ckpt).save(MESH_STEPS,
                                                          run["whole"])
@@ -613,9 +652,17 @@ def _mesh_results(world: int, tmp: str) -> dict:
                 out["mesh/restore"] = _restore_at(mesh, ckpt)
         out.update(_model_mesh_results(mesh, key))
         out.update(_fsdp_results(mesh, key))
+        if shape in MEG_MESHES[world]:
+            out.update(_megatron_results(mesh, key))
+    for shape in MEG_MESHES[world]:
+        if shape not in MESHES[world]:
+            out.update(_megatron_results(make_mesh(shape, ("data", "model")),
+                                         mesh_key(shape)))
     # the routing fault's case: a data-only mesh of the whole world
     data_mesh = make_mesh((world,), ("data",))
     out["route"] = routing_run(data_mesh)
+    with sharding.set_mesh(data_mesh):
+        out[f"meg/{mesh_key((world,))}/zero_rows"] = zero_rows()
     if world == 2:
         out.update(_fsdp_results(data_mesh, mesh_key((world,))))
     return out
@@ -668,7 +715,10 @@ def fsdp_grads(cfg, mesh) -> dict:
             type(mesh).all_gather_many = orig
     split = sorted(k for k, s in specs.items() if s.splits(mesh))
     return {"log": [[e["phase"], e["tag"], list(e["axes"]), e["paths"],
-                     e["bytes"]] for e in held.log],
+                     e["bytes"]] for e in held.log if "route" not in e],
+            "megatron": sorted({p for e in held.log
+                                if e.get("route") == "megatron"
+                                for p in e["paths"]}),
             "peak_live": held.peak_live_bytes, "live_after": held.live_bytes,
             "gather_bytes": sizes, "split": split,
             "whole_bytes": {k: whole[k].numel() * whole[k].element_size()
@@ -914,3 +964,360 @@ def join(procs: list, tmp: str, timeout: float = 300.0) -> dict:
         raise RuntimeError(f"ranks failed (exit codes "
                            f"{[p.exitcode for p in procs]}):\n{errs}")
     return torch.load(os.path.join(tmp, "results.pt"))
+
+
+# ---------------------------------------------------------------------------
+# Megatron's column / row compute (tests/test_torch_megatron.py): the dense
+# attention and MLP products on each rank's model block, the two MoE
+# layouts that gather rows, the clip's norm from block sums and ZeRO's rows
+# from the blocks, on the same worlds
+# ---------------------------------------------------------------------------
+MEG_DENSE = dict(family="dense", d_model=32, n_heads=4, n_kv_heads=2,
+                 d_ff=64, vocab_size=64, schedule=((("attn",), 2),),
+                 param_dtype="float32", compute_dtype="float32",
+                 remat=False, q_chunk=16, kv_chunk=16)
+# name -> (the fields over ``base``: a ModelConfig's own, or a registry
+# arch's smoke config)
+MEG_CASES = {
+    "llama": (None, dict(MEG_DENSE, name="tinyllama")),
+    # qkv bias and qk-norm scales beside a group of 2
+    "qwen": (None, dict(MEG_DENSE, name="tinyqwen", qkv_bias=True,
+                        use_qk_norm=True)),
+    # enc / dec / cross attention with biases, the GELU MLP
+    "whisper": ("whisper-large-v3", dict(d_model=32, n_heads=4,
+                                         n_kv_heads=4, d_ff=64,
+                                         vocab_size=64, encoder_seq=16,
+                                         q_chunk=16, kv_chunk=16)),
+    # shared experts on the MLP's route (no drops: capacity 8)
+    "moe": (None, dict(TINY_MOE, n_shared_experts=1, shared_d_ff=32,
+                       capacity_factor=8.0)),
+}
+MEG_MESHES = {2: ((1, 2),), 4: ((2, 2), (1, 4))}
+MEG_BATCH, MEG_SEQ, MEG_RANK, MEG_LR = 4, 16, 16, 0.01
+# the two MoE layouts that gather rows: TINY_MOE (drops) under each
+MEG_MOE_LAYOUTS = ("pure_dp", "decode_tp")
+
+
+def meg_cfg(name: str):
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    arch, fields = MEG_CASES[name]
+    if arch is None:
+        return tiny_cfg(fields)
+    return dataclasses.replace(get_config(arch, smoke=True), **fields)
+
+
+def meg_params(cfg) -> dict:
+    """``cfg``'s parameters drawn by numpy, one stream a leaf (seeded by
+    its path): matrices N(0, 1/d_in), embeddings N(0, 0.02^2), biases
+    N(0, 0.1^2), layer-norm scales 1 + N(0, 0.1^2), RMS-norm scales and
+    gates N(0, 0.1^2) (the RMS norm's gain is 1 + scale)."""
+    from repro_torch.models import transformer as T
+
+    out = {}
+    for k, m in T.init_params(cfg, 0, "meta").items():
+        rng = np.random.default_rng(zlib.crc32(k.encode()))
+        shape = tuple(m.shape)
+        name = k.rsplit("/", 1)[-1]
+        if name == "bias" or "gate" in name or "norm" in k or "ln" in k:
+            v = rng.normal(0.0, 0.1, shape)
+            if name == "scale" and cfg.family == "encdec":
+                v = 1.0 + v
+        elif "embed" in k:
+            v = rng.normal(0.0, 0.02, shape)
+        else:
+            v = rng.normal(0.0, shape[-2] ** -0.5, shape)
+        out[k] = torch.from_numpy(v.astype(np.float32)).to(m.dtype)
+    return out
+
+
+def meg_batch(cfg) -> dict:
+    rng = np.random.default_rng(41)
+    toks = rng.integers(0, cfg.vocab_size, (MEG_BATCH, MEG_SEQ + 1))
+    out = {"tokens": torch.from_numpy(toks[:, :-1]).long(),
+           "targets": torch.from_numpy(toks[:, 1:]).long()}
+    if cfg.encoder_layers:
+        out["frames"] = torch.from_numpy(rng.standard_normal(
+            (MEG_BATCH, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    return out
+
+
+@contextlib.contextmanager
+def held_spy(helds: list):
+    """Keep the ``parallel.fsdp.Held`` of each ``fsdp.grad_fn`` call."""
+    from repro_torch.parallel import fsdp
+
+    orig = fsdp.grad_fn
+
+    def spy(*a, **kw):
+        g, m, held = orig(*a, **kw)
+        helds.append(held)
+        return g, m, held
+
+    fsdp.grad_fn = spy
+    try:
+        yield helds
+    finally:
+        fsdp.grad_fn = orig
+
+
+@contextlib.contextmanager
+def product_spy(shapes: set):
+    """Record the weight shape of every ``layers.matmul`` (the models'
+    dense products)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    orig = L.matmul
+
+    def spy(x, w):
+        shapes.add(tuple(w.shape))
+        return orig(x, w)
+
+    L.matmul = T.matmul = spy
+    try:
+        yield shapes
+    finally:
+        L.matmul = T.matmul = orig
+
+
+def meg_logits(cfg, params: dict, batch: dict):
+    """The no-grad forward of ``cfg`` on the active mesh, each use site
+    handed as the train step hands it (``fsdp.Held.use``) on this rank's
+    rows; the logits of every rank gathered."""
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import fsdp, sharding
+
+    mesh = sharding.active_mesh()
+    whole = T.init_params(cfg, 0, "meta")
+    specs = sharding.params_specs(whole, mesh)
+    blocks = sharding.shard_tree(params, specs, mesh)
+    b_specs = sharding.batch_specs_tree(batch)
+    dp = tuple(a for _, axes, _ in b_specs["tokens"].splits(mesh)
+               for a in axes)
+    rows = sharding.shard_tree(batch, b_specs)
+    held = fsdp.Held(blocks, specs, whole, mesh, dp, torch.float32,
+                     lambda path, t: T.cast_dtype(path, t, cfg))
+    with torch.no_grad(), sharding.batch_cut(dp):
+        logits, _ = T.forward(blocks, {k: v for k, v in rows.items()
+                                       if k != "targets"}, cfg,
+                              use=held.use)
+    return torch.cat(mesh.all_gather(logits.contiguous(), dp)) if dp \
+        else logits
+
+
+def megatron_case(name: str) -> dict:
+    """One DCT-AdamW step of ``MEG_CASES[name]`` on the active mesh: loss,
+    the whole parameters after it, the gradients before the clip, the
+    norms, the no-grad forward's logits, each site's route, every
+    gather, the products' weight shapes."""
+    from repro_torch.optim.api import get_optimizer
+    from repro_torch.parallel import sharding
+    from repro_torch.train.steps import TrainState, make_train_step
+
+    cfg = meg_cfg(name)
+    params, batch = meg_params(cfg), meg_batch(cfg)
+    mesh = sharding.active_mesh()
+    opt = get_optimizer("dct_adamw", lr=MEG_LR, rank=MEG_RANK)
+    specs = sharding.params_specs(params, mesh)
+    state = TrainState(0, sharding.shard_tree(params, specs, mesh),
+                       opt.init(params))
+    clips, helds, shapes = [], [], set()
+    with clip_spy(clips), held_spy(helds), product_spy(shapes):
+        state, m = make_train_step(cfg, opt)(state, batch)
+    held = helds[0]
+    return {"loss": m["loss"], "grad_norm": m["grad_norm"],
+            "params": sharding.gather_tree(state.params, specs, mesh),
+            "pre_clip": clips[0]["grads"],
+            "norms": torch.tensor([float(clips[0]["norm"]),
+                                   float(clips[0]["whole_norm"])]),
+            "logits": meg_logits(cfg, params, batch),
+            "routes": [[e["phase"], e["tag"], e["group"], e["route"],
+                        e["why"] or "", e["paths"]]
+                       for e in held.log if "route" in e],
+            "gathers": [[e["phase"], e["tag"], list(e["axes"]), e["paths"],
+                         e["bytes"]] for e in held.log if "route" not in e],
+            "shapes": sorted(shapes),
+            "peak_live": held.peak_live_bytes}
+
+
+def moe_layout_case(layout: str) -> dict:
+    """TINY_MOE's train step (drops; no clipping) under ``layout`` on the
+    active mesh: the loss and the whole gradient."""
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding
+
+    cfg = tiny_cfg(TINY_MOE)
+    with sharding.use_policy(layout=layout):
+        return captured_step(cfg, T.init_params(cfg, 0, "cpu"),
+                             route_batch())
+
+
+def zero_rows() -> dict:
+    """DCT-AdamW with ZeRO-1 on the smoke llama's gradients handed as the
+    train step hands them (``sharding.Block`` s of its placements), two
+    updates against the replicated optimizer on the whole gradients (no
+    mesh): updates and selections compared bit for bit, the gathers of a
+    whole leaf counted (``sharding.gather``) and the collectives' bytes
+    (``Mesh.counts``)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.api import get_optimizer
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.zero import ZeroConfig
+    from repro_torch.train.checkpoint import tree_items
+
+    mesh = sharding.active_mesh()
+    params = T.init_params(get_config(TRAIN["arch"], smoke=True), 0, "cpu")
+    specs = sharding.params_specs(params, mesh)
+    zopt = get_optimizer("dct_adamw", lr=0.01, rank=16,
+                         zero=ZeroConfig("1"))
+    ropt = get_optimizer("dct_adamw", lr=0.01, rank=16)
+    zs = zopt.init(params)
+    with sharding.set_mesh(None):
+        rs = ropt.init(params)
+    whole_gathers, orig = [], sharding.gather
+
+    def spy(t, placement, mesh=None):
+        whole_gathers.append(t.numel())
+        return orig(t, placement, mesh)
+
+    out = {"updates_equal": [], "counts": [], "whole_gathers": []}
+    pb = {k: sharding.Block(sharding.local_block(p, specs[k], mesh),
+                            specs[k], mesh) if specs[k].splits(mesh) else p
+          for k, p in params.items()}
+    for t in range(2):
+        rng = np.random.default_rng(60 + t)
+        g = {k: torch.from_numpy(rng.standard_normal(tuple(p.shape))
+                                 .astype(np.float32))
+             for k, p in params.items()}
+        gb = {k: sharding.Block(sharding.local_block(v, specs[k], mesh),
+                                specs[k], mesh) if specs[k].splits(mesh)
+              else v for k, v in g.items()}
+        mesh.reset_counts()
+        whole_gathers.clear()
+        sharding.gather = spy
+        try:
+            u, zs = zopt.update(gb, zs, pb)
+        finally:
+            sharding.gather = orig
+        out["counts"].append({k: list(v) for k, v in mesh.counts.items()})
+        out["whole_gathers"].append(list(whole_gathers))
+        with sharding.set_mesh(None):
+            ur, rs = ropt.update(g, rs, params)
+        out["updates_equal"].append(all(
+            torch.equal(sharding.held_updates({k: u[k]}, specs, mesh)[k],
+                        sharding.local_block(ur[k], specs[k], mesh))
+            for k in params))
+    zspecs = sharding.optimizer_state_specs(zopt, params,
+                                            zero=ZeroConfig("1"), mesh=mesh)
+    zw = sharding.gather_tree(zs, zspecs, mesh)
+    out["state_equal"] = all(
+        pa == pb_ and (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                       else a == b)
+        for (pa, a), (pb_, b) in zip(tree_items(zw), tree_items(rs)))
+    out["leaf_bytes"] = {k: p.numel() * p.element_size()
+                         for k, p in params.items()}
+    return out
+
+
+def _megatron_results(mesh, key: str) -> dict:
+    """The Megatron cases on one (data, model) mesh."""
+    from repro_torch.parallel import sharding
+
+    out = {}
+    with sharding.set_mesh(mesh):
+        for name in MEG_CASES:
+            out[f"meg/{key}/{name}"] = megatron_case(name)
+        for layout in MEG_MOE_LAYOUTS:
+            out[f"meg/{key}/moe_layout/{layout}"] = moe_layout_case(layout)
+        if mesh.shape["data"] > 1:
+            out[f"meg/{key}/zero_rows"] = zero_rows()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# how a placed run is held to its one-process witness now that the clip's
+# norm sums the blocks (test_torch_zero.py, test_torch_fsdp.py)
+# ---------------------------------------------------------------------------
+#: the clip factor from the blocks' sums of squares against the factor of
+#: the same whole gradients' one-process norm, in fp32 ulps
+CLIP_ULPS = 4
+#: after a clip factor a few ulps off, or Megatron's sums over model:
+#: later losses (relative), the parameters in the runs' lr (0.01: Adam's
+#: first steps move a weight whose gradient sits near zero by a share of
+#: lr whatever its size; measured up to 0.08 lr three steps on from two
+#: states 1.8e-4 apart), the Adam moments relative to each leaf's largest
+#: entry, the int8 EF in value (of its largest entry)
+LATER_LOSS_RTOL = 1e-5
+PARAM_LR_SHARE = 0.1
+STATE_RTOL = 1e-3
+EF_RTOL = 3e-2
+
+
+def ulps(a, b) -> int:
+    """The distance of two positive fp32 values in ulps."""
+    ia, ib = (int(torch.tensor(float(v), dtype=torch.float32)
+                  .view(torch.int32)) for v in (a, b))
+    return abs(ia - ib)
+
+
+def clip_ulps(norms: torch.Tensor) -> int:
+    """The largest distance, in ulps, of a run's clip factors (its steps'
+    norms) from the factors of its whole gradients' one-process norms."""
+    return max(ulps(clip_scale(n), clip_scale(w))
+               for n, w in norms.reshape(-1, 2))
+
+
+def _close_to(got, want, rtol, what):
+    """Within ``rtol`` of the largest entry of ``want``."""
+    got, want = got.double(), want.double()
+    assert float((got - want).abs().max()) <= rtol * max(
+        float(want.abs().max()), 1e-30), what
+
+
+def assert_clipped_runs(got, want, what, *, megatron: bool = False):
+    """A placed run against its one-process witness: the first step's
+    gradients before the clip bit for bit and its loss too (at the
+    reference's bars where ``megatron``: the loss within 1e-4, the
+    gradients at rtol 1e-4 of each leaf's largest entry); every step's
+    clip factor within ``CLIP_ULPS`` of its whole gradients'; then the
+    later losses, the parameters, the moments, the selections and the EF
+    at the bars above."""
+    g0, w0 = got["pre_clip"][0], want["pre_clip"][0]
+    assert set(g0) == set(w0), what
+    if megatron:
+        assert abs(float(got["losses"][0] - want["losses"][0])) < 1e-4, \
+            (what, got["losses"], want["losses"])
+        for k, v in w0.items():
+            _close_to(g0[k], v, 1e-4, (what, "pre-clip", k))
+    else:
+        assert float(got["losses"][0]) == float(want["losses"][0]), \
+            (what, got["losses"], want["losses"])
+        for k, v in w0.items():
+            assert torch.equal(g0[k], v), (what, "pre-clip", k)
+        assert float(got["norms"][0, 1]) == float(want["norms"][0, 1]), what
+    assert clip_ulps(got["norms"]) <= CLIP_ULPS, (what, got["norms"])
+    np.testing.assert_allclose(got["losses"].numpy(), want["losses"].numpy(),
+                               rtol=LATER_LOSS_RTOL, err_msg=str(what))
+    assert set(got["params"]) == set(want["params"]), what
+    for k, v in want["params"].items():
+        d = float((got["params"][k].double() - v.double()).abs().max())
+        assert d <= PARAM_LR_SHARE * 0.01, (what, k, d)
+    gs, ws = got["opt_state"], want["opt_state"]
+    assert set(gs) == set(ws), what
+    for k, v in ws.items():
+        if "||.ef||" in k:
+            continue
+        if v.is_floating_point():
+            _close_to(gs[k], v, STATE_RTOL, (what, k))
+        else:                       # selections, steps
+            assert torch.equal(gs[k], v), (what, k)
+    for k in (k for k in ws if k.endswith("||.ef||.q")):
+        leaf = k[:-len("||.ef||.q")]
+        deq = [t[k].float() * t[leaf + "||.ef||.scale"] for t in (gs, ws)]
+        bar = max(EF_RTOL * float(deq[1].abs().max()),
+                  1e-4 * float(ws[leaf + "||.m"].abs().max()))
+        assert float((deq[0] - deq[1]).abs().max()) <= bar, (what, k)
